@@ -1,0 +1,47 @@
+"""Image encoder: backbone + image-shape metadata
+(``models/image/encoder.py`` of the JAX package).
+
+The pooled backbone feature gets the original (height, width) divided by
+the model's input resolution appended, so ``dim_out = num_features +
+2*metadata``. The shape is cast to the model dtype BEFORE the division, as
+in the JAX module: in bf16 a size like 399 rounds to 400 first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .registry import create_backbone
+
+
+class ImageEncoder(nn.Module):
+    def __init__(self, name: str = "vit_tiny_patch16_224", in_chans: int = 1,
+                 dropout: float = 0.1, metadata: bool = True,
+                 num_classes: int = 0, pretrained: bool = False,
+                 fused_attention: bool = False,
+                 backbone_kwargs: Optional[dict] = None) -> None:
+        """Card keys of the JAX module; ``dropout`` and ``num_classes`` are
+        accepted for card parity (eval mode, features only)."""
+        super().__init__()
+        if pretrained:
+            raise NotImplementedError("pretrained npz weights are not ported "
+                                      "yet (ROADMAP.md)")
+        self.metadata = metadata
+        self.backbone = create_backbone(name, in_chans=in_chans,
+                                        fused_attention=fused_attention,
+                                        **(backbone_kwargs or {}))
+
+    @property
+    def dim_out(self) -> int:
+        return self.backbone.num_features + 2 * int(self.metadata)
+
+    def forward(self, image: torch.Tensor,
+                image_shape: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.backbone(image)
+        if self.metadata:
+            md = image_shape.to(x.dtype) / image.shape[1]
+            x = torch.cat([x, md.reshape(x.shape[0], -1)], dim=1)
+        return x

@@ -1,0 +1,83 @@
+"""Embedding export: pairs -> L2-normalized embeddings
+(``retrieval/encode.py`` of the JAX package).
+
+Batched eval-mode ``MultiModel.encode`` followed by ``l2_normalize``,
+returning the JAX package's flat pickle layout ``{image, profile, label}``
+(f32 numpy), which its retrieval benchmarks consume unchanged.
+
+* ``encode_arrays`` takes in-memory arrays (numpy or tensors): the entry
+  point of runs on the card, which need nothing beyond torch and numpy.
+* ``encode_csv`` reads an annotations CSV through the JAX package's
+  framework-free host layers (dataset, eval transforms, loader), imported
+  lazily: they need pandas and PIL, but no JAX.
+
+Not ported yet: the checkpoint loaders (``encode_dataset``,
+``encode_split``) and the ``scripts/encode.py`` CLI.
+"""
+
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+from typing import Dict, Iterable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.tokenize import tokenize_transformer
+from ..ops.losses import l2_normalize
+
+
+@torch.inference_mode()
+def encode_batches(model: nn.Module, batches: Iterable[Mapping],
+                   device: torch.device | str) -> Dict[str, np.ndarray]:
+    """Encode each batch (a dict of ``MultiModel.encode`` inputs) on
+    ``device``; return the stacked normalized image and profile
+    embeddings."""
+    model.eval()
+    images, profiles = [], []
+    for batch in batches:
+        inputs = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        emb = model.encode(**inputs)
+        images.append(l2_normalize(emb["image_emb"]).float().cpu().numpy())
+        profiles.append(l2_normalize(emb["profile_emb"]).float().cpu().numpy())
+    return {"image": np.concatenate(images), "profile": np.concatenate(profiles)}
+
+
+def encode_arrays(model: nn.Module, arrays: Mapping, labels,
+                  batch_size: int = 256,
+                  device: torch.device | str = "cpu") -> Dict[str, np.ndarray]:
+    """Encode ``arrays`` (image, image_shape, profile, profile_len, time,
+    padding_mask; equal leading sizes) in batches of ``batch_size``."""
+    n = len(arrays["image"])
+    batches = ({k: v[i:i + batch_size] for k, v in arrays.items()}
+               for i in range(0, n, batch_size))
+    out = encode_batches(model, batches, device)
+    out["label"] = np.asarray(labels)
+    return out
+
+
+def encode_csv(model: nn.Module, csv_path: Path | str, target_size: int,
+               batch_size: int = 64, num_workers: int = 4,
+               device: torch.device | str = "cpu") -> Dict[str, np.ndarray]:
+    """Encode an annotations CSV (columns ``image, profile[, class]``) with
+    the JAX package's eval pipeline for "multi" models: test-time image
+    and profile transforms at the card's ``target_size``, profiles padded
+    to ``target_size + 1`` tokens."""
+    from multimodal_plankton_recognition_tpu.data.dataset import MultiSet
+    from multimodal_plankton_recognition_tpu.data.pipeline import (
+        Loader, multi_collate_fn)
+    from multimodal_plankton_recognition_tpu.data.transforms import (
+        ImageTransformTest, ProfileTransformTest)
+
+    tokenizer = functools.partial(tokenize_transformer,
+                                  target_size=target_size,
+                                  pad_to=target_size + 1)
+    dataset = MultiSet(csv_path, ImageTransformTest(target_size),
+                       ProfileTransformTest(target_size))
+    loader = Loader(dataset, batch_size, multi_collate_fn(tokenizer),
+                    shuffle=False, drop_last=False, num_workers=num_workers)
+    out = encode_batches(model, loader, device)
+    out["label"] = dataset.table["class"].to_numpy()
+    return out

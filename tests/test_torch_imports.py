@@ -1,0 +1,78 @@
+"""Import hygiene of the port and the no-fallback contract of
+``chip_smoke.py``.
+
+The port never imports JAX; its card path (everything ``chip_smoke.py``
+drives) loads none of jax, flax, pandas, PIL or yaml, which the card's
+machine need not have. ``encode_csv`` alone reaches the JAX package's
+host layers (pandas, PIL), lazily.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "multimodal_plankton_recognition_torch"
+CARD_PATH_MODULES = [
+    "multimodal_plankton_recognition_torch",
+    "multimodal_plankton_recognition_torch.convert",
+    "multimodal_plankton_recognition_torch.data.tokenize",
+    "multimodal_plankton_recognition_torch.models.attention",
+    "multimodal_plankton_recognition_torch.models.flagships",
+    "multimodal_plankton_recognition_torch.models.image.encoder",
+    "multimodal_plankton_recognition_torch.models.image.registry",
+    "multimodal_plankton_recognition_torch.models.image.vit",
+    "multimodal_plankton_recognition_torch.models.multi",
+    "multimodal_plankton_recognition_torch.models.profile.factory",
+    "multimodal_plankton_recognition_torch.models.profile.transformer",
+    "multimodal_plankton_recognition_torch.ops.attention",
+    "multimodal_plankton_recognition_torch.ops.build",
+    "multimodal_plankton_recognition_torch.ops.knn",
+    "multimodal_plankton_recognition_torch.ops.losses",
+    "multimodal_plankton_recognition_torch.retrieval.encode",
+]
+FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml")
+
+
+def test_card_path_imports_nothing_forbidden():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {CARD_PATH_MODULES!r}: importlib.import_module(m)\n"
+        f"print(sorted(m for m in {FORBIDDEN!r} if m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_imports_jax():
+    """Also the lazy imports inside functions: no module of the port, and
+    nothing in chip_smoke.py, imports JAX (nor does chip_smoke.py import
+    the JAX package)."""
+    for path in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax"}, path
+    assert "multimodal_plankton_recognition_tpu" not in set(
+        _imported_roots(REPO / "chip_smoke.py"))
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No CPU fallback: without CUDA, and alone in a directory without the
+    repository, the smoke run exits non-zero and prints no result."""
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
