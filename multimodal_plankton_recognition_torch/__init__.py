@@ -7,9 +7,12 @@ on converted weights (``convert.py``), and replaces each Pallas TPU kernel
 with a kernel written by hand for Hopper (``csrc/``, built at first use by
 ``ops/build.py``). It imports torch and never JAX.
 
-Ported so far: the ViT flagship's serving path — ``models.flagships``
-(ViT-T/16 + ProfileTransformer), ``retrieval.encode`` and the exact kNN
-classifier ``ops.knn`` — with the attention kernel ``csrc/attention_fwd.cu``.
+Ported so far, for the ViT flagship (``models.flagships``: ViT-T/16 +
+ProfileTransformer): the serving path — ``retrieval.encode`` and the exact
+kNN classifier ``ops.knn`` — and the contrastive train step — ``train``
+(SGD on f32 master weights, ``make_multi_steps``) with train-mode dropout
+and the CLIP loss — on the kernels ``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu`` and ``csrc/clip_loss.cu``.
 """
 
 __version__ = "0.1.0"

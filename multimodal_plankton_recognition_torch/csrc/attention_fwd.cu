@@ -5,12 +5,13 @@
 // Replaces the TPU kernel
 //   multimodal_plankton_recognition_tpu/ops/pallas/attention.py
 //   ::_fwd_kernel_stacked_qkv (reached through mha_core_qkv / _mha_qkv_fwd),
-// in eval mode (no probability dropout).
+// in eval and train mode.
 //
 // Numerics, kept from the TPU kernel:
 //   s = q_h . k_h^T     bf16 operands, f32 accumulation
 //   z = s * (1/sqrt(D)) + bias[key]     (bias optional: NULL = no mask)
 //   p = softmax(z)      f32: max-subtract, exp, divide by the sum
+//   p *= keep / (1 - p_drop)   train mode only (thr != 0), see dropout.cuh
 //   p rounded to bf16 before P.V
 //   o = p . v_h         f32 accumulation, rounded to bf16 on store
 //
@@ -39,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -78,7 +81,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out,
-                   int L, int E, float scale) {
+                   int L, int E, float scale, uint32_t seed, uint32_t thr,
+                   float inv_keep) {
   using G = Geom<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* ks = reinterpret_cast<uint32_t*>(smem_raw);   // L x kKStride
@@ -110,6 +114,7 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int c = lane % G::kPairs;  // column pair this lane sums in P.V
   const int g = lane / G::kPairs;  // key group of this lane in P.V
   const int row_end = min(L, (int)(blockIdx.x + 1) * kRowsPerBlock);
+  const uint32_t key = dropout_key(seed, b * gridDim.y + h);
 
   for (int r = blockIdx.x * kRowsPerBlock + warp; r < row_end; r += kWarps) {
     float q[D];
@@ -146,8 +151,11 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32)
-      p[j] = __bfloat162float(__float2bfloat16_rn(p[j] / sum));
+    for (int j = lane; j < L; j += 32) {
+      float pj = p[j] / sum;
+      if (thr) pj = dropout_bits(key, r * L + j) >= thr ? pj * inv_keep : 0.f;
+      p[j] = __bfloat162float(__float2bfloat16_rn(pj));
+    }
     __syncwarp();
 
     float2 acc = make_float2(0.f, 0.f);
@@ -179,7 +187,8 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 template <int D>
 int launch(const void* qkv, const void* bias, void* out, int B, int L, int H,
-           float scale, cudaStream_t stream) {
+           float scale, uint32_t seed, uint32_t thr, float inv_keep,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(L);
   cudaError_t err = cudaFuncSetAttribute(
       mha_qkv_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -188,7 +197,7 @@ int launch(const void* qkv, const void* bias, void* out, int B, int L, int H,
   const dim3 grid((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   mha_qkv_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), L, H * D, scale);
+      static_cast<__nv_bfloat16*>(out), L, H * D, scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -197,19 +206,25 @@ int launch(const void* qkv, const void* bias, void* out, int B, int L, int H,
 extern "C" {
 
 // qkv: (B, L, 3*H*D) bf16, contiguous; bias: (B, L) f32 or NULL;
-// out: (B, L, H*D) bf16. Returns a cudaError_t code (0 = launched).
+// out: (B, L, H*D) bf16. Dropout: keep a probability when its hash bits
+// are >= thr (thr = 0: eval mode, no dropout), scale kept ones by inv_keep.
+// Returns a cudaError_t code (0 = launched).
 int mha_qkv_fwd_bf16(const void* qkv, const void* bias, void* out, int B,
-                     int L, int H, int D, float scale, void* stream) {
+                     int L, int H, int D, float scale, unsigned seed,
+                     unsigned thr, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(DIM) \
+  launch<DIM>(qkv, bias, out, B, L, H, scale, seed, thr, inv_keep, s)
   switch (D) {
-    case 8: return launch<8>(qkv, bias, out, B, L, H, scale, s);
-    case 16: return launch<16>(qkv, bias, out, B, L, H, scale, s);
-    case 24: return launch<24>(qkv, bias, out, B, L, H, scale, s);
-    case 32: return launch<32>(qkv, bias, out, B, L, H, scale, s);
-    case 48: return launch<48>(qkv, bias, out, B, L, H, scale, s);
-    case 64: return launch<64>(qkv, bias, out, B, L, H, scale, s);
+    case 8: return LAUNCH(8);
+    case 16: return LAUNCH(16);
+    case 24: return LAUNCH(24);
+    case 32: return LAUNCH(32);
+    case 48: return LAUNCH(48);
+    case 64: return LAUNCH(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LAUNCH
 }
 
 const char* cuda_error_string(int code) {

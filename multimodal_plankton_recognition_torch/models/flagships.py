@@ -5,6 +5,7 @@ checkpoint."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -15,22 +16,28 @@ from .multi import MultiModel
 
 
 def flagship_vit(dim_embed: int = 512, fused_attention: bool = True,
-                 target_size: int = 224) -> MultiModel:
+                 target_size: int = 224, fused_loss: bool = True,
+                 dropout: Optional[float] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> MultiModel:
     """ViT-T/16 + ProfileTransformer (192 wide, 2 layers, 8 heads) + CLIP
     head, bf16 — the JAX package's ``flagship_vit``. With
-    ``fused_attention`` every attention layer runs the attention kernel;
-    without it, the plain PyTorch composition of the same math."""
+    ``fused_attention`` every attention layer runs the attention kernels,
+    with ``fused_loss`` the CLIP loss runs the CLIP kernels; without them,
+    the plain PyTorch compositions of the same math. ``dropout`` overrides
+    the image-encoder and profile dropout (0.1 by default; the ViT's own is
+    0.0), e.g. 0.0 to compare two paths step for step."""
+    drop = {} if dropout is None else {"dropout": dropout}
     return MultiModel(
         dim_embed=dim_embed,
         image_encoder_args={"name": "vit_tiny_patch16_224", "in_chans": 1,
                             "metadata": True,
-                            "fused_attention": fused_attention},
+                            "fused_attention": fused_attention, **drop},
         profile_encoder_args={"kind": "transformer", "dim_in": 6,
                               "dim_hidden": 192, "num_layers": 2,
                               "num_head": 8, "target_size": target_size,
-                              "fused_attention": fused_attention},
-        coordination_args={"method": "clip", "fused": True},
-        dtype=torch.bfloat16,
+                              "fused_attention": fused_attention, **drop},
+        coordination_args={"method": "clip", "fused": fused_loss},
+        dtype=dtype,
     )
 
 

@@ -4,7 +4,8 @@
 The pooled backbone feature gets the original (height, width) divided by
 the model's input resolution appended, so ``dim_out = num_features +
 2*metadata``. The shape is cast to the model dtype BEFORE the division, as
-in the JAX module: in bf16 a size like 399 rounds to 400 first.
+in the JAX module: in bf16 a size like 399 rounds to 400 first. In train
+mode the feature drops at ``dropout`` (``encoder.py:83``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..dropout import dropout
 from .registry import create_backbone
 
 
@@ -23,13 +25,14 @@ class ImageEncoder(nn.Module):
                  num_classes: int = 0, pretrained: bool = False,
                  fused_attention: bool = False,
                  backbone_kwargs: Optional[dict] = None) -> None:
-        """Card keys of the JAX module; ``dropout`` and ``num_classes`` are
-        accepted for card parity (eval mode, features only)."""
+        """Card keys of the JAX module; ``num_classes`` is accepted for
+        card parity (features only)."""
         super().__init__()
         if pretrained:
             raise NotImplementedError("pretrained npz weights are not ported "
                                       "yet (ROADMAP.md)")
         self.metadata = metadata
+        self.dropout = dropout
         self.backbone = create_backbone(name, in_chans=in_chans,
                                         fused_attention=fused_attention,
                                         **(backbone_kwargs or {}))
@@ -44,4 +47,4 @@ class ImageEncoder(nn.Module):
         if self.metadata:
             md = image_shape.to(x.dtype) / image.shape[1]
             x = torch.cat([x, md.reshape(x.shape[0], -1)], dim=1)
-        return x
+        return dropout(x, self.dropout, self.training)

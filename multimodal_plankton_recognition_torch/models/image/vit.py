@@ -7,8 +7,10 @@ LayerNorm and CLS pooling. Flax defaults carried over: LayerNorm eps 1e-6
 and the tanh form of GELU. Images come in the JAX layout (B, H, W, C); the
 patch conv runs on an NCHW view.
 
-Eval mode only (dropout is the identity); training comes in a later slice.
-Not ported: the fused Pallas FFN and the remat-MLP probe of the JAX block.
+Train-mode dropout at the JAX placements (``vit.py:49, :65, :67, :111``):
+attention probabilities, the attention output, the MLP hidden and the MLP
+output, and the embedded tokens. Not ported: the fused Pallas FFN and the
+remat-MLP probe of the JAX block.
 """
 
 from __future__ import annotations
@@ -17,27 +19,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import LN_EPS, check_eval
+from .. import LN_EPS
 from ..attention import FusedSelfAttention
+from ..dropout import dropout
 
 
 class _Block(nn.Module):
     """Pre-LN transformer block: x += MHA(LN(x)); x += MLP(LN(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 fused_attention: bool) -> None:
+                 dropout: float, fused_attention: bool) -> None:
         super().__init__()
         hidden = int(dim * mlp_ratio)
+        self.dropout = dropout
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = FusedSelfAttention(dim, num_heads, fused=fused_attention)
+        self.attn = FusedSelfAttention(dim, num_heads, fused=fused_attention,
+                                       dropout_rate=dropout)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp1 = nn.Linear(dim, hidden)
         self.mlp2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+        x = x + self._drop(self.attn(self.ln1(x)))
         h = F.gelu(self.mlp1(self.ln2(x)), approximate="tanh")
-        return x + self.mlp2(h)
+        return x + self._drop(self.mlp2(self._drop(h)))
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.dropout, self.training)
 
 
 class ViT(nn.Module):
@@ -47,13 +55,14 @@ class ViT(nn.Module):
                  fused_attention: bool = False) -> None:
         super().__init__()
         self.embed_dim = embed_dim
+        self.dropout = dropout
         self.patch_embed = nn.Conv2d(in_chans, embed_dim, patch_size,
                                      stride=patch_size)
         n_tokens = (img_size // patch_size) ** 2 + 1
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, num_heads, mlp_ratio, fused_attention)
+            _Block(embed_dim, num_heads, mlp_ratio, dropout, fused_attention)
             for _ in range(depth))
         self.ln_final = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
@@ -63,11 +72,11 @@ class ViT(nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """image: (B, H, W, C) channel-last; returns the CLS feature (B, D)."""
-        check_eval(self)
         x = image.to(self.pos_embed.dtype).permute(0, 3, 1, 2)
         x = self.patch_embed(x).flatten(2).transpose(1, 2)  # (B, h*w, D)
         cls = self.cls_token.expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed
+        x = dropout(x, self.dropout, self.training)
         for block in self.blocks:
             x = block(x)
         return self.ln_final(x)[:, 0]

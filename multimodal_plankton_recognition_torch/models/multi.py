@@ -2,10 +2,11 @@
 
 Image and profile encoders with bias-free projections into a shared
 ``dim_embed`` space, plus the coordination head that holds the loss's
-learnable scalars. ``dtype`` is the model dtype: the encoders and
-projections hold their weights in it (the JAX modules cast their f32
-parameters to it at use, which rounds the same way); the coordination
-scalars stay f32, as in the Flax tree.
+learnable scalars and computes the loss. ``dtype`` is the compute dtype:
+the encoders and projections hold their weights in it (the JAX modules cast
+their f32 parameters to it at use, which rounds the same way); the
+coordination scalars stay f32, as in the Flax tree. Training keeps f32
+master weights outside the module (``train/state.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..ops import losses
+from ..ops.contrastive import clip_loss_fused
 from .image.encoder import ImageEncoder
 from .profile.factory import create_profile_encoder
 
@@ -22,9 +25,10 @@ _CLIP_FAMILY = ("clip", "clipplus")
 
 
 class CoordinationHead(nn.Module):
-    """The coordination loss's learnable scalars (CLIP ``logit_scale``,
-    init 1.0), kept so that no leaf of the Flax tree is dropped. The loss
-    itself comes with training."""
+    """The coordination loss and its learnable scalars (CLIP
+    ``logit_scale``, init 1.0). ``fused`` sends CLIP through
+    ``ops.contrastive.clip_loss_fused`` (kernels on the card, plain
+    versions on the CPU); otherwise ``ops.losses``."""
 
     def __init__(self, method: str = "clip", fused: bool = False,
                  beta: float = 0.25) -> None:
@@ -34,7 +38,23 @@ class CoordinationHead(nn.Module):
                 f"coordination method {method!r} is not ported yet (ported: "
                 f"{_CLIP_FAMILY}); see ROADMAP.md")
         self.method = method
+        self.fused = fused
+        self.beta = beta
         self.logit_scale = nn.Parameter(torch.ones(()))
+
+    def forward(self, image_emb: torch.Tensor, profile_emb: torch.Tensor,
+                buckets: int = 1) -> torch.Tensor:
+        if not self.fused:
+            if self.method == "clip":
+                return losses.clip_loss(image_emb, profile_emb,
+                                        self.logit_scale, buckets)
+            return losses.clipplus_loss(image_emb, profile_emb,
+                                        self.logit_scale, buckets, self.beta)
+        loss = clip_loss_fused(image_emb, profile_emb, self.logit_scale,
+                               buckets)
+        if self.method == "clipplus":
+            loss = loss + self.beta * losses.mse_loss(image_emb, profile_emb)
+        return loss
 
 
 class MultiModel(nn.Module):
@@ -65,7 +85,7 @@ class MultiModel(nn.Module):
                **tokens) -> Dict[str, Optional[torch.Tensor]]:
         """Embed the available modalities; a missing (None) one is skipped.
         ``tokens`` are the profile tokenizer's ``time`` and
-        ``padding_mask``."""
+        ``padding_mask``. Dropout follows ``self.training``."""
         image_emb = profile_emb = None
         if image is not None:
             image_emb = self.image_projection(
@@ -75,3 +95,9 @@ class MultiModel(nn.Module):
                 self.profile_encoder(profile, profile_len=profile_len,
                                      **tokens))
         return {"image_emb": image_emb, "profile_emb": profile_emb}
+
+    def loss(self, buckets: int = 1, **batch) -> torch.Tensor:
+        """The coordination loss of one batch (``MultiModel.loss``)."""
+        emb = self.encode(**batch)
+        return self.coordination(emb["image_emb"], emb["profile_emb"],
+                                 buckets=buckets)

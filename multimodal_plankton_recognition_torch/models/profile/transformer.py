@@ -9,8 +9,10 @@ output at token 0, and the metadata scalar ``profile_len / tokens`` — the
 divisor is the token count (``target_size + 1`` with the CLS row), cast to
 the model dtype first, as in the JAX module.
 
-Eval mode only (dropout is the identity). Not ported: the fused Pallas FFN
-and the remat-MLP probe.
+Train-mode dropout at the JAX placements (``transformer.py:70, :92, :94,
+:153``): the attention output, the feed-forward hidden and output, and the
+final feature; plus the attention probabilities inside the attention
+kernel. Not ported: the fused Pallas FFN and the remat-MLP probe.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import LN_EPS, check_eval
+from .. import LN_EPS
 from ..attention import FusedSelfAttention
+from ..dropout import dropout
 
 _ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
@@ -34,10 +37,13 @@ class _EncoderLayer(nn.Module):
     """Post-LN block: x = LN(x + MHA(x)); x = LN(x + FF(x))."""
 
     def __init__(self, dim_hidden: int, num_head: int, dim_feedforward: int,
-                 activation: str, fused_attention: bool) -> None:
+                 dropout: float, activation: str,
+                 fused_attention: bool) -> None:
         super().__init__()
+        self.dropout = dropout
         self.attn = FusedSelfAttention(dim_hidden, num_head,
-                                       fused=fused_attention)
+                                       fused=fused_attention,
+                                       dropout_rate=dropout)
         self.ln1 = nn.LayerNorm(dim_hidden, eps=LN_EPS)
         self.ff1 = nn.Linear(dim_hidden, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, dim_hidden)
@@ -46,8 +52,12 @@ class _EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.ln1(x + self.attn(x, padding_mask))
-        return self.ln2(x + self.ff2(self.act(self.ff1(x))))
+        x = self.ln1(x + self._drop(self.attn(x, padding_mask)))
+        h = self._drop(self.act(self.ff1(x)))
+        return self.ln2(x + self._drop(self.ff2(h)))
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.dropout, self.training)
 
 
 class ProfileTransformer(nn.Module):
@@ -57,19 +67,19 @@ class ProfileTransformer(nn.Module):
                  dropout: float = 0.1, activation: str = "gelu",
                  metadata: bool = True,
                  fused_attention: bool = False) -> None:
-        """Card keys of the JAX module; ``dropout`` is accepted for card
-        parity (eval mode)."""
+        """Card keys of the JAX module."""
         super().__init__()
         if activation not in _ACTIVATIONS:
             raise ValueError(f"activation must be one of "
                              f"{sorted(_ACTIVATIONS)}, got {activation!r}")
         self.dim_hidden = dim_hidden
         self.metadata = metadata
+        self.dropout = dropout
         self.expand = nn.Linear(dim_in, dim_hidden, bias=False)
         self.position = nn.Embedding(target_size + 2, dim_hidden)
         self.layers = nn.ModuleList(
-            _EncoderLayer(dim_hidden, num_head, dim_feedforward, activation,
-                          fused_attention)
+            _EncoderLayer(dim_hidden, num_head, dim_feedforward, dropout,
+                          activation, fused_attention)
             for _ in range(num_layers))
 
     @property
@@ -79,7 +89,6 @@ class ProfileTransformer(nn.Module):
     def forward(self, profile: torch.Tensor, time: torch.Tensor,
                 padding_mask: torch.Tensor,
                 profile_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        check_eval(self)
         x = self.expand(profile.to(self.expand.weight.dtype))
         x = x + self.position(time)
         for layer in self.layers:
@@ -88,4 +97,4 @@ class ProfileTransformer(nn.Module):
         if self.metadata:
             md = profile_len.to(x.dtype) / profile.shape[1]
             x = torch.cat([x, md.reshape(x.shape[0], -1)], dim=1)
-        return x
+        return dropout(x, self.dropout, self.training)

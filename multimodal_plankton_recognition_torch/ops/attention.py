@@ -1,19 +1,32 @@
-"""Multi-head self-attention on ONE packed (B, L, 3E) q|k|v operand.
+"""Multi-head self-attention on ONE packed (B, L, 3E) q|k|v operand, with
+attention-probability dropout and its backward.
 
 Port of ``multimodal_plankton_recognition_tpu/ops/pallas/attention.py``
-``mha_core_qkv`` (forward, eval mode): the TPU kernel
-``_fwd_kernel_stacked_qkv`` becomes the hand-written Hopper kernel
-``csrc/attention_fwd.cu``; ``mha_qkv_reference`` is its plain PyTorch
-version with the same rounding points.
+``mha_core_qkv``: the TPU kernels ``_fwd_kernel_stacked_qkv`` and
+``_bwd_kernel_stacked_qkv`` become the hand-written Hopper kernels
+``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``;
+``mha_qkv_reference`` and ``mha_qkv_bwd_reference`` are their plain
+PyTorch versions with the same rounding points. ``mha_qkv`` is the
+differentiable entry (a ``torch.autograd.Function``): kernels on a CUDA
+tensor, plain versions on a CPU tensor.
 
 Layout: head h's q sits at columns ``h*D``, its k at ``E + h*D`` and its v
 at ``2E + h*D`` of the last axis. ``bias_rows`` is a (B, L) f32 additive
 key bias (−1e9 on padded keys) or ``None`` for no mask. Returns (B, L, E)
-in the input dtype.
+in the input dtype. The bias gets no gradient: the module builds it from
+the padding mask, and the JAX module drops its cotangent too.
 
-Not ported (TPU machinery): probability dropout in the kernel (train mode
-comes with the backward), the lane-mask head mode, the block_b / bf16-softmax
-probe knobs.
+Dropout. The TPU kernel draws its mask from the TPU PRNG, which has no
+counterpart here; both kernels and the plain versions draw it instead from
+a counter-based hash of (seed, sample, head, query row, key)
+(``dropout_bits``), so the forward and the backward regenerate the same
+mask with nothing stored, and kernel and plain version agree bit for bit
+on it. A probability is kept when its 32 hash bits are >= ``p * 2**32``,
+then scaled by ``1 / (1 - p)`` before the bf16 rounding, as at
+``attention.py:387-391``.
+
+Not ported (TPU machinery): the lane-mask head mode, the block_b /
+bf16-softmax probe knobs.
 """
 
 from __future__ import annotations
@@ -21,54 +34,151 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 
-__all__ = ["mha_qkv", "mha_qkv_reference", "SUPPORTED_HEAD_DIMS"]
+__all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
+           "mha_qkv_bwd_reference", "dropout_bits", "dropout_threshold",
+           "SUPPORTED_HEAD_DIMS"]
 
-#: head dims the CUDA kernel is instantiated for (csrc/attention_fwd.cu)
+#: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
 SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
 
+_MASK32 = 0xFFFFFFFF
 
-def mha_qkv_reference(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
-                      heads: int) -> torch.Tensor:
-    """Plain PyTorch attention with the kernel's numerics: f32 scores from
-    the input-dtype operands, f32 softmax, probabilities rounded to the
-    input dtype before P·V, P·V accumulated in f32 and rounded on return.
-    In f32 every rounding is the identity (the JAX einsum path)."""
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32): the constant is
+    split into 16-bit halves so no product leaves int64's range."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser (``fmix32`` in the kernels)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_bits(seed: int, batch: int, heads: int, length: int,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """The kernels' 32 random bits per probability, (B, H, L, L) int64 in
+    [0, 2**32): ``fmix32(key ^ fmix32(r*L + j + 1))`` with
+    ``key = fmix32(seed ^ fmix32(b*H + h + 1))``."""
+    bh = torch.arange(batch * heads, dtype=torch.int64, device=device)
+    key = _fmix32((seed & _MASK32) ^ _fmix32(bh + 1))
+    idx = torch.arange(length * length, dtype=torch.int64, device=device)
+    bits = _fmix32(key[:, None] ^ _fmix32(idx + 1)[None, :])
+    return bits.reshape(batch, heads, length, length)
+
+
+def dropout_threshold(p: float) -> int:
+    """Keep a probability when its bits are >= this (0 keeps all)."""
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+    return min(round(p * 2.0 ** 32), _MASK32)
+
+
+def _keep_scale(seed: int, p: float, b: int, heads: int, l: int,
+                device) -> torch.Tensor:
+    """keep * 1/(1-p) as f32 (B, H, L, L), the factor both kernels apply."""
+    keep = dropout_bits(seed, b, heads, l, device) >= dropout_threshold(p)
+    return keep.to(torch.float32) * (1.0 / (1.0 - p))
+
+
+def _split_heads(qkv: torch.Tensor, heads: int):
     b, l, e3 = qkv.shape
-    e = e3 // 3
-    d = e // heads
+    d = e3 // (3 * heads)
     x = qkv.float().reshape(b, l, 3, heads, d)
-    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, L, D)
+    return [x[:, :, i].transpose(1, 2) for i in range(3)]  # (B, H, L, D)
+
+
+def _softmax_f32(q, k, bias_rows, d):
     z = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if bias_rows is not None:
         z = z + bias_rows.float()[:, None, None, :]
     z = torch.exp(z - z.amax(dim=-1, keepdim=True))
-    p = (z / z.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
-    o = p @ v
-    return o.transpose(1, 2).reshape(b, l, e).to(qkv.dtype)
+    return z / z.sum(dim=-1, keepdim=True)
+
+
+def mha_qkv_reference(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
+                      heads: int, dropout_p: float = 0.0,
+                      seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch attention with the kernel's numerics: f32 scores from
+    the input-dtype operands, f32 softmax, the dropout factor, probabilities
+    rounded to the input dtype before P·V, P·V accumulated in f32 and
+    rounded on return. In f32 every rounding is the identity (the JAX
+    einsum path). Differentiable by autograd (the plain model path)."""
+    b, l, e3 = qkv.shape
+    q, k, v = _split_heads(qkv, heads)
+    p = _softmax_f32(q, k, bias_rows, q.shape[-1])
+    if dropout_p > 0.0:
+        p = p * _keep_scale(seed, dropout_p, b, heads, l, qkv.device)
+    o = p.to(qkv.dtype).float() @ v
+    return o.transpose(1, 2).reshape(b, l, e3 // 3).to(qkv.dtype)
+
+
+def mha_qkv_bwd_reference(qkv: torch.Tensor,
+                          bias_rows: Optional[torch.Tensor],
+                          dout: torch.Tensor, heads: int,
+                          dropout_p: float = 0.0,
+                          seed: int = 0) -> torch.Tensor:
+    """Plain version of the backward kernel, after
+    ``_bwd_kernel_stacked_qkv``: recomputed f32 softmax; dP = dO·Vᵀ in f32
+    with the dropout factor; dZ = P∘(dP − Σ dP∘P); dS = dZ·scale and the
+    dropped P rounded to the input dtype before the three products, which
+    accumulate in f32. Returns the packed (B, L, 3E) dqkv in the input
+    dtype."""
+    b, l, e3 = qkv.shape
+    q, k, v = _split_heads(qkv, heads)
+    d = q.shape[-1]
+    do = dout.to(qkv.dtype).float().reshape(b, l, heads, d).transpose(1, 2)
+    p = _softmax_f32(q, k, bias_rows, d)
+    dp = do @ v.transpose(-1, -2)
+    pd = p
+    if dropout_p > 0.0:
+        factor = _keep_scale(seed, dropout_p, b, heads, l, qkv.device)
+        pd, dp = p * factor, dp * factor
+    dz = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (dz * (1.0 / math.sqrt(d))).to(qkv.dtype).float()
+    pd = pd.to(qkv.dtype).float()
+    parts = (ds @ k, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ do)
+    dqkv = torch.stack([t.transpose(1, 2) for t in parts], dim=2)
+    return dqkv.reshape(b, l, e3).to(qkv.dtype)
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("attention_fwd")
-    vp = ctypes.c_void_p
-    lib.mha_qkv_fwd_bf16.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, vp]
-    lib.mha_qkv_fwd_bf16.restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.mha_qkv_fwd_bf16.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                     ctypes.c_float, cu, cu, ctypes.c_float,
+                                     vp]
+    lib.mha_qkv_fwd_bf16.restype = ci
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("attention_bwd")
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.mha_qkv_bwd_bf16.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                     ctypes.c_float, cu, cu, ctypes.c_float,
+                                     vp]
+    lib.mha_qkv_bwd_bf16.restype = ci
     return lib
 
 
 def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
                      heads: int) -> int:
-    """Validate what the kernel takes; return the head dim."""
+    """Validate what the kernels take; return the head dim."""
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the attention kernel takes bf16 qkv, got "
                         f"{qkv.dtype} (f32 models use mha_qkv_reference)")
@@ -95,30 +205,94 @@ def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
     return d
 
 
-def mha_qkv(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
-            heads: int) -> torch.Tensor:
-    """Attention over packed qkv: the CUDA kernel for a CUDA bf16 tensor,
-    the plain version for a CPU tensor, an error otherwise (no fallback).
-    ``mha_qkv.launches`` counts kernel launches."""
-    if qkv.device.type == "cpu":
-        return mha_qkv_reference(qkv, bias_rows, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qkv.device}")
+def _check_device(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {t.device}")
+    return False
+
+
+def _launch_args(qkv, bias_rows, heads, dropout_p, seed):
     d = _check_cuda_args(qkv, bias_rows, heads)
+    b, l, _ = qkv.shape
+    return (b, l, heads, d, 1.0 / math.sqrt(d), seed & _MASK32,
+            dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+
+
+def _fwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor], heads: int,
+         dropout_p: float, seed: int) -> torch.Tensor:
+    """Forward kernel on CUDA, plain version on the CPU."""
+    if _check_device(qkv):
+        return mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
+    args = _launch_args(qkv, bias_rows, heads, dropout_p, seed)
     b, l, e3 = qkv.shape
     out = torch.empty((b, l, e3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = _lib()
+    lib = _fwd_lib()
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.mha_qkv_fwd_bf16(
             qkv.data_ptr(),
             None if bias_rows is None else bias_rows.data_ptr(),
-            out.data_ptr(), b, l, heads, d, 1.0 / math.sqrt(d), stream)
-    if err:
-        raise RuntimeError(f"attention_fwd launch failed: CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
+            out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "attention_fwd")
     mha_qkv.launches += 1
     return out
 
 
+def mha_qkv_bwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
+                dout: torch.Tensor, heads: int, dropout_p: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
+    """Packed dqkv: the backward kernel on CUDA, the plain version on the
+    CPU, an error otherwise. ``mha_qkv_bwd.launches`` counts launches."""
+    if _check_device(qkv):
+        return mha_qkv_bwd_reference(qkv, bias_rows, dout, heads, dropout_p,
+                                     seed)
+    args = _launch_args(qkv, bias_rows, heads, dropout_p, seed)
+    dout = dout.to(qkv.dtype).contiguous()
+    if dout.shape != (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3):
+        raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
+    dqkv = torch.empty_like(qkv)
+    lib = _bwd_lib()
+    with torch.cuda.device(qkv.device):
+        err = lib.mha_qkv_bwd_bf16(
+            qkv.data_ptr(),
+            None if bias_rows is None else bias_rows.data_ptr(),
+            dout.data_ptr(), dqkv.data_ptr(), *args,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "attention_bwd")
+    mha_qkv_bwd.launches += 1
+    return dqkv
+
+
+class _MhaQkv(torch.autograd.Function):
+    """Forward saves qkv, the bias and the seed; backward regenerates the
+    softmax and the dropout mask and returns the packed dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias_rows, heads, dropout_p, seed):
+        ctx.save_for_backward(qkv, bias_rows)
+        ctx.args = (heads, dropout_p, seed)
+        return _fwd(qkv, bias_rows, heads, dropout_p, seed)
+
+    @staticmethod
+    def backward(ctx, dout) -> Tuple[Optional[torch.Tensor], ...]:
+        qkv, bias_rows = ctx.saved_tensors
+        dqkv = mha_qkv_bwd(qkv, bias_rows, dout, *ctx.args)
+        return dqkv, None, None, None, None
+
+
+def mha_qkv(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
+            heads: int, dropout_p: float = 0.0,
+            seed: int = 0) -> torch.Tensor:
+    """Differentiable attention over packed qkv with probability dropout
+    ``dropout_p`` (0 in eval mode) drawn from ``seed``: the CUDA kernels
+    for a CUDA bf16 tensor, the plain versions for a CPU tensor, an error
+    otherwise (no fallback). ``mha_qkv.launches`` counts forward-kernel
+    launches."""
+    dropout_threshold(dropout_p)  # validates p before any launch
+    return _MhaQkv.apply(qkv, bias_rows, heads, dropout_p, seed)
+
+
 mha_qkv.launches = 0
+mha_qkv_bwd.launches = 0

@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. Libraries land in ``_build/`` beside
-``csrc/`` (listed in ``.gitignore``), named by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one loads at once. The
-build happens at first use, never at import.
+``csrc/`` (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a changed source rebuilds
+and an unchanged one loads at once. The build happens at first use, never
+at import; ``build_all`` starts one ``nvcc`` per source, all at once.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
@@ -19,7 +20,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -51,6 +54,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: ``_build/<name>-<hash>.so``."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -77,8 +82,26 @@ def build(name: str) -> Path:
     return lib
 
 
+def build_all(names) -> Dict[str, Path]:
+    """Build several sources in parallel (one ``nvcc`` each); raises the
+    first failure after all have finished."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: future.result() for name, future in futures.items()}
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per
-    process."""
-    return ctypes.CDLL(str(build(name)))
+    process. Every source exports ``cuda_error_string``."""
+    lib = ctypes.CDLL(str(build(name)))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(err: int, lib: ctypes.CDLL, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")

@@ -1,0 +1,231 @@
+"""Fused bucketed CLIP loss, forward and backward.
+
+Port of the CLIP half of ``multimodal_plankton_recognition_tpu/ops/pallas/
+contrastive.py``: the TPU kernels ``_clip_fwd_kernel`` and
+``_clip_bwd_kernel`` become the hand-written Hopper kernels in
+``csrc/clip_loss.cu`` (one launch covers every bucket).
+``clip_loss_fused_reference`` and ``clip_loss_bwd_reference`` are their
+plain PyTorch versions, line by line: f32 inside, gradients returned in the
+embedding dtype, the cotangent divided by ``buckets`` (``contrastive.py:140``)
+and d logit_scale summed over buckets.
+
+``clip_loss_fused`` is the differentiable entry (a
+``torch.autograd.Function``): kernels on a CUDA tensor, plain versions on a
+CPU tensor, an error otherwise. Its value is the semantics of
+``ops.losses.clip_loss``. The SigLIP kernels are not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import build
+
+__all__ = ["clip_loss_fused", "clip_fwd", "clip_bwd",
+           "clip_loss_fused_reference", "clip_loss_bwd_reference",
+           "MAX_BUCKET"]
+
+#: largest bucket (rows per bucket) the kernels take (csrc/clip_loss.cu)
+MAX_BUCKET = 256
+_EPS = 1e-12
+
+
+def _normalize(x: torch.Tensor):
+    """(x / max(||x||, eps), max(||x||, eps)) in f32, as ``_normalize``."""
+    nrm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)).clamp_min(_EPS)
+    return x / nrm, nrm
+
+
+def _buckets(image_emb, profile_emb, buckets):
+    b, d = image_emb.shape
+    if b % buckets:
+        raise ValueError(f"batch {b} is not divisible by buckets={buckets}")
+    n = b // buckets
+    return (image_emb.float().reshape(buckets, n, d),
+            profile_emb.float().reshape(buckets, n, d), n)
+
+
+def clip_loss_fused_reference(image_emb: torch.Tensor,
+                              profile_emb: torch.Tensor,
+                              logit_scale: torch.Tensor,
+                              buckets: int = 1) -> torch.Tensor:
+    """Plain version of the forward kernel: per bucket, normalise, logits
+    exp(scale)·i·pᵀ, symmetric cross-entropy; mean over buckets (f32)."""
+    x, y, n = _buckets(image_emb, profile_emb, buckets)
+    i, _ = _normalize(x)
+    p, _ = _normalize(y)
+    z = (i @ p.transpose(1, 2)) * torch.exp(logit_scale.float())
+    diag = torch.diagonal(z, dim1=1, dim2=2)
+    lse_r = torch.logsumexp(z, dim=2)
+    lse_c = torch.logsumexp(z, dim=1)
+    losses = ((lse_r - diag).sum(1) + (lse_c - diag).sum(1)) * 0.5 / n
+    return losses.mean()
+
+
+def clip_loss_bwd_reference(image_emb: torch.Tensor,
+                            profile_emb: torch.Tensor,
+                            logit_scale: torch.Tensor, g: torch.Tensor,
+                            buckets: int = 1
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the backward kernel: (d_image, d_profile) in the
+    embedding dtype and d logit_scale (summed over buckets) for the
+    cotangent ``g`` of the mean loss."""
+    x, y, n = _buckets(image_emb, profile_emb, buckets)
+    i, i_nrm = _normalize(x)
+    p, p_nrm = _normalize(y)
+    scale_e = torch.exp(logit_scale.float())
+    s = i @ p.transpose(1, 2)
+    z = s * scale_e
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    soft_r = torch.softmax(z, dim=2)
+    soft_c = torch.softmax(z, dim=1)
+    gb = g.float() / buckets  # d(total)/d(bucket loss)
+    dz = gb * 0.5 / n * ((soft_r - eye) + (soft_c - eye))
+    d_scale = (dz * s).sum(dim=(1, 2)) * scale_e
+    d_s = dz * scale_e
+    d_in = d_s @ p
+    d_pn = d_s.transpose(1, 2) @ i
+    di = (d_in - (d_in * i).sum(-1, keepdim=True) * i) / i_nrm
+    dp = (d_pn - (d_pn * p).sum(-1, keepdim=True) * p) / p_nrm
+    return (di.reshape(image_emb.shape).to(image_emb.dtype),
+            dp.reshape(profile_emb.shape).to(profile_emb.dtype),
+            d_scale.sum().to(logit_scale.dtype))
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("clip_loss")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.clip_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.clip_fwd.restype = ci
+    lib.clip_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                             vp]
+    lib.clip_bwd.restype = ci
+    return lib
+
+
+def _on_cpu(image_emb: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if image_emb.device.type == "cpu":
+        return True
+    if image_emb.device.type != "cuda":
+        raise ValueError(f"no CLIP kernel for device {image_emb.device}")
+    return False
+
+
+def _check_cuda_args(image_emb, profile_emb, logit_scale, buckets):
+    """Validate what the kernels take; return (bucket size, width)."""
+    if image_emb.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CLIP kernels take bf16 or f32 embeddings, got "
+                        f"{image_emb.dtype}")
+    if (image_emb.dim() != 2 or profile_emb.shape != image_emb.shape
+            or profile_emb.dtype != image_emb.dtype
+            or profile_emb.device != image_emb.device):
+        raise ValueError(f"image and profile embeddings must be (B, D) of "
+                         f"one dtype and device, got {tuple(image_emb.shape)} "
+                         f"and {tuple(profile_emb.shape)}")
+    b, d = image_emb.shape
+    if buckets < 1 or b % buckets:
+        raise ValueError(f"batch {b} is not divisible by buckets={buckets}")
+    n = b // buckets
+    if n > MAX_BUCKET:
+        raise ValueError(f"bucket of {n} rows exceeds the kernels' "
+                         f"{MAX_BUCKET}")
+    if (logit_scale.numel() != 1 or logit_scale.dtype != torch.float32
+            or logit_scale.device != image_emb.device):
+        raise ValueError("logit_scale must be one f32 value on the "
+                         "embeddings' device")
+    return n, d
+
+
+def clip_fwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+             logit_scale: torch.Tensor, buckets: int = 1) -> torch.Tensor:
+    """Mean bucketed CLIP loss (f32 scalar): the forward kernel for CUDA
+    tensors, the plain version for CPU tensors. ``clip_fwd.launches``
+    counts launches."""
+    if _on_cpu(image_emb):
+        return clip_loss_fused_reference(image_emb, profile_emb, logit_scale,
+                                         buckets)
+    n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets)
+    image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
+    dev = image_emb.device
+    losses = torch.empty(buckets, dtype=torch.float32, device=dev)
+    scratch = torch.empty(buckets * (2 * n * d + n * n), dtype=torch.float32,
+                          device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.clip_fwd(image_emb.data_ptr(), profile_emb.data_ptr(),
+                           logit_scale.data_ptr(), losses.data_ptr(),
+                           scratch.data_ptr(), buckets, n, d,
+                           int(image_emb.dtype == torch.bfloat16),
+                           torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "clip_fwd")
+    clip_fwd.launches += 1
+    return losses.mean()
+
+
+def clip_bwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+             logit_scale: torch.Tensor, g: torch.Tensor, buckets: int = 1
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_image, d_profile, d_logit_scale) for the cotangent ``g`` of the
+    mean loss: the backward kernel for CUDA tensors, the plain version for
+    CPU tensors. ``clip_bwd.launches`` counts launches."""
+    if _on_cpu(image_emb):
+        return clip_loss_bwd_reference(image_emb, profile_emb, logit_scale,
+                                       g, buckets)
+    n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets)
+    image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
+    dev = image_emb.device
+    gb = (g.float() / buckets).reshape(1).contiguous()
+    d_img = torch.empty_like(image_emb)
+    d_prof = torch.empty_like(profile_emb)
+    d_scale = torch.empty(buckets, dtype=torch.float32, device=dev)
+    scratch = torch.empty(buckets * (4 * n * d + n * n), dtype=torch.float32,
+                          device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.clip_bwd(image_emb.data_ptr(), profile_emb.data_ptr(),
+                           logit_scale.data_ptr(), gb.data_ptr(),
+                           d_img.data_ptr(), d_prof.data_ptr(),
+                           d_scale.data_ptr(), scratch.data_ptr(), buckets,
+                           n, d, int(image_emb.dtype == torch.bfloat16),
+                           torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "clip_bwd")
+    clip_bwd.launches += 1
+    return d_img, d_prof, d_scale.sum().to(logit_scale.dtype)
+
+
+clip_fwd.launches = 0
+clip_bwd.launches = 0
+
+
+class _ClipLoss(torch.autograd.Function):
+    """Forward saves the embeddings and the scale; backward recomputes the
+    logits (as the TPU kernel does) and returns all three gradients."""
+
+    @staticmethod
+    def forward(ctx, image_emb, profile_emb, logit_scale, buckets):
+        ctx.save_for_backward(image_emb, profile_emb, logit_scale)
+        ctx.buckets = buckets
+        return clip_fwd(image_emb, profile_emb, logit_scale, buckets)
+
+    @staticmethod
+    def backward(ctx, g):
+        image_emb, profile_emb, logit_scale = ctx.saved_tensors
+        di, dp, ds = clip_bwd(image_emb, profile_emb, logit_scale, g,
+                              ctx.buckets)
+        return di, dp, ds.reshape(logit_scale.shape), None
+
+
+def clip_loss_fused(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+                    logit_scale: torch.Tensor,
+                    buckets: int = 1) -> torch.Tensor:
+    """Fused bucketed symmetric InfoNCE (semantics of
+    ``ops.losses.clip_loss``), differentiable in all three inputs."""
+    return _ClipLoss.apply(image_emb, profile_emb, logit_scale, buckets)

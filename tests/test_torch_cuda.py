@@ -1,12 +1,20 @@
-"""The attention kernel on a CUDA card, against its plain version.
+"""The CUDA kernels on a card, against their plain versions: attention
+forward (eval and train mode) and backward, CLIP loss forward and
+backward.
 
 Marked ``gpu``: each test skips without a CUDA card. On the card:
 
     python -m pytest -m gpu --noconftest tests/test_torch_cuda.py -q
 
-Tolerance 2e-2 in bf16: both sides accumulate in f32 and round the output
-to bf16 (one bf16 step is 7.8e-3 between 1 and 2), but sum in another
-order, so an output can land one step apart.
+Tolerances: 2e-2 on the bf16 attention output (both sides accumulate in f32
+and round the output to bf16 — one bf16 step is 7.8e-3 between 1 and 2 —
+but sum in another order, so an output can land one step apart); the
+same reason, relative to the largest |dqkv|, 1e-2 for the backward; on
+inputs whose every sum is exact (q = k = 0, v = ±1) the train-mode
+forward must equal its plain version bit for bit, which pins the dropout
+mask. CLIP: the loss to 1e-5 relative (f32 math on both sides), gradients
+to 1e-2 of their largest value (rounded to the embedding dtype),
+d logit_scale to 1e-3 relative.
 """
 
 import pytest
@@ -16,11 +24,18 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.ops.attention import (
-    SUPPORTED_HEAD_DIMS, mha_qkv, mha_qkv_reference,
+    SUPPORTED_HEAD_DIMS, mha_qkv, mha_qkv_bwd, mha_qkv_bwd_reference,
+    mha_qkv_reference,
+)
+from multimodal_plankton_recognition_torch.ops.contrastive import (
+    MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
+    clip_loss_fused, clip_loss_fused_reference,
 )
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
+BWD_TOL = 1e-2
+SHAPES = [(1, 1, 1), (3, 33, 2), (2, 100, 5)]  # (B, L, heads)
 
 
 @pytest.fixture
@@ -43,7 +58,7 @@ def _inputs(cuda, b, l, heads, d, masked, seed=0):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
-@pytest.mark.parametrize("b,l,heads", [(1, 1, 1), (3, 33, 2), (2, 100, 5)])
+@pytest.mark.parametrize("b,l,heads", SHAPES)
 def test_kernel_matches_plain(cuda, b, l, heads, d, masked):
     qkv, bias = _inputs(cuda, b, l, heads, d, masked)
     before = mha_qkv.launches
@@ -91,3 +106,124 @@ def test_launch_failure_raises(cuda):
     qkv, _ = _inputs(cuda, 1, 4000, 1, 64, False)
     with pytest.raises(RuntimeError, match="launch failed"):
         mha_qkv(qkv, None, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mha_qkv_bwd(qkv, None, qkv[..., :64].contiguous(), 1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("b,l,heads", SHAPES)
+def test_train_mode_kernel_matches_plain(cuda, b, l, heads, d, masked):
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=1)
+    out = mha_qkv(qkv, bias, heads, 0.1, 4242)
+    ref = mha_qkv_reference(qkv, bias, heads, 0.1, 4242)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+def test_train_mode_mask_is_the_plain_mask(cuda, d, p):
+    """q = k = 0 makes the softmax uniform and v = ±1 makes every P·V sum
+    exact in f32, so kernel and plain version agree bit for bit iff their
+    dropout masks do."""
+    b, l, heads = 3, 100, 2
+    qkv, bias = _inputs(cuda, b, l, heads, d, True, seed=2)
+    e = heads * d
+    qkv = torch.zeros_like(qkv)
+    signs = torch.rand((b, l, e), device=cuda) < 0.5
+    qkv[..., 2 * e:] = torch.where(signs, -1.0, 1.0).to(qkv.dtype)
+    assert torch.equal(mha_qkv(qkv, bias, heads, p, 99),
+                       mha_qkv_reference(qkv, bias, heads, p, 99))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("b,l,heads", SHAPES)
+def test_bwd_kernel_matches_plain(cuda, b, l, heads, d, masked, p):
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=3)
+    dout = torch.randn((b, l, heads * d), device=cuda).to(torch.bfloat16)
+    before = mha_qkv_bwd.launches
+    got = mha_qkv_bwd(qkv, bias, dout, heads, p, 17)
+    assert mha_qkv_bwd.launches == before + 1
+    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, 17)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    assert torch.isfinite(got).all()
+    scale = max(want.float().abs().max().item(), 1.0)
+    assert (got.float() - want.float()).abs().max().item() <= BWD_TOL * scale
+
+
+def test_autograd_launches_both_attention_kernels(cuda):
+    qkv, bias = _inputs(cuda, 2, 40, 4, 24, True)
+    qkv.requires_grad_()
+    fwd, bwd = mha_qkv.launches, mha_qkv_bwd.launches
+    out = mha_qkv(qkv, bias, 4, 0.1, 5)
+    out.float().square().sum().backward()
+    assert (mha_qkv.launches, mha_qkv_bwd.launches) == (fwd + 1, bwd + 1)
+    want = mha_qkv_bwd_reference(qkv.detach(), bias, 2 * out.detach(), 4,
+                                 0.1, 5)
+    scale = want.float().abs().max().item()
+    assert (qkv.grad.float() - want.float()).abs().max().item() \
+        <= BWD_TOL * scale
+
+
+def test_bwd_refuses_unsupported_head_dim(cuda):
+    odd, _ = _inputs(cuda, 2, 9, 1, 40, False)
+    with pytest.raises(ValueError, match="head dim 40"):
+        mha_qkv_bwd(odd, None, odd[..., :40].contiguous(), 1)
+
+
+def _embeddings(cuda, rows, d, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("buckets,n,d", [(1, 1, 8), (4, 16, 512),
+                                         (16, 16, 512), (1, 256, 512),
+                                         (2, 100, 33)])
+def test_clip_kernels_match_plain(cuda, buckets, n, d, dtype):
+    img, prof = _embeddings(cuda, buckets * n, d, dtype)
+    scale = torch.full((), 0.7, device=cuda)
+    g = torch.full((), 1.3, device=cuda)
+    before = clip_fwd.launches, clip_bwd.launches
+    loss = clip_fwd(img, prof, scale, buckets)
+    grads = clip_bwd(img, prof, scale, g, buckets)
+    assert (clip_fwd.launches, clip_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = clip_loss_fused_reference(img, prof, scale, buckets)
+    want_grads = clip_loss_bwd_reference(img, prof, scale, g, buckets)
+    torch.cuda.synchronize()
+    # absolute floors: a bucket of one row has loss and gradients 0
+    assert abs(loss.item() - want.item()) <= 1e-5 * max(abs(want.item()), 1)
+    for got, ref in zip(grads[:2], want_grads[:2]):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        top = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() \
+            <= 1e-2 * top + 1e-7
+    assert abs(grads[2].item() - want_grads[2].item()) \
+        <= 1e-3 * abs(want_grads[2].item()) + 1e-7
+
+
+def test_clip_autograd_launches_both_kernels(cuda):
+    img, prof = _embeddings(cuda, 64, 32, torch.bfloat16, seed=1)
+    leaves = [t.requires_grad_() for t in (img, prof)]
+    scale = torch.zeros((), device=cuda, requires_grad=True)
+    before = clip_fwd.launches, clip_bwd.launches
+    clip_loss_fused(*leaves, scale, 4).backward()
+    assert (clip_fwd.launches, clip_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert all(t.grad is not None for t in (*leaves, scale))
+
+
+def test_clip_bucket_above_max_raises(cuda):
+    img, prof = _embeddings(cuda, MAX_BUCKET + 1, 16, torch.bfloat16)
+    scale = torch.zeros((), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        clip_fwd(img, prof, scale, 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        clip_bwd(img, prof, scale, torch.ones((), device=cuda), 1)

@@ -1,10 +1,11 @@
 """Import hygiene of the port and the no-fallback contract of
 ``chip_smoke.py``.
 
-The port never imports JAX; its card path (everything ``chip_smoke.py``
-drives) loads none of jax, flax, pandas, PIL or yaml, which the card's
-machine need not have. ``encode_csv`` alone reaches the JAX package's
-host layers (pandas, PIL), lazily.
+The port never imports JAX; its card paths (everything ``chip_smoke.py``
+drives: the encode path and the train path) load none of jax, flax,
+pandas, PIL or yaml, which the card's machine need not have.
+``encode_csv`` alone reaches the JAX package's host layers (pandas, PIL),
+lazily.
 """
 
 import ast
@@ -32,18 +33,35 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.ops.losses",
     "multimodal_plankton_recognition_torch.retrieval.encode",
 ]
+TRAIN_PATH_MODULES = [
+    "multimodal_plankton_recognition_torch.config",
+    "multimodal_plankton_recognition_torch.models.dropout",
+    "multimodal_plankton_recognition_torch.ops.contrastive",
+    "multimodal_plankton_recognition_torch.train",
+    "multimodal_plankton_recognition_torch.train.loop",
+    "multimodal_plankton_recognition_torch.train.optim",
+    "multimodal_plankton_recognition_torch.train.state",
+]
 FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml")
 
 
-def test_card_path_imports_nothing_forbidden():
+def _forbidden_after_importing(modules):
     code = (
         "import importlib, sys\n"
-        f"for m in {CARD_PATH_MODULES!r}: importlib.import_module(m)\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
         f"print(sorted(m for m in {FORBIDDEN!r} if m in sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[]", proc.stdout
+    return proc.stdout.strip()
+
+
+def test_card_path_imports_nothing_forbidden():
+    assert _forbidden_after_importing(CARD_PATH_MODULES) == "[]"
+
+
+def test_train_path_imports_nothing_forbidden():
+    assert _forbidden_after_importing(TRAIN_PATH_MODULES) == "[]"
 
 
 def _imported_roots(path: Path):
