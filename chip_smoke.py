@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
-card.
+card: the ViT flagship's encode and train step, and the ViT-S SigLIP model
+card's train path.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -11,24 +12,30 @@ fatal on failure:
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
    per source, all at once) and prints the build seconds and ptxas'
    register / spill report;
-3. kernels against their plain versions, on the same inputs at the ViT
-   flagship's shapes (B=256; ViT-T L=197 H=3 D=64 no mask; profile L=225
-   H=8 D=24 random key padding, CLS kept), with max abs error, its
-   tolerance, no NaN, and median ms of kernel and plain version (CUDA
-   events after warm-up):
+3. kernels against their plain versions, on the same inputs at the shapes
+   the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
+   profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
+   B=64: ViT-S L=197 H=6 D=64, profile L=225 H=4 D=32 with padding), with
+   max abs error, its tolerance, no NaN, and median ms of kernel and plain
+   version (CUDA events after warm-up):
    * attention forward (``mha_qkv`` vs ``mha_qkv_reference``), eval mode at
-     both shapes and train mode (dropout 0.1) at the profile shape, within
+     every shape and train mode (dropout 0.1) at the profile shapes, within
      2e-2; and train mode on inputs whose every sum is exact (q = k = 0,
      v = ±1), where kernel and plain version must agree bit for bit, so a
-     single mask bit that differs would show;
+     single mask bit that differs would show (D = 24 and D = 32);
    * attention backward (``mha_qkv_bwd`` vs ``mha_qkv_bwd_reference``) at
-     the ViT shape and at the profile shape with mask and dropout 0.1,
+     the ViT shapes and at the profile shapes with mask and dropout 0.1,
      within 1e-2 of the largest |dqkv|;
    * CLIP loss forward and backward (``clip_fwd`` / ``clip_bwd`` vs
      ``clip_loss_fused_reference`` / ``clip_loss_bwd_reference``) at 16
      buckets of 16 and 1 bucket of 256, width 512: loss within 1e-5
      relative, gradients within 1e-2 of the largest, d logit_scale within
      1e-3 relative;
+   * SigLIP loss forward and backward (``siglip_fwd`` / ``siglip_bwd`` vs
+     ``siglip_loss_fused_reference`` / ``siglip_loss_bwd_reference``) at 4
+     buckets of 16 (the card), 16 of 16 and 1 of 256, width 512, bf16, at
+     the head's init (scale 1, bias −10) and at scale 5 with bias ±30: the
+     CLIP tolerances, d logit_bias like d logit_scale;
 4. encode: the full-width ViT flagship (bf16, dim_embed 512, random weights
    from a seeded torch.Generator) encodes a synthetic gallery of 2,048
    pairs in batches of 256 through ``retrieval.encode.encode_arrays``; the
@@ -48,7 +55,25 @@ fatal on failure:
    pairs/s over steps 4-20. Then one step from the same weights with
    dropout 0 on the kernel path and on the plain path (plain attention,
    unfused CLIP loss): losses within 1e-2, named gradients within 5e-2
-   relative (L2); and the plain path's train pairs/s.
+   relative (L2); and the plain path's train pairs/s;
+6. card: ``CARD`` (the dict of model_cards/multi/
+   vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
+   128 wide with 4 heads of 32, SigLIP, bs 64 in 4 buckets, accumulation
+   4, bf16) through ``ModelCard.from_dict`` -> ``build_multi_model``,
+   f32 masters from a seeded f32 init, the card's optimizer; ``Fitter``
+   runs 2 epochs of 20 micro-steps on one synthetic batch of 64 with 2
+   eval steps an epoch. Per micro-step the attention kernels must launch
+   14 + 14 times and the SigLIP kernels once each, per eval step 14 + 1
+   forward launches; losses finite, the least of the last 5 below the
+   first, every master moved (``coordination.logit_bias`` among them);
+   train pairs/s over micro-steps 4-20 of epoch 1. Then one dropout-0
+   micro-step on the kernel and on the plain path (plain attention,
+   unfused SigLIP): losses within 1e-2, named gradients within 5e-2
+   relative; and the plain path's train pairs/s;
+7. profile (only with ``--profile``): 8 micro-steps of the card on each
+   path under torch.profiler after 4 warm-up and 8 unprofiled ones: device
+   ms per micro-step by kernel, and the idle share, 1 − device busy /
+   unprofiled wall.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -66,7 +91,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
-SOURCES = ("attention_fwd", "attention_bwd", "clip_loss")
+SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -78,11 +103,48 @@ BWD_TOL = 1e-2    # of the largest |dqkv|
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
+# SigLIP (scale, bias): the head's init and the saturated ends where a
+# naive softplus would overflow
+SIGLIP_SCALARS = ((1.0, -10.0), (5.0, 30.0), (5.0, -30.0))
+SIGLIP_SHAPES = ((4, 16), (16, 16), (1, 256))  # (buckets, N), width 512
 SLICE_TOL = 5e-2
 STEP_LOSS_TOL = 1e-2
 STEP_GRAD_TOL = 5e-2
-ATTENTION_LAYERS = 12 + 2  # ViT-T blocks + ProfileTransformer layers
-SHAPES = {"vit": (197, 3, False), "profile": (225, 8, True)}  # L, H, mask
+ATTENTION_LAYERS = 12 + 2  # ViT blocks + ProfileTransformer layers
+# B, L, H, E, mask: the ViT flagship's layers, then the SigLIP card's
+SHAPES = {"vit": (256, 197, 3, 192, False),
+          "profile": (256, 225, 8, 192, True),
+          "card vit": (64, 197, 6, 384, False),
+          "card profile": (64, 225, 4, 128, True)}
+CARD_STEPS = 20    # micro-steps of 64 pairs per epoch
+CARD_EPOCHS = 2
+CARD_VALID = 2     # eval steps per epoch
+PROFILE_STEPS = 8  # two SGD updates at accumulation 4
+PROFILE_ROWS = 30  # kernels printed per path
+#: model_cards/multi/vit_s_16_transformer_2_512_siglip.yaml as a dict
+#: literal (the card's machine has no PyYAML); tests/test_torch_card.py
+#: holds it equal to the file
+CARD = {
+    "precision": "medium", "dim_embedding": 512, "max_len": 256,
+    "target_size": 224, "bs": 64, "buckets": 4, "num_workers": 8,
+    "patience": 20, "save_top_k": 5, "parallel": "shard_map",
+    "image_encoder_args": {
+        "name": "vit_small_patch16_224", "pretrained": False,
+        "num_classes": 0, "metadata": True, "in_chans": 1, "dropout": 0.1,
+        "fused_attention": True},
+    "profile_encoder_args": {
+        "kind": "transformer", "dim_in": 6, "dim_hidden": 128,
+        "num_head": 4, "num_layers": 2, "dim_feedforward": 1024,
+        "dropout": 0.1, "activation": "gelu", "target_size": 224,
+        "metadata": True, "fused_attention": True},
+    "coordination_args": {"method": "siglip", "negatives": "bucketed",
+                          "fused": True},
+    "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                   "nesterov": True},
+    "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                     "max_epochs": 200, "accumulate_grad_batches": 4,
+                     "check_val_every_n_epoch": 1},
+}
 NAMED_GRADS = (
     "coordination.logit_scale",
     "image_projection.weight",
@@ -150,6 +212,7 @@ def phase_build():
     attention._fwd_lib()
     attention._bwd_lib()
     contrastive._lib()
+    contrastive._siglip_lib()
     print(f"build: {', '.join(SOURCES)} in parallel, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, lib in libs.items():
@@ -174,14 +237,14 @@ def _check(label: str, got, want, tol: float, scale: float = 1.0) -> float:
     return err
 
 
-def _attention_inputs(gen, device, l, heads, masked, e=192):
+def _attention_inputs(gen, device, b, l, e, masked):
     import torch
 
-    qkv = torch.randn((BATCH, l, 3 * e), generator=gen, device=device
+    qkv = torch.randn((b, l, 3 * e), generator=gen, device=device
                       ).to(torch.bfloat16)
     bias = None
     if masked:
-        pad = torch.rand((BATCH, l), generator=gen, device=device) < 0.3
+        pad = torch.rand((b, l), generator=gen, device=device) < 0.3
         pad[:, 0] = False  # CLS is never masked
         bias = torch.where(pad, -1e9, 0.0).to(torch.float32)
     return qkv, bias
@@ -200,18 +263,15 @@ def phase_kernel(device):
     import torch
     from multimodal_plankton_recognition_torch.ops.attention import (
         mha_qkv, mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference)
-    from multimodal_plankton_recognition_torch.ops.contrastive import (
-        clip_bwd, clip_fwd, clip_loss_bwd_reference,
-        clip_loss_fused_reference)
 
     gen = torch.Generator(device=device).manual_seed(0)
     records = {}
     seed = 1234
-    for name, (l, heads, masked) in SHAPES.items():
-        qkv, bias = _attention_inputs(gen, device, l, heads, masked)
+    for name, (b, l, heads, e, masked) in SHAPES.items():
+        qkv, bias = _attention_inputs(gen, device, b, l, e, masked)
         modes = [("eval", 0.0)] + ([("train p=0.1", 0.1)] if masked else [])
         for mode, p in modes:
-            label = f"{name} B={BATCH} L={l} H={heads} mask={masked} {mode}"
+            label = f"{name} B={b} L={l} H={heads} mask={masked} {mode}"
             err = _check(f"mha_qkv_fwd {label}",
                          mha_qkv(qkv, bias, heads, p, seed),
                          mha_qkv_reference(qkv, bias, heads, p, seed),
@@ -224,21 +284,21 @@ def phase_kernel(device):
             e = qkv.shape[2] // 3
             exact = torch.zeros_like(qkv)
             exact[..., 2 * e:] = torch.where(
-                torch.rand((BATCH, l, e), generator=gen, device=device) < 0.5,
+                torch.rand((b, l, e), generator=gen, device=device) < 0.5,
                 -1.0, 1.0)
             err = _check(f"mha_qkv_fwd {name} mask check",
                          mha_qkv(exact, bias, heads, 0.1, seed),
                          mha_qkv_reference(exact, bias, heads, 0.1, seed),
                          0.0)
-            print(f"kernel mha_qkv_fwd [{name} train p=0.1, q=k=0, v=+-1]: "
-                  f"max_abs_err {err!r} (must be 0: same dropout mask)",
-                  flush=True)
+            print(f"kernel mha_qkv_fwd [{name} D={e // heads} train p=0.1, "
+                  f"q=k=0, v=+-1]: max_abs_err {err!r} (must be 0: same "
+                  f"dropout mask)", flush=True)
         p = 0.1 if masked else 0.0
         dout = torch.randn(qkv.shape[:2] + (qkv.shape[2] // 3,),
                            generator=gen, device=device).to(torch.bfloat16)
         want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, seed)
         scale = want.float().abs().max().item()
-        label = f"{name} B={BATCH} L={l} H={heads} mask={masked} p={p}"
+        label = f"{name} B={b} L={l} H={heads} mask={masked} p={p}"
         err = _check(f"mha_qkv_bwd {label}",
                      mha_qkv_bwd(qkv, bias, dout, heads, p, seed), want,
                      BWD_TOL, scale)
@@ -246,6 +306,16 @@ def phase_kernel(device):
                 cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p, seed)),
                 cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads,
                                                       p, seed)))
+    _clip_kernels(gen, device, records)
+    _siglip_kernels(gen, device, records)
+    return records
+
+
+def _clip_kernels(gen, device, records):
+    import torch
+    from multimodal_plankton_recognition_torch.ops.contrastive import (
+        clip_bwd, clip_fwd, clip_loss_bwd_reference,
+        clip_loss_fused_reference)
 
     for buckets, n in ((BUCKETS, BATCH // BUCKETS), (1, BATCH)):
         img = torch.randn((buckets * n, 512), generator=gen, device=device
@@ -275,7 +345,57 @@ def phase_kernel(device):
                 cuda_ms(lambda: clip_bwd(img, prof, scale, g, buckets)),
                 cuda_ms(lambda: clip_loss_bwd_reference(img, prof, scale, g,
                                                         buckets)))
-    return records
+
+
+def _siglip_kernels(gen, device, records):
+    """SigLIP forward and backward against their plain versions at each
+    shape and (scale, bias); timed at the head's init scalars."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops.contrastive import (
+        siglip_bwd, siglip_fwd, siglip_loss_bwd_reference,
+        siglip_loss_fused_reference)
+
+    g = torch.full((), 1.3, device=device)
+    for buckets, n in SIGLIP_SHAPES:
+        img, prof = (torch.randn((buckets * n, 512), generator=gen,
+                                 device=device).to(torch.bfloat16)
+                     for _ in range(2))
+        for i, (s, b) in enumerate(SIGLIP_SCALARS):
+            scale = torch.full((), s, device=device)
+            bias = torch.full((), b, device=device)
+            args = (img, prof, scale, bias)
+            label = f"buckets={buckets} N={n} D=512" + (
+                f" scale={s} bias={b}" if i else "")
+            want = siglip_loss_fused_reference(*args, buckets)
+            loss_scale = want.abs().item()
+            loss_err = _check(f"siglip_fwd {label}",
+                              siglip_fwd(*args, buckets), want,
+                              CLIP_LOSS_TOL, loss_scale)
+            got = siglip_bwd(*args, g, buckets)
+            want = siglip_loss_bwd_reference(*args, g, buckets)
+            top = max(w.float().abs().max().item() for w in want[:2])
+            err = max(_check(f"siglip_bwd {what} {label}", got[k], want[k],
+                             CLIP_GRAD_TOL, top)
+                      for k, what in enumerate(("d_image", "d_profile")))
+            for k, what in ((2, "d_logit_scale"), (3, "d_logit_bias")):
+                _check(f"siglip_bwd {what} {label}", got[k], want[k],
+                       CLIP_SCALE_TOL, want[k].abs().item())
+            if i:
+                print(f"kernel siglip [{label}]: loss err {loss_err!r} "
+                      f"(relative, tol {CLIP_LOSS_TOL}), grad err {err!r} "
+                      f"(of the largest, tol {CLIP_GRAD_TOL}), finite",
+                      flush=True)
+                continue
+            _report(records, "siglip_fwd", label, loss_err * loss_scale,
+                    CLIP_LOSS_TOL * loss_scale,
+                    cuda_ms(lambda: siglip_fwd(*args, buckets)),
+                    cuda_ms(lambda: siglip_loss_fused_reference(*args,
+                                                                buckets)))
+            _report(records, "siglip_bwd", label, err * top,
+                    CLIP_GRAD_TOL * top,
+                    cuda_ms(lambda: siglip_bwd(*args, g, buckets)),
+                    cuda_ms(lambda: siglip_loss_bwd_reference(*args, g,
+                                                              buckets)))
 
 
 def phase_slice(device):
@@ -370,32 +490,43 @@ def _train_state(model, state_dict, device):
     return state, train_step
 
 
+def _counters():
+    """{kernel name: wrapper}, each wrapper with its ``.launches`` count."""
+    from multimodal_plankton_recognition_torch.ops import (
+        attention, contrastive)
+
+    return {"mha_qkv_fwd": attention.mha_qkv,
+            "mha_qkv_bwd": attention.mha_qkv_bwd,
+            "clip_fwd": contrastive.clip_fwd,
+            "clip_bwd": contrastive.clip_bwd,
+            "siglip_fwd": contrastive.siglip_fwd,
+            "siglip_bwd": contrastive.siglip_bwd}
+
+
 def _pairs_per_s(state, train_step, batch, steps):
     """Train pairs/s over ``steps`` steps, ended by a synchronize."""
     import torch
 
+    bs = batch["image"].shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, _ = train_step(state, batch, 0)
     torch.cuda.synchronize()
-    return BATCH * steps / (time.perf_counter() - t0)
+    return bs * steps / (time.perf_counter() - t0)
 
 
 def phase_train(device):
     import torch
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
-    from multimodal_plankton_recognition_torch.ops import (
-        attention, contrastive)
 
-    counters = {"mha_qkv_fwd": attention.mha_qkv,
-                "mha_qkv_bwd": attention.mha_qkv_bwd,
-                "clip_fwd": contrastive.clip_fwd,
-                "clip_bwd": contrastive.clip_bwd}
+    counters = _counters()
+    # the CLIP flagship never routes through SigLIP
     per_step = {"mha_qkv_fwd": ATTENTION_LAYERS,
                 "mha_qkv_bwd": ATTENTION_LAYERS,
-                "clip_fwd": 1, "clip_bwd": 1}
+                "clip_fwd": 1, "clip_bwd": 1, "siglip_fwd": 0,
+                "siglip_bwd": 0}
     # f32 masters from an f32 model: never from one already rounded to bf16
     init = init_weights_(flagship_vit(dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
@@ -478,12 +609,261 @@ def phase_train(device):
     return launches
 
 
-def main() -> None:
+def _card(**overrides):
+    """The SigLIP card and the port's train-step pieces built from it:
+    (card, bf16 model on the CPU, optimizer, train_step, eval_step).
+    ``overrides``: encoder and head keys to change."""
+    import copy
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model, step_buckets)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_multi_steps, make_optimizer)
+
+    d = copy.deepcopy(CARD)
+    for field in ("image_encoder_args", "profile_encoder_args",
+                  "coordination_args"):
+        d[field].update(overrides.get(field, {}))
+    card = ModelCard.from_dict(d)
+    model = build_multi_model(card)
+    tx = make_optimizer(card.optim_args,
+                        card.trainer_args.accumulate_grad_batches)
+    train_step, eval_step = make_multi_steps(model, tx, step_buckets(card))
+    return card, model, tx, train_step, eval_step
+
+
+CARD_NAMED_GRADS = ("coordination.logit_bias",) + NAMED_GRADS
+PLAIN_CARD = {"image_encoder_args": {"fused_attention": False},
+              "profile_encoder_args": {"fused_attention": False},
+              "coordination_args": {"fused": False}}
+
+
+def phase_card(device):
+    """The SigLIP card's train path: card dict -> ModelCard ->
+    build_multi_model -> train step with accumulation 4 -> Fitter."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.train import (
+        Fitter, create_train_state)
+
+    counters = _counters()
+    per_step = {"mha_qkv_fwd": ATTENTION_LAYERS,
+                "mha_qkv_bwd": ATTENTION_LAYERS, "clip_fwd": 0,
+                "clip_bwd": 0, "siglip_fwd": 1, "siglip_bwd": 1}
+    per_eval = dict(per_step, mha_qkv_bwd=0, siglip_bwd=0)
+    card, model, tx, train_step, eval_step = _card()
+    bs = card.bs
+    # f32 masters from an f32 model: never from one already rounded to bf16
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    model.to(device)
+    state = create_train_state(model, init, tx)
+    batch = synthetic_batch_vit(bs, seed=4, device=device)
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def delta(before, want, what):
+        got = {n: c - before[n] for n, c in counts().items()}
+        if got != want:
+            fail(f"{what}: expected launches {want}, got {got}")
+
+    losses, clock = [], {}
+
+    def counted_train_step(state, batch, seed):
+        i = len(losses)
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            clock["t0"] = time.perf_counter()
+        before = counts()
+        state, loss = train_step(state, batch, seed)
+        delta(before, per_step, f"train micro-step {i + 1}")
+        losses.append(loss)
+        if i == CARD_STEPS - 1:
+            torch.cuda.synchronize()
+            clock["t1"] = time.perf_counter()
+        return state, loss
+
+    def counted_eval_step(state, batch):
+        before = counts()
+        out = eval_step(state, batch)
+        delta(before, per_eval, "eval step")
+        return out
+
+    fitter = Fitter(counted_train_step, counted_eval_step,
+                    max_epochs=CARD_EPOCHS,
+                    check_val_every_n_epoch=(
+                        card.trainer_args.check_val_every_n_epoch),
+                    seed=card.seed, put_fn=lambda b: b)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    state = fitter.fit(state, [batch] * CARD_STEPS, [batch] * CARD_VALID)
+    torch.cuda.synchronize()
+    launches = counts()
+    timed = CARD_STEPS - WARMUP_STEPS
+    rate = bs * timed / (clock["t1"] - clock["t0"])
+    losses = [float(x) for x in losses]
+    print(f"card: {CARD_EPOCHS} epochs of {CARD_STEPS} micro-steps of {bs} "
+          f"pairs, buckets {card.buckets}, accumulation "
+          f"{card.trainer_args.accumulate_grad_batches}: {rate!r} train "
+          f"pairs/s over micro-steps {WARMUP_STEPS + 1}-{CARD_STEPS} of "
+          f"epoch 1 ({(clock['t1'] - clock['t0']) / timed * 1e3!r} ms per "
+          f"micro-step); launches {launches}", flush=True)
+    print(f"card: history {fitter.history}", flush=True)
+    print(f"card: micro-step losses {losses}", flush=True)
+    want = {n: CARD_EPOCHS * (CARD_STEPS * per_step[n] + CARD_VALID
+                              * per_eval[n]) for n in counters}
+    if launches != want:
+        fail(f"card: expected launches {want}, got {launches}")
+    if not all(map(math.isfinite, losses)) or not all(
+            math.isfinite(h["train_loss"]) and math.isfinite(h["valid_loss"])
+            for h in fitter.history) or len(fitter.history) != CARD_EPOCHS:
+        fail(f"card: non-finite losses or history: {fitter.history}")
+    if not min(losses[-5:]) < losses[0]:
+        fail(f"card: train loss did not fall: first {losses[0]}, last five "
+             f"{losses[-5:]}")
+    if any(m.dtype != torch.float32 for m in state.params.values()):
+        fail("card: master weights are not all f32")
+    if any(p.dtype != torch.bfloat16 for n, p in model.named_parameters()
+           if not n.startswith("coordination.")):
+        fail("card: the compute module is not bf16")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or "coordination.logit_bias" not in state.params:
+        fail(f"card: master weights that did not move: {unmoved}")
+    bias = state.params["coordination.logit_bias"].item()
+    print(f"card: logit_bias -10.0 -> {bias!r}, logit_scale 1.0 -> "
+          f"{state.params['coordination.logit_scale'].item()!r}", flush=True)
+    del model, state, fitter
+
+    # one micro-step from the same weights, dropout 0: kernel path (attention
+    # and SigLIP kernels) vs plain path (plain attention, unfused SigLIP)
+    no_drop = {"image_encoder_args": {"dropout": 0.0},
+               "profile_encoder_args": {"dropout": 0.0}}
+    grads, step_losses = {}, {}
+    for path, over in (("kernel", {}), ("plain", PLAIN_CARD)):
+        merged = {k: {**no_drop.get(k, {}), **over.get(k, {})}
+                  for k in (*no_drop, "coordination_args")}
+        _, m, tx, step, _ = _card(**merged)
+        m.to(device)
+        st = create_train_state(m, init, tx)
+        _, loss = step(st, batch, 0)
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in CARD_NAMED_GRADS}
+        del m, st
+    loss_err = abs(step_losses["kernel"] - step_losses["plain"])
+    print(f"card step, dropout 0: loss kernel {step_losses['kernel']!r} "
+          f"plain {step_losses['plain']!r} (|diff| {loss_err!r}, tol "
+          f"{STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"card: kernel and plain steps disagree on the loss: "
+             f"{loss_err}")
+    for n in CARD_NAMED_GRADS:
+        k, p = grads["kernel"][n], grads["plain"][n]
+        rel = ((k - p).norm() / p.norm()).item()
+        print(f"  grad {n}: relative L2 diff {rel!r} (tol {STEP_GRAD_TOL})",
+              flush=True)
+        if not rel <= STEP_GRAD_TOL:
+            fail(f"card: kernel and plain steps disagree on {n}: {rel}")
+
+    _, plain, tx, pstep, _ = _card(**PLAIN_CARD)
+    plain.to(device)
+    pstate = create_train_state(plain, init, tx)
+    _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
+    plain_rate = _pairs_per_s(pstate, pstep, batch, CARD_STEPS - WARMUP_STEPS)
+    print(f"card: plain path {plain_rate!r} train pairs/s over "
+          f"{CARD_STEPS - WARMUP_STEPS} micro-steps", flush=True)
+    return launches
+
+
+def _device_ms(prof, steps):
+    """{kernel: [ms per step, launches per step]} of the device-side events
+    only (the aten ops carry device time too and would count it twice)."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:  # older torch
+            t = e.self_cuda_time_total
+        row = rows.setdefault(e.key, [0.0, 0.0])
+        row[0] += t / steps / 1e3
+        row[1] += e.count / steps
+    return rows
+
+
+def phase_profile(device):
+    """The card micro-step's device time by kernel (torch.profiler) on the
+    kernel and the plain path, and the device's idle share: 1 − (device
+    busy ms, profiled) / (wall ms, unprofiled), both per micro-step of the
+    same process and weights. The profiler's host cost per launch inflates
+    a profiled wall time, so it is not used."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    card = _card()[0]
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(card.bs, seed=4, device=device)
+    out = {}
+    for path, over in (("kernel", {}), ("plain", PLAIN_CARD)):
+        _, model, tx, step, _ = _card(**over)
+        model.to(device)
+        state = create_train_state(model, init, tx)
+        # warm-up to an update boundary, then whole accumulation cycles
+        _pairs_per_s(state, step, batch, WARMUP_STEPS + 1)
+        wall = card.bs / _pairs_per_s(state, step, batch, PROFILE_STEPS) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_STEPS):
+                state, _ = step(state, batch, 0)
+            torch.cuda.synchronize()
+        rows = _device_ms(prof, PROFILE_STEPS)
+        busy = sum(ms for ms, _ in rows.values())
+        if not busy > 0:
+            fail(f"profile {path}: the profiler saw no device time")
+        print(f"profile {path}: {PROFILE_STEPS} micro-steps of {card.bs}: "
+              f"wall {wall!r} ms (unprofiled), device busy {busy!r} ms, "
+              f"idle {1 - busy / wall!r} per micro-step", flush=True)
+        for key, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]
+                                   )[:PROFILE_ROWS]:
+            print(f"  {ms:9.4f} ms {100 * ms / busy:5.1f}% {n:7.1f}x "
+                  f"{key[:120]}", flush=True)
+        out[path] = {"wall_ms": wall, "busy_ms": busy,
+                     "idle": 1 - busy / wall, "kernels": rows}
+        del model, state
+    print(f"profile: {json.dumps(out)}", flush=True)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also break the card micro-step's device time "
+                             "down by kernel (torch.profiler)")
+    args = parser.parse_args(argv)
     device = phase_device()
     phase_build()
     records = phase_kernel(device)
     encode_launches = phase_slice(device)
     train_launches = phase_train(device)
+    card_launches = phase_card(device)
+    if args.profile:
+        phase_profile(device)
 
     import torch
 
@@ -496,8 +876,13 @@ def main() -> None:
             ("clip_fwd", "clip_loss.cu", "contrastive.py:39",
              f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512"),
             ("clip_bwd", "clip_loss.cu", "contrastive.py:58",
-             f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512")):
-        by_path = {"train": train_launches[name]}
+             f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512"),
+            ("siglip_fwd", "siglip_loss.cu", "contrastive.py:165",
+             "buckets=4 N=16 D=512"),
+            ("siglip_bwd", "siglip_loss.cu", "contrastive.py:180",
+             "buckets=4 N=16 D=512")):
+        by_path = {"train": train_launches[name],
+                   "card": card_launches[name]}
         if name == "mha_qkv_fwd":
             by_path["encode"] = encode_launches
         kernels.append({

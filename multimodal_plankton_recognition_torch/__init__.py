@@ -7,12 +7,15 @@ on converted weights (``convert.py``), and replaces each Pallas TPU kernel
 with a kernel written by hand for Hopper (``csrc/``, built at first use by
 ``ops/build.py``). It imports torch and never JAX.
 
-Ported so far, for the ViT flagship (``models.flagships``: ViT-T/16 +
-ProfileTransformer): the serving path — ``retrieval.encode`` and the exact
+Ported so far: for the ViT flagship (``models.flagships``: ViT-T/16 +
+ProfileTransformer), the serving path — ``retrieval.encode`` and the exact
 kNN classifier ``ops.knn`` — and the contrastive train step — ``train``
 (SGD on f32 master weights, ``make_multi_steps``) with train-mode dropout
-and the CLIP loss — on the kernels ``csrc/attention_fwd.cu``,
-``csrc/attention_bwd.cu`` and ``csrc/clip_loss.cu``.
+and the CLIP loss; for the ViT model cards, the card path — ``config``
+(``ModelCard``), ``models.build`` and ``train.Fitter`` — with every
+coordination method and the SigLIP loss. Kernels: ``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu`` and
+``csrc/siglip_loss.cu``.
 """
 
 __version__ = "0.1.0"

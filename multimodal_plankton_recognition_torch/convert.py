@@ -10,7 +10,10 @@ Leaf rules:
   -> one packed ``qkv`` Linear, q|k|v concatenated into (3E, E) and (3E,);
   ``out`` (H, D, E) -> (E, E);
 * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
-* ``bias``, ``cls_token``, ``pos_embed``, ``logit_scale`` keep their names.
+* ``bias``, ``cls_token``, ``pos_embed``, ``logit_scale``, ``logit_bias``
+  keep their names;
+* the ArcFace ``coordination/weight`` keeps its name and layout: it is
+  (out_features, in_features) in both trees, not a Dense kernel.
 
 Module names carry over (``block_3`` -> ``blocks.3``, ``layer_1`` ->
 ``layers.1``), except that the JAX ``ImageEncoder`` is named after its
@@ -30,7 +33,8 @@ from torch import nn
 
 from .models.image.registry import IMAGE_BACKBONES
 
-_SAME_NAME = ("bias", "cls_token", "pos_embed", "logit_scale")
+_SAME_NAME = ("bias", "cls_token", "pos_embed", "logit_scale",
+              "logit_bias")
 _RENAMED = {"scale": "weight", "embedding": "weight"}
 _ATTN_PARTS = ("query", "key", "value", "out")
 
@@ -62,7 +66,7 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
         return "weight", arr.T
     if name == "kernel" and arr.ndim == 4:
         return "weight", arr.transpose(3, 2, 0, 1)
-    if name in _SAME_NAME:
+    if name in _SAME_NAME or path[-2:] == ("coordination", "weight"):
         return name, arr
     if name in _RENAMED:
         return _RENAMED[name], arr

@@ -1,19 +1,21 @@
-"""Fused bucketed CLIP loss, forward and backward.
+"""Fused bucketed contrastive losses, forward and backward: CLIP and SigLIP.
 
-Port of the CLIP half of ``multimodal_plankton_recognition_tpu/ops/pallas/
-contrastive.py``: the TPU kernels ``_clip_fwd_kernel`` and
-``_clip_bwd_kernel`` become the hand-written Hopper kernels in
-``csrc/clip_loss.cu`` (one launch covers every bucket).
-``clip_loss_fused_reference`` and ``clip_loss_bwd_reference`` are their
-plain PyTorch versions, line by line: f32 inside, gradients returned in the
-embedding dtype, the cotangent divided by ``buckets`` (``contrastive.py:140``)
-and d logit_scale summed over buckets.
+Port of ``multimodal_plankton_recognition_tpu/ops/pallas/contrastive.py``:
+the TPU kernels ``_clip_fwd_kernel`` / ``_clip_bwd_kernel`` become the
+hand-written Hopper kernels in ``csrc/clip_loss.cu``, and
+``_siglip_fwd_kernel`` / ``_siglip_bwd_kernel`` those in
+``csrc/siglip_loss.cu`` (one entry point covers every bucket).
+``*_fused_reference`` and ``*_bwd_reference`` are their plain PyTorch
+versions, line by line: f32 inside, gradients returned in the embedding
+dtype, the cotangent divided by ``buckets`` (``contrastive.py:140, :252``)
+and the scalar gradients summed over buckets.
 
-``clip_loss_fused`` is the differentiable entry (a
-``torch.autograd.Function``): kernels on a CUDA tensor, plain versions on a
-CPU tensor, an error otherwise. Its value is the semantics of
-``ops.losses.clip_loss``. The SigLIP kernels are not ported yet
-(ROADMAP.md).
+``clip_loss_fused`` and ``siglip_loss_fused`` are the differentiable
+entries (``torch.autograd.Function``s): kernels on a CUDA tensor, plain
+versions on a CPU tensor, an error otherwise. Their values are the
+semantics of ``ops.losses.clip_loss`` and ``ops.losses.siglip_loss``. The
+scalars (``logit_scale``, ``logit_bias``) and the cotangent stay on the
+device: no step reads them on the host.
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ from . import build
 
 __all__ = ["clip_loss_fused", "clip_fwd", "clip_bwd",
            "clip_loss_fused_reference", "clip_loss_bwd_reference",
+           "siglip_loss_fused", "siglip_fwd", "siglip_bwd",
+           "siglip_loss_fused_reference", "siglip_loss_bwd_reference",
            "MAX_BUCKET"]
 
-#: largest bucket (rows per bucket) the kernels take (csrc/clip_loss.cu)
+#: largest bucket (rows per bucket) the kernels take (csrc/*_loss.cu)
 MAX_BUCKET = 256
+_SIGLIP_ROWS = 8  # rows of a tile in csrc/siglip_loss.cu
 _EPS = 1e-12
 
 
@@ -110,20 +115,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(image_emb: torch.Tensor) -> bool:
+def _on_cpu(image_emb: torch.Tensor, loss: str = "CLIP") -> bool:
     """True for a CPU tensor (plain version), False for CUDA (kernel)."""
     if image_emb.device.type == "cpu":
         return True
     if image_emb.device.type != "cuda":
-        raise ValueError(f"no CLIP kernel for device {image_emb.device}")
+        raise ValueError(f"no {loss} kernel for device {image_emb.device}")
     return False
 
 
-def _check_cuda_args(image_emb, profile_emb, logit_scale, buckets):
+def _check_scalar(name: str, value: torch.Tensor, image_emb: torch.Tensor):
+    if (value.numel() != 1 or value.dtype != torch.float32
+            or value.device != image_emb.device):
+        raise ValueError(f"{name} must be one f32 value on the embeddings' "
+                         f"device")
+
+
+def _check_cuda_args(image_emb, profile_emb, logit_scale, buckets,
+                     loss: str = "CLIP"):
     """Validate what the kernels take; return (bucket size, width)."""
     if image_emb.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the CLIP kernels take bf16 or f32 embeddings, got "
-                        f"{image_emb.dtype}")
+        raise TypeError(f"the {loss} kernels take bf16 or f32 embeddings, "
+                        f"got {image_emb.dtype}")
     if (image_emb.dim() != 2 or profile_emb.shape != image_emb.shape
             or profile_emb.dtype != image_emb.dtype
             or profile_emb.device != image_emb.device):
@@ -137,10 +150,7 @@ def _check_cuda_args(image_emb, profile_emb, logit_scale, buckets):
     if n > MAX_BUCKET:
         raise ValueError(f"bucket of {n} rows exceeds the kernels' "
                          f"{MAX_BUCKET}")
-    if (logit_scale.numel() != 1 or logit_scale.dtype != torch.float32
-            or logit_scale.device != image_emb.device):
-        raise ValueError("logit_scale must be one f32 value on the "
-                         "embeddings' device")
+    _check_scalar("logit_scale", logit_scale, image_emb)
     return n, d
 
 
@@ -229,3 +239,180 @@ def clip_loss_fused(image_emb: torch.Tensor, profile_emb: torch.Tensor,
     """Fused bucketed symmetric InfoNCE (semantics of
     ``ops.losses.clip_loss``), differentiable in all three inputs."""
     return _ClipLoss.apply(image_emb, profile_emb, logit_scale, buckets)
+
+
+def siglip_loss_fused_reference(image_emb: torch.Tensor,
+                                profile_emb: torch.Tensor,
+                                logit_scale: torch.Tensor,
+                                logit_bias: torch.Tensor,
+                                buckets: int = 1) -> torch.Tensor:
+    """Plain version of the SigLIP forward kernel: per bucket, normalise,
+    logits z = exp(scale)·i·pᵀ + bias, labels +1 on the diagonal and −1
+    off it, Σ softplus(−y·z) / N (``logaddexp(0, −y·z)``); mean over
+    buckets (f32)."""
+    x, y, n = _buckets(image_emb, profile_emb, buckets)
+    i, _ = _normalize(x)
+    p, _ = _normalize(y)
+    z = (i @ p.transpose(1, 2)) * torch.exp(logit_scale.float()) \
+        + logit_bias.float()
+    labels = 2.0 * torch.eye(n, dtype=z.dtype, device=z.device) - 1.0
+    xl = labels * z
+    losses = torch.logaddexp(torch.zeros_like(xl), -xl).sum(dim=(1, 2)) / n
+    return losses.mean()
+
+
+def siglip_loss_bwd_reference(image_emb: torch.Tensor,
+                              profile_emb: torch.Tensor,
+                              logit_scale: torch.Tensor,
+                              logit_bias: torch.Tensor, g: torch.Tensor,
+                              buckets: int = 1
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor]:
+    """Plain version of the SigLIP backward kernel: (d_image, d_profile) in
+    the embedding dtype, d logit_scale and d logit_bias (summed over
+    buckets) for the cotangent ``g`` of the mean loss."""
+    x, y, n = _buckets(image_emb, profile_emb, buckets)
+    i, i_nrm = _normalize(x)
+    p, p_nrm = _normalize(y)
+    scale_e = torch.exp(logit_scale.float())
+    s = i @ p.transpose(1, 2)
+    z = s * scale_e + logit_bias.float()
+    labels = 2.0 * torch.eye(n, dtype=z.dtype, device=z.device) - 1.0
+    gb = g.float() / buckets  # d(total)/d(bucket loss)
+    # d softplus(-y z)/dz = -y * sigmoid(-y z)
+    dz = gb / n * (-labels * torch.sigmoid(-labels * z))
+    d_scale = (dz * s).sum(dim=(1, 2)) * scale_e
+    d_bias = dz.sum(dim=(1, 2))
+    d_s = dz * scale_e
+    d_in = d_s @ p
+    d_pn = d_s.transpose(1, 2) @ i
+    di = (d_in - (d_in * i).sum(-1, keepdim=True) * i) / i_nrm
+    dp = (d_pn - (d_pn * p).sum(-1, keepdim=True) * p) / p_nrm
+    return (di.reshape(image_emb.shape).to(image_emb.dtype),
+            dp.reshape(profile_emb.shape).to(profile_emb.dtype),
+            d_scale.sum().to(logit_scale.dtype),
+            d_bias.sum().to(logit_bias.dtype))
+
+
+@functools.cache
+def _siglip_lib() -> ctypes.CDLL:
+    lib = build.load("siglip_loss")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.siglip_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.siglip_fwd.restype = ci
+    lib.siglip_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                               ci, ci, ci, vp]
+    lib.siglip_bwd.restype = ci
+    return lib
+
+
+def _siglip_cuda_args(image_emb, profile_emb, logit_scale, logit_bias,
+                      buckets):
+    """Validate what the SigLIP kernels take; return (bucket size, width,
+    row tiles per bucket)."""
+    n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets,
+                            "SigLIP")
+    _check_scalar("logit_bias", logit_bias, image_emb)
+    return n, d, -(-n // _SIGLIP_ROWS)
+
+
+def siglip_fwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+               logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+               buckets: int = 1) -> torch.Tensor:
+    """Mean bucketed SigLIP loss (f32 scalar): the forward kernel for CUDA
+    tensors, the plain version for CPU tensors. ``siglip_fwd.launches``
+    counts launches."""
+    if _on_cpu(image_emb, "SigLIP"):
+        return siglip_loss_fused_reference(image_emb, profile_emb,
+                                           logit_scale, logit_bias, buckets)
+    n, d, tiles = _siglip_cuda_args(image_emb, profile_emb, logit_scale,
+                                    logit_bias, buckets)
+    image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
+    dev = image_emb.device
+    rows = 2 * buckets * n
+    partial = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
+    scratch = torch.empty(rows * (d + 1), dtype=torch.float32, device=dev)
+    lib = _siglip_lib()
+    with torch.cuda.device(dev):
+        err = lib.siglip_fwd(image_emb.data_ptr(), profile_emb.data_ptr(),
+                             logit_scale.data_ptr(), logit_bias.data_ptr(),
+                             partial.data_ptr(), scratch.data_ptr(), buckets,
+                             n, d, int(image_emb.dtype == torch.bfloat16),
+                             torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "siglip_fwd")
+    siglip_fwd.launches += 1
+    return (partial.sum(dim=1) / n).mean()
+
+
+def siglip_bwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+               logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+               g: torch.Tensor, buckets: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """(d_image, d_profile, d_logit_scale, d_logit_bias) for the cotangent
+    ``g`` of the mean loss: the backward kernel for CUDA tensors, the plain
+    version for CPU tensors. ``siglip_bwd.launches`` counts launches."""
+    if _on_cpu(image_emb, "SigLIP"):
+        return siglip_loss_bwd_reference(image_emb, profile_emb, logit_scale,
+                                         logit_bias, g, buckets)
+    n, d, tiles = _siglip_cuda_args(image_emb, profile_emb, logit_scale,
+                                    logit_bias, buckets)
+    image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
+    dev = image_emb.device
+    rows = 2 * buckets * n
+    gb = (g.float() / buckets).reshape(1).contiguous()
+    d_img = torch.empty_like(image_emb)
+    d_prof = torch.empty_like(profile_emb)
+    ds_part = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
+    db_part = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
+    scratch = torch.empty(rows * (d + 1)
+                          + buckets * 2 * tiles * _SIGLIP_ROWS * d,
+                          dtype=torch.float32, device=dev)
+    lib = _siglip_lib()
+    with torch.cuda.device(dev):
+        err = lib.siglip_bwd(image_emb.data_ptr(), profile_emb.data_ptr(),
+                             logit_scale.data_ptr(), logit_bias.data_ptr(),
+                             gb.data_ptr(), d_img.data_ptr(),
+                             d_prof.data_ptr(), ds_part.data_ptr(),
+                             db_part.data_ptr(), scratch.data_ptr(), buckets,
+                             n, d, int(image_emb.dtype == torch.bfloat16),
+                             torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "siglip_bwd")
+    siglip_bwd.launches += 1
+    return (d_img, d_prof, ds_part.sum().to(logit_scale.dtype),
+            db_part.sum().to(logit_bias.dtype))
+
+
+siglip_fwd.launches = 0
+siglip_bwd.launches = 0
+
+
+class _SiglipLoss(torch.autograd.Function):
+    """Forward saves the embeddings and both scalars; backward recomputes
+    the logits (as the TPU kernel does) and returns all four gradients."""
+
+    @staticmethod
+    def forward(ctx, image_emb, profile_emb, logit_scale, logit_bias,
+                buckets):
+        ctx.save_for_backward(image_emb, profile_emb, logit_scale,
+                              logit_bias)
+        ctx.buckets = buckets
+        return siglip_fwd(image_emb, profile_emb, logit_scale, logit_bias,
+                          buckets)
+
+    @staticmethod
+    def backward(ctx, g):
+        image_emb, profile_emb, logit_scale, logit_bias = ctx.saved_tensors
+        di, dp, ds, db = siglip_bwd(image_emb, profile_emb, logit_scale,
+                                    logit_bias, g, ctx.buckets)
+        return (di, dp, ds.reshape(logit_scale.shape),
+                db.reshape(logit_bias.shape), None)
+
+
+def siglip_loss_fused(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+                      logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                      buckets: int = 1) -> torch.Tensor:
+    """Fused bucketed SigLIP (semantics of ``ops.losses.siglip_loss``),
+    differentiable in all four inputs."""
+    return _SiglipLoss.apply(image_emb, profile_emb, logit_scale, logit_bias,
+                             buckets)

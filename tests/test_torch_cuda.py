@@ -1,6 +1,6 @@
 """The CUDA kernels on a card, against their plain versions: attention
-forward (eval and train mode) and backward, CLIP loss forward and
-backward.
+forward (eval and train mode) and backward, CLIP and SigLIP loss forward
+and backward.
 
 Marked ``gpu``: each test skips without a CUDA card. On the card:
 
@@ -14,7 +14,11 @@ inputs whose every sum is exact (q = k = 0, v = ±1) the train-mode
 forward must equal its plain version bit for bit, which pins the dropout
 mask. CLIP: the loss to 1e-5 relative (f32 math on both sides), gradients
 to 1e-2 of their largest value (rounded to the embedding dtype),
-d logit_scale to 1e-3 relative.
+d logit_scale to 1e-3 relative; SigLIP the same, d logit_bias like
+d logit_scale, also at scale 5 with bias ±30 where a naive softplus would
+overflow. The attention kernels are also held at the SigLIP card's shapes
+(ViT-S: L 197, 6 heads of 64; profile: L 225, 4 heads of 32 with mask and
+dropout 0.1).
 """
 
 import pytest
@@ -29,7 +33,9 @@ from multimodal_plankton_recognition_torch.ops.attention import (
 )
 from multimodal_plankton_recognition_torch.ops.contrastive import (
     MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
-    clip_loss_fused, clip_loss_fused_reference,
+    clip_loss_fused, clip_loss_fused_reference, siglip_bwd, siglip_fwd,
+    siglip_loss_bwd_reference, siglip_loss_fused,
+    siglip_loss_fused_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -227,3 +233,95 @@ def test_clip_bucket_above_max_raises(cuda):
         clip_fwd(img, prof, scale, 1)
     with pytest.raises(ValueError, match="exceeds"):
         clip_bwd(img, prof, scale, torch.ones((), device=cuda), 1)
+
+
+SIGLIP_SCALARS = [(0.7, -10.0), (5.0, 30.0), (5.0, -30.0)]
+
+
+@pytest.mark.parametrize("scale_bias", SIGLIP_SCALARS,
+                         ids=["init", "bias+30", "bias-30"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("buckets,n,d", [(1, 1, 8), (4, 16, 512),
+                                         (16, 16, 512), (1, 256, 512),
+                                         (2, 100, 33), (3, 9, 40)])
+def test_siglip_kernels_match_plain(cuda, buckets, n, d, dtype, scale_bias):
+    img, prof = _embeddings(cuda, buckets * n, d, dtype)
+    scale = torch.full((), scale_bias[0], device=cuda)
+    bias = torch.full((), scale_bias[1], device=cuda)
+    g = torch.full((), 1.3, device=cuda)
+    before = siglip_fwd.launches, siglip_bwd.launches
+    loss = siglip_fwd(img, prof, scale, bias, buckets)
+    grads = siglip_bwd(img, prof, scale, bias, g, buckets)
+    assert (siglip_fwd.launches, siglip_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = siglip_loss_fused_reference(img, prof, scale, bias, buckets)
+    want_grads = siglip_loss_bwd_reference(img, prof, scale, bias, g,
+                                           buckets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert abs(loss.item() - want.item()) <= 1e-5 * max(abs(want.item()), 1)
+    for got, ref in zip(grads[:2], want_grads[:2]):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        top = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() \
+            <= 1e-2 * top + 1e-7
+    for got, ref in zip(grads[2:], want_grads[2:]):
+        assert torch.isfinite(got)
+        assert abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-7
+
+
+def test_siglip_autograd_launches_both_kernels(cuda):
+    img, prof = _embeddings(cuda, 64, 32, torch.bfloat16, seed=1)
+    leaves = [t.requires_grad_() for t in (img, prof)]
+    scale = torch.zeros((), device=cuda, requires_grad=True)
+    bias = torch.full((), -10.0, device=cuda, requires_grad=True)
+    before = siglip_fwd.launches, siglip_bwd.launches
+    siglip_loss_fused(*leaves, scale, bias, 4).backward()
+    assert (siglip_fwd.launches, siglip_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert all(t.grad is not None for t in (*leaves, scale, bias))
+
+
+def test_siglip_refuses_what_the_kernels_do_not_take(cuda):
+    img, prof = _embeddings(cuda, MAX_BUCKET + 1, 16, torch.bfloat16)
+    scale = torch.zeros((), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        siglip_fwd(img, prof, scale, scale, 1)
+    img, prof = _embeddings(cuda, 8, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="logit_bias"):
+        siglip_fwd(img, prof, scale, torch.zeros(()), 1)  # bias on the CPU
+    with pytest.raises(ValueError, match="logit_bias"):
+        siglip_bwd(img, prof, scale, scale.double(), torch.ones((),
+                                                                device=cuda),
+                   1)
+    with pytest.raises(TypeError, match="SigLIP"):
+        siglip_fwd(img.half(), prof.half(), scale, scale, 1)
+
+
+# the SigLIP card: ViT-S (E 384) and its profile encoder (E 128), batch 64
+CARD_SHAPES = [(64, 197, 6, 64, False), (64, 225, 4, 32, True)]
+
+
+@pytest.mark.parametrize("b,l,heads,d,masked", CARD_SHAPES,
+                         ids=["vit_s", "profile"])
+def test_attention_at_the_card_shapes(cuda, b, l, heads, d, masked):
+    """Forward in eval and train mode, backward, and the bit-exact mask
+    check (q = k = 0, v = ±1) at the shapes the card's train step runs."""
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=5)
+    p = 0.1 if masked else 0.0
+    for rate in {0.0, p}:
+        out = mha_qkv(qkv, bias, heads, rate, 31)
+        ref = mha_qkv_reference(qkv, bias, heads, rate, 31)
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref.float()).abs().max().item() <= TOL
+    dout = torch.randn((b, l, heads * d), device=cuda).to(torch.bfloat16)
+    got = mha_qkv_bwd(qkv, bias, dout, heads, p, 37)
+    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, 37)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= BWD_TOL * scale
+    e = heads * d
+    exact = torch.zeros_like(qkv)
+    signs = torch.rand((b, l, e), device=cuda) < 0.5
+    exact[..., 2 * e:] = torch.where(signs, -1.0, 1.0).to(qkv.dtype)
+    assert torch.equal(mha_qkv(exact, bias, heads, 0.1, 41),
+                       mha_qkv_reference(exact, bias, heads, 0.1, 41))

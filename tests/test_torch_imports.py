@@ -2,8 +2,10 @@
 ``chip_smoke.py``.
 
 The port never imports JAX; its card paths (everything ``chip_smoke.py``
-drives: the encode path and the train path) load none of jax, flax,
-pandas, PIL or yaml, which the card's machine need not have.
+drives: the encode path, the train path and the model-card path
+``config.ModelCard.from_dict`` → ``models.build`` → ``train.Fitter``) load
+none of jax, flax, pandas, PIL or yaml, which the card's machine need not
+have; ``config.load_card`` imports yaml only when called.
 ``encode_csv`` alone reaches the JAX package's host layers (pandas, PIL),
 lazily.
 """
@@ -35,9 +37,12 @@ CARD_PATH_MODULES = [
 ]
 TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.config",
+    "multimodal_plankton_recognition_torch.models.build",
     "multimodal_plankton_recognition_torch.models.dropout",
     "multimodal_plankton_recognition_torch.ops.contrastive",
     "multimodal_plankton_recognition_torch.train",
+    "multimodal_plankton_recognition_torch.train.early_stopping",
+    "multimodal_plankton_recognition_torch.train.logging",
     "multimodal_plankton_recognition_torch.train.loop",
     "multimodal_plankton_recognition_torch.train.optim",
     "multimodal_plankton_recognition_torch.train.state",
