@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
-card: the ViT flagship's encode and train step, and the ViT-S SigLIP model
-card's train path.
+card: the ViT flagship's encode and train step, the ViT-S SigLIP model
+card's train path, the B0 flagship's encode and the B0 CLIP model card's
+train path with ``fused_mbconv``.
 
     python3 chip_smoke.py [--profile]
 
@@ -16,16 +17,20 @@ fatal on failure:
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
    B=64: ViT-S L=197 H=6 D=64, profile L=225 H=4 D=32 with padding), with
-   max abs error, its tolerance, no NaN, and median ms of kernel and plain
-   version (CUDA events after warm-up):
+   max abs error, its tolerance, no NaN, median ms of kernel and plain
+   version (CUDA events after warm-up), and the kernel's bound: the larger
+   of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
+   its products over 989 TFLOP/s (bf16), from the H100 SXM's data sheet:
    * attention forward (``mha_qkv`` vs ``mha_qkv_reference``), eval mode at
      every shape and train mode (dropout 0.1) at the profile shapes, within
-     2e-2; and train mode on inputs whose every sum is exact (q = k = 0,
-     v = ±1), where kernel and plain version must agree bit for bit, so a
-     single mask bit that differs would show (D = 24 and D = 32);
+     2e-2, beside ``F.scaled_dot_product_attention`` on the same inputs (the
+     library's time; the port never calls it); and train mode on inputs
+     whose every sum is exact (q = k = 0, v = ±1), where kernel and plain
+     version must agree bit for bit, so a single mask bit that differs
+     would show (D = 24 and D = 32);
    * attention backward (``mha_qkv_bwd`` vs ``mha_qkv_bwd_reference``) at
      the ViT shapes and at the profile shapes with mask and dropout 0.1,
-     within 1e-2 of the largest |dqkv|;
+     within 1e-2 of the largest |dqkv|, beside SDPA's backward;
    * CLIP loss forward and backward (``clip_fwd`` / ``clip_bwd`` vs
      ``clip_loss_fused_reference`` / ``clip_loss_bwd_reference``) at 16
      buckets of 16 and 1 bucket of 256, width 512: loss within 1e-5
@@ -36,6 +41,10 @@ fatal on failure:
      buckets of 16 (the card), 16 of 16 and 1 of 256, width 512, bf16, at
      the head's init (scale 1, bias −10) and at scale 5 with bias ±30: the
      CLIP tolerances, d logit_bias like d logit_scale;
+   * MBConv kernels 13-16 (``ka_fwd``, ``kb_fwd``, ``kb_bwd``, ``ka_bwd`` vs
+     their ``*_reference``) at each of the 8 distinct shapes of B0's
+     stride-1 blocks at B 64, every output within 2e-2 of max(1,
+     max|plain|) and 1e-3 relative L2;
 4. encode: the full-width ViT flagship (bf16, dim_embed 512, random weights
    from a seeded torch.Generator) encodes a synthetic gallery of 2,048
    pairs in batches of 256 through ``retrieval.encode.encode_arrays``; the
@@ -70,10 +79,26 @@ fatal on failure:
    micro-step on the kernel and on the plain path (plain attention,
    unfused SigLIP): losses within 1e-2, named gradients within 5e-2
    relative; and the plain path's train pairs/s;
-7. profile (only with ``--profile``): 8 micro-steps of the card on each
-   path under torch.profiler after 4 warm-up and 8 unprofiled ones: device
-   ms per micro-step by kernel, and the idle share, 1 − device busy /
-   unprofiled wall.
+7. B0 encode: the full-width B0 flagship (bf16, dim_embed 512, seeded
+   random weights; its BatchNorm statistics set by one momentum-0
+   train-mode pass over a seeded batch) encodes 2,048 pairs in batches of
+   256 in eval mode (cuDNN; no kernel of the port may launch); embeddings
+   finite, unit norm, self-gallery k = 1 >= 99% for image and profile;
+8. B0 card: ``B0_CARD`` (model_cards/multi/efficientnet_b0_cnn_2_512_
+   clip.yaml with ``fused_mbconv: true``: EfficientNet-B0 + ProfileCNN
+   2-2-2-2, CLIP, bs 64 in 4 buckets, accumulation 4, bf16) through
+   ``Fitter`` as in 6: per micro-step 12 launches of each MBConv kernel and
+   1 + 1 CLIP, per eval step 0 MBConv and 1 CLIP forward; every master and
+   running statistic moved, the statistics f32. Then one dropout-0
+   micro-step on the kernel route, the plain ``mbconv_core`` route and the
+   cuDNN route (``fused_mbconv: false``), held within 1e-2 (loss) and the
+   JAX package's statistical bounds (named gradients: correlation > 0.95,
+   relative L2 each < 0.3), beside the plain route on nudged images (the
+   step's own sensitivity); train pairs/s on the three routes;
+9. profile (only with ``--profile``): 8 micro-steps of each card on two
+   routes under torch.profiler after 4 warm-up and 8 unprofiled ones:
+   device ms per micro-step by kernel, and the idle share, 1 − device busy
+   / unprofiled wall.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -81,6 +106,7 @@ The line before the last is a JSON record of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -91,7 +117,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
-SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss")
+SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss",
+           "mbconv_fwd", "mbconv_bwd")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -116,6 +143,25 @@ SHAPES = {"vit": (256, 197, 3, 192, False),
           "profile": (256, 225, 8, 192, True),
           "card vit": (64, 197, 6, 384, False),
           "card profile": (64, 225, 4, 128, True)}
+# the least time of a kernel: NVIDIA's data sheet for one H100 SXM (dense,
+# at 700 W); bytes over the HBM rate, bf16 products over the tensor rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# the 8 distinct shapes of B0's 12 stride-1 MBConv blocks, which the kernel
+# phase checks at the card's batch of 64: first block of that shape ->
+# (H = W, cin, mid, cout, k, SE width)
+MBCONV_SHAPES = {"stage1_block0": (112, 32, 32, 16, 3, 8),
+                 "stage2_block1": (56, 24, 144, 24, 3, 6),
+                 "stage3_block1": (28, 40, 240, 40, 5, 10),
+                 "stage4_block1": (14, 80, 480, 80, 3, 20),
+                 "stage5_block0": (14, 80, 480, 112, 5, 20),
+                 "stage5_block1": (14, 112, 672, 112, 5, 28),
+                 "stage6_block1": (7, 192, 1152, 192, 5, 48),
+                 "stage7_block0": (7, 192, 1152, 320, 3, 48)}
+MBCONV_TOL = 2e-2  # of max(1, the largest |plain value|), each output
+MBCONV_REL_TOL = 1e-3  # relative L2 of each output (measured: <= 2e-4)
+MBCONV_BLOCKS = 12  # B0's stride-1 blocks: each MBConv kernel per micro-step
+STAT_CORR, STAT_RMS = 0.95, 0.3  # the JAX package's fused-vs-unfused bounds
 CARD_STEPS = 20    # micro-steps of 64 pairs per epoch
 CARD_EPOCHS = 2
 CARD_VALID = 2     # eval steps per epoch
@@ -145,6 +191,42 @@ CARD = {
                      "max_epochs": 200, "accumulate_grad_batches": 4,
                      "check_val_every_n_epoch": 1},
 }
+#: model_cards/multi/efficientnet_b0_cnn_2_512_clip.yaml as a dict literal
+#: with ``fused_mbconv: true`` added; tests/test_torch_card.py holds it
+#: equal to the file but for that key
+B0_CARD = {
+    "precision": "medium", "dim_embedding": 512, "max_len": 256,
+    "target_size": 224, "bs": 64, "buckets": 4, "num_workers": 8,
+    "patience": 20, "save_top_k": 5,
+    "image_encoder_args": {
+        "name": "efficientnet_b0", "pretrained": False, "num_classes": 0,
+        "metadata": True, "in_chans": 1, "dropout": 0.1,
+        "fused_mbconv": True},
+    "profile_encoder_args": {
+        "kind": "cnn", "dim_in": 6, "blocks": [2, 2, 2, 2],
+        "base_channels": 32, "dropout": 0.1, "metadata": True},
+    "coordination_args": {"method": "clip", "negatives": "bucketed",
+                          "fused": True},
+    "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                   "nesterov": True},
+    "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                     "max_epochs": 200, "accumulate_grad_batches": 4,
+                     "check_val_every_n_epoch": 1},
+}
+# (not logit_scale: at the init the loss sits at ln 16, a bucket of 16, and
+# d logit_scale is one sum that nearly cancels)
+B0_NAMED_GRADS = (
+    "image_projection.weight",
+    "profile_projection.weight",
+    "image_encoder.backbone.head_conv.weight",
+    "image_encoder.backbone.stage7_block0.project_conv.weight",
+    "image_encoder.backbone.stage5_block1.dw_conv.weight",
+    "image_encoder.backbone.stage2_block1.expand_conv.weight",
+    "image_encoder.backbone.stage2_block1.se.reduce.weight",
+    "image_encoder.backbone.stage1_block0.dw_conv.weight",
+    "image_encoder.backbone.stage1_block0.dw_bn.weight",
+    "profile_encoder.stage4_block1.conv2.weight",
+)
 NAMED_GRADS = (
     "coordination.logit_scale",
     "image_projection.weight",
@@ -205,7 +287,7 @@ def phase_device():
 
 def phase_build():
     from multimodal_plankton_recognition_torch.ops import (
-        attention, build, contrastive)
+        attention, build, contrastive, mbconv)
 
     t0 = time.perf_counter()
     libs = build.build_all(SOURCES)
@@ -213,6 +295,8 @@ def phase_build():
     attention._bwd_lib()
     contrastive._lib()
     contrastive._siglip_lib()
+    mbconv._fwd_lib()
+    mbconv._bwd_lib()
     print(f"build: {', '.join(SOURCES)} in parallel, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, lib in libs.items():
@@ -250,11 +334,62 @@ def _attention_inputs(gen, device, b, l, e, masked):
     return qkv, bias
 
 
-def _report(records, name, label, err, tol, ms, plain_ms):
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors among ``tensors`` (nested in tuples too)."""
+    import torch
+
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += _nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _bound(inputs, outputs, flops):
+    """(ms, "bytes" or "operations"): the least time of a function on this
+    card, the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its bf16 products over the tensor
+    rate."""
+    by_bytes = _nbytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _report(records, name, label, err, tol, ms, plain_ms, bound,
+            library_ms=None):
     print(f"kernel {name} [{label}]: max_abs_err {err!r} (tol {tol}), "
-          f"kernel {ms!r} ms, plain {plain_ms!r} ms", flush=True)
+          f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound[0]!r} ms "
+          f"({bound[1]}), library {library_ms!r} ms", flush=True)
     records.setdefault(name, {})[label] = {
-        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": library_ms}
+
+
+def _sdpa_ms(qkv, bias, heads, p, dout=None):
+    """Milliseconds of ``F.scaled_dot_product_attention`` on the kernel's
+    inputs (q, k, v views of ``qkv``, ``bias`` as an additive key mask):
+    the forward, or with ``dout`` its backward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    b, l, e3 = qkv.shape
+    e = e3 // 3
+    q, k, v = (qkv[..., i * e:(i + 1) * e].reshape(b, l, heads, e // heads)
+               .transpose(1, 2) for i in range(3))
+    mask = None if bias is None else bias[:, None, None, :].to(qkv.dtype)
+    if dout is None:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=p))
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         dropout_p=p)
+    dout = dout.reshape(b, l, heads, e // heads).transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                               retain_graph=True))
 
 
 def phase_kernel(device):
@@ -272,14 +407,17 @@ def phase_kernel(device):
         modes = [("eval", 0.0)] + ([("train p=0.1", 0.1)] if masked else [])
         for mode, p in modes:
             label = f"{name} B={b} L={l} H={heads} mask={masked} {mode}"
-            err = _check(f"mha_qkv_fwd {label}",
-                         mha_qkv(qkv, bias, heads, p, seed),
+            out = mha_qkv(qkv, bias, heads, p, seed)
+            err = _check(f"mha_qkv_fwd {label}", out,
                          mha_qkv_reference(qkv, bias, heads, p, seed),
                          KERNEL_TOL)
+            # QK^T and PV: 4 B L^2 E
             _report(records, "mha_qkv_fwd", label, err, KERNEL_TOL,
                     cuda_ms(lambda: mha_qkv(qkv, bias, heads, p, seed)),
                     cuda_ms(lambda: mha_qkv_reference(qkv, bias, heads, p,
-                                                      seed)))
+                                                      seed)),
+                    _bound((qkv, bias), out, 4 * b * l * l * e),
+                    _sdpa_ms(qkv, bias, heads, p))
         if masked:  # exact sums: the masks must agree bit for bit
             e = qkv.shape[2] // 3
             exact = torch.zeros_like(qkv)
@@ -302,12 +440,16 @@ def phase_kernel(device):
         err = _check(f"mha_qkv_bwd {label}",
                      mha_qkv_bwd(qkv, bias, dout, heads, p, seed), want,
                      BWD_TOL, scale)
+        # S recomputed, dV, dP, dQ, dK: 10 B L^2 E
         _report(records, "mha_qkv_bwd", label, err * scale, BWD_TOL * scale,
                 cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p, seed)),
                 cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads,
-                                                      p, seed)))
+                                                      p, seed)),
+                _bound((qkv, bias, dout), want, 10 * b * l * l * e),
+                _sdpa_ms(qkv, bias, heads, p, dout))
     _clip_kernels(gen, device, records)
     _siglip_kernels(gen, device, records)
+    _mbconv_kernels(gen, device, records)
     return records
 
 
@@ -328,11 +470,14 @@ def _clip_kernels(gen, device, records):
         want = clip_loss_fused_reference(img, prof, scale, buckets)
         err = _check(f"clip_fwd {label}", clip_fwd(img, prof, scale, buckets),
                      want, CLIP_LOSS_TOL, want.abs().item())
+        # the logits of each bucket: 2 N^2 D; the backward also 2 + 2
+        flops = 2 * buckets * n * n * 512
         _report(records, "clip_fwd", label, err * want.abs().item(),
                 CLIP_LOSS_TOL * want.abs().item(),
                 cuda_ms(lambda: clip_fwd(img, prof, scale, buckets)),
                 cuda_ms(lambda: clip_loss_fused_reference(img, prof, scale,
-                                                          buckets)))
+                                                          buckets)),
+                _bound((img, prof, scale), want, flops))
         got = clip_bwd(img, prof, scale, g, buckets)
         want = clip_loss_bwd_reference(img, prof, scale, g, buckets)
         top = max(w.float().abs().max().item() for w in want[:2])
@@ -344,7 +489,8 @@ def _clip_kernels(gen, device, records):
         _report(records, "clip_bwd", label, err * top, CLIP_GRAD_TOL * top,
                 cuda_ms(lambda: clip_bwd(img, prof, scale, g, buckets)),
                 cuda_ms(lambda: clip_loss_bwd_reference(img, prof, scale, g,
-                                                        buckets)))
+                                                        buckets)),
+                _bound((img, prof, scale, g), got, 3 * flops))
 
 
 def _siglip_kernels(gen, device, records):
@@ -367,6 +513,7 @@ def _siglip_kernels(gen, device, records):
             label = f"buckets={buckets} N={n} D=512" + (
                 f" scale={s} bias={b}" if i else "")
             want = siglip_loss_fused_reference(*args, buckets)
+            loss_bound = _bound(args, want, 2 * buckets * n * n * 512)
             loss_scale = want.abs().item()
             loss_err = _check(f"siglip_fwd {label}",
                               siglip_fwd(*args, buckets), want,
@@ -390,12 +537,82 @@ def _siglip_kernels(gen, device, records):
                     CLIP_LOSS_TOL * loss_scale,
                     cuda_ms(lambda: siglip_fwd(*args, buckets)),
                     cuda_ms(lambda: siglip_loss_fused_reference(*args,
-                                                                buckets)))
+                                                                buckets)),
+                    loss_bound)
             _report(records, "siglip_bwd", label, err * top,
                     CLIP_GRAD_TOL * top,
                     cuda_ms(lambda: siglip_bwd(*args, g, buckets)),
                     cuda_ms(lambda: siglip_loss_bwd_reference(*args, g,
-                                                              buckets)))
+                                                              buckets)),
+                    _bound((args, g), got, 3 * 2 * buckets * n * n * 512))
+
+
+def _mbconv_kernels(gen, device, records):
+    """MBConv kernels 13-16 against their plain versions at B0's blocks of
+    ``MBCONV_SHAPES``, each on the inputs its plain version gets (kernel
+    14 and 16 on the plain y2, m1, v1)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import mbconv as mb
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale \
+            + shift
+
+    b = B0_CARD["bs"]
+    for block, (hw, cin, mid, cout, k, r) in MBCONV_SHAPES.items():
+        expand = mid != cin
+        x = rnd(b, hw, hw, cin).to(torch.bfloat16)
+        wexp = rnd(cin, mid, scale=cin ** -0.5) if expand else None
+        g1 = rnd(mid, scale=0.1, shift=1.0) if expand else None
+        b1 = rnd(mid, scale=0.1) if expand else None
+        wdw = rnd(k, k, mid, scale=1.0 / k)
+        g2, b2 = rnd(mid, scale=0.1, shift=1.0), rnd(mid, scale=0.1)
+        wr, br = rnd(mid, r, scale=mid ** -0.5), rnd(r, scale=0.1)
+        we, be = rnd(r, mid, scale=r ** -0.5), rnd(mid, scale=0.1)
+        wproj = rnd(mid, cout, scale=mid ** -0.5)
+        dy3 = rnd(b, hw, hw, cout).to(torch.bfloat16)
+        dy2 = rnd(b, hw, hw, mid).to(torch.bfloat16)
+        y2, m1, v1, m2, v2 = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+        n = b * hw * hw
+        se = 4 * b * mid * r  # the SE products, per pass
+        # (name, wrapper, plain version, arguments, bf16 products)
+        cases = (
+            ("mbconv_ka_fwd", mb.ka_fwd, mb.ka_fwd_reference,
+             (x, wexp, g1, b1, wdw, k),
+             2 * n * cin * mid * expand + 2 * n * mid * k * k),
+            ("mbconv_kb_fwd", mb.kb_fwd, mb.kb_fwd_reference,
+             (y2, g2, b2, m2, v2, wr, br, we, be, wproj),
+             2 * n * mid * cout + se),
+            ("mbconv_kb_bwd", mb.kb_bwd, mb.kb_bwd_reference,
+             (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj),
+             4 * n * mid * cout + 3 * se),
+            ("mbconv_ka_bwd", mb.ka_bwd, mb.ka_bwd_reference,
+             (x, dy2, wexp, g1, b1, wdw, m1, v1, k),
+             6 * n * cin * mid * expand + 4 * n * mid * k * k))
+        label = (f"{block} B={b} H=W={hw} cin={cin} mid={mid} cout={cout} "
+                 f"k={k} r={r}")
+        for name, fn, plain, args, flops in cases:
+            want = plain(*args)
+            got = fn(*args)
+            err = rel = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                if (g is None) != (w is None):
+                    fail(f"{name} {label}: output {i} is None on one side")
+                if w is None:
+                    continue
+                scale = max(1.0, w.float().abs().max().item())
+                err = max(err, scale * _check(f"{name} {label} output {i}",
+                                              g, w, MBCONV_TOL, scale))
+                diff = (g.float() - w.float()).norm().item()
+                rel = max(rel, diff / max(w.float().norm().item(), 1e-30))
+            if not rel <= MBCONV_REL_TOL:
+                fail(f"{name} {label}: relative L2 error {rel!r} > "
+                     f"{MBCONV_REL_TOL}")
+            _report(records, name, label, err,
+                    f"{MBCONV_TOL} of max(1, max|plain|) per output; "
+                    f"relative L2 {rel!r} (tol {MBCONV_REL_TOL})",
+                    cuda_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args)),
+                    _bound(args, want, flops))
 
 
 def phase_slice(device):
@@ -403,7 +620,6 @@ def phase_slice(device):
     import torch
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
-    from multimodal_plankton_recognition_torch.ops.attention import mha_qkv
     from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
     from multimodal_plankton_recognition_torch.retrieval.encode import (
         encode_arrays)
@@ -419,22 +635,22 @@ def phase_slice(device):
     warm = {k: v[:BATCH] for k, v in gallery.items()}
     encode_arrays(model, warm, labels[:BATCH], BATCH, device)  # warm-up
 
-    mha_qkv.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     emb = encode_arrays(model, gallery, labels, BATCH, device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = mha_qkv.launches
+    launches = _counts()
 
     n_batches = GALLERY // BATCH
     print(f"slice: encoded {GALLERY} pairs in {n_batches} batches of "
           f"{BATCH}: {GALLERY / seconds!r} pairs/s ({seconds!r} s), "
-          f"attention launches {launches} "
-          f"({launches / n_batches!r} per batch)", flush=True)
-    if launches != ATTENTION_LAYERS * n_batches:
-        fail(f"expected {ATTENTION_LAYERS} attention launches per batch, got "
-             f"{launches} over {n_batches} batches")
+          f"launches {launches}", flush=True)
+    want = {n: c * n_batches
+            for n, c in _per_step(mha_qkv_fwd=ATTENTION_LAYERS).items()}
+    if launches != want:
+        fail(f"encode: expected launches {want}, got {launches}")
 
     encode_arrays(plain, warm, labels[:BATCH], BATCH, device)  # warm-up
     torch.cuda.synchronize()
@@ -493,14 +709,32 @@ def _train_state(model, state_dict, device):
 def _counters():
     """{kernel name: wrapper}, each wrapper with its ``.launches`` count."""
     from multimodal_plankton_recognition_torch.ops import (
-        attention, contrastive)
+        attention, contrastive, mbconv)
 
     return {"mha_qkv_fwd": attention.mha_qkv,
             "mha_qkv_bwd": attention.mha_qkv_bwd,
             "clip_fwd": contrastive.clip_fwd,
             "clip_bwd": contrastive.clip_bwd,
             "siglip_fwd": contrastive.siglip_fwd,
-            "siglip_bwd": contrastive.siglip_bwd}
+            "siglip_bwd": contrastive.siglip_bwd,
+            "mbconv_ka_fwd": mbconv.ka_fwd,
+            "mbconv_kb_fwd": mbconv.kb_fwd,
+            "mbconv_kb_bwd": mbconv.kb_bwd,
+            "mbconv_ka_bwd": mbconv.ka_bwd}
+
+
+def _per_step(**counts):
+    """Launches per step of every counted kernel: ``counts``, else 0."""
+    return {name: counts.get(name, 0) for name in _counters()}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _pairs_per_s(state, train_step, batch, steps):
@@ -521,12 +755,10 @@ def phase_train(device):
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
 
-    counters = _counters()
-    # the CLIP flagship never routes through SigLIP
-    per_step = {"mha_qkv_fwd": ATTENTION_LAYERS,
-                "mha_qkv_bwd": ATTENTION_LAYERS,
-                "clip_fwd": 1, "clip_bwd": 1, "siglip_fwd": 0,
-                "siglip_bwd": 0}
+    # the CLIP flagship never routes through SigLIP or an MBConv kernel
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                         clip_bwd=1)
     # f32 masters from an f32 model: never from one already rounded to bf16
     init = init_weights_(flagship_vit(dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
@@ -534,8 +766,7 @@ def phase_train(device):
     model = flagship_vit()
     state, train_step = _train_state(model, init, device)
 
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     losses = []
     for i in range(TRAIN_STEPS):
@@ -546,7 +777,7 @@ def phase_train(device):
         losses.append(loss)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     timed = TRAIN_STEPS - WARMUP_STEPS
     losses = [float(x) for x in losses]
     print(f"train: {TRAIN_STEPS} steps of {BATCH} pairs, buckets {BUCKETS}: "
@@ -592,13 +823,7 @@ def phase_train(device):
           f"{STEP_LOSS_TOL})", flush=True)
     if not loss_err <= STEP_LOSS_TOL:
         fail(f"kernel and plain train steps disagree on the loss: {loss_err}")
-    for n in NAMED_GRADS:
-        k, p = grads["kernel"][n], grads["plain"][n]
-        rel = ((k - p).norm() / p.norm()).item()
-        print(f"  grad {n}: relative L2 diff {rel!r} (tol {STEP_GRAD_TOL})",
-              flush=True)
-        if not rel <= STEP_GRAD_TOL:
-            fail(f"kernel and plain train steps disagree on {n}: {rel}")
+    _grad_diffs("train", grads, NAMED_GRADS, STEP_GRAD_TOL)
 
     plain = flagship_vit(fused_attention=False, fused_loss=False)
     pstate, pstep = _train_state(plain, init, device)
@@ -609,10 +834,11 @@ def phase_train(device):
     return launches
 
 
-def _card(**overrides):
-    """The SigLIP card and the port's train-step pieces built from it:
-    (card, bf16 model on the CPU, optimizer, train_step, eval_step).
-    ``overrides``: encoder and head keys to change."""
+def _card(base=CARD, **overrides):
+    """A card (the SigLIP one unless ``base`` is given) and the port's
+    train-step pieces built from it: (card, bf16 model on the CPU,
+    optimizer, train_step, eval_step). ``overrides``: encoder and head
+    keys to change."""
     import copy
     from multimodal_plankton_recognition_torch.config import ModelCard
     from multimodal_plankton_recognition_torch.models.build import (
@@ -620,7 +846,7 @@ def _card(**overrides):
     from multimodal_plankton_recognition_torch.train import (
         create_train_state, make_multi_steps, make_optimizer)
 
-    d = copy.deepcopy(CARD)
+    d = copy.deepcopy(base)
     for field in ("image_encoder_args", "profile_encoder_args",
                   "coordination_args"):
         d[field].update(overrides.get(field, {}))
@@ -638,38 +864,20 @@ PLAIN_CARD = {"image_encoder_args": {"fused_attention": False},
               "coordination_args": {"fused": False}}
 
 
-def phase_card(device):
-    """The SigLIP card's train path: card dict -> ModelCard ->
-    build_multi_model -> train step with accumulation 4 -> Fitter."""
+def _fit_card(what, card, state, train_step, eval_step, batch, per_step,
+              per_eval):
+    """``Fitter`` for ``CARD_EPOCHS`` epochs of ``CARD_STEPS`` micro-steps
+    on ``batch`` with ``CARD_VALID`` eval steps each, asserting the kernel
+    launches of every micro-step (``per_step``) and eval step
+    (``per_eval``), finite and falling losses and f32 masters; returns
+    (state, launches, train pairs/s over micro-steps 4-20 of epoch 1)."""
     import torch
-    from multimodal_plankton_recognition_torch.models.build import (
-        build_multi_model)
-    from multimodal_plankton_recognition_torch.models.flagships import (
-        init_weights_, synthetic_batch_vit)
-    from multimodal_plankton_recognition_torch.train import (
-        Fitter, create_train_state)
+    from multimodal_plankton_recognition_torch.train import Fitter
 
-    counters = _counters()
-    per_step = {"mha_qkv_fwd": ATTENTION_LAYERS,
-                "mha_qkv_bwd": ATTENTION_LAYERS, "clip_fwd": 0,
-                "clip_bwd": 0, "siglip_fwd": 1, "siglip_bwd": 1}
-    per_eval = dict(per_step, mha_qkv_bwd=0, siglip_bwd=0)
-    card, model, tx, train_step, eval_step = _card()
-    bs = card.bs
-    # f32 masters from an f32 model: never from one already rounded to bf16
-    init = init_weights_(build_multi_model(card, dtype=torch.float32),
-                         torch.Generator().manual_seed(0)).state_dict()
-    model.to(device)
-    state = create_train_state(model, init, tx)
-    batch = synthetic_batch_vit(bs, seed=4, device=device)
-
-    def counts():
-        return {name: fn.launches for name, fn in counters.items()}
-
-    def delta(before, want, what):
-        got = {n: c - before[n] for n, c in counts().items()}
+    def delta(before, want, step):
+        got = {n: c - before[n] for n, c in _counts().items()}
         if got != want:
-            fail(f"{what}: expected launches {want}, got {got}")
+            fail(f"{what} {step}: expected launches {want}, got {got}")
 
     losses, clock = [], {}
 
@@ -678,7 +886,7 @@ def phase_card(device):
         if i == WARMUP_STEPS:
             torch.cuda.synchronize()
             clock["t0"] = time.perf_counter()
-        before = counts()
+        before = _counts()
         state, loss = train_step(state, batch, seed)
         delta(before, per_step, f"train micro-step {i + 1}")
         losses.append(loss)
@@ -688,7 +896,7 @@ def phase_card(device):
         return state, loss
 
     def counted_eval_step(state, batch):
-        before = counts()
+        before = _counts()
         out = eval_step(state, batch)
         delta(before, per_eval, "eval step")
         return out
@@ -698,36 +906,79 @@ def phase_card(device):
                     check_val_every_n_epoch=(
                         card.trainer_args.check_val_every_n_epoch),
                     seed=card.seed, put_fn=lambda b: b)
-    for fn in counters.values():
-        fn.launches = 0
+    bs = card.bs
+    _reset_counts()
     torch.cuda.synchronize()
     state = fitter.fit(state, [batch] * CARD_STEPS, [batch] * CARD_VALID)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = _counts()
     timed = CARD_STEPS - WARMUP_STEPS
     rate = bs * timed / (clock["t1"] - clock["t0"])
     losses = [float(x) for x in losses]
-    print(f"card: {CARD_EPOCHS} epochs of {CARD_STEPS} micro-steps of {bs} "
-          f"pairs, buckets {card.buckets}, accumulation "
+    print(f"{what}: {CARD_EPOCHS} epochs of {CARD_STEPS} micro-steps of "
+          f"{bs} pairs, buckets {card.buckets}, accumulation "
           f"{card.trainer_args.accumulate_grad_batches}: {rate!r} train "
           f"pairs/s over micro-steps {WARMUP_STEPS + 1}-{CARD_STEPS} of "
           f"epoch 1 ({(clock['t1'] - clock['t0']) / timed * 1e3!r} ms per "
           f"micro-step); launches {launches}", flush=True)
-    print(f"card: history {fitter.history}", flush=True)
-    print(f"card: micro-step losses {losses}", flush=True)
+    print(f"{what}: history {fitter.history}", flush=True)
+    print(f"{what}: micro-step losses {losses}", flush=True)
     want = {n: CARD_EPOCHS * (CARD_STEPS * per_step[n] + CARD_VALID
-                              * per_eval[n]) for n in counters}
+                              * per_eval[n]) for n in per_step}
     if launches != want:
-        fail(f"card: expected launches {want}, got {launches}")
+        fail(f"{what}: expected launches {want}, got {launches}")
     if not all(map(math.isfinite, losses)) or not all(
             math.isfinite(h["train_loss"]) and math.isfinite(h["valid_loss"])
             for h in fitter.history) or len(fitter.history) != CARD_EPOCHS:
-        fail(f"card: non-finite losses or history: {fitter.history}")
+        fail(f"{what}: non-finite losses or history: {fitter.history}")
     if not min(losses[-5:]) < losses[0]:
-        fail(f"card: train loss did not fall: first {losses[0]}, last five "
-             f"{losses[-5:]}")
+        fail(f"{what}: train loss did not fall: first {losses[0]}, last "
+             f"five {losses[-5:]}")
     if any(m.dtype != torch.float32 for m in state.params.values()):
-        fail("card: master weights are not all f32")
+        fail(f"{what}: master weights are not all f32")
+    return state, launches, rate
+
+
+def _grad_diffs(what, grads, names, tol):
+    """Relative L2 difference of each named gradient, kernel path against
+    ``grads["plain"]``, all printed; fails if one is above ``tol``."""
+    worst = {}
+    for n in names:
+        k, p = grads["kernel"][n], grads["plain"][n]
+        rel = ((k - p).norm() / p.norm()).item()
+        print(f"  grad {n}: relative L2 diff {rel!r} (tol {tol})",
+              flush=True)
+        if not rel <= tol:
+            worst[n] = rel
+    if worst:
+        fail(f"{what}: kernel and plain steps disagree on {worst}")
+
+
+def phase_card(device):
+    """The SigLIP card's train path: card dict -> ModelCard ->
+    build_multi_model -> train step with accumulation 4 -> Fitter."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, siglip_fwd=1,
+                         siglip_bwd=1)
+    per_eval = _per_step(mha_qkv_fwd=ATTENTION_LAYERS, siglip_fwd=1)
+    card, model, tx, train_step, eval_step = _card()
+    bs = card.bs
+    # f32 masters from an f32 model: never from one already rounded to bf16
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    model.to(device)
+    state = create_train_state(model, init, tx)
+    batch = synthetic_batch_vit(bs, seed=4, device=device)
+    state, launches, rate = _fit_card("card", card, state, train_step,
+                                      eval_step, batch, per_step, per_eval)
     if any(p.dtype != torch.bfloat16 for n, p in model.named_parameters()
            if not n.startswith("coordination.")):
         fail("card: the compute module is not bf16")
@@ -738,7 +989,7 @@ def phase_card(device):
     bias = state.params["coordination.logit_bias"].item()
     print(f"card: logit_bias -10.0 -> {bias!r}, logit_scale 1.0 -> "
           f"{state.params['coordination.logit_scale'].item()!r}", flush=True)
-    del model, state, fitter
+    del model, state
 
     # one micro-step from the same weights, dropout 0: kernel path (attention
     # and SigLIP kernels) vs plain path (plain attention, unfused SigLIP)
@@ -763,13 +1014,7 @@ def phase_card(device):
     if not loss_err <= STEP_LOSS_TOL:
         fail(f"card: kernel and plain steps disagree on the loss: "
              f"{loss_err}")
-    for n in CARD_NAMED_GRADS:
-        k, p = grads["kernel"][n], grads["plain"][n]
-        rel = ((k - p).norm() / p.norm()).item()
-        print(f"  grad {n}: relative L2 diff {rel!r} (tol {STEP_GRAD_TOL})",
-              flush=True)
-        if not rel <= STEP_GRAD_TOL:
-            fail(f"card: kernel and plain steps disagree on {n}: {rel}")
+    _grad_diffs("card", grads, CARD_NAMED_GRADS, STEP_GRAD_TOL)
 
     _, plain, tx, pstep, _ = _card(**PLAIN_CARD)
     plain.to(device)
@@ -778,6 +1023,206 @@ def phase_card(device):
     plain_rate = _pairs_per_s(pstate, pstep, batch, CARD_STEPS - WARMUP_STEPS)
     print(f"card: plain path {plain_rate!r} train pairs/s over "
           f"{CARD_STEPS - WARMUP_STEPS} micro-steps", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_mbconv():
+    """``mbconv_core`` on the plain versions of kernels 13-16 (on the card's
+    tensors), the comparison route of the B0 card phase; the kernel
+    wrappers are back on exit."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    names = ("ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd")
+    kernels = {n: getattr(mbconv, n) for n in names}
+    for n in names:
+        setattr(mbconv, n, getattr(mbconv, f"{n}_reference"))
+    try:
+        yield
+    finally:
+        for n, fn in kernels.items():
+            setattr(mbconv, n, fn)
+
+
+def phase_b0_encode(device):
+    """The B0 flagship's serving path: eval mode, cuDNN convolutions, no
+    kernel of the port."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.batchnorm import (
+        MOMENTUM, BatchNorm)
+    from multimodal_plankton_recognition_torch.models.dropout import (
+        dropout_rng)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_b0, init_weights_, synthetic_batch_b0)
+    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+
+    model = init_weights_(flagship_b0(), torch.Generator().manual_seed(0))
+    model.to(device)
+    # running statistics for the random weights: one train-mode forward
+    # with momentum 0 sets each BatchNorm's to its batch's (with the init's
+    # 0 / 1, the image features shrink to about 1e-7 through B0's blocks
+    # and the metadata alone tells the images apart)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad(), dropout_rng(torch.Generator().manual_seed(1)):
+        model.encode(**synthetic_batch_b0(BATCH, seed=9, device=device))
+    for m in norms:
+        m.momentum = MOMENTUM
+    model.eval()
+
+    gallery = synthetic_batch_b0(GALLERY, seed=5, device=device)
+    labels = np.random.RandomState(6).randint(0, 16, GALLERY)
+    warm = {k: v[:BATCH] for k, v in gallery.items()}
+    encode_arrays(model, warm, labels[:BATCH], BATCH, device)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = encode_arrays(model, gallery, labels, BATCH, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    print(f"b0 encode: {GALLERY} pairs in batches of {BATCH}: "
+          f"{GALLERY / seconds!r} pairs/s ({seconds!r} s); launches "
+          f"{launches}", flush=True)
+    if any(launches.values()):
+        fail(f"b0 encode: eval mode launched kernels of the port: "
+             f"{launches}")
+    for key in ("image", "profile"):
+        x = emb[key]
+        if x.shape != (GALLERY, 512) or not np.isfinite(x).all():
+            fail(f"b0 {key} embeddings: shape {x.shape} or non-finite")
+        norm_err = float(np.abs(np.linalg.norm(x, axis=1) - 1.0).max())
+        print(f"b0 encode: {key} embeddings |norm-1| max {norm_err!r}",
+              flush=True)
+        if not norm_err <= 1e-2:
+            fail(f"b0 {key} embeddings are not unit-norm ({norm_err})")
+        acc = float((ANNClassifier(x, labels, device).predict(x, k=1)
+                     == labels).mean())
+        print(f"b0 retrieval {key}: self-gallery k=1 accuracy {acc!r}",
+              flush=True)
+        if acc < 0.99:
+            fail(f"b0 retrieval {key}: self-gallery accuracy {acc} < 0.99")
+    return launches
+
+
+B0_CUDNN = {"image_encoder_args": {"fused_mbconv": False}}
+
+
+def phase_b0_card(device):
+    """The B0 CLIP card with ``fused_mbconv``: card dict -> ModelCard ->
+    build_multi_model -> train step with accumulation 4 -> Fitter; then one
+    dropout-0 micro-step on the kernel route, the plain ``mbconv_core``
+    route and the cuDNN route (``fused_mbconv: false``)."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_b0)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    mbconv = {f"mbconv_{n}": MBCONV_BLOCKS
+              for n in ("ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd")}
+    per_step = _per_step(clip_fwd=1, clip_bwd=1, **mbconv)
+    per_eval = _per_step(clip_fwd=1)
+    card, model, tx, train_step, eval_step = _card(B0_CARD)
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    model.to(device)
+    state = create_train_state(model, init, tx)
+    batch = synthetic_batch_b0(card.bs, seed=7, device=device)
+    state, launches, rate = _fit_card("b0 card", card, state, train_step,
+                                      eval_step, batch, per_step, per_eval)
+    if any(p.dtype != (torch.float32 if "bn" in n or n.startswith(
+            "coordination.") else torch.bfloat16)
+           for n, p in model.named_parameters()):
+        fail("b0 card: the compute module is not bf16 (norms f32)")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved:
+        fail(f"b0 card: master weights that did not move: {unmoved}")
+    stats = state.batch_stats
+    still = [n for n, b in stats.items() if torch.equal(b, init[n].to(device))]
+    if still or any(b.dtype != torch.float32 for b in stats.values()):
+        fail(f"b0 card: running statistics not f32 or not moved: {still}")
+    print(f"b0 card: {len(stats)} running statistics moved, all f32; "
+          f"logit_scale 1.0 -> "
+          f"{state.params['coordination.logit_scale'].item()!r}", flush=True)
+    del model, state
+
+    # one micro-step from the same weights, dropout 0, on each route, and
+    # on the plain route once more with the images nudged by a relative
+    # 1e-3: at this init the step's gradients move by 5-20% under such a
+    # nudge, so the routes are held statistically (JAX's fused-vs-unfused
+    # bounds), the kernels themselves to 1e-3 in the kernel phase
+    g = torch.Generator(device=device).manual_seed(8)
+    nudged = dict(batch, image=batch["image"] * (1 + 1e-3 * torch.randn(
+        batch["image"].shape, generator=g, device=device)))
+    grads, step_losses = {}, {}
+    for path, cudnn, data in (("kernel", False, batch),
+                              ("plain", False, batch),
+                              ("cudnn", True, batch),
+                              ("nudged plain", False, nudged)):
+        over = {"image_encoder_args": {"dropout": 0.0,
+                                       "fused_mbconv": not cudnn},
+                "profile_encoder_args": {"dropout": 0.0}}
+        _, m, tx, step, _ = _card(B0_CARD, **over)
+        m.to(device)
+        st = create_train_state(m, init, tx)
+        _reset_counts()
+        with (_plain_mbconv() if path.endswith("plain")
+              else contextlib.nullcontext()):
+            _, loss = step(st, data, 0)
+        got = _counts()
+        want = per_step if path == "kernel" else _per_step(clip_fwd=1,
+                                                            clip_bwd=1)
+        if got != want:
+            fail(f"b0 card {path} step: expected launches {want}, got {got}")
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in B0_NAMED_GRADS}
+        del m, st
+    for a, b in (("kernel", "plain"), ("kernel", "cudnn"),
+                 ("plain", "nudged plain")):
+        loss_err = abs(step_losses[a] - step_losses[b])
+        rels = {n: ((grads[a][n] - grads[b][n]).norm()
+                    / grads[b][n].norm()).item() for n in B0_NAMED_GRADS}
+        x, y = (torch.cat([grads[p][n].flatten() for n in B0_NAMED_GRADS])
+                .cpu().numpy() for p in (a, b))
+        corr = float(np.corrcoef(x, y)[0, 1])
+        print(f"b0 card step, dropout 0, {a} against {b}: loss "
+              f"{step_losses[a]!r} / {step_losses[b]!r} (|diff| {loss_err!r}, "
+              f"tol {STEP_LOSS_TOL}); named gradients: correlation {corr!r} "
+              f"(> {STAT_CORR}), relative L2 each (< {STAT_RMS})", flush=True)
+        for n, rel in rels.items():
+            print(f"  grad {n}: {rel!r}", flush=True)
+        if b == "nudged plain":  # the noise floor: printed, not held
+            continue
+        if not (loss_err <= STEP_LOSS_TOL and corr > STAT_CORR
+                and max(rels.values()) < STAT_RMS):
+            fail(f"b0 card: {a} and {b} steps differ beyond the bounds: "
+                 f"loss {loss_err}, correlation {corr}, relative L2 {rels}")
+
+    rates = {"kernel": rate}
+    for path, over in (("plain", {}), ("cudnn", B0_CUDNN)):
+        _, m, tx, step, _ = _card(B0_CARD, **over)
+        m.to(device)
+        st = create_train_state(m, init, tx)
+        with _plain_mbconv() if path == "plain" else contextlib.nullcontext():
+            _pairs_per_s(st, step, batch, WARMUP_STEPS)
+            rates[path] = _pairs_per_s(st, step, batch,
+                                       CARD_STEPS - WARMUP_STEPS)
+        del m, st
+    print(f"b0 card: train pairs/s over micro-steps {WARMUP_STEPS + 1}-"
+          f"{CARD_STEPS}: kernel route {rates['kernel']!r}, plain "
+          f"mbconv_core {rates['plain']!r}, cuDNN route (fused_mbconv "
+          f"false) {rates['cudnn']!r}", flush=True)
     return launches
 
 
@@ -800,27 +1245,40 @@ def _device_ms(prof, steps):
 
 
 def phase_profile(device):
-    """The card micro-step's device time by kernel (torch.profiler) on the
-    kernel and the plain path, and the device's idle share: 1 − (device
-    busy ms, profiled) / (wall ms, unprofiled), both per micro-step of the
-    same process and weights. The profiler's host cost per launch inflates
-    a profiled wall time, so it is not used."""
+    """The micro-step of each card (SigLIP ViT-S; B0 CLIP) by kernel."""
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        synthetic_batch_b0, synthetic_batch_vit)
+
+    _profile_card(device, "card", CARD, (("kernel", {}),
+                                         ("plain", PLAIN_CARD)),
+                  synthetic_batch_vit)
+    _profile_card(device, "b0 card", B0_CARD, (("kernel", {}),
+                                               ("cudnn", B0_CUDNN)),
+                  synthetic_batch_b0)
+
+
+def _profile_card(device, what, base, paths, make_batch):
+    """A card micro-step's device time by kernel (torch.profiler) on each
+    of ``paths``, and the device's idle share: 1 − (device busy ms,
+    profiled) / (wall ms, unprofiled), both per micro-step of the same
+    process and weights. The profiler's host cost per launch inflates a
+    profiled wall time, so it is not used."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from multimodal_plankton_recognition_torch.models.build import (
         build_multi_model)
     from multimodal_plankton_recognition_torch.models.flagships import (
-        init_weights_, synthetic_batch_vit)
+        init_weights_)
     from multimodal_plankton_recognition_torch.train import (
         create_train_state)
 
-    card = _card()[0]
+    card = _card(base)[0]
     init = init_weights_(build_multi_model(card, dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
-    batch = synthetic_batch_vit(card.bs, seed=4, device=device)
+    batch = make_batch(card.bs, seed=4, device=device)
     out = {}
-    for path, over in (("kernel", {}), ("plain", PLAIN_CARD)):
-        _, model, tx, step, _ = _card(**over)
+    for path, over in paths:
+        _, model, tx, step, _ = _card(base, **over)
         model.to(device)
         state = create_train_state(model, init, tx)
         # warm-up to an update boundary, then whole accumulation cycles
@@ -834,8 +1292,9 @@ def phase_profile(device):
         rows = _device_ms(prof, PROFILE_STEPS)
         busy = sum(ms for ms, _ in rows.values())
         if not busy > 0:
-            fail(f"profile {path}: the profiler saw no device time")
-        print(f"profile {path}: {PROFILE_STEPS} micro-steps of {card.bs}: "
+            fail(f"profile {what} {path}: the profiler saw no device time")
+        print(f"profile {what} {path}: {PROFILE_STEPS} micro-steps of "
+              f"{card.bs}: "
               f"wall {wall!r} ms (unprofiled), device busy {busy!r} ms, "
               f"idle {1 - busy / wall!r} per micro-step", flush=True)
         for key, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]
@@ -845,7 +1304,7 @@ def phase_profile(device):
         out[path] = {"wall_ms": wall, "busy_ms": busy,
                      "idle": 1 - busy / wall, "kernels": rows}
         del model, state
-    print(f"profile: {json.dumps(out)}", flush=True)
+    print(f"profile {what}: {json.dumps(out)}", flush=True)
 
 
 def main(argv=None) -> None:
@@ -853,15 +1312,16 @@ def main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also break the card micro-step's device time "
-                             "down by kernel (torch.profiler)")
+                        help="also break each card's micro-step device "
+                             "time down by kernel (torch.profiler)")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build()
     records = phase_kernel(device)
-    encode_launches = phase_slice(device)
-    train_launches = phase_train(device)
-    card_launches = phase_card(device)
+    launches = {"encode": phase_slice(device), "train": phase_train(device),
+                "card": phase_card(device),
+                "b0_encode": phase_b0_encode(device),
+                "b0_card": phase_b0_card(device)}
     if args.profile:
         phase_profile(device)
 
@@ -880,11 +1340,14 @@ def main(argv=None) -> None:
             ("siglip_fwd", "siglip_loss.cu", "contrastive.py:165",
              "buckets=4 N=16 D=512"),
             ("siglip_bwd", "siglip_loss.cu", "contrastive.py:180",
-             "buckets=4 N=16 D=512")):
-        by_path = {"train": train_launches[name],
-                   "card": card_launches[name]}
-        if name == "mha_qkv_fwd":
-            by_path["encode"] = encode_launches
+             "buckets=4 N=16 D=512"),
+            *((f"mbconv_{k}", f"mbconv_{k[3:]}.cu",
+               f"experimental/mbconv.py:{line}", "stage2_block1 B=64 H=W=56 "
+               "cin=24 mid=144 cout=24 k=3 r=6")
+              for k, line in (("ka_fwd", 163), ("kb_fwd", 265),
+                              ("kb_bwd", 303), ("ka_bwd", 373)))):
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        record = records[name][first]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{source}",
@@ -892,9 +1355,9 @@ def main(argv=None) -> None:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"]
                                for r in records[name].values()),
-            "ms": records[name][first]["ms"],
-            "plain_ms": records[name][first]["plain_ms"],
-            "shapes": records[name]})
+            "ms": record["ms"], "plain_ms": record["plain_ms"],
+            "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
+            "library_ms": record["library_ms"], "shapes": records[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,12 @@ kNN classifier ``ops.knn`` — and the contrastive train step — ``train``
 (SGD on f32 master weights, ``make_multi_steps``) with train-mode dropout
 and the CLIP loss; for the ViT model cards, the card path — ``config``
 (``ModelCard``), ``models.build`` and ``train.Fitter`` — with every
-coordination method and the SigLIP loss. Kernels: ``csrc/attention_fwd.cu``,
-``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu`` and
-``csrc/siglip_loss.cu``.
+coordination method and the SigLIP loss; for the EfficientNet-B0 family
+(``flagship_b0``: EfficientNet-B0 + ProfileCNN, and the B0 model cards),
+serving and the card path, with the fused MBConv block (``ops.mbconv``)
+for ``fused_mbconv``. Kernels: ``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu``, ``csrc/siglip_loss.cu``,
+``csrc/mbconv_fwd.cu`` and ``csrc/mbconv_bwd.cu``.
 """
 
 __version__ = "0.1.0"

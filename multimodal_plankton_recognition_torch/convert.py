@@ -1,11 +1,14 @@
 """Weight bridge: a Flax variable tree of the JAX package -> a state dict
 of the port.
 
-The tree comes as nested mappings of numpy arrays (``{"params": ...}``).
-Leaf rules:
+The tree comes as nested mappings of numpy arrays: ``{"params": ...}``,
+plus ``{"batch_stats": ...}`` for a model with BatchNorm. Leaf rules:
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-* Conv ``kernel`` HWIO -> ``weight`` OIHW;
+* Conv ``kernel`` HWIO -> ``weight`` OIHW (a depthwise (k, k, 1, C) ->
+  (C, 1, k, k)); Conv1d ``kernel`` (K, I, O) -> ``weight`` (O, I, K);
+* BatchNorm ``batch_stats`` ``mean`` / ``var`` -> the buffers
+  ``running_mean`` / ``running_var``;
 * attention ``query``/``key``/``value`` (E, H, D) kernels and (H, D) biases
   -> one packed ``qkv`` Linear, q|k|v concatenated into (3E, E) and (3E,);
   ``out`` (H, D, E) -> (E, E);
@@ -19,7 +22,7 @@ Module names carry over (``block_3`` -> ``blocks.3``, ``layer_1`` ->
 ``layers.1``), except that the JAX ``ImageEncoder`` is named after its
 backbone in the Flax tree (``vit_tiny_patch16_224``) and ``image_encoder``
 here. A leaf no rule maps raises; ``load_flax`` loads strictly, so a port
-parameter left unset raises too.
+parameter or buffer left unset raises too.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ _SAME_NAME = ("bias", "cls_token", "pos_embed", "logit_scale",
               "logit_bias")
 _RENAMED = {"scale": "weight", "embedding": "weight"}
 _ATTN_PARTS = ("query", "key", "value", "out")
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -64,6 +68,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     name = path[-1]
     if name == "kernel" and arr.ndim == 2:
         return "weight", arr.T
+    if name == "kernel" and arr.ndim == 3:
+        return "weight", arr.transpose(2, 1, 0)
     if name == "kernel" and arr.ndim == 4:
         return "weight", arr.transpose(3, 2, 0, 1)
     if name in _SAME_NAME or path[-2:] == ("coordination", "weight"):
@@ -94,12 +100,18 @@ def _attention(prefix: Tuple[str, ...], parts: Dict[str, Dict[str, np.ndarray]])
 
 def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """State dict (f32 tensors) for the port's counterpart of the Flax
-    module whose variables these are."""
-    extra = sorted(set(variables) - {"params"})
+    module whose variables these are: its parameters and, from
+    ``batch_stats``, its BatchNorm buffers."""
+    extra = sorted(set(variables) - {"params", "batch_stats"})
     if extra or "params" not in variables:
-        raise KeyError(f"expected only a 'params' collection, got "
-                       f"{sorted(variables)}")
+        raise KeyError(f"expected only a 'params' collection and an optional "
+                       f"'batch_stats' one, got {sorted(variables)}")
     out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        if path[-1] not in _STATS:
+            raise KeyError(f"no conversion rule for Flax batch_stats leaf "
+                           f"{'/'.join(path)} {arr.shape}")
+        out[_join(_module_name(path[:-1]), _STATS[path[-1]])] = arr
     attn: Dict[Tuple[str, ...], Dict[str, Dict[str, np.ndarray]]] = {}
     for path, arr in _flatten(variables["params"]):
         if len(path) >= 2 and path[-2] in _ATTN_PARTS:

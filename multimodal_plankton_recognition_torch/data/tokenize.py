@@ -1,8 +1,9 @@
-"""Static-shape batching ("tokenize") for the transformer profile encoder.
+"""Static-shape batching ("tokenize") for the profile encoders.
 
-The port's own numpy copy of ``tokenize_transformer`` from the JAX
-package's ``data/tokenize.py``: that one is reachable only through its
-``data/__init__.py``, which imports pandas and PIL.
+The port's own numpy copy of the JAX package's ``data/tokenize.py``
+(``tokenize_transformer``, ``tokenize_lstm``, ``tokenize_cnn`` and the
+``Tokenizer`` picked by encoder kind): that one is reachable only through
+its ``data/__init__.py``, which imports pandas and PIL.
 """
 
 from __future__ import annotations
@@ -51,3 +52,67 @@ def tokenize_transformer(profiles: Iterable[np.ndarray], target_size: int,
         time[i, :L + 1] = np.arange(L + 1, dtype=np.int32)
         mask[i, :L + 1] = False
     return {"profile": tokens, "time": time, "padding_mask": mask}
+
+
+def tokenize_lstm(profiles: Iterable[np.ndarray],
+                  pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pad to a common length and record the last valid index per
+    sequence."""
+    profiles = _as_list(profiles)
+    d = profiles[0].shape[-1]
+    max_len = max(p.shape[0] for p in profiles)
+    T = pad_to if pad_to is not None else _round_up(max_len)
+    if T < max_len:
+        raise ValueError(f"pad_to={T} < longest sequence ({max_len})")
+    B = len(profiles)
+    tokens = np.zeros((B, T, d), dtype=np.float32)
+    last = np.empty((B,), dtype=np.int32)
+    for i, p in enumerate(profiles):
+        L = p.shape[0]
+        tokens[i, :L] = p
+        last[i] = L - 1
+    return {"profile": tokens, "last_idx": last}
+
+
+def tokenize_cnn(profiles: Iterable[np.ndarray],
+                 pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Stack equal-length profiles; zero-pad to ``pad_to`` (or the longest,
+    rounded up to a multiple of 8) when they are ragged or ``pad_to`` is
+    given."""
+    profiles = _as_list(profiles)
+    lengths = {p.shape[0] for p in profiles}
+    if pad_to is None and len(lengths) == 1:
+        return {"profile": np.stack(profiles).astype(np.float32)}
+    d = profiles[0].shape[-1]
+    T = pad_to if pad_to is not None else _round_up(max(lengths))
+    B = len(profiles)
+    tokens = np.zeros((B, T, d), dtype=np.float32)
+    for i, p in enumerate(profiles):
+        tokens[i, :p.shape[0]] = p
+    return {"profile": tokens}
+
+
+class Tokenizer:
+    """``tokenize(list_of_profiles) -> dict`` for a profile-encoder kind
+    (``transformer``, ``lstm`` or ``cnn``)."""
+
+    def __init__(self, kind: str, target_size: int = 224,
+                 pad_to: Optional[int] = None) -> None:
+        if kind not in ("transformer", "lstm", "cnn"):
+            raise ValueError(f"Unknown profile encoder kind {kind!r}")
+        self.kind = kind
+        self.target_size = target_size
+        self.pad_to = pad_to
+
+    def __call__(self, profiles) -> Dict[str, np.ndarray]:
+        if self.kind == "transformer":
+            return tokenize_transformer(profiles, self.target_size,
+                                        self.pad_to)
+        if self.kind == "lstm":
+            return tokenize_lstm(profiles, self.pad_to)
+        return tokenize_cnn(profiles, self.pad_to)
+
+
+def get_tokenizer(kind: str, target_size: int = 224,
+                  pad_to: Optional[int] = None) -> Tokenizer:
+    return Tokenizer(kind, target_size, pad_to)

@@ -6,6 +6,10 @@ the model's input resolution appended, so ``dim_out = num_features +
 2*metadata``. The shape is cast to the model dtype BEFORE the division, as
 in the JAX module: in bf16 a size like 399 rounds to 400 first. In train
 mode the feature drops at ``dropout`` (``encoder.py:83``).
+
+As in the JAX module, ``fused_mbconv`` reaches only an EfficientNet
+backbone (as its ``fused``) and ``fused_attention`` only a ViT; the other
+backbones ignore them.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ class ImageEncoder(nn.Module):
     def __init__(self, name: str = "vit_tiny_patch16_224", in_chans: int = 1,
                  dropout: float = 0.1, metadata: bool = True,
                  num_classes: int = 0, pretrained: bool = False,
-                 fused_attention: bool = False,
+                 fused_attention: bool = False, fused_mbconv: bool = False,
                  backbone_kwargs: Optional[dict] = None) -> None:
         """Card keys of the JAX module; ``num_classes`` is accepted for
         card parity (features only)."""
@@ -33,9 +37,13 @@ class ImageEncoder(nn.Module):
                                       "yet (ROADMAP.md)")
         self.metadata = metadata
         self.dropout = dropout
-        self.backbone = create_backbone(name, in_chans=in_chans,
-                                        fused_attention=fused_attention,
-                                        **(backbone_kwargs or {}))
+        extra = {}
+        if fused_mbconv and "efficientnet" in name:
+            extra["fused"] = True
+        if fused_attention and name.startswith("vit"):
+            extra["fused_attention"] = True
+        extra.update(backbone_kwargs or {})
+        self.backbone = create_backbone(name, in_chans=in_chans, **extra)
 
     @property
     def dim_out(self) -> int:

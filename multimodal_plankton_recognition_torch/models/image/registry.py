@@ -1,17 +1,19 @@
 """Image-backbone registry keyed by timm model names
-(``models/image/registry.py`` of the JAX package). Only the ViT family is
-ported so far."""
+(``models/image/registry.py`` of the JAX package). Ported so far: the ViT
+and EfficientNet families."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from . import vit
+from . import efficientnet, vit
 
 IMAGE_BACKBONES = {
     "vit_tiny_patch16_224": vit.vit_tiny_patch16_224,
     "vit_small_patch16_224": vit.vit_small_patch16_224,
     "vit_small_patch32_224": vit.vit_small_patch32_224,
+    "efficientnet_b0": efficientnet.efficientnet_b0,
+    "efficientnet_b1": efficientnet.efficientnet_b1,
 }
 
 

@@ -1,5 +1,5 @@
 """Profile-encoder factory (``models/profile/factory.py`` of the JAX
-package). Only the transformer kind is ported so far."""
+package). Ported so far: the transformer and cnn kinds."""
 
 from __future__ import annotations
 
@@ -7,9 +7,10 @@ from typing import Any, Dict
 
 from torch import nn
 
+from .cnn import ProfileCNN
 from .transformer import ProfileTransformer
 
-_KINDS = {"transformer": ProfileTransformer}
+_KINDS = {"transformer": ProfileTransformer, "cnn": ProfileCNN}
 
 
 def create_profile_encoder(args: Dict[str, Any]) -> nn.Module:

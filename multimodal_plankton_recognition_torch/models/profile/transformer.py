@@ -61,6 +61,8 @@ class _EncoderLayer(nn.Module):
 
 
 class ProfileTransformer(nn.Module):
+    kind = "transformer"  # the card's kind; picks the tokenizer
+
     def __init__(self, dim_in: int = 6, dim_hidden: int = 128,
                  target_size: int = 224, num_head: int = 4,
                  num_layers: int = 6, dim_feedforward: int = 2024,

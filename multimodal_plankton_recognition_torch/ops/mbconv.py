@@ -1,0 +1,403 @@
+"""The stride-1 MBConv block core, forward and backward: expand 1×1 → BN1 →
+SiLU → depthwise k×k → BN2 → SiLU → squeeze-excite → project 1×1, with
+train-mode batch statistics.
+
+Port of ``multimodal_plankton_recognition_tpu/ops/pallas/experimental/
+mbconv.py``. Its four TPU kernels become hand-written Hopper kernels:
+
+* ``ka_fwd`` (``_ka_fwd_kernel``, kernel 13) and ``kb_fwd``
+  (``_kb_fwd_kernel``, kernel 14) in ``csrc/mbconv_fwd.cu``;
+* ``kb_bwd`` (``_kb_bwd_kernel``, kernel 15) and ``ka_bwd``
+  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``.
+
+``*_reference`` are their plain PyTorch versions, with the bf16 rounding
+points of ``mbconv_reference`` (``mbconv.py:771-818``): y1, z1, z2, su, sv
+and se rounded, y2, y3 and a3 (and a1, a2, s) in bf16; the weight matrices
+are used rounded to bf16, the BatchNorm scales and the SE biases in f32.
+Each wrapper runs its plain version for a CPU tensor, its kernel for a
+CUDA tensor, and raises otherwise; ``<wrapper>.launches`` counts kernel
+launches.
+
+``mbconv_core`` is the differentiable entry (a ``torch.autograd.Function``
+whose backward runs kernels 15 and 16), with the JAX signature and layouts:
+x (B, H, W, cin) bf16, wexp (cin, mid) or ``None`` (expand ratio 1), wdw
+(k, k, mid) or (k, k, 1, mid), wr (mid, r), we (r, mid), wproj (mid,
+cout). It returns (y3, m1, v1, m2, v2, m3, v3): the pre-BN3 projection
+(bf16) and the biased batch mean and variance of every BN (f32; m1 / v1
+are 0 / 1 without an expand). The gradients through m3 and v3 are folded
+into d_y3 (``mbconv.py:743-745``); m1, v1, m2 and v2 feed only the running
+statistics and get none.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+__all__ = ["mbconv_core", "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd",
+           "ka_fwd_reference", "kb_fwd_reference", "kb_bwd_reference",
+           "ka_bwd_reference", "EPS"]
+
+EPS = 1e-5  # flax.linen.BatchNorm's epsilon
+BF16 = torch.bfloat16
+KERNEL_SIZES = (3, 5)  # the depthwise sizes the kernels are built for
+
+
+def _r(t: torch.Tensor) -> torch.Tensor:
+    """Round through bf16, back to f32."""
+    return t.to(BF16).float()
+
+
+def _w(t: torch.Tensor) -> torch.Tensor:
+    """A weight as the kernels read it: rounded to bf16, f32 math."""
+    return _r(t.detach())
+
+
+def _stats(y: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Biased mean and E[y²] − mean² in f32 (no clamp, as the TPU kernel)."""
+    m = y.mean(dims)
+    return m, (y * y).mean(dims) - m * m
+
+
+def _dsilu(z: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def _depthwise(a: torch.Tensor, wdw: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 'same' depthwise correlation of NHWC ``a`` with (k, k, C)."""
+    c = a.shape[-1]
+    w = wdw.permute(2, 0, 1).reshape(c, 1, k, k)
+    out = F.conv2d(a.permute(0, 3, 1, 2), w, padding=k // 2, groups=c)
+    return out.permute(0, 2, 3, 1)
+
+
+def _bn_apply(y, m, v, g, b):
+    """(xhat, inv, z) with z = bf16(xhat·g + b), xhat = (y − m)·inv."""
+    inv = torch.rsqrt(v + EPS)
+    xhat = (y - m) * inv
+    return xhat, inv, _r(xhat * g.float() + b.float())
+
+
+def _expand(x, wexp, g1, b1, m1=None, v1=None):
+    """y1 = bf16(x @ wexp) (f32 accumulation), its statistics (unless
+    given), and the BN1 apply."""
+    y1 = _r(x.float() @ _w(wexp))
+    if m1 is None:
+        m1, v1 = _stats(y1, (0, 1, 2))
+    xhat1, inv1, z1 = _bn_apply(y1, m1, v1, g1, b1)
+    return y1, m1, v1, xhat1, inv1, z1
+
+
+def ka_fwd_reference(x, wexp, g1, b1, wdw, k: int):
+    """Plain version of kernel 13: (y2 bf16, m1, v1, m2, v2 f32)."""
+    wdw = _w(wdw).reshape(k, k, -1)
+    if wexp is not None:
+        _, m1, v1, _, _, z1 = _expand(x, wexp, g1, b1)
+        a1 = _r(F.silu(z1))
+    else:
+        a1 = x.float()
+        m1 = torch.zeros(x.shape[-1], device=x.device)
+        v1 = torch.ones(x.shape[-1], device=x.device)
+    y2 = _depthwise(a1, wdw, k).to(BF16)
+    m2, v2 = _stats(y2.float(), (0, 1, 2))
+    return y2, m1, v1, m2, v2
+
+
+def _se_chain(y2, g2, b2, m2, v2, wr, br, we, be):
+    """The KB recompute: xhat2, inv2, z2, a2 and the SE values s, su, u,
+    se (per sample)."""
+    xhat2, inv2, z2 = _bn_apply(y2.float(), m2, v2, g2, b2)
+    a2 = _r(F.silu(z2))
+    s = _r(a2.mean((1, 2)))
+    su = _r(s @ _w(wr) + br.float())
+    u = F.silu(su)
+    se = _r(torch.sigmoid(_r(_r(u) @ _w(we) + be.float())))
+    return xhat2, inv2, z2, a2, s, su, u, se
+
+
+def kb_fwd_reference(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Plain version of kernel 14: (y3 bf16, m3, v3 f32)."""
+    _, _, _, a2, _, _, _, se = _se_chain(y2, g2, b2, m2, v2, wr, br, we, be)
+    a3 = _r(a2 * se[:, None, None, :])
+    y3 = (a3 @ _w(wproj)).to(BF16)
+    m3, v3 = _stats(y3.float(), (0, 1, 2))
+    return y3, m3, v3
+
+
+def kb_bwd_reference(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Plain version of kernel 15: (dy2 bf16, dwproj, dwr, dbr, dwe, dbe,
+    dg2, db2 f32), for the cotangent ``dy3`` of y3 (bf16)."""
+    b, h, w, _ = y2.shape
+    n = b * h * w
+    xhat2, inv2, z2, a2, s, su, u, se = _se_chain(y2, g2, b2, m2, v2, wr,
+                                                  br, we, be)
+    a3 = _r(a2 * se[:, None, None, :])
+    dy3f = dy3.float()
+    da3 = dy3f @ _w(wproj).t()
+    dse = (da3 * a2).sum((1, 2))
+    dsv = dse * se * (1.0 - se)
+    du = dsv @ _w(we).t()
+    dsu = du * _dsilu(su)
+    ds = dsu @ _w(wr).t()
+    dz2 = (da3 * se[:, None, None, :] + (ds / (h * w))[:, None, None, :]) \
+        * _dsilu(z2)
+    db2 = dz2.sum((0, 1, 2))
+    dg2 = (dz2 * xhat2).sum((0, 1, 2))
+    dy2 = (g2.float() * inv2) * (dz2 - db2 / n - xhat2 * (dg2 / n))
+    dwproj = a3.reshape(n, -1).t() @ dy3f.reshape(n, -1)
+    return (dy2.to(BF16), dwproj, s.t() @ dsu, dsu.sum(0), _r(u).t() @ dsv,
+            dsv.sum(0), dg2, db2)
+
+
+def ka_bwd_reference(x, dy2, wexp, g1, b1, wdw, m1, v1, k: int):
+    """Plain version of kernel 16: (dx bf16, dwexp, dg1, db1, dwdw (k, k,
+    mid) f32); dwexp, dg1 and db1 are ``None`` without an expand."""
+    b, h, w, _ = x.shape
+    n = b * h * w
+    p = k // 2
+    wdw = _w(wdw).reshape(k, k, -1)
+    if wexp is not None:
+        _, _, _, xhat1, inv1, z1 = _expand(x, wexp, g1, b1, m1, v1)
+        a1 = _r(F.silu(z1))
+    else:
+        a1 = x.float()
+    dy2f = dy2.float()
+    apad = F.pad(a1, (0, 0, p, p, p, p))
+    dwdw = torch.stack([
+        torch.stack([(apad[:, i:i + h, j:j + w] * dy2f).sum((0, 1, 2))
+                     for j in range(k)]) for i in range(k)])
+    da1 = _depthwise(dy2f, wdw.flip(0, 1), k)  # transposed stencil
+    if wexp is None:
+        return da1.to(BF16), None, None, None, dwdw
+    dz1 = da1 * _dsilu(z1)
+    db1 = dz1.sum((0, 1, 2))
+    dg1 = (dz1 * xhat1).sum((0, 1, 2))
+    dy1 = _r((g1.float() * inv1) * (dz1 - db1 / n - xhat1 * (dg1 / n)))
+    dx = (dy1 @ _w(wexp).t()).to(BF16)
+    dwexp = x.float().reshape(n, -1).t() @ dy1.reshape(n, -1)
+    return dx, dwexp, dg1, db1, dwdw
+
+
+# ---------------------------------------------------------------------------
+# the kernels: csrc/mbconv_fwd.cu (13, 14) and csrc/mbconv_bwd.cu (15, 16)
+# ---------------------------------------------------------------------------
+
+def _declare(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
+    """``name``(n_ptr pointers, n_int ints, stream) -> cudaError_t, and
+    ``name_scratch``(the same ints) -> scratch bytes."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+    fn.restype = ci
+    size = getattr(lib, f"{name}_scratch")
+    size.argtypes = [ci] * n_int
+    size.restype = ctypes.c_longlong
+
+
+@functools.cache
+def _fwd_lib() -> ctypes.CDLL:
+    lib = build.load("mbconv_fwd")
+    _declare(lib, "mbconv_ka_fwd", 8, 6)
+    _declare(lib, "mbconv_kb_fwd", 12, 6)
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mbconv_bwd")
+    _declare(lib, "mbconv_kb_bwd", 19, 6)
+    _declare(lib, "mbconv_ka_bwd", 13, 6)
+    return lib
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no MBConv kernel for device {x.device}")
+    return False
+
+
+def _bf(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().to(BF16).contiguous()
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().float().contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _call(lib: ctypes.CDLL, name: str, tensors, ints, device) -> None:
+    """Allocate the entry point's scratch, call it on the current stream
+    and raise on a CUDA error."""
+    size = getattr(lib, f"{name}_scratch")(*ints)
+    scratch = torch.empty(max(int(size), 1), dtype=torch.uint8,
+                          device=device)
+    err = getattr(lib, name)(*map(_ptr, tensors), _ptr(scratch), *ints,
+                             torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch(err, lib, name)
+
+
+def _check_x(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 4 or x.dtype != BF16:
+        raise ValueError(f"{what} must be (B, H, W, C) bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def ka_fwd(x, wexp, g1, b1, wdw, k: int):
+    """Kernel 13: the expand, BN1 statistics and apply, SiLU and the
+    depthwise conv; (y2 bf16, m1, v1, m2, v2). ``ka_fwd.launches``."""
+    if _on_cpu(x):
+        return ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    _check_x(x, "x")
+    b, h, w, cin = x.shape
+    mid = wexp.shape[1] if wexp is not None else cin
+    if k not in KERNEL_SIZES:
+        raise ValueError(f"depthwise kernel size {k} is not one of "
+                         f"{KERNEL_SIZES}")
+    y2 = torch.empty((b, h, w, mid), dtype=BF16, device=x.device)
+    stats = torch.empty((4, mid), dtype=torch.float32, device=x.device)
+    if wexp is None:
+        stats[0].zero_()
+        stats[1].fill_(1.0)
+    _call(_fwd_lib(), "mbconv_ka_fwd",
+          (x.contiguous(), _bf(wexp), _f32(g1), _f32(b1),
+           _bf(wdw.reshape(k * k, mid)), y2, stats),
+          (b, h, w, cin, mid, k), x.device)
+    ka_fwd.launches += 1
+    return y2, stats[0], stats[1], stats[2], stats[3]
+
+
+def kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Kernel 14: BN2 + SiLU, squeeze-excite and the projection; (y3 bf16,
+    m3, v3). ``kb_fwd.launches``."""
+    if _on_cpu(y2):
+        return kb_fwd_reference(y2, g2, b2, m2, v2, wr, br, we, be, wproj)
+    _check_x(y2, "y2")
+    b, h, w, mid = y2.shape
+    r, cout = wr.shape[1], wproj.shape[1]
+    y3 = torch.empty((b, h, w, cout), dtype=BF16, device=y2.device)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=y2.device)
+    _call(_fwd_lib(), "mbconv_kb_fwd",
+          (y2.contiguous(), _f32(g2), _f32(b2),
+           _f32(torch.stack([m2, v2])), _bf(wr), _f32(br), _bf(we),
+           _f32(be), _bf(wproj), y3, stats),
+          (b, h, w, mid, r, cout), y2.device)
+    kb_fwd.launches += 1
+    return y3, stats[0], stats[1]
+
+
+def kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Kernel 15: (dy2 bf16, dwproj, dwr, dbr, dwe, dbe, dg2, db2).
+    ``kb_bwd.launches``."""
+    if _on_cpu(y2):
+        return kb_bwd_reference(y2, dy3, g2, b2, m2, v2, wr, br, we, be,
+                                wproj)
+    _check_x(y2, "y2")
+    _check_x(dy3, "dy3")
+    b, h, w, mid = y2.shape
+    r, cout = wr.shape[1], wproj.shape[1]
+    f32 = functools.partial(torch.empty, dtype=torch.float32,
+                            device=y2.device)
+    dy2 = torch.empty_like(y2)
+    outs = (f32((mid, cout)), f32((mid, r)), f32(r), f32((r, mid)),
+            f32(mid), f32(mid), f32(mid))
+    _call(_bwd_lib(), "mbconv_kb_bwd",
+          (y2.contiguous(), dy3.contiguous(), _f32(g2), _f32(b2),
+           _f32(torch.stack([m2, v2])), _bf(wr), _f32(br), _bf(we),
+           _f32(be), _bf(wproj), dy2, *outs),
+          (b, h, w, mid, r, cout), y2.device)
+    kb_bwd.launches += 1
+    return (dy2, *outs)
+
+
+def ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, k: int):
+    """Kernel 16: (dx bf16, dwexp, dg1, db1, dwdw (k, k, mid)); dwexp, dg1
+    and db1 are ``None`` without an expand. ``ka_bwd.launches``."""
+    if _on_cpu(x):
+        return ka_bwd_reference(x, dy2, wexp, g1, b1, wdw, m1, v1, k)
+    _check_x(x, "x")
+    _check_x(dy2, "dy2")
+    b, h, w, cin = x.shape
+    mid = dy2.shape[-1]
+    f32 = functools.partial(torch.empty, dtype=torch.float32,
+                            device=x.device)
+    dx = torch.empty_like(x)
+    dwdw = f32((k, k, mid))
+    dwexp = dg1 = db1 = mv1 = None
+    if wexp is not None:
+        dwexp, dg1, db1 = f32((cin, mid)), f32(mid), f32(mid)
+        mv1 = _f32(torch.stack([m1, v1]))
+    _call(_bwd_lib(), "mbconv_ka_bwd",
+          (x.contiguous(), dy2.contiguous(), _bf(wexp), _f32(g1), _f32(b1),
+           _bf(wdw.reshape(k * k, mid)), mv1, dx, dwexp, dwdw, dg1, db1),
+          (b, h, w, cin, mid, k), x.device)
+    ka_bwd.launches += 1
+    return dx, dwexp, dg1, db1, dwdw
+
+
+ka_fwd.launches = 0
+kb_fwd.launches = 0
+kb_bwd.launches = 0
+ka_bwd.launches = 0
+
+
+def _grad_as(g: Optional[torch.Tensor], like: Optional[torch.Tensor]):
+    return None if like is None else g.reshape(like.shape).to(like.dtype)
+
+
+class _MBConvCore(torch.autograd.Function):
+    """Forward: kernels 13 and 14; backward: the m3 / v3 fold, then
+    kernels 15 and 16 (recomputing a1 and a3, as the TPU kernels do)."""
+
+    @staticmethod
+    def forward(ctx, x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, k):
+        ctx.x_dtype = x.dtype
+        x = x.to(BF16)
+        y2, m1, v1, m2, v2 = ka_fwd(x, wexp, g1, b1, wdw, k)
+        y3, m3, v3 = kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj)
+        ctx.save_for_backward(x, y2, y3, wexp, g1, b1, wdw, g2, b2, wr, br,
+                              we, be, wproj, m1, v1, m2, v2, m3)
+        ctx.k = k
+        ctx.mark_non_differentiable(m1, v1, m2, v2)
+        return y3, m1, v1, m2, v2, m3, v3
+
+    @staticmethod
+    def backward(ctx, dy3, _dm1, _dv1, _dm2, _dv2, dm3, dv3):
+        (x, y2, y3, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,
+         m1, v1, m2, v2, m3) = ctx.saved_tensors
+        n = y3.shape[0] * y3.shape[1] * y3.shape[2]
+        d = dy3.float() if dy3 is not None else torch.zeros_like(
+            y3, dtype=torch.float32)
+        if dm3 is not None:
+            d = d + dm3 / n
+        if dv3 is not None:
+            d = d + (y3.float() - m3) * (2.0 / n * dv3)
+        dy2, dwproj, dwr, dbr, dwe, dbe, dg2, db2 = kb_bwd(
+            y2, d.to(BF16), g2, b2, m2, v2, wr, br, we, be, wproj)
+        dx, dwexp, dg1, db1, dwdw = ka_bwd(x, dy2, wexp, g1, b1, wdw, m1,
+                                           v1, ctx.k)
+        return (dx.to(ctx.x_dtype), _grad_as(dwexp, wexp), _grad_as(dg1, g1),
+                _grad_as(db1, b1), _grad_as(dwdw, wdw), _grad_as(dg2, g2),
+                _grad_as(db2, b2), _grad_as(dwr, wr), _grad_as(dbr, br),
+                _grad_as(dwe, we), _grad_as(dbe, be),
+                _grad_as(dwproj, wproj), None)
+
+
+def mbconv_core(x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,
+                k: int = 3):
+    """The fused stride-1 block core (``mbconv.py::mbconv_core``): (y3,
+    m1, v1, m2, v2, m3, v3), differentiable in x and every weight."""
+    return _MBConvCore.apply(x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be,
+                             wproj, k)

@@ -7,9 +7,9 @@ returning the JAX package's flat pickle layout ``{image, profile, label}``
 
 * ``encode_arrays`` takes in-memory arrays (numpy or tensors): the entry
   point of runs on the card, which need nothing beyond torch and numpy.
-* ``encode_csv`` reads an annotations CSV through the JAX package's
-  framework-free host layers (dataset, eval transforms, loader), imported
-  lazily: they need pandas and PIL, but no JAX.
+* ``encode_csv`` reads an annotations CSV through the port's own host
+  layers (``data.dataset``, ``data.transforms``, ``data.pipeline``), which
+  import pandas and PIL only when called.
 
 Not ported yet: the checkpoint loaders (``encode_dataset``,
 ``encode_split``) and the ``scripts/encode.py`` CLI.
@@ -17,7 +17,6 @@ Not ported yet: the checkpoint loaders (``encode_dataset``,
 
 from __future__ import annotations
 
-import functools
 from pathlib import Path
 from typing import Dict, Iterable, Mapping
 
@@ -25,7 +24,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.tokenize import tokenize_transformer
+from ..data.dataset import MultiSet
+from ..data.pipeline import Loader, multi_collate_fn
+from ..data.tokenize import get_tokenizer
+from ..data.transforms import ImageTransformTest, ProfileTransformTest
 from ..ops.losses import l2_normalize
 
 
@@ -62,21 +64,18 @@ def encode_csv(model: nn.Module, csv_path: Path | str, target_size: int,
                batch_size: int = 64, num_workers: int = 4,
                device: torch.device | str = "cpu") -> Dict[str, np.ndarray]:
     """Encode an annotations CSV (columns ``image, profile[, class]``) with
-    the JAX package's eval pipeline for "multi" models: test-time image
-    and profile transforms at the card's ``target_size``, profiles padded
-    to ``target_size + 1`` tokens."""
-    from multimodal_plankton_recognition_tpu.data.dataset import MultiSet
-    from multimodal_plankton_recognition_tpu.data.pipeline import (
-        Loader, multi_collate_fn)
-    from multimodal_plankton_recognition_tpu.data.transforms import (
-        ImageTransformTest, ProfileTransformTest)
-
-    tokenizer = functools.partial(tokenize_transformer,
-                                  target_size=target_size,
-                                  pad_to=target_size + 1)
+    the eval pipeline of "multi" models (``eval_pipeline`` of the JAX
+    package): test-time image and profile transforms at the card's
+    ``target_size``, and the tokenizer of the profile encoder's kind —
+    ``transformer`` pads to ``target_size + 1`` tokens (the CLS row),
+    ``cnn`` to ``target_size``."""
+    kind = model.profile_encoder.kind
+    pad_to = target_size + 1 if kind == "transformer" else target_size
     dataset = MultiSet(csv_path, ImageTransformTest(target_size),
                        ProfileTransformTest(target_size))
-    loader = Loader(dataset, batch_size, multi_collate_fn(tokenizer),
+    loader = Loader(dataset, batch_size,
+                    multi_collate_fn(get_tokenizer(kind, target_size,
+                                                   pad_to)),
                     shuffle=False, drop_last=False, num_workers=num_workers)
     out = encode_batches(model, loader, device)
     out["label"] = dataset.table["class"].to_numpy()

@@ -7,10 +7,13 @@ One train step: load the f32 masters into the compute module, run
 generator seeded from (seed, step) (``fold_in(rng, state.step)`` in JAX),
 backpropagate, upcast the gradients to f32 and update the masters; with
 ``every_k`` > 1 the gradients are averaged over k micro-steps first
-(``optax.MultiSteps``). A batch's ``label`` (class ids, for ArcFace)
-goes to the coordination head. Nothing in the step reads a device value
-on the host, so steps queue on the card back to back; ``Fitter`` reads
-the losses once per epoch.
+(``optax.MultiSteps``). BatchNorm's running statistics update in the
+train-mode forward, so once per micro-step, also while gradients
+accumulate, as the JAX step returns ``batch_stats`` every micro-step; the
+eval step normalizes with them and leaves them alone. A batch's ``label``
+(class ids, for ArcFace) goes to the coordination head. Nothing in the
+step reads a device value on the host, so steps queue on the card back to
+back; ``Fitter`` reads the losses once per epoch.
 
 Not ported yet (ROADMAP.md): ``augment_fn`` (the on-device random
 transforms), ``make_classifier_steps``, ``train_multi``, checkpointing and

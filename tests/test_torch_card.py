@@ -62,6 +62,8 @@ from multimodal_plankton_recognition_torch.train import (
 REPO = Path(__file__).resolve().parent.parent
 CARDS = sorted((REPO / "model_cards").rglob("*.yaml"))
 SIGLIP_CARD = REPO / "model_cards/multi/vit_s_16_transformer_2_512_siglip.yaml"
+B0_CARDS = [REPO / f"model_cards/multi/efficientnet_b0_cnn_2_512_{m}.yaml"
+            for m in ("clip", "siglip")]
 F32_LOSS_TOL, F32_UPDATE_TOL = 1e-5, 1e-3
 BF16_LOSS_TOL, BF16_MEDIAN_TOL, BF16_UPDATE_TOL = 2e-3, 5e-2, 0.3
 
@@ -130,6 +132,9 @@ def test_smoke_card_literal_is_the_yaml_card():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert smoke.CARD == _load_yaml(SIGLIP_CARD)
+    b0 = _load_yaml(B0_CARDS[0])
+    b0["image_encoder_args"]["fused_mbconv"] = True
+    assert smoke.B0_CARD == b0
 
 
 def test_siglip_card_builds_the_full_model():
@@ -164,7 +169,7 @@ def test_siglip_card_builds_the_full_model():
 
 @pytest.mark.parametrize("field,key,value", [
     ("image_encoder_args", "fused_ffn", True),
-    ("image_encoder_args", "fused_mbconv", True),
+    ("image_encoder_args", "remat", True),
     ("image_encoder_args", "remat", "conv_saves"),
     ("image_encoder_args", "pretrained_path", "weights.npz"),
     ("image_encoder_args", "pretrained", True),
@@ -176,6 +181,27 @@ def test_options_not_ported_raise(field, key, value):
     card = config.ModelCard.from_dict(d)
     with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
         build_multi_model(card)
+
+
+@pytest.mark.parametrize("path", B0_CARDS, ids=lambda p: p.stem)
+def test_fused_mbconv_builds(path):
+    """Both B0 cards build with ``fused_mbconv`` true and false: the flag
+    reaches every MBConv block as ``fused`` and changes no module; a ViT
+    card ignores it, as the JAX ``ImageEncoder`` does."""
+    trees = {}
+    for flag in (False, True):
+        d = _load_yaml(path)
+        d["image_encoder_args"]["fused_mbconv"] = flag
+        model = build_multi_model(config.ModelCard.from_dict(d))
+        net = model.image_encoder.backbone
+        assert {getattr(net, n).fused for n in net.block_names} == {flag}
+        trees[flag] = {n: (tuple(t.shape), t.dtype)
+                       for n, t in model.state_dict().items()}
+    assert trees[True] == trees[False]
+    d = _load_yaml(SIGLIP_CARD)
+    d["image_encoder_args"]["fused_mbconv"] = True
+    vit = build_multi_model(config.ModelCard.from_dict(d))
+    assert vit.image_encoder.backbone.blocks[0].attn.fused
 
 
 ARCFACE = {"method": "arcface", "out_features": 5}

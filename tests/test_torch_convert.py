@@ -51,7 +51,7 @@ def test_unknown_leaf_raises(flagship_variables):
     with pytest.raises(KeyError, match="mystery/gamma"):
         from_flax({"params": params})
     with pytest.raises(KeyError, match="only a 'params' collection"):
-        from_flax({**flagship_variables, "batch_stats": {}})
+        from_flax({**flagship_variables, "cache": {}})
 
 
 def test_missing_leaf_raises(flagship_variables):

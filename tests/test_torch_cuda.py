@@ -325,3 +325,119 @@ def test_attention_at_the_card_shapes(cuda, b, l, heads, d, masked):
     exact[..., 2 * e:] = torch.where(signs, -1.0, 1.0).to(qkv.dtype)
     assert torch.equal(mha_qkv(exact, bias, heads, 0.1, 41),
                        mha_qkv_reference(exact, bias, heads, 0.1, 41))
+
+
+# --------------------------- MBConv kernels 13-16 ---------------------------
+# (B, H, W, cin, mid, cout, k, r): odd sizes and SE widths, no expand, k 5,
+# and B0's first and last stride-1 blocks at a small batch
+MBCONV_SHAPES = [(2, 9, 7, 8, 48, 16, 3, 3), (3, 12, 12, 16, 16, 8, 3, 4),
+                 (2, 10, 10, 24, 144, 40, 5, 6),
+                 (4, 112, 112, 32, 32, 16, 3, 8),
+                 (4, 7, 7, 192, 1152, 320, 3, 48)]
+MBCONV_TOL = 2e-2  # of max(1, the largest |plain value|) of each output
+MBCONV_REL_TOL = 1e-3  # relative L2 error of each output
+
+
+def _mbconv_inputs(cuda, b, h, w, cin, mid, cout, k, r, seed=0):
+    """(x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3, dy2):
+    wexp, g1 and b1 are None without an expand (mid == cin)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale + shift
+
+    expand = mid != cin
+    return (rnd(b, h, w, cin).to(torch.bfloat16),
+            rnd(cin, mid, scale=cin ** -0.5) if expand else None,
+            rnd(mid, scale=0.1, shift=1.0) if expand else None,
+            rnd(mid, scale=0.1) if expand else None,
+            rnd(k, k, mid, scale=1.0 / k), rnd(mid, scale=0.1, shift=1.0),
+            rnd(mid, scale=0.1), rnd(mid, r, scale=mid ** -0.5),
+            rnd(r, scale=0.1), rnd(r, mid, scale=r ** -0.5),
+            rnd(mid, scale=0.1), rnd(mid, cout, scale=mid ** -0.5),
+            rnd(b, h, w, cout).to(torch.bfloat16),
+            rnd(b, h, w, mid).to(torch.bfloat16))
+
+
+def _close_to_plain(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, f"{what}[{i}]"
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, f"{what}[{i}]"
+        assert torch.isfinite(g).all(), f"{what}[{i}] not finite"
+        top = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= MBCONV_TOL * top, f"{what}[{i}]: {err} of {top}"
+        diff = (g.float() - w.float()).norm().item()
+        rel = diff / max(w.float().norm().item(), 1e-30)
+        assert rel <= MBCONV_REL_TOL, f"{what}[{i}]: relative L2 {rel}"
+
+
+@pytest.mark.parametrize("shape", MBCONV_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_kernels_match_plain(cuda, shape):
+    """Kernels 13-16 each on the inputs their plain versions get."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3,
+     dy2) = _mbconv_inputs(cuda, *shape)
+    counts = [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd,
+                                   mbconv.kb_bwd, mbconv.ka_bwd)]
+    want = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    _close_to_plain(mbconv.ka_fwd(x, wexp, g1, b1, wdw, k), want, "ka_fwd")
+    y2, m1, v1, m2, v2 = want
+    kb = (g2, b2, m2, v2, wr, br, we, be, wproj)
+    _close_to_plain(mbconv.kb_fwd(y2, *kb),
+                    mbconv.kb_fwd_reference(y2, *kb), "kb_fwd")
+    _close_to_plain(mbconv.kb_bwd(y2, dy3, *kb),
+                    mbconv.kb_bwd_reference(y2, dy3, *kb), "kb_bwd")
+    ka = (wexp, g1, b1, wdw, m1, v1, k)
+    _close_to_plain(mbconv.ka_bwd(x, dy2, *ka),
+                    mbconv.ka_bwd_reference(x, dy2, *ka), "ka_bwd")
+    torch.cuda.synchronize()
+    assert [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd,
+                                 mbconv.ka_bwd)] == [c + 1 for c in counts]
+
+
+def test_mbconv_core_autograd_launches_all_four(cuda):
+    """``mbconv_core`` on the card: the forward runs kernels 13 and 14, the
+    backward 15 and 16; outputs and gradients as the plain versions give
+    them on the CPU."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    args = _mbconv_inputs(cuda, 2, 9, 7, 8, 48, 16, 3, 3)[:12]
+
+    def run(device):
+        leaves = [None if a is None else
+                  a.detach().to(device).requires_grad_(a.dtype != torch.bfloat16
+                                                       or i == 0)
+                  for i, a in enumerate(args)]
+        out = mbconv.mbconv_core(*leaves, 3)
+        (out[0].float().square().sum() + 3.0 * out[5].sum()
+         + 2.0 * out[6].sum()).backward()
+        return out, [None if t is None else t.grad for t in leaves]
+
+    counts = [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd,
+                                   mbconv.kb_bwd, mbconv.ka_bwd)]
+    got, got_grads = run(cuda)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd,
+                                 mbconv.ka_bwd)] == [c + 1 for c in counts]
+    want, want_grads = run("cpu")
+    _close_to_plain([t.cpu() for t in got], want, "outputs")
+    _close_to_plain([None if g is None else g.cpu() for g in got_grads],
+                    want_grads, "grads")
+
+
+def test_mbconv_refuses_what_the_kernels_do_not_take(cuda):
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    (x, wexp, g1, b1, wdw, *_rest) = _mbconv_inputs(cuda, 1, 4, 4, 8, 16,
+                                                    8, 3, 2)
+    with pytest.raises(ValueError, match="bf16"):
+        mbconv.ka_fwd(x.float(), wexp, g1, b1, wdw, 3)
+    with pytest.raises(ValueError, match="kernel size 7"):
+        mbconv.ka_fwd(x, wexp, g1, b1, torch.zeros((7, 7, 16), device=cuda),
+                      7)
