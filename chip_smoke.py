@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
 card: the ViT flagship's encode and train step, the ViT-S SigLIP model
 card's train path, the B0 flagship's encode and the B0 CLIP model card's
-train path with ``fused_mbconv``.
+train path with ``fused_mbconv``, the same ViT paths with ``fused_ffn``,
+and the attention module's unpacked (separate q, k, v) route.
 
     python3 chip_smoke.py [--profile]
 
@@ -45,6 +46,19 @@ fatal on failure:
      their ``*_reference``) at each of the 8 distinct shapes of B0's
      stride-1 blocks at B 64, every output within 2e-2 of max(1,
      max|plain|) and 1e-3 relative L2;
+   * attention on separate q, k, v (kernels 3 and 4: ``mha`` / ``mha_bwd``
+     vs ``mha_reference`` / ``mha_bwd_reference``) at the flagship's two
+     shapes as kernels 1-2 above, the exact-sum mask check at D = 24, and
+     bit for bit against kernels 1-2 on the same operands packed;
+   * the fused FFN (kernels 9 and 10: ``ffn_fwd`` / ``ffn_bwd`` vs
+     ``ffn_reference`` / ``ffn_bwd_reference``) at the four FFN shapes of
+     the paths (``FFN_SHAPES``: ViT-T, the flagship's profile encoder, ViT-S,
+     the card's profile encoder), eval and train (p 0.1), ReLU at the ViT-T
+     shape and f32 x at the card's profile shape, every output within
+     ``FFN_TOL`` of max(1, max|plain|) and 2e-3 relative L2, beside the
+     unfused route's time (``F.linear`` → GELU → ``F.linear`` on cuBLAS, no
+     single library call computes the block); and at each shape an
+     exact-sum check (ReLU, integer inputs) that must agree bit for bit;
 4. encode: the full-width ViT flagship (bf16, dim_embed 512, random weights
    from a seeded torch.Generator) encodes a synthetic gallery of 2,048
    pairs in batches of 256 through ``retrieval.encode.encode_arrays``; the
@@ -95,8 +109,25 @@ fatal on failure:
    JAX package's statistical bounds (named gradients: correlation > 0.95,
    relative L2 each < 0.3), beside the plain route on nudged images (the
    step's own sensitivity); train pairs/s on the three routes;
-9. profile (only with ``--profile``): 8 micro-steps of each card on two
-   routes under torch.profiler after 4 warm-up and 8 unprofiled ones:
+9. ffn encode: ``flagship_vit(fused_ffn=True)`` on the weights of 4.
+   encodes the gallery (14 FFN-forward and 14 attention launches a batch),
+   beside the unfused flagship: embeddings within 5e-2 of it, self-gallery
+   k = 1 >= 99%, pairs/s of both;
+10. ffn train: 20 train steps of the fused-FFN flagship as in 5. (14 + 14
+   FFN, 14 + 14 attention and 1 + 1 CLIP launches a step); then dropout-0
+   steps against ``ffn_core``'s plain versions on the card (loss 1e-2,
+   named gradients 5e-2) and against the unfused route, held to the JAX
+   package's statistical bounds beside the unfused route's nudged-input
+   floor; train pairs/s of both routes;
+11. ffn card: ``CARD`` with ``fused_ffn: true`` on both encoders through
+   ``Fitter`` as in 6. (14 + 14 FFN launches a micro-step, 14 an eval step);
+12. unpacked: ``PLANKTON_ATTN_QKV_PACKED=0`` (set in the phase, restored
+   after): the flagship's encode runs kernel 3 only (14 a batch), 3 train
+   steps kernels 3 and 4 only (14 + 14 a step), never kernels 1 and 2;
+   encodings within 5e-2 of the packed route's;
+13. profile (only with ``--profile``): 8 micro-steps of each card on two
+   routes (the SigLIP card also with and without ``fused_ffn``) under
+   torch.profiler after 4 warm-up and 8 unprofiled ones:
    device ms per micro-step by kernel, and the idle share, 1 − device busy
    / unprofiled wall.
 
@@ -118,7 +149,7 @@ REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
 SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss",
-           "mbconv_fwd", "mbconv_bwd")
+           "mbconv_fwd", "mbconv_bwd", "ffn")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -143,6 +174,22 @@ SHAPES = {"vit": (256, 197, 3, 192, False),
           "profile": (256, 225, 8, 192, True),
           "card vit": (64, 197, 6, 384, False),
           "card profile": (64, 225, 4, 128, True)}
+# kernels 3-4 (separate q, k, v) run at the flagship's shapes
+SEPARATE_SHAPES = ("vit", "profile")
+# B, L, E, F, activation: the fused-FFN layers of the ViT flagship (ViT-T,
+# profile), then of the SigLIP card (ViT-S, profile)
+FFN_SHAPES = {"vit": (256, 197, 192, 768, "gelu"),
+              "profile": (256, 225, 192, 2024, "gelu"),
+              "card vit": (64, 197, 384, 1536, "gelu"),
+              "card profile": (64, 225, 128, 1024, "gelu")}
+# of max(1, the largest |plain value|), each output: GELU one bf16 step;
+# ReLU's derivative jumps at 0, so an h_pre that the two sides sum to
+# opposite sides of 0 flips a whole dpre unit (|dh . w1|, up to about 0.2
+# in dx at these scales; the exact-sum check pins ReLU bit for bit)
+FFN_TOL = {"gelu": 2e-2, "relu": 0.25}
+FFN_REL_TOL = 2e-3  # relative L2 of each output
+FFN_LAYERS = ATTENTION_LAYERS  # one feed-forward block per attention layer
+UNPACKED_STEPS = 3  # train steps on the unpacked attention route
 # the least time of a kernel: NVIDIA's data sheet for one H100 SXM (dense,
 # at 700 W); bytes over the HBM rate, bf16 products over the tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -287,7 +334,7 @@ def phase_device():
 
 def phase_build():
     from multimodal_plankton_recognition_torch.ops import (
-        attention, build, contrastive, mbconv)
+        attention, build, contrastive, ffn, mbconv)
 
     t0 = time.perf_counter()
     libs = build.build_all(SOURCES)
@@ -297,6 +344,7 @@ def phase_build():
     contrastive._siglip_lib()
     mbconv._fwd_lib()
     mbconv._bwd_lib()
+    ffn._lib()
     print(f"build: {', '.join(SOURCES)} in parallel, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, lib in libs.items():
@@ -359,28 +407,32 @@ def _bound(inputs, outputs, flops):
 
 
 def _report(records, name, label, err, tol, ms, plain_ms, bound,
-            library_ms=None):
+            library_ms=None, **extra):
+    """Print one kernel measurement and keep it; ``extra``: more timings
+    (e.g. ``unfused_ms``)."""
+    more = "".join(f", {k} {v!r}" for k, v in extra.items())
     print(f"kernel {name} [{label}]: max_abs_err {err!r} (tol {tol}), "
           f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound[0]!r} ms "
-          f"({bound[1]}), library {library_ms!r} ms", flush=True)
+          f"({bound[1]}), library {library_ms!r} ms{more}", flush=True)
     records.setdefault(name, {})[label] = {
         "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1],
-        "library_ms": library_ms}
+        "library_ms": library_ms, **extra}
 
 
 def _sdpa_ms(qkv, bias, heads, p, dout=None):
     """Milliseconds of ``F.scaled_dot_product_attention`` on the kernel's
-    inputs (q, k, v views of ``qkv``, ``bias`` as an additive key mask):
-    the forward, or with ``dout`` its backward alone."""
+    inputs (q, k, v: views of a packed ``qkv``, or a tuple of the three;
+    ``bias`` as an additive key mask): the forward, or with ``dout`` its
+    backward alone."""
     import torch
     import torch.nn.functional as F
 
-    b, l, e3 = qkv.shape
-    e = e3 // 3
-    q, k, v = (qkv[..., i * e:(i + 1) * e].reshape(b, l, heads, e // heads)
-               .transpose(1, 2) for i in range(3))
-    mask = None if bias is None else bias[:, None, None, :].to(qkv.dtype)
+    parts = qkv if isinstance(qkv, tuple) else qkv.chunk(3, dim=-1)
+    b, l, e = parts[0].shape
+    q, k, v = (t.reshape(b, l, heads, e // heads).transpose(1, 2)
+               for t in parts)
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
     if dout is None:
         return cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=p))
@@ -397,7 +449,8 @@ def phase_kernel(device):
     numbers}}."""
     import torch
     from multimodal_plankton_recognition_torch.ops.attention import (
-        mha_qkv, mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference)
+        mha, mha_qkv, mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference,
+        mha_reference)
 
     gen = torch.Generator(device=device).manual_seed(0)
     records = {}
@@ -418,6 +471,8 @@ def phase_kernel(device):
                                                       seed)),
                     _bound((qkv, bias), out, 4 * b * l * l * e),
                     _sdpa_ms(qkv, bias, heads, p))
+            if name in SEPARATE_SHAPES:
+                _separate_fwd(records, label, qkv, bias, heads, p, seed, out)
         if masked:  # exact sums: the masks must agree bit for bit
             e = qkv.shape[2] // 3
             exact = torch.zeros_like(qkv)
@@ -431,6 +486,15 @@ def phase_kernel(device):
             print(f"kernel mha_qkv_fwd [{name} D={e // heads} train p=0.1, "
                   f"q=k=0, v=+-1]: max_abs_err {err!r} (must be 0: same "
                   f"dropout mask)", flush=True)
+            if name in SEPARATE_SHAPES:
+                q, k, v = (t.contiguous() for t in exact.chunk(3, dim=-1))
+                err = _check(f"mha_fwd {name} mask check",
+                             mha(q, k, v, bias, heads, 0.1, seed),
+                             mha_reference(q, k, v, bias, heads, 0.1, seed),
+                             0.0)
+                print(f"kernel mha_fwd [{name} D={e // heads} train p=0.1, "
+                      f"q=k=0, v=+-1]: max_abs_err {err!r} (must be 0)",
+                      flush=True)
         p = 0.1 if masked else 0.0
         dout = torch.randn(qkv.shape[:2] + (qkv.shape[2] // 3,),
                            generator=gen, device=device).to(torch.bfloat16)
@@ -447,10 +511,190 @@ def phase_kernel(device):
                                                       p, seed)),
                 _bound((qkv, bias, dout), want, 10 * b * l * l * e),
                 _sdpa_ms(qkv, bias, heads, p, dout))
+        if name in SEPARATE_SHAPES:
+            _separate_bwd(records, label, qkv, bias, dout, heads, p, seed)
     _clip_kernels(gen, device, records)
+    _ffn_kernels(gen, device, records)
     _siglip_kernels(gen, device, records)
     _mbconv_kernels(gen, device, records)
     return records
+
+
+def _separate_fwd(records, label, qkv, bias, heads, p, seed, packed_out):
+    """Kernel 3 on the q, k, v of ``qkv`` against its plain version, and bit
+    for bit against kernel 1's ``packed_out`` (the same device code)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        mha, mha_reference)
+
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    b, l, e = q.shape
+    out = mha(q, k, v, bias, heads, p, seed)
+    err = _check(f"mha_fwd {label}", out,
+                 mha_reference(q, k, v, bias, heads, p, seed), KERNEL_TOL)
+    if not torch.equal(out, packed_out):
+        fail(f"mha_fwd {label}: differs from mha_qkv_fwd on the same "
+             f"operands")
+    _report(records, "mha_fwd", label, err, KERNEL_TOL,
+            cuda_ms(lambda: mha(q, k, v, bias, heads, p, seed)),
+            cuda_ms(lambda: mha_reference(q, k, v, bias, heads, p, seed)),
+            _bound((q, k, v, bias), out, 4 * b * l * l * e),
+            _sdpa_ms((q, k, v), bias, heads, p))
+
+
+def _separate_bwd(records, label, qkv, bias, dout, heads, p, seed):
+    """Kernel 4 against its plain version and bit for bit against kernel
+    2 on the same operands packed."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        mha_bwd, mha_bwd_reference, mha_qkv_bwd)
+
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    b, l, e = q.shape
+    got = mha_bwd(q, k, v, bias, dout, heads, p, seed)
+    want = mha_bwd_reference(q, k, v, bias, dout, heads, p, seed)
+    scale = max(w.float().abs().max().item() for w in want)
+    err = max(_check(f"mha_bwd {what} {label}", g, w, BWD_TOL, scale)
+              for what, g, w in zip(("dq", "dk", "dv"), got, want))
+    if not torch.equal(torch.cat(got, dim=-1),
+                       mha_qkv_bwd(qkv, bias, dout, heads, p, seed)):
+        fail(f"mha_bwd {label}: differs from mha_qkv_bwd on the same "
+             f"operands")
+    _report(records, "mha_bwd", label, err * scale, BWD_TOL * scale,
+            cuda_ms(lambda: mha_bwd(q, k, v, bias, dout, heads, p, seed)),
+            cuda_ms(lambda: mha_bwd_reference(q, k, v, bias, dout, heads, p,
+                                              seed)),
+            _bound((q, k, v, bias, dout), got, 10 * b * l * l * e),
+            _sdpa_ms((q, k, v), bias, heads, p, dout))
+
+
+def _ffn_close(label, got, want, tol):
+    """Each output within ``tol`` of max(1, its largest plain value) and
+    ``FFN_REL_TOL`` relative L2; returns the largest absolute error."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{label} output {i}: {tuple(g.shape)} {g.dtype}, plain "
+                 f"{tuple(w.shape)} {w.dtype}")
+        scale = max(1.0, w.float().abs().max().item())
+        err = max(err, scale * _check(f"{label} output {i}", g, w, tol,
+                                      scale))
+        rel = ((g.float() - w.float()).norm()
+               / max(w.float().norm().item(), 1e-30)).item()
+        if not rel <= FFN_REL_TOL:
+            fail(f"{label} output {i}: relative L2 error {rel!r} > "
+                 f"{FFN_REL_TOL}")
+    return err
+
+
+def _unfused_ms(x, w1, b1, w2, b2, activation, p, dy=None):
+    """Milliseconds of the unfused route on the same inputs: ``F.linear``
+    → activation → dropout → ``F.linear`` in x's dtype (cuBLAS; no single
+    PyTorch call computes the block), or with ``dy`` its backward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    params = [t.to(x.dtype) for t in (w1.t().contiguous(), b1,
+                                      w2.t().contiguous(), b2)]
+
+    def block(x, w1t, b1, w2t, b2):
+        h = F.linear(x, w1t, b1)
+        h = F.relu(h) if activation == "relu" else F.gelu(
+            h, approximate="tanh")
+        return F.linear(F.dropout(h, p), w2t, b2)
+
+    if dy is None:
+        return cuda_ms(lambda: block(x, *params))
+    leaves = [t.detach().requires_grad_() for t in (x, *params)]
+    out = block(*leaves)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
+                                               retain_graph=True))
+
+
+def _ffn_kernels(gen, device, records):
+    """Kernels 9 and 10 against their plain versions at ``FFN_SHAPES``,
+    eval and train (p 0.1), ReLU at the ViT shape and f32 x at the card's
+    profile shape; then the exact-sum dropout-mask check at each shape."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    seed = 4321
+    for name, (b, l, e, f, activation) in FFN_SHAPES.items():
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=device) * scale
+
+        x, dy = rnd(b, l, e), rnd(b, l, e)
+        w1, b1 = rnd(e, f, scale=e ** -0.5), rnd(f, scale=0.1)
+        w2, b2 = rnd(f, e, scale=f ** -0.5), rnd(e, scale=0.1)
+        cases = [(activation, torch.bfloat16)]
+        if name == "vit":
+            cases.append(("relu", torch.bfloat16))
+        if name == "card profile":
+            cases.append((activation, torch.float32))
+        for act, dtype in cases:
+            args = (x.to(dtype), w1, b1, w2, b2)
+            dyt = dy.to(dtype)
+            for p in (0.0, 0.1):
+                label = (f"{name} B={b} L={l} E={e} F={f} {act} "
+                         f"{str(dtype)[6:]} p={p}")
+                got = ffn.ffn_fwd(*args, act, p, seed)
+                tol = FFN_TOL[act]
+                err = _ffn_close(f"ffn_fwd {label}", [got],
+                                 [ffn.ffn_reference(*args, act, p, seed)],
+                                 tol)
+                _report(records, "ffn_fwd", label, err,
+                        f"{tol} of max(1, max|plain|); relative L2 "
+                        f"{FFN_REL_TOL}",
+                        cuda_ms(lambda: ffn.ffn_fwd(*args, act, p, seed)),
+                        cuda_ms(lambda: ffn.ffn_reference(*args, act, p,
+                                                          seed)),
+                        _bound(args, got, 4 * b * l * e * f), None,
+                        unfused_ms=_unfused_ms(*args, act, p))
+                got = ffn.ffn_bwd(*args, dyt, act, p, seed)
+                err = _ffn_close(f"ffn_bwd {label}", got,
+                                 ffn.ffn_bwd_reference(*args, dyt, act, p,
+                                                       seed), tol)
+                _report(records, "ffn_bwd", label, err,
+                        f"{tol} of max(1, max|plain|) per output; "
+                        f"relative L2 {FFN_REL_TOL}",
+                        cuda_ms(lambda: ffn.ffn_bwd(*args, dyt, act, p,
+                                                    seed)),
+                        cuda_ms(lambda: ffn.ffn_bwd_reference(
+                            *args, dyt, act, p, seed)),
+                        _bound((args, dyt), got, 10 * b * l * e * f), None,
+                        unfused_ms=_unfused_ms(*args, act, p, dyt))
+        _ffn_mask_check(gen, device, name, b, l, e, f)
+
+
+def _ffn_mask_check(gen, device, name, b, l, e, f):
+    """ReLU on integer x and w1, ±1 w2 and dy, zero biases, p 0.1: every
+    sum of y, dx, dw1, dw2 and db2 is exact in f32 in any order, so kernel
+    and plain version agree bit for bit iff their dropout masks do."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    def ints(*shape, lo=-1):
+        return torch.randint(lo, 2, shape, generator=gen,
+                             device=device).float()
+
+    def signs(*shape):
+        return torch.where(ints(*shape, lo=0) > 0, 1.0, -1.0)
+
+    args = (ints(b, l, e).to(torch.bfloat16), ints(e, f),
+            torch.zeros(f, device=device), signs(f, e),
+            torch.zeros(e, device=device))
+    dy = signs(b, l, e).to(torch.bfloat16)
+    exact = [torch.equal(ffn.ffn_fwd(*args, "relu", 0.1, 99),
+                         ffn.ffn_reference(*args, "relu", 0.1, 99))]
+    got = ffn.ffn_bwd(*args, dy, "relu", 0.1, 99)
+    want = ffn.ffn_bwd_reference(*args, dy, "relu", 0.1, 99)
+    exact += [torch.equal(got[i], want[i]) for i in (0, 1, 3, 4)]
+    print(f"kernel ffn [{name} relu p=0.1, integer inputs]: y, dx, dw1, dw2, "
+          f"db2 bit for bit {exact} (must all be True: same dropout mask)",
+          flush=True)
+    if not all(exact):
+        fail(f"ffn {name}: the kernels' dropout mask differs from the plain "
+             f"version's")
 
 
 def _clip_kernels(gen, device, records):
@@ -621,8 +865,6 @@ def phase_slice(device):
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
     from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
-    from multimodal_plankton_recognition_torch.retrieval.encode import (
-        encode_arrays)
 
     model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
     plain = flagship_vit(fused_attention=False)
@@ -632,48 +874,18 @@ def phase_slice(device):
 
     gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
     labels = np.random.RandomState(2).randint(0, 16, GALLERY)
-    warm = {k: v[:BATCH] for k, v in gallery.items()}
-    encode_arrays(model, warm, labels[:BATCH], BATCH, device)  # warm-up
-
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    emb = encode_arrays(model, gallery, labels, BATCH, device)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _counts()
-
+    emb, rate, launches = _encode_timed(model, gallery, labels, device)
     n_batches = GALLERY // BATCH
     print(f"slice: encoded {GALLERY} pairs in {n_batches} batches of "
-          f"{BATCH}: {GALLERY / seconds!r} pairs/s ({seconds!r} s), "
-          f"launches {launches}", flush=True)
+          f"{BATCH}: {rate!r} pairs/s, launches {launches}", flush=True)
     want = {n: c * n_batches
             for n, c in _per_step(mha_qkv_fwd=ATTENTION_LAYERS).items()}
     if launches != want:
         fail(f"encode: expected launches {want}, got {launches}")
-
-    encode_arrays(plain, warm, labels[:BATCH], BATCH, device)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = encode_arrays(plain, gallery, labels, BATCH, device)
-    torch.cuda.synchronize()
-    plain_seconds = time.perf_counter() - t0
-    print(f"slice: plain attention {GALLERY / plain_seconds!r} pairs/s",
-          flush=True)
-
-    for key in ("image", "profile"):
-        x = emb[key]
-        if x.shape != (GALLERY, 512) or not np.isfinite(x).all():
-            fail(f"{key} embeddings: shape {x.shape} or non-finite values")
-        norm_err = float(np.abs(np.linalg.norm(x, axis=1) - 1.0).max())
-        diff = float(np.abs(x - ref[key]).max())
-        print(f"slice: {key} embeddings |norm-1| max {norm_err!r}, "
-              f"max abs diff to plain attention {diff!r} (tol {SLICE_TOL})",
-              flush=True)
-        if not norm_err <= 1e-2:
-            fail(f"{key} embeddings are not unit-norm ({norm_err})")
-        if not diff <= SLICE_TOL:
-            fail(f"{key} embeddings disagree with plain attention: {diff}")
+    ref, plain_rate, _ = _encode_timed(plain, gallery, labels, device)
+    print(f"slice: plain attention {plain_rate!r} pairs/s", flush=True)
+    _check_embeddings("slice (reference: plain attention)", emb, labels,
+                      device, ref)
 
     image, profile = emb["image"], emb["profile"]
     setups = {
@@ -709,10 +921,14 @@ def _train_state(model, state_dict, device):
 def _counters():
     """{kernel name: wrapper}, each wrapper with its ``.launches`` count."""
     from multimodal_plankton_recognition_torch.ops import (
-        attention, contrastive, mbconv)
+        attention, contrastive, ffn, mbconv)
 
     return {"mha_qkv_fwd": attention.mha_qkv,
             "mha_qkv_bwd": attention.mha_qkv_bwd,
+            "mha_fwd": attention.mha,
+            "mha_bwd": attention.mha_bwd,
+            "ffn_fwd": ffn.ffn_fwd,
+            "ffn_bwd": ffn.ffn_bwd,
             "clip_fwd": contrastive.clip_fwd,
             "clip_bwd": contrastive.clip_bwd,
             "siglip_fwd": contrastive.siglip_fwd,
@@ -844,7 +1060,7 @@ def _card(base=CARD, **overrides):
     from multimodal_plankton_recognition_torch.models.build import (
         build_multi_model, step_buckets)
     from multimodal_plankton_recognition_torch.train import (
-        create_train_state, make_multi_steps, make_optimizer)
+        make_multi_steps, make_optimizer)
 
     d = copy.deepcopy(base)
     for field in ("image_encoder_args", "profile_encoder_args",
@@ -1055,9 +1271,6 @@ def phase_b0_encode(device):
         dropout_rng)
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_b0, init_weights_, synthetic_batch_b0)
-    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
-    from multimodal_plankton_recognition_torch.retrieval.encode import (
-        encode_arrays)
 
     model = init_weights_(flagship_b0(), torch.Generator().manual_seed(0))
     model.to(device)
@@ -1077,36 +1290,13 @@ def phase_b0_encode(device):
 
     gallery = synthetic_batch_b0(GALLERY, seed=5, device=device)
     labels = np.random.RandomState(6).randint(0, 16, GALLERY)
-    warm = {k: v[:BATCH] for k, v in gallery.items()}
-    encode_arrays(model, warm, labels[:BATCH], BATCH, device)  # warm-up
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    emb = encode_arrays(model, gallery, labels, BATCH, device)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _counts()
-    print(f"b0 encode: {GALLERY} pairs in batches of {BATCH}: "
-          f"{GALLERY / seconds!r} pairs/s ({seconds!r} s); launches "
-          f"{launches}", flush=True)
+    emb, rate, launches = _encode_timed(model, gallery, labels, device)
+    print(f"b0 encode: {GALLERY} pairs in batches of {BATCH}: {rate!r} "
+          f"pairs/s; launches {launches}", flush=True)
     if any(launches.values()):
         fail(f"b0 encode: eval mode launched kernels of the port: "
              f"{launches}")
-    for key in ("image", "profile"):
-        x = emb[key]
-        if x.shape != (GALLERY, 512) or not np.isfinite(x).all():
-            fail(f"b0 {key} embeddings: shape {x.shape} or non-finite")
-        norm_err = float(np.abs(np.linalg.norm(x, axis=1) - 1.0).max())
-        print(f"b0 encode: {key} embeddings |norm-1| max {norm_err!r}",
-              flush=True)
-        if not norm_err <= 1e-2:
-            fail(f"b0 {key} embeddings are not unit-norm ({norm_err})")
-        acc = float((ANNClassifier(x, labels, device).predict(x, k=1)
-                     == labels).mean())
-        print(f"b0 retrieval {key}: self-gallery k=1 accuracy {acc!r}",
-              flush=True)
-        if acc < 0.99:
-            fail(f"b0 retrieval {key}: self-gallery accuracy {acc} < 0.99")
+    _check_embeddings("b0 encode", emb, labels, device)
     return launches
 
 
@@ -1118,7 +1308,6 @@ def phase_b0_card(device):
     build_multi_model -> train step with accumulation 4 -> Fitter; then one
     dropout-0 micro-step on the kernel route, the plain ``mbconv_core``
     route and the cuDNN route (``fused_mbconv: false``)."""
-    import numpy as np
     import torch
     from multimodal_plankton_recognition_torch.models.build import (
         build_multi_model)
@@ -1188,26 +1377,10 @@ def phase_b0_card(device):
         grads[path] = {n: m.get_parameter(n).grad.float()
                        for n in B0_NAMED_GRADS}
         del m, st
-    for a, b in (("kernel", "plain"), ("kernel", "cudnn"),
-                 ("plain", "nudged plain")):
-        loss_err = abs(step_losses[a] - step_losses[b])
-        rels = {n: ((grads[a][n] - grads[b][n]).norm()
-                    / grads[b][n].norm()).item() for n in B0_NAMED_GRADS}
-        x, y = (torch.cat([grads[p][n].flatten() for n in B0_NAMED_GRADS])
-                .cpu().numpy() for p in (a, b))
-        corr = float(np.corrcoef(x, y)[0, 1])
-        print(f"b0 card step, dropout 0, {a} against {b}: loss "
-              f"{step_losses[a]!r} / {step_losses[b]!r} (|diff| {loss_err!r}, "
-              f"tol {STEP_LOSS_TOL}); named gradients: correlation {corr!r} "
-              f"(> {STAT_CORR}), relative L2 each (< {STAT_RMS})", flush=True)
-        for n, rel in rels.items():
-            print(f"  grad {n}: {rel!r}", flush=True)
-        if b == "nudged plain":  # the noise floor: printed, not held
-            continue
-        if not (loss_err <= STEP_LOSS_TOL and corr > STAT_CORR
-                and max(rels.values()) < STAT_RMS):
-            fail(f"b0 card: {a} and {b} steps differ beyond the bounds: "
-                 f"loss {loss_err}, correlation {corr}, relative L2 {rels}")
+    _held_statistically("b0 card step, dropout 0", step_losses, grads,
+                        B0_NAMED_GRADS, (("kernel", "plain"),
+                                         ("kernel", "cudnn")),
+                        ("plain", "nudged plain"))
 
     rates = {"kernel": rate}
     for path, over in (("plain", {}), ("cudnn", B0_CUDNN)):
@@ -1224,6 +1397,316 @@ def phase_b0_card(device):
           f"mbconv_core {rates['plain']!r}, cuDNN route (fused_mbconv "
           f"false) {rates['cudnn']!r}", flush=True)
     return launches
+
+
+def _held_statistically(what, step_losses, grads, names, held, floor):
+    """Routes ``held`` (pairs of route names) within the loss tolerance and
+    the JAX package's fused-vs-unfused bounds on the named gradients
+    (correlation > ``STAT_CORR``, relative L2 each < ``STAT_RMS``); the
+    ``floor`` pair (a route against itself on nudged inputs, the step's own
+    sensitivity) is printed, not held."""
+    import numpy as np
+    import torch
+
+    for a, b in (*held, floor):
+        loss_err = abs(step_losses[a] - step_losses[b])
+        rels = {n: ((grads[a][n] - grads[b][n]).norm()
+                    / grads[b][n].norm()).item() for n in names}
+        x, y = (torch.cat([grads[p][n].flatten() for n in names])
+                .cpu().numpy() for p in (a, b))
+        corr = float(np.corrcoef(x, y)[0, 1])
+        print(f"{what}, {a} against {b}: loss "
+              f"{step_losses[a]!r} / {step_losses[b]!r} (|diff| {loss_err!r}, "
+              f"tol {STEP_LOSS_TOL}); named gradients: correlation {corr!r} "
+              f"(> {STAT_CORR}), relative L2 each (< {STAT_RMS})", flush=True)
+        for n, rel in rels.items():
+            print(f"  grad {n}: {rel!r}", flush=True)
+        if (a, b) == floor:  # the noise floor: printed, not held
+            continue
+        if not (loss_err <= STEP_LOSS_TOL and corr > STAT_CORR
+                and max(rels.values()) < STAT_RMS):
+            fail(f"{what}: {a} and {b} differ beyond the bounds: loss "
+                 f"{loss_err}, correlation {corr}, relative L2 {rels}")
+
+
+@contextlib.contextmanager
+def _plain_ffn():
+    """``ffn_core`` on the plain versions of kernels 9 and 10 (on the card's
+    tensors), a comparison route of the fused-FFN train phase; the kernel
+    wrappers are back on exit."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    kernels = ffn.ffn_fwd, ffn.ffn_bwd
+    ffn.ffn_fwd, ffn.ffn_bwd = ffn.ffn_reference, ffn.ffn_bwd_reference
+    try:
+        yield
+    finally:
+        ffn.ffn_fwd, ffn.ffn_bwd = kernels
+
+
+def _encode_timed(model, gallery, labels, device):
+    """(embeddings, pairs/s, launches) of one ``encode_arrays`` pass over
+    the gallery after a warm-up batch, the counts set to 0 just before."""
+    import torch
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+
+    warm = {k: v[:BATCH] for k, v in gallery.items()}
+    encode_arrays(model, warm, labels[:BATCH], BATCH, device)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = encode_arrays(model, gallery, labels, BATCH, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return emb, GALLERY / seconds, _counts()
+
+
+def _check_embeddings(what, emb, labels, device, ref=None, tol=SLICE_TOL):
+    """Finite unit-norm (GALLERY, 512) embeddings whose self-gallery k = 1
+    is >= 99% right; with ``ref``, within ``tol`` of it."""
+    import numpy as np
+    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
+
+    for key in ("image", "profile"):
+        x = emb[key]
+        if x.shape != (GALLERY, 512) or not np.isfinite(x).all():
+            fail(f"{what} {key} embeddings: shape {x.shape} or non-finite")
+        norm_err = float(np.abs(np.linalg.norm(x, axis=1) - 1.0).max())
+        diff = None if ref is None else float(np.abs(x - ref[key]).max())
+        acc = float((ANNClassifier(x, labels, device).predict(x, k=1)
+                     == labels).mean())
+        print(f"{what}: {key} embeddings |norm-1| max {norm_err!r}, max abs "
+              f"diff to the reference route {diff!r} (tol {tol}), "
+              f"self-gallery k=1 accuracy {acc!r}", flush=True)
+        if not norm_err <= 1e-2:
+            fail(f"{what} {key} embeddings are not unit-norm ({norm_err})")
+        if diff is not None and not diff <= tol:
+            fail(f"{what} {key} embeddings disagree with the reference "
+                 f"route: {diff}")
+        if acc < 0.99:
+            fail(f"{what} {key}: self-gallery accuracy {acc} < 0.99")
+
+
+def phase_ffn_encode(device):
+    """``flagship_vit(fused_ffn=True)`` encodes the gallery: 14 FFN-forward
+    and 14 attention launches a batch; beside the unfused flagship on the
+    same weights."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    model = init_weights_(flagship_vit(fused_ffn=True),
+                          torch.Generator().manual_seed(0))
+    unfused = flagship_vit()
+    unfused.load_state_dict(model.state_dict())
+    model.to(device).eval()
+    unfused.to(device).eval()
+    gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
+    labels = np.random.RandomState(2).randint(0, 16, GALLERY)
+    emb, rate, launches = _encode_timed(model, gallery, labels, device)
+    ref, unfused_rate, _ = _encode_timed(unfused, gallery, labels, device)
+    print(f"ffn encode: {GALLERY} pairs in batches of {BATCH}: fused FFN "
+          f"{rate!r} pairs/s, unfused FFN {unfused_rate!r} pairs/s; "
+          f"launches {launches}", flush=True)
+    want = {n: c * (GALLERY // BATCH) for n, c in _per_step(
+        mha_qkv_fwd=ATTENTION_LAYERS, ffn_fwd=FFN_LAYERS).items()}
+    if launches != want:
+        fail(f"ffn encode: expected launches {want}, got {launches}")
+    _check_embeddings("ffn encode", emb, labels, device, ref)
+    return launches
+
+
+FFN_NAMED_GRADS = NAMED_GRADS + (
+    "image_encoder.backbone.blocks.0.mlp1.weight",
+    "image_encoder.backbone.blocks.11.mlp2.weight",
+    "image_encoder.backbone.blocks.5.mlp1.bias",
+    "profile_encoder.layers.1.ff2.bias")
+
+
+def phase_ffn_train(device):
+    """20 full-width train steps of ``flagship_vit(fused_ffn=True)``; then
+    dropout-0 steps against ``ffn_core``'s plain versions on the card (the
+    same math) and against the unfused route (other bf16 rounding points,
+    held statistically beside the nudged-input floor)."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, ffn_fwd=FFN_LAYERS,
+                         ffn_bwd=FFN_LAYERS, clip_fwd=1, clip_bwd=1)
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    model = flagship_vit(fused_ffn=True)
+    state, train_step = _train_state(model, init, device)
+    _reset_counts()
+    torch.cuda.synchronize()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss = train_step(state, batch, 0)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    timed = TRAIN_STEPS - WARMUP_STEPS
+    losses = [float(x) for x in losses]
+    print(f"ffn train: {TRAIN_STEPS} steps of {BATCH} pairs: fused FFN "
+          f"{BATCH * timed / seconds!r} pairs/s over steps "
+          f"{WARMUP_STEPS + 1}-{TRAIN_STEPS} ({seconds / timed * 1e3!r} ms "
+          f"per step); launches {launches}", flush=True)
+    print(f"ffn train: losses {losses}", flush=True)
+    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
+    if launches != want:
+        fail(f"ffn train: expected launches {want}, got {launches}")
+    if not all(map(math.isfinite, losses)) or not min(losses[-5:]) \
+            < losses[0]:
+        fail(f"ffn train: non-finite or not falling losses {losses}")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or any(m.dtype != torch.float32
+                      for m in state.params.values()):
+        fail(f"ffn train: masters not f32 or not moved: {unmoved}")
+    del model, state
+
+    g = torch.Generator(device=device).manual_seed(8)
+    nudged = dict(batch, image=batch["image"] * (1 + 1e-3 * torch.randn(
+        batch["image"].shape, generator=g, device=device)))
+    plain_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                           mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                           clip_bwd=1)
+    grads, step_losses = {}, {}
+    for path, fused, plain, data in (
+            ("kernel", True, False, batch), ("plain", True, True, batch),
+            ("unfused", False, False, batch),
+            ("nudged unfused", False, False, nudged)):
+        m = flagship_vit(fused_ffn=fused, dropout=0.0)
+        st, step = _train_state(m, init, device)
+        _reset_counts()
+        with _plain_ffn() if plain else contextlib.nullcontext():
+            _, loss = step(st, data, 0)
+        got = _counts()
+        if got != (per_step if path == "kernel" else plain_step):
+            fail(f"ffn train {path} step: launches {got}")
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in FFN_NAMED_GRADS}
+        del m, st
+    loss_err = abs(step_losses["kernel"] - step_losses["plain"])
+    print(f"ffn train step, dropout 0: loss kernel {step_losses['kernel']!r} "
+          f"plain ffn_core {step_losses['plain']!r} (|diff| {loss_err!r}, "
+          f"tol {STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"ffn train: kernel and plain steps disagree on the loss: "
+             f"{loss_err}")
+    _grad_diffs("ffn train", grads, FFN_NAMED_GRADS, STEP_GRAD_TOL)
+    _held_statistically("ffn train step, dropout 0", step_losses, grads,
+                        FFN_NAMED_GRADS, (("kernel", "unfused"),),
+                        ("unfused", "nudged unfused"))
+
+    rates = {"fused FFN": BATCH * timed / seconds}
+    unfused = flagship_vit()
+    ustate, ustep = _train_state(unfused, init, device)
+    _pairs_per_s(ustate, ustep, batch, WARMUP_STEPS)
+    rates["unfused FFN"] = _pairs_per_s(ustate, ustep, batch, PLAIN_STEPS)
+    print(f"ffn train: train pairs/s {rates}", flush=True)
+    return launches
+
+
+FFN_CARD = {"image_encoder_args": {"fused_ffn": True},
+            "profile_encoder_args": {"fused_ffn": True}}
+
+
+def phase_ffn_card(device):
+    """The ViT-S SigLIP card with ``fused_ffn: true`` on both encoders:
+    card dict -> ModelCard -> build_multi_model -> Fitter."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, ffn_fwd=FFN_LAYERS,
+                         ffn_bwd=FFN_LAYERS, siglip_fwd=1, siglip_bwd=1)
+    per_eval = _per_step(mha_qkv_fwd=ATTENTION_LAYERS, ffn_fwd=FFN_LAYERS,
+                         siglip_fwd=1)
+    card, model, tx, train_step, eval_step = _card(**FFN_CARD)
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    model.to(device)
+    state = create_train_state(model, init, tx)
+    batch = synthetic_batch_vit(card.bs, seed=4, device=device)
+    state, launches, _ = _fit_card("ffn card", card, state, train_step,
+                                   eval_step, batch, per_step, per_eval)
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or "coordination.logit_bias" not in state.params:
+        fail(f"ffn card: master weights that did not move: {unmoved}")
+    return launches
+
+
+def phase_unpacked(device):
+    """The attention module's unpacked route (``PLANKTON_ATTN_QKV_PACKED=0``,
+    set here and restored): the flagship encodes through kernel 3 and
+    trains through kernels 3 and 4, never kernels 1 and 2."""
+    import os
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
+    model.to(device).eval()
+    gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
+    labels = np.random.RandomState(2).randint(0, 16, GALLERY)
+    packed, packed_rate, _ = _encode_timed(model, gallery, labels, device)
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    old = os.environ.get("PLANKTON_ATTN_QKV_PACKED")
+    os.environ["PLANKTON_ATTN_QKV_PACKED"] = "0"
+    try:
+        emb, rate, launches = _encode_timed(model, gallery, labels, device)
+        state, train_step = _train_state(flagship_vit(), init, device)
+        _reset_counts()
+        losses = []
+        for _ in range(UNPACKED_STEPS):
+            state, loss = train_step(state, batch, 0)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        train_launches = _counts()
+    finally:
+        if old is None:
+            os.environ.pop("PLANKTON_ATTN_QKV_PACKED")
+        else:
+            os.environ["PLANKTON_ATTN_QKV_PACKED"] = old
+    print(f"unpacked: encode {rate!r} pairs/s (packed route {packed_rate!r}); "
+          f"launches {launches}; {UNPACKED_STEPS} train steps, losses "
+          f"{losses}, launches {train_launches}", flush=True)
+    want = {n: c * (GALLERY // BATCH) for n, c in _per_step(
+        mha_fwd=ATTENTION_LAYERS).items()}
+    if launches != want:
+        fail(f"unpacked encode: expected launches {want}, got {launches}")
+    want = {n: c * UNPACKED_STEPS for n, c in _per_step(
+        mha_fwd=ATTENTION_LAYERS, mha_bwd=ATTENTION_LAYERS, clip_fwd=1,
+        clip_bwd=1).items()}
+    if train_launches != want:
+        fail(f"unpacked train: expected launches {want}, got "
+             f"{train_launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"unpacked train: non-finite losses {losses}")
+    # the same math as the packed route; the q, k, v GEMMs may sum in
+    # another order than the packed one, as any two routes of bf16 math
+    _check_embeddings("unpacked encode", emb, labels, device, packed)
+    return {n: launches[n] + train_launches[n] for n in launches}
 
 
 def _device_ms(prof, steps):
@@ -1245,7 +1728,8 @@ def _device_ms(prof, steps):
 
 
 def phase_profile(device):
-    """The micro-step of each card (SigLIP ViT-S; B0 CLIP) by kernel."""
+    """The micro-step of each card (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S
+    with and without ``fused_ffn``) by kernel."""
     from multimodal_plankton_recognition_torch.models.flagships import (
         synthetic_batch_b0, synthetic_batch_vit)
 
@@ -1255,6 +1739,9 @@ def phase_profile(device):
     _profile_card(device, "b0 card", B0_CARD, (("kernel", {}),
                                                ("cudnn", B0_CUDNN)),
                   synthetic_batch_b0)
+    _profile_card(device, "ffn card", CARD, (("fused FFN", FFN_CARD),
+                                             ("unfused FFN", {})),
+                  synthetic_batch_vit)
 
 
 def _profile_card(device, what, base, paths, make_batch):
@@ -1321,7 +1808,11 @@ def main(argv=None) -> None:
     launches = {"encode": phase_slice(device), "train": phase_train(device),
                 "card": phase_card(device),
                 "b0_encode": phase_b0_encode(device),
-                "b0_card": phase_b0_card(device)}
+                "b0_card": phase_b0_card(device),
+                "ffn_encode": phase_ffn_encode(device),
+                "ffn_train": phase_ffn_train(device),
+                "ffn_card": phase_ffn_card(device),
+                "unpacked": phase_unpacked(device)}
     if args.profile:
         phase_profile(device)
 
@@ -1332,6 +1823,10 @@ def main(argv=None) -> None:
             ("mha_qkv_fwd", "attention_fwd.cu", "attention.py:355",
              "vit B=256 L=197 H=3 mask=False eval"),
             ("mha_qkv_bwd", "attention_bwd.cu", "attention.py:401",
+             "vit B=256 L=197 H=3 mask=False p=0.0"),
+            ("mha_fwd", "attention_fwd.cu", "attention.py:233",
+             "vit B=256 L=197 H=3 mask=False eval"),
+            ("mha_bwd", "attention_bwd.cu", "attention.py:282",
              "vit B=256 L=197 H=3 mask=False p=0.0"),
             ("clip_fwd", "clip_loss.cu", "contrastive.py:39",
              f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512"),
@@ -1345,7 +1840,11 @@ def main(argv=None) -> None:
                f"experimental/mbconv.py:{line}", "stage2_block1 B=64 H=W=56 "
                "cin=24 mid=144 cout=24 k=3 r=6")
               for k, line in (("ka_fwd", 163), ("kb_fwd", 265),
-                              ("kb_bwd", 303), ("ka_bwd", 373)))):
+                              ("kb_bwd", 303), ("ka_bwd", 373))),
+            ("ffn_fwd", "ffn.cu", "experimental/ffn.py:116",
+             "vit B=256 L=197 E=192 F=768 gelu bfloat16 p=0.0"),
+            ("ffn_bwd", "ffn.cu", "experimental/ffn.py:132",
+             "vit B=256 L=197 E=192 F=768 gelu bfloat16 p=0.0")):
         by_path = {path: counts[name] for path, counts in launches.items()}
         record = records[name][first]
         kernels.append({

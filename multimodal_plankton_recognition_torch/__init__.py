@@ -16,9 +16,12 @@ and the CLIP loss; for the ViT model cards, the card path — ``config``
 coordination method and the SigLIP loss; for the EfficientNet-B0 family
 (``flagship_b0``: EfficientNet-B0 + ProfileCNN, and the B0 model cards),
 serving and the card path, with the fused MBConv block (``ops.mbconv``)
-for ``fused_mbconv``. Kernels: ``csrc/attention_fwd.cu``,
+for ``fused_mbconv``; for both transformer encoders, the fused
+feed-forward block (``ops.ffn``) for ``fused_ffn``, and the attention
+module's separate-q/k/v route (``PLANKTON_ATTN_QKV_PACKED=0`` or
+``PLANKTON_ATTN_STACKED=0``). Kernels: ``csrc/attention_fwd.cu``,
 ``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu``, ``csrc/siglip_loss.cu``,
-``csrc/mbconv_fwd.cu`` and ``csrc/mbconv_bwd.cu``.
+``csrc/mbconv_fwd.cu``, ``csrc/mbconv_bwd.cu`` and ``csrc/ffn.cu``.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,17 @@
-// Multi-head self-attention backward on a packed (B, L, 3E) q|k|v operand,
-// bf16 in and out, for Hopper (sm_90a). Plain C entry point, loaded with
-// ctypes by ops/attention.py.
-//
-// Replaces the TPU kernel
-//   multimodal_plankton_recognition_tpu/ops/pallas/attention.py
-//   ::_bwd_kernel_stacked_qkv (reached through mha_core_qkv / _mha_qkv_bwd).
-// The bias cotangent is not computed: the module builds the bias from the
-// padding mask and drops its gradient (models/attention.py:182-184 of the
-// JAX package).
+// Multi-head self-attention backward, bf16 in and out, for Hopper
+// (sm_90a). Plain C entry points, loaded with ctypes by ops/attention.py:
+//   mha_qkv_bwd_bf16  on one packed (B, L, 3E) q|k|v operand and its packed
+//     dqkv, replacing the TPU kernel
+//     multimodal_plankton_recognition_tpu/ops/pallas/attention.py
+//     ::_bwd_kernel_stacked_qkv (mha_core_qkv / _mha_qkv_bwd);
+//   mha_bwd_bf16      on separate (B, L, E) q, k, v and dq, dk, dv,
+//     replacing ::_bwd_kernel and ::_bwd_kernel_stacked (mha_core /
+//     _mha_bwd).
+// One kernel serves both: operands and cotangents through three pointers
+// each, with a row stride of 3E (packed) or E (separate). The bias
+// cotangent is not computed: the module builds the bias from the padding
+// mask and drops its gradient (models/attention.py:182-184 of the JAX
+// package).
 //
 // Numerics, kept from the TPU kernel (per head h):
 //   z  = q . k^T * (1/sqrt(D)) + bias[key]   bf16 operands, f32 accumulation
@@ -147,14 +151,21 @@ __device__ __forceinline__ float2 weighted_rows(const float* coef,
   return acc;
 }
 
+// q, k, v (dq, dk, dv): head 0 of token 0 of sample 0 of each operand
+// (cotangent); ld: elements between consecutive tokens of one of them (3E
+// packed, E separate); dout has a row stride of E
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-mha_qkv_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ dout,
-                   __nv_bfloat16* __restrict__ dqkv,
-                   int L, int E, float scale, uint32_t seed, uint32_t thr,
-                   float inv_keep) {
+mha_bwd_kernel(const __nv_bfloat16* __restrict__ q_in,
+               const __nv_bfloat16* __restrict__ k_in,
+               const __nv_bfloat16* __restrict__ v_in, int ld,
+               const float* __restrict__ bias,
+               const __nv_bfloat16* __restrict__ dout,
+               __nv_bfloat16* __restrict__ dq_out,
+               __nv_bfloat16* __restrict__ dk_out,
+               __nv_bfloat16* __restrict__ dv_out,
+               int L, int E, float scale, uint32_t seed, uint32_t thr,
+               float inv_keep) {
   using G = Geom<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* qs = reinterpret_cast<uint32_t*>(smem_raw);  // L x kStride each
@@ -170,23 +181,22 @@ mha_qkv_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t row_words = (size_t)3 * E / 2;  // 32-bit words per token
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * L * row_words;
-  const uint32_t* dsrc =
-      reinterpret_cast<const uint32_t*>(dout) + (size_t)b * L * E / 2;
-  const int q_off = h * D / 2;
-  const int k_off = (E + h * D) / 2;
-  const int v_off = (2 * E + h * D) / 2;
+  const size_t row_words = (size_t)ld / 2;  // 32-bit words per token
+  const size_t head = ((size_t)b * L * ld + (size_t)h * D) / 2;
+  const uint32_t* qsrc = reinterpret_cast<const uint32_t*>(q_in) + head;
+  const uint32_t* ksrc = reinterpret_cast<const uint32_t*>(k_in) + head;
+  const uint32_t* vsrc = reinterpret_cast<const uint32_t*>(v_in) + head;
+  const uint32_t* dsrc = reinterpret_cast<const uint32_t*>(dout) +
+                         ((size_t)b * L * E + (size_t)h * D) / 2;
 
   for (int i = threadIdx.x; i < L * G::kPairs; i += blockDim.x) {
     const int j = i / G::kPairs;
     const int w = i - j * G::kPairs;
-    const uint32_t* row = src + (size_t)j * row_words;
-    qs[j * G::kStride + w] = row[q_off + w];
-    ks[j * G::kStride + w] = row[k_off + w];
-    vs[j * G::kStride + w] = row[v_off + w];
-    dos[j * G::kStride + w] = dsrc[(size_t)j * E / 2 + q_off + w];
+    const size_t at = (size_t)j * row_words + w;
+    qs[j * G::kStride + w] = qsrc[at];
+    ks[j * G::kStride + w] = ksrc[at];
+    vs[j * G::kStride + w] = vsrc[at];
+    dos[j * G::kStride + w] = dsrc[(size_t)j * E / 2 + w];
   }
   __syncthreads();
 
@@ -231,7 +241,7 @@ mha_qkv_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     const float2 dq = weighted_rows<D>(buf_a, ks, L, lane);
     if (lane < G::kPairs) {
       reinterpret_cast<__nv_bfloat162*>(
-          dqkv + ((size_t)b * L + r) * 3 * E + h * D)[lane] =
+          dq_out + ((size_t)b * L + r) * ld + h * D)[lane] =
           __floats2bfloat162_rn(dq.x, dq.y);
     }
     if (lane == 0) {
@@ -268,31 +278,55 @@ mha_qkv_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     const float2 dk = weighted_rows<D>(buf_a, qs, L, lane);
     const float2 dv = weighted_rows<D>(buf_b, dos, L, lane);
     if (lane < G::kPairs) {
-      __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
-          dqkv + ((size_t)b * L + j) * 3 * E);
-      out[(E + h * D) / 2 + lane] = __floats2bfloat162_rn(dk.x, dk.y);
-      out[(2 * E + h * D) / 2 + lane] = __floats2bfloat162_rn(dv.x, dv.y);
+      const size_t at = ((size_t)b * L + j) * ld + h * D;
+      reinterpret_cast<__nv_bfloat162*>(dk_out + at)[lane] =
+          __floats2bfloat162_rn(dk.x, dk.y);
+      reinterpret_cast<__nv_bfloat162*>(dv_out + at)[lane] =
+          __floats2bfloat162_rn(dv.x, dv.y);
     }
     __syncwarp();
   }
 }
 
+typedef const __nv_bfloat16* cbf16p;
+typedef __nv_bfloat16* bf16p;
+
 template <int D>
-int launch(const void* qkv, const void* bias, const void* dout, void* dqkv,
-           int B, int L, int H, float scale, uint32_t seed, uint32_t thr,
-           float inv_keep, cudaStream_t stream) {
+int launch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
+           const void* dout, bf16p dq, bf16p dk, bf16p dv, int B, int L,
+           int H, float scale, uint32_t seed, uint32_t thr, float inv_keep,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(L);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_qkv_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B);
-  mha_qkv_bwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dqkv), L, H * D, scale, seed, thr,
+  mha_bwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
+      q, k, v, ld, static_cast<const float*>(bias),
+      static_cast<cbf16p>(dout), dq, dk, dv, L, H * D, scale, seed, thr,
       inv_keep);
   return (int)cudaGetLastError();
+}
+
+int dispatch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
+             const void* dout, bf16p dq, bf16p dk, bf16p dv, int B, int L,
+             int H, int D, float scale, unsigned seed, unsigned thr,
+             float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(DIM)                                                          \
+  launch<DIM>(q, k, v, ld, bias, dout, dq, dk, dv, B, L, H, scale, seed, thr, \
+              inv_keep, s)
+  switch (D) {
+    case 8: return LAUNCH(8);
+    case 16: return LAUNCH(16);
+    case 24: return LAUNCH(24);
+    case 32: return LAUNCH(32);
+    case 48: return LAUNCH(48);
+    case 64: return LAUNCH(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
 }
 
 }  // namespace
@@ -307,19 +341,26 @@ int mha_qkv_bwd_bf16(const void* qkv, const void* bias, const void* dout,
                      void* dqkv, int B, int L, int H, int D, float scale,
                      unsigned seed, unsigned thr, float inv_keep,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(DIM)                                                         \
-  launch<DIM>(qkv, bias, dout, dqkv, B, L, H, scale, seed, thr, inv_keep, s)
-  switch (D) {
-    case 8: return LAUNCH(8);
-    case 16: return LAUNCH(16);
-    case 24: return LAUNCH(24);
-    case 32: return LAUNCH(32);
-    case 48: return LAUNCH(48);
-    case 64: return LAUNCH(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  cbf16p in = static_cast<cbf16p>(qkv);
+  bf16p out = static_cast<bf16p>(dqkv);
+  const int E = H * D;
+  return dispatch(in, in + E, in + 2 * E, 3 * E, bias, dout, out, out + E,
+                  out + 2 * E, B, L, H, D, scale, seed, thr, inv_keep,
+                  stream);
+}
+
+// q, k, v, dout: (B, L, H*D) bf16 each; dq, dk, dv: (B, L, H*D) bf16, every
+// element written. All contiguous. The same numerics and dropout bits as
+// mha_qkv_bwd_bf16.
+int mha_bwd_bf16(const void* q, const void* k, const void* v,
+                 const void* bias, const void* dout, void* dq, void* dk,
+                 void* dv, int B, int L, int H, int D, float scale,
+                 unsigned seed, unsigned thr, float inv_keep, void* stream) {
+  return dispatch(static_cast<cbf16p>(q), static_cast<cbf16p>(k),
+                  static_cast<cbf16p>(v), H * D, bias, dout,
+                  static_cast<bf16p>(dq), static_cast<bf16p>(dk),
+                  static_cast<bf16p>(dv), B, L, H, D, scale, seed, thr,
+                  inv_keep, stream);
 }
 
 const char* cuda_error_string(int code) {

@@ -1,11 +1,12 @@
-// Multi-head self-attention forward on a packed (B, L, 3E) q|k|v operand,
-// bf16 in and out, for Hopper (sm_90a). Plain C entry point, loaded with
-// ctypes by ops/attention.py.
-//
-// Replaces the TPU kernel
-//   multimodal_plankton_recognition_tpu/ops/pallas/attention.py
-//   ::_fwd_kernel_stacked_qkv (reached through mha_core_qkv / _mha_qkv_fwd),
-// in eval and train mode.
+// Multi-head self-attention forward, bf16 in and out, for Hopper (sm_90a).
+// Plain C entry points, loaded with ctypes by ops/attention.py:
+//   mha_qkv_fwd_bf16  on one packed (B, L, 3E) q|k|v operand, replacing the
+//     TPU kernel multimodal_plankton_recognition_tpu/ops/pallas/attention.py
+//     ::_fwd_kernel_stacked_qkv (mha_core_qkv / _mha_qkv_fwd);
+//   mha_fwd_bf16      on separate (B, L, E) q, k and v, replacing
+//     ::_fwd_kernel and ::_fwd_kernel_stacked (mha_core / _mha_fwd).
+// Both run in eval and train mode and share one kernel: it reads q, k and v
+// through three pointers with a row stride of 3E (packed) or E (separate).
 //
 // Numerics, kept from the TPU kernel:
 //   s = q_h . k_h^T     bf16 operands, f32 accumulation
@@ -76,13 +77,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// q, k, v: head 0 of token 0 of sample 0 of each operand; ld: elements
+// between consecutive tokens of one operand (3E packed, E separate)
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out,
-                   int L, int E, float scale, uint32_t seed, uint32_t thr,
-                   float inv_keep) {
+mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
+               const __nv_bfloat16* __restrict__ k_in,
+               const __nv_bfloat16* __restrict__ v_in, int ld,
+               const float* __restrict__ bias,
+               __nv_bfloat16* __restrict__ out,
+               int L, int E, float scale, uint32_t seed, uint32_t thr,
+               float inv_keep) {
   using G = Geom<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* ks = reinterpret_cast<uint32_t*>(smem_raw);   // L x kKStride
@@ -93,19 +98,17 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t row_words = (size_t)3 * E / 2;  // 32-bit words per token
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * L * row_words;
-  const int q_off = h * D / 2;
-  const int k_off = (E + h * D) / 2;
-  const int v_off = (2 * E + h * D) / 2;
+  const size_t row_words = (size_t)ld / 2;  // 32-bit words per token
+  const size_t head = ((size_t)b * L * ld + (size_t)h * D) / 2;
+  const uint32_t* qsrc = reinterpret_cast<const uint32_t*>(q_in) + head;
+  const uint32_t* ksrc = reinterpret_cast<const uint32_t*>(k_in) + head;
+  const uint32_t* vsrc = reinterpret_cast<const uint32_t*>(v_in) + head;
 
   for (int i = threadIdx.x; i < L * G::kPairs; i += blockDim.x) {
     const int j = i / G::kPairs;
     const int w = i - j * G::kPairs;
-    const uint32_t* row = src + (size_t)j * row_words;
-    ks[j * G::kKStride + w] = row[k_off + w];
-    vs[j * G::kPairs + w] = row[v_off + w];
+    ks[j * G::kKStride + w] = ksrc[(size_t)j * row_words + w];
+    vs[j * G::kPairs + w] = vsrc[(size_t)j * row_words + w];
   }
   __syncthreads();
 
@@ -119,7 +122,7 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int r = blockIdx.x * kRowsPerBlock + warp; r < row_end; r += kWarps) {
     float q[D];
     const __nv_bfloat162* qrow = reinterpret_cast<const __nv_bfloat162*>(
-        src + (size_t)r * row_words + q_off);
+        qsrc + (size_t)r * row_words);
 #pragma unroll
     for (int w = 0; w < G::kPairs; ++w) {
       const float2 f = __bfloat1622float2(qrow[w]);
@@ -186,19 +189,39 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 template <int D>
-int launch(const void* qkv, const void* bias, void* out, int B, int L, int H,
-           float scale, uint32_t seed, uint32_t thr, float inv_keep,
-           cudaStream_t stream) {
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+           const __nv_bfloat16* v, int ld, const void* bias, void* out, int B,
+           int L, int H, float scale, uint32_t seed, uint32_t thr,
+           float inv_keep, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(L);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_qkv_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  mha_qkv_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
+  mha_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
+      q, k, v, ld, static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), L, H * D, scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+             const __nv_bfloat16* v, int ld, const void* bias, void* out,
+             int B, int L, int H, int D, float scale, unsigned seed,
+             unsigned thr, float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(DIM) \
+  launch<DIM>(q, k, v, ld, bias, out, B, L, H, scale, seed, thr, inv_keep, s)
+  switch (D) {
+    case 8: return LAUNCH(8);
+    case 16: return LAUNCH(16);
+    case 24: return LAUNCH(24);
+    case 32: return LAUNCH(32);
+    case 48: return LAUNCH(48);
+    case 64: return LAUNCH(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
 }
 
 }  // namespace
@@ -212,19 +235,22 @@ extern "C" {
 int mha_qkv_fwd_bf16(const void* qkv, const void* bias, void* out, int B,
                      int L, int H, int D, float scale, unsigned seed,
                      unsigned thr, float inv_keep, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(DIM) \
-  launch<DIM>(qkv, bias, out, B, L, H, scale, seed, thr, inv_keep, s)
-  switch (D) {
-    case 8: return LAUNCH(8);
-    case 16: return LAUNCH(16);
-    case 24: return LAUNCH(24);
-    case 32: return LAUNCH(32);
-    case 48: return LAUNCH(48);
-    case 64: return LAUNCH(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const int E = H * D;
+  return dispatch(q, q + E, q + 2 * E, 3 * E, bias, out, B, L, H, D, scale,
+                  seed, thr, inv_keep, stream);
+}
+
+// q, k, v: (B, L, H*D) bf16 each, contiguous; bias and out as above; the
+// same numerics and dropout bits as mha_qkv_fwd_bf16.
+int mha_fwd_bf16(const void* q, const void* k, const void* v,
+                 const void* bias, void* out, int B, int L, int H, int D,
+                 float scale, unsigned seed, unsigned thr, float inv_keep,
+                 void* stream) {
+  return dispatch(static_cast<const __nv_bfloat16*>(q),
+                  static_cast<const __nv_bfloat16*>(k),
+                  static_cast<const __nv_bfloat16*>(v), H * D, bias, out, B,
+                  L, H, D, scale, seed, thr, inv_keep, stream);
 }
 
 const char* cuda_error_string(int code) {

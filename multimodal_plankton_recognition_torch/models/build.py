@@ -2,12 +2,13 @@
 JAX package): one place that maps a ``ModelCard`` to the port's modules.
 
 Card options the port does not take yet raise ``NotImplementedError``
-naming ``ROADMAP.md``, before any module is built: ``fused_ffn`` (image or
-profile encoder), ``remat``, ``pretrained_path`` and ``pretrained: true``
-(the image encoder's own refusal). So do image backbones and
-profile-encoder kinds not ported yet (``models/image/registry.py``,
-``models/profile/factory.py``). ``fused_mbconv`` goes to the image
-encoder, which hands it to an EfficientNet only.
+naming ``ROADMAP.md``, before any module is built: ``remat``,
+``pretrained_path`` and ``pretrained: true`` (the image encoder's own
+refusal). So do image backbones and profile-encoder kinds not ported yet
+(``models/image/registry.py``, ``models/profile/factory.py``).
+``fused_mbconv`` goes to the image encoder, which hands it to an
+EfficientNet only; ``fused_ffn`` to either encoder, the image encoder
+handing it to a ViT only.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from .multi import MultiModel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NOT_PORTED = {
-    "image_encoder_args": ("fused_ffn", "remat", "pretrained_path"),
-    "profile_encoder_args": ("fused_ffn",),
+    "image_encoder_args": ("remat", "pretrained_path"),
+    "profile_encoder_args": (),
 }
 
 

@@ -6,8 +6,9 @@ train step folds the step number into it. Here a train step opens
 ``torch.Generator`` seeded from (seed, step), and every dropout site draws
 from it:
 
-* the attention kernels take an integer seed per call, drawn on the CPU
-  (``attention_seed``), so no layer makes the host wait for the card;
+* the attention and feed-forward kernels take an integer seed per call,
+  drawn on the CPU (``kernel_seed``), so no layer makes the host wait for
+  the card;
 * elementwise dropout (``dropout``) draws its mask on the tensor's device
   from a generator of that device, seeded once per step from the CPU
   generator.
@@ -74,9 +75,10 @@ def _current() -> DropoutRng:
     return rng
 
 
-def attention_seed(rate: float, training: bool) -> tuple[float, int]:
-    """(probability, seed) for one attention call: (0, 0) in eval mode or
-    at rate 0."""
+def kernel_seed(rate: float, training: bool) -> tuple[float, int]:
+    """(probability, seed) for one call of a kernel that drops inside
+    (attention probabilities, the fused FFN's hidden): (0, 0) in eval mode
+    or at rate 0."""
     if not training or rate == 0.0:
         return 0.0, 0
     return rate, _current().seed()

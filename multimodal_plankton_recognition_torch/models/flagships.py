@@ -38,26 +38,30 @@ def flagship_b0(dim_embed: int = 512, fused_loss: bool = True,
 
 
 def flagship_vit(dim_embed: int = 512, fused_attention: bool = True,
-                 target_size: int = 224, fused_loss: bool = True,
-                 dropout: Optional[float] = None,
+                 fused_ffn: bool = False, target_size: int = 224,
+                 fused_loss: bool = True, dropout: Optional[float] = None,
                  dtype: torch.dtype = torch.bfloat16) -> MultiModel:
     """ViT-T/16 + ProfileTransformer (192 wide, 2 layers, 8 heads) + CLIP
     head, bf16 — the JAX package's ``flagship_vit``. With
     ``fused_attention`` every attention layer runs the attention kernels,
-    with ``fused_loss`` the CLIP loss runs the CLIP kernels; without them,
-    the plain PyTorch compositions of the same math. ``dropout`` overrides
-    the image-encoder and profile dropout (0.1 by default; the ViT's own is
-    0.0), e.g. 0.0 to compare two paths step for step."""
+    with ``fused_ffn`` every feed-forward block the fused FFN kernels (both
+    encoders), with ``fused_loss`` the CLIP loss runs the CLIP kernels;
+    without them, the plain PyTorch compositions of the same math.
+    ``dropout`` overrides the image-encoder and profile dropout (0.1 by
+    default; the ViT's own is 0.0), e.g. 0.0 to compare two paths step for
+    step."""
     drop = {} if dropout is None else {"dropout": dropout}
     return MultiModel(
         dim_embed=dim_embed,
         image_encoder_args={"name": "vit_tiny_patch16_224", "in_chans": 1,
                             "metadata": True,
-                            "fused_attention": fused_attention, **drop},
+                            "fused_attention": fused_attention,
+                            "fused_ffn": fused_ffn, **drop},
         profile_encoder_args={"kind": "transformer", "dim_in": 6,
                               "dim_hidden": 192, "num_layers": 2,
                               "num_head": 8, "target_size": target_size,
-                              "fused_attention": fused_attention, **drop},
+                              "fused_attention": fused_attention,
+                              "fused_ffn": fused_ffn, **drop},
         coordination_args={"method": "clip", "fused": fused_loss},
         dtype=dtype,
     )

@@ -8,8 +8,8 @@ in the JAX module: in bf16 a size like 399 rounds to 400 first. In train
 mode the feature drops at ``dropout`` (``encoder.py:83``).
 
 As in the JAX module, ``fused_mbconv`` reaches only an EfficientNet
-backbone (as its ``fused``) and ``fused_attention`` only a ViT; the other
-backbones ignore them.
+backbone (as its ``fused``) and ``fused_attention`` and ``fused_ffn`` only a
+ViT; the other backbones ignore them.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ class ImageEncoder(nn.Module):
                  dropout: float = 0.1, metadata: bool = True,
                  num_classes: int = 0, pretrained: bool = False,
                  fused_attention: bool = False, fused_mbconv: bool = False,
+                 fused_ffn: bool = False,
                  backbone_kwargs: Optional[dict] = None) -> None:
         """Card keys of the JAX module; ``num_classes`` is accepted for
         card parity (features only)."""
@@ -42,6 +43,8 @@ class ImageEncoder(nn.Module):
             extra["fused"] = True
         if fused_attention and name.startswith("vit"):
             extra["fused_attention"] = True
+        if fused_ffn and name.startswith("vit"):
+            extra["fused_ffn"] = True
         extra.update(backbone_kwargs or {})
         self.backbone = create_backbone(name, in_chans=in_chans, **extra)
 

@@ -9,8 +9,10 @@ patch conv runs on an NCHW view.
 
 Train-mode dropout at the JAX placements (``vit.py:49, :65, :67, :111``):
 attention probabilities, the attention output, the MLP hidden and the MLP
-output, and the embedded tokens. Not ported: the fused Pallas FFN and the
-remat-MLP probe of the JAX block.
+output, and the embedded tokens. With ``fused_ffn`` the MLP runs through
+the fused FFN kernels (``models/ffn.py``), its hidden dropout inside them;
+the parameters stay ``mlp1`` / ``mlp2``. Not ported: the remat-MLP probe
+of the JAX block.
 """
 
 from __future__ import annotations
@@ -22,16 +24,19 @@ from torch import nn
 from .. import LN_EPS
 from ..attention import FusedSelfAttention
 from ..dropout import dropout
+from ..ffn import apply_fused_ffn
 
 
 class _Block(nn.Module):
     """Pre-LN transformer block: x += MHA(LN(x)); x += MLP(LN(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 dropout: float, fused_attention: bool) -> None:
+                 dropout: float, fused_attention: bool,
+                 fused_ffn: bool) -> None:
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.dropout = dropout
+        self.fused_ffn = fused_ffn
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = FusedSelfAttention(dim, num_heads, fused=fused_attention,
                                        dropout_rate=dropout)
@@ -41,8 +46,13 @@ class _Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self._drop(self.attn(self.ln1(x)))
-        h = F.gelu(self.mlp1(self.ln2(x)), approximate="tanh")
-        return x + self._drop(self.mlp2(self._drop(h)))
+        if self.fused_ffn:
+            h = apply_fused_ffn(self.ln2(x), self.mlp1, self.mlp2, "gelu",
+                                self.dropout, self.training)
+        else:
+            h = F.gelu(self.mlp1(self.ln2(x)), approximate="tanh")
+            h = self.mlp2(self._drop(h))
+        return x + self._drop(h)
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         return dropout(x, self.dropout, self.training)
@@ -52,7 +62,8 @@ class ViT(nn.Module):
     def __init__(self, patch_size: int = 16, embed_dim: int = 192,
                  depth: int = 12, num_heads: int = 3, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, in_chans: int = 1, img_size: int = 224,
-                 fused_attention: bool = False) -> None:
+                 fused_attention: bool = False,
+                 fused_ffn: bool = False) -> None:
         super().__init__()
         self.embed_dim = embed_dim
         self.dropout = dropout
@@ -62,7 +73,8 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, num_heads, mlp_ratio, dropout, fused_attention)
+            _Block(embed_dim, num_heads, mlp_ratio, dropout, fused_attention,
+                   fused_ffn)
             for _ in range(depth))
         self.ln_final = nn.LayerNorm(embed_dim, eps=LN_EPS)
 

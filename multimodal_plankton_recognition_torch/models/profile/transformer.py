@@ -12,7 +12,9 @@ the model dtype first, as in the JAX module.
 Train-mode dropout at the JAX placements (``transformer.py:70, :92, :94,
 :153``): the attention output, the feed-forward hidden and output, and the
 final feature; plus the attention probabilities inside the attention
-kernel. Not ported: the fused Pallas FFN and the remat-MLP probe.
+kernel; with ``fused_ffn`` the feed-forward hidden drops inside the fused
+FFN kernels (``models/ffn.py``; the parameters stay ``ff1`` / ``ff2``).
+Not ported: the remat-MLP probe.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 from .. import LN_EPS
 from ..attention import FusedSelfAttention
 from ..dropout import dropout
+from ..ffn import apply_fused_ffn
 
 _ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
@@ -38,9 +41,11 @@ class _EncoderLayer(nn.Module):
 
     def __init__(self, dim_hidden: int, num_head: int, dim_feedforward: int,
                  dropout: float, activation: str,
-                 fused_attention: bool) -> None:
+                 fused_attention: bool, fused_ffn: bool) -> None:
         super().__init__()
         self.dropout = dropout
+        self.activation = activation
+        self.fused_ffn = fused_ffn
         self.attn = FusedSelfAttention(dim_hidden, num_head,
                                        fused=fused_attention,
                                        dropout_rate=dropout)
@@ -53,8 +58,12 @@ class _EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.ln1(x + self._drop(self.attn(x, padding_mask)))
-        h = self._drop(self.act(self.ff1(x)))
-        return self.ln2(x + self._drop(self.ff2(h)))
+        if self.fused_ffn:
+            h = apply_fused_ffn(x, self.ff1, self.ff2, self.activation,
+                                self.dropout, self.training)
+        else:
+            h = self.ff2(self._drop(self.act(self.ff1(x))))
+        return self.ln2(x + self._drop(h))
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         return dropout(x, self.dropout, self.training)
@@ -68,7 +77,8 @@ class ProfileTransformer(nn.Module):
                  num_layers: int = 6, dim_feedforward: int = 2024,
                  dropout: float = 0.1, activation: str = "gelu",
                  metadata: bool = True,
-                 fused_attention: bool = False) -> None:
+                 fused_attention: bool = False,
+                 fused_ffn: bool = False) -> None:
         """Card keys of the JAX module."""
         super().__init__()
         if activation not in _ACTIVATIONS:
@@ -81,7 +91,7 @@ class ProfileTransformer(nn.Module):
         self.position = nn.Embedding(target_size + 2, dim_hidden)
         self.layers = nn.ModuleList(
             _EncoderLayer(dim_hidden, num_head, dim_feedforward, dropout,
-                          activation, fused_attention)
+                          activation, fused_attention, fused_ffn)
             for _ in range(num_layers))
 
     @property

@@ -1,20 +1,32 @@
-"""Multi-head self-attention on ONE packed (B, L, 3E) q|k|v operand, with
-attention-probability dropout and its backward.
+"""Multi-head self-attention with attention-probability dropout and its
+backward, on ONE packed (B, L, 3E) q|k|v operand or on separate (B, L, E)
+q, k and v.
 
-Port of ``multimodal_plankton_recognition_tpu/ops/pallas/attention.py``
-``mha_core_qkv``: the TPU kernels ``_fwd_kernel_stacked_qkv`` and
-``_bwd_kernel_stacked_qkv`` become the hand-written Hopper kernels
-``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``;
-``mha_qkv_reference`` and ``mha_qkv_bwd_reference`` are their plain
-PyTorch versions with the same rounding points. ``mha_qkv`` is the
-differentiable entry (a ``torch.autograd.Function``): kernels on a CUDA
-tensor, plain versions on a CPU tensor.
+Port of ``multimodal_plankton_recognition_tpu/ops/pallas/attention.py``:
+
+* ``mha_qkv`` (``mha_core_qkv``): the TPU kernels
+  ``_fwd_kernel_stacked_qkv`` and ``_bwd_kernel_stacked_qkv`` (kernels 1
+  and 2) become the entry points ``mha_qkv_fwd_bf16`` and
+  ``mha_qkv_bwd_bf16`` of ``csrc/attention_fwd.cu`` and
+  ``csrc/attention_bwd.cu``;
+* ``mha`` (``mha_core``, the module's unpacked route): ``_fwd_kernel`` /
+  ``_fwd_kernel_stacked`` and ``_bwd_kernel`` / ``_bwd_kernel_stacked``
+  (kernels 3 and 4) become ``mha_fwd_bf16`` and ``mha_bwd_bf16`` of the
+  same sources, which share the device code of kernels 1 and 2 and read
+  the three operands through a row stride of E instead of 3E.
+
+``*_reference`` are their plain PyTorch versions with the same rounding
+points; ``mha_qkv`` and ``mha`` are the differentiable entries (a
+``torch.autograd.Function`` each): kernels on a CUDA tensor, plain
+versions on a CPU tensor. Each wrapper counts its kernel's launches in
+``.launches``.
 
 Layout: head h's q sits at columns ``h*D``, its k at ``E + h*D`` and its v
-at ``2E + h*D`` of the last axis. ``bias_rows`` is a (B, L) f32 additive
-key bias (−1e9 on padded keys) or ``None`` for no mask. Returns (B, L, E)
-in the input dtype. The bias gets no gradient: the module builds it from
-the padding mask, and the JAX module drops its cotangent too.
+at ``2E + h*D`` of the packed last axis (at ``h*D`` of each separate
+operand). ``bias_rows`` is a (B, L) f32 additive key bias (−1e9 on padded
+keys) or ``None`` for no mask. Returns (B, L, E) in the input dtype. The
+bias gets no gradient: the module builds it from the padding mask, and the
+JAX module drops its cotangent too.
 
 Dropout. The TPU kernel draws its mask from the TPU PRNG, which has no
 counterpart here; both kernels and the plain versions draw it instead from
@@ -25,8 +37,11 @@ on it. A probability is kept when its 32 hash bits are >= ``p * 2**32``,
 then scaled by ``1 / (1 - p)`` before the bf16 rounding, as at
 ``attention.py:387-391``.
 
-Not ported (TPU machinery): the lane-mask head mode, the block_b /
-bf16-softmax probe knobs.
+The JAX ``mha_core`` draws one PRNG stream per (sample, head) when
+unstacked and one per sample when stacked; both are TPU bits, and here
+both routes draw the same hashed bits as ``mha_qkv``. Not ported (TPU
+machinery): the lane-mask head mode (``narrow=False``; the module never
+takes it), the block_b / bf16-softmax probe knobs.
 """
 
 from __future__ import annotations
@@ -41,8 +56,9 @@ import torch
 from . import build
 
 __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
-           "mha_qkv_bwd_reference", "dropout_bits", "dropout_threshold",
-           "SUPPORTED_HEAD_DIMS"]
+           "mha_qkv_bwd_reference", "mha", "mha_bwd", "mha_reference",
+           "mha_bwd_reference", "hash_bits", "dropout_bits",
+           "dropout_threshold", "keep_factor", "SUPPORTED_HEAD_DIMS"]
 
 #: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
 SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
@@ -67,16 +83,23 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def hash_bits(seed: int, keys: int, counters: int,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """``csrc/dropout.cuh``'s 32 bits for every (key, counter), (keys,
+    counters) int64 in [0, 2**32): ``fmix32(k ^ fmix32(counter + 1))`` with
+    ``k = fmix32(seed ^ fmix32(key + 1))``."""
+    key = torch.arange(keys, dtype=torch.int64, device=device)
+    key = _fmix32((seed & _MASK32) ^ _fmix32(key + 1))
+    idx = torch.arange(counters, dtype=torch.int64, device=device)
+    return _fmix32(key[:, None] ^ _fmix32(idx + 1)[None, :])
+
+
 def dropout_bits(seed: int, batch: int, heads: int, length: int,
                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """The kernels' 32 random bits per probability, (B, H, L, L) int64 in
-    [0, 2**32): ``fmix32(key ^ fmix32(r*L + j + 1))`` with
-    ``key = fmix32(seed ^ fmix32(b*H + h + 1))``."""
-    bh = torch.arange(batch * heads, dtype=torch.int64, device=device)
-    key = _fmix32((seed & _MASK32) ^ _fmix32(bh + 1))
-    idx = torch.arange(length * length, dtype=torch.int64, device=device)
-    bits = _fmix32(key[:, None] ^ _fmix32(idx + 1)[None, :])
-    return bits.reshape(batch, heads, length, length)
+    """The attention kernels' bits per probability, (B, H, L, L): key
+    ``b*H + h``, counter ``r*L + j``."""
+    return hash_bits(seed, batch * heads, length * length,
+                     device).reshape(batch, heads, length, length)
 
 
 def dropout_threshold(p: float) -> int:
@@ -86,11 +109,16 @@ def dropout_threshold(p: float) -> int:
     return min(round(p * 2.0 ** 32), _MASK32)
 
 
+def keep_factor(bits: torch.Tensor, p: float) -> torch.Tensor:
+    """keep * 1/(1-p) as f32, the factor the kernels apply: kept where the
+    bits are >= ``dropout_threshold(p)``."""
+    return (bits >= dropout_threshold(p)).float() * (1.0 / (1.0 - p))
+
+
 def _keep_scale(seed: int, p: float, b: int, heads: int, l: int,
                 device) -> torch.Tensor:
-    """keep * 1/(1-p) as f32 (B, H, L, L), the factor both kernels apply."""
-    keep = dropout_bits(seed, b, heads, l, device) >= dropout_threshold(p)
-    return keep.to(torch.float32) * (1.0 / (1.0 - p))
+    """The factor of (B, H, L, L) attention probabilities."""
+    return keep_factor(dropout_bits(seed, b, heads, l, device), p)
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -154,43 +182,71 @@ def mha_qkv_bwd_reference(qkv: torch.Tensor,
     return dqkv.reshape(b, l, e3).to(qkv.dtype)
 
 
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias_rows: Optional[torch.Tensor], heads: int,
+                  dropout_p: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Plain version of kernel 3: ``mha_qkv_reference`` on q|k|v, the
+    same numerics and dropout bits (separate operands change no sum)."""
+    return mha_qkv_reference(torch.cat([q, k, v], dim=-1), bias_rows, heads,
+                             dropout_p, seed)
+
+
+def mha_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias_rows: Optional[torch.Tensor], dout: torch.Tensor,
+                      heads: int, dropout_p: float = 0.0, seed: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 4: (dq, dk, dv), each (B, L, E) in the input
+    dtype, from ``mha_qkv_bwd_reference`` on q|k|v."""
+    dqkv = mha_qkv_bwd_reference(torch.cat([q, k, v], dim=-1), bias_rows,
+                                 dout, heads, dropout_p, seed)
+    return tuple(dqkv.chunk(3, dim=-1))
+
+
+_SCALARS = (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_uint,
+                                  ctypes.c_uint, ctypes.c_float)
+
+
+def _declare(fn, n_ptr: int) -> None:
+    """``fn``(n_ptr pointers, B, L, H, D, scale, seed, thr, inv_keep,
+    stream) -> cudaError_t."""
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + list(_SCALARS) + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("attention_fwd")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.mha_qkv_fwd_bf16.argtypes = [vp, vp, vp, ci, ci, ci, ci,
-                                     ctypes.c_float, cu, cu, ctypes.c_float,
-                                     vp]
-    lib.mha_qkv_fwd_bf16.restype = ci
+    _declare(lib.mha_qkv_fwd_bf16, 3)
+    _declare(lib.mha_fwd_bf16, 5)
     return lib
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("attention_bwd")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.mha_qkv_bwd_bf16.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                     ctypes.c_float, cu, cu, ctypes.c_float,
-                                     vp]
-    lib.mha_qkv_bwd_bf16.restype = ci
+    _declare(lib.mha_qkv_bwd_bf16, 4)
+    _declare(lib.mha_bwd_bf16, 8)
     return lib
 
 
 def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
-                     heads: int) -> int:
-    """Validate what the kernels take; return the head dim."""
+                     heads: int, parts: int = 3) -> int:
+    """Validate what the kernels take; return the head dim. ``parts``: 3
+    for a packed q|k|v, 1 for one of separate q, k, v."""
+    what = "qkv" if parts == 3 else "q, k and v"
     if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernel takes bf16 qkv, got "
-                        f"{qkv.dtype} (f32 models use mha_qkv_reference)")
-    if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
-        raise ValueError(f"qkv must be (B, L, 3E) with E divisible by "
-                         f"heads={heads}, got {tuple(qkv.shape)}")
+        raise TypeError(f"the attention kernel takes bf16 {what}, got "
+                        f"{qkv.dtype} (f32 models use the plain version)")
+    if qkv.dim() != 3 or qkv.shape[2] % (parts * heads):
+        raise ValueError(f"{what} must be (B, L, {parts}E) with E divisible "
+                         f"by heads={heads}, got {tuple(qkv.shape)}")
     b, l, e3 = qkv.shape
-    d = e3 // (3 * heads)
+    d = e3 // (parts * heads)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 4:
-        raise ValueError("qkv must be contiguous and 4-byte aligned")
+        raise ValueError(f"{what} must be contiguous and 4-byte aligned")
     if b > 65535 or heads > 65535:
         raise ValueError(f"grid limit: B={b}, heads={heads} must be <= 65535")
     if bias_rows is not None:
@@ -214,8 +270,8 @@ def _check_device(t: torch.Tensor) -> bool:
     return False
 
 
-def _launch_args(qkv, bias_rows, heads, dropout_p, seed):
-    d = _check_cuda_args(qkv, bias_rows, heads)
+def _launch_args(qkv, bias_rows, heads, dropout_p, seed, parts: int = 3):
+    d = _check_cuda_args(qkv, bias_rows, heads, parts)
     b, l, _ = qkv.shape
     return (b, l, heads, d, 1.0 / math.sqrt(d), seed & _MASK32,
             dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
@@ -296,3 +352,92 @@ def mha_qkv(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
 
 mha_qkv.launches = 0
 mha_qkv_bwd.launches = 0
+
+
+def _separate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias_rows: Optional[torch.Tensor], heads: int,
+              dropout_p: float, seed: int):
+    """Checks for kernels 3 and 4: three bf16 (B, L, E) operands of one
+    shape on one card; returns the launch scalars."""
+    for t in (k, v):
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share shape, dtype and "
+                             f"device, got {tuple(q.shape)} {q.dtype} "
+                             f"{q.device} and {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+        _check_cuda_args(t, bias_rows, heads, parts=1)
+    return _launch_args(q, bias_rows, heads, dropout_p, seed, parts=1)
+
+
+def _mha_fwd(q, k, v, bias_rows, heads, dropout_p, seed) -> torch.Tensor:
+    """Kernel 3 on CUDA, its plain version on the CPU."""
+    if _check_device(q):
+        return mha_reference(q, k, v, bias_rows, heads, dropout_p, seed)
+    args = _separate(q, k, v, bias_rows, heads, dropout_p, seed)
+    out = torch.empty_like(q)
+    lib = _fwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.mha_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias_rows is None else bias_rows.data_ptr(),
+            out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "attention_fwd (separate q, k, v)")
+    mha.launches += 1
+    return out
+
+
+def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias_rows: Optional[torch.Tensor], dout: torch.Tensor,
+            heads: int, dropout_p: float = 0.0, seed: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): kernel 4 on CUDA, the plain version on the CPU, an
+    error otherwise. ``mha_bwd.launches`` counts launches."""
+    if _check_device(q):
+        return mha_bwd_reference(q, k, v, bias_rows, dout, heads, dropout_p,
+                                 seed)
+    args = _separate(q, k, v, bias_rows, heads, dropout_p, seed)
+    dout = dout.to(q.dtype).contiguous()
+    if dout.shape != q.shape:
+        raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.mha_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias_rows is None else bias_rows.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *args, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "attention_bwd (separate q, k, v)")
+    mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Mha(torch.autograd.Function):
+    """``_MhaQkv`` on separate q, k, v: kernels 3 and 4."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_rows, heads, dropout_p, seed):
+        ctx.save_for_backward(q, k, v, bias_rows)
+        ctx.args = (heads, dropout_p, seed)
+        return _mha_fwd(q, k, v, bias_rows, heads, dropout_p, seed)
+
+    @staticmethod
+    def backward(ctx, dout) -> Tuple[Optional[torch.Tensor], ...]:
+        q, k, v, bias_rows = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, bias_rows, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias_rows: Optional[torch.Tensor], heads: int,
+        dropout_p: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """``mha_qkv`` on separate (B, L, E) q, k and v (the JAX ``mha_core``):
+    kernels 3 and 4 for CUDA bf16 tensors, the plain versions for CPU
+    tensors, an error otherwise. ``mha.launches`` counts forward-kernel
+    launches."""
+    dropout_threshold(dropout_p)  # validates p before any launch
+    return _Mha.apply(q, k, v, bias_rows, heads, dropout_p, seed)
+
+
+mha.launches = 0
+mha_bwd.launches = 0

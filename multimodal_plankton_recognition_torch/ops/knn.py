@@ -7,7 +7,9 @@ weighted vote with the reference's exact-hit rule. The public
 pynndescent one): ``kneighbors(*X)`` queries once per query modality and
 h-stacks the results, which is how the modalities are fused.
 
-Not ported (TPU machinery): ``approx=True`` (``jax.lax.approx_max_k``),
+The index lives on the card unless the caller passes ``device="cpu"``;
+without a card the default raises (``require_device``). Not ported (TPU
+machinery): ``approx=True`` (``jax.lax.approx_max_k``),
 ``sharded=True`` (mesh-sharded gallery) and the 256-row shape buckets that
 spared XLA a recompile per query size.
 """
@@ -18,6 +20,17 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def require_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA card is available; "
+            f"pass device='cpu' to run on the CPU")
+    return device
 
 
 def topk_euclidean(queries: torch.Tensor, gallery: torch.Tensor,
@@ -66,7 +79,7 @@ class ANNClassifier:
     """
 
     def __init__(self, X: np.ndarray, y: np.ndarray,
-                 device: torch.device | str = "cpu", approx: bool = False,
+                 device: torch.device | str = "cuda", approx: bool = False,
                  sharded: bool = False, **nndescent_args) -> None:
         if approx or sharded:
             raise NotImplementedError(
@@ -74,7 +87,7 @@ class ANNClassifier:
                 "(ROADMAP.md)")
         self.y_ = np.asarray(y).copy()
         self._gallery = torch.as_tensor(np.asarray(X, np.float32),
-                                        device=device)
+                                        device=require_device(device))
 
     def kneighbors(self, *X: np.ndarray, k: int = 1, **query_args):
         k = min(k, self._gallery.shape[0])

@@ -11,6 +11,10 @@ returning the JAX package's flat pickle layout ``{image, profile, label}``
   layers (``data.dataset``, ``data.transforms``, ``data.pipeline``), which
   import pandas and PIL only when called.
 
+Both run on the card unless the caller passes ``device="cpu"``; without a
+card the default raises (``ops.knn.require_device``), it never falls back
+to the CPU. The model must already be on that device.
+
 Not ported yet: the checkpoint loaders (``encode_dataset``,
 ``encode_split``) and the ``scripts/encode.py`` CLI.
 """
@@ -28,6 +32,7 @@ from ..data.dataset import MultiSet
 from ..data.pipeline import Loader, multi_collate_fn
 from ..data.tokenize import get_tokenizer
 from ..data.transforms import ImageTransformTest, ProfileTransformTest
+from ..ops.knn import require_device
 from ..ops.losses import l2_normalize
 
 
@@ -37,6 +42,7 @@ def encode_batches(model: nn.Module, batches: Iterable[Mapping],
     """Encode each batch (a dict of ``MultiModel.encode`` inputs) on
     ``device``; return the stacked normalized image and profile
     embeddings."""
+    device = require_device(device)
     model.eval()
     images, profiles = [], []
     for batch in batches:
@@ -49,7 +55,8 @@ def encode_batches(model: nn.Module, batches: Iterable[Mapping],
 
 def encode_arrays(model: nn.Module, arrays: Mapping, labels,
                   batch_size: int = 256,
-                  device: torch.device | str = "cpu") -> Dict[str, np.ndarray]:
+                  device: torch.device | str = "cuda"
+                  ) -> Dict[str, np.ndarray]:
     """Encode ``arrays`` (image, image_shape, profile, profile_len, time,
     padding_mask; equal leading sizes) in batches of ``batch_size``."""
     n = len(arrays["image"])
@@ -62,13 +69,15 @@ def encode_arrays(model: nn.Module, arrays: Mapping, labels,
 
 def encode_csv(model: nn.Module, csv_path: Path | str, target_size: int,
                batch_size: int = 64, num_workers: int = 4,
-               device: torch.device | str = "cpu") -> Dict[str, np.ndarray]:
+               device: torch.device | str = "cuda"
+               ) -> Dict[str, np.ndarray]:
     """Encode an annotations CSV (columns ``image, profile[, class]``) with
     the eval pipeline of "multi" models (``eval_pipeline`` of the JAX
     package): test-time image and profile transforms at the card's
     ``target_size``, and the tokenizer of the profile encoder's kind —
     ``transformer`` pads to ``target_size + 1`` tokens (the CLS row),
     ``cnn`` to ``target_size``."""
+    device = require_device(device)
     kind = model.profile_encoder.kind
     pad_to = target_size + 1 if kind == "transformer" else target_size
     dataset = MultiSet(csv_path, ImageTransformTest(target_size),

@@ -170,7 +170,8 @@ def test_encode_csv_b0_card_matches_jax(synthetic_dataset):
                        num_workers=1)
     model = build_multi_model(config.ModelCard.from_dict(d))
     load_flax(model, variables)
-    got = encode_csv(model, csv, SIZE, batch_size=5, num_workers=1)
+    got = encode_csv(model, csv, SIZE, batch_size=5, num_workers=1,
+                     device="cpu")
     for key in ("image", "profile"):
         assert got[key].shape == want[key].shape == (len(want["label"]), 512)
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4,

@@ -65,6 +65,10 @@ SIGLIP_CARD = REPO / "model_cards/multi/vit_s_16_transformer_2_512_siglip.yaml"
 B0_CARDS = [REPO / f"model_cards/multi/efficientnet_b0_cnn_2_512_{m}.yaml"
             for m in ("clip", "siglip")]
 F32_LOSS_TOL, F32_UPDATE_TOL = 1e-5, 1e-3
+# f32 with fused_ffn: the FFN rounds through bf16 on both sides, so an f32
+# summation-order difference can flip one bf16 rounding of the hidden (a
+# 2^-8 step); measured on this CPU: median 3.5e-4, largest 1.6e-3
+FUSED_F32_MEDIAN_TOL, FUSED_F32_UPDATE_TOL = 1e-3, 5e-3
 BF16_LOSS_TOL, BF16_MEDIAN_TOL, BF16_UPDATE_TOL = 2e-3, 5e-2, 0.3
 
 
@@ -168,12 +172,10 @@ def test_siglip_card_builds_the_full_model():
 
 
 @pytest.mark.parametrize("field,key,value", [
-    ("image_encoder_args", "fused_ffn", True),
     ("image_encoder_args", "remat", True),
     ("image_encoder_args", "remat", "conv_saves"),
     ("image_encoder_args", "pretrained_path", "weights.npz"),
     ("image_encoder_args", "pretrained", True),
-    ("profile_encoder_args", "fused_ffn", True),
 ])
 def test_options_not_ported_raise(field, key, value):
     d = _load_yaml(SIGLIP_CARD)
@@ -202,6 +204,24 @@ def test_fused_mbconv_builds(path):
     d["image_encoder_args"]["fused_mbconv"] = True
     vit = build_multi_model(config.ModelCard.from_dict(d))
     assert vit.image_encoder.backbone.blocks[0].attn.fused
+
+
+@pytest.mark.parametrize("field", ["image_encoder_args",
+                                   "profile_encoder_args"])
+def test_fused_ffn_builds(field):
+    """``fused_ffn: true`` on either encoder of the ViT-S SigLIP card
+    builds and reaches every block of that encoder only; the parameter
+    tree is the unfused card's."""
+    d = _load_yaml(SIGLIP_CARD)
+    plain = build_multi_model(config.ModelCard.from_dict(copy.deepcopy(d)))
+    d[field]["fused_ffn"] = True
+    model = build_multi_model(config.ModelCard.from_dict(d))
+    blocks = {"image_encoder_args": model.image_encoder.backbone.blocks,
+              "profile_encoder_args": model.profile_encoder.layers}
+    for name, layers in blocks.items():
+        assert {b.fused_ffn for b in layers} == {name == field}
+    assert {n: (t.shape, t.dtype) for n, t in model.state_dict().items()} \
+        == {n: (t.shape, t.dtype) for n, t in plain.state_dict().items()}
 
 
 ARCFACE = {"method": "arcface", "out_features": 5}
@@ -422,3 +442,71 @@ def test_fitter_matches_jax_fitter(case, tmp_path):
     for row, jrow in zip(records, jrecords):
         for key, value in jrow.items():
             np.testing.assert_allclose(row[key], value, rtol=1e-6)
+
+
+@functools.cache
+def _jax_fused_ffn_run(precision: str):
+    """``_jax_run`` for the small card with ``fused_ffn: true`` on both
+    encoders, the JAX blocks' FFN on its kernel route (``ffn_core`` in
+    interpret mode, as on a TPU; tests/test_torch_ffn.py)."""
+    from test_torch_ffn import jax_kernel_route
+
+    d = _small_card(precision)
+    for field in ("image_encoder_args", "profile_encoder_args"):
+        d[field]["fused_ffn"] = True
+    card = jax_config.ModelCard.from_dict(copy.deepcopy(d))
+    old = os.environ.get("PLANKTON_FUSED_INTERPRET")
+    os.environ["PLANKTON_FUSED_INTERPRET"] = "1"
+    try:
+        with jax_kernel_route():
+            model = jax_build_multi_model(card)
+            tx = jax_make_optimizer(card.optim_args,
+                                    card.trainer_args.accumulate_grad_batches)
+            batches = [{k: jnp.asarray(v) for k, v in _batch(s).items()}
+                       for s in (0, 1)]
+            state = jax_create_train_state(
+                model, jax.random.key(0), batches[0], tx,
+                init_kwargs={"buckets": card.buckets})
+            train_step, _ = jax_make_multi_steps(model, tx, card.buckets)
+            init = from_flax({"params": jax.tree.map(np.asarray,
+                                                     state.params)})
+            after = []
+            for i in range(2):
+                state, loss = train_step(state, batches[i],
+                                         jax.random.key(1))
+                after.append((float(loss), from_flax(
+                    {"params": jax.tree.map(np.asarray, state.params)})))
+    finally:
+        if old is None:
+            os.environ.pop("PLANKTON_FUSED_INTERPRET")
+        else:
+            os.environ["PLANKTON_FUSED_INTERPRET"] = old
+    return d, init, after
+
+
+@pytest.mark.parametrize("precision", ["32", "16-mixed"])
+def test_fused_ffn_card_micro_steps_match_jax(precision):
+    """The card with ``fused_ffn: true`` on both encoders: two micro-steps
+    (accumulation 2) through ``ffn_core`` (its plain versions on the CPU)
+    against the JAX step with its FFN on the kernel route: bf16 at the
+    bounds of the unfused card, f32 at ``FUSED_F32_*``."""
+    d, init, want = _jax_fused_ffn_run(precision)
+    card = config.ModelCard.from_dict(copy.deepcopy(d))
+    model = build_multi_model(card)
+    assert all(b.fused_ffn for b in model.image_encoder.backbone.blocks)
+    tx = make_optimizer(card.optim_args,
+                        card.trainer_args.accumulate_grad_batches)
+    state = create_train_state(model, init, tx)
+    train_step, _ = make_multi_steps(model, tx, step_buckets(card))
+    bf16 = precision != "32"
+    for step, (jloss, jparams) in enumerate(want, 1):
+        batch = {k: torch.from_numpy(v) for k, v in _batch(step - 1).items()}
+        state, loss = train_step(state, batch, 0)
+        tol = BF16_LOSS_TOL if bf16 else F32_LOSS_TOL
+        assert abs(loss.item() - jloss) <= tol * abs(jloss), step
+    errs = _update_errors(init, state.params, jparams)
+    worst = max(errs, key=errs.get)
+    median, top = ((BF16_MEDIAN_TOL, BF16_UPDATE_TOL) if bf16 else
+                   (FUSED_F32_MEDIAN_TOL, FUSED_F32_UPDATE_TOL))
+    assert np.median(list(errs.values())) <= median
+    assert errs[worst] <= top, (worst, errs[worst])

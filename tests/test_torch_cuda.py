@@ -1,6 +1,7 @@
 """The CUDA kernels on a card, against their plain versions: attention
-forward (eval and train mode) and backward, CLIP and SigLIP loss forward
-and backward.
+forward (eval and train mode) and backward on packed q|k|v (kernels 1-2)
+and on separate q, k, v (kernels 3-4), CLIP and SigLIP loss forward and
+backward, the fused FFN (kernels 9-10) and the MBConv kernels (13-16).
 
 Marked ``gpu``: each test skips without a CUDA card. On the card:
 
@@ -18,7 +19,13 @@ d logit_scale to 1e-3 relative; SigLIP the same, d logit_bias like
 d logit_scale, also at scale 5 with bias ±30 where a naive softplus would
 overflow. The attention kernels are also held at the SigLIP card's shapes
 (ViT-S: L 197, 6 heads of 64; profile: L 225, 4 heads of 32 with mask and
-dropout 0.1).
+dropout 0.1). Kernels 3-4 share the device code of 1-2 and must equal them
+bit for bit. The fused FFN: each output within 2e-2 of max(1, its largest
+plain value) and 2e-3 relative L2 (both sides round the hidden through
+bf16 at the same points but sum in another order, so a hidden unit can
+land one bf16 step apart); on integer inputs with ReLU every sum is exact,
+so the outputs must equal the plain ones bit for bit, which pins the
+dropout mask.
 """
 
 import pytest
@@ -28,8 +35,8 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.ops.attention import (
-    SUPPORTED_HEAD_DIMS, mha_qkv, mha_qkv_bwd, mha_qkv_bwd_reference,
-    mha_qkv_reference,
+    SUPPORTED_HEAD_DIMS, mha, mha_bwd, mha_bwd_reference, mha_qkv,
+    mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference, mha_reference,
 )
 from multimodal_plankton_recognition_torch.ops.contrastive import (
     MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
@@ -441,3 +448,208 @@ def test_mbconv_refuses_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="kernel size 7"):
         mbconv.ka_fwd(x, wexp, g1, b1, torch.zeros((7, 7, 16), device=cuda),
                       7)
+
+
+# ------------------------ kernels 3-4: separate q, k, v ------------------------
+
+def _separate(qkv):
+    return [t.contiguous() for t in qkv.chunk(3, dim=-1)]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("b,l,heads", SHAPES)
+def test_separate_kernels_match_plain(cuda, b, l, heads, d, masked, p):
+    """Kernels 3 and 4 against their plain versions, and bit for bit
+    against kernels 1 and 2 on the same operands packed."""
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=6)
+    q, k, v = _separate(qkv)
+    dout = torch.randn((b, l, heads * d), device=cuda).to(torch.bfloat16)
+    before = mha.launches, mha_bwd.launches
+    out = mha(q, k, v, bias, heads, p, 23)
+    grads = mha_bwd(q, k, v, bias, dout, heads, p, 23)
+    assert (mha.launches, mha_bwd.launches) == (before[0] + 1,
+                                                before[1] + 1)
+    ref = mha_reference(q, k, v, bias, heads, p, 23)
+    want = mha_bwd_reference(q, k, v, bias, dout, heads, p, 23)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    scale = max(max(w.float().abs().max().item() for w in want), 1.0)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert (g.float() - w.float()).abs().max().item() <= BWD_TOL * scale
+    assert torch.equal(out, mha_qkv(qkv, bias, heads, p, 23))
+    assert torch.equal(torch.cat(grads, dim=-1),
+                       mha_qkv_bwd(qkv, bias, dout, heads, p, 23))
+
+
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+def test_separate_train_mode_mask_is_the_plain_mask(cuda, d):
+    """The exact-sum check of kernel 1 (q = k = 0, v = ±1) on kernel 3."""
+    b, l, heads = 3, 100, 2
+    _, bias = _inputs(cuda, b, l, heads, d, True, seed=2)
+    q = torch.zeros((b, l, heads * d), dtype=torch.bfloat16, device=cuda)
+    signs = torch.rand((b, l, heads * d), device=cuda) < 0.5
+    v = torch.where(signs, -1.0, 1.0).to(torch.bfloat16)
+    assert torch.equal(mha(q, q, v, bias, heads, 0.1, 99),
+                       mha_reference(q, q, v, bias, heads, 0.1, 99))
+
+
+def test_separate_autograd_launches_both_kernels(cuda):
+    qkv, bias = _inputs(cuda, 2, 40, 4, 24, True)
+    leaves = [t.requires_grad_() for t in _separate(qkv)]
+    fwd, bwd = mha.launches, mha_bwd.launches
+    mha(*leaves, bias, 4, 0.1, 5).float().square().sum().backward()
+    assert (mha.launches, mha_bwd.launches) == (fwd + 1, bwd + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+
+
+def test_separate_refuses_what_the_kernels_do_not_take(cuda):
+    qkv, _ = _inputs(cuda, 2, 9, 3, 16, False)
+    q, k, v = _separate(qkv)
+    with pytest.raises(TypeError, match="bf16"):
+        mha(q.float(), k.float(), v.float(), None, 3)
+    with pytest.raises(ValueError, match="share shape"):
+        mha(q, k[:1].contiguous(), v, None, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        mha(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, None, 3)
+
+
+@pytest.mark.parametrize("b,l,heads,d,masked", CARD_SHAPES,
+                         ids=["vit_s", "profile"])
+def test_separate_at_the_card_shapes(cuda, b, l, heads, d, masked):
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=7)
+    q, k, v = _separate(qkv)
+    p = 0.1 if masked else 0.0
+    out = mha(q, k, v, bias, heads, p, 31)
+    assert (out.float() - mha_reference(q, k, v, bias, heads, p, 31)
+            .float()).abs().max().item() <= TOL
+    dout = torch.randn((b, l, heads * d), device=cuda).to(torch.bfloat16)
+    got = mha_bwd(q, k, v, bias, dout, heads, p, 37)
+    want = mha_bwd_reference(q, k, v, bias, dout, heads, p, 37)
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max().item() <= BWD_TOL * scale
+
+
+# ----------------------------- kernels 9-10: FFN -----------------------------
+# (B, L, E, F): odd L, F not a multiple of 64 (padded), each width
+FFN_SHAPES = [(2, 29, 64, 256), (3, 17, 128, 200), (1, 70, 192, 768),
+              (2, 33, 64, 520), (2, 21, 384, 1536), (1, 1, 64, 64)]
+FFN_TOL = 2e-2      # of max(1, the largest |plain value|), each output
+FFN_REL_TOL = 2e-3  # relative L2 of each output
+
+
+def _ffn_inputs(cuda, b, l, e, f, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    return (rnd(b, l, e).to(dtype), rnd(e, f, scale=e ** -0.5),
+            rnd(f, scale=0.1), rnd(f, e, scale=f ** -0.5), rnd(e, scale=0.1),
+            rnd(b, l, e).to(dtype))
+
+
+def _ffn_close(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, f"{what}[{i}]"
+        assert torch.isfinite(g).all(), f"{what}[{i}] not finite"
+        top = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= FFN_TOL * top, f"{what}[{i}]: {err} of {top}"
+        rel = ((g.float() - w.float()).norm()
+               / max(w.float().norm().item(), 1e-30)).item()
+        assert rel <= FFN_REL_TOL, f"{what}[{i}]: relative L2 {rel}"
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", FFN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ffn_kernels_match_plain(cuda, shape, dtype, activation, p):
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    x, w1, b1, w2, b2, dy = _ffn_inputs(cuda, *shape, dtype)
+    before = ffn.ffn_fwd.launches, ffn.ffn_bwd.launches
+    y = ffn.ffn_fwd(x, w1, b1, w2, b2, activation, p, 3)
+    grads = ffn.ffn_bwd(x, w1, b1, w2, b2, dy, activation, p, 3)
+    assert (ffn.ffn_fwd.launches, ffn.ffn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ffn.ffn_reference(x, w1, b1, w2, b2, activation, p, 3)
+    want_grads = ffn.ffn_bwd_reference(x, w1, b1, w2, b2, dy, activation, p,
+                                       3)
+    torch.cuda.synchronize()
+    _ffn_close([y], [want], "y")
+    _ffn_close(grads, want_grads, "grads")
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("shape", FFN_SHAPES[:5],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ffn_dropout_mask_is_the_plain_mask(cuda, shape, p):
+    """ReLU on integer x and w1, ±1 w2 and dy, zero biases: every sum of
+    the forward and of dx, dw1, dw2, db2 is exact in f32 whatever its
+    order, so kernel and plain version agree bit for bit iff their dropout
+    masks do."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    b, l, e, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def ints(*shape, lo=-1, hi=2):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=cuda).float()
+
+    x = ints(b, l, e).to(torch.bfloat16)
+    w1 = ints(e, f)
+    w2 = torch.where(ints(f, e, lo=0) > 0, 1.0, -1.0)
+    b1, b2 = torch.zeros(f, device=cuda), torch.zeros(e, device=cuda)
+    dy = torch.where(ints(b, l, e, lo=0) > 0, 1.0, -1.0).to(torch.bfloat16)
+    args = (x, w1, b1, w2, b2)
+    assert torch.equal(ffn.ffn_fwd(*args, "relu", p, 77),
+                       ffn.ffn_reference(*args, "relu", p, 77))
+    got = ffn.ffn_bwd(*args, dy, "relu", p, 77)
+    want = ffn.ffn_bwd_reference(*args, dy, "relu", p, 77)
+    for i in (0, 1, 3, 4):  # db1 sums dpre = dh / (1 - p), not exact
+        assert torch.equal(got[i], want[i]), i
+
+
+def test_ffn_core_autograd_launches_both_kernels(cuda):
+    """``ffn_core`` on the card: one launch of each kernel; outputs and
+    gradients as the plain versions give them on the CPU."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    inputs = _ffn_inputs(cuda, 2, 29, 192, 520, torch.bfloat16, seed=2)[:5]
+
+    def run(device):
+        leaves = [t.detach().to(device).requires_grad_() for t in inputs]
+        out = ffn.ffn_core(*leaves, "gelu", 0.1, 19)
+        out.float().square().sum().backward()
+        return [out] + [t.grad for t in leaves]
+
+    before = ffn.ffn_fwd.launches, ffn.ffn_bwd.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert (ffn.ffn_fwd.launches, ffn.ffn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _ffn_close([t.cpu() for t in got], run("cpu"), "core")
+
+
+def test_ffn_refuses_what_the_kernels_do_not_take(cuda):
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    x, w1, b1, w2, b2, _ = _ffn_inputs(cuda, 2, 5, 64, 128, torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        ffn.ffn_fwd(x.half(), w1, b1, w2, b2)
+    odd = _ffn_inputs(cuda, 2, 5, 48, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="width 48"):
+        ffn.ffn_fwd(*odd[:5])
+    with pytest.raises(ValueError, match="weights"):
+        ffn.ffn_fwd(x, w1, b1, w1, b2)
+    with pytest.raises(ValueError, match="activation"):
+        ffn.ffn_fwd(x, w1, b1, w2, b2, "silu")

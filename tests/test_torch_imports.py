@@ -29,6 +29,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.data.transforms",
     "multimodal_plankton_recognition_torch.models.attention",
     "multimodal_plankton_recognition_torch.models.batchnorm",
+    "multimodal_plankton_recognition_torch.models.ffn",
     "multimodal_plankton_recognition_torch.models.flagships",
     "multimodal_plankton_recognition_torch.models.image.efficientnet",
     "multimodal_plankton_recognition_torch.models.image.encoder",
@@ -40,6 +41,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.models.profile.transformer",
     "multimodal_plankton_recognition_torch.ops.attention",
     "multimodal_plankton_recognition_torch.ops.build",
+    "multimodal_plankton_recognition_torch.ops.ffn",
     "multimodal_plankton_recognition_torch.ops.knn",
     "multimodal_plankton_recognition_torch.ops.losses",
     "multimodal_plankton_recognition_torch.retrieval.encode",

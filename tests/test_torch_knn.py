@@ -23,7 +23,7 @@ def test_predict_many_matches_jax():
     queries = [_unit(rs, 40), _unit(rs, 40)]
     queries[0][:3] = gallery[[7, 8, 9]]  # exact hits
     want_clf = jax_knn.ANNClassifier(gallery, labels, n_neighbors=32)
-    got_clf = ANNClassifier(gallery, labels, n_neighbors=32)
+    got_clf = ANNClassifier(gallery, labels, "cpu", n_neighbors=32)
     for n_modalities in (1, 2):
         X = queries[:n_modalities]
         want = want_clf.predict_many(*X, ks=(1, 5, 10), epsilon=0.3)
@@ -49,7 +49,7 @@ def test_exact_hit_takes_all_the_mass():
     gallery = _unit(rs, 50)
     labels = np.zeros(50, int)
     labels[17] = 3
-    clf = ANNClassifier(gallery, labels)
+    clf = ANNClassifier(gallery, labels, "cpu")
     assert clf.predict(gallery[17:18], k=10)[0] == 3
 
     dist = torch.tensor([[0.0, 0.5, 0.0], [0.5, 0.25, 1.0]])

@@ -106,8 +106,8 @@ def test_encode_arrays_batches_and_layout():
     model = _port_model(variables, torch.float32)
     batch = _batch(bs=5, seed=2)
     labels = np.arange(5) % 2
-    whole = encode_arrays(model, batch, labels, batch_size=5)
-    split = encode_arrays(model, batch, labels, batch_size=2)
+    whole = encode_arrays(model, batch, labels, batch_size=5, device="cpu")
+    split = encode_arrays(model, batch, labels, batch_size=2, device="cpu")
     assert sorted(whole) == ["image", "label", "profile"]
     for key in ("image", "profile"):
         assert whole[key].dtype == np.float32 and whole[key].shape == (5, 32)
@@ -134,8 +134,26 @@ def test_encode_csv_matches_jax(synthetic_dataset):
     want = _encode_csv(jmodel, variables, card, csv, batch_size=5,
                        num_workers=1)
     model = _port_model(variables, torch.float32, img=ts, target_size=ts)
-    got = encode_csv(model, csv, ts, batch_size=5, num_workers=1)
+    got = encode_csv(model, csv, ts, batch_size=5, num_workers=1,
+                     device="cpu")
     for key in ("image", "profile"):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-4,
                                    err_msg=key)
     np.testing.assert_array_equal(got["label"], want["label"])
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``encode_arrays``, ``encode_csv`` and ``ANNClassifier`` run on the
+    card unless told otherwise: without a card, a call that names no device
+    raises instead of returning a CPU result."""
+    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, variables = _jax_model(jnp.float32)
+    model = _port_model(variables, torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        encode_arrays(model, _batch(bs=2), np.arange(2))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        encode_csv(model, "unused.csv", 16)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ANNClassifier(np.zeros((3, 4), np.float32), np.arange(3))
