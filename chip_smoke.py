@@ -3,7 +3,8 @@
 card: the ViT flagship's encode and train step, the ViT-S SigLIP model
 card's train path, the B0 flagship's encode and the B0 CLIP model card's
 train path with ``fused_mbconv``, the same ViT paths with ``fused_ffn``,
-and the attention module's unpacked (separate q, k, v) route.
+the attention module's unpacked (separate q, k, v) route and its fused
+attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
 
@@ -59,6 +60,19 @@ fatal on failure:
      unfused route's time (``F.linear`` → GELU → ``F.linear`` on cuBLAS, no
      single library call computes the block); and at each shape an
      exact-sum check (ReLU, integer inputs) that must agree bit for bit;
+   * the fused attention block (kernels 11 and 12: ``attn_block_fwd`` /
+     ``attn_block_bwd`` vs ``attn_block_reference`` /
+     ``attn_block_bwd_reference``) at the four attention shapes above, eval
+     and train (p 0.1) at the profile shapes, y and dx within
+     ``KERNEL_TOL`` of max(1, max|plain|) and ``BLOCK_REL_TOL`` relative
+     L2, the weight and bias gradients within ``BWD_TOL`` of their largest
+     value, beside ``nn.MultiheadAttention``'s forward and backward on the
+     same bf16 weights and key padding, at the row's dropout (the
+     library's time; the port never calls it; the eval forward both on
+     its fast path, where it takes it, and on its standard path); and
+     under identity projections (q =
+     k = 0, v = x = ±1, out the identity) bit for bit against kernel 1's
+     output and kernel 2's dv at D = 24 and 32, which pins the mask;
 4. encode: the full-width ViT flagship (bf16, dim_embed 512, random weights
    from a seeded torch.Generator) encodes a synthetic gallery of 2,048
    pairs in batches of 256 through ``retrieval.encode.encode_arrays``; the
@@ -67,7 +81,11 @@ fatal on failure:
    5e-2 of the same weights on the plain attention; then ``ANNClassifier``
    classifies the gallery against itself in four setups (image, profile,
    image->profile, fused image+profile), and the self-matching ones
-   (k = 1) must be >= 99% right;
+   (k = 1) must be >= 99% right. "Plain" here and in 5. and 6. is the same
+   model with the kernel wrappers swapped for their plain versions
+   (``_plain_attention``, which fails if a kernel launched inside it), so
+   the kernels are held to their own math (``fused_attention=False`` is
+   flax's attention, other rounding points, driven in 14.);
 5. train: the same flagship with f32 master weights initialised from a
    seeded f32 model takes 20 ``train_step``s (SGD lr 5e-3, momentum 0.9,
    nesterov, weight decay 1e-3, buckets 16, dropout 0.1 in the profile
@@ -76,8 +94,8 @@ fatal on failure:
    each and the CLIP kernels once each; every loss finite, the least of the
    last 5 below the first, the masters f32 and every one moved; train
    pairs/s over steps 4-20. Then one step from the same weights with
-   dropout 0 on the kernel path and on the plain path (plain attention,
-   unfused CLIP loss): losses within 1e-2, named gradients within 5e-2
+   dropout 0 on the kernel path and on the plain path (the attention
+   kernels' plain versions, unfused CLIP loss): losses within 1e-2, named gradients within 5e-2
    relative (L2); and the plain path's train pairs/s;
 6. card: ``CARD`` (the dict of model_cards/multi/
    vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
@@ -90,8 +108,8 @@ fatal on failure:
    forward launches; losses finite, the least of the last 5 below the
    first, every master moved (``coordination.logit_bias`` among them);
    train pairs/s over micro-steps 4-20 of epoch 1. Then one dropout-0
-   micro-step on the kernel and on the plain path (plain attention,
-   unfused SigLIP): losses within 1e-2, named gradients within 5e-2
+   micro-step on the kernel and on the plain path (the attention kernels'
+   plain versions, unfused SigLIP): losses within 1e-2, named gradients within 5e-2
    relative; and the plain path's train pairs/s;
 7. B0 encode: the full-width B0 flagship (bf16, dim_embed 512, seeded
    random weights; its BatchNorm statistics set by one momentum-0
@@ -125,7 +143,21 @@ fatal on failure:
    after): the flagship's encode runs kernel 3 only (14 a batch), 3 train
    steps kernels 3 and 4 only (14 + 14 a step), never kernels 1 and 2;
    encodings within 5e-2 of the packed route's;
-13. profile (only with ``--profile``): 8 micro-steps of each card on two
+13. fuse_proj: ``PLANKTON_ATTN_FUSE_PROJ=1`` (set in the phase, restored
+   after): the flagship encodes the gallery through kernel 11 only (14 a
+   batch) and takes 3 train steps (dropout 0.1) through kernels 11 and 12
+   only (14 + 14 a step, 0 of kernels 1-4); embeddings within 5e-2 of the
+   packed route's and self-gallery k = 1 >= 99%, losses finite and
+   falling, every master moved; encode and train pairs/s of both routes;
+14. flax attention: ``fused_attention=False`` (flax's attention, no
+   kernel) at full width: the flagship's encode (0 launches) within 5e-2
+   of the kernels' plain versions and self-gallery k = 1 >= 99%; 3 train
+   steps at dropout 0.1 (only the CLIP kernels launch), losses finite and
+   falling, every master moved; one dropout-0 step against the kernels'
+   plain versions (loss 1e-2, named gradients held statistically as in 8.,
+   beside the plain route's nudged-input floor; the largest relative L2
+   printed against 5e-2); encode and train pairs/s;
+15. profile (only with ``--profile``): 8 micro-steps of each card on two
    routes (the SigLIP card also with and without ``fused_ffn``) under
    torch.profiler after 4 warm-up and 8 unprofiled ones:
    device ms per micro-step by kernel, and the idle share, 1 − device busy
@@ -138,6 +170,7 @@ The line before the last is a JSON record of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -149,7 +182,7 @@ REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
 SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss",
-           "mbconv_fwd", "mbconv_bwd", "ffn")
+           "mbconv_fwd", "mbconv_bwd", "ffn", "attention_block")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -190,6 +223,9 @@ FFN_TOL = {"gelu": 2e-2, "relu": 0.25}
 FFN_REL_TOL = 2e-3  # relative L2 of each output
 FFN_LAYERS = ATTENTION_LAYERS  # one feed-forward block per attention layer
 UNPACKED_STEPS = 3  # train steps on the unpacked attention route
+FUSE_PROJ_STEPS = 3  # train steps on the fused attention-block route
+FLAX_STEPS = 3  # train steps of fused_attention=False (flax's attention)
+BLOCK_REL_TOL = 2e-3  # relative L2 of the attention block's y and dx
 # the least time of a kernel: NVIDIA's data sheet for one H100 SXM (dense,
 # at 700 W); bytes over the HBM rate, bf16 products over the tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -334,12 +370,13 @@ def phase_device():
 
 def phase_build():
     from multimodal_plankton_recognition_torch.ops import (
-        attention, build, contrastive, ffn, mbconv)
+        attention, attention_block, build, contrastive, ffn, mbconv)
 
     t0 = time.perf_counter()
     libs = build.build_all(SOURCES)
     attention._fwd_lib()
     attention._bwd_lib()
+    attention_block._lib()
     contrastive._lib()
     contrastive._siglip_lib()
     mbconv._fwd_lib()
@@ -517,6 +554,7 @@ def phase_kernel(device):
     _ffn_kernels(gen, device, records)
     _siglip_kernels(gen, device, records)
     _mbconv_kernels(gen, device, records)
+    _block_kernels(gen, device, records)
     return records
 
 
@@ -859,6 +897,200 @@ def _mbconv_kernels(gen, device, records):
                     _bound(args, want, flops))
 
 
+def _mha_module_ms(args, heads, p=0.0, dy=None, fast=True):
+    """Milliseconds of ``nn.MultiheadAttention(batch_first=True,
+    dropout=p)`` on the block's inputs and bf16 weights
+    (``key_padding_mask`` from the bias rows). The forward: with ``fast``
+    and p 0 in eval under ``inference_mode``, where the layer takes its
+    fast path if it can (even heads), else in train mode under
+    ``no_grad``, its standard path (SDPA, dropout p). With ``dy``: its
+    backward alone, in train mode at dropout p."""
+    import torch
+
+    x, wqkv, bqkv, wo, bo, bias = args
+    e = x.shape[-1]
+    layer = torch.nn.MultiheadAttention(e, heads, dropout=p,
+                                        batch_first=True, device=x.device,
+                                        dtype=x.dtype)
+    with torch.no_grad():
+        for param, value in ((layer.in_proj_weight, wqkv),
+                             (layer.in_proj_bias, bqkv),
+                             (layer.out_proj.weight, wo),
+                             (layer.out_proj.bias, bo)):
+            param.copy_(value)
+    pad = None if bias is None else bias < 0
+    if dy is None:
+        layer.train(not (fast and p == 0.0))
+        with (torch.inference_mode() if not layer.training
+              else torch.no_grad()):
+            return cuda_ms(lambda: layer(x, x, x, key_padding_mask=pad,
+                                         need_weights=False))
+    leaf = x.detach().requires_grad_()
+    out = layer(leaf, leaf, leaf, key_padding_mask=pad, need_weights=False)[0]
+    leaves = [leaf, *layer.parameters()]
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
+                                               retain_graph=True))
+
+
+def _block_close(label, got, want):
+    """y and dx (outputs 0): ``KERNEL_TOL`` of max(1, their largest plain
+    value) and ``BLOCK_REL_TOL`` relative L2; weight and bias gradients:
+    ``BWD_TOL`` of their largest plain value. Returns the largest
+    absolute error."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{label} output {i}: {tuple(g.shape)} {g.dtype}, plain "
+                 f"{tuple(w.shape)} {w.dtype}")
+        top = w.float().abs().max().item()
+        if i == 0:
+            scale = max(1.0, top)
+            err = max(err, scale * _check(f"{label} output 0", g, w,
+                                          KERNEL_TOL, scale))
+            rel = ((g.float() - w.float()).norm()
+                   / max(w.float().norm().item(), 1e-30)).item()
+            if not rel <= BLOCK_REL_TOL:
+                fail(f"{label} output 0: relative L2 error {rel!r} > "
+                     f"{BLOCK_REL_TOL}")
+        else:
+            err = max(err, top * _check(f"{label} output {i}", g, w,
+                                        BWD_TOL, top))
+    return err
+
+
+def _block_kernels(gen, device, records):
+    """Kernels 11 and 12 against their plain versions at the attention
+    shapes (``SHAPES``), eval and train (p 0.1) at the masked ones; then
+    the identity-projection mask check against kernels 1-2."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import attention_block as ab
+
+    seed = 2468
+    for name, (b, l, heads, e, masked) in SHAPES.items():
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=device) * scale
+
+        bias = None
+        if masked:
+            pad = torch.rand((b, l), generator=gen, device=device) < 0.3
+            pad[:, 0] = False
+            bias = torch.where(pad, -1e9, 0.0).to(torch.float32)
+        args = (rnd(b, l, e).to(torch.bfloat16),
+                rnd(3 * e, e, scale=e ** -0.5).to(torch.bfloat16),
+                rnd(3 * e, scale=0.1),
+                rnd(e, e, scale=e ** -0.5).to(torch.bfloat16),
+                rnd(e, scale=0.1), bias)
+        dy = rnd(b, l, e).to(torch.bfloat16)
+        # the products the block needs: projections 8 B L E^2 (q, k, v and
+        # out), attention 4 B L^2 E; the backward twice both
+        flops = 8 * b * l * e * e + 4 * b * l * l * e
+        for p in (0.0, 0.1) if masked else (0.0,):
+            label = (f"{name} B={b} L={l} H={heads} E={e} mask={masked} "
+                     f"p={p}")
+            got = ab.attn_block_fwd(*args, heads, p, seed)
+            err = _block_close(f"attn_block_fwd {label}", [got],
+                               [ab.attn_block_reference(*args, heads, p,
+                                                        seed)])
+            _report(records, "attn_block_fwd", label, err,
+                    f"{KERNEL_TOL} of max(1, max|plain|); relative L2 "
+                    f"{BLOCK_REL_TOL}",
+                    cuda_ms(lambda: ab.attn_block_fwd(*args, heads, p,
+                                                      seed)),
+                    cuda_ms(lambda: ab.attn_block_reference(*args, heads, p,
+                                                            seed)),
+                    _bound(args, got, flops), _mha_module_ms(args, heads, p),
+                    **({"library_standard_ms": _mha_module_ms(
+                        args, heads, fast=False)} if p == 0.0 else {}))
+            got = ab.attn_block_bwd(*args, dy, heads, p, seed)
+            err = _block_close(f"attn_block_bwd {label}", got,
+                               ab.attn_block_bwd_reference(*args, dy, heads,
+                                                           p, seed))
+            _report(records, "attn_block_bwd", label, err,
+                    f"dx {KERNEL_TOL} of max(1, max|plain|), relative L2 "
+                    f"{BLOCK_REL_TOL}; weight and bias gradients {BWD_TOL} "
+                    f"of their largest",
+                    cuda_ms(lambda: ab.attn_block_bwd(*args, dy, heads, p,
+                                                      seed)),
+                    cuda_ms(lambda: ab.attn_block_bwd_reference(
+                        *args, dy, heads, p, seed)),
+                    _bound((args, dy), got, 2 * flops),
+                    _mha_module_ms(args, heads, p, dy))
+        if masked:
+            _block_mask_check(gen, device, name, b, l, heads, e, bias)
+
+
+def _block_mask_check(gen, device, name, b, l, heads, e, bias):
+    """Identity projections (q = k = 0, v = x = ±1, out the identity, zero
+    biases), p 0.1: kernel 11's y must equal kernel 1's output and kernel
+    12's dx kernel 2's dv bit for bit, so the masks agree."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import attention_block as ab
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        mha_qkv, mha_qkv_bwd)
+
+    def signs(*shape):
+        return torch.where(torch.rand(shape, generator=gen, device=device)
+                           < 0.5, -1.0, 1.0).to(torch.bfloat16)
+
+    x, dy = signs(b, l, e), signs(b, l, e)
+    wqkv = torch.zeros((3 * e, e), device=device)
+    wqkv[2 * e:] = torch.eye(e, device=device)
+    args = (x, wqkv, torch.zeros(3 * e, device=device),
+            torch.eye(e, device=device), torch.zeros(e, device=device), bias)
+    qkv = torch.cat([torch.zeros_like(x), torch.zeros_like(x), x], dim=-1)
+    exact = [torch.equal(ab.attn_block_fwd(*args, heads, 0.1, 99),
+                         mha_qkv(qkv, bias, heads, 0.1, 99)),
+             torch.equal(ab.attn_block_bwd(*args, dy, heads, 0.1, 99)[0],
+                         mha_qkv_bwd(qkv, bias, dy, heads, 0.1,
+                                     99)[..., 2 * e:])]
+    print(f"kernel attn_block [{name} D={e // heads} train p=0.1, identity "
+          f"projections]: y = kernel 1, dx = kernel 2's dv bit for bit "
+          f"{exact} (must both be True: same dropout mask)", flush=True)
+    if not all(exact):
+        fail(f"attn_block {name}: kernels 11-12 differ from kernels 1-2 "
+             f"under identity projections")
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Every attention core of the module (kernels 1-4, 11-12) on its plain
+    version, under the kernels' own autograd functions, on the card's
+    tensors: the comparison route of the encode, train and card phases.
+    The kernel wrappers are back on exit, and it fails if any attention
+    kernel launched inside, so the plain route never ran a kernel."""
+    from multimodal_plankton_recognition_torch.ops import (
+        attention, attention_block)
+
+    names = ("mha_qkv_fwd", "mha_qkv_bwd", "mha_fwd", "mha_bwd",
+             "attn_block_fwd", "attn_block_bwd")
+    # the wrappers' counts, set to 0 inside (a phase may reset them there)
+    # and put back after
+    saved = {n: _counts()[n] for n in names}
+    for n in names:
+        _counters()[n].launches = 0
+    swaps = ((attention, "_fwd", attention.mha_qkv_reference),
+             (attention, "mha_qkv_bwd", attention.mha_qkv_bwd_reference),
+             (attention, "_mha_fwd", attention.mha_reference),
+             (attention, "mha_bwd", attention.mha_bwd_reference),
+             (attention_block, "attn_block_fwd",
+              attention_block.attn_block_reference),
+             (attention_block, "attn_block_bwd",
+              attention_block.attn_block_bwd_reference))
+    kernels = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for (module, name, _), fn in zip(swaps, kernels):
+            setattr(module, name, fn)
+    inside = {n: _counts()[n] for n in names}
+    for n in names:
+        _counters()[n].launches = saved[n]
+    if any(inside.values()):
+        fail(f"the plain attention route launched kernels: {inside}")
+
+
 def phase_slice(device):
     import numpy as np
     import torch
@@ -867,10 +1099,7 @@ def phase_slice(device):
     from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
 
     model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
-    plain = flagship_vit(fused_attention=False)
-    plain.load_state_dict(model.state_dict())
     model.to(device).eval()
-    plain.to(device).eval()
 
     gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
     labels = np.random.RandomState(2).randint(0, 16, GALLERY)
@@ -882,8 +1111,10 @@ def phase_slice(device):
             for n, c in _per_step(mha_qkv_fwd=ATTENTION_LAYERS).items()}
     if launches != want:
         fail(f"encode: expected launches {want}, got {launches}")
-    ref, plain_rate, _ = _encode_timed(plain, gallery, labels, device)
-    print(f"slice: plain attention {plain_rate!r} pairs/s", flush=True)
+    with _plain_attention():
+        ref, plain_rate, _ = _encode_timed(model, gallery, labels, device)
+    print(f"slice: plain attention (the kernels' plain versions) "
+          f"{plain_rate!r} pairs/s", flush=True)
     _check_embeddings("slice (reference: plain attention)", emb, labels,
                       device, ref)
 
@@ -918,10 +1149,13 @@ def _train_state(model, state_dict, device):
     return state, train_step
 
 
+@functools.cache
 def _counters():
-    """{kernel name: wrapper}, each wrapper with its ``.launches`` count."""
+    """{kernel name: wrapper}, each wrapper with its ``.launches`` count
+    (taken once, so a phase that swaps a wrapper for its plain version
+    still reads the wrapper's count)."""
     from multimodal_plankton_recognition_torch.ops import (
-        attention, contrastive, ffn, mbconv)
+        attention, attention_block, contrastive, ffn, mbconv)
 
     return {"mha_qkv_fwd": attention.mha_qkv,
             "mha_qkv_bwd": attention.mha_qkv_bwd,
@@ -936,7 +1170,9 @@ def _counters():
             "mbconv_ka_fwd": mbconv.ka_fwd,
             "mbconv_kb_fwd": mbconv.kb_fwd,
             "mbconv_kb_bwd": mbconv.kb_bwd,
-            "mbconv_ka_bwd": mbconv.ka_bwd}
+            "mbconv_ka_bwd": mbconv.ka_bwd,
+            "attn_block_fwd": attention_block.attn_block_fwd,
+            "attn_block_bwd": attention_block.attn_block_bwd}
 
 
 def _per_step(**counts):
@@ -1023,12 +1259,12 @@ def phase_train(device):
     # one step from the same weights, dropout 0: kernel path vs plain path
     grads = {}
     step_losses = {}
-    for path, kw in (("kernel", {}),
-                     ("plain", {"fused_attention": False,
-                                "fused_loss": False})):
+    for path, kw in (("kernel", {}), ("plain", {"fused_loss": False})):
         m = flagship_vit(dropout=0.0, **kw)
         st, step = _train_state(m, init, device)
-        _, loss = step(st, batch, 0)
+        with (_plain_attention() if path == "plain"
+              else contextlib.nullcontext()):
+            _, loss = step(st, batch, 0)
         step_losses[path] = float(loss)
         grads[path] = {n: m.get_parameter(n).grad.float()
                        for n in NAMED_GRADS}
@@ -1041,10 +1277,11 @@ def phase_train(device):
         fail(f"kernel and plain train steps disagree on the loss: {loss_err}")
     _grad_diffs("train", grads, NAMED_GRADS, STEP_GRAD_TOL)
 
-    plain = flagship_vit(fused_attention=False, fused_loss=False)
+    plain = flagship_vit(fused_loss=False)
     pstate, pstep = _train_state(plain, init, device)
-    _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
-    plain_rate = _pairs_per_s(pstate, pstep, batch, PLAIN_STEPS)
+    with _plain_attention():
+        _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
+        plain_rate = _pairs_per_s(pstate, pstep, batch, PLAIN_STEPS)
     print(f"train: plain path {plain_rate!r} pairs/s over {PLAIN_STEPS} "
           f"steps", flush=True)
     return launches
@@ -1075,9 +1312,9 @@ def _card(base=CARD, **overrides):
 
 
 CARD_NAMED_GRADS = ("coordination.logit_bias",) + NAMED_GRADS
-PLAIN_CARD = {"image_encoder_args": {"fused_attention": False},
-              "profile_encoder_args": {"fused_attention": False},
-              "coordination_args": {"fused": False}}
+# the plain path of a card: unfused SigLIP, and the attention kernels'
+# plain versions (``_plain_attention``) around its steps
+PLAIN_CARD = {"coordination_args": {"fused": False}}
 
 
 def _fit_card(what, card, state, train_step, eval_step, batch, per_step,
@@ -1218,7 +1455,9 @@ def phase_card(device):
         _, m, tx, step, _ = _card(**merged)
         m.to(device)
         st = create_train_state(m, init, tx)
-        _, loss = step(st, batch, 0)
+        with (_plain_attention() if path == "plain"
+              else contextlib.nullcontext()):
+            _, loss = step(st, batch, 0)
         step_losses[path] = float(loss)
         grads[path] = {n: m.get_parameter(n).grad.float()
                        for n in CARD_NAMED_GRADS}
@@ -1235,8 +1474,10 @@ def phase_card(device):
     _, plain, tx, pstep, _ = _card(**PLAIN_CARD)
     plain.to(device)
     pstate = create_train_state(plain, init, tx)
-    _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
-    plain_rate = _pairs_per_s(pstate, pstep, batch, CARD_STEPS - WARMUP_STEPS)
+    with _plain_attention():
+        _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
+        plain_rate = _pairs_per_s(pstate, pstep, batch,
+                                  CARD_STEPS - WARMUP_STEPS)
     print(f"card: plain path {plain_rate!r} train pairs/s over "
           f"{CARD_STEPS - WARMUP_STEPS} micro-steps", flush=True)
     return launches
@@ -1657,7 +1898,6 @@ def phase_unpacked(device):
     """The attention module's unpacked route (``PLANKTON_ATTN_QKV_PACKED=0``,
     set here and restored): the flagship encodes through kernel 3 and
     trains through kernels 3 and 4, never kernels 1 and 2."""
-    import os
     import numpy as np
     import torch
     from multimodal_plankton_recognition_torch.models.flagships import (
@@ -1671,9 +1911,7 @@ def phase_unpacked(device):
     init = init_weights_(flagship_vit(dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
     batch = synthetic_batch_vit(BATCH, seed=3, device=device)
-    old = os.environ.get("PLANKTON_ATTN_QKV_PACKED")
-    os.environ["PLANKTON_ATTN_QKV_PACKED"] = "0"
-    try:
+    with _env("PLANKTON_ATTN_QKV_PACKED", "0"):
         emb, rate, launches = _encode_timed(model, gallery, labels, device)
         state, train_step = _train_state(flagship_vit(), init, device)
         _reset_counts()
@@ -1683,11 +1921,6 @@ def phase_unpacked(device):
             losses.append(float(loss))
         torch.cuda.synchronize()
         train_launches = _counts()
-    finally:
-        if old is None:
-            os.environ.pop("PLANKTON_ATTN_QKV_PACKED")
-        else:
-            os.environ["PLANKTON_ATTN_QKV_PACKED"] = old
     print(f"unpacked: encode {rate!r} pairs/s (packed route {packed_rate!r}); "
           f"launches {launches}; {UNPACKED_STEPS} train steps, losses "
           f"{losses}, launches {train_launches}", flush=True)
@@ -1706,6 +1939,174 @@ def phase_unpacked(device):
     # the same math as the packed route; the q, k, v GEMMs may sum in
     # another order than the packed one, as any two routes of bf16 math
     _check_embeddings("unpacked encode", emb, labels, device, packed)
+    return {n: launches[n] + train_launches[n] for n in launches}
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside the block,
+    restored after."""
+    import os
+
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
+
+
+def phase_fuse_proj(device):
+    """The attention module's fused-block route
+    (``PLANKTON_ATTN_FUSE_PROJ=1``, set here and restored): the flagship
+    encodes through kernel 11 and trains through kernels 11 and 12, never
+    kernels 1-4; beside the packed route in the same process."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
+    model.to(device).eval()
+    gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
+    labels = np.random.RandomState(2).randint(0, 16, GALLERY)
+    packed, packed_rate, _ = _encode_timed(model, gallery, labels, device)
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    with _env("PLANKTON_ATTN_FUSE_PROJ", "1"):
+        emb, rate, launches = _encode_timed(model, gallery, labels, device)
+        state, train_step = _train_state(flagship_vit(), init, device)
+        _reset_counts()
+        losses = []
+        for _ in range(FUSE_PROJ_STEPS):
+            state, loss = train_step(state, batch, 0)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        train_launches = _counts()
+        train_rate = _pairs_per_s(state, train_step, batch, PLAIN_STEPS)
+    pstate, pstep = _train_state(flagship_vit(), init, device)
+    _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
+    packed_train_rate = _pairs_per_s(pstate, pstep, batch, PLAIN_STEPS)
+    print(f"fuse_proj: encode {rate!r} pairs/s (packed route "
+          f"{packed_rate!r}); launches {launches}; {FUSE_PROJ_STEPS} train "
+          f"steps, losses {losses}, launches {train_launches}; train "
+          f"{train_rate!r} pairs/s over {PLAIN_STEPS} steps (packed route "
+          f"{packed_train_rate!r})", flush=True)
+    want = {n: c * (GALLERY // BATCH) for n, c in _per_step(
+        attn_block_fwd=ATTENTION_LAYERS).items()}
+    if launches != want:
+        fail(f"fuse_proj encode: expected launches {want}, got {launches}")
+    want = {n: c * FUSE_PROJ_STEPS for n, c in _per_step(
+        attn_block_fwd=ATTENTION_LAYERS, attn_block_bwd=ATTENTION_LAYERS,
+        clip_fwd=1, clip_bwd=1).items()}
+    if train_launches != want:
+        fail(f"fuse_proj train: expected launches {want}, got "
+             f"{train_launches}")
+    if not all(map(math.isfinite, losses)) or not min(losses[1:]) \
+            < losses[0]:
+        fail(f"fuse_proj train: non-finite or not falling losses {losses}")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or any(m.dtype != torch.float32
+                      for m in state.params.values()):
+        fail(f"fuse_proj train: masters not f32 or not moved: {unmoved}")
+    # other rounding points than the packed route (one rounding of the
+    # projections, not two), so held to the encode tolerance
+    _check_embeddings("fuse_proj encode", emb, labels, device, packed)
+    return {n: launches[n] + train_launches[n] for n in launches}
+
+
+def phase_flax_attention(device):
+    """``fused_attention=False`` (flax ``MultiHeadDotProductAttention``'s
+    math, no kernel) at full width: the flagship's encode against the
+    kernels' plain versions (``_plain_attention``), 3 train steps at
+    dropout 0.1, a dropout-0 step against the plain versions, and pairs/s
+    of both routes."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
+    flax = flagship_vit(fused_attention=False)
+    flax.load_state_dict(model.state_dict())
+    model.to(device).eval()
+    flax.to(device).eval()
+    gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
+    labels = np.random.RandomState(2).randint(0, 16, GALLERY)
+    with _plain_attention():
+        ref, plain_rate, _ = _encode_timed(model, gallery, labels, device)
+    emb, rate, launches = _encode_timed(flax, gallery, labels, device)
+    if launches != _per_step():
+        fail(f"flax attention encode: expected no launches, got {launches}")
+
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    state, train_step = _train_state(flagship_vit(fused_attention=False),
+                                     init, device)
+    _reset_counts()
+    losses = []
+    for _ in range(FLAX_STEPS):
+        state, loss = train_step(state, batch, 0)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    train_launches = _counts()
+    train_rate = _pairs_per_s(state, train_step, batch, PLAIN_STEPS)
+    print(f"flax attention: encode {rate!r} pairs/s (the kernels' plain "
+          f"versions {plain_rate!r}); {FLAX_STEPS} train steps, losses "
+          f"{losses}, launches {train_launches}; train {train_rate!r} "
+          f"pairs/s over {PLAIN_STEPS} steps", flush=True)
+    want = {n: c * FLAX_STEPS for n, c in _per_step(clip_fwd=1,
+                                                     clip_bwd=1).items()}
+    if train_launches != want:
+        fail(f"flax attention train: expected launches {want}, got "
+             f"{train_launches}")
+    if not all(map(math.isfinite, losses)) or not min(losses[1:]) \
+            < losses[0]:
+        fail(f"flax attention train: non-finite or not falling losses "
+             f"{losses}")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or any(m.dtype != torch.float32
+                      for m in state.params.values()):
+        fail(f"flax attention train: masters not f32 or not moved: "
+             f"{unmoved}")
+
+    # dropout 0, one step: flax's rounding points (bf16 softmax) against
+    # the kernels' plain versions, held to the JAX package's statistical
+    # bounds beside the plain route's nudged-input floor; the train phase's
+    # 5e-2 on each gradient, which this route met before it had flax's
+    # semantics, is read and printed
+    g = torch.Generator(device=device).manual_seed(8)
+    nudged = dict(batch, image=batch["image"] * (1 + 1e-3 * torch.randn(
+        batch["image"].shape, generator=g, device=device)))
+    grads, step_losses = {}, {}
+    for path, fused, data in (("flax", False, batch), ("plain", True, batch),
+                              ("nudged plain", True, nudged)):
+        m = flagship_vit(fused_attention=fused, dropout=0.0)
+        st, step = _train_state(m, init, device)
+        with (_plain_attention() if fused else contextlib.nullcontext()):
+            _, loss = step(st, data, 0)
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in NAMED_GRADS}
+        del m, st
+    _held_statistically("flax attention step, dropout 0", step_losses, grads,
+                        NAMED_GRADS, (("flax", "plain"),),
+                        ("plain", "nudged plain"))
+    worst = max(((grads["flax"][n] - grads["plain"][n]).norm()
+                 / grads["plain"][n].norm()).item() for n in NAMED_GRADS)
+    print(f"flax attention step: largest relative L2 gradient difference "
+          f"{worst!r} against the kernels' plain versions (the train "
+          f"phase's {STEP_GRAD_TOL} met: {worst <= STEP_GRAD_TOL})",
+          flush=True)
+    _check_embeddings("flax attention encode (reference: the kernels' "
+                      "plain versions)", emb, labels, device, ref)
     return {n: launches[n] + train_launches[n] for n in launches}
 
 
@@ -1768,14 +2169,18 @@ def _profile_card(device, what, base, paths, make_batch):
         _, model, tx, step, _ = _card(base, **over)
         model.to(device)
         state = create_train_state(model, init, tx)
-        # warm-up to an update boundary, then whole accumulation cycles
-        _pairs_per_s(state, step, batch, WARMUP_STEPS + 1)
-        wall = card.bs / _pairs_per_s(state, step, batch, PROFILE_STEPS) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_STEPS):
-                state, _ = step(state, batch, 0)
-            torch.cuda.synchronize()
+        plain = _plain_attention() if over is PLAIN_CARD \
+            else contextlib.nullcontext()
+        with plain:
+            # warm-up to an update boundary, then whole accumulation cycles
+            _pairs_per_s(state, step, batch, WARMUP_STEPS + 1)
+            wall = card.bs / _pairs_per_s(state, step, batch,
+                                          PROFILE_STEPS) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_STEPS):
+                    state, _ = step(state, batch, 0)
+                torch.cuda.synchronize()
         rows = _device_ms(prof, PROFILE_STEPS)
         busy = sum(ms for ms, _ in rows.values())
         if not busy > 0:
@@ -1812,7 +2217,9 @@ def main(argv=None) -> None:
                 "ffn_encode": phase_ffn_encode(device),
                 "ffn_train": phase_ffn_train(device),
                 "ffn_card": phase_ffn_card(device),
-                "unpacked": phase_unpacked(device)}
+                "unpacked": phase_unpacked(device),
+                "fuse_proj": phase_fuse_proj(device),
+                "flax_attention": phase_flax_attention(device)}
     if args.profile:
         phase_profile(device)
 
@@ -1844,7 +2251,13 @@ def main(argv=None) -> None:
             ("ffn_fwd", "ffn.cu", "experimental/ffn.py:116",
              "vit B=256 L=197 E=192 F=768 gelu bfloat16 p=0.0"),
             ("ffn_bwd", "ffn.cu", "experimental/ffn.py:132",
-             "vit B=256 L=197 E=192 F=768 gelu bfloat16 p=0.0")):
+             "vit B=256 L=197 E=192 F=768 gelu bfloat16 p=0.0"),
+            ("attn_block_fwd", "attention_block.cu",
+             "experimental/attention_block.py:86",
+             "vit B=256 L=197 H=3 E=192 mask=False p=0.0"),
+            ("attn_block_bwd", "attention_block.cu",
+             "experimental/attention_block.py:102",
+             "vit B=256 L=197 H=3 E=192 mask=False p=0.0")):
         by_path = {path: counts[name] for path, counts in launches.items()}
         record = records[name][first]
         kernels.append({

@@ -84,6 +84,15 @@ def kernel_seed(rate: float, training: bool) -> tuple[float, int]:
     return rate, _current().seed()
 
 
+def keep_mask(shape, rate: float, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A keep mask of ``shape`` in ``dtype`` (1 kept, 0 dropped), kept with
+    probability 1 - rate, drawn from the step's generator for ``device``
+    (flax's ``random.bernoulli`` mask of ``dot_product_attention``)."""
+    return torch.empty(shape, dtype=dtype, device=device).bernoulli_(
+        1.0 - rate, generator=_current().generator(device))
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     """``flax.linen.Dropout``: keep with probability 1 - rate and scale
     kept values by 1 / (1 - rate), in ``x``'s dtype."""

@@ -1,7 +1,8 @@
 """The CUDA kernels on a card, against their plain versions: attention
 forward (eval and train mode) and backward on packed q|k|v (kernels 1-2)
 and on separate q, k, v (kernels 3-4), CLIP and SigLIP loss forward and
-backward, the fused FFN (kernels 9-10) and the MBConv kernels (13-16).
+backward, the fused FFN (kernels 9-10), the MBConv kernels (13-16) and the
+fused attention block (kernels 11-12).
 
 Marked ``gpu``: each test skips without a CUDA card. On the card:
 
@@ -25,7 +26,12 @@ plain value) and 2e-3 relative L2 (both sides round the hidden through
 bf16 at the same points but sum in another order, so a hidden unit can
 land one bf16 step apart); on integer inputs with ReLU every sum is exact,
 so the outputs must equal the plain ones bit for bit, which pins the
-dropout mask.
+dropout mask. The attention block: y and dx within 2e-2 of max(1, their
+largest plain value) and 2e-3 relative L2, the weight and bias gradients
+within 1e-2 of their largest plain value (f32 sums over every row in
+another order, from bf16 dqkv that can land a step apart); under identity
+projections (q = k = 0, v = x = ±1, out the identity) y equals kernel 1's
+output and dx kernel 2's dv bit for bit, which pins the shared mask.
 """
 
 import pytest
@@ -38,6 +44,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
     SUPPORTED_HEAD_DIMS, mha, mha_bwd, mha_bwd_reference, mha_qkv,
     mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference, mha_reference,
 )
+from multimodal_plankton_recognition_torch.ops import attention_block as ab
 from multimodal_plankton_recognition_torch.ops.contrastive import (
     MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
     clip_loss_fused, clip_loss_fused_reference, siglip_bwd, siglip_fwd,
@@ -85,18 +92,20 @@ def test_kernel_matches_plain(cuda, b, l, heads, d, masked):
 
 
 def test_module_kernel_matches_plain_module(cuda):
+    """The module on the card (kernel 1) against the same module on the
+    CPU, where its core is kernel 1's plain version (``fused=False`` is
+    flax's attention, with other rounding points)."""
     torch.manual_seed(0)
-    fused = FusedSelfAttention(192, 8).to(cuda, torch.bfloat16)
-    plain = FusedSelfAttention(192, 8, fused=False).to(cuda, torch.bfloat16)
-    plain.load_state_dict(fused.state_dict())
-    x = torch.randn((4, 225, 192), device=cuda).to(torch.bfloat16)
-    mask = torch.zeros((4, 225), dtype=torch.bool, device=cuda)
+    fused = FusedSelfAttention(192, 8).to(torch.bfloat16)
+    x = torch.randn((4, 225, 192)).to(torch.bfloat16)
+    mask = torch.zeros((4, 225), dtype=torch.bool)
     mask[:, 150:] = True
-    before = mha_qkv.launches
     with torch.inference_mode():
-        got, want = fused(x, mask), plain(x, mask)
+        want = fused(x, mask)
+        before = mha_qkv.launches
+        got = fused.to(cuda)(x.to(cuda), mask.to(cuda))
     assert mha_qkv.launches == before + 1
-    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert (got.float().cpu() - want.float()).abs().max().item() <= TOL
 
 
 def test_refuses_what_the_kernel_does_not_take(cuda):
@@ -653,3 +662,128 @@ def test_ffn_refuses_what_the_kernels_do_not_take(cuda):
         ffn.ffn_fwd(x, w1, b1, w1, b2)
     with pytest.raises(ValueError, match="activation"):
         ffn.ffn_fwd(x, w1, b1, w2, b2, "silu")
+
+
+# ---------------- kernels 11-12: the fused attention block ----------------
+
+# (B, L, E, heads, mask): the four (E, heads) of the paths, small B
+BLOCK_SHAPES = [(2, 197, 192, 3, False), (2, 225, 192, 8, True),
+                (2, 197, 384, 6, False), (3, 225, 128, 4, True),
+                (1, 1, 128, 4, False), (2, 70, 192, 8, True)]
+BLOCK_TOL, BLOCK_REL_TOL, BLOCK_GRAD_TOL = 2e-2, 2e-3, 1e-2
+
+
+def _block_inputs(cuda, b, l, e, masked, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    bias = None
+    if masked:
+        pad = torch.rand((b, l), generator=gen, device=cuda) < 0.3
+        pad[:, 0] = False
+        bias = torch.where(pad, -1e9, 0.0).to(torch.float32)
+    return ((rnd(b, l, e).to(torch.bfloat16), rnd(3 * e, e, scale=e ** -0.5)
+             .to(torch.bfloat16), rnd(3 * e, scale=0.1),
+             rnd(e, e, scale=e ** -0.5).to(torch.bfloat16), rnd(e, scale=0.1),
+             bias), rnd(b, l, e).to(torch.bfloat16))
+
+
+def _block_close(got, want, what):
+    """y and dx: BLOCK_TOL of max(1, |plain|) and BLOCK_REL_TOL relative L2;
+    weight and bias gradients: BLOCK_GRAD_TOL of their largest value."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, f"{what}[{i}]"
+        assert torch.isfinite(g).all(), f"{what}[{i}] not finite"
+        err = (g.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        if i == 0:
+            assert err <= BLOCK_TOL * max(1.0, top), f"{what}[{i}]: {err}"
+            rel = ((g.float() - w.float()).norm()
+                   / max(w.float().norm().item(), 1e-30)).item()
+            assert rel <= BLOCK_REL_TOL, f"{what}[{i}]: relative L2 {rel}"
+        else:
+            assert err <= BLOCK_GRAD_TOL * top, f"{what}[{i}]: {err}"
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,l,e,heads,masked", BLOCK_SHAPES)
+def test_block_kernels_match_plain(cuda, b, l, e, heads, masked, p):
+    args, dy = _block_inputs(cuda, b, l, e, masked)
+    before = ab.attn_block_fwd.launches, ab.attn_block_bwd.launches
+    y = ab.attn_block_fwd(*args, heads, p, 23)
+    got = ab.attn_block_bwd(*args, dy, heads, p, 23)
+    torch.cuda.synchronize()
+    assert (ab.attn_block_fwd.launches, ab.attn_block_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _block_close([y], [ab.attn_block_reference(*args, heads, p, 23)], "fwd")
+    _block_close(got, ab.attn_block_bwd_reference(*args, dy, heads, p, 23),
+                 "bwd")
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("e,heads", [(192, 8), (128, 4)])  # D 24 and 32
+def test_block_mask_is_kernel_1s_mask(cuda, e, heads, p):
+    """Identity projections: kernel 11's y equals kernel 1's output on
+    q = k = 0, v = x, and kernel 12's dx equals kernel 2's dv, bit for
+    bit."""
+    (x, _, _, _, _, bias), dy = _block_inputs(cuda, 3, 225, e, True, seed=4)
+    x, dy = (torch.where(t > 0, 1.0, -1.0).to(torch.bfloat16)
+             for t in (x, dy))
+    wqkv = torch.zeros((3 * e, e), device=cuda)
+    wqkv[2 * e:] = torch.eye(e, device=cuda)
+    args = (x, wqkv, torch.zeros(3 * e, device=cuda),
+            torch.eye(e, device=cuda), torch.zeros(e, device=cuda), bias)
+    qkv = torch.cat([torch.zeros_like(x), torch.zeros_like(x), x], dim=-1)
+    assert torch.equal(ab.attn_block_fwd(*args, heads, p, 41),
+                       mha_qkv(qkv, bias, heads, p, 41))
+    dx = ab.attn_block_bwd(*args, dy, heads, p, 41)[0]
+    dv = mha_qkv_bwd(qkv, bias, dy, heads, p, 41)[..., 2 * e:]
+    assert torch.equal(dx, dv)
+
+
+def test_block_module_route_on_card(cuda, monkeypatch):
+    """``FusedSelfAttention`` under ``PLANKTON_ATTN_FUSE_PROJ=1``: one launch
+    of kernel 11 and 12 and none of kernels 1-4; output and gradients as
+    the same module gives them on the CPU (the plain versions)."""
+    monkeypatch.setenv("PLANKTON_ATTN_FUSE_PROJ", "1")
+    torch.manual_seed(3)
+    cpu = FusedSelfAttention(128, 4).to(torch.bfloat16)
+    card = FusedSelfAttention(128, 4).to(torch.bfloat16)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    x = torch.randn((2, 225, 128)).to(torch.bfloat16)
+    mask = torch.zeros((2, 225), dtype=torch.bool)
+    mask[1, 100:] = True
+
+    def run(mod, device):
+        leaf = x.to(device).requires_grad_()
+        out = mod(leaf, mask.to(device))
+        out.float().square().sum().backward()
+        return [out.detach(), leaf.grad, mod.qkv.weight.grad,
+                mod.qkv.bias.grad, mod.out.weight.grad, mod.out.bias.grad]
+
+    counters = (ab.attn_block_fwd, ab.attn_block_bwd, mha_qkv, mha_qkv_bwd,
+                mha, mha_bwd)
+    before = [c.launches for c in counters]
+    got = run(card, cuda)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        1, 1, 0, 0, 0, 0]
+    want = run(cpu, "cpu")
+    _block_close([got[0].cpu()], want[:1], "module y")
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert g.dtype == w.dtype == torch.bfloat16
+        err = (g.float().cpu() - w.float()).abs().max().item()
+        assert err <= 2 * BLOCK_GRAD_TOL * w.float().abs().max().item(), i
+
+
+def test_block_refuses_what_the_kernels_do_not_take(cuda):
+    args, _ = _block_inputs(cuda, 2, 9, 128, False)
+    with pytest.raises(TypeError, match="bf16"):
+        ab.attn_block_fwd(args[0].float(), *args[1:], 4)
+    with pytest.raises(ValueError, match="not in"):
+        ab.attn_block_fwd(*args, 8)
+    with pytest.raises(ValueError, match="weights"):
+        ab.attn_block_fwd(args[0], args[3], *args[2:], 4)
