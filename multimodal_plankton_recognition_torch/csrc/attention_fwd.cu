@@ -5,10 +5,10 @@
 
 extern "C" {
 
-// qkv: (B, L, 3*H*D) bf16, contiguous; bias: (B, L) f32 or NULL;
-// out: (B, L, H*D) bf16. Dropout: keep a probability when its hash bits
-// are >= thr (thr = 0: eval mode, no dropout), scale kept ones by inv_keep.
-// Returns a cudaError_t code (0 = launched).
+// qkv: (B, L, 3*H*D) bf16, contiguous, 16-byte aligned; bias: (B, L) f32
+// or NULL; out: (B, L, H*D) bf16. Dropout: keep a probability when its
+// hash bits are >= thr (thr = 0: eval mode, no dropout), scale kept ones
+// by inv_keep. Returns a cudaError_t code (0 = launched).
 int mha_qkv_fwd_bf16(const void* qkv, const void* bias, void* out, int B,
                      int L, int H, int D, float scale, unsigned seed,
                      unsigned thr, float inv_keep, void* stream) {
@@ -18,8 +18,8 @@ int mha_qkv_fwd_bf16(const void* qkv, const void* bias, void* out, int B,
                             D, scale, seed, thr, inv_keep, stream);
 }
 
-// q, k, v: (B, L, H*D) bf16 each, contiguous; bias and out as above; the
-// same numerics and dropout bits as mha_qkv_fwd_bf16.
+// q, k, v: (B, L, H*D) bf16 each, contiguous, 16-byte aligned; bias and
+// out as above; the same numerics and dropout bits as mha_qkv_fwd_bf16.
 int mha_fwd_bf16(const void* q, const void* k, const void* v,
                  const void* bias, void* out, int B, int L, int H, int D,
                  float scale, unsigned seed, unsigned thr, float inv_keep,

@@ -10,31 +10,52 @@
 // Both run in eval and train mode and share one kernel: it reads q, k and v
 // through three pointers with a row stride of 3E (packed) or E (separate).
 //
-// Numerics, kept from the TPU kernel:
+// Numerics, kept from the TPU kernel (attention.py:374-398):
 //   s = q_h . k_h^T     bf16 operands, f32 accumulation
-//   z = s * (1/sqrt(D)) + bias[key]     (bias optional: NULL = no mask)
-//   p = softmax(z)      f32: max-subtract, exp, divide by the sum
+//   z = s * (1/sqrt(D)) + bias[key]     (bias optional: NULL = no mask;
+//                       the scale is not folded into q)
+//   p = softmax(z)      f32 over the whole row: the exact row max, exp,
+//                       then a divide by the row sum (no online softmax:
+//                       p is normalised before it is rounded)
 //   p *= keep / (1 - p_drop)   train mode only (thr != 0), see dropout.cuh
 //   p rounded to bf16 before P.V
 //   o = p . v_h         f32 accumulation, rounded to bf16 on store
 //
 // What bounds it: per ViT-T layer at B = 256 (L = 197, H = 3, D = 64) the
-// two products are about 7.6 GFLOP, and the kernel must read qkv and write
-// out, about 77 MB. This first version runs the products on the CUDA cores
-// in f32 FMA (67 TFLOP/s peak), so it is bound by those operations, not by
-// the 23 us the bytes take at 3.35 TB/s. The (L, L) scores never leave the
-// SM: one warp owns one query row and keeps its L probabilities in shared
-// memory, so device memory sees only qkv once (per row block) and out once.
+// two products are about 7.6 GFLOP and the kernel must read qkv and write
+// out, about 77 MB: about 99 flop a byte, below the H100's bf16 ridge of
+// about 295, so the least time is the bytes' 23 us at 3.35 TB/s. The first
+// version ran both products as f32 FMAs on the CUDA cores (9.6 TFLOP/s,
+// 36x its bound). This one runs them on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, f32 accumulators), so what is left is
+// the f32 work per score on the CUDA cores (the scale and bias, two exps,
+// the divide, the dropout hash) and the bytes.
 //
-// Design: grid (ceil(L / 32), H, B); a block of 8 warps stages K_h and V_h
-// of one (sample, head) in shared memory (2 * L * D * 2 B, 50.4 KB for
-// ViT-T, above the 48 KB default, hence the MaxDynamicSharedMemorySize
-// attribute), then each warp takes query rows r = row0 + warp, + 8, ...
-// (rows >= L are skipped). Lanes stride over keys for the scores (K rows
-// padded to an odd number of 32-bit words, so the 32 lanes hit 32 banks),
-// warp shuffles give the row max and sum. For P.V the lanes split the D/2
-// column pairs, and when D/2 < 32 several lane groups split the keys and
-// are summed with shuffles. No wgmma, TMA or cp.async yet.
+// Design: grid (query tiles, H, B); a block of 8 warps takes one tile of
+// 128 query rows (16 a warp) of one (sample, head). K_h, V_h and the bias of up
+// to kChunk = 256 keys sit in shared memory, copied with 16-byte cp.async;
+// keys are padded to a multiple of 16 and the q.k^T depth to a multiple of
+// 16 (D 24 -> 32, D 8 -> 16), every pad zero-filled (stale shared memory
+// times a zero p could still give NaN; a padded key's bias is -inf), and
+// the rows strided by an odd number of 16-byte words so that ldmatrix hits
+// no bank conflict. A warp keeps its q rows as A fragments in registers
+// and makes three passes over the keys, 16 at a time, recomputing
+// z = s * scale + bias bit for bit in each: the row max, the row sum of
+// exp(z - max), then p = exp(z - max) / sum, dropped, rounded to bf16 and
+// multiplied by V. Row max and sum are reduced with shuffles inside the
+// quad that holds a row; the score accumulators of a 16-key tile are
+// reused directly as the A fragment of P.V (the m16n8k16 C layout is the A
+// layout), with V's B fragments from ldmatrix.trans, so no score leaves
+// the registers. O is D/8 n8-tiles of f32, rounded and stored as bf16x2.
+// Keeping a row's 256 scores in registers instead (one pass, fully
+// unrolled, most of the register file a thread) ran slower in trials:
+// few warps an SM and no reuse of its instruction stream, while the
+// recomputed q.k^T is cheap on tensor cores.
+//
+// Lengths above kChunk stream K_h (and V_h) through the same shared memory
+// in chunks of 256 keys in each pass, so the rounding points stay those of
+// the one-chunk path and no length is refused (the wrapper caps L at 65535
+// so that the dropout counter r*L + j stays within 32 bits).
 //
 // The kernel launches on the caller's stream, does not synchronise and
 // allocates nothing; the entry point returns cudaGetLastError().
@@ -51,144 +72,357 @@
 namespace attn_fwd {
 
 constexpr int kWarps = 8;
-constexpr int kRowsPerBlock = 32;
+constexpr int kTileRows = 16 * kWarps;  // query rows of a tile
+constexpr int kChunk = 256;             // keys of K_h / V_h staged at once
 
 template <int D>
 struct Geom {
-  static_assert(D % 2 == 0 && D <= 64, "head dim must be even and <= 64");
-  static constexpr int kPairs = D / 2;  // bf16x2 words per head row
-  // odd word stride: lane j reads row j, so 32 lanes land on 32 banks
-  static constexpr int kKStride = (kPairs % 2 == 0) ? kPairs + 1 : kPairs;
-  static constexpr int kGroups = 32 / kPairs;  // key groups in P.V
+  static_assert(D % 8 == 0 && D <= 64, "head dim: a multiple of 8, <= 64");
+  static constexpr int kDp = (D + 15) / 16 * 16;  // q.k^T depth, padded
+  static constexpr int kKSteps = kDp / 16;
+  // row strides in elements: an odd number of 16-byte words, so the 8 rows
+  // that one ldmatrix phase reads land on 8 distinct groups of 4 banks
+  static constexpr int kKStride = (kDp / 8) % 2 ? kDp : kDp + 8;
+  static constexpr int kVStride = (D / 8) % 2 ? D : D + 8;
+  static constexpr int kOTiles = D / 8;  // n8 tiles of P.V
 };
+
+// blocks an SM must be able to hold, which caps a thread's registers: 2
+// (128 registers) for D 32-64, which fit there with no spill, where
+// ptxas' own choice of 80 spills at D 32; 3 (80 registers) for D <= 24,
+// which fit there too and keep 24 warps an SM resident
+template <int D>
+struct MinBlocks {
+  static constexpr int value = D >= 32 ? 2 : 3;
+};
+
+// rows of K and V held in shared memory at length L
+__host__ __device__ inline int chunk_rows(int L) {
+  return L < kChunk ? (L + 15) / 16 * 16 : kChunk;
+}
 
 template <int D>
 size_t smem_bytes(int L) {
   using G = Geom<D>;
-  return sizeof(uint32_t) * (size_t)L * (G::kKStride + G::kPairs) +
-         sizeof(float) * (size_t)kWarps * L;
+  return (sizeof(__nv_bfloat16) * (G::kKStride + G::kVStride) +
+          sizeof(float)) * (size_t)chunk_rows(L);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b: one m16n8k16 product, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a / b rounded to nearest, as IEEE division gives it, for a in [0, 1] and
+// b in [1, 65536) (an exp over the row max, and a row sum of at most
+// MAX_LENGTH such terms), from r = 1/b rounded to nearest: Markstein's
+// correction q + (a - q b) r of q = a r, exact while the remainder stays
+// normal; for 0 < a < 2^-100 a true divide. It costs two FMAs where
+// div.rn costs a subroutine with a slow path on every element.
+// tests/test_torch_attention.py::test_corrected_division_is_ieee_division
+// holds an exact emulation of it to IEEE division on that domain.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  if (a < 0x1p-100f && a != 0.f) return __fdiv_rn(a, b);
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+
+// max / sum over the 4 lanes of a quad (the lanes that share a row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Copy keys [j0, j0 + n) of K_h (and V_h) into shared memory, their bias
+// into bs (0 without a mask), and zero the rows up to the next multiple of
+// 16 (bias -inf there); the caller waits and syncs.
+template <int D>
+__device__ __forceinline__ void stage(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                      float* bs, const __nv_bfloat16* ksrc,
+                                      const __nv_bfloat16* vsrc,
+                                      const float* brow, size_t ld, int j0,
+                                      int n, bool with_v) {
+  using G = Geom<D>;
+  constexpr int kPieces = D / 8;  // 16-byte words of a head row
+  const int rows = (n + 15) / 16 * 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < rows * kPieces; i += kWarps * 32) {
+    const int r = i / kPieces;
+    const int c = (i - r * kPieces) * 8;
+    __nv_bfloat16* kd = ks + r * G::kKStride + c;
+    __nv_bfloat16* vd = vs + r * G::kVStride + c;
+    if (r < n) {
+      const size_t off = (size_t)(j0 + r) * ld + c;
+      cp_async16(kd, ksrc + off);
+      if (with_v) cp_async16(vd, vsrc + off);
+    } else {
+      *reinterpret_cast<uint4*>(kd) = zero;
+      if (with_v) *reinterpret_cast<uint4*>(vd) = zero;
+    }
+  }
+  for (int r = threadIdx.x; r < rows; r += kWarps * 32)
+    bs[r] = r < n ? (brow ? brow[j0 + r] : 0.f) : -INFINITY;
+}
+
+// z of this warp's 16 query rows against the 16 keys of tile jt held in
+// ks: s[0] and s[1] are its two n8 halves (keys 16 jt + 8 h + 2*(lane%4) +
+// {0, 1}; elements 0-1 on row lane/4, 2-3 on row lane/4 + 8). bs holds the
+// keys' bias, -inf past the last key (whose zero K rows give s = 0).
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[2][4],
+                                       const uint32_t (&qa)[Geom<D>::kKSteps][4],
+                                       const __nv_bfloat16* kp,
+                                       const float* bs, int jt, float scale,
+                                       int quad) {
+  using G = Geom<D>;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < G::kKSteps; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, kp + jt * 16 * G::kKStride + kk * 16);
+    mma16816(s[0], qa[kk], b[0], b[1]);
+    mma16816(s[1], qa[kk], b[2], b[3]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 add =
+        *reinterpret_cast<const float2*>(bs + jt * 16 + h * 8 + 2 * quad);
+    // fmul then fadd, never contracted into one fma
+#pragma unroll
+    for (int row = 0; row < 4; row += 2) {
+      s[h][row] = __fadd_rn(__fmul_rn(s[h][row], scale), add.x);
+      s[h][row + 1] = __fadd_rn(__fmul_rn(s[h][row + 1], scale), add.y);
+    }
+  }
 }
 
 // q, k, v: head 0 of token 0 of sample 0 of each operand; ld: elements
 // between consecutive tokens of one operand (3E packed, E separate)
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, MinBlocks<D>::value)
 mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
                const __nv_bfloat16* __restrict__ k_in,
                const __nv_bfloat16* __restrict__ v_in, int ld,
                const float* __restrict__ bias,
-               __nv_bfloat16* __restrict__ out,
-               int L, int E, float scale, uint32_t seed, uint32_t thr,
-               float inv_keep) {
+               __nv_bfloat16* __restrict__ out, int L, int H, float scale,
+               uint32_t seed, uint32_t thr, float inv_keep) {
   using G = Geom<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* ks = reinterpret_cast<uint32_t*>(smem_raw);   // L x kKStride
-  uint32_t* vs = ks + (size_t)L * G::kKStride;             // L x kPairs
-  float* ps = reinterpret_cast<float*>(vs + (size_t)L * G::kPairs);  // kWarps x L
+  const int cap = chunk_rows(L);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + (size_t)cap * G::kKStride;
+  float* bs = reinterpret_cast<float*>(vs + (size_t)cap * G::kVStride);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t row_words = (size_t)ld / 2;  // 32-bit words per token
-  const size_t head = ((size_t)b * L * ld + (size_t)h * D) / 2;
-  const uint32_t* qsrc = reinterpret_cast<const uint32_t*>(q_in) + head;
-  const uint32_t* ksrc = reinterpret_cast<const uint32_t*>(k_in) + head;
-  const uint32_t* vsrc = reinterpret_cast<const uint32_t*>(v_in) + head;
-
-  for (int i = threadIdx.x; i < L * G::kPairs; i += blockDim.x) {
-    const int j = i / G::kPairs;
-    const int w = i - j * G::kPairs;
-    ks[j * G::kKStride + w] = ksrc[(size_t)j * row_words + w];
-    vs[j * G::kPairs + w] = vsrc[(size_t)j * row_words + w];
-  }
-  __syncthreads();
-
+  const int g = lane >> 2;
+  const int quad = lane & 3;
+  const int mi = lane >> 3;  // which 8 x 8 matrix this lane addresses
+  const int E = H * D;
+  const size_t head = (size_t)b * L * ld + (size_t)h * D;
+  const __nv_bfloat16* ksrc = k_in + head;
+  const __nv_bfloat16* vsrc = v_in + head;
   const float* brow = bias ? bias + (size_t)b * L : nullptr;
-  float* p = ps + (size_t)warp * L;
-  const int c = lane % G::kPairs;  // column pair this lane sums in P.V
-  const int g = lane / G::kPairs;  // key group of this lane in P.V
-  const int row_end = min(L, (int)(blockIdx.x + 1) * kRowsPerBlock);
-  const uint32_t key = dropout_key(seed, b * gridDim.y + h);
+  const uint32_t key = dropout_key(seed, (uint32_t)(b * H + h));
+  const int chunks = (L + kChunk - 1) / kChunk;
+  const int row0 = blockIdx.x * kTileRows + warp * 16;  // this warp's rows
+  const int r0 = row0 + g;  // this lane's rows: r0 and r0 + 8
+  // this lane's ldmatrix rows: K (x4: keys 0-7 / 8-15, depth lo / hi) and
+  // V (x4.trans: keys 0-7 / 8-15, columns n / n + 1)
+  const __nv_bfloat16* kp =
+      ks + ((lane & 7) + (mi >> 1) * 8) * G::kKStride + (mi & 1) * 8;
+  const __nv_bfloat16* vp =
+      vs + ((lane & 7) + (mi & 1) * 8) * G::kVStride + (mi >> 1) * 8;
 
-  for (int r = blockIdx.x * kRowsPerBlock + warp; r < row_end; r += kWarps) {
-    float q[D];
-    const __nv_bfloat162* qrow = reinterpret_cast<const __nv_bfloat162*>(
-        qsrc + (size_t)r * row_words);
+  if (G::kDp != D) {  // the q.k^T depth pad of K stays zero
+    for (int r = threadIdx.x; r < cap; r += kWarps * 32)
+      *reinterpret_cast<uint4*>(ks + r * G::kKStride + D) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (chunks == 1) {  // K_h and V_h once
+    stage<D>(ks, vs, bs, ksrc, vsrc, brow, ld, 0, L, true);
+    cp_async_wait_all();
+    __syncthreads();
+    // a warp past the last row has nothing to do; with several chunks
+    // every warp takes part in the staging's barriers
+    if (row0 >= L) return;
+  }
+
+  uint32_t qa[G::kKSteps][4];
 #pragma unroll
-    for (int w = 0; w < G::kPairs; ++w) {
-      const float2 f = __bfloat1622float2(qrow[w]);
-      q[2 * w] = f.x;
-      q[2 * w + 1] = f.y;
+  for (int kk = 0; kk < G::kKSteps; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (e & 1) * 8;
+      const int c = kk * 16 + (e >> 1) * 8 + 2 * quad;
+      qa[kk][e] = 0u;
+      if (r < L && kk * 16 + (e >> 1) * 8 < D)
+        qa[kk][e] = *reinterpret_cast<const uint32_t*>(
+            q_in + head + (size_t)r * ld + c);
     }
-
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const __nv_bfloat162* krow =
-          reinterpret_cast<const __nv_bfloat162*>(ks + j * G::kKStride);
-      float s = 0.f;
+  }
+  float o[G::kOTiles][4];
 #pragma unroll
-      for (int w = 0; w < G::kPairs; ++w) {
-        const float2 f = __bfloat1622float2(krow[w]);
-        s = fmaf(q[2 * w], f.x, s);
-        s = fmaf(q[2 * w + 1], f.y, s);
+  for (int n = 0; n < G::kOTiles; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float inv0 = 0.f, inv1 = 0.f;  // 1 / l, rounded to nearest
+
+  // three passes over the keys, each recomputing z bit for bit: the row
+  // max; the row sum of exp(z - max); p = exp(z - max) / sum, dropped,
+  // rounded to bf16 and multiplied by V
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int c = 0; c < chunks; ++c) {
+      const int j0 = c * kChunk;
+      const int n = min(kChunk, L - j0);
+      const int tiles = (n + 15) / 16;
+      if (chunks > 1) {
+        __syncthreads();  // every warp is done with the previous chunk
+        stage<D>(ks, vs, bs, ksrc, vsrc, brow, ld, j0, n, pass == 2);
+        cp_async_wait_all();
+        __syncthreads();
       }
-      float z = s * scale;
-      if (brow) z += brow[j];
-      p[j] = z;
-      mx = fmaxf(mx, z);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) {
-      float pj = p[j] / sum;
-      if (thr) pj = dropout_bits(key, r * L + j) >= thr ? pj * inv_keep : 0.f;
-      p[j] = __bfloat162float(__float2bfloat16_rn(pj));
-    }
-    __syncwarp();
-
-    float2 acc = make_float2(0.f, 0.f);
-    if (g < G::kGroups) {
-      for (int j = g; j < L; j += G::kGroups) {
-        const float pj = p[j];
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + j * G::kPairs + c));
-        acc.x = fmaf(pj, f.x, acc.x);
-        acc.y = fmaf(pj, f.y, acc.y);
+      if (pass == 0) {
+#pragma unroll 2
+        for (int jt = 0; jt < tiles; ++jt) {
+          float s[2][4];
+          scores<D>(s, qa, kp, bs, jt, scale, quad);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            m0 = fmaxf(m0, fmaxf(s[t][0], s[t][1]));
+            m1 = fmaxf(m1, fmaxf(s[t][2], s[t][3]));
+          }
+        }
+      } else if (pass == 1) {
+#pragma unroll 2
+        for (int jt = 0; jt < tiles; ++jt) {
+          float s[2][4];
+          scores<D>(s, qa, kp, bs, jt, scale, quad);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            l0 += expf(s[t][0] - m0) + expf(s[t][1] - m0);
+            l1 += expf(s[t][2] - m1) + expf(s[t][3] - m1);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int jt = 0; jt < tiles; ++jt) {
+          float s[2][4];
+          scores<D>(s, qa, kp, bs, jt, scale, quad);
+          uint32_t a[4];  // the C pairs of the two n8 halves: P's A
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+#pragma unroll
+            for (int row = 0; row < 2; ++row) {
+              const float m = row ? m1 : m0;
+              const float l = row ? l1 : l0;
+              const float rl = row ? inv1 : inv0;
+              float x0 = div_rn(expf(s[t][2 * row] - m), l, rl);
+              float x1 = div_rn(expf(s[t][2 * row + 1] - m), l, rl);
+              if (thr) {
+                const uint32_t idx = (uint32_t)(r0 + 8 * row) * L + j0 +
+                                     jt * 16 + t * 8 + 2 * quad;
+                x0 = dropout_bits(key, idx) >= thr ? x0 * inv_keep : 0.f;
+                x1 = dropout_bits(key, idx + 1) >= thr ? x1 * inv_keep
+                                                       : 0.f;
+              }
+              a[2 * t + row] = pack_bf16(x0, x1);
+            }
+          }
+          const __nv_bfloat16* vk = vp + jt * 16 * G::kVStride;
+#pragma unroll
+          for (int nn = 0; nn + 1 < G::kOTiles; nn += 2) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, vk + nn * 8);
+            mma16816(o[nn], a, bv[0], bv[1]);
+            mma16816(o[nn + 1], a, bv[2], bv[3]);
+          }
+          if (G::kOTiles % 2) {
+            uint32_t bv[2];  // lanes 0-15 address the two matrices
+            ldmatrix_x2_trans(bv, vk + (G::kOTiles - 1) * 8 - (mi >> 1) * 8);
+            mma16816(o[G::kOTiles - 1], a, bv[0], bv[1]);
+          }
+        }
       }
     }
-    // lane c of group 0 adds the partial sums of lanes c + s*kPairs,
-    // read from the unmodified copy so that no partial is counted twice
-    const float2 part = acc;
+    if (pass == 0) {
+      m0 = quad_max(m0);
+      m1 = quad_max(m1);
+    } else if (pass == 1) {
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      inv0 = __frcp_rn(l0);
+      inv1 = __frcp_rn(l1);
+    }
+  }
+
 #pragma unroll
-    for (int s = 1; s < G::kGroups; ++s) {
-      acc.x += __shfl_sync(0xffffffffu, part.x, c + s * G::kPairs);
-      acc.y += __shfl_sync(0xffffffffu, part.y, c + s * G::kPairs);
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + half * 8;
+    if (r < L) {
+      __nv_bfloat16* orow = out + ((size_t)b * L + r) * E + h * D;
+#pragma unroll
+      for (int n = 0; n < G::kOTiles; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * quad) =
+            pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
     }
-    if (g == 0) {
-      __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(
-          out + ((size_t)b * L + r) * E + h * D);
-      orow[c] = __floats2bfloat162_rn(acc.x, acc.y);
-    }
-    __syncwarp();  // the next row overwrites p
   }
 }
 
@@ -197,15 +431,16 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
            const __nv_bfloat16* v, int ld, const void* bias, void* out, int B,
            int L, int H, float scale, uint32_t seed, uint32_t thr,
            float inv_keep, cudaStream_t stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<D>(L);
   cudaError_t err = cudaFuncSetAttribute(
       mha_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  const dim3 grid((L + kTileRows - 1) / kTileRows, H, B);
   mha_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       q, k, v, ld, static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), L, H * D, scale, seed, thr, inv_keep);
+      static_cast<__nv_bfloat16*>(out), L, H, scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }
 

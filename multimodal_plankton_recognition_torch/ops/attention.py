@@ -58,10 +58,16 @@ from . import build
 __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
            "mha_qkv_bwd_reference", "mha", "mha_bwd", "mha_reference",
            "mha_bwd_reference", "hash_bits", "dropout_bits",
-           "dropout_threshold", "keep_factor", "SUPPORTED_HEAD_DIMS"]
+           "dropout_threshold", "keep_factor", "SUPPORTED_HEAD_DIMS",
+           "MAX_LENGTH"]
 
 #: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
 SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
+#: the longest sequence the kernels take: the dropout counter r*L + j of
+#: csrc/dropout.cuh is 32 bits (the forward streams longer rows through
+#: shared memory; the backward's own shared memory refuses its launch
+#: well below this)
+MAX_LENGTH = 65535
 
 _MASK32 = 0xFFFFFFFF
 
@@ -245,8 +251,13 @@ def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
     d = e3 // (parts * heads)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 4:
-        raise ValueError(f"{what} must be contiguous and 4-byte aligned")
+    # the kernels copy 16 bytes a thread: every row starts on a 16-byte
+    # boundary when the base does (D is a multiple of 8)
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+    if l > MAX_LENGTH:
+        raise ValueError(f"sequence length {l} above the kernels' limit "
+                         f"MAX_LENGTH={MAX_LENGTH}")
     if b > 65535 or heads > 65535:
         raise ValueError(f"grid limit: B={b}, heads={heads} must be <= 65535")
     if bias_rows is not None:

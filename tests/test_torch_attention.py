@@ -10,6 +10,8 @@ another summation order); 5e-2 in bf16, the JAX suite's own bf16
 attention tolerance (tests/test_attention.py).
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +29,18 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.ops.attention import (
-    mha, mha_bwd, mha_qkv, mha_qkv_reference,
+    MAX_LENGTH, _check_cuda_args, mha, mha_bwd, mha_qkv, mha_qkv_reference,
 )
 
 SHAPES = [(3, 17, 48), (4, 21, 32)]  # (heads, L, E): head dims 16 and 8
+# the edges of the Hopper forward's 16-key tiles, 16- and 128-row tiles and
+# 256-key shared-memory chunks (577: three chunks), at head dims 24 and 64:
+# the chain card kernel = plain version = JAX kernel where a tiled kernel
+# breaks
+EDGE_LENGTHS = (15, 16, 17, 63, 64, 65, 128, 129, 577)
+EDGE_SHAPES = [(heads, l, heads * d) for l in EDGE_LENGTHS
+               for heads, d in ((2, 24), (1, 64))]
+SEPARATE_EDGE_SHAPES = [s for s in EDGE_SHAPES if s[1] in (17, 65, 129)]
 
 
 def _qkv(b, l, e, seed=0):
@@ -63,7 +73,7 @@ def test_reference_f32_matches_jax_reference(heads, l, e, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("heads,l,e", SHAPES)
+@pytest.mark.parametrize("heads,l,e", SHAPES + EDGE_SHAPES)
 def test_bf16_matches_jax_kernel_interpret(heads, l, e, masked):
     b = 3
     qkv = _qkv(b, l, e, seed=2)
@@ -108,6 +118,88 @@ def test_module_matches_jax_module(dtype, masked, monkeypatch):
                                rtol=tol, atol=tol)
 
 
+def test_cuda_admission_rules():
+    """What ``_check_cuda_args`` lets through to the kernels, held on CPU
+    tensors: a contiguous 16-byte-aligned base (the kernels copy 16 bytes
+    a thread; 4-byte alignment, the old rule, is refused) and at most
+    ``MAX_LENGTH`` tokens (the 32-bit dropout counter), each refused with
+    the rule in its message."""
+    b, l, heads, d = 2, 9, 3, 16
+    n = b * l * 3 * heads * d
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+    base = flat.data_ptr() % 16 // 2  # elements to the next 16-byte line
+    start = (8 - base) % 8
+    good = flat[start:start + n].view(b, l, 3 * heads * d)
+    assert good.data_ptr() % 16 == 0
+    assert _check_cuda_args(good, None, heads) == d
+    for shift in (1, 2, 4):  # 2, 4 and 8 bytes off the line
+        bad = flat[start + shift:start + shift + n].view(good.shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check_cuda_args(bad, None, heads)
+    q = good.reshape(-1)[:b * l * heads * d].view(b, l, heads * d)
+    assert _check_cuda_args(q, None, heads, parts=1) == d
+    long = torch.zeros((1, MAX_LENGTH + 1, 3 * 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"MAX_LENGTH={MAX_LENGTH}"):
+        _check_cuda_args(long, None, 1)
+    at_limit = flat.new_zeros((1, MAX_LENGTH, 3 * 8))
+    assert at_limit.data_ptr() % 16 == 0  # torch aligns its allocations
+    assert _check_cuda_args(at_limit, None, 1) == 8
+    # the dropout counter of the longest row stays within 32 bits
+    assert MAX_LENGTH ** 2 <= 2 ** 32 - 1
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The exact rational ``x`` rounded once to float32, to nearest even
+    (subnormals included)."""
+    if x == 0:
+        return np.float32(0.0)
+    sign, x = (-1, -x) if x < 0 else (1, x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if x < Fraction(2) ** e:
+        e -= 1
+    e = max(e, -126)
+    scaled = x * Fraction(2) ** (23 - e)
+    n = scaled.numerator // scaled.denominator
+    rest = scaled - n
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and n % 2):
+        n += 1
+    return np.float32(sign * n * 2.0 ** (e - 23))
+
+
+def _div_rn(a: np.float32, b: np.float32) -> np.float32:
+    """``div_rn`` of csrc/attention_fwd.cuh: r = 1/b, q = a r, then
+    q + (a - q b) r in two fused multiply-adds, each rounded once; a true
+    divide below 2**-100."""
+    if 0 < a < 2.0 ** -100:
+        return a / b
+    fa, fb = Fraction(float(a)), Fraction(float(b))
+    r = _round_f32(1 / fb)
+    q = _round_f32(fa * Fraction(float(r)))
+    rem = _round_f32(fa - Fraction(float(q)) * fb)
+    return _round_f32(Fraction(float(rem)) * Fraction(float(r))
+                      + Fraction(float(q)))
+
+
+def test_corrected_division_is_ieee_division():
+    """The forward kernel divides exp(z - max) in [0, 1] by a row sum in
+    [1, 65536) with one reciprocal per row and Markstein's correction;
+    it must give IEEE division's bits: random pairs over the whole
+    domain, the tiny values near the fallback, whole counts, and a = 1."""
+    rs = np.random.RandomState(11)
+    ones = np.float32(1.0).view(np.uint32)
+    a = np.concatenate([
+        rs.randint(0, ones + 1, 3000).astype(np.uint32).view(np.float32),
+        np.float32(2.0) ** rs.uniform(-104, -80, 500).astype(np.float32),
+        np.ones(500, np.float32), np.zeros(1, np.float32)])
+    b = np.concatenate([
+        (ones + rs.randint(0, 16 << 23, 3500).astype(np.uint32)
+         ).view(np.float32),
+        rs.randint(1, 65536, 501).astype(np.float32)])
+    for x, y in zip(a, b):
+        want = np.float32(x) / np.float32(y)
+        assert _div_rn(x, y).view(np.uint32) == want.view(np.uint32), (x, y)
+
+
 def test_cpu_wrapper_does_not_launch():
     before = mha_qkv.launches
     qkv = torch.from_numpy(_qkv(2, 9, 48)).to(torch.bfloat16)
@@ -127,7 +219,7 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 @pytest.mark.parametrize("stacked", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("heads,l,e", SHAPES)
+@pytest.mark.parametrize("heads,l,e", SHAPES + SEPARATE_EDGE_SHAPES)
 def test_separate_qkv_matches_jax_mha_core(heads, l, e, masked, stacked):
     """``mha`` (plain versions of kernels 3 and 4 on the CPU) against the
     JAX ``mha_core`` in interpret mode, stacked and per-head, narrow (the

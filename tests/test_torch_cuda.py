@@ -32,6 +32,11 @@ within 1e-2 of their largest plain value (f32 sums over every row in
 another order, from bf16 dqkv that can land a step apart); under identity
 projections (q = k = 0, v = x = ±1, out the identity) y equals kernel 1's
 output and dx kernel 2's dv bit for bit, which pins the shared mask.
+The tensor-core forward (kernels 1 and 3) is also held at the edges of its
+16-key and 128-row tiles and of its 256-key shared-memory chunk (L 15-17,
+63-65, 128-129 and 577, every head dim, masked or not, eval and train),
+with the exact-sum check there; a base 8 bytes off a 16-byte boundary and
+a length above ``MAX_LENGTH`` raise before any launch.
 """
 
 import pytest
@@ -54,6 +59,10 @@ from multimodal_plankton_recognition_torch.ops.contrastive import (
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
+# the forward at the tile edges, ||kernel - plain|| / ||plain||: on the
+# H100 chip_smoke.py's forward rows (L 64-577) read at most 1e-4; a wrong
+# 16-key tile or 256-key chunk moves it by orders of magnitude more
+FWD_REL_L2_TOL = 1e-3
 BWD_TOL = 1e-2
 SHAPES = [(1, 1, 1), (3, 33, 2), (2, 100, 5)]  # (B, L, heads)
 
@@ -123,11 +132,14 @@ def test_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_launch_failure_raises(cuda):
-    """Too long a sequence for shared memory: the launch is refused and
-    the wrapper raises instead of returning garbage."""
+    """Too long a sequence for the backward's shared memory: the launch is
+    refused and the wrapper raises instead of returning garbage. The
+    forward streams the keys through shared memory in chunks, so it takes
+    the same length and agrees with its plain version."""
     qkv, _ = _inputs(cuda, 1, 4000, 1, 64, False)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        mha_qkv(qkv, None, 1)
+    out = mha_qkv(qkv, None, 1)
+    assert (out.float() - mha_qkv_reference(qkv, None, 1).float()
+            ).abs().max().item() <= TOL
     with pytest.raises(RuntimeError, match="launch failed"):
         mha_qkv_bwd(qkv, None, qkv[..., :64].contiguous(), 1)
 
@@ -196,6 +208,86 @@ def test_bwd_refuses_unsupported_head_dim(cuda):
     odd, _ = _inputs(cuda, 2, 9, 1, 40, False)
     with pytest.raises(ValueError, match="head dim 40"):
         mha_qkv_bwd(odd, None, odd[..., :40].contiguous(), 1)
+
+
+# ------------------ forward kernels 1 and 3: the tile edges ------------------
+# lengths at the edges of the forward's 16-key tiles, its 16-row warp
+# tiles and 128-row block tiles, and its 256-key shared-memory chunks (577:
+# three chunks, a ViT at 384 px)
+EDGE_LENGTHS = [15, 16, 17, 63, 64, 65, 128, 129, 577]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("l", EDGE_LENGTHS)
+def test_forward_at_the_tile_edges(cuda, l, d, masked, p):
+    """Kernels 1 and 3 against their plain versions, and kernel 3 bit for
+    bit against kernel 1 on the same operands."""
+    b, heads = 2, 2
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=l + d)
+    before = mha_qkv.launches, mha.launches
+    out = mha_qkv(qkv, bias, heads, p, 53)
+    sep = mha(*_separate(qkv), bias, heads, p, 53)
+    assert (mha_qkv.launches, mha.launches) == (before[0] + 1,
+                                                before[1] + 1)
+    ref = mha_qkv_reference(qkv, bias, heads, p, 53)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    rel_l2 = (out.float() - ref.float()).norm() / ref.float().norm()
+    assert rel_l2.item() <= FWD_REL_L2_TOL
+    assert torch.equal(sep, out)
+
+
+@pytest.mark.parametrize("l", [17, 65, 129, 577])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+def test_forward_mask_at_the_tile_edges(cuda, d, l):
+    """The exact-sum check (q = k = 0, v = ±1: must be 0) of kernels 1 and
+    3 at the edges, one chunk and three."""
+    b, heads = 2, 2
+    _, bias = _inputs(cuda, b, l, heads, d, True, seed=3)
+    e = heads * d
+    qkv = torch.zeros((b, l, 3 * e), dtype=torch.bfloat16, device=cuda)
+    signs = torch.rand((b, l, e), device=cuda) < 0.5
+    qkv[..., 2 * e:] = torch.where(signs, -1.0, 1.0).to(qkv.dtype)
+    want = mha_qkv_reference(qkv, bias, heads, 0.1, 61)
+    assert torch.equal(mha_qkv(qkv, bias, heads, 0.1, 61), want)
+    assert torch.equal(mha(*_separate(qkv), bias, heads, 0.1, 61), want)
+
+
+def test_forward_refuses_a_misaligned_base(cuda):
+    """The kernels copy 16 bytes a thread: a base 8 bytes off a 16-byte
+    boundary raises before any launch, on both routes."""
+    b, l, heads, d = 2, 33, 2, 16
+    n = b * l * 3 * heads * d
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    qkv = flat[4:4 + n].view(b, l, 3 * heads * d)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 == 8
+    before = mha_qkv.launches, mha.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha_qkv(qkv, None, heads)
+    q = flat[4:4 + b * l * heads * d].view(b, l, heads * d)
+    k = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha(q, k, k, None, heads)
+    assert (mha_qkv.launches, mha.launches) == before
+
+
+def test_forward_refuses_a_length_above_the_limit(cuda):
+    """Above ``MAX_LENGTH`` the wrapper raises before the launch and names
+    the limit."""
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        MAX_LENGTH,
+    )
+
+    qkv = torch.zeros((1, MAX_LENGTH + 1, 24), dtype=torch.bfloat16,
+                      device=cuda)
+    before = mha_qkv.launches
+    with pytest.raises(ValueError, match=f"MAX_LENGTH={MAX_LENGTH}"):
+        mha_qkv(qkv, None, 1)
+    assert mha_qkv.launches == before
 
 
 def _embeddings(cuda, rows, d, dtype, seed=0):
