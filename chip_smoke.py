@@ -14,7 +14,8 @@ fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
    per source, all at once) and prints the build seconds and ptxas'
-   register / spill report;
+   register / spill report; the attention backward's 12 instances (two
+   kernels, six head dims) must spill 0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -37,7 +38,12 @@ fatal on failure:
      and profile widths, with the exact-sum check at the profile's);
    * attention backward (``mha_qkv_bwd`` vs ``mha_qkv_bwd_reference``) at
      the ViT shapes and at the profile shapes with mask and dropout 0.1,
-     within 1e-2 of the largest |dqkv|, beside SDPA's backward;
+     within 1e-2 of the largest |dqkv| and a relative L2 error of 1e-2
+     (``BWD_REL_L2_TOL``), a second call bit for bit equal to the first,
+     beside SDPA's backward; at the masked shapes an exact-sum check
+     (q = k = 0, v = ±1, dO = ±1: dV is a sum of ±pd, exact in f32) whose
+     dV must equal the plain version's bit for bit; kernels 2 and 4 also
+     at ``EDGE_SHAPES``, as kernels 1 and 3;
    * CLIP loss forward and backward (``clip_fwd`` / ``clip_bwd`` vs
      ``clip_loss_fused_reference`` / ``clip_loss_bwd_reference``) at 16
      buckets of 16 and 1 bucket of 256, width 512: loss within 1e-5
@@ -165,8 +171,9 @@ fatal on failure:
    line of encode and train pairs/s on the packed kernel route and on
    this one, timed in turns (packed, flax, flax, packed);
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
-   flagship after a warm-up pass and an unprofiled one, then 8
-   micro-steps of each card on two
+   flagship after a warm-up pass and an unprofiled one, 8 of its train
+   steps after 3 warm-up and 8 unprofiled ones, then 8 micro-steps of each
+   card on two
    routes (the SigLIP card also with and without ``fused_ffn``) under
    torch.profiler after 4 warm-up and 8 unprofiled ones:
    device ms per batch or micro-step by kernel, and the idle share, 1 −
@@ -206,6 +213,14 @@ KERNEL_TOL = 2e-2
 FWD_REL_L2_TOL = 1e-3
 SLEEP_MAX_MS = 50.0  # the longest head start cuda_ms gives the host
 BWD_TOL = 1e-2    # of the largest |dqkv|
+# the attention backward's ||kernel - plain|| / ||plain|| besides BWD_TOL:
+# both round ds and pd to bf16 at the same points, so a wrong tile or
+# chunk of the query or the key side moves it by far more
+BWD_REL_L2_TOL = 1e-2
+# the backward's two kernels (csrc/attention_bwd.cuh) at every head dim:
+# ptxas must report 0 spill bytes for each
+BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
+BWD_INSTANCES = 2 * 6
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -224,9 +239,9 @@ SHAPES = {"vit": (256, 197, 3, 192, False),
           "card profile": (64, 225, 4, 128, True)}
 # kernels 3-4 (separate q, k, v) run at the flagship's shapes
 SEPARATE_SHAPES = ("vit", "profile")
-# kernels 1 and 3 at the edges of the forward's 16-row warp tiles and its
-# 256-key shared-memory chunks (577: a ViT at 384 px), at the flagship's
-# widths (ViT-T D 64 unmasked, the profile encoder D 24 masked), B 16
+# kernels 1-4 at the edges of their 16-row warp tiles and their 256-row
+# shared-memory chunks (577: a ViT at 384 px), at the flagship's widths
+# (ViT-T D 64 unmasked, the profile encoder D 24 masked), B 16
 EDGE_SHAPES = [(name, (16, l) + SHAPES[name][2:])
                for name in SEPARATE_SHAPES for l in (64, 65, 577)]
 # B, L, E, F, activation: the fused-FFN layers of the ViT flagship (ViT-T,
@@ -434,12 +449,27 @@ def phase_build():
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(REPO)}", flush=True)
         log = lib.with_suffix(".log")
+        func, spills = "", {}  # spills: {entry: [stores, loads]}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
                 print(f"  ptxas: {entry[:96]}", flush=True)
+            elif "Function properties for" in line:
+                func = line.split("Function properties for")[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas:   {line.strip()}", flush=True)
+                if "spill" in line and any(k in func for k in BWD_ENTRIES):
+                    spills[func] = [int(w) for w in line.split()
+                                    if w.isdigit()][1:]
+        if name == "attention_bwd":
+            if len(spills) != BWD_INSTANCES:
+                fail(f"ptxas reported {len(spills)} backward kernel "
+                     f"instances, expected {BWD_INSTANCES}")
+            spilled = {e: n for e, n in spills.items() if any(n)}
+            if spilled:
+                fail(f"backward kernels spill registers: {spilled}")
+            print(f"  ptxas: {len(spills)} backward instances, 0 spill "
+                  f"bytes", flush=True)
 
 
 def _check(label: str, got, want, tol: float, scale: float = 1.0) -> float:
@@ -456,13 +486,13 @@ def _check(label: str, got, want, tol: float, scale: float = 1.0) -> float:
     return err
 
 
-def _rel_l2(label: str, got, want) -> float:
-    """||got - want|| / ||want||; fails above ``FWD_REL_L2_TOL``."""
+def _rel_l2(label: str, got, want, tol: float = FWD_REL_L2_TOL) -> float:
+    """||got - want|| / ||want||; fails above ``tol``."""
     got, want = (t.float() for t in (got, want))
     err = ((got - want).norm() / want.norm()).item()
-    if not err <= FWD_REL_L2_TOL:
+    if not err <= tol:
         fail(f"{label}: kernel disagrees with its plain version: relative "
-             f"L2 error {err!r} > {FWD_REL_L2_TOL}")
+             f"L2 error {err!r} > {tol}")
     return err
 
 
@@ -545,8 +575,6 @@ def phase_kernel(device):
     """Every kernel against its plain version; returns {name: {shape:
     numbers}}."""
     import torch
-    from multimodal_plankton_recognition_torch.ops.attention import (
-        mha_qkv_bwd, mha_qkv_bwd_reference)
 
     gen = torch.Generator(device=device).manual_seed(0)
     records = {}
@@ -558,30 +586,16 @@ def phase_kernel(device):
         if masked:  # exact sums: the masks must agree bit for bit
             _mask_check(gen, name, qkv, bias, heads, seed,
                         name in SEPARATE_SHAPES)
-        p = 0.1 if masked else 0.0
-        dout = torch.randn(qkv.shape[:2] + (qkv.shape[2] // 3,),
-                           generator=gen, device=device).to(torch.bfloat16)
-        want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, seed)
-        scale = want.float().abs().max().item()
-        label = f"{name} B={b} L={l} H={heads} mask={masked} p={p}"
-        err = _check(f"mha_qkv_bwd {label}",
-                     mha_qkv_bwd(qkv, bias, dout, heads, p, seed), want,
-                     BWD_TOL, scale)
-        # S recomputed, dV, dP, dQ, dK: 10 B L^2 E
-        _report(records, "mha_qkv_bwd", label, err * scale, BWD_TOL * scale,
-                cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p, seed)),
-                cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads,
-                                                      p, seed)),
-                _bound((qkv, bias, dout), want, 10 * b * l * l * e),
-                _sdpa_ms(qkv, bias, heads, p, dout))
-        if name in SEPARATE_SHAPES:
-            _separate_bwd(records, label, qkv, bias, dout, heads, p, seed)
+        _backward_rows(records, gen, name, qkv, bias, heads, masked, seed,
+                       name in SEPARATE_SHAPES)
     edge_gen = torch.Generator(device=device).manual_seed(7)
     for name, (b, l, heads, e, masked) in EDGE_SHAPES:
         qkv, bias = _attention_inputs(edge_gen, device, b, l, e, masked)
         _forward_rows(records, name, qkv, bias, heads, masked, seed, True)
         if masked:
             _mask_check(edge_gen, name, qkv, bias, heads, seed, True)
+        _backward_rows(records, edge_gen, name, qkv, bias, heads, masked,
+                       seed, True)
     _clip_kernels(gen, device, records)
     _ffn_kernels(gen, device, records)
     _siglip_kernels(gen, device, records)
@@ -647,6 +661,77 @@ def _mask_check(gen, name, qkv, bias, heads, seed, separate):
               f"q=k=0, v=+-1]: max_abs_err {err!r} (must be 0)", flush=True)
 
 
+def _backward_rows(records, gen, name, qkv, bias, heads, masked, seed,
+                   separate):
+    """Kernel 2 (and kernel 4 with ``separate``) against its plain version
+    at dropout 0.1 when ``masked``, else 0: the error (absolute, of the
+    largest |dqkv|, and relative L2), a second call bit for bit equal to
+    the first, the device time beside the plain version's, the bound and
+    SDPA's backward; and, when ``masked``, the exact-sum dV check."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        mha_qkv_bwd, mha_qkv_bwd_reference)
+
+    b, l, e3 = qkv.shape
+    e = e3 // 3
+    p = 0.1 if masked else 0.0
+    dout = torch.randn((b, l, e), generator=gen, device=qkv.device
+                       ).to(torch.bfloat16)
+    label = f"{name} B={b} L={l} H={heads} mask={masked} p={p}"
+    got = mha_qkv_bwd(qkv, bias, dout, heads, p, seed)
+    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, seed)
+    scale = want.float().abs().max().item()
+    err = _check(f"mha_qkv_bwd {label}", got, want, BWD_TOL, scale)
+    if not torch.equal(mha_qkv_bwd(qkv, bias, dout, heads, p, seed), got):
+        fail(f"mha_qkv_bwd {label}: two calls differ")
+    # S recomputed, dV, dP, dQ, dK: 10 B L^2 E
+    _report(records, "mha_qkv_bwd", label, err * scale, BWD_TOL * scale,
+            cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p, seed)),
+            cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads, p,
+                                                  seed)),
+            _bound((qkv, bias, dout), want, 10 * b * l * l * e),
+            _sdpa_ms(qkv, bias, heads, p, dout),
+            rel_l2=_rel_l2(f"mha_qkv_bwd {label}", got, want,
+                           BWD_REL_L2_TOL))
+    if separate:
+        _separate_bwd(records, label, qkv, bias, dout, heads, p, seed, got)
+    if masked:
+        _bwd_mask_check(gen, name, bias, heads, e // heads, seed, separate)
+
+
+def _bwd_mask_check(gen, name, bias, heads, d, seed, separate):
+    """q = k = 0, v = ±1, dO = ±1: p is uniform over the unmasked keys, pd
+    is 0 or one bf16 constant and dV, a sum of ±pd, is exact in f32, so
+    kernel 2's dV (and kernel 4's with ``separate``) must equal the plain
+    version's bit for bit iff the dropout masks agree."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops.attention import (
+        mha_bwd, mha_qkv_bwd, mha_qkv_bwd_reference)
+
+    b, l = bias.shape
+    e = heads * d
+    signs = torch.rand((b, l, 2 * e), generator=gen, device=bias.device)
+    pm = torch.where(signs < 0.5, -1.0, 1.0).to(torch.bfloat16)
+    exact = torch.zeros((b, l, 3 * e), dtype=torch.bfloat16,
+                        device=bias.device)
+    exact[..., 2 * e:] = pm[..., :e]
+    dout = pm[..., e:].contiguous()
+    want = mha_qkv_bwd_reference(exact, bias, dout, heads, 0.1, seed)
+    err = _check(f"mha_qkv_bwd {name} L={l} dV mask check",
+                 mha_qkv_bwd(exact, bias, dout, heads, 0.1, seed)[..., 2 * e:],
+                 want[..., 2 * e:], 0.0)
+    print(f"kernel mha_qkv_bwd [{name} L={l} D={d} p=0.1, q=k=0, v=+-1, "
+          f"dO=+-1]: dV max_abs_err {err!r} (must be 0: same dropout mask)",
+          flush=True)
+    if separate:
+        q, k, v = (t.contiguous() for t in exact.chunk(3, dim=-1))
+        err = _check(f"mha_bwd {name} L={l} dV mask check",
+                     mha_bwd(q, k, v, bias, dout, heads, 0.1, seed)[2],
+                     want[..., 2 * e:], 0.0)
+        print(f"kernel mha_bwd [{name} L={l} D={d} p=0.1, q=k=0, v=+-1, "
+              f"dO=+-1]: dV max_abs_err {err!r} (must be 0)", flush=True)
+
+
 def _separate_fwd(records, label, qkv, bias, heads, p, seed, packed_out):
     """Kernel 3 on the q, k, v of ``qkv`` against its plain version, and bit
     for bit against kernel 1's ``packed_out`` (the same device code)."""
@@ -670,22 +755,26 @@ def _separate_fwd(records, label, qkv, bias, heads, p, seed, packed_out):
             rel_l2=_rel_l2(f"mha_fwd {label}", out, want))
 
 
-def _separate_bwd(records, label, qkv, bias, dout, heads, p, seed):
-    """Kernel 4 against its plain version and bit for bit against kernel
-    2 on the same operands packed."""
+def _separate_bwd(records, label, qkv, bias, dout, heads, p, seed,
+                  packed_grad):
+    """Kernel 4 against its plain version (each of dq, dk, dv, absolute and
+    relative L2) and bit for bit against kernel 2's ``packed_grad`` on the
+    same operands packed."""
     import torch
     from multimodal_plankton_recognition_torch.ops.attention import (
-        mha_bwd, mha_bwd_reference, mha_qkv_bwd)
+        mha_bwd, mha_bwd_reference)
 
     q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
     b, l, e = q.shape
     got = mha_bwd(q, k, v, bias, dout, heads, p, seed)
     want = mha_bwd_reference(q, k, v, bias, dout, heads, p, seed)
     scale = max(w.float().abs().max().item() for w in want)
-    err = max(_check(f"mha_bwd {what} {label}", g, w, BWD_TOL, scale)
-              for what, g, w in zip(("dq", "dk", "dv"), got, want))
-    if not torch.equal(torch.cat(got, dim=-1),
-                       mha_qkv_bwd(qkv, bias, dout, heads, p, seed)):
+    what = ("dq", "dk", "dv")
+    err = max(_check(f"mha_bwd {n} {label}", g, w, BWD_TOL, scale)
+              for n, g, w in zip(what, got, want))
+    rel_l2 = max(_rel_l2(f"mha_bwd {n} {label}", g, w, BWD_REL_L2_TOL)
+                 for n, g, w in zip(what, got, want))
+    if not torch.equal(torch.cat(got, dim=-1), packed_grad):
         fail(f"mha_bwd {label}: differs from mha_qkv_bwd on the same "
              f"operands")
     _report(records, "mha_bwd", label, err * scale, BWD_TOL * scale,
@@ -693,7 +782,7 @@ def _separate_bwd(records, label, qkv, bias, dout, heads, p, seed):
             cuda_ms(lambda: mha_bwd_reference(q, k, v, bias, dout, heads, p,
                                               seed)),
             _bound((q, k, v, bias, dout), got, 10 * b * l * l * e),
-            _sdpa_ms((q, k, v), bias, heads, p, dout))
+            _sdpa_ms((q, k, v), bias, heads, p, dout), rel_l2=rel_l2)
 
 
 def _ffn_close(label, got, want, tol):
@@ -2237,13 +2326,14 @@ def _device_ms(prof, steps):
 
 
 def phase_profile(device):
-    """The ViT flagship's encode batch and the micro-step of each card
-    (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S with and without ``fused_ffn``)
-    by kernel."""
+    """The ViT flagship's encode batch and train step, and the micro-step of
+    each card (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S with and without
+    ``fused_ffn``) by kernel."""
     from multimodal_plankton_recognition_torch.models.flagships import (
         synthetic_batch_b0, synthetic_batch_vit)
 
     _profile_encode(device)
+    _profile_train(device)
     _profile_card(device, "card", CARD, (("kernel", {}),
                                          ("plain", PLAIN_CARD)),
                   synthetic_batch_vit)
@@ -2302,6 +2392,31 @@ def _profile_encode(device):
         torch.cuda.synchronize()
     out = _print_profile("vit encode", "batch", prof, PROFILE_STEPS, wall)
     print(f"profile vit encode: {json.dumps(out)}", flush=True)
+
+
+def _profile_train(device):
+    """The ViT flagship's ``train_step`` (batch 256, buckets 16, dropout
+    0.1) by kernel: ``PROFILE_STEPS`` steps after a warm-up, the wall per
+    step of as many unprofiled steps of the same process and weights."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    state, step = _train_state(flagship_vit(), init, device)
+    _pairs_per_s(state, step, batch, WARMUP_STEPS)
+    wall = BATCH / _pairs_per_s(state, step, batch, PROFILE_STEPS) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            state, _ = step(state, batch, 0)
+        torch.cuda.synchronize()
+    out = _print_profile(f"vit train (bs {BATCH})", "step", prof,
+                         PROFILE_STEPS, wall)
+    print(f"profile vit train: {json.dumps(out)}", flush=True)
 
 
 def _profile_card(device, what, base, paths, make_batch):

@@ -16,7 +16,8 @@
 //   y     = bf16(o . Wo^T + bo)       f32 accumulation, one rounding
 // backward, dy in bf16:
 //   do    = bf16(dy . Wo)
-//   dqkv  = the device code of kernel 2 (attention_bwd.cuh) on (qkv, do)
+//   dqkv  = the device code of kernel 2 (attention_bwd.cuh) on (qkv, do):
+//           two launches, with row statistics and keep bits in scratch
 //   dWo   = dy^T . o,   dbo = sum dy               f32, o recomputed
 //   dWqkv = dqkv^T . x, dbqkv = sum dqkv           f32
 //   dx    = bf16(dqkv . Wqkv)                      f32, one rounding
@@ -28,7 +29,8 @@
 // L 197, 3 heads of 64) the forward's projections are 14.9 GFLOP and its
 // attention 7.6; the backward needs twice both. The projections and the
 // weight gradients run on the tensor cores (warp-level bf16 WMMA 16x16x16,
-// f32 accumulators); the attention runs kernels 1-2's CUDA-core code.
+// f32 accumulators); the attention runs kernels 1-2's tensor-core code
+// (mma.sync, attention_fwd.cuh and attention_bwd.cuh).
 //
 // Design. The TPU kernel keeps q, k, v and o of a block of samples in VMEM
 // and runs every product in one pass. Here each step is its own launch on
@@ -307,14 +309,15 @@ int attn_block_fwd(const void* x, const void* wqkv, const void* bqkv,
 // transposed weights; dy (B, L, E) bf16; scratch qkv and dqkv (B, L, 3E),
 // do and o (B, L, E) bf16; dx (B, L, E) bf16; dwqkv (3E, E), dbqkv (3E,),
 // dwo (E, E), dbo (E,) f32; part: g_qkv * (3E E + 3E) + g_out * (E E + E)
-// f32, 1 <= groups <= ceil(B L / 32).
+// f32, 1 <= groups <= ceil(B L / 32); scratch: the attention backward's
+// (attn_bwd::dispatch, sized by ops/attention.py bwd_scratch).
 int attn_block_bwd(const void* x, const void* wqkv, const void* bqkv,
                    const void* wqkv_t, const void* wo_t, const void* bias,
                    const void* dy, void* qkv, void* dout, void* o,
                    void* dqkv, void* dx, void* dwqkv, void* dbqkv, void* dwo,
-                   void* dbo, void* part, int g_qkv, int g_out, int B, int L,
-                   int H, int D, float scale, unsigned seed, unsigned thr,
-                   float inv_keep, void* stream) {
+                   void* dbo, void* part, void* scratch, int g_qkv, int g_out,
+                   int B, int L, int H, int D, float scale, unsigned seed,
+                   unsigned thr, float inv_keep, void* stream) {
   const int E = H * D, M = B * L, chunks = (M + WR - 1) / WR;
   if (!supported(H, D) || B <= 0 || L <= 0 || g_qkv < 1 || g_out < 1 ||
       g_qkv > chunks || g_out > chunks)
@@ -330,9 +333,9 @@ int attn_block_bwd(const void* x, const void* wqkv, const void* bqkv,
                                         B, L, H, D, scale, seed, thr,
                                         inv_keep, stream));
   CHECK((cudaError_t)attn_bwd::dispatch(q, q + E, q + 2 * E, 3 * E, bias,
-                                        dout, dq, dq + E, dq + 2 * E, B, L,
-                                        H, D, scale, seed, thr, inv_keep,
-                                        stream));
+                                        dout, dq, dq + E, dq + 2 * E, scratch,
+                                        B, L, H, D, scale, seed, thr,
+                                        inv_keep, stream));
   CHECK(gemm(dqkv, wqkv_t, nullptr, dx, M, E, 3 * E, s));
   CHECK(wgrad(dqkv, x, part_qkv, g_qkv, dwqkv, dbqkv, M, 3 * E, E, s));
   CHECK(wgrad(dy, o, part_out, g_out, dwo, dbo, M, E, E, s));

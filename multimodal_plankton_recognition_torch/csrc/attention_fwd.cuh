@@ -68,8 +68,11 @@
 #include <stdint.h>
 
 #include "dropout.cuh"
+#include "mma.cuh"
 
 namespace attn_fwd {
+
+using namespace tc;
 
 constexpr int kWarps = 8;
 constexpr int kTileRows = 16 * kWarps;  // query rows of a tile
@@ -108,85 +111,6 @@ size_t smem_bytes(int L) {
           sizeof(float)) * (size_t)chunk_rows(L);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-// c += a . b: one m16n8k16 product, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// a / b rounded to nearest, as IEEE division gives it, for a in [0, 1] and
-// b in [1, 65536) (an exp over the row max, and a row sum of at most
-// MAX_LENGTH such terms), from r = 1/b rounded to nearest: Markstein's
-// correction q + (a - q b) r of q = a r, exact while the remainder stays
-// normal; for 0 < a < 2^-100 a true divide. It costs two FMAs where
-// div.rn costs a subroutine with a slow path on every element.
-// tests/test_torch_attention.py::test_corrected_division_is_ieee_division
-// holds an exact emulation of it to IEEE division on that domain.
-__device__ __forceinline__ float div_rn(float a, float b, float r) {
-  if (a < 0x1p-100f && a != 0.f) return __fdiv_rn(a, b);
-  const float q = __fmul_rn(a, r);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
-}
-
-// max / sum over the 4 lanes of a quad (the lanes that share a row)
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Copy keys [j0, j0 + n) of K_h (and V_h) into shared memory, their bias
 // into bs (0 without a mask), and zero the rows up to the next multiple of
 // 16 (bias -inf there); the caller waits and syncs.
@@ -218,39 +142,6 @@ __device__ __forceinline__ void stage(__nv_bfloat16* ks, __nv_bfloat16* vs,
     bs[r] = r < n ? (brow ? brow[j0 + r] : 0.f) : -INFINITY;
 }
 
-// z of this warp's 16 query rows against the 16 keys of tile jt held in
-// ks: s[0] and s[1] are its two n8 halves (keys 16 jt + 8 h + 2*(lane%4) +
-// {0, 1}; elements 0-1 on row lane/4, 2-3 on row lane/4 + 8). bs holds the
-// keys' bias, -inf past the last key (whose zero K rows give s = 0).
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[2][4],
-                                       const uint32_t (&qa)[Geom<D>::kKSteps][4],
-                                       const __nv_bfloat16* kp,
-                                       const float* bs, int jt, float scale,
-                                       int quad) {
-  using G = Geom<D>;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < G::kKSteps; ++kk) {
-    uint32_t b[4];
-    ldmatrix_x4(b, kp + jt * 16 * G::kKStride + kk * 16);
-    mma16816(s[0], qa[kk], b[0], b[1]);
-    mma16816(s[1], qa[kk], b[2], b[3]);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float2 add =
-        *reinterpret_cast<const float2*>(bs + jt * 16 + h * 8 + 2 * quad);
-    // fmul then fadd, never contracted into one fma
-#pragma unroll
-    for (int row = 0; row < 4; row += 2) {
-      s[h][row] = __fadd_rn(__fmul_rn(s[h][row], scale), add.x);
-      s[h][row + 1] = __fadd_rn(__fmul_rn(s[h][row + 1], scale), add.y);
-    }
-  }
-}
-
 // q, k, v: head 0 of token 0 of sample 0 of each operand; ld: elements
 // between consecutive tokens of one operand (3E packed, E separate)
 template <int D>
@@ -274,7 +165,6 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int quad = lane & 3;
-  const int mi = lane >> 3;  // which 8 x 8 matrix this lane addresses
   const int E = H * D;
   const size_t head = (size_t)b * L * ld + (size_t)h * D;
   const __nv_bfloat16* ksrc = k_in + head;
@@ -285,11 +175,9 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
   const int row0 = blockIdx.x * kTileRows + warp * 16;  // this warp's rows
   const int r0 = row0 + g;  // this lane's rows: r0 and r0 + 8
   // this lane's ldmatrix rows: K (x4: keys 0-7 / 8-15, depth lo / hi) and
-  // V (x4.trans: keys 0-7 / 8-15, columns n / n + 1)
-  const __nv_bfloat16* kp =
-      ks + ((lane & 7) + (mi >> 1) * 8) * G::kKStride + (mi & 1) * 8;
-  const __nv_bfloat16* vp =
-      vs + ((lane & 7) + (mi & 1) * 8) * G::kVStride + (mi >> 1) * 8;
+  // V (x4.trans: keys 0-7 / 8-15, columns n / n + 8)
+  const __nv_bfloat16* kp = rows_lane(ks, G::kKStride, lane);
+  const __nv_bfloat16* vp = cols_lane(vs, G::kVStride, lane);
 
   if (G::kDp != D) {  // the q.k^T depth pad of K stays zero
     for (int r = threadIdx.x; r < cap; r += kWarps * 32)
@@ -306,18 +194,7 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
   }
 
   uint32_t qa[G::kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < G::kKSteps; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + (e & 1) * 8;
-      const int c = kk * 16 + (e >> 1) * 8 + 2 * quad;
-      qa[kk][e] = 0u;
-      if (r < L && kk * 16 + (e >> 1) * 8 < D)
-        qa[kk][e] = *reinterpret_cast<const uint32_t*>(
-            q_in + head + (size_t)r * ld + c);
-    }
-  }
+  load_a<G::kKSteps>(qa, q_in + head, ld, r0, L, D, quad);
   float o[G::kOTiles][4];
 #pragma unroll
   for (int n = 0; n < G::kOTiles; ++n)
@@ -343,7 +220,8 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
 #pragma unroll 2
         for (int jt = 0; jt < tiles; ++jt) {
           float s[2][4];
-          scores<D>(s, qa, kp, bs, jt, scale, quad);
+          scores<G::kKSteps>(s, qa, kp + jt * 16 * G::kKStride, bs + jt * 16,
+                             scale, quad);
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
             m0 = fmaxf(m0, fmaxf(s[t][0], s[t][1]));
@@ -354,7 +232,8 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
 #pragma unroll 2
         for (int jt = 0; jt < tiles; ++jt) {
           float s[2][4];
-          scores<D>(s, qa, kp, bs, jt, scale, quad);
+          scores<G::kKSteps>(s, qa, kp + jt * 16 * G::kKStride, bs + jt * 16,
+                             scale, quad);
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
             l0 += expf(s[t][0] - m0) + expf(s[t][1] - m0);
@@ -365,7 +244,8 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
 #pragma unroll 2
         for (int jt = 0; jt < tiles; ++jt) {
           float s[2][4];
-          scores<D>(s, qa, kp, bs, jt, scale, quad);
+          scores<G::kKSteps>(s, qa, kp + jt * 16 * G::kKStride, bs + jt * 16,
+                             scale, quad);
           uint32_t a[4];  // the C pairs of the two n8 halves: P's A
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
@@ -386,19 +266,7 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
               a[2 * t + row] = pack_bf16(x0, x1);
             }
           }
-          const __nv_bfloat16* vk = vp + jt * 16 * G::kVStride;
-#pragma unroll
-          for (int nn = 0; nn + 1 < G::kOTiles; nn += 2) {
-            uint32_t bv[4];
-            ldmatrix_x4_trans(bv, vk + nn * 8);
-            mma16816(o[nn], a, bv[0], bv[1]);
-            mma16816(o[nn + 1], a, bv[2], bv[3]);
-          }
-          if (G::kOTiles % 2) {
-            uint32_t bv[2];  // lanes 0-15 address the two matrices
-            ldmatrix_x2_trans(bv, vk + (G::kOTiles - 1) * 8 - (mi >> 1) * 8);
-            mma16816(o[G::kOTiles - 1], a, bv[0], bv[1]);
-          }
+          acc_cols<G::kOTiles>(o, a, vp + jt * 16 * G::kVStride, lane);
         }
       }
     }

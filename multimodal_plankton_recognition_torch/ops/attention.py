@@ -64,9 +64,8 @@ __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
 #: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
 SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
 #: the longest sequence the kernels take: the dropout counter r*L + j of
-#: csrc/dropout.cuh is 32 bits (the forward streams longer rows through
-#: shared memory; the backward's own shared memory refuses its launch
-#: well below this)
+#: csrc/dropout.cuh is 32 bits (the forward and the backward stream longer
+#: rows through shared memory)
 MAX_LENGTH = 65535
 
 _MASK32 = 0xFFFFFFFF
@@ -231,8 +230,8 @@ def _fwd_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("attention_bwd")
-    _declare(lib.mha_qkv_bwd_bf16, 4)
-    _declare(lib.mha_bwd_bf16, 8)
+    _declare(lib.mha_qkv_bwd_bf16, 5)
+    _declare(lib.mha_bwd_bf16, 9)
     return lib
 
 
@@ -281,6 +280,32 @@ def _check_device(t: torch.Tensor) -> bool:
     return False
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels copy 16 bytes a
+    thread with ``cp.async``): a fresh copy where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+#: the backward's shared-memory chunk: up to this length its query-side
+#: kernel hands the dropout mask to its key-side kernel (kChunk in
+#: csrc/attention_bwd.cuh)
+BWD_CHUNK = 256
+
+
+def bwd_scratch(b: int, l: int, heads: int, dropout_p: float,
+                device) -> torch.Tensor:
+    """The backward's scratch, written by its query-side kernel and read by
+    its key-side kernel (``csrc/attention_bwd.cuh``): (max, sum, 1/sum,
+    delta) of every (sample, head, query row) as f32, then, with dropout
+    and L <= ``BWD_CHUNK``, the keep bits of every 16 x 16 tile of
+    probabilities (8 words a tile)."""
+    words = 4 * b * heads * l
+    if dropout_threshold(dropout_p) and l <= BWD_CHUNK:
+        words += 8 * b * heads * (-(-l // 16)) ** 2
+    return torch.empty(words, dtype=torch.float32, device=device)
+
+
 def _launch_args(qkv, bias_rows, heads, dropout_p, seed, parts: int = 3):
     d = _check_cuda_args(qkv, bias_rows, heads, parts)
     b, l, _ = qkv.shape
@@ -311,21 +336,25 @@ def mha_qkv_bwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
                 dout: torch.Tensor, heads: int, dropout_p: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
     """Packed dqkv: the backward kernel on CUDA, the plain version on the
-    CPU, an error otherwise. ``mha_qkv_bwd.launches`` counts launches."""
+    CPU, an error otherwise. ``mha_qkv_bwd.launches`` counts launches: one
+    a call, though a call runs two device kernels (query side, then key
+    side)."""
     if _check_device(qkv):
         return mha_qkv_bwd_reference(qkv, bias_rows, dout, heads, dropout_p,
                                      seed)
     args = _launch_args(qkv, bias_rows, heads, dropout_p, seed)
-    dout = dout.to(qkv.dtype).contiguous()
+    dout = _aligned(dout.to(qkv.dtype))
     if dout.shape != (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3):
         raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
     dqkv = torch.empty_like(qkv)
+    scratch = bwd_scratch(qkv.shape[0], qkv.shape[1], heads, dropout_p,
+                          qkv.device)
     lib = _bwd_lib()
     with torch.cuda.device(qkv.device):
         err = lib.mha_qkv_bwd_bf16(
             qkv.data_ptr(),
             None if bias_rows is None else bias_rows.data_ptr(),
-            dout.data_ptr(), dqkv.data_ptr(), *args,
+            dout.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(), *args,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_bwd")
     mha_qkv_bwd.launches += 1
@@ -402,22 +431,25 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             heads: int, dropout_p: float = 0.0, seed: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): kernel 4 on CUDA, the plain version on the CPU, an
-    error otherwise. ``mha_bwd.launches`` counts launches."""
+    error otherwise. ``mha_bwd.launches`` counts launches, one a call (as
+    ``mha_qkv_bwd``)."""
     if _check_device(q):
         return mha_bwd_reference(q, k, v, bias_rows, dout, heads, dropout_p,
                                  seed)
     args = _separate(q, k, v, bias_rows, heads, dropout_p, seed)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype))
     if dout.shape != q.shape:
         raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = bwd_scratch(q.shape[0], q.shape[1], heads, dropout_p,
+                          q.device)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.mha_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias_rows is None else bias_rows.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *args, torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_bwd (separate q, k, v)")
     mha_bwd.launches += 1
     return dq, dk, dv

@@ -46,8 +46,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .attention import (_MASK32, dropout_threshold, mha_qkv_bwd_reference,
-                        mha_qkv_reference)
+from .attention import (_MASK32, _aligned, bwd_scratch, dropout_threshold,
+                        mha_qkv_bwd_reference, mha_qkv_reference)
 
 __all__ = ["attn_block", "attn_block_fwd", "attn_block_bwd",
            "attn_block_reference", "attn_block_bwd_reference",
@@ -116,13 +116,13 @@ def _lib() -> ctypes.CDLL:
     """attn_block_fwd(x, wqkv, bqkv, wo, bo, bias, qkv, o, y, B, L, H, D,
     scale, seed, thr, inv_keep, stream); attn_block_bwd(x, wqkv, bqkv,
     wqkv_t, wo_t, bias, dy, qkv, do, o, dqkv, dx, dwqkv, dbqkv, dwo, dbo,
-    part, groups_qkv, groups_out, B, L, H, D, scale, seed, thr, inv_keep,
-    stream). Both return a cudaError_t."""
+    part, scratch, groups_qkv, groups_out, B, L, H, D, scale, seed, thr,
+    inv_keep, stream). Both return a cudaError_t."""
     lib = build.load("attention_block")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.attn_block_fwd.argtypes = [vp] * 9 + _SCALARS
     lib.attn_block_fwd.restype = ci
-    lib.attn_block_bwd.argtypes = [vp] * 17 + [ci, ci] + _SCALARS
+    lib.attn_block_bwd.argtypes = [vp] * 18 + [ci, ci] + _SCALARS
     lib.attn_block_bwd.restype = ci
     return lib
 
@@ -182,13 +182,6 @@ def _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows, heads,
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernels read 16 bytes a
-    thread)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
@@ -257,6 +250,7 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
     do, o, dx = bf((b, l, e)), bf((b, l, e)), bf((b, l, e))
     dwqkv, dbqkv, dwo, dbo = f32((3 * e, e)), f32(3 * e), f32((e, e)), f32(e)
     part = f32(g_qkv * (3 * e * e + 3 * e) + g_out * (e * e + e))
+    scratch = bwd_scratch(b, l, h, dropout_p, x.device)
     # the products that read a weight along its rows take it transposed
     wqkv_t, wo_t = wqkv.t().contiguous(), wo.t().contiguous()
     lib = _lib()
@@ -266,7 +260,8 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
             wqkv_t.data_ptr(), wo_t.data_ptr(), _ptr(bias), dy.data_ptr(),
             qkv.data_ptr(), do.data_ptr(), o.data_ptr(), dqkv.data_ptr(),
             dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
-            dwo.data_ptr(), dbo.data_ptr(), part.data_ptr(), g_qkv, g_out,
+            dwo.data_ptr(), dbo.data_ptr(), part.data_ptr(),
+            scratch.data_ptr(), g_qkv, g_out,
             b, l, h, d, scale, seed & _MASK32, thr, inv_keep,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attn_block_bwd")

@@ -167,7 +167,7 @@ def _round_f32(x: Fraction) -> np.float32:
 
 
 def _div_rn(a: np.float32, b: np.float32) -> np.float32:
-    """``div_rn`` of csrc/attention_fwd.cuh: r = 1/b, q = a r, then
+    """``div_rn`` of csrc/mma.cuh: r = 1/b, q = a r, then
     q + (a - q b) r in two fused multiply-adds, each rounded once; a true
     divide below 2**-100."""
     if 0 < a < 2.0 ** -100:

@@ -11,7 +11,10 @@ Tolerances:
   rounds at the kernel's points (dS and the dropped P to bf16, dqkv on
   store), so the two differ only where an f32 sum taken in another order
   lands across a bf16 rounding boundary: one bf16 step, at most 1.6e-2 for
-  the |dqkv| < 2 of these inputs.
+  the |dqkv| < 2 of these inputs. Besides the small shapes this holds the
+  plain version at the CUDA backward's tile and chunk edges (L 15-577),
+  against which ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold
+  the kernels on the card.
 
 Dropout has no bit contract with the JAX package (the TPU PRNG has no
 interpret mode, ``tests/test_attention.py:130-138``), so it is checked by
@@ -34,11 +37,23 @@ from multimodal_plankton_recognition_torch.models.attention import (
 )
 from multimodal_plankton_recognition_torch.models.dropout import dropout_rng
 from multimodal_plankton_recognition_torch.ops.attention import (
-    dropout_bits, dropout_threshold, mha_qkv, mha_qkv_bwd,
-    mha_qkv_bwd_reference, mha_qkv_reference,
+    BWD_CHUNK, bwd_scratch, dropout_bits, dropout_threshold, mha_qkv,
+    mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference,
 )
 
 SHAPES = [(3, 17, 48), (4, 21, 32)]  # (heads, L, E): head dims 16 and 8
+# the CUDA backward's tile and chunk edges (16-row tiles, 128-row blocks,
+# 256-row chunks: 577 takes three) at the flagship's head dims, D 24
+# masked and D 64 unmasked: (heads, L, E, masked, B)
+EDGE_LENGTHS = [15, 16, 17, 63, 64, 65, 128, 129, 577]
+EDGE_CASES = [(2, l, e, masked, 1 if l > 256 else 2)
+              for e, masked in ((48, True), (128, False))
+              for l in EDGE_LENGTHS]
+# the two SHAPES at B 3, masked or not, then EDGE_CASES
+BF16_CASES = ([(h, l, e, masked, 3) for h, l, e in SHAPES
+               for masked in (False, True)] + EDGE_CASES)
+BF16_IDS = ([f"{h}-{l}-{e}-{m}" for h, l, e, m, _ in BF16_CASES[:4]]
+            + [f"edge-{h}-{l}-{e}-{m}-B{b}" for h, l, e, m, b in EDGE_CASES])
 
 
 def _inputs(b, l, e, masked, seed=0):
@@ -68,10 +83,9 @@ def test_bwd_reference_f32_matches_jax_grad(heads, l, e, masked):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("heads,l,e", SHAPES)
-def test_bwd_bf16_matches_jax_kernel_interpret(heads, l, e, masked):
-    qkv, dout, bias = _inputs(3, l, e, masked, seed=2)
+@pytest.mark.parametrize("heads,l,e,masked,b", BF16_CASES, ids=BF16_IDS)
+def test_bwd_bf16_matches_jax_kernel_interpret(heads, l, e, masked, b):
+    qkv, dout, bias = _inputs(b, l, e, masked, seed=2)
 
     def f(x):
         o = mha_core_qkv(x, jnp.asarray(bias), jnp.zeros((), jnp.int32),
@@ -224,3 +238,17 @@ def test_bad_dropout_probability_raises():
     for p in (-0.1, 1.0):
         with pytest.raises(ValueError, match="dropout probability"):
             mha_qkv(qkv, None, 2, p, 0)
+
+
+@pytest.mark.parametrize("l,p,tiles", [(197, 0.0, 0), (197, 0.1, 13),
+                                       (BWD_CHUNK, 0.1, 16),
+                                       (BWD_CHUNK + 1, 0.1, 0),
+                                       (577, 0.0, 0)])
+def test_bwd_scratch_holds_stats_and_keep_bits(l, p, tiles):
+    """The CUDA backward's scratch: a float4 of row statistics per (sample,
+    head, row), then, with dropout and one chunk of keys, 8 words of keep
+    bits per 16 x 16 tile (``csrc/attention_bwd.cuh`` dispatch)."""
+    b, heads = 3, 2
+    scratch = bwd_scratch(b, l, heads, p, "cpu")
+    assert scratch.dtype == torch.float32 and scratch.is_contiguous()
+    assert scratch.numel() == 4 * b * heads * l + 8 * b * heads * tiles ** 2

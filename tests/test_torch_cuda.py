@@ -36,7 +36,12 @@ The tensor-core forward (kernels 1 and 3) is also held at the edges of its
 16-key and 128-row tiles and of its 256-key shared-memory chunk (L 15-17,
 63-65, 128-129 and 577, every head dim, masked or not, eval and train),
 with the exact-sum check there; a base 8 bytes off a 16-byte boundary and
-a length above ``MAX_LENGTH`` raise before any launch.
+a length above ``MAX_LENGTH`` raise before any launch. So is the
+tensor-core backward (kernels 2 and 4), within ``BWD_TOL`` and a relative
+L2 error of ``BWD_REL_L2_TOL``, kernel 4 and a second call bit for bit
+equal to kernel 2, and an exact-sum check of dV (q = k = 0, v = ±1,
+dO = ±1: dV is a sum of ±pd, exact in f32) that must agree bit for bit.
+A launch the entry point refuses raises; L 4000 runs both directions.
 """
 
 import pytest
@@ -64,6 +69,9 @@ TOL = 2e-2
 # 16-key tile or 256-key chunk moves it by orders of magnitude more
 FWD_REL_L2_TOL = 1e-3
 BWD_TOL = 1e-2
+# the backward's ||kernel - plain|| / ||plain||: both sides round ds and pd
+# to bf16 at the same points, so a wrong tile or chunk moves it by far more
+BWD_REL_L2_TOL = 1e-2
 SHAPES = [(1, 1, 1), (3, 33, 2), (2, 100, 5)]  # (B, L, heads)
 
 
@@ -132,16 +140,32 @@ def test_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_launch_failure_raises(cuda):
-    """Too long a sequence for the backward's shared memory: the launch is
-    refused and the wrapper raises instead of returning garbage. The
-    forward streams the keys through shared memory in chunks, so it takes
-    the same length and agrees with its plain version."""
+    """A launch the entry point refuses (head dim 40, called through ctypes
+    past the wrapper's checks: ``dispatch`` returns cudaErrorInvalidValue)
+    raises in ``build.check_launch`` instead of returning garbage. Both
+    directions stream the sequence through shared memory in chunks, so a
+    long one (L 4000) runs and agrees with its plain version."""
+    from multimodal_plankton_recognition_torch.ops import attention, build
+
     qkv, _ = _inputs(cuda, 1, 4000, 1, 64, False)
     out = mha_qkv(qkv, None, 1)
     assert (out.float() - mha_qkv_reference(qkv, None, 1).float()
             ).abs().max().item() <= TOL
+    dout = torch.randn((1, 4000, 64), device=cuda).to(torch.bfloat16)
+    got = mha_qkv_bwd(qkv, None, dout, 1)
+    want = mha_qkv_bwd_reference(qkv, None, dout, 1)
+    _bwd_close(got, want)
+
+    odd = torch.zeros((1, 9, 120), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(odd)
+    scratch = attention.bwd_scratch(1, 9, 1, 0.0, cuda)
+    lib = attention._bwd_lib()
+    err = lib.mha_qkv_bwd_bf16(
+        odd.data_ptr(), None, odd.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), 1, 9, 1, 40, 1.0, 0, 0, 1.0,
+        torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="launch failed"):
-        mha_qkv_bwd(qkv, None, qkv[..., :64].contiguous(), 1)
+        build.check_launch(err, lib, "attention_bwd")
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -255,6 +279,70 @@ def test_forward_mask_at_the_tile_edges(cuda, d, l):
     want = mha_qkv_reference(qkv, bias, heads, 0.1, 61)
     assert torch.equal(mha_qkv(qkv, bias, heads, 0.1, 61), want)
     assert torch.equal(mha(*_separate(qkv), bias, heads, 0.1, 61), want)
+
+
+def _bwd_close(got, want):
+    """The backward's error bounds: within ``BWD_TOL`` of max(1, the
+    largest plain value), and a relative L2 error of ``BWD_REL_L2_TOL``."""
+    assert torch.isfinite(got.float()).all()
+    scale = max(want.float().abs().max().item(), 1.0)
+    assert (got.float() - want.float()).abs().max().item() <= BWD_TOL * scale
+    rel_l2 = (got.float() - want.float()).norm() / want.float().norm()
+    assert rel_l2.item() <= BWD_REL_L2_TOL
+
+
+# ---------------- backward kernels 2 and 4: the tile edges -------------------
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("l", EDGE_LENGTHS)
+def test_backward_at_the_tile_edges(cuda, l, d, masked, p):
+    """Kernel 2 against its plain version at the edges of its 16-row tiles,
+    128-row blocks and 256-row chunks (the query side's keys, the key
+    side's queries); kernel 4 bit for bit against kernel 2 on the same
+    operands; a second call bit for bit against the first (no atomics)."""
+    b, heads = 2, 2
+    qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=l + d + 1)
+    dout = torch.randn((b, l, heads * d), device=cuda).to(torch.bfloat16)
+    before = mha_qkv_bwd.launches, mha_bwd.launches
+    got = mha_qkv_bwd(qkv, bias, dout, heads, p, 71)
+    sep = mha_bwd(*_separate(qkv), bias, dout, heads, p, 71)
+    assert (mha_qkv_bwd.launches, mha_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, 71)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _bwd_close(got, want)
+    assert torch.equal(torch.cat(sep, dim=-1), got)
+    assert torch.equal(mha_qkv_bwd(qkv, bias, dout, heads, p, 71), got)
+
+
+def _exact_sum_operands(cuda, b, l, heads, d, seed):
+    """q = k = 0, v = ±1 and dO = ±1: p is uniform over the unmasked keys,
+    pd is 0 or one bf16 constant, and dV, a sum of ±pd, is exact in f32."""
+    _, bias = _inputs(cuda, b, l, heads, d, True, seed=seed)
+    e = heads * d
+    qkv = torch.zeros((b, l, 3 * e), dtype=torch.bfloat16, device=cuda)
+    signs = torch.rand((b, l, 2 * e), device=cuda) < 0.5
+    pm = torch.where(signs, -1.0, 1.0).to(torch.bfloat16)
+    qkv[..., 2 * e:] = pm[..., :e]
+    return qkv, bias, pm[..., e:].contiguous()
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("l", [17, 129, 577])
+def test_backward_mask_is_the_plain_mask(cuda, l, d, p):
+    """On the exact-sum operands dV of kernels 2 and 4 equals the plain
+    version's bit for bit iff their dropout masks agree."""
+    b, heads = 2, 2
+    qkv, bias, dout = _exact_sum_operands(cuda, b, l, heads, d, seed=l)
+    e = heads * d
+    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, 83)[..., 2 * e:]
+    got = mha_qkv_bwd(qkv, bias, dout, heads, p, 83)[..., 2 * e:]
+    assert torch.equal(got, want)
+    dv = mha_bwd(*_separate(qkv), bias, dout, heads, p, 83)[2]
+    assert torch.equal(dv, want)
 
 
 def test_forward_refuses_a_misaligned_base(cuda):
