@@ -15,7 +15,9 @@ fatal on failure:
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
    per source, all at once) and prints the build seconds and ptxas'
    register / spill report; the attention backward's 12 instances (two
-   kernels, six head dims) must spill 0 bytes;
+   kernels, six head dims) and the attention block's 8 GEMM instances
+   (``gemm_rows_kernel``, ``wgrad_kernel``: wgmma and TMA) must spill 0
+   bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -80,8 +82,13 @@ fatal on failure:
      value, beside ``nn.MultiheadAttention``'s forward and backward on the
      same bf16 weights and key padding, at the row's dropout (the
      library's time; the port never calls it; the eval forward both on
-     its fast path, where it takes it, and on its standard path); and
-     under identity projections (q =
+     its fast path, where it takes it, and on its standard path); kernel
+     12 on the autograd path (given kernel 11's q|k|v and o, ``keep``),
+     its time beside the recomputing call's (no residuals), the two
+     equal bit for bit and a second call equal to the first (fails
+     otherwise); one torch.profiler pass over one call of each at ViT-T,
+     device ms by CUDA kernel (the GEMM stages against the attention
+     stage); and under identity projections (q =
      k = 0, v = x = ±1, out the identity) bit for bit against kernel 1's
      output and kernel 2's dv at D = 24 and 32, which pins the mask;
 4. encode: the full-width ViT flagship (bf16, dim_embed 512, random weights
@@ -159,7 +166,11 @@ fatal on failure:
    batch) and takes 3 train steps (dropout 0.1) through kernels 11 and 12
    only (14 + 14 a step, 0 of kernels 1-4); embeddings within 5e-2 of the
    packed route's and self-gallery k = 1 >= 99%, losses finite and
-   falling, every master moved; encode and train pairs/s of both routes;
+   falling, every master moved; encode and train pairs/s of both routes
+   in 3 rounds of turns (packed, block, block, packed) and their
+   ratio, and the peak
+   device memory (``torch.cuda.max_memory_allocated``) of one train step
+   on each and on the block route with kernel 12 rebuilding q|k|v and o;
 14. flax attention: ``fused_attention=False`` (flax's attention, no
    kernel) at full width: the flagship's encode (0 launches) within 5e-2
    of the kernels' plain versions and self-gallery k = 1 >= 99%; 3 train
@@ -172,7 +183,8 @@ fatal on failure:
    this one, timed in turns (packed, flax, flax, packed);
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
-   steps after 3 warm-up and 8 unprofiled ones, then 8 micro-steps of each
+   steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
+   then on the fused block's), then 8 micro-steps of each
    card on two
    routes (the SigLIP card also with and without ``fused_ffn``) under
    torch.profiler after 4 warm-up and 8 unprofiled ones:
@@ -221,6 +233,11 @@ BWD_REL_L2_TOL = 1e-2
 # ptxas must report 0 spill bytes for each
 BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
 BWD_INSTANCES = 2 * 6
+# the attention block's Hopper GEMMs (csrc/attention_block.cu): three
+# column slices x two weight layouts, and two weight-gradient tiles; 0
+# spill bytes each
+GEMM_ENTRIES = ("gemm_rows_kernel", "wgrad_kernel")
+GEMM_INSTANCES = 3 * 2 + 2
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -259,6 +276,9 @@ FFN_REL_TOL = 2e-3  # relative L2 of each output
 FFN_LAYERS = ATTENTION_LAYERS  # one feed-forward block per attention layer
 UNPACKED_STEPS = 3  # train steps on the unpacked attention route
 FUSE_PROJ_STEPS = 3  # train steps on the fused attention-block route
+# rounds of (packed, block, block, packed) that time the two routes: the
+# host's share spreads by 10-20% within one call on the H100
+FUSE_PROJ_ROUNDS = 3
 FLAX_STEPS = 3  # train steps of fused_attention=False (flax's attention)
 BLOCK_REL_TOL = 2e-3  # relative L2 of the attention block's y and dx
 # the least time of a kernel: NVIDIA's data sheet for one H100 SXM (dense,
@@ -449,7 +469,7 @@ def phase_build():
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(REPO)}", flush=True)
         log = lib.with_suffix(".log")
-        func, spills = "", {}  # spills: {entry: [stores, loads]}
+        func, spills, gemms = "", {}, {}  # {entry: [stores, loads]}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
@@ -458,9 +478,13 @@ def phase_build():
                 func = line.split("Function properties for")[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas:   {line.strip()}", flush=True)
-                if "spill" in line and any(k in func for k in BWD_ENTRIES):
-                    spills[func] = [int(w) for w in line.split()
-                                    if w.isdigit()][1:]
+                if "spill" in line:
+                    counts = [int(w) for w in line.split()
+                              if w.isdigit()][1:]
+                    if any(k in func for k in BWD_ENTRIES):
+                        spills[func] = counts
+                    if any(k in func for k in GEMM_ENTRIES):
+                        gemms[func] = counts
         if name == "attention_bwd":
             if len(spills) != BWD_INSTANCES:
                 fail(f"ptxas reported {len(spills)} backward kernel "
@@ -470,6 +494,15 @@ def phase_build():
                 fail(f"backward kernels spill registers: {spilled}")
             print(f"  ptxas: {len(spills)} backward instances, 0 spill "
                   f"bytes", flush=True)
+        if name == "attention_block":
+            if len(gemms) != GEMM_INSTANCES:
+                fail(f"ptxas reported {len(gemms)} attention-block GEMM "
+                     f"instances, expected {GEMM_INSTANCES}")
+            spilled = {e: n for e, n in gemms.items() if any(n)}
+            if spilled:
+                fail(f"attention-block GEMMs spill registers: {spilled}")
+            print(f"  ptxas: {len(gemms)} attention-block GEMM instances "
+                  f"(wgmma, TMA), 0 spill bytes", flush=True)
 
 
 def _check(label: str, got, want, tol: float, scale: float = 1.0) -> float:
@@ -1139,7 +1172,10 @@ def _block_close(label, got, want):
 
 def _block_kernels(gen, device, records):
     """Kernels 11 and 12 against their plain versions at the attention
-    shapes (``SHAPES``), eval and train (p 0.1) at the masked ones; then
+    shapes (``SHAPES``), eval and train (p 0.1) at the masked ones; kernel
+    12 on the residual path (the autograd path's: kernel 11's q|k|v and
+    o given), beside the recomputing call, the two bit for bit and a
+    second call bit for bit; a profile of one call of each at ViT-T; then
     the identity-projection mask check against kernels 1-2."""
     import torch
     from multimodal_plankton_recognition_torch.ops import attention_block as ab
@@ -1180,22 +1216,75 @@ def _block_kernels(gen, device, records):
                     _bound(args, got, flops), _mha_module_ms(args, heads, p),
                     **({"library_standard_ms": _mha_module_ms(
                         args, heads, fast=False)} if p == 0.0 else {}))
-            got = ab.attn_block_bwd(*args, dy, heads, p, seed)
+            _, qkv, o = ab.attn_block_fwd(*args, heads, p, seed, keep=True)
+            res = {"qkv": qkv, "o": o}
+            got = ab.attn_block_bwd(*args, dy, heads, p, seed, **res)
             err = _block_close(f"attn_block_bwd {label}", got,
                                ab.attn_block_bwd_reference(*args, dy, heads,
-                                                           p, seed))
+                                                           p, seed, **res))
+            _block_repeats(label, got, [
+                ab.attn_block_bwd(*args, dy, heads, p, seed),
+                ab.attn_block_bwd(*args, dy, heads, p, seed, **res)])
             _report(records, "attn_block_bwd", label, err,
                     f"dx {KERNEL_TOL} of max(1, max|plain|), relative L2 "
                     f"{BLOCK_REL_TOL}; weight and bias gradients {BWD_TOL} "
                     f"of their largest",
                     cuda_ms(lambda: ab.attn_block_bwd(*args, dy, heads, p,
-                                                      seed)),
+                                                      seed, **res)),
                     cuda_ms(lambda: ab.attn_block_bwd_reference(
-                        *args, dy, heads, p, seed)),
-                    _bound((args, dy), got, 2 * flops),
-                    _mha_module_ms(args, heads, p, dy))
+                        *args, dy, heads, p, seed, **res)),
+                    _bound((args, dy, qkv, o), got, 2 * flops),
+                    _mha_module_ms(args, heads, p, dy),
+                    recompute_ms=cuda_ms(lambda: ab.attn_block_bwd(
+                        *args, dy, heads, p, seed)))
+            if name == "vit":
+                _block_profile(label, args, dy, heads, p, seed, res)
         if masked:
             _block_mask_check(gen, device, name, b, l, heads, e, bias)
+
+
+def _block_repeats(label, got, again):
+    """Kernel 12's outputs ``got`` (given the residuals) against, bit for
+    bit, the recomputing call's and a second call's (``again``)."""
+    import torch
+
+    same = [all(torch.equal(g, a) for g, a in zip(got, other))
+            for other in again]
+    print(f"kernel attn_block_bwd [{label}]: with and without residuals "
+          f"bit for bit {same[0]}, two calls bit for bit {same[1]} (must "
+          f"both be True)", flush=True)
+    if not all(same):
+        fail(f"attn_block_bwd {label}: the residual path, the recomputing "
+             f"path and a second call are not bit for bit equal: {same}")
+
+
+def _block_profile(label, args, dy, heads, p, seed, res):
+    """Device ms of one call of kernel 11 and one of kernel 12 (residual
+    path) by CUDA kernel: the GEMM stages (``gemm_rows_kernel``,
+    ``wgrad_kernel``, ``reduce_kernel``) against the attention stage
+    (``attn_fwd`` / ``attn_bwd``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_plankton_recognition_torch.ops import attention_block as ab
+
+    for name, call in (
+            ("attn_block_fwd", lambda: ab.attn_block_fwd(*args, heads, p,
+                                                         seed)),
+            ("attn_block_bwd", lambda: ab.attn_block_bwd(*args, dy, heads, p,
+                                                         seed, **res))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = _device_ms(prof, 1)
+        stages = {"attention": 0.0, "gemm": 0.0}
+        for key, (ms, _) in rows.items():
+            stages["attention" if "attn_" in key else "gemm"] += ms
+        print(f"profile {name} [{label}]: device ms {stages!r}", flush=True)
+        for key, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
+            print(f"  {ms:9.4f} ms {n:4.0f}x {key[:110]}", flush=True)
 
 
 def _block_mask_check(gen, device, name, b, l, heads, e, bias):
@@ -2142,22 +2231,37 @@ def phase_fuse_proj(device):
     """The attention module's fused-block route
     (``PLANKTON_ATTN_FUSE_PROJ=1``, set here and restored): the flagship
     encodes through kernel 11 and trains through kernels 11 and 12, never
-    kernels 1-4; beside the packed route in the same process."""
+    kernels 1-4; pairs/s beside the packed route in ``FUSE_PROJ_ROUNDS``
+    rounds of turns (packed, block, block, packed), and the peak memory of
+    a train step on each, and on the block route with kernel 12
+    rebuilding q|k|v and o (the forward keeps nothing)."""
     import numpy as np
     import torch
+    from multimodal_plankton_recognition_torch.models import (
+        attention as attention_module)
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.ops import attention_block
 
+    fuse = functools.partial(_env, "PLANKTON_ATTN_FUSE_PROJ", "1")
     model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
     model.to(device).eval()
     gallery = synthetic_batch_vit(GALLERY, seed=1, device=device)
     labels = np.random.RandomState(2).randint(0, 16, GALLERY)
-    packed, packed_rate, _ = _encode_timed(model, gallery, labels, device)
+    packed, _, _ = _encode_timed(model, gallery, labels, device)
+    with fuse():
+        emb, _, launches = _encode_timed(model, gallery, labels, device)
+    packed_rates, rates = [], []
+    for _ in range(FUSE_PROJ_ROUNDS):
+        packed_rates.append(_encode_timed(model, gallery, labels, device)[1])
+        with fuse():
+            rates += [_encode_timed(model, gallery, labels, device)[1]
+                      for _ in range(2)]
+        packed_rates.append(_encode_timed(model, gallery, labels, device)[1])
     init = init_weights_(flagship_vit(dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
     batch = synthetic_batch_vit(BATCH, seed=3, device=device)
-    with _env("PLANKTON_ATTN_FUSE_PROJ", "1"):
-        emb, rate, launches = _encode_timed(model, gallery, labels, device)
+    with fuse():
         state, train_step = _train_state(flagship_vit(), init, device)
         _reset_counts()
         losses = []
@@ -2166,15 +2270,43 @@ def phase_fuse_proj(device):
             losses.append(float(loss))
         torch.cuda.synchronize()
         train_launches = _counts()
-        train_rate = _pairs_per_s(state, train_step, batch, PLAIN_STEPS)
     pstate, pstep = _train_state(flagship_vit(), init, device)
     _pairs_per_s(pstate, pstep, batch, WARMUP_STEPS)
-    packed_train_rate = _pairs_per_s(pstate, pstep, batch, PLAIN_STEPS)
-    print(f"fuse_proj: encode {rate!r} pairs/s (packed route "
-          f"{packed_rate!r}); launches {launches}; {FUSE_PROJ_STEPS} train "
-          f"steps, losses {losses}, launches {train_launches}; train "
-          f"{train_rate!r} pairs/s over {PLAIN_STEPS} steps (packed route "
-          f"{packed_train_rate!r})", flush=True)
+    packed_train, train_rates = [], []
+    for _ in range(FUSE_PROJ_ROUNDS):
+        packed_train.append(_pairs_per_s(pstate, pstep, batch, PLAIN_STEPS))
+        with fuse():
+            train_rates += [_pairs_per_s(state, train_step, batch,
+                                         PLAIN_STEPS) for _ in range(2)]
+        packed_train.append(_pairs_per_s(pstate, pstep, batch, PLAIN_STEPS))
+    pstate, packed_peak = _peak_step(pstate, pstep, batch)
+    with fuse():
+        state, peak = _peak_step(state, train_step, batch)
+        # the same step with kernel 12 rebuilding q|k|v and o
+        kept = attention_module.attn_block
+        attention_module.attn_block = (
+            lambda *a: attention_block._AttnBlock.apply(*a, False))
+        try:
+            state, rebuilt_peak = _peak_step(state, train_step, batch)
+        finally:
+            attention_module.attn_block = kept
+    del pstate, pstep
+    mean = statistics.fmean
+    rate, train_rate = mean(rates), mean(train_rates)
+    print(f"fuse_proj: in {FUSE_PROJ_ROUNDS} rounds of turns (packed, "
+          f"block, block, packed): encode "
+          f"{rate!r} pairs/s against the packed route's "
+          f"{mean(packed_rates)!r} ({packed_rates} / {rates}), ratio "
+          f"{rate / mean(packed_rates)!r}; launches {launches}; "
+          f"{FUSE_PROJ_STEPS} train steps, losses {losses}, launches "
+          f"{train_launches}; train {train_rate!r} pairs/s over "
+          f"{PLAIN_STEPS} steps against {mean(packed_train)!r} "
+          f"({packed_train} / {train_rates}), ratio "
+          f"{train_rate / mean(packed_train)!r}", flush=True)
+    print(f"fuse_proj: peak memory of one train step, and its rise above "
+          f"the step's start, MiB: block route {peak!r}, packed route "
+          f"{packed_peak!r}, block route rebuilding q|k|v and o "
+          f"{rebuilt_peak!r}", flush=True)
     want = {n: c * (GALLERY // BATCH) for n, c in _per_step(
         attn_block_fwd=ATTENTION_LAYERS).items()}
     if launches != want:
@@ -2197,6 +2329,23 @@ def phase_fuse_proj(device):
     # projections, not two), so held to the encode tolerance
     _check_embeddings("fuse_proj encode", emb, labels, device, packed)
     return {n: launches[n] + train_launches[n] for n in launches}
+
+
+def _peak_step(state, train_step, batch):
+    """One train step; returns (state, (the peak of
+    ``torch.cuda.max_memory_allocated`` over it, its rise above what was
+    allocated before the step) in MiB): the rise is the step's own
+    (activations kept for the backward, gradients), whatever else the
+    process holds."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state, _ = train_step(state, batch, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return state, (peak / 2 ** 20, (peak - before) / 2 ** 20)
 
 
 def phase_flax_attention(device):
@@ -2334,6 +2483,9 @@ def phase_profile(device):
 
     _profile_encode(device)
     _profile_train(device)
+    with _env("PLANKTON_ATTN_FUSE_PROJ", "1"):
+        _profile_encode(device, "fuse_proj ")
+        _profile_train(device, "fuse_proj ")
     _profile_card(device, "card", CARD, (("kernel", {}),
                                          ("plain", PLAIN_CARD)),
                   synthetic_batch_vit)
@@ -2363,10 +2515,10 @@ def _print_profile(what, unit, prof, steps, wall):
             "kernels": rows}
 
 
-def _profile_encode(device):
+def _profile_encode(device, route=""):
     """The ViT flagship's ``encode_arrays`` by kernel: ``PROFILE_STEPS``
     batches of 256 after a warm-up pass, the wall per batch of an
-    unprofiled pass over the same pairs."""
+    unprofiled pass over the same pairs; ``route`` prefixes the label."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2390,14 +2542,16 @@ def _profile_encode(device):
                              ProfilerActivity.CUDA]) as prof:
         encode_arrays(model, pairs, labels, BATCH, device)
         torch.cuda.synchronize()
-    out = _print_profile("vit encode", "batch", prof, PROFILE_STEPS, wall)
-    print(f"profile vit encode: {json.dumps(out)}", flush=True)
+    out = _print_profile(f"{route}vit encode", "batch", prof, PROFILE_STEPS,
+                         wall)
+    print(f"profile {route}vit encode: {json.dumps(out)}", flush=True)
 
 
-def _profile_train(device):
+def _profile_train(device, route=""):
     """The ViT flagship's ``train_step`` (batch 256, buckets 16, dropout
     0.1) by kernel: ``PROFILE_STEPS`` steps after a warm-up, the wall per
-    step of as many unprofiled steps of the same process and weights."""
+    step of as many unprofiled steps of the same process and weights;
+    ``route`` prefixes the label."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from multimodal_plankton_recognition_torch.models.flagships import (
@@ -2414,9 +2568,9 @@ def _profile_train(device):
         for _ in range(PROFILE_STEPS):
             state, _ = step(state, batch, 0)
         torch.cuda.synchronize()
-    out = _print_profile(f"vit train (bs {BATCH})", "step", prof,
+    out = _print_profile(f"{route}vit train (bs {BATCH})", "step", prof,
                          PROFILE_STEPS, wall)
-    print(f"profile vit train: {json.dumps(out)}", flush=True)
+    print(f"profile {route}vit train: {json.dumps(out)}", flush=True)
 
 
 def _profile_card(device, what, base, paths, make_batch):

@@ -32,8 +32,12 @@ the same seed gives kernel 11 the mask of kernel 1.
 ``attn_block`` is the differentiable entry (a ``torch.autograd.Function``):
 the kernels for a CUDA tensor, the plain versions for a CPU tensor, an
 error otherwise; it returns the weight gradients in the parameters'
-dtype. ``attn_block_fwd.launches`` and ``attn_block_bwd.launches`` count
-kernel launches (one per wrapper call, whatever number of passes it runs).
+dtype. When a gradient will be taken, the forward keeps its q|k|v and o
+(``attn_block_fwd(..., keep=True)``) and the backward takes them
+(``attn_block_bwd(..., qkv=, o=)``); given neither, the backward rebuilds
+them, with the same bits, as the TPU kernel does.
+``attn_block_fwd.launches`` and ``attn_block_bwd.launches`` count kernel
+launches (one per wrapper call, whatever number of passes it runs).
 """
 
 from __future__ import annotations
@@ -71,12 +75,15 @@ def attn_block_reference(x: torch.Tensor, qkv_weight: torch.Tensor,
                          qkv_bias: torch.Tensor, out_weight: torch.Tensor,
                          out_bias: torch.Tensor,
                          bias_rows: Optional[torch.Tensor], heads: int,
-                         dropout_p: float = 0.0,
-                         seed: int = 0) -> torch.Tensor:
-    """Plain version of kernel 11: (B, L, E) in x's dtype."""
+                         dropout_p: float = 0.0, seed: int = 0,
+                         keep: bool = False):
+    """Plain version of kernel 11: y (B, L, E) in x's dtype; with ``keep``,
+    (y, q|k|v (B, L, 3E), o (B, L, E)), the residuals the backward
+    takes."""
     qkv = _project(x, qkv_weight, qkv_bias, x.dtype)
     o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
-    return _project(o, out_weight, out_bias, x.dtype)
+    y = _project(o, out_weight, out_bias, x.dtype)
+    return (y, qkv, o) if keep else y
 
 
 def attn_block_bwd_reference(x: torch.Tensor, qkv_weight: torch.Tensor,
@@ -85,21 +92,33 @@ def attn_block_bwd_reference(x: torch.Tensor, qkv_weight: torch.Tensor,
                              out_bias: torch.Tensor,
                              bias_rows: Optional[torch.Tensor],
                              dy: torch.Tensor, heads: int,
-                             dropout_p: float = 0.0, seed: int = 0
+                             dropout_p: float = 0.0, seed: int = 0,
+                             qkv: Optional[torch.Tensor] = None,
+                             o: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, ...]:
     """Plain version of kernel 12: (dx in x's dtype, d qkv_weight (3E, E),
-    d qkv_bias (3E,), d out_weight (E, E), d out_bias (E,) in f32)."""
+    d qkv_bias (3E,), d out_weight (E, E), d out_bias (E,) in f32). Takes
+    the forward's q|k|v and o when given (both or neither), else rebuilds
+    them."""
     dt = x.dtype
     b, l, e = x.shape
-    qkv = _project(x, qkv_weight, qkv_bias, dt)
+    _check_residuals(qkv, o)
+    if qkv is None:
+        qkv = _project(x, qkv_weight, qkv_bias, dt)
+        o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
     dyf = dy.to(dt).float().reshape(-1, e)
     do = (dyf @ out_weight.to(dt).float()).to(dt).reshape(b, l, e)
     dqkv = mha_qkv_bwd_reference(qkv, bias_rows, do, heads, dropout_p, seed)
-    o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
     g = dqkv.float().reshape(-1, 3 * e)
     dx = (g @ qkv_weight.to(dt).float()).to(dt).reshape(b, l, e)
     return (dx, g.T @ x.float().reshape(-1, e), g.sum(0),
             dyf.T @ o.float().reshape(-1, e), dyf.sum(0))
+
+
+def _check_residuals(qkv: Optional[torch.Tensor],
+                     o: Optional[torch.Tensor]) -> None:
+    if (qkv is None) != (o is None):
+        raise ValueError("give the backward both q|k|v and o, or neither")
 
 
 # ---------------------------------------------------------------------------
@@ -114,15 +133,16 @@ _SCALARS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """attn_block_fwd(x, wqkv, bqkv, wo, bo, bias, qkv, o, y, B, L, H, D,
-    scale, seed, thr, inv_keep, stream); attn_block_bwd(x, wqkv, bqkv,
-    wqkv_t, wo_t, bias, dy, qkv, do, o, dqkv, dx, dwqkv, dbqkv, dwo, dbo,
+    scale, seed, thr, inv_keep, stream); attn_block_bwd(x, wqkv, bqkv, wo,
+    bias, dy, qkv, o, recompute, do, dqkv, dx, dwqkv, dbqkv, dwo, dbo,
     part, scratch, groups_qkv, groups_out, B, L, H, D, scale, seed, thr,
     inv_keep, stream). Both return a cudaError_t."""
     lib = build.load("attention_block")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.attn_block_fwd.argtypes = [vp] * 9 + _SCALARS
     lib.attn_block_fwd.restype = ci
-    lib.attn_block_bwd.argtypes = [vp] * 18 + [ci, ci] + _SCALARS
+    lib.attn_block_bwd.argtypes = [vp] * 8 + [ci] + [vp] * 9 + [ci, ci] \
+        + _SCALARS
     lib.attn_block_bwd.restype = ci
     return lib
 
@@ -186,13 +206,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
                    bias_rows: Optional[torch.Tensor], heads: int,
-                   dropout_p: float = 0.0, seed: int = 0) -> torch.Tensor:
+                   dropout_p: float = 0.0, seed: int = 0, keep: bool = False):
     """Kernel 11 on CUDA, the plain version on the CPU: y (B, L, E) in x's
-    dtype. ``attn_block_fwd.launches`` counts launches."""
+    dtype; with ``keep``, (y, q|k|v, o), which ``attn_block_bwd`` takes
+    back. ``attn_block_fwd.launches`` counts launches."""
     if _on_cpu(x):
         return attn_block_reference(x, qkv_weight, qkv_bias, out_weight,
                                     out_bias, bias_rows, heads, dropout_p,
-                                    seed)
+                                    seed, keep)
     x, wqkv, bqkv, wo, bo, bias, (b, l, h, d, scale), (thr, inv_keep) = \
         _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows,
               heads, dropout_p)
@@ -208,30 +229,53 @@ def attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attn_block_fwd")
     attn_block_fwd.launches += 1
-    return y
+    return (y, qkv, o) if keep else y
 
 
 def groups_for(rows: int, n: int, k: int, sms: int) -> int:
     """Row groups of a weight-gradient pass over an (n, k) weight: enough
-    (64 x 64 tile, row group) blocks for two per SM, at most one group per
-    32-row chunk. Each group holds one f32 partial of the weight and its
-    bias."""
-    tiles = (n // 64) * (k // 64)
-    return max(1, min(-(-rows // 32), -(-2 * sms // tiles)))
+    (64 x TK tile, row group) blocks for two per SM (TK = 192 where it
+    divides k, else 128, as ``csrc/attention_block.cu`` tiles it), at most
+    one group per 64-row chunk. Each group holds one f32 partial of the
+    weight and its bias."""
+    tiles = (n // 64) * (k // (192 if k % 192 == 0 else 128))
+    return max(1, min(-(-rows // 64), -(-2 * sms // tiles)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _residual(t: torch.Tensor, shape, x: torch.Tensor, name: str
+              ) -> torch.Tensor:
+    if t.device != x.device or t.dtype != BF16 or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be a {shape} bf16 tensor on "
+                         f"{x.device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned "
+                         f"(the kernel reads the forward's own tensor)")
+    return t
 
 
 def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
                    bias_rows: Optional[torch.Tensor], dy: torch.Tensor,
-                   heads: int, dropout_p: float = 0.0, seed: int = 0
+                   heads: int, dropout_p: float = 0.0, seed: int = 0,
+                   qkv: Optional[torch.Tensor] = None,
+                   o: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """Kernel 12 on CUDA, the plain version on the CPU: (dx in x's dtype,
     d qkv_weight (3E, E), d qkv_bias (3E,), d out_weight (E, E), d
-    out_bias (E,) in f32). ``attn_block_bwd.launches`` counts launches."""
+    out_bias (E,) in f32). ``qkv`` and ``o``: the forward's (``keep``),
+    both or neither; without them the kernel rebuilds them first, with
+    the same bits. ``attn_block_bwd.launches`` counts launches."""
     if _on_cpu(x):
         return attn_block_bwd_reference(x, qkv_weight, qkv_bias, out_weight,
                                         out_bias, bias_rows, dy, heads,
-                                        dropout_p, seed)
-    x, wqkv, bqkv, wo, bo, bias, (b, l, h, d, scale), (thr, inv_keep) = \
+                                        dropout_p, seed, qkv, o)
+    _check_residuals(qkv, o)
+    x, wqkv, bqkv, wo, _, bias, (b, l, h, d, scale), (thr, inv_keep) = \
         _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows,
               heads, dropout_p)
     if dy.shape != x.shape:
@@ -240,29 +284,32 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
     e = h * d
     rows = b * l
     dy = _aligned(dy.to(BF16))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    g_qkv, g_out = groups_for(rows, 3 * e, e, sms), groups_for(rows, e, e,
-                                                                 sms)
     bf = functools.partial(torch.empty, dtype=BF16, device=x.device)
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
-    qkv, dqkv = bf((b, l, 3 * e)), bf((b, l, 3 * e))
-    do, o, dx = bf((b, l, e)), bf((b, l, e)), bf((b, l, e))
+    recompute = qkv is None
+    if recompute:
+        qkv, o = bf((b, l, 3 * e)), bf((b, l, e))
+    else:
+        qkv = _residual(qkv, (b, l, 3 * e), x, "qkv")
+        o = _residual(o, (b, l, e), x, "o")
+    sms = _sm_count(x.device.index if x.device.index is not None
+                    else torch.cuda.current_device())
+    g_qkv, g_out = groups_for(rows, 3 * e, e, sms), groups_for(rows, e, e,
+                                                                 sms)
+    dqkv, do, dx = bf((b, l, 3 * e)), bf((b, l, e)), bf((b, l, e))
     dwqkv, dbqkv, dwo, dbo = f32((3 * e, e)), f32(3 * e), f32((e, e)), f32(e)
     part = f32(g_qkv * (3 * e * e + 3 * e) + g_out * (e * e + e))
     scratch = bwd_scratch(b, l, h, dropout_p, x.device)
-    # the products that read a weight along its rows take it transposed
-    wqkv_t, wo_t = wqkv.t().contiguous(), wo.t().contiguous()
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.attn_block_bwd(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wqkv_t.data_ptr(), wo_t.data_ptr(), _ptr(bias), dy.data_ptr(),
-            qkv.data_ptr(), do.data_ptr(), o.data_ptr(), dqkv.data_ptr(),
-            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
-            dwo.data_ptr(), dbo.data_ptr(), part.data_ptr(),
-            scratch.data_ptr(), g_qkv, g_out,
-            b, l, h, d, scale, seed & _MASK32, thr, inv_keep,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
+            _ptr(bias), dy.data_ptr(), qkv.data_ptr(), o.data_ptr(),
+            int(recompute), do.data_ptr(), dqkv.data_ptr(), dx.data_ptr(),
+            dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
+            dbo.data_ptr(), part.data_ptr(), scratch.data_ptr(), g_qkv,
+            g_out, b, l, h, d, scale, seed & _MASK32, thr, inv_keep,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attn_block_bwd")
     attn_block_bwd.launches += 1
@@ -274,27 +321,31 @@ attn_block_bwd.launches = 0
 
 
 class _AttnBlock(torch.autograd.Function):
-    """Forward: kernel 11; backward: kernel 12, recomputing q, k, v, the
-    softmax and the dropout mask from x and the seed, as the TPU kernel
-    does."""
+    """Forward: kernel 11, keeping its q|k|v and o when a gradient will be
+    taken (``keep``); backward: kernel 12 on them, or, without them,
+    rebuilding q, k, v, the softmax and the dropout mask from x and the
+    seed, as the TPU kernel does."""
 
     @staticmethod
     def forward(ctx, x, qkv_weight, qkv_bias, out_weight, out_bias,
-                bias_rows, heads, dropout_p, seed):
-        ctx.save_for_backward(x, qkv_weight, qkv_bias, out_weight, out_bias,
-                              bias_rows)
+                bias_rows, heads, dropout_p, seed, keep):
         ctx.args = (heads, dropout_p, seed)
-        return attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
-                              bias_rows, heads, dropout_p, seed)
+        out = attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                             bias_rows, heads, dropout_p, seed, keep)
+        y, residuals = (out[0], out[1:]) if keep else (out, ())
+        ctx.save_for_backward(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                              bias_rows, *residuals)
+        return y
 
     @staticmethod
     def backward(ctx, dy) -> Tuple[Optional[torch.Tensor], ...]:
-        x, wqkv, bqkv, wo, bo, bias_rows = ctx.saved_tensors
+        x, wqkv, bqkv, wo, bo, bias_rows, *residuals = ctx.saved_tensors
+        qkv, o = residuals or (None, None)
         dx, dwqkv, dbqkv, dwo, dbo = attn_block_bwd(
-            x, wqkv, bqkv, wo, bo, bias_rows, dy, *ctx.args)
+            x, wqkv, bqkv, wo, bo, bias_rows, dy, *ctx.args, qkv=qkv, o=o)
         return (dx, dwqkv.to(wqkv.dtype), dbqkv.reshape(bqkv.shape).to(
             bqkv.dtype), dwo.to(wo.dtype), dbo.reshape(bo.shape).to(
-            bo.dtype), None, None, None, None)
+            bo.dtype), None, None, None, None, None)
 
 
 def attn_block(x: torch.Tensor, qkv_weight: torch.Tensor,
@@ -306,7 +357,13 @@ def attn_block(x: torch.Tensor, qkv_weight: torch.Tensor,
     probability dropout ``dropout_p`` (0 in eval mode) drawn from ``seed``
     (the JAX ``attn_block``): kernels 11 and 12 for a CUDA tensor, the
     plain versions for a CPU tensor, an error otherwise. Returns (B, L, E)
-    in x's dtype."""
+    in x's dtype. Only when a gradient will be taken (grad mode on and an
+    input that requires one) does the forward keep its q|k|v and o (3 B L
+    E and B L E values) for the backward; under ``no_grad`` or
+    ``inference_mode`` it keeps nothing."""
     dropout_threshold(dropout_p)  # validates p before any launch
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, qkv_weight, qkv_bias, out_weight,
+                                  out_bias))
     return _AttnBlock.apply(x, qkv_weight, qkv_bias, out_weight, out_bias,
-                            bias_rows, heads, dropout_p, seed)
+                            bias_rows, heads, dropout_p, seed, keep)

@@ -36,6 +36,9 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.models.dropout import dropout_rng
+from multimodal_plankton_recognition_torch.ops import (
+    attention_block as block_ops,
+)
 from multimodal_plankton_recognition_torch.ops.attention import (
     mha_qkv_bwd_reference, mha_qkv_reference,
 )
@@ -138,6 +141,102 @@ def test_autograd_is_the_plain_backward():
     for got, w in zip([tx] + leaves, want):
         assert got.grad.dtype == torch.float32
         assert torch.equal(got.grad, w.reshape(got.shape))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_plain_backward_takes_the_residuals_bit_for_bit(p):
+    """Given the forward's q|k|v and o, the plain backward equals its
+    recomputing self bit for bit, in bf16 with key padding and dropout;
+    one residual alone is refused."""
+    x, ws, bias = _inputs(2, 21, 48, seed=5)
+    args = (torch.from_numpy(x).to(torch.bfloat16), *_port_weights(ws),
+            torch.from_numpy(bias))
+    dy = torch.randn((2, 21, 48), generator=torch.Generator().manual_seed(1)
+                     ).to(torch.bfloat16)
+    _, qkv, o = attn_block_fwd(*args, 3, p, 9, keep=True)
+    given = attn_block_bwd_reference(*args, dy, 3, p, 9, qkv=qkv, o=o)
+    rebuilt = attn_block_bwd_reference(*args, dy, 3, p, 9)
+    for g, r in zip(given, rebuilt):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="both"):
+        attn_block_bwd(*args, dy, 3, p, 9, qkv=qkv)
+
+
+def test_forward_keeps_the_plain_projections():
+    """``attn_block_fwd(..., keep=True)`` returns y and the residuals: the
+    plain q|k|v projection (one rounding after the f32 bias) and the plain
+    attention's o on it, y as without ``keep``."""
+    x, ws, bias = _inputs(2, 17, 96, seed=6)
+    tx, weights, tbias = (torch.from_numpy(x).to(torch.bfloat16),
+                          _port_weights(ws), torch.from_numpy(bias))
+    y, qkv, o = attn_block_fwd(tx, *weights, tbias, 4, 0.1, 3, keep=True)
+    want = (tx.float() @ weights[0].to(torch.bfloat16).float().T
+            + weights[1]).to(torch.bfloat16)
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (2, 17, 288)
+    assert torch.equal(qkv, want)
+    assert torch.equal(o, mha_qkv_reference(want, tbias, 4, 0.1, 3))
+    assert torch.equal(y, attn_block_fwd(tx, *weights, tbias, 4, 0.1, 3))
+
+
+def test_autograd_keeps_residuals_only_for_a_gradient(monkeypatch):
+    """The forward asks kernel 11 for its residuals only when a gradient
+    will be taken, and the backward hands them to kernel 12; under
+    ``no_grad``, ``inference_mode`` or on inputs that need no gradient it
+    keeps nothing."""
+    x, ws, bias = _inputs(2, 9, 48, seed=7)
+    keeps, given = [], []
+    fwd, bwd = block_ops.attn_block_fwd, block_ops.attn_block_bwd
+    monkeypatch.setattr(block_ops, "attn_block_fwd",
+                        lambda *a: keeps.append(a[-1]) or fwd(*a))
+    monkeypatch.setattr(block_ops, "attn_block_bwd",
+                        lambda *a, qkv, o: given.append(
+                            (qkv is not None, o is not None))
+                        or bwd(*a, qkv=qkv, o=o))
+    leaves = [t.clone().requires_grad_() for t in _port_weights(ws)]
+    tx, tbias = torch.from_numpy(x), torch.from_numpy(bias)
+    with torch.no_grad():
+        attn_block(tx, *leaves, tbias, 3)
+    with torch.inference_mode():
+        attn_block(tx, *leaves, tbias, 3)
+    attn_block(tx, *_port_weights(ws), tbias, 3)
+    attn_block(tx, *leaves, tbias, 3).sum().backward()
+    assert keeps == [False, False, False, True]
+    assert given == [(True, True)]
+
+
+def test_autograd_with_residuals_matches_jax_grad():
+    """f32, 4 heads, L 64, E 64 (``test_plain_backward_matches_jax_grad``'s
+    case): dx and the weight and bias gradients of sum(y²) through
+    ``attn_block`` under autograd, with the forward's saved q|k|v and o,
+    against ``jax.grad`` of the interpret kernel at that test's
+    tolerances."""
+    heads, l, e = 4, 64, 64
+    x, ws, bias = _inputs(2, l, e, seed=1)
+
+    def loss(x, *w):
+        out = _jax_block(x, dict(zip(JAX_NAMES, w)), bias, heads)
+        return jnp.sum(out ** 2)
+
+    grads = jax.grad(loss, argnums=tuple(range(9)))(
+        jnp.asarray(x), *(jnp.asarray(ws[n]) for n in JAX_NAMES))
+    want = dict(zip(("x",) + JAX_NAMES, map(np.asarray, grads)))
+    tx = torch.from_numpy(x).requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in _port_weights(ws)]
+    attn_block(tx, *leaves, torch.from_numpy(bias), heads
+               ).square().sum().backward()
+    q, k, v = (slice(i * e, (i + 1) * e) for i in range(3))
+    dwqkv, dbqkv, dwo, dbo = (t.grad for t in leaves)
+    got = {"x": tx.grad, "wq": dwqkv[q].T, "wk": dwqkv[k].T,
+           "wv": dwqkv[v].T, "bq": dbqkv[q], "bk": dbqkv[k], "bv": dbqkv[v],
+           "wo": dwo.T, "bo": dbo}
+    largest_bias = max(np.abs(want[n]).max() for n in ("bq", "bv", "bo"))
+    for name, g in got.items():
+        g = g.detach().numpy()
+        if name == "bk":  # zero in exact arithmetic
+            assert np.abs(g).max() <= 1e-4 * largest_bias
+        else:
+            err = np.abs(g - want[name]).max()
+            assert err <= 1e-5 * np.abs(want[name]).max(), (name, err)
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():

@@ -32,6 +32,10 @@ within 1e-2 of their largest plain value (f32 sums over every row in
 another order, from bf16 dqkv that can land a step apart); under identity
 projections (q = k = 0, v = x = ±1, out the identity) y equals kernel 1's
 output and dx kernel 2's dv bit for bit, which pins the shared mask.
+Its GEMMs are also held at row counts that leave a ragged last tile (195
+and 12,608 rows), kernel 11's kept q|k|v and o against the plain ones;
+kernel 12 given them must equal kernel 12 rebuilding them, and a second
+call the first, bit for bit.
 The tensor-core forward (kernels 1 and 3) is also held at the edges of its
 16-key and 128-row tiles and of its 256-key shared-memory chunk (L 15-17,
 63-65, 128-129 and 577, every head dim, masked or not, eval and train),
@@ -902,6 +906,53 @@ def test_block_kernels_match_plain(cuda, b, l, e, heads, masked, p):
                  "bwd")
 
 
+# row counts that leave a ragged last 128-row tile of the GEMMs (195 and
+# 12,608 rows) and a ragged last 64-row chunk of the weight gradients
+BLOCK_RAGGED = [(3, 65, 192, 3, False), (3, 65, 192, 8, True),
+                (64, 197, 384, 6, False)]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,l,e,heads,masked", BLOCK_RAGGED)
+def test_block_ragged_rows_match_plain(cuda, b, l, e, heads, masked, p):
+    """Kernel 11 with ``keep`` (y, q|k|v and o against the plain forward)
+    and kernel 12 on those residuals against the plain backward, at row
+    counts that are no multiple of the GEMMs' tiles."""
+    args, dy = _block_inputs(cuda, b, l, e, masked, seed=5)
+    y, qkv, o = ab.attn_block_fwd(*args, heads, p, 31, keep=True)
+    want = ab.attn_block_reference(*args, heads, p, 31, keep=True)
+    _block_close([y], want[:1], "fwd y")
+    _block_close([qkv], want[1:2], "fwd qkv")
+    _block_close([o], want[2:], "fwd o")
+    got = ab.attn_block_bwd(*args, dy, heads, p, 31, qkv=qkv, o=o)
+    torch.cuda.synchronize()
+    _block_close(got, ab.attn_block_bwd_reference(*args, dy, heads, p, 31,
+                                                  qkv=qkv, o=o), "bwd")
+
+
+@pytest.mark.parametrize("b,l,e,heads,masked,p",
+                         [(2, 197, 192, 3, False, 0.0),
+                          (3, 225, 128, 4, True, 0.1),
+                          (2, 70, 192, 8, True, 0.1),
+                          (2, 197, 384, 6, False, 0.0)])
+def test_block_bwd_residuals_and_repeats_bit_for_bit(cuda, b, l, e, heads,
+                                                      masked, p):
+    """Kernel 12 given the forward's q|k|v and o equals kernel 12
+    rebuilding them, and a second call equals the first, bit for bit (no
+    atomics; the groups are added in index order); one launch a call."""
+    args, dy = _block_inputs(cuda, b, l, e, masked, seed=6)
+    _, qkv, o = ab.attn_block_fwd(*args, heads, p, 17, keep=True)
+    before = ab.attn_block_bwd.launches
+    given = ab.attn_block_bwd(*args, dy, heads, p, 17, qkv=qkv, o=o)
+    again = ab.attn_block_bwd(*args, dy, heads, p, 17, qkv=qkv, o=o)
+    rebuilt = ab.attn_block_bwd(*args, dy, heads, p, 17)
+    torch.cuda.synchronize()
+    assert ab.attn_block_bwd.launches == before + 3
+    for i, (g, a, r) in enumerate(zip(given, again, rebuilt)):
+        assert torch.equal(g, a), f"output {i}: two calls differ"
+        assert torch.equal(g, r), f"output {i}: residuals differ"
+
+
 @pytest.mark.parametrize("p", [0.1, 0.5])
 @pytest.mark.parametrize("e,heads", [(192, 8), (128, 4)])  # D 24 and 32
 def test_block_mask_is_kernel_1s_mask(cuda, e, heads, p):
@@ -960,10 +1011,23 @@ def test_block_module_route_on_card(cuda, monkeypatch):
 
 
 def test_block_refuses_what_the_kernels_do_not_take(cuda):
-    args, _ = _block_inputs(cuda, 2, 9, 128, False)
+    args, dy = _block_inputs(cuda, 2, 9, 128, False)
     with pytest.raises(TypeError, match="bf16"):
         ab.attn_block_fwd(args[0].float(), *args[1:], 4)
     with pytest.raises(ValueError, match="not in"):
         ab.attn_block_fwd(*args, 8)
     with pytest.raises(ValueError, match="weights"):
         ab.attn_block_fwd(args[0], args[3], *args[2:], 4)
+    # the backward's residuals: both or neither, the forward's shapes
+    _, qkv, o = ab.attn_block_fwd(*args, 4, keep=True)
+    before = ab.attn_block_bwd.launches
+    with pytest.raises(ValueError, match="both"):
+        ab.attn_block_bwd(*args, dy, 4, qkv=qkv)
+    with pytest.raises(ValueError, match="qkv must be"):
+        ab.attn_block_bwd(*args, dy, 4, qkv=o, o=o)
+    with pytest.raises(ValueError, match="o must be"):
+        ab.attn_block_bwd(*args, dy, 4, qkv=qkv, o=o.float())
+    with pytest.raises(ValueError, match="aligned"):
+        ab.attn_block_bwd(*args, dy, 4, qkv=qkv[:, :, :].transpose(0, 1)
+                          .contiguous().transpose(0, 1), o=o)
+    assert ab.attn_block_bwd.launches == before
