@@ -7,6 +7,7 @@ the attention module's unpacked (separate q, k, v) route and its fused
 attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --kernel-profile   # kernels 10 and 16 alone
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -15,9 +16,10 @@ fatal on failure:
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
    per source, all at once) and prints the build seconds and ptxas'
    register / spill report; the attention backward's 12 instances (two
-   kernels, six head dims) and the attention block's 8 GEMM instances
-   (``gemm_rows_kernel``, ``wgrad_kernel``: wgmma and TMA) must spill 0
-   bytes;
+   kernels, six head dims), the shared Hopper GEMM's 9 instances
+   (``gemm_rows_kernel``, ``wgrad_kernel`` of ``csrc/hopper_gemm.cuh``:
+   wgmma and TMA) in each of the four libraries that include it and
+   kernel 10's 8 ``ffn_bwd_rows_kernel`` instances must spill 0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -59,7 +61,9 @@ fatal on failure:
    * MBConv kernels 13-16 (``ka_fwd``, ``kb_fwd``, ``kb_bwd``, ``ka_bwd`` vs
      their ``*_reference``) at each of the 8 distinct shapes of B0's
      stride-1 blocks at B 64, every output within 2e-2 of max(1,
-     max|plain|) and 1e-3 relative L2;
+     max|plain|) and 1e-3 relative L2; kernel 16 also a second call bit
+     for bit equal to the first, and one profiled call by CUDA kernel at
+     ``KA_BWD_PROFILED`` (stage2_block1, stage1_block0);
    * attention on separate q, k, v (kernels 3 and 4: ``mha`` / ``mha_bwd``
      vs ``mha_reference`` / ``mha_bwd_reference``) at the flagship's two
      shapes as kernels 1-2 above, the exact-sum mask check at D = 24, and
@@ -71,8 +75,11 @@ fatal on failure:
      shape and f32 x at the card's profile shape, every output within
      ``FFN_TOL`` of max(1, max|plain|) and 2e-3 relative L2, beside the
      unfused route's time (``F.linear`` → GELU → ``F.linear`` on cuBLAS, no
-     single library call computes the block); and at each shape an
-     exact-sum check (ReLU, integer inputs) that must agree bit for bit;
+     single library call computes the block), a second backward call bit
+     for bit equal to the first, and one torch.profiler pass over one
+     backward call at ViT-T (p 0 and 0.1) by CUDA kernel; and at each
+     shape an exact-sum check (ReLU, integer inputs) that must agree bit
+     for bit;
    * the fused attention block (kernels 11 and 12: ``attn_block_fwd`` /
      ``attn_block_bwd`` vs ``attn_block_reference`` /
      ``attn_block_bwd_reference``) at the four attention shapes above, eval
@@ -150,7 +157,8 @@ fatal on failure:
    beside the unfused flagship: embeddings within 5e-2 of it, self-gallery
    k = 1 >= 99%, pairs/s of both;
 10. ffn train: 20 train steps of the fused-FFN flagship as in 5. (14 + 14
-   FFN, 14 + 14 attention and 1 + 1 CLIP launches a step); then dropout-0
+   FFN, 14 + 14 attention and 1 + 1 CLIP launches a step) and the peak
+   ``torch.cuda.max_memory_allocated`` of one more; then dropout-0
    steps against ``ffn_core``'s plain versions on the card (loss 1e-2,
    named gradients 5e-2) and against the unfused route, held to the JAX
    package's statistical bounds beside the unfused route's nudged-input
@@ -191,8 +199,19 @@ fatal on failure:
    device ms per batch or micro-step by kernel, and the idle share, 1 −
    device busy / unprofiled wall.
 
-The line before the last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``, printed only when every phase passed.
+Then a ``ranking:`` line: for each kernel, the sum over the paths of its
+launches there × (device ms − bound ms) at the shapes each path runs
+(``_rank_table``), largest first: the order in which the kernels lose the
+most time. The line before the last is a JSON record of the kernels; the
+last line is ``{"ok": true, "device": {...}}``, printed only when every
+phase passed.
+
+``--kernel-profile`` runs phases 1 and the build of kernels 10 and 16
+only, times both at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row,
+profiles one call of each by CUDA kernel and takes the peak memory of one
+fused-FFN flagship train step; it prints no result line. Run
+from a copy of this script in a checkout of another commit, it times that
+commit's kernels, so two commits compare in one call.
 """
 
 from __future__ import annotations
@@ -211,7 +230,8 @@ REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
 SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss",
-           "mbconv_fwd", "mbconv_bwd", "ffn", "attention_block")
+           "mbconv_fwd", "mbconv_bwd", "ffn", "attention_block",
+           "hopper_gemm")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -233,11 +253,16 @@ BWD_REL_L2_TOL = 1e-2
 # ptxas must report 0 spill bytes for each
 BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
 BWD_INSTANCES = 2 * 6
-# the attention block's Hopper GEMMs (csrc/attention_block.cu): three
-# column slices x two weight layouts, and two weight-gradient tiles; 0
-# spill bytes each
-GEMM_ENTRIES = ("gemm_rows_kernel", "wgrad_kernel")
-GEMM_INSTANCES = 3 * 2 + 2
+# the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
+# weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
+# library that includes it, and kernel 10's row kernel (four widths x two
+# dx types) in csrc/ffn.cu; 0 spill bytes each. Matched in the mangled
+# names with their length prefixes, so that mbconv_bwd's se_wgrad_kernel
+# is not taken for one.
+GEMM_ENTRIES = ("16gemm_rows_kernel", "12wgrad_kernel",
+                "19ffn_bwd_rows_kernel")
+GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9, "hopper_gemm": 9,
+                  "ffn": 9 + 8}
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -299,6 +324,13 @@ MBCONV_SHAPES = {"stage1_block0": (112, 32, 32, 16, 3, 8),
 MBCONV_TOL = 2e-2  # of max(1, the largest |plain value|), each output
 MBCONV_REL_TOL = 1e-3  # relative L2 of each output (measured: <= 2e-4)
 MBCONV_BLOCKS = 12  # B0's stride-1 blocks: each MBConv kernel per micro-step
+# how many of B0's 12 stride-1 blocks run at each MBCONV_SHAPES shape
+B0_BLOCKS = {"stage1_block0": 1, "stage2_block1": 1, "stage3_block1": 1,
+             "stage4_block1": 2, "stage5_block0": 1, "stage5_block1": 2,
+             "stage6_block1": 3, "stage7_block0": 1}
+# kernel 16's shapes broken down by CUDA kernel (one profiled call each):
+# the widest expand and the block without one
+KA_BWD_PROFILED = ("stage2_block1", "stage1_block0")
 STAT_CORR, STAT_RMS = 0.95, 0.3  # the JAX package's fused-vs-unfused bounds
 CARD_STEPS = 20    # micro-steps of 64 pairs per epoch
 CARD_EPOCHS = 2
@@ -452,10 +484,12 @@ def phase_device():
 
 def phase_build():
     from multimodal_plankton_recognition_torch.ops import (
-        attention, attention_block, build, contrastive, ffn, mbconv)
+        attention, attention_block, build, contrastive, ffn, hopper_gemm,
+        mbconv)
 
     t0 = time.perf_counter()
     libs = build.build_all(SOURCES)
+    hopper_gemm._lib()
     attention._fwd_lib()
     attention._bwd_lib()
     attention_block._lib()
@@ -476,6 +510,8 @@ def phase_build():
                 print(f"  ptxas: {entry[:96]}", flush=True)
             elif "Function properties for" in line:
                 func = line.split("Function properties for")[1].strip()
+            elif "warning" in line.lower():
+                print(f"  ptxas: {line.strip()}", flush=True)
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas:   {line.strip()}", flush=True)
                 if "spill" in line:
@@ -494,14 +530,14 @@ def phase_build():
                 fail(f"backward kernels spill registers: {spilled}")
             print(f"  ptxas: {len(spills)} backward instances, 0 spill "
                   f"bytes", flush=True)
-        if name == "attention_block":
-            if len(gemms) != GEMM_INSTANCES:
-                fail(f"ptxas reported {len(gemms)} attention-block GEMM "
-                     f"instances, expected {GEMM_INSTANCES}")
+        if name in GEMM_INSTANCES:
+            if len(gemms) != GEMM_INSTANCES[name]:
+                fail(f"ptxas reported {len(gemms)} Hopper GEMM instances in "
+                     f"{name}, expected {GEMM_INSTANCES[name]}")
             spilled = {e: n for e, n in gemms.items() if any(n)}
             if spilled:
-                fail(f"attention-block GEMMs spill registers: {spilled}")
-            print(f"  ptxas: {len(gemms)} attention-block GEMM instances "
+                fail(f"Hopper GEMMs of {name} spill registers: {spilled}")
+            print(f"  ptxas: {len(gemms)} Hopper GEMM instances in {name} "
                   f"(wgmma, TMA), 0 spill bytes", flush=True)
 
 
@@ -837,6 +873,41 @@ def _ffn_close(label, got, want, tol):
     return err
 
 
+def _repeats(label, got, again):
+    """A second call's outputs ``again`` must equal ``got`` bit for bit
+    (the kernel sums in a fixed order, with no float atomics)."""
+    import torch
+
+    same = all((g is None and a is None) or torch.equal(g, a)
+               for g, a in zip(got, again))
+    print(f"kernel {label}: two calls bit for bit {same} (must be True)",
+          flush=True)
+    if not same:
+        fail(f"{label}: two calls differ")
+
+
+def _call_profile(name, label, call):
+    """Device ms of one call by CUDA kernel (torch.profiler, after a
+    warm-up call): the breakdown of one wrapper launch; returns the
+    total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = _device_ms(prof, 1)
+    total = sum(ms for ms, _ in rows.values())
+    print(f"profile {name} [{label}]: device ms {total!r} in "
+          f"{sum(n for _, n in rows.values()):.0f} launches", flush=True)
+    for key, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
+        print(f"  {ms:9.4f} ms {n:4.0f}x {key[:110]}", flush=True)
+    return total
+
+
 def _unfused_ms(x, w1, b1, w2, b2, activation, p, dy=None):
     """Milliseconds of the unfused route on the same inputs: ``F.linear``
     → activation → dropout → ``F.linear`` in x's dtype (cuBLAS; no single
@@ -904,6 +975,8 @@ def _ffn_kernels(gen, device, records):
                 err = _ffn_close(f"ffn_bwd {label}", got,
                                  ffn.ffn_bwd_reference(*args, dyt, act, p,
                                                        seed), tol)
+                _repeats(f"ffn_bwd {label}", got,
+                         ffn.ffn_bwd(*args, dyt, act, p, seed))
                 _report(records, "ffn_bwd", label, err,
                         f"{tol} of max(1, max|plain|) per output; "
                         f"relative L2 {FFN_REL_TOL}",
@@ -913,6 +986,10 @@ def _ffn_kernels(gen, device, records):
                             *args, dyt, act, p, seed)),
                         _bound((args, dyt), got, 10 * b * l * e * f), None,
                         unfused_ms=_unfused_ms(*args, act, p, dyt))
+                if name == "vit" and act == activation and \
+                        dtype == torch.bfloat16:
+                    _call_profile("ffn_bwd", label, lambda: ffn.ffn_bwd(
+                        *args, dyt, act, p, seed))
         _ffn_mask_check(gen, device, name, b, l, e, f)
 
 
@@ -1102,6 +1179,10 @@ def _mbconv_kernels(gen, device, records):
             if not rel <= MBCONV_REL_TOL:
                 fail(f"{name} {label}: relative L2 error {rel!r} > "
                      f"{MBCONV_REL_TOL}")
+            if name == "mbconv_ka_bwd":
+                _repeats(f"{name} {label}", got, fn(*args))
+                if block in KA_BWD_PROFILED:
+                    _call_profile(name, label, lambda: fn(*args))
             _report(records, name, label, err,
                     f"{MBCONV_TOL} of max(1, max|plain|) per output; "
                     f"relative L2 {rel!r} (tol {MBCONV_REL_TOL})",
@@ -2081,6 +2162,12 @@ def phase_ffn_train(device):
     if unmoved or any(m.dtype != torch.float32
                       for m in state.params.values()):
         fail(f"ffn train: masters not f32 or not moved: {unmoved}")
+    # kernel 10 keeps bf16 dpre and h of a layer in scratch for its weight
+    # gradients (4 rows Fp bytes: 472 MB at the profile encoder's layer)
+    state, (peak, rise) = _peak_step(state, train_step, batch)
+    print(f"ffn train: peak device memory of one train step "
+          f"(max_memory_allocated) {peak!r} MiB, {rise!r} MiB above the "
+          f"step's start", flush=True)
     del model, state
 
     g = torch.Generator(device=device).manual_seed(8)
@@ -2615,6 +2702,160 @@ def _profile_card(device, what, base, paths, make_batch):
     print(f"profile {what}: {json.dumps(out)}", flush=True)
 
 
+def phase_kernel_profile(device):
+    """Kernels 10 and 16 alone (``--kernel-profile``): device ms by
+    ``cuda_ms`` at every ``FFN_SHAPES`` row (GELU, bf16, p 0; ViT-T also
+    p 0.1) beside the unfused cuBLAS backward and the bound, and at every
+    ``MBCONV_SHAPES`` row (B 64) with the sum over B0's 12 stride-1
+    blocks; one profiled call of kernel 10 at ViT-T and of kernel 16 at
+    ``KA_BWD_PROFILED``, by CUDA kernel; the peak device memory of one
+    fused-FFN flagship train step. It drives whatever package lies
+    beside this script, so a copy of the script in a checkout of another
+    commit times that commit's kernels (before and after, in one call)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import build, ffn
+    from multimodal_plankton_recognition_torch.ops import mbconv as mb
+
+    build.build_all(("ffn", "mbconv_bwd"))
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale \
+            + shift
+
+    for name, (b, l, e, f, act) in FFN_SHAPES.items():
+        args = (rnd(b, l, e).to(torch.bfloat16), rnd(e, f, scale=e ** -0.5),
+                rnd(f, scale=0.1), rnd(f, e, scale=f ** -0.5),
+                rnd(e, scale=0.1))
+        dy = rnd(b, l, e).to(torch.bfloat16)
+        for p in (0.0, 0.1) if name == "vit" else (0.0,):
+            label = f"{name} B={b} L={l} E={e} F={f} {act} bfloat16 p={p}"
+            call = functools.partial(ffn.ffn_bwd, *args, dy, act, p, 4321)
+            bound = _bound((args, dy), call(), 10 * b * l * e * f)
+            print(f"kernel-profile ffn_bwd [{label}]: {cuda_ms(call)!r} ms, "
+                  f"unfused {_unfused_ms(*args, act, p, dy)!r} ms, bound "
+                  f"{bound[0]!r} ms ({bound[1]})", flush=True)
+            if name == "vit" and p == 0.0:
+                _call_profile("ffn_bwd", label, call)
+    total = 0.0
+    b = B0_CARD["bs"]
+    for block, (hw, cin, mid, _, k, _) in MBCONV_SHAPES.items():
+        expand = mid != cin
+        x = rnd(b, hw, hw, cin).to(torch.bfloat16)
+        wexp = rnd(cin, mid, scale=cin ** -0.5) if expand else None
+        g1 = rnd(mid, scale=0.1, shift=1.0) if expand else None
+        b1 = rnd(mid, scale=0.1) if expand else None
+        wdw = rnd(k, k, mid, scale=1.0 / k)
+        dy2 = rnd(b, hw, hw, mid).to(torch.bfloat16)
+        _, m1, v1, _, _ = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+        call = functools.partial(mb.ka_bwd, x, dy2, wexp, g1, b1, wdw, m1,
+                                 v1, k)
+        ms = cuda_ms(call)
+        total += B0_BLOCKS[block] * ms
+        label = f"{block} B={b} H=W={hw} cin={cin} mid={mid} k={k}"
+        print(f"kernel-profile mbconv_ka_bwd [{label}]: {ms!r} ms",
+              flush=True)
+        if block in KA_BWD_PROFILED:
+            _call_profile("mbconv_ka_bwd", label, call)
+    print(f"kernel-profile mbconv_ka_bwd: sum over B0's {MBCONV_BLOCKS} "
+          f"stride-1 blocks {total!r} ms", flush=True)
+
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    state, step = _train_state(flagship_vit(fused_ffn=True), init, device)
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    state, _ = step(state, batch, 0)  # warm-up
+    _, (peak, rise) = _peak_step(state, step, batch)
+    print(f"kernel-profile ffn train: peak device memory of one fused-FFN "
+          f"flagship train step (max_memory_allocated) {peak!r} MiB, "
+          f"{rise!r} MiB above the step's start", flush=True)
+
+
+def _rank_table():
+    """{kernel: {path: [(record label prefix, suffix, share of the path's
+    launches)]}}: the shapes at which each path launches each kernel
+    (suffix None: the label is the prefix). A path's ViT layers take 12 of
+    its 14 attention and FFN launches, its profile encoder 2; B0's 12
+    blocks take their ``MBCONV_SHAPES`` row by ``B0_BLOCKS``. Train paths
+    run dropout 0.1 in the profile encoder (and the FFN), encode paths
+    none; eval steps inside the card paths count as train launches."""
+    vit, prof = 12 / ATTENTION_LAYERS, 2 / ATTENTION_LAYERS
+
+    def pair(a, b, vit_mode, prof_mode, rows=SHAPES):
+        return [(f"{a} B={rows[a][0]} ", vit_mode, vit),
+                (f"{b} B={rows[b][0]} ", prof_mode, prof)]
+
+    flag, card = ("vit", "profile"), ("card vit", "card profile")
+    fwd_train = {p: pair(*flag, "eval", "train p=0.1")
+                 for p in ("train", "ffn_train")}
+    fwd_train.update({p: pair(*card, "eval", "train p=0.1")
+                      for p in ("card", "ffn_card")})
+    fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
+               ffn_encode=pair(*flag, "eval", "eval"))
+    bwd = {p: pair(*flag, "p=0.0", "p=0.1")
+           for p in ("train", "ffn_train")}
+    bwd.update({p: pair(*card, "p=0.0", "p=0.1")
+                for p in ("card", "ffn_card")})
+    ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
+                                   "gelu bfloat16 p=0.0", FFN_SHAPES),
+                "ffn_train": pair(*flag, "gelu bfloat16 p=0.1",
+                                  "gelu bfloat16 p=0.1", FFN_SHAPES),
+                "ffn_card": pair(*card, "gelu bfloat16 p=0.1",
+                                 "gelu bfloat16 p=0.1", FFN_SHAPES)}
+    clip = {p: [(f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512", None, 1.0)]
+            for p in ("train", "b0_card", "ffn_train", "unpacked",
+                      "fuse_proj", "flax_attention")}
+    siglip = {p: [("buckets=4 N=16 D=512", None, 1.0)]
+              for p in ("card", "ffn_card")}
+    b0 = {"b0_card": [(f"{blk} ", "", n / MBCONV_BLOCKS)
+                      for blk, n in B0_BLOCKS.items()]}
+    block = {"fuse_proj": pair(*flag, "p=0.0", "p=0.1")}
+    return {"mha_qkv_fwd": fwd, "mha_qkv_bwd": bwd,
+            "mha_fwd": {"unpacked": pair(*flag, "eval", "train p=0.1")},
+            "mha_bwd": {"unpacked": pair(*flag, "p=0.0", "p=0.1")},
+            "clip_fwd": clip, "clip_bwd": clip, "siglip_fwd": siglip,
+            "siglip_bwd": siglip, **{f"mbconv_{k}": b0 for k in (
+                "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd")},
+            "ffn_fwd": ffn_rows,
+            "ffn_bwd": {k: v for k, v in ffn_rows.items()
+                        if k != "ffn_encode"},
+            "attn_block_fwd": block, "attn_block_bwd": block}
+
+
+def _ranking(records, launches):
+    """Print, for each kernel, the sum over paths of its launches there x
+    (its time - its bound) at the shapes the path runs, largest first: the
+    order in which the kernels lose the most time on this run's paths."""
+    out = []
+    for name, paths in _rank_table().items():
+        by_path = {}
+        for path, shapes in paths.items():
+            n = launches.get(path, {}).get(name, 0)
+            if not n:
+                continue
+            total = 0.0
+            for prefix, suffix, share in shapes:
+                hits = [r for label, r in records[name].items()
+                        if (label == prefix if suffix is None else
+                            label.startswith(prefix) and
+                            label.endswith(suffix))]
+                if not hits:
+                    fail(f"ranking: no {name} record at {prefix!r} "
+                         f"{suffix!r}")
+                r = hits[0]
+                total += n * share * (r["ms"] - r["bound_ms"])
+            by_path[path] = total
+        out.append({"name": name, "excess_ms": sum(by_path.values()),
+                    "by_path": by_path})
+    out.sort(key=lambda r: -r["excess_ms"])
+    print("ranking: launches x (device ms - bound ms) summed over this "
+          "run's paths, largest first: " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -2622,8 +2863,14 @@ def main(argv=None) -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also break each card's micro-step device "
                              "time down by kernel (torch.profiler)")
+    parser.add_argument("--kernel-profile", action="store_true",
+                        help="only time and profile kernels 10 and 16 (no "
+                             "paths, no result line)")
     args = parser.parse_args(argv)
     device = phase_device()
+    if args.kernel_profile:
+        phase_kernel_profile(device)
+        return
     phase_build()
     records = phase_kernel(device)
     launches = {"encode": phase_slice(device), "train": phase_train(device),
@@ -2638,6 +2885,7 @@ def main(argv=None) -> None:
                 "flax_attention": phase_flax_attention(device)}
     if args.profile:
         phase_profile(device)
+    _ranking(records, launches)
 
     import torch
 

@@ -6,15 +6,16 @@
 //     ::_fwd_kernel (kernel 9, reached through ffn_core / _ffn_fwd);
 //   ffn_bwd  replaces ::_bwd_kernel (kernel 10, _ffn_bwd).
 //
-// Numerics, kept from the TPU kernels (ffn.py:101-172):
+// Numerics, kept from the TPU kernels (ffn.py:101-185):
 //   h_pre = bf16(x . w1 + b1)      bf16 operands, f32 accumulation, f32 b1
 //   h     = bf16(act(h_pre))       tanh-GELU (flax nn.gelu) or ReLU, in f32
 //   h     = bf16(h * keep / (1 - p))           train mode only (thr != 0)
 //   y     = h . w2 + b2            f32 accumulation, cast once to x's type
-// backward, dy rounded to bf16:
+// backward, x and dy rounded to bf16 (the wrapper rounds an f32 x once):
 //   db2 = sum dy,  dw2 = h^T . dy,  dh = dy . w2^T (f32) * keep / (1 - p),
-//   dpre = dh * act'(h_pre),  db1 = sum dpre,  dw1 = bf16(x)^T . bf16(dpre),
-//   dx = bf16(dpre) . w1^T
+//   dpre = dh * act'(h_pre) (f32),  db1 = sum dpre (f32),
+//   dw1 = x^T . bf16(dpre),  dx = bf16(dpre) . w1^T, accumulated in f32
+//   and cast once to x's type
 // The dropout mask is a hash of (seed, row, hidden column) (dropout.cuh),
 // regenerated in the backward; ops/ffn.py (ffn_dropout_bits) makes the same
 // bits.
@@ -22,37 +23,43 @@
 // What bounds it: products, not bytes. Per ViT-T layer at B = 256 (rows
 // 50,432, E 192, F 768) the forward's two products are 29.7 GFLOP (30 us at
 // the tensor cores' 989 TFLOP/s) against 39 MB of x and y (12 us at 3.35
-// TB/s); the backward's five are 2.5 times that. So the products run on the
-// tensor cores: warp-level bf16 WMMA 16x16x16 with f32 accumulators (no
-// wgmma, TMA or cp.async yet).
+// TB/s); the backward's five are 2.5 times that.
 //
 // Design. x and the weights are flattened to rows: x (rows, E); w1 is
 // passed transposed, w1t (F, E), and w2 is (F, E), both bf16 with F
 // zero-padded by the wrapper to a multiple of 64 (hidden units of value 0
-// and gradient 0). A block of 8 warps owns a tile of 64 rows and walks the
-// hidden dimension in chunks of FC = 64 columns (32 for E > 192, for shared
-// memory and registers):
-//   forward (ffn_fwd_kernel): x tile in shared memory; per chunk, the w1t
-//     and w2 rows of the chunk are staged, h_pre = x . w1c goes through
-//     shared memory for the elementwise step, the bf16 hidden chunk stays in
-//     shared memory and y += h . w2c accumulates in registers. The hidden
-//     never reaches device memory.
-//   backward, pass A (ffn_bwd_dx_kernel): the same walk with x and dy tiles,
-//     recomputing h_pre and dh per chunk; dx += bf16(dpre) . w1c in
-//     registers.
-//   backward, pass B (ffn_bwd_w_kernel): the weight gradients are sums over
-//     every row. The TPU kernel adds them into output blocks that persist
-//     over its sequential grid; a CUDA grid runs in parallel, so here a
-//     block owns one hidden chunk (its dw1 and dw2 rows stay in registers)
-//     and one group of row tiles, recomputing h and dpre per tile; each
-//     (group) writes a partial of dw1, dw2, db1 and db2, and
-//     ffn_reduce_kernel adds the groups in index order. No float atomics,
-//     so a run repeats bit for bit. The wrapper picks the groups so that
-//     there are about two blocks per SM (partials: 26-28 MB at the
-//     flagship's and the card's shapes).
+// and gradient 0).
+//   forward (ffn_fwd_kernel): a block of 8 warps owns a tile of 64 rows
+//     and walks the hidden dimension in chunks of FC = 64 columns (32 for
+//     E > 192): x tile in shared memory; per chunk, the w1t and w2 rows of
+//     the chunk are staged, h_pre = x . w1c goes through shared memory for
+//     the elementwise step, the bf16 hidden chunk stays in shared memory
+//     and y += h . w2c accumulates in registers (bf16 WMMA 16x16x16). The
+//     hidden never reaches device memory.
+//   backward: five products, not seven, on wgmma.
+//     ffn_bwd_rows_kernel, persistent over 64-row tiles: the x and dy
+//       tiles are resident in shared memory (TMA, double-buffered for
+//       E <= 192); a producer warp streams the w2 and w1t rows of each
+//       64-column hidden chunk through a ring of TMA slots. Per chunk, each
+//       of two consumer warpgroups computes dh = dy . w2c^T and h_pre =
+//       x . w1c^T for its 32 hidden columns (wgmma m64n32k16, f32 in
+//       registers), runs the elementwise step in registers, writes bf16
+//       dpre and the dropped bf16 h into a swizzled staging tile (which TMA
+//       stores to scratch for the weight gradients) and the chunk's f32
+//       column sums of dpre (the db1 partials; per tile, also those of
+//       dy, db2's); then dx += bf16(dpre) . w1c (m64n64k16, the dpre tile
+//       as A, w1c read N-major from the same slot) accumulates over every
+//       chunk in registers, the warpgroups owning alternate 64-column
+//       boxes of dx.
+//     dw1t = bf16(dpre)^T . x and dw2 = h^T . dy run on the shared
+//       weight-gradient GEMM (hopper_gemm.cuh wgrad_kernel: per-group f32
+//       partials added in index order); colsum_kernel adds the per-tile
+//       db1 and db2 partials in a fixed order. db1 sums the f32 dpre, as
+//       the TPU kernel does, never the stored bf16 one. No float atomics,
+//       so a run repeats bit for bit.
 //
 // Each kernel launches on the caller's stream, does not synchronise and
-// allocates nothing; the entry points return cudaGetLastError().
+// allocates nothing; the entry points return a cudaError_t code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,15 +68,15 @@
 #include <stdint.h>
 
 #include "dropout.cuh"
+#include "hopper_gemm.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace hg;  // bf16, pack2 and the Hopper GEMM
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int BM = 64;         // rows of a tile
 constexpr int kPadH = 8;       // bf16 row padding (16 bytes: ldmatrix banks)
 constexpr int kPadF = 4;       // f32 row padding (16 bytes)
@@ -87,22 +94,17 @@ struct Cfg {
   // warp w: row tile w % 4, column half w / 4
   static constexpr int CF = CT / 2;  // chunk fragments of a warp (64 x FC)
   static constexpr int YF = ET / 2;  // fragments of a warp in a 64 x E tile
-  static constexpr int NW = CT * ET / kWarps;  // of a warp in an FC x E tile
-  static_assert(NW * kWarps == CT * ET, "FC x E tiles must split over warps");
   // shared memory (bytes, each a multiple of 128)
   static constexpr size_t kTile = (size_t)BM * LDE * 2;  // x or dy
   static constexpr size_t kW = (size_t)FC * LDE * 2;     // a weight chunk
   static constexpr size_t kS = (size_t)BM * LDS * 4;     // f32 chunk
   static constexpr size_t kH = (size_t)BM * LDC * 2;     // bf16 chunk
   static constexpr size_t kFwd = kTile + 2 * kW + kS + kH;
-  static constexpr size_t kBwd = 2 * kTile + 2 * kW + 2 * kS + 2 * kH;
 };
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-    ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
     BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
@@ -116,19 +118,6 @@ __device__ __forceinline__ float act(float z, bool relu) {
   if (relu) return fmaxf(z, 0.f);
   const float u = kC * (z + 0.044715f * z * z * z);
   return 0.5f * z * (1.f + tanhf(u));
-}
-
-__device__ __forceinline__ float dact(float z, bool relu) {
-  if (relu) return z > 0.f ? 1.f : 0.f;
-  const float u = kC * (z + 0.044715f * z * z * z);
-  const float t = tanhf(u);
-  return 0.5f * (1.f + t) +
-         0.5f * z * (1.f - t * t) * kC * (1.f + 0.134145f * z * z);
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 8 consecutive elements as 8 bf16
@@ -208,27 +197,6 @@ __device__ __forceinline__ void wide_product(Acc (&acc)[Cfg<E>::YF],
       BRow b;
       wmma::load_matrix_sync(b, W + kt * 16 * C::LDE + (nt0 + j) * 16,
                              C::LDE);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-// acc (the warp's fragments of an FC x E tile) += P^T (FC x 64) . X (64 x E)
-template <int E>
-__device__ __forceinline__ void weight_product(Acc (&acc)[Cfg<E>::NW],
-                                               const bf16* P, const bf16* X,
-                                               int warp) {
-  using C = Cfg<E>;
-#pragma unroll
-  for (int kt = 0; kt < BM / 16; ++kt) {
-#pragma unroll
-    for (int j = 0; j < C::NW; ++j) {
-      const int t = j * kWarps + warp;
-      const int mt = t / C::ET, nt = t - mt * C::ET;
-      ACol a;
-      wmma::load_matrix_sync(a, P + kt * 16 * C::LDC + mt * 16, C::LDC);
-      BRow b;
-      wmma::load_matrix_sync(b, X + kt * 16 * C::LDE + nt * 16, C::LDE);
       wmma::mma_sync(acc[j], a, b, acc[j]);
     }
   }
@@ -314,185 +282,6 @@ ffn_fwd_kernel(const T* __restrict__ x, const bf16* __restrict__ w1t,
   store_tile<E>(acc, S + warp * 256, y, b2, row0, rows, warp, lane);
 }
 
-// the elementwise backward step of one (64-row tile, chunk): from h_pre in
-// Sh and dh in Sd, bf16(dpre) to dP, dpre (f32) to Sd and, when H is given,
-// the dropped bf16 hidden to H
-template <int E>
-__device__ __forceinline__ void backward_step(const float* Sh, float* Sd,
-                                              bf16* dP, bf16* H,
-                                              const float* b1, int row0,
-                                              int f0, bool relu, Drop drop) {
-  using C = Cfg<E>;
-  for (int i = threadIdx.x; i < BM * C::FC; i += kThreads) {
-    const int r = i / C::FC, c = i - r * C::FC;
-    const float hp = round_bf16(Sh[r * C::LDS + c] + b1[f0 + c]);
-    float dh = Sd[r * C::LDS + c];
-    float h = H ? round_bf16(act(hp, relu)) : 0.f;
-    if (drop.thr) {
-      const bool keep = drop.keep(row0 + r, f0 + c);
-      dh = keep ? dh * drop.inv_keep : 0.f;
-      h = keep ? round_bf16(h * drop.inv_keep) : 0.f;
-    }
-    const float dpre = dh * dact(hp, relu);
-    dP[r * C::LDC + c] = __float2bfloat16_rn(dpre);
-    Sd[r * C::LDS + c] = dpre;
-    if (H) H[r * C::LDC + c] = __float2bfloat16_rn(h);
-  }
-}
-
-template <int E>
-struct BwdSmem {
-  using C = Cfg<E>;
-  bf16 *X, *dY, *W1c, *W2c, *dP, *H;
-  float *Sh, *Sd;
-  __device__ explicit BwdSmem(unsigned char* smem) {
-    X = reinterpret_cast<bf16*>(smem);
-    dY = reinterpret_cast<bf16*>(smem + C::kTile);
-    W1c = reinterpret_cast<bf16*>(smem + 2 * C::kTile);
-    W2c = reinterpret_cast<bf16*>(smem + 2 * C::kTile + C::kW);
-    Sh = reinterpret_cast<float*>(smem + 2 * C::kTile + 2 * C::kW);
-    Sd = reinterpret_cast<float*>(smem + 2 * C::kTile + 2 * C::kW + C::kS);
-    dP = reinterpret_cast<bf16*>(smem + 2 * C::kTile + 2 * C::kW +
-                                 2 * C::kS);
-    H = reinterpret_cast<bf16*>(smem + 2 * C::kTile + 2 * C::kW +
-                                2 * C::kS + C::kH);
-  }
-};
-
-// pass A: dx for one 64-row tile
-template <int E, typename T>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_dx_kernel(const T* __restrict__ x, const bf16* __restrict__ w1t,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const T* __restrict__ dy, T* __restrict__ dx, int rows,
-                  int F, bool relu, Drop drop) {
-  using C = Cfg<E>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem<E> s(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BM;
-
-  load_rows<E>(s.X, x, row0, rows, BM);
-  load_rows<E>(s.dY, dy, row0, rows, BM);
-  Acc acc[C::YF];
-#pragma unroll
-  for (int j = 0; j < C::YF; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += C::FC) {
-    __syncthreads();
-    load_rows<E>(s.W1c, w1t + (size_t)f0 * E, 0, C::FC, C::FC);
-    load_rows<E>(s.W2c, w2 + (size_t)f0 * E, 0, C::FC, C::FC);
-    __syncthreads();
-    chunk_product<E>(s.X, s.W1c, s.Sh, warp);
-    chunk_product<E>(s.dY, s.W2c, s.Sd, warp);
-    __syncthreads();
-    backward_step<E>(s.Sh, s.Sd, s.dP, nullptr, b1, row0, f0, relu, drop);
-    __syncthreads();
-    wide_product<E>(acc, s.dP, s.W1c, warp);
-  }
-  __syncthreads();
-  store_tile<E>(acc, s.Sh + warp * 256, dx, nullptr, row0, rows, warp, lane);
-}
-
-// pass B: one hidden chunk (blockIdx.x) over one group of row tiles
-// (blockIdx.y); writes the group's partial dw1t, dw2, db1 (and db2 from
-// chunk 0) at part + group * (2 F E + F + E)
-template <int E, typename T>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_w_kernel(const T* __restrict__ x, const bf16* __restrict__ w1t,
-                 const float* __restrict__ b1, const bf16* __restrict__ w2,
-                 const T* __restrict__ dy, float* __restrict__ part,
-                 int rows, int F, bool relu, Drop drop) {
-  using C = Cfg<E>;
-  constexpr int kE = (E + kThreads - 1) / kThreads;  // db2 columns a thread
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem<E> s(smem);
-  const int warp = threadIdx.x >> 5;
-  const int f0 = blockIdx.x * C::FC;
-  const int tiles = (rows + BM - 1) / BM;
-  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
-  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
-
-  load_rows<E>(s.W1c, w1t + (size_t)f0 * E, 0, C::FC, C::FC);
-  load_rows<E>(s.W2c, w2 + (size_t)f0 * E, 0, C::FC, C::FC);
-  Acc dw1[C::NW], dw2[C::NW];
-#pragma unroll
-  for (int j = 0; j < C::NW; ++j) {
-    wmma::fill_fragment(dw1[j], 0.f);
-    wmma::fill_fragment(dw2[j], 0.f);
-  }
-  float db1 = 0.f;
-  float db2[kE] = {};
-
-  for (int t = t0; t < t1; ++t) {
-    const int row0 = t * BM;
-    __syncthreads();  // the previous tile is done with X, dY, dP and H
-    load_rows<E>(s.X, x, row0, rows, BM);
-    load_rows<E>(s.dY, dy, row0, rows, BM);
-    __syncthreads();
-    chunk_product<E>(s.X, s.W1c, s.Sh, warp);
-    chunk_product<E>(s.dY, s.W2c, s.Sd, warp);
-    __syncthreads();
-    backward_step<E>(s.Sh, s.Sd, s.dP, s.H, b1, row0, f0, relu, drop);
-    __syncthreads();
-    // column sums in row order: rows past the end hold dy = 0, so dh = 0
-    if (threadIdx.x < C::FC)
-      for (int r = 0; r < BM; ++r) db1 += s.Sd[r * C::LDS + threadIdx.x];
-    if (blockIdx.x == 0) {
-#pragma unroll
-      for (int k = 0; k < kE; ++k) {
-        const int e = threadIdx.x + k * kThreads;
-        if (e < E)
-          for (int r = 0; r < BM; ++r)
-            db2[k] += __bfloat162float(s.dY[r * C::LDE + e]);
-      }
-    }
-    weight_product<E>(dw1, s.dP, s.X, warp);
-    weight_product<E>(dw2, s.H, s.dY, warp);
-  }
-
-  float* out = part + (size_t)blockIdx.y * (2 * (size_t)F * E + F + E);
-#pragma unroll
-  for (int j = 0; j < C::NW; ++j) {
-    const int t = j * kWarps + warp;
-    const int mt = t / C::ET, nt = t - mt * C::ET;
-    const size_t at = (size_t)(f0 + mt * 16) * E + nt * 16;
-    wmma::store_matrix_sync(out + at, dw1[j], E, wmma::mem_row_major);
-    wmma::store_matrix_sync(out + (size_t)F * E + at, dw2[j], E,
-                            wmma::mem_row_major);
-  }
-  if (threadIdx.x < C::FC) out[2 * (size_t)F * E + f0 + threadIdx.x] = db1;
-  if (blockIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < kE; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      if (e < E) out[2 * (size_t)F * E + F + e] = db2[k];
-    }
-  }
-}
-
-// out[i] = sum over groups g, in order, of part[g * n + i]; out is dw1t,
-// dw2, db1, db2 back to back (n = 2 F E + F + E)
-__global__ void ffn_reduce_kernel(const float* __restrict__ part, int groups,
-                                  size_t n, float* __restrict__ dw1t,
-                                  float* __restrict__ dw2,
-                                  float* __restrict__ db1,
-                                  float* __restrict__ db2, size_t fe, int F) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[(size_t)g * n + i];
-    if (i < fe)
-      dw1t[i] = acc;
-    else if (i < 2 * fe)
-      dw2[i - fe] = acc;
-    else if (i < 2 * fe + F)
-      db1[i - 2 * fe] = acc;
-    else
-      db2[i - 2 * fe - F] = acc;
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -514,36 +303,366 @@ int launch_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
   return (int)cudaGetLastError();
 }
 
-template <int E, typename T>
-int launch_bwd(const void* x, const void* w1t, const void* b1, const void* w2,
-               const void* dy, void* dx, void* dw1t, void* db1, void* dw2,
-               void* db2, void* scratch, int groups, int rows, int F,
+// act(z) as act computes it, and act'(z), with one tanh
+__device__ __forceinline__ void act_pair(float z, bool relu, float& a,
+                                         float& da) {
+  if (relu) {
+    a = fmaxf(z, 0.f);
+    da = z > 0.f ? 1.f : 0.f;
+    return;
+  }
+  const float u = kC * (z + 0.044715f * z * z * z);
+  const float t = tanhf(u);
+  a = 0.5f * z * (1.f + t);
+  da = 0.5f * (1.f + t) +
+       0.5f * z * (1.f - t * t) * kC * (1.f + 0.134145f * z * z);
+}
+
+// 2 consumer warpgroups and a producer warpgroup (one thread of which
+// issues the loads): whole warpgroups, so that setmaxnreg can move the
+// producer's registers to the consumers
+constexpr int kRowThreads = 3 * 128;
+constexpr int kMaxSlots = 6;               // weight slots: 3 chunks ahead
+
+// shared memory of the row kernel, bytes from a 1024-byte boundary: tbuf
+// x and dy tiles (E / 64 boxes each), nslot weight slots (E / 64 boxes of
+// 64 hidden rows), the dpre and h staging boxes, the column-sum exchange
+// (2 parities x 2 warpgroups x 4 warps x 32 floats), the mbarriers
+struct RowSmem {
+  int eb, tbuf, nslot;
+  __host__ __device__ uint32_t slots() const {
+    return (uint32_t)tbuf * 2 * eb * kBox;
+  }
+  __host__ __device__ uint32_t staging() const {
+    return slots() + (uint32_t)nslot * eb * kBox;
+  }
+  __host__ __device__ uint32_t red() const { return staging() + 2 * kBox; }
+  __host__ __device__ uint32_t bars() const {
+    return red() + 2 * 2 * 4 * 32 * 4;
+  }
+  __host__ __device__ uint32_t bytes() const {
+    return bars() + 8 * (2 * tbuf + 2 * nslot) + 1024;  // + alignment slack
+  }
+};
+
+// The rows of the backward: dx, bf16(dpre) and the dropped bf16 h of every
+// row, and the per-tile column sums of dpre and dy (colpart: tiles x (Fp +
+// E) f32). x_map, dy_map: (rows, E) bf16, boxes of 64 x 64; w1_map,
+// w2_map: w1t and w2 (Fp, E) bf16, boxes of 64 x 64; dp_map, h_map:
+// (rows, Fp) bf16 scratch, boxes of 64 x 64. Block b owns the row tiles b,
+// b + gridDim.x, ...
+template <int E, typename TO>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ffn_bwd_rows_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap dy_map,
+                        const __grid_constant__ CUtensorMap w1_map,
+                        const __grid_constant__ CUtensorMap w2_map,
+                        const __grid_constant__ CUtensorMap dp_map,
+                        const __grid_constant__ CUtensorMap h_map,
+                        const float* __restrict__ b1,
+                        float* __restrict__ colpart, TO* __restrict__ dx,
+                        int rows, int Fp, bool relu, Drop drop, int tbuf,
+                        int nslot) {
+  constexpr int EB = E / 64;         // 64-column boxes of a row of width E
+  constexpr int NDX = (EB + 1) / 2;  // dx boxes of a warpgroup, at most
+  static_assert(E % 64 == 0 && E <= 384, "width must be 64, 128, 192, 384");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const RowSmem L{EB, tbuf, nslot};
+  const uint32_t slot0 = base + L.slots(), dp_s = base + L.staging();
+  const uint32_t h_s = dp_s + kBox;
+  float* red = reinterpret_cast<float*>(smem_raw + (base - raw) + L.red());
+  const uint32_t tile_full = base + L.bars();
+  const uint32_t tile_empty = tile_full + 8 * tbuf;
+  const uint32_t slot_full = tile_empty + 8 * tbuf;
+  const uint32_t slot_empty = slot_full + 8 * nslot;
+  const int tiles = (rows + 63) / 64, chunks = Fp / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto x_s = [&](int buf) { return base + (uint32_t)buf * 2 * EB * kBox; };
+  auto dy_s = [&](int buf) { return x_s(buf) + EB * kBox; };
+  auto slot_s = [&](int s) { return slot0 + (uint32_t)s * EB * kBox; };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < tbuf; ++b) {
+      mbar_init(tile_full + 8 * b, 1);
+      mbar_init(tile_empty + 8 * b, 8);  // each consumer warp
+    }
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(slot_full + 8 * s, 1);
+      mbar_init(slot_empty + 8 * s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0, li = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++li) {
+        const int buf = li % tbuf;
+        mbar_wait(tile_empty + 8 * buf, ((li / tbuf) & 1) ^ 1);
+        mbar_expect_tx(tile_full + 8 * buf, 2 * EB * kBox);
+#pragma unroll
+        for (int kb = 0; kb < EB; ++kb) {
+          tma_load(x_s(buf) + kb * kBox, &x_map, tile_full + 8 * buf,
+                   kb * 64, t * 64);
+          tma_load(dy_s(buf) + kb * kBox, &dy_map, tile_full + 8 * buf,
+                   kb * 64, t * 64);
+        }
+        for (int c = 0; c < chunks; ++c) {
+          for (int w = 0; w < 2; ++w, ++it) {  // w2 rows, then w1t rows
+            const int s = it % nslot;
+            mbar_wait(slot_empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(slot_full + 8 * s, EB * kBox);
+#pragma unroll
+            for (int kb = 0; kb < EB; ++kb)
+              tma_load(slot_s(s) + kb * kBox, w ? &w1_map : &w2_map,
+                       slot_full + 8 * s, kb * 64, c * 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // the consumers: warpgroup wg computes hidden columns [32 wg, 32 wg + 32)
+  // of each chunk and the dx boxes wg, wg + 2, ...; thread t holds rows r,
+  // r + 8 and columns 8 i + cq (+ 1) of each wgmma tile
+  const int wg = warp >> 2, tid = threadIdx.x;
+  const int r = (warp & 3) * 16 + (lane >> 2), cq = (lane & 3) * 2;
+  uint8_t* dp_gen = smem_raw + (dp_s - raw);
+  uint8_t* h_gen = smem_raw + (h_s - raw);
+  const size_t cstride = (size_t)Fp + E;
+  int it = 0, li = 0, nc = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++li) {
+    const int buf = li % tbuf;
+    mbar_wait(tile_full + 8 * buf, (li / tbuf) & 1);
+    // db2's partial: the tile's column sums of dy, rows in order (rows
+    // past the end are TMA's zeros)
+    for (int col = tid; col < E; col += 256) {
+      const uint8_t* d = smem_raw + (dy_s(buf) - raw) + (col / 64) * kBox;
+      float s = 0.f;
+      for (int rr = 0; rr < 64; ++rr)
+        s += __bfloat162float(
+            *reinterpret_cast<const bf16*>(d + swz(rr, col & 63)));
+      colpart[(size_t)t * cstride + Fp + col] = s;
+    }
+    float dxa[NDX][32];
+#pragma unroll
+    for (int j = 0; j < NDX; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dxa[j][i] = 0.f;
+    fence_acc(dxa);
+
+    for (int c = 0; c < chunks; ++c, it += 2, ++nc) {
+      const int s2 = it % nslot, s1 = (it + 1) % nslot;
+      float dh[16], hp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dh[i] = hp[i] = 0.f;
+      fence_regs(dh);
+      fence_regs(hp);
+      mbar_wait(slot_full + 8 * s2, (it / nslot) & 1);
+      mbar_wait(slot_full + 8 * s1, ((it + 1) / nslot) & 1);
+      // dh = dy . w2c^T and h_pre = x . w1c^T, interleaved: two independent
+      // accumulator chains keep the tensor pipe fed
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < EB; ++kb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t w = kb * kBox + wg * 32 * 128 + kk * 32;
+          wgmma32<0, 0>(dh, desc_k(dy_s(buf) + kb * kBox + kk * 32),
+                        desc_k(slot_s(s2) + w));
+          wgmma32<0, 0>(hp, desc_k(x_s(buf) + kb * kBox + kk * 32),
+                        desc_k(slot_s(s1) + w));
+        }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(dh);
+      fence_regs(hp);
+      if (lane == 0) {
+        mbar_arrive(slot_empty + 8 * s2);  // w2's rows are done
+        if (c == chunks - 1) mbar_arrive(tile_empty + 8 * buf);
+      }
+
+      // the elementwise step: hp becomes the dropped h, dh becomes dpre
+      const int f0 = c * 64 + wg * 32;
+      float cs[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f0 + 8 * i + cq + e;
+          const float bb = b1[col];
+          cs[2 * i + e] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 4 * i + 2 * h + e;
+            const float z = round_bf16(hp[k] + bb);
+            float a, da;
+            act_pair(z, relu, a, da);
+            float hv = round_bf16(a), d = dh[k];
+            if (drop.thr) {
+              const bool keep = drop.keep(t * 64 + r + 8 * h, col);
+              d = keep ? d * drop.inv_keep : 0.f;
+              hv = keep ? round_bf16(hv * drop.inv_keep) : 0.f;
+            }
+            hp[k] = hv;
+            dh[k] = d * da;
+            cs[2 * i + e] += dh[k];
+          }
+        }
+      // column sums over the warp's 16 rows, in a fixed order
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          cs[q] += __shfl_xor_sync(0xffffffffu, cs[q], o);
+
+      if (tid == 0) bulk_wait_read();  // the last chunk's stores left staging
+      bar_sync(1, 256);
+      float* rd = red + (((nc & 1) * 2 + wg) * 4 + (warp & 3)) * 32;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t o = swz(r + 8 * h, wg * 32 + 8 * i + cq);
+          *reinterpret_cast<uint32_t*>(dp_gen + o) =
+              pack2(dh[4 * i + 2 * h], dh[4 * i + 2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(h_gen + o) =
+              pack2(hp[4 * i + 2 * h], hp[4 * i + 2 * h + 1]);
+        }
+        if (lane < 4) {
+          rd[8 * i + cq] = cs[2 * i];
+          rd[8 * i + cq + 1] = cs[2 * i + 1];
+        }
+      }
+      fence_async_smem();
+      bar_sync(1, 256);
+      if (tid == 0) {
+        tma_store(&dp_map, dp_s, c * 64, t * 64);
+        tma_store(&h_map, h_s, c * 64, t * 64);
+        bulk_commit();
+      }
+      if ((warp & 3) == 0) {  // db1's partial: the 4 warps' sums in order
+        const float* rw = red + ((nc & 1) * 2 + wg) * 4 * 32;
+        colpart[(size_t)t * cstride + f0 + lane] =
+            ((rw[lane] + rw[32 + lane]) + rw[64 + lane]) + rw[96 + lane];
+      }
+
+      // dx += bf16(dpre) (64 x 64) . w1c (64 x E), this warpgroup's boxes
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_k(dp_s + kk * 32);
+#pragma unroll
+        for (int j = 0; j < NDX; ++j)
+          if (2 * j + wg < EB)
+            wgmma64<0, 1>(dxa[j], da,
+                          desc_mn(slot_s(s1) + (2 * j + wg) * kBox +
+                                  kk * 2048));
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_acc(dxa);
+      if (lane == 0) mbar_arrive(slot_empty + 8 * s1);  // w1t's rows are done
+    }
+
+    // dx, cast once to x's type
+#pragma unroll
+    for (int j = 0; j < NDX; ++j) {
+      if (2 * j + wg >= EB) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = (2 * j + wg) * 64 + 8 * i + cq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = t * 64 + r + 8 * h;
+          if (row >= rows) continue;
+          const float v0 = dxa[j][4 * i + 2 * h];
+          const float v1 = dxa[j][4 * i + 2 * h + 1];
+          if constexpr (sizeof(TO) == 4)
+            *reinterpret_cast<float2*>(dx + (size_t)row * E + col) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(dx + (size_t)row * E + col) =
+                pack2(v0, v1);
+        }
+      }
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
+// out[c] (c < Fp: db1, else db2[c - Fp]) = the sum over tiles, in a fixed
+// order, of part[t * (Fp + E) + c]. Block: 32 columns x 32 lanes; lane l
+// adds tiles l, l + 32, ..., then lane 0 the 32 lanes in order.
+__global__ void __launch_bounds__(1024)
+    colsum_kernel(const float* __restrict__ part, int tiles, int Fp, int E,
+                  float* __restrict__ db1, float* __restrict__ db2) {
+  __shared__ float red[32][33];
+  const int tx = threadIdx.x % 32, l = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + tx, n = Fp + E;
+  float acc = 0.f;
+  if (c < n)
+    for (int t = l; t < tiles; t += 32) acc += part[(size_t)t * n + c];
+  red[l][tx] = acc;
+  __syncthreads();
+  if (l == 0 && c < n) {
+    float s = 0.f;
+    for (int q = 0; q < 32; ++q) s += red[q][tx];
+    if (c < Fp)
+      db1[c] = s;
+    else
+      db2[c - Fp] = s;
+  }
+}
+
+// weight slots that fit beside the tiles, staging and exchange (0: none)
+inline int row_slots(int E, int tbuf) {
+  const RowSmem base{E / 64, tbuf, 0};
+  const long long left = (long long)kSmemMax - (long long)base.bytes() -
+                         16 * kMaxSlots;
+  const long long n = left / ((long long)(E / 64) * kBox);
+  return (int)(n < kMaxSlots ? n : kMaxSlots);
+}
+
+template <int E, typename TO>
+int launch_bwd(const void* x, const void* w1t, const void* b1,
+               const void* w2, const void* dy, void* dx, void* dw1t,
+               void* db1, void* dw2, void* db2, void* dpre, void* h,
+               void* colpart, void* wpart, int groups, int rows, int Fp,
                bool relu, Drop drop, cudaStream_t stream) {
-  using C = Cfg<E>;
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  const bf16* w1b = static_cast<const bf16*>(w1t);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  const float* b1f = static_cast<const float*>(b1);
-  float* part = static_cast<float*>(scratch);
-  cudaError_t err = set_smem(ffn_bwd_dx_kernel<E, T>, C::kBwd);
-  if (err == cudaSuccess) err = set_smem(ffn_bwd_w_kernel<E, T>, C::kBwd);
+  const int tbuf = E <= 192 ? 2 : 1;
+  const int nslot = row_slots(E, tbuf);
+  if (nslot < 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, dym, w1m, w2m, dpm, hm;
+  if (!make_map(&xm, x, rows, E, 64) || !make_map(&dym, dy, rows, E, 64) ||
+      !make_map(&w1m, w1t, Fp, E, 64) || !make_map(&w2m, w2, Fp, E, 64) ||
+      !make_map(&dpm, dpre, rows, Fp, 64) || !make_map(&hm, h, rows, Fp, 64))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = RowSmem{E / 64, tbuf, nslot}.bytes();
+  cudaError_t err = set_smem(ffn_bwd_rows_kernel<E, TO>, smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_bwd_dx_kernel<E, T><<<(rows + BM - 1) / BM, kThreads, C::kBwd,
-                            stream>>>(xt, w1b, b1f, w2b, dyt,
-                                      static_cast<T*>(dx), rows, F, relu,
-                                      drop);
+  const int tiles = (rows + 63) / 64;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  ffn_bwd_rows_kernel<E, TO><<<grid, kRowThreads, smem, stream>>>(
+      xm, dym, w1m, w2m, dpm, hm, static_cast<const float*>(b1),
+      static_cast<float*>(colpart), static_cast<TO*>(dx), rows, Fp, relu,
+      drop, tbuf, nslot);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ffn_bwd_w_kernel<E, T><<<dim3(F / C::FC, groups), kThreads, C::kBwd,
-                           stream>>>(xt, w1b, b1f, w2b, dyt, part, rows, F,
-                                     relu, drop);
-  err = cudaGetLastError();
+  float* wp = static_cast<float*>(wpart);
+  err = wgrad(dpre, x, wp, groups, dw1t, nullptr, rows, Fp, E, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t fe = (size_t)F * E, n = 2 * fe + F + E;
-  ffn_reduce_kernel<<<(int)((n + 255) / 256), 256, 0, stream>>>(
-      part, groups, n, static_cast<float*>(dw1t), static_cast<float*>(dw2),
-      static_cast<float*>(db1), static_cast<float*>(db2), fe, F);
+  err = wgrad(h, dy, wp, groups, dw2, nullptr, rows, Fp, E, stream);
+  if (err != cudaSuccess) return (int)err;
+  colsum_kernel<<<(Fp + E + 31) / 32, 1024, 0, stream>>>(
+      static_cast<const float*>(colpart), tiles, Fp, E,
+      static_cast<float*>(db1), static_cast<float*>(db2));
   return (int)cudaGetLastError();
 }
 
@@ -578,25 +697,30 @@ int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
 #undef FWD
 }
 
-// dy, dx: (rows, E) of x's type; dw1t, dw2: (F, E) f32; db1 (F,), db2 (E,)
-// f32; scratch: groups * (2 F E + F + E) f32, 1 <= groups <= ceil(rows /
-// 64). The rest as in ffn_fwd.
+// x, dy: (rows, E) bf16 (the wrapper rounds an f32 x and dy once); dx:
+// (rows, E), f32 when dx_f32, else bf16; w1t, w2: (Fp, E) bf16, Fp a
+// multiple of 64; b1 (Fp,) f32; outs dw1t, dw2 (Fp, E), db1 (Fp,), db2
+// (E,) f32. Scratch: dpre and h (rows, Fp) bf16, colpart ceil(rows / 64)
+// x (Fp + E) f32, wpart groups x Fp E f32, 1 <= groups <= ceil(rows /
+// 64) (ops/ffn.py bwd_scratch). All contiguous, 16-byte aligned. Dropout as
+// in ffn_fwd. Returns a cudaError_t code (0 = launched).
 int ffn_bwd(const void* x, const void* w1t, const void* b1, const void* w2,
-            const void* b2, const void* dy, void* dx, void* dw1t, void* db1,
-            void* dw2, void* db2, void* scratch, int groups, int rows, int E,
-            int F, int relu, int x_f32, unsigned seed, unsigned thr,
-            float inv_keep, void* stream) {
-  (void)b2;  // y's bias has no part in the backward
-  if (F % 64 || rows <= 0 || groups < 1 || groups > (rows + BM - 1) / BM)
+            const void* dy, void* dx, void* dw1t, void* db1, void* dw2,
+            void* db2, void* dpre, void* h, void* colpart, void* wpart,
+            int groups, int rows, int E, int F, int relu, int dx_f32,
+            unsigned seed, unsigned thr, float inv_keep, void* stream) {
+  if (F % 64 || F <= 0 || rows <= 0 || groups < 1 ||
+      groups > (rows + 63) / 64)
     return (int)cudaErrorInvalidValue;
   const Drop drop{seed, thr, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BWD(W)                                                             \
-  (x_f32 ? launch_bwd<W, float>(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2,    \
-                                db2, scratch, groups, rows, F, relu, drop, \
-                                s)                                         \
-         : launch_bwd<W, bf16>(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2, db2, \
-                               scratch, groups, rows, F, relu, drop, s))
+#define BWD(W)                                                              \
+  (dx_f32 ? launch_bwd<W, float>(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2,    \
+                                 db2, dpre, h, colpart, wpart, groups, rows, \
+                                 F, relu, drop, s)                          \
+          : launch_bwd<W, bf16>(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2,     \
+                                db2, dpre, h, colpart, wpart, groups, rows, \
+                                F, relu, drop, s))
   switch (E) {
     case 64: return BWD(64);
     case 128: return BWD(128);

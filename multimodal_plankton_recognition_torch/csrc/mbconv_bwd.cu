@@ -16,31 +16,40 @@
 //   dy2 = bf16(g2 / sqrt(v2 + eps) (dz2 - db2 / N - xhat2 dg2 / N));
 //   dwproj = a3^T . dy3, dwe = bf16(SiLU(su))^T . dsv, dbe = sum dsv,
 //   dwr = s^T . dsu, dbr = sum dsu.
-// Kernel 16 (mbconv_ka_bwd): recompute y1, xhat1, z1, a1 from x (as
-// kernel 13); dwdw[i, j] = sum a1[h + i - p, w + j - p] dy2[h, w];
+// Kernel 16 (mbconv_ka_bwd): y1 = bf16(x . wexp) (as kernel 13), xhat1,
+//   z1, a1 from y1; dwdw[i, j] = sum a1[h + i - p, w + j - p] dy2[h, w];
 //   da1 = the transposed stencil of dy2; dz1 = da1 SiLU'(z1);
 //   db1 = sum dz1, dg1 = sum dz1 xhat1;
 //   dy1 = bf16(g1 / sqrt(v1 + eps) (dz1 - db1 / N - xhat1 dg1 / N));
 //   dx = bf16(dy1 . wexp^T), dwexp = x^T . dy1. Without an expand,
-//   dx = bf16(da1).
+//   a1 = x and dx = bf16(da1).
 //
-// What bounds it on this card: bytes, as the forward (y2, dy3, x in; dy2,
-// dx out; the products do a few operations per byte).
+// What bounds it on this card: bytes (y2, dy3, x in; dy2, dx out; the
+// products do a few operations per byte).
 //
 // Design. Every global reduction is a pass that writes per-block partial
-// sums and reduce_kernel adding them in a fixed order (no float atomics).
-// a3 and a1 are recomputed, never stored: da3 (a product over cout) is
-// recomputed in each of the three passes of kernel 15 that need it (the
-// dse sums, the dz2 sums, the dy2 apply); the a1 tile of kernel 16 is
-// recomputed with its halo as in the forward. Kernel 16 stores dy1 once,
-// in bf16 (the TPU kernel rounds it to bf16 before both of its products
-// too), so that dx and dwexp are plain tiled products. The weight
-// gradients (dwproj, dwexp) are sums over every pixel: a grid of
-// (64 x 64 weight tile, pixel split) blocks and a fixed-order sum over the
-// splits. The products run on CUDA cores in f32; the kernels launch on the
-// caller's stream, do not synchronise and allocate nothing; the entry
-// points return cudaGetLastError().
+// sums and a reduce kernel adding them in a fixed order (no float
+// atomics).
+// Kernel 15: a3 is recomputed, never stored: da3 (a product over cout) is
+// recomputed in each of the three passes that need it (the dse sums, the
+// dz2 sums, the dy2 apply); its products run on CUDA cores in f32, and the
+// weight gradient dwproj is a grid of (64 x 64 weight tile, pixel split)
+// blocks with a fixed-order sum over the splits.
+// Kernel 16: its three products run on the shared Hopper GEMM
+// (hopper_gemm.cuh, wgmma fed by TMA): y1 once into scratch (bf16, as the
+// TPU kernel rounds it), dx = bf16(dy1 . wexp^T) with wexp read K-major in
+// place, and dwexp = x^T . dy1 with fixed-order group sums. Between them
+// two depthwise passes (dw_bwd_kernel: the dwdw and BN1 sums, then dy1)
+// read y1 instead of recomputing it: a block owns 8 rows x up to 32
+// columns x 32 channels, loads its halos 16 bytes a copy with cp.async
+// (zero fill past the image) and takes 44-72 KB of shared memory, so that
+// several blocks share an SM and one's loads overlap another's stencil.
+// dy1 is stored once, in bf16 (the TPU kernel rounds it before both of its
+// products too). The kernels launch on the caller's stream, do not
+// synchronise and allocate nothing; the entry points return a cudaError_t
+// code.
 
+#include "hopper_gemm.cuh"
 #include "mbconv.cuh"
 
 namespace {
@@ -252,36 +261,127 @@ wproj_grad_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dy3,
 
 // --------------------------- kernel 16 ------------------------------------
 
-// grid (B * row tiles, mid / CC). APPLY = false: partial dwdw (k*k, mid)
-// and, with an expand, partial sums of dz1 and dz1 xhat1 per block;
-// APPLY = true: dy1 (with an expand, from the reduced sums) or dx = da1.
+// The depthwise passes' tiles: a block owns (sample b, output rows r0 ..
+// r0 + kDwTH, output columns w0 .. w0 + tw, channels c0 .. c0 + CC); the
+// halo adds P rows and columns on each side. Thread (g, c): channel c0 +
+// c, pixel group g (kGroups of them).
+constexpr int kDwTH = 8;   // output rows of a block
+constexpr int kDwTW = 32;  // output columns of a block, at most
+
+struct DwTile {
+  int B, H, W, mid, K, P, tw;
+  bool expand;
+  __host__ __device__ int row_tiles() const { return cdiv(H, kDwTH); }
+  __host__ __device__ int col_tiles() const { return cdiv(W, tw); }
+  __host__ __device__ int tiles() const {
+    return B * row_tiles() * col_tiles();
+  }
+  __host__ __device__ int hr() const { return kDwTH + 2 * P; }
+  __host__ __device__ int hc() const { return tw + 2 * P; }
+  // a zero-padded (hr, hc, CC) bf16 halo: a1 or dy2
+  __host__ __device__ size_t halo_bytes() const {
+    return align16((size_t)hr() * hc() * CC * 2);
+  }
+  // y1 of the output pixels (kDwTH, tw, CC) bf16, with an expand
+  __host__ __device__ size_t center_bytes() const {
+    return expand ? align16((size_t)kDwTH * tw * CC * 2) : 0;
+  }
+};
+
+// the width of a column tile: W in the fewest tiles of at most kDwTW
+inline DwTile dw_tile(int B, int H, int W, int mid, int k, bool expand) {
+  const int n = cdiv(W, kDwTW);
+  return DwTile{B, H, W, mid, k, k / 2, cdiv(W, n), expand};
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when
+// !valid (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The block's rows [r0 - P0, r0 - P0 + nr) x columns [w0 - P0, w0 - P0 +
+// nc) of a per-channel NHWC tensor v (mid channels) into dst[(rr * nc +
+// cc) * CC + c], 8 channels (16 bytes) a copy, zeros outside the image
+// and for channels >= mid. Asynchronous: cp_wait_all and a barrier before
+// use.
+__device__ __forceinline__ void load_box(const bf16* __restrict__ v,
+                                         const DwTile& g, int b, int r0,
+                                         int w0, int c0, int P0, int nr,
+                                         int nc, bf16* dst) {
+  for (int e = threadIdx.x; e < nr * nc * (CC / 8); e += kThreads) {
+    const int q = e % (CC / 8), pix = e / (CC / 8);
+    const int rr = pix / nc, cc = pix % nc;
+    const int r = r0 - P0 + rr, w = w0 - P0 + cc, ch = c0 + 8 * q;
+    const bool valid = r >= 0 && r < g.H && w >= 0 && w < g.W && ch < g.mid;
+    cp16(dst + pix * CC + 8 * q,
+         valid ? v + (((size_t)b * g.H + r) * g.W + w) * g.mid + ch : v,
+         valid);
+  }
+}
+
+// grid (tiles, mid / CC). APPLY = false: partial dwdw (k*k, mid) and, with
+// an expand, partial sums of dz1 and dz1 xhat1 per block; APPLY = true:
+// dy1 (with an expand, from the reduced sums) or dx = da1. With an expand
+// a1 = bf16(SiLU(bf16(xhat1 g1 + b1))) is made from the y1 halo in shared
+// memory (y1 from the GEMM); without, a1 = x.
 template <int K, bool APPLY>
 __global__ void __launch_bounds__(kThreads)
-dw_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy2,
-              const bf16* __restrict__ wexp, const float* __restrict__ g1,
-              const float* __restrict__ b1, const float* __restrict__ mv1,
-              const bf16* __restrict__ wdw, const float* __restrict__ db1s,
-              const float* __restrict__ dg1s, bf16* __restrict__ out,
-              float* __restrict__ dwp, float* __restrict__ bnp, DwGeom g) {
+    dw_bwd_kernel(const bf16* __restrict__ a_src, const bf16* __restrict__ y1,
+                  const bf16* __restrict__ dy2, const float* __restrict__ g1,
+                  const float* __restrict__ b1, const float* __restrict__ mv1,
+                  const bf16* __restrict__ wdw,
+                  const float* __restrict__ db1s,
+                  const float* __restrict__ dg1s, bf16* __restrict__ out,
+                  float* __restrict__ dwp, float* __restrict__ bnp,
+                  DwTile g) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kGroups][CC];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  float* ws = reinterpret_cast<float*>(smem + g.xs_bytes());
-  bf16* a1s = reinterpret_cast<bf16*>(smem + g.xs_bytes() + g.ws_bytes());
-  bf16* dys = reinterpret_cast<bf16*>(smem + g.xs_bytes() + g.ws_bytes() +
-                                      g.pad_bytes());
-  bf16* y1s = reinterpret_cast<bf16*>(smem + g.xs_bytes() + g.ws_bytes() +
-                                      2 * g.pad_bytes());
-  const int rt = g.row_tiles();
-  const int b = blockIdx.x / rt, r0 = (blockIdx.x % rt) * TH;
+  constexpr int P = K / 2;
+  bf16* dys = reinterpret_cast<bf16*>(smem);
+  bf16* y1c = reinterpret_cast<bf16*>(smem + g.halo_bytes());
+  bf16* a1s = reinterpret_cast<bf16*>(smem + g.halo_bytes() +
+                                      g.center_bytes());
+  const int rt = g.row_tiles(), ct = g.col_tiles();
+  const int b = blockIdx.x / (rt * ct), rem = blockIdx.x % (rt * ct);
+  const int r0 = (rem / ct) * kDwTH, w0 = (rem % ct) * g.tw;
   const int c0 = blockIdx.y * CC;
-  load_a1(x, wexp, g1, b1, mv1, g, b, r0, c0, xs, ws, a1s,
-          g.expand ? y1s : nullptr);
-  load_padded(dy2, g, b, r0, c0, dys);
+  const int hc = g.hc(), tw = g.tw;
+  load_box(dy2, g, b, r0, w0, c0, P, g.hr(), hc, dys);
+  if (g.expand) load_box(y1, g, b, r0, w0, c0, 0, kDwTH, tw, y1c);
+  if (!APPLY) load_box(g.expand ? y1 : a_src, g, b, r0, w0, c0, P, g.hr(),
+                       hc, a1s);
+  cp_wait_all();
+  __syncthreads();
 
   const int c = threadIdx.x % CC, grp = threadIdx.x / CC, ch = c0 + c;
-  const int rows = min(TH, g.H - r0), W = g.W, hc = g.halo_cols();
-  const int P = K / 2, mid = g.mid;
+  const int mid = g.mid;
+  float m1 = 0.f, inv1 = 1.f, gg = 0.f, bb = 0.f;
+  if (g.expand && ch < mid) {
+    m1 = mv1[ch];
+    inv1 = inv_std(mv1[mid + ch]);
+    gg = g1[ch];
+    bb = b1[ch];
+  }
+  if (!APPLY && g.expand) {  // y1 -> a1 over the halo, 0 outside the image
+    for (int e = threadIdx.x; e < g.hr() * hc * CC; e += kThreads) {
+      const int pix = e / CC, r = r0 - P + pix / hc, w = w0 - P + pix % hc;
+      float a = 0.f;
+      if (ch < mid && r >= 0 && r < g.H && w >= 0 && w < g.W)
+        a = silu(rb((f32(a1s[e]) - m1) * inv1 * gg + bb));
+      a1s[e] = to_bf(a);
+    }
+    __syncthreads();
+  }
+
+  const int rows = min(kDwTH, g.H - r0), cols = min(tw, g.W - w0);
   const float nf = (float)g.B * g.H * g.W;
   float wacc[K * K];
 #pragma unroll
@@ -291,16 +391,9 @@ dw_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy2,
     float wk[K * K];
 #pragma unroll
     for (int t = 0; t < K * K; ++t) wk[t] = f32(wdw[(size_t)t * mid + ch]);
-    float m1 = 0.f, inv1 = 1.f, gg = 0.f, bb = 0.f;
-    if (g.expand) {
-      m1 = mv1[ch];
-      inv1 = inv_std(mv1[mid + ch]);
-      gg = g1[ch];
-      bb = b1[ch];
-    }
-    for (int pix = grp; pix < rows * W; pix += kGroups) {
-      const int row = pix / W, col = pix % W;
-      const size_t n = ((size_t)b * g.H + r0 + row) * W + col;
+    for (int pix = grp; pix < rows * cols; pix += kGroups) {
+      const int row = pix / cols, col = pix % cols;
+      const size_t n = ((size_t)b * g.H + r0 + row) * g.W + w0 + col;
       if (!APPLY) {
         const float d = f32(dys[((row + P) * hc + col + P) * CC + c]);
 #pragma unroll
@@ -324,7 +417,7 @@ dw_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy2,
         out[n * mid + ch] = to_bf(da1);
         continue;
       }
-      const float xhat = (f32(y1s[(row * W + col) * CC + c]) - m1) * inv1;
+      const float xhat = (f32(y1c[(row * tw + col) * CC + c]) - m1) * inv1;
       const float z = rb(xhat * gg + bb);
       const float dz = da1 * dsilu(z);
       if (APPLY) {
@@ -354,47 +447,15 @@ dw_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy2,
   }
 }
 
-// dx = bf16(dy1 . wexp^T): grid (N / BM, cin / BN)
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const bf16* __restrict__ dy1, const bf16* __restrict__ wexp,
-          bf16* __restrict__ dx, int N, int cin, int mid) {
-  __shared__ Tile s;
-  const int n0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
-  const int mlen = min(BM, N - n0);
-  float acc[4][4];
-  gemm_rows(
-      s, mlen, mid, j0, cin,
-      [&](int m, int c) { return f32(dy1[(size_t)(n0 + m) * mid + c]); },
-      [&](int c, int i) { return f32(wexp[(size_t)i * mid + c]); }, acc);
-  const int r = tile_row(), c = tile_col();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (r + i < mlen && j0 + c + j < cin)
-        dx[(size_t)(n0 + r + i) * cin + j0 + c + j] = to_bf(acc[i][j]);
-}
-
-// dwexp partials: A = x, D = dy1
-__global__ void __launch_bounds__(kThreads)
-wexp_grad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
-                 float* __restrict__ part, int N, int cin, int mid) {
-  __shared__ Tile s;
-  wgrad_tile(
-      s, N, cin, mid,
-      [&](int n, int i) { return f32(x[(size_t)n * cin + i]); },
-      [&](int n, int c) { return f32(dy1[(size_t)n * mid + c]); }, part);
-}
-
 template <int K>
-cudaError_t launch_dw_bwd(bool apply, const bf16* x, const bf16* dy2,
-                          const bf16* wexp, const float* g1, const float* b1,
+cudaError_t launch_dw_bwd(bool apply, const bf16* x, const bf16* y1,
+                          const bf16* dy2, const float* g1, const float* b1,
                           const float* mv1, const bf16* wdw, const float* db1s,
                           const float* dg1s, bf16* out, float* dwp, float* bnp,
-                          const DwGeom& g, cudaStream_t stream) {
+                          const DwTile& g, cudaStream_t stream) {
   const size_t smem =
-      g.xs_bytes() + g.ws_bytes() + 2 * g.pad_bytes() + g.y1_bytes();
-  const dim3 grid(g.B * g.row_tiles(), cdiv(g.mid, CC));
+      g.halo_bytes() * (apply ? 1 : 2) + g.center_bytes();
+  const dim3 grid(g.tiles(), cdiv(g.mid, CC));
   cudaError_t err;
   if (apply) {
     err = cudaFuncSetAttribute(dw_bwd_kernel<K, true>,
@@ -402,14 +463,14 @@ cudaError_t launch_dw_bwd(bool apply, const bf16* x, const bf16* dy2,
                                (int)smem);
     if (err != cudaSuccess) return err;
     dw_bwd_kernel<K, true><<<grid, kThreads, smem, stream>>>(
-        x, dy2, wexp, g1, b1, mv1, wdw, db1s, dg1s, out, dwp, bnp, g);
+        x, y1, dy2, g1, b1, mv1, wdw, db1s, dg1s, out, dwp, bnp, g);
   } else {
     err = cudaFuncSetAttribute(dw_bwd_kernel<K, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     dw_bwd_kernel<K, false><<<grid, kThreads, smem, stream>>>(
-        x, dy2, wexp, g1, b1, mv1, wdw, db1s, dg1s, out, dwp, bnp, g);
+        x, y1, dy2, g1, b1, mv1, wdw, db1s, dg1s, out, dwp, bnp, g);
   }
   return cudaGetLastError();
 }
@@ -448,15 +509,19 @@ KbScratch kb_scratch(float* base, int B, int H, int W, int mid, int r,
 
 struct KaScratch {
   float *dwp, *bnp, *wpart;
-  bf16* dy1;
+  bf16 *dy1, *y1;
+  int groups;
   size_t bytes;
 };
 
+// groups: dwexp's row groups (ops/hopper_gemm.py wgrad_groups; 0 without
+// an expand)
 KaScratch ka_scratch(unsigned char* base, int B, int H, int W, int cin,
-                     int mid, int k) {
+                     int mid, int k, bool expand, int groups) {
   const long long N = (long long)B * H * W;
-  const size_t T = (size_t)B * cdiv(H, TH);
+  const size_t T = dw_tile(B, H, W, mid, k, expand).tiles();
   KaScratch s;
+  s.groups = groups;
   size_t o = 0;
   auto take = [&](size_t bytes) {
     unsigned char* p = base ? base + o : nullptr;
@@ -466,8 +531,9 @@ KaScratch ka_scratch(unsigned char* base, int B, int H, int W, int cin,
   s.dwp = reinterpret_cast<float*>(take(T * k * k * mid * 4));
   s.bnp = reinterpret_cast<float*>(take(2 * T * mid * 4));
   s.wpart = reinterpret_cast<float*>(
-      take((size_t)pixel_splits(N) * cin * mid * 4));
-  s.dy1 = reinterpret_cast<bf16*>(take((size_t)N * mid * 2));
+      take((size_t)s.groups * cin * mid * 4));
+  s.dy1 = reinterpret_cast<bf16*>(take(expand ? (size_t)N * mid * 2 : 0));
+  s.y1 = reinterpret_cast<bf16*>(take(expand ? (size_t)N * mid * 2 : 0));
   s.bytes = o;
   return s;
 }
@@ -544,33 +610,46 @@ int mbconv_kb_bwd(const void* y2, const void* dy3, const void* g2,
 }
 
 // Bytes of scratch mbconv_ka_bwd needs.
-long long mbconv_ka_bwd_scratch(int B, int H, int W, int cin, int mid,
-                                int k) {
-  return (long long)ka_scratch(nullptr, B, H, W, cin, mid, k).bytes;
+long long mbconv_ka_bwd_scratch(int B, int H, int W, int cin, int mid, int k,
+                                int expand, int groups) {
+  return (long long)ka_scratch(nullptr, B, H, W, cin, mid, k, expand != 0,
+                               groups)
+      .bytes;
 }
 
+#define CHECK(call)                        \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
 // x: (B, H, W, cin) bf16; dy2: (B, H, W, mid) bf16; wexp, g1, b1 as
-// mbconv_ka_fwd (null without an expand, then mid == cin); wdw: (k*k, mid)
-// bf16; mv1: (2, mid) f32 m1, v1 (null without an expand); outs: dx (B, H,
-// W, cin) bf16, dwexp (cin, mid), dwdw (k*k, mid), dg1, db1 (mid) f32
-// (dwexp, dg1, db1 null without an expand). Returns a cudaError_t code.
+// mbconv_ka_fwd (null without an expand, then mid == cin; expand says
+// which); wdw: (k*k, mid) bf16; mv1: (2, mid) f32 m1, v1 (null without an
+// expand); outs: dx (B, H, W, cin) bf16, dwexp (cin, mid), dwdw (k*k,
+// mid), dg1, db1 (mid) f32 (dwexp, dg1, db1 null without an expand). cin
+// and mid multiples of 8 (16-byte rows), x and dy2 16-byte aligned;
+// groups: dwexp's row groups, 1 <= groups <= ceil(B H W / 64) with an
+// expand. Returns a cudaError_t code.
 int mbconv_ka_bwd(const void* x, const void* dy2, const void* wexp,
                   const void* g1, const void* b1, const void* wdw,
                   const void* mv1, void* dx, void* dwexp, void* dwdw,
                   void* dg1, void* db1, void* scratch, int B, int H, int W,
-                  int cin, int mid, int k, void* stream) {
-  const bool expand = wexp != nullptr;
+                  int cin, int mid, int k, int expand, int groups,
+                  void* stream) {
   if (B < 1 || H < 1 || W < 1 || cin < 1 || mid < 1 || (k != 3 && k != 5) ||
-      (!expand && cin != mid))
+      cin % 8 || mid % 8 || (expand != 0) != (wexp != nullptr) ||
+      (!expand && cin != mid) || (expand && groups < 1) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(dy2) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long N = (long long)B * H * W;
   const KaScratch s = ka_scratch(static_cast<unsigned char*>(scratch), B, H,
-                                 W, cin, mid, k);
-  const DwGeom g{B, H, W, cin, mid, k, k / 2, expand};
+                                 W, cin, mid, k, expand != 0, groups);
+  const DwTile g = dw_tile(B, H, W, mid, k, expand != 0);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* dy2b = static_cast<const bf16*>(dy2);
-  const bf16* wb = static_cast<const bf16*>(wexp);
   const float* g1f = static_cast<const float*>(g1);
   const float* b1f = static_cast<const float*>(b1);
   const float* mv = static_cast<const float*>(mv1);
@@ -578,29 +657,28 @@ int mbconv_ka_bwd(const void* x, const void* dy2, const void* wexp,
   float* db1f = static_cast<float*>(db1);
   float* dg1f = static_cast<float*>(dg1);
   bf16* out = expand ? s.dy1 : static_cast<bf16*>(dx);
-  const int T = B * g.row_tiles();
+  const int T = g.tiles();
 
+  // y1 = bf16(x . wexp) once, on the tensor cores; the depthwise passes
+  // read it instead of recomputing it
+  if (expand) CHECK(hg::gemm(x, wexp, 1, nullptr, s.y1, (int)N, mid, cin, st));
   auto dw = [&](bool apply) {
-    return k == 3 ? launch_dw_bwd<3>(apply, xb, dy2b, wb, g1f, b1f, mv, wd,
+    return k == 3 ? launch_dw_bwd<3>(apply, xb, s.y1, dy2b, g1f, b1f, mv, wd,
                                      db1f, dg1f, out, s.dwp, s.bnp, g, st)
-                  : launch_dw_bwd<5>(apply, xb, dy2b, wb, g1f, b1f, mv, wd,
+                  : launch_dw_bwd<5>(apply, xb, s.y1, dy2b, g1f, b1f, mv, wd,
                                      db1f, dg1f, out, s.dwp, s.bnp, g, st);
   };
-  cudaError_t err = dw(false);
-  if (err != cudaSuccess) return (int)err;
+  CHECK(dw(false));
   reduce(s.dwp, 1, T, k * k * mid, static_cast<float*>(dwdw), nullptr, 0.f,
          st);
   if (expand) reduce(s.bnp, 2, T, mid, db1f, dg1f, 0.f, st);
-  err = dw(true);
-  if (err != cudaSuccess) return (int)err;
+  CHECK(dw(true));
   if (expand) {
-    dx_kernel<<<dim3(cdiv(N, BM), cdiv(cin, BN)), kThreads, 0, st>>>(
-        s.dy1, wb, static_cast<bf16*>(dx), (int)N, cin, mid);
-    const int SP = pixel_splits(N);
-    wexp_grad_kernel<<<dim3(cdiv(cin, BM), cdiv(mid, BN), SP), kThreads, 0,
-                       st>>>(xb, s.dy1, s.wpart, (int)N, cin, mid);
-    reduce(s.wpart, 1, SP, cin * mid, static_cast<float*>(dwexp), nullptr,
-           0.f, st);
+    // dx = bf16(dy1 . wexp^T): wexp (cin, mid) read K-major in place
+    CHECK(hg::gemm(s.dy1, wexp, 0, nullptr, dx, (int)N, cin, mid, st));
+    // dwexp = x^T . dy1, fixed-order group sums
+    CHECK(hg::wgrad(x, s.dy1, s.wpart, s.groups, dwexp, nullptr, (int)N,
+                    cin, mid, st));
   }
   return (int)cudaGetLastError();
 }

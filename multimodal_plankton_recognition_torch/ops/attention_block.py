@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, hopper_gemm
 from .attention import (_MASK32, _aligned, bwd_scratch, dropout_threshold,
                         mha_qkv_bwd_reference, mha_qkv_reference)
 
@@ -232,21 +232,6 @@ def attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
     return (y, qkv, o) if keep else y
 
 
-def groups_for(rows: int, n: int, k: int, sms: int) -> int:
-    """Row groups of a weight-gradient pass over an (n, k) weight: enough
-    (64 x TK tile, row group) blocks for two per SM (TK = 192 where it
-    divides k, else 128, as ``csrc/attention_block.cu`` tiles it), at most
-    one group per 64-row chunk. Each group holds one f32 partial of the
-    weight and its bias."""
-    tiles = (n // 64) * (k // (192 if k % 192 == 0 else 128))
-    return max(1, min(-(-rows // 64), -(-2 * sms // tiles)))
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _residual(t: torch.Tensor, shape, x: torch.Tensor, name: str
               ) -> torch.Tensor:
     if t.device != x.device or t.dtype != BF16 or tuple(t.shape) != shape:
@@ -293,10 +278,9 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
     else:
         qkv = _residual(qkv, (b, l, 3 * e), x, "qkv")
         o = _residual(o, (b, l, e), x, "o")
-    sms = _sm_count(x.device.index if x.device.index is not None
-                    else torch.cuda.current_device())
-    g_qkv, g_out = groups_for(rows, 3 * e, e, sms), groups_for(rows, e, e,
-                                                                 sms)
+    sms = hopper_gemm.sm_count(x.device)
+    g_qkv = hopper_gemm.wgrad_groups(rows, 3 * e, e, sms)
+    g_out = hopper_gemm.wgrad_groups(rows, e, e, sms)
     dqkv, do, dx = bf((b, l, 3 * e)), bf((b, l, e)), bf((b, l, e))
     dwqkv, dbqkv, dwo, dbo = f32((3 * e, e)), f32(3 * e), f32((e, e)), f32(e)
     part = f32(g_qkv * (3 * e * e + 3 * e) + g_out * (e * e + e))

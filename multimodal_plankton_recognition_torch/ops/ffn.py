@@ -4,10 +4,11 @@ backward.
 
 Port of ``multimodal_plankton_recognition_tpu/ops/pallas/experimental/
 ffn.py``: the TPU kernels ``_fwd_kernel`` (kernel 9) and ``_bwd_kernel``
-(kernel 10) become ``ffn_fwd_kernel`` and the backward passes of
-``csrc/ffn.cu``. ``ffn_reference`` and ``ffn_bwd_reference`` are their
-plain PyTorch versions, with the TPU kernels' rounding points
-(``ffn.py:101-172``, ``:272-281``):
+(kernel 10) become ``ffn_fwd_kernel`` and the backward of ``csrc/ffn.cu``
+(``ffn_bwd_rows_kernel`` and the shared Hopper GEMM's weight gradients).
+``ffn_reference`` and ``ffn_bwd_reference`` are their plain PyTorch
+versions, with the TPU kernels' rounding points (``ffn.py:101-185``,
+``:272-281``):
 
 * forward: ``h_pre = bf16(bf16(x)·bf16(w1) + b1)`` (f32 accumulation),
   ``h = bf16(act(h_pre))``, dropout on h scaled by ``1/(1-p)`` and rounded
@@ -41,18 +42,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, hopper_gemm
 from .attention import _MASK32, dropout_threshold, hash_bits, keep_factor
 
 __all__ = ["ffn_core", "ffn_fwd", "ffn_bwd", "ffn_reference",
-           "ffn_bwd_reference", "ffn_dropout_bits", "ACTIVATIONS",
-           "SUPPORTED_WIDTHS"]
+           "ffn_bwd_reference", "ffn_dropout_bits", "bwd_scratch",
+           "ACTIVATIONS", "SUPPORTED_WIDTHS"]
 
 ACTIVATIONS = ("gelu", "relu")
 #: model widths E the CUDA kernels are instantiated for (csrc/ffn.cu): the
 #: ViTs' 192 and 384 and the profile transformers' 64, 128 and 192
 SUPPORTED_WIDTHS = (64, 128, 192, 384)
-#: the kernels' hidden chunk is 64 or 32 columns; F is zero-padded to this
+#: the kernels' hidden chunks are 64 columns (32 in the forward for E >
+#: 192); F is zero-padded to this
 F_ALIGN = 64
 _C = 0.7978845608028654  # sqrt(2/pi), flax nn.gelu's tanh approximation
 BF16 = torch.bfloat16
@@ -144,14 +146,14 @@ _SCALARS = [ctypes.c_int] * 5 + [ctypes.c_uint, ctypes.c_uint,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """ffn_fwd(x, w1t, b1, w2, b2, y, rows, E, F, relu, x_f32, seed, thr,
-    inv_keep, stream); ffn_bwd(x, w1t, b1, w2, b2, dy, dx, dw1t, db1, dw2,
-    db2, scratch, groups, rows, E, F, relu, x_f32, seed, thr, inv_keep,
-    stream). Both return a cudaError_t."""
+    inv_keep, stream); ffn_bwd(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2, db2,
+    dpre, h, colpart, wpart, groups, rows, E, F, relu, dx_f32, seed, thr,
+    inv_keep, stream). Both return a cudaError_t."""
     lib = build.load("ffn")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ffn_fwd.argtypes = [vp] * 6 + _SCALARS
     lib.ffn_fwd.restype = ci
-    lib.ffn_bwd.argtypes = [vp] * 12 + [ci] + _SCALARS
+    lib.ffn_bwd.argtypes = [vp] * 14 + [ci] + _SCALARS
     lib.ffn_bwd.restype = ci
     return lib
 
@@ -163,11 +165,6 @@ def _on_cpu(x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"no FFN kernel for device {x.device}")
     return False
-
-
-def _chunk(e: int) -> int:
-    """Hidden columns per chunk of the kernels (csrc/ffn.cu ``Cfg``)."""
-    return 64 if e <= 192 else 32
 
 
 def _rows(t: torch.Tensor, rows: int, e: int) -> torch.Tensor:
@@ -241,13 +238,21 @@ def ffn_fwd(x, w1, b1, w2, b2, activation: str = "gelu",
     return y.reshape(x.shape)
 
 
-def groups_for(rows: int, e: int, fp: int, sms: int) -> int:
-    """Row groups of the weight-gradient pass: enough (hidden chunk, row
-    group) blocks for two per SM, at most one group per 64-row tile. Each
-    group holds one f32 partial of dw1, dw2, db1 and db2."""
-    chunks = fp // _chunk(e)
+def bwd_scratch(rows: int, e: int, fp: int, groups: int):
+    """Kernel 10's scratch: ({name: (byte offset, bytes)}, total bytes),
+    each part on a 256-byte boundary: bf16(dpre) and the dropped bf16 h
+    (rows, Fp), which the weight gradients read; the per-64-row-tile f32
+    column sums of dpre and dy (ceil(rows / 64), Fp + E), which give db1
+    and db2; the weight gradients' f32 group partials (groups, Fp·E),
+    shared by dw1ᵀ and dw2, which run one after the other."""
     tiles = -(-rows // 64)
-    return max(1, min(tiles, -(-2 * sms // chunks)))
+    sizes = {"dpre": rows * fp * 2, "h": rows * fp * 2,
+             "colpart": tiles * (fp + e) * 4, "wpart": groups * fp * e * 4}
+    layout, offset = {}, 0
+    for name, size in sizes.items():
+        layout[name] = (offset, size)
+        offset += -(-size // 256) * 256
+    return layout, offset
 
 
 def ffn_bwd(x, w1, b1, w2, b2, dy, activation: str = "gelu",
@@ -259,26 +264,31 @@ def ffn_bwd(x, w1, b1, w2, b2, dy, activation: str = "gelu",
     if _on_cpu(x):
         return ffn_bwd_reference(x, w1, b1, w2, b2, dy, activation,
                                  dropout_p, seed)
-    (x2, w1t, b1p, w2p, b2f, rows, e, f, fp, (relu, x_f32), thr,
+    (x2, w1t, b1p, w2p, _, rows, e, f, fp, (relu, x_f32), thr,
      inv_keep) = _prep(x, w1, b1, w2, b2, activation, dropout_p)
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got "
                          f"{tuple(dy.shape)}")
-    dy2 = _rows(dy.to(x.dtype), rows, e)
-    groups = groups_for(rows, e, fp, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+    # both products round x and dy to bf16 (the TPU kernel's _bf): once here
+    xb = x2 if x2.dtype == BF16 else x2.to(BF16)
+    dyb = _rows(dy.to(x.dtype).to(BF16), rows, e)
+    groups = hopper_gemm.wgrad_groups(rows, fp, e,
+                                      hopper_gemm.sm_count(x.device))
+    layout, total = bwd_scratch(rows, e, fp, groups)
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    part = {name: scratch.data_ptr() + offset
+            for name, (offset, _) in layout.items()}
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
     dx = torch.empty_like(x2)
     dw1t, db1, dw2, db2 = f32((fp, e)), f32(fp), f32((fp, e)), f32(e)
-    scratch = f32(groups * (2 * fp * e + fp + e))
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.ffn_bwd(
-            x2.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
-            b2f.data_ptr(), dy2.data_ptr(), dx.data_ptr(), dw1t.data_ptr(),
-            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            scratch.data_ptr(), groups, rows, e, fp, relu, x_f32,
+            xb.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
+            dyb.data_ptr(), dx.data_ptr(), dw1t.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), part["dpre"], part["h"],
+            part["colpart"], part["wpart"], groups, rows, e, fp, relu, x_f32,
             seed & _MASK32, thr, inv_keep,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "ffn_bwd")

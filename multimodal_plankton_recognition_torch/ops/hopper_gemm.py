@@ -1,0 +1,174 @@
+"""The shared Hopper GEMM (``csrc/hopper_gemm.cuh``): its host-side rules
+and tile choices, and its two kernels behind ``csrc/hopper_gemm.cu`` for
+the card tests.
+
+The main paths reach the same device code inside kernels 10
+(``ops/ffn.py``), 11-12 (``ops/attention_block.py``) and 16
+(``ops/mbconv.py``); the wrappers here are not on any path.
+
+* ``gemm_rows``: C (M, N) = bf16(A (M, K) · W + bias), A and W bf16, W
+  (N, K) as ``nn.Linear`` holds it or (K, N) (``transposed``), f32
+  accumulation, one rounding (``gemm_rows_reference``);
+* ``wgrad``: dW (N, K) = Gᵀ·X and db = Σ G over every row, f32, summed
+  in row groups whose partials are added in index order
+  (``wgrad_reference``).
+
+Every matrix is row-major bf16 whose base is 16-byte aligned and whose row
+stride is a multiple of 16 bytes (8 columns): TMA's rule, which
+``check_rows`` enforces before any launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from . import build
+
+__all__ = ["gemm_rows", "gemm_rows_reference", "wgrad", "wgrad_reference",
+           "check_rows", "wgrad_tile_boxes", "wgrad_groups", "sm_count",
+           "BOX"]
+
+BOX = 64  # bf16 columns of one TMA box (128 bytes, the swizzle span)
+BF16 = torch.bfloat16
+
+
+def _boxes(n: int) -> int:
+    return -(-n // BOX)
+
+
+def check_rows(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is a contiguous bf16 matrix TMA can read: base
+    16-byte aligned, row stride a multiple of 16 bytes."""
+    if t.dtype != BF16 or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous 2-D bf16 matrix, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.shape[1] % 8:
+        raise ValueError(f"{what}: a row of {t.shape[1]} bf16 values is not "
+                         f"a multiple of 16 bytes (TMA's row stride)")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: base not 16-byte aligned")
+
+
+def wgrad_tile_boxes(k: int) -> int:
+    """64-column boxes of dW a wgrad block owns (``wgrad_tj`` in the
+    header): 3 where they divide K's boxes, else 2, 1 for K <= 64."""
+    b = _boxes(k)
+    return 1 if b == 1 else (3 if b % 3 == 0 else 2)
+
+
+def wgrad_groups(rows: int, n: int, k: int, sms: int) -> int:
+    """Row groups of a weight-gradient pass over an (n, k) weight: enough
+    (64 × 64·TJ tile, row group) blocks for two per SM, at most one group
+    per 64-row chunk. Each group holds one f32 partial of the weight (and
+    its bias)."""
+    tiles = _boxes(n) * -(-_boxes(k) // wgrad_tile_boxes(k))
+    return max(1, min(-(-rows // 64), -(-2 * sms // tiles)))
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (cached per card)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemm_rows_reference(a: torch.Tensor, w: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        transposed: bool = False) -> torch.Tensor:
+    """Plain version of ``gemm_rows``: bf16(a · w (+ bias)) in f32."""
+    wf = w.float() if transposed else w.float().t()
+    out = a.float() @ wf
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(BF16)
+
+
+def wgrad_reference(g: torch.Tensor, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``wgrad``: (gᵀ·x, Σ g over rows) in f32."""
+    return g.float().t() @ x.float(), g.float().sum(0)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("hopper_gemm")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hopper_gemm_rows.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.hopper_gemm_rows.restype = ci
+    lib.hopper_wgrad.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.hopper_wgrad.restype = ci
+    return lib
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {t.device}")
+    return False
+
+
+def gemm_rows(a: torch.Tensor, w: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              transposed: bool = False) -> torch.Tensor:
+    """``gemm_rows_kernel`` on CUDA, the plain version on the CPU: (M, N)
+    bf16. ``gemm_rows.launches`` counts launches."""
+    if _on_cpu(a):
+        return gemm_rows_reference(a, w, bias, transposed)
+    check_rows(a, "a")
+    check_rows(w, "w")
+    m, k = a.shape
+    n = w.shape[1] if transposed else w.shape[0]
+    if (w.shape[0] if transposed else w.shape[1]) != k:
+        raise ValueError(f"w {tuple(w.shape)} does not fit a {tuple(a.shape)}")
+    b = None if bias is None else bias.detach().float().contiguous()
+    c = torch.empty((m, n), dtype=BF16, device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        err = lib.hopper_gemm_rows(
+            a.data_ptr(), w.data_ptr(), int(transposed),
+            None if b is None else b.data_ptr(), c.data_ptr(), m, n, k,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "hopper_gemm_rows")
+    gemm_rows.launches += 1
+    return c
+
+
+def wgrad(g: torch.Tensor, x: torch.Tensor,
+          groups: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wgrad_kernel`` and its group sum on CUDA, the plain version on the
+    CPU: (dw (N, K), db (N,)) f32. ``wgrad.launches`` counts launches."""
+    if _on_cpu(g):
+        return wgrad_reference(g, x)
+    check_rows(g, "g")
+    check_rows(x, "x")
+    rows, n = g.shape
+    k = x.shape[1]
+    if x.shape[0] != rows:
+        raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} differ "
+                         f"in rows")
+    if groups is None:
+        groups = wgrad_groups(rows, n, k, sm_count(g.device))
+    f32 = functools.partial(torch.empty, dtype=torch.float32,
+                            device=g.device)
+    dw, db, part = f32((n, k)), f32(n), f32(groups * (n * k + n))
+    lib = _lib()
+    with torch.cuda.device(g.device):
+        err = lib.hopper_wgrad(g.data_ptr(), x.data_ptr(), part.data_ptr(),
+                               groups, dw.data_ptr(), db.data_ptr(), rows, n,
+                               k, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "hopper_wgrad")
+    wgrad.launches += 1
+    return dw, db
+
+
+gemm_rows.launches = 0
+wgrad.launches = 0

@@ -8,7 +8,10 @@ mbconv.py``. Its four TPU kernels become hand-written Hopper kernels:
 * ``ka_fwd`` (``_ka_fwd_kernel``, kernel 13) and ``kb_fwd``
   (``_kb_fwd_kernel``, kernel 14) in ``csrc/mbconv_fwd.cu``;
 * ``kb_bwd`` (``_kb_bwd_kernel``, kernel 15) and ``ka_bwd``
-  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``.
+  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``; kernel 16's
+  three products (y1, dx, dwexp) run on the shared Hopper GEMM
+  (``csrc/hopper_gemm.cuh``), so it takes cin and mid only in multiples
+  of 8 (``check_channels``).
 
 ``*_reference`` are their plain PyTorch versions, with the bf16 rounding
 points of ``mbconv_reference`` (``mbconv.py:771-818``): y1, z1, z2, su, sv
@@ -38,9 +41,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, hopper_gemm
+from .attention import _aligned
 
 __all__ = ["mbconv_core", "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd",
+           "check_channels",
            "ka_fwd_reference", "kb_fwd_reference", "kb_bwd_reference",
            "ka_bwd_reference", "EPS"]
 
@@ -213,7 +218,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("mbconv_bwd")
     _declare(lib, "mbconv_kb_bwd", 19, 6)
-    _declare(lib, "mbconv_ka_bwd", 13, 6)
+    _declare(lib, "mbconv_ka_bwd", 13, 8)
     return lib
 
 
@@ -232,6 +237,17 @@ def _bf(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach().float().contiguous()
+
+
+def check_channels(cin: int, mid: int) -> None:
+    """Kernel 16 reads rows of cin and mid bf16 channels with TMA and
+    16-byte copies: each must be a multiple of 8 (16 bytes). Raises
+    before any launch otherwise."""
+    for name, c in (("cin", cin), ("mid", mid)):
+        if c % 8:
+            raise ValueError(f"{name} = {c}: a row of {c} bf16 channels is "
+                             f"not a multiple of 16 bytes, which kernel 16 "
+                             f"needs")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -331,18 +347,23 @@ def ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, k: int):
     _check_x(dy2, "dy2")
     b, h, w, cin = x.shape
     mid = dy2.shape[-1]
+    check_channels(cin, mid)
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     dwdw = f32((k, k, mid))
     dwexp = dg1 = db1 = mv1 = None
+    groups = 0
     if wexp is not None:
         dwexp, dg1, db1 = f32((cin, mid)), f32(mid), f32(mid)
         mv1 = _f32(torch.stack([m1, v1]))
+        wexp = _aligned(_bf(wexp))
+        groups = hopper_gemm.wgrad_groups(b * h * w, cin, mid,
+                                          hopper_gemm.sm_count(x.device))
     _call(_bwd_lib(), "mbconv_ka_bwd",
-          (x.contiguous(), dy2.contiguous(), _bf(wexp), _f32(g1), _f32(b1),
+          (_aligned(x), _aligned(dy2), wexp, _f32(g1), _f32(b1),
            _bf(wdw.reshape(k * k, mid)), mv1, dx, dwexp, dwdw, dg1, db1),
-          (b, h, w, cin, mid, k), x.device)
+          (b, h, w, cin, mid, k, int(wexp is not None), groups), x.device)
     ka_bwd.launches += 1
     return dx, dwexp, dg1, db1, dwdw
 

@@ -1,8 +1,8 @@
 """The CUDA kernels on a card, against their plain versions: attention
 forward (eval and train mode) and backward on packed q|k|v (kernels 1-2)
 and on separate q, k, v (kernels 3-4), CLIP and SigLIP loss forward and
-backward, the fused FFN (kernels 9-10), the MBConv kernels (13-16) and the
-fused attention block (kernels 11-12).
+backward, the fused FFN (kernels 9-10), the MBConv kernels (13-16), the
+fused attention block (kernels 11-12) and the Hopper GEMM they share.
 
 Marked ``gpu``: each test skips without a CUDA card. On the card:
 
@@ -46,6 +46,17 @@ L2 error of ``BWD_REL_L2_TOL``, kernel 4 and a second call bit for bit
 equal to kernel 2, and an exact-sum check of dV (q = k = 0, v = ±1,
 dO = ±1: dV is a sum of ±pd, exact in f32) that must agree bit for bit.
 A launch the entry point refuses raises; L 4000 runs both directions.
+The shared Hopper GEMM (``csrc/hopper_gemm.cuh``, through
+``ops/hopper_gemm.py``) is held against torch.matmul in f32 at widths
+that are multiples of 8 but not of 64: ``gemm_rows`` within one bf16 step
+(both round one f32 sum, summed in another order), ``wgrad`` within 1e-5
+of its largest value (times the square root of the rows), a second call
+bit for bit equal to the first; a row of 20 bf16 values (40 bytes) is
+refused on the host by the wrapper and by the C entry point. Kernel 10 is
+held at every width with F 2024, bf16 and f32 x, p 0 and 0.1, and kernel
+16 at B0's eight stride-1 block shapes and a ragged 9 x 9 one, each at
+the FFN or MBConv tolerances and repeated bit for bit; kernel 16 refuses
+channels that are not a multiple of 8 before any launch.
 """
 
 import pytest
@@ -1031,3 +1042,163 @@ def test_block_refuses_what_the_kernels_do_not_take(cuda):
         ab.attn_block_bwd(*args, dy, 4, qkv=qkv[:, :, :].transpose(0, 1)
                           .contiguous().transpose(0, 1), o=o)
     assert ab.attn_block_bwd.launches == before
+
+
+# ------------- the shared Hopper GEMM (csrc/hopper_gemm.cuh) -------------
+
+# (M, N, K): widths that are multiples of 8 but not of 64 (B0's channels,
+# the FFN's padded F), ragged row tiles, a K of one box and of many
+GEMM_SHAPES = [(195, 24, 144), (1000, 144, 24), (130, 40, 1152),
+               (64, 200, 72), (12608, 672, 112), (77, 1152, 192),
+               (300, 2048, 384)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES,
+                         ids=lambda s: str(s))
+def test_hopper_gemm_rows_at_any_width(cuda, m, n, k, transposed,
+                                       with_bias):
+    """``gemm_rows_kernel`` against torch.matmul in f32, rounded once to
+    bf16: one bf16 step (at most 2^-7 relative) apart at most, where the
+    two sums land on either side of a rounding boundary."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n) if transposed else (n, k), generator=gen,
+                     device=cuda) * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=cuda) if with_bias else None
+    before = hg.gemm_rows.launches
+    got = hg.gemm_rows(a, w, bias, transposed)
+    want = (a.float() @ (w.float() if transposed else w.float().t())
+            + (0.0 if bias is None else bias)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert hg.gemm_rows.launches == before + 1
+    assert got.shape == (m, n) and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2 ** -7 * want.float().abs() + 1e-6).all(), \
+        err.max().item()
+    assert torch.equal(got, hg.gemm_rows(a, w, bias, transposed))
+
+
+@pytest.mark.parametrize("rows,n,k", [(195, 24, 144), (12608, 144, 24),
+                                      (1000, 2048, 384), (64, 40, 1152),
+                                      (3000, 672, 112), (70, 8, 8)],
+                         ids=lambda s: str(s))
+def test_hopper_wgrad_at_any_width(cuda, rows, n, k):
+    """``wgrad_kernel`` and its group sum against torch.matmul in f32 (the
+    sums run in another order: 1e-5 of the largest |value| apart), and a
+    second call bit for bit equal to the first."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + n)
+    g = torch.randn((rows, n), generator=gen, device=cuda).to(torch.bfloat16)
+    x = torch.randn((rows, k), generator=gen, device=cuda).to(torch.bfloat16)
+    dw, db = hg.wgrad(g, x)
+    want_dw, want_db = g.float().t() @ x.float(), g.float().sum(0)
+    torch.cuda.synchronize()
+    for got, want in ((dw, want_dw), (db, want_db)):
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item() * rows ** 0.5, err
+    again = hg.wgrad(g, x)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_hopper_gemm_refuses_unaligned_rows(cuda):
+    """A row stride that is not a multiple of 16 bytes is refused on the
+    host, by the wrapper and by the entry point, before any launch."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    a = torch.zeros((64, 20), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((16, 20), dtype=torch.bfloat16, device=cuda)
+    before = hg.gemm_rows.launches, hg.wgrad.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        hg.gemm_rows(a, w)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hg.wgrad(a, a)
+    assert (hg.gemm_rows.launches, hg.wgrad.launches) == before
+    c = torch.empty((64, 16), dtype=torch.bfloat16, device=cuda)
+    lib = hg._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.hopper_gemm_rows(a.data_ptr(), w.data_ptr(), 0, None,
+                                c.data_ptr(), 64, 16, 20, stream) != 0
+    part = torch.empty(64 * 20 * 20, device=cuda)
+    assert lib.hopper_wgrad(a.data_ptr(), a.data_ptr(), part.data_ptr(), 1,
+                            part.data_ptr(), None, 64, 20, 20, stream) != 0
+    torch.cuda.synchronize()
+
+
+# (B, L, E, F): each width at F 2024 (padded to 2048, not a multiple of 64)
+FFN_WIDE_SHAPES = [(2, 33, 64, 2024), (1, 70, 128, 2024),
+                   (1, 70, 192, 2024), (1, 41, 384, 2024)]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", FFN_WIDE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ffn_bwd_at_every_width_repeats(cuda, shape, dtype, p):
+    """Kernel 10 at E 64-384 with F 2024, bf16 and f32 x, p 0 and 0.1:
+    within the FFN tolerances of its plain version, and a second call
+    bit for bit equal to the first (no float atomics)."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    x, w1, b1, w2, b2, dy = _ffn_inputs(cuda, *shape, dtype, seed=5)
+    before = ffn.ffn_bwd.launches
+    got = ffn.ffn_bwd(x, w1, b1, w2, b2, dy, "gelu", p, 11)
+    again = ffn.ffn_bwd(x, w1, b1, w2, b2, dy, "gelu", p, 11)
+    want = ffn.ffn_bwd_reference(x, w1, b1, w2, b2, dy, "gelu", p, 11)
+    torch.cuda.synchronize()
+    assert ffn.ffn_bwd.launches == before + 2
+    _ffn_close(got, want, "grads")
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+# B0's eight stride-1 block shapes (chip_smoke.py MBCONV_SHAPES: H = W,
+# cin, mid, cout, k, SE width) at a small batch, and a ragged 9 x 9 one
+KA_BWD_SHAPES = [(2, 112, 112, 32, 32, 16, 3, 8),
+                 (2, 56, 56, 24, 144, 24, 3, 6),
+                 (2, 28, 28, 40, 240, 40, 5, 10),
+                 (4, 14, 14, 80, 480, 80, 3, 20),
+                 (4, 14, 14, 80, 480, 112, 5, 20),
+                 (4, 14, 14, 112, 672, 112, 5, 28),
+                 (8, 7, 7, 192, 1152, 192, 5, 48),
+                 (8, 7, 7, 192, 1152, 320, 3, 48),
+                 (3, 9, 9, 24, 144, 24, 3, 6)]
+
+
+@pytest.mark.parametrize("shape", KA_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_ka_bwd_at_b0_shapes_repeats(cuda, shape):
+    """Kernel 16 at B0's block shapes: within the MBConv tolerances of its
+    plain version, and a second call bit for bit equal to the first."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    (x, wexp, g1, b1, wdw, *_, dy2) = _mbconv_inputs(cuda, *shape, seed=3)
+    _, m1, v1, _, _ = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    args = (x, dy2, wexp, g1, b1, wdw, m1, v1, k)
+    before = mbconv.ka_bwd.launches
+    got = mbconv.ka_bwd(*args)
+    again = mbconv.ka_bwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.ka_bwd.launches == before + 2
+    _close_to_plain(got, mbconv.ka_bwd_reference(*args), "ka_bwd")
+    assert all(g is None and a is None or torch.equal(g, a)
+               for g, a in zip(got, again))
+
+
+def test_mbconv_ka_bwd_refuses_unaligned_channels(cuda):
+    """Channels that are not a multiple of 8 (16-byte rows) are refused
+    before any launch."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    (x, wexp, g1, b1, wdw, *_, dy2) = _mbconv_inputs(cuda, 1, 5, 5, 12, 72,
+                                                     8, 3, 2)
+    _, m1, v1, _, _ = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, 3)
+    before = mbconv.ka_bwd.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        mbconv.ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, 3)
+    assert mbconv.ka_bwd.launches == before

@@ -1,0 +1,147 @@
+"""The shared Hopper GEMM's host side on the CPU (``ops/hopper_gemm.py``):
+its plain versions against ``jnp.dot`` in f32, its tile and group choices,
+TMA's row rule, and the scratch layouts of kernels 10 and 16 that rest on
+it. The kernels themselves run only on a card (``tests/test_torch_cuda.py``,
+marked ``gpu``).
+
+``gemm_rows_reference`` rounds once to bf16 after an f32 sum, as
+``jnp.dot(..., preferred_element_type=f32)`` then a cast does: both sum in
+f32 in another order, so an output may land one bf16 step (2^-7 relative
+at most) apart. ``wgrad_reference`` is f32 throughout: 1e-5 of the largest
+|value|.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_plankton_recognition_torch.ops import (
+    ffn, hopper_gemm, mbconv,
+)
+
+
+def _bf16(rs, *shape, scale=1.0):
+    return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)
+                            ).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,n,k", [(37, 24, 144), (70, 40, 8), (5, 72, 200)])
+def test_gemm_rows_reference_matches_jnp(m, n, k, transposed, with_bias):
+    rs = np.random.RandomState(m + n + k)
+    a = _bf16(rs, m, k)
+    w = _bf16(rs, *((k, n) if transposed else (n, k)), scale=k ** -0.5)
+    bias = torch.from_numpy(rs.randn(n).astype(np.float32)) \
+        if with_bias else None
+    got = hopper_gemm.gemm_rows(a, w, bias, transposed)  # CPU: plain
+    wj = jnp.asarray(w.float().numpy())
+    want = jnp.dot(jnp.asarray(a.float().numpy()),
+                   wj if transposed else wj.T,
+                   preferred_element_type=jnp.float32)
+    if bias is not None:
+        want = want + jnp.asarray(bias.numpy())
+    want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= 2.0 ** -7 * np.abs(want) + 1e-6).all(), err.max()
+
+
+@pytest.mark.parametrize("rows,n,k", [(100, 24, 144), (7, 8, 8),
+                                      (300, 40, 72)])
+def test_wgrad_reference_matches_jnp(rows, n, k):
+    rs = np.random.RandomState(rows)
+    g, x = _bf16(rs, rows, n), _bf16(rs, rows, k)
+    dw, db = hopper_gemm.wgrad(g, x)  # CPU: plain
+    gj, xj = jnp.asarray(g.float().numpy()), jnp.asarray(x.float().numpy())
+    want_dw = np.asarray(jnp.dot(gj.T, xj,
+                                 preferred_element_type=jnp.float32))
+    want_db = np.asarray(gj.sum(0))
+    assert dw.shape == (n, k) and db.shape == (n,)
+    for got, want in ((dw, want_dw), (db, want_db)):
+        assert np.abs(got.numpy() - want).max() <= \
+            1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("k,boxes", [(8, 1), (64, 1), (72, 2), (128, 2),
+                                     (144, 3), (192, 3), (240, 2), (384, 3),
+                                     (480, 2), (672, 2), (1152, 3)])
+def test_wgrad_tile_boxes(k, boxes):
+    """A weight-gradient block owns 3 column boxes where they divide K's,
+    else 2, and 1 where K fits one box (``wgrad_tj`` in the header)."""
+    assert hopper_gemm.wgrad_tile_boxes(k) == boxes
+
+
+@pytest.mark.parametrize("rows,n,k", [(50432, 576, 192), (50432, 192, 192),
+                                      (12608, 1152, 384), (14400, 384, 128),
+                                      (100, 576, 192), (1, 192, 192)])
+def test_wgrad_groups_keep_the_attention_blocks_choice(rows, n, k):
+    """At the attention block's widths (multiples of 64) the shared rule
+    gives the groups of that block's own tiling: two blocks an SM over
+    (N / 64) x (K / TK) tiles, TK 192 where it divides K, else 128, at
+    most one group a 64-row chunk."""
+    tiles = (n // 64) * (k // (192 if k % 192 == 0 else 128))
+    want = max(1, min(-(-rows // 64), -(-2 * 132 // tiles)))
+    assert hopper_gemm.wgrad_groups(rows, n, k, 132) == want
+
+
+@pytest.mark.parametrize("rows,n,k", [(3136 * 64, 24, 144),
+                                      (49 * 64, 192, 1152), (5, 24, 144)])
+def test_wgrad_groups_at_b0s_widths(rows, n, k):
+    """Ragged widths: the tiles round up to whole boxes; the groups fill
+    two blocks an SM and never exceed the 64-row chunks."""
+    g = hopper_gemm.wgrad_groups(rows, n, k, 132)
+    tiles = -(-n // 64) * -(-(-(-k // 64)) // hopper_gemm.wgrad_tile_boxes(k))
+    assert 1 <= g <= -(-rows // 64)
+    assert g == min(-(-rows // 64), -(-264 // tiles))
+
+
+def test_check_rows_takes_16_byte_rows_only():
+    hopper_gemm.check_rows(torch.zeros((4, 24), dtype=torch.bfloat16), "a")
+    with pytest.raises(ValueError, match="16 bytes"):
+        hopper_gemm.check_rows(torch.zeros((4, 20), dtype=torch.bfloat16),
+                               "a")
+    with pytest.raises(ValueError, match="bf16"):
+        hopper_gemm.check_rows(torch.zeros((4, 24)), "a")
+    with pytest.raises(ValueError, match="bf16"):
+        hopper_gemm.check_rows(
+            torch.zeros((24, 4), dtype=torch.bfloat16).t(), "a")
+    with pytest.raises(ValueError, match="aligned"):
+        hopper_gemm.check_rows(
+            torch.zeros(4 * 24 + 1, dtype=torch.bfloat16)[1:].view(4, 24),
+            "a")
+
+
+@pytest.mark.parametrize("rows,e,fp,groups", [(50432, 192, 768, 22),
+                                              (57600, 192, 2048, 9),
+                                              (12608, 384, 1536, 6),
+                                              (1, 64, 64, 1)])
+def test_ffn_bwd_scratch_layout(rows, e, fp, groups):
+    """Kernel 10's scratch: bf16 dpre and h (rows, Fp), the per-tile f32
+    column sums (ceil(rows / 64), Fp + E), the group partials (groups,
+    Fp E) f32; back to back on 256-byte boundaries, 4 rows Fp bytes for
+    the two stored activations."""
+    layout, total = ffn.bwd_scratch(rows, e, fp, groups)
+    tiles = -(-rows // 64)
+    want = {"dpre": rows * fp * 2, "h": rows * fp * 2,
+            "colpart": tiles * (fp + e) * 4, "wpart": groups * fp * e * 4}
+    assert {k: n for k, (_, n) in layout.items()} == want
+    offsets = [o for o, _ in layout.values()]
+    assert offsets[0] == 0 and all(o % 256 == 0 for o in offsets)
+    ends = [o + n for o, n in layout.values()]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total < ends[-1] + 256
+    assert layout["dpre"][1] + layout["h"][1] == 4 * rows * fp
+
+
+@pytest.mark.parametrize("cin,mid", [(24, 144), (32, 32), (192, 1152),
+                                     (8, 48)])
+def test_mbconv_channels_kernel_16_takes(cin, mid):
+    mbconv.check_channels(cin, mid)
+
+
+@pytest.mark.parametrize("cin,mid", [(12, 72), (24, 140), (3, 3)])
+def test_mbconv_channels_kernel_16_refuses(cin, mid):
+    with pytest.raises(ValueError, match="16 bytes"):
+        mbconv.check_channels(cin, mid)
