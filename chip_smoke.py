@@ -7,7 +7,7 @@ the attention module's unpacked (separate q, k, v) route and its fused
 attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --kernel-profile   # kernels 10 and 16 alone
+    python3 chip_smoke.py --kernel-profile   # kernels 9, 10, 15, 16 alone
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -18,8 +18,10 @@ fatal on failure:
    register / spill report; the attention backward's 12 instances (two
    kernels, six head dims), the shared Hopper GEMM's 9 instances
    (``gemm_rows_kernel``, ``wgrad_kernel`` of ``csrc/hopper_gemm.cuh``:
-   wgmma and TMA) in each of the four libraries that include it and
-   kernel 10's 8 ``ffn_bwd_rows_kernel`` instances must spill 0 bytes;
+   wgmma and TMA) in each of the four libraries that include it, kernel
+   10's 8 ``ffn_bwd_rows_kernel`` instances, kernel 9's 8
+   ``ffn_fwd_rows_kernel`` and kernel 15's 3 ``kb_pass_kernel`` must spill
+   0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -61,9 +63,9 @@ fatal on failure:
    * MBConv kernels 13-16 (``ka_fwd``, ``kb_fwd``, ``kb_bwd``, ``ka_bwd`` vs
      their ``*_reference``) at each of the 8 distinct shapes of B0's
      stride-1 blocks at B 64, every output within 2e-2 of max(1,
-     max|plain|) and 1e-3 relative L2; kernel 16 also a second call bit
-     for bit equal to the first, and one profiled call by CUDA kernel at
-     ``KA_BWD_PROFILED`` (stage2_block1, stage1_block0);
+     max|plain|) and 1e-3 relative L2; kernels 15 and 16 also a second
+     call bit for bit equal to the first, and one profiled call by CUDA
+     kernel at ``KA_BWD_PROFILED`` (stage2_block1, stage1_block0);
    * attention on separate q, k, v (kernels 3 and 4: ``mha`` / ``mha_bwd``
      vs ``mha_reference`` / ``mha_bwd_reference``) at the flagship's two
      shapes as kernels 1-2 above, the exact-sum mask check at D = 24, and
@@ -75,11 +77,11 @@ fatal on failure:
      shape and f32 x at the card's profile shape, every output within
      ``FFN_TOL`` of max(1, max|plain|) and 2e-3 relative L2, beside the
      unfused route's time (``F.linear`` → GELU → ``F.linear`` on cuBLAS, no
-     single library call computes the block), a second backward call bit
-     for bit equal to the first, and one torch.profiler pass over one
-     backward call at ViT-T (p 0 and 0.1) by CUDA kernel; and at each
-     shape an exact-sum check (ReLU, integer inputs) that must agree bit
-     for bit;
+     single library call computes the block), a second forward and a
+     second backward call bit for bit equal to the first, and one
+     torch.profiler pass over one forward and one backward call at ViT-T
+     (p 0 and 0.1) by CUDA kernel; and at each shape an exact-sum check
+     (ReLU, integer inputs) that must agree bit for bit;
    * the fused attention block (kernels 11 and 12: ``attn_block_fwd`` /
      ``attn_block_bwd`` vs ``attn_block_reference`` /
      ``attn_block_bwd_reference``) at the four attention shapes above, eval
@@ -162,7 +164,8 @@ fatal on failure:
    steps against ``ffn_core``'s plain versions on the card (loss 1e-2,
    named gradients 5e-2) and against the unfused route, held to the JAX
    package's statistical bounds beside the unfused route's nudged-input
-   floor; train pairs/s of both routes;
+   floor; a ``summary:`` line of train pairs/s of both routes, timed in
+   turns (fused, unfused, unfused, fused);
 11. ffn card: ``CARD`` with ``fused_ffn: true`` on both encoders through
    ``Fitter`` as in 6. (14 + 14 FFN launches a micro-step, 14 an eval step);
 12. unpacked: ``PLANKTON_ATTN_QKV_PACKED=0`` (set in the phase, restored
@@ -192,7 +195,8 @@ fatal on failure:
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
-   then on the fused block's), then 8 micro-steps of each
+   then on the fused block's; the train steps also with ``fused_ffn``),
+   then 8 micro-steps of each
    card on two
    routes (the SigLIP card also with and without ``fused_ffn``) under
    torch.profiler after 4 warm-up and 8 unprofiled ones:
@@ -206,12 +210,14 @@ most time. The line before the last is a JSON record of the kernels; the
 last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.
 
-``--kernel-profile`` runs phases 1 and the build of kernels 10 and 16
-only, times both at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row,
-profiles one call of each by CUDA kernel and takes the peak memory of one
-fused-FFN flagship train step; it prints no result line. Run
-from a copy of this script in a checkout of another commit, it times that
-commit's kernels, so two commits compare in one call.
+``--kernel-profile`` runs phase 1 and the build of kernels 9, 10, 15 and
+16 only, times them at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row
+(kernel 9 beside the unfused cuBLAS forward, kernel 15 beside its plain
+version, each beside its bound; the MBConv kernels summed over B0's stride-1 blocks), profiles one
+call of each by CUDA kernel and takes the peak memory of one fused-FFN
+flagship train step; it prints no result line. Run from a copy of this
+script in a checkout of another commit, it times that commit's kernels,
+so two commits compare in one call.
 """
 
 from __future__ import annotations
@@ -255,14 +261,16 @@ BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
 BWD_INSTANCES = 2 * 6
 # the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
 # weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
-# library that includes it, and kernel 10's row kernel (four widths x two
-# dx types) in csrc/ffn.cu; 0 spill bytes each. Matched in the mangled
-# names with their length prefixes, so that mbconv_bwd's se_wgrad_kernel
-# is not taken for one.
+# library that includes it, kernel 10's row kernel (four widths x two dx
+# types) and kernel 9's (four widths, each in its one tile layout, x two
+# y types) in csrc/ffn.cu, kernel 15's three passes in csrc/mbconv_bwd.cu;
+# 0 spill bytes each. Matched in the mangled names with their length
+# prefixes, so that mbconv_bwd's se_wgrad_kernel is not taken for one.
 GEMM_ENTRIES = ("16gemm_rows_kernel", "12wgrad_kernel",
-                "19ffn_bwd_rows_kernel")
-GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9, "hopper_gemm": 9,
-                  "ffn": 9 + 8}
+                "19ffn_bwd_rows_kernel", "19ffn_fwd_rows_kernel",
+                "14kb_pass_kernel")
+GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9 + 3,
+                  "hopper_gemm": 9, "ffn": 9 + 8 + 8}
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -328,8 +336,8 @@ MBCONV_BLOCKS = 12  # B0's stride-1 blocks: each MBConv kernel per micro-step
 B0_BLOCKS = {"stage1_block0": 1, "stage2_block1": 1, "stage3_block1": 1,
              "stage4_block1": 2, "stage5_block0": 1, "stage5_block1": 2,
              "stage6_block1": 3, "stage7_block0": 1}
-# kernel 16's shapes broken down by CUDA kernel (one profiled call each):
-# the widest expand and the block without one
+# kernels 15 and 16's shapes broken down by CUDA kernel (one profiled call
+# each): the widest expand and the block without one
 KA_BWD_PROFILED = ("stage2_block1", "stage1_block0")
 STAT_CORR, STAT_RMS = 0.95, 0.3  # the JAX package's fused-vs-unfused bounds
 CARD_STEPS = 20    # micro-steps of 64 pairs per epoch
@@ -963,6 +971,8 @@ def _ffn_kernels(gen, device, records):
                 err = _ffn_close(f"ffn_fwd {label}", [got],
                                  [ffn.ffn_reference(*args, act, p, seed)],
                                  tol)
+                _repeats(f"ffn_fwd {label}", [got],
+                         [ffn.ffn_fwd(*args, act, p, seed)])
                 _report(records, "ffn_fwd", label, err,
                         f"{tol} of max(1, max|plain|); relative L2 "
                         f"{FFN_REL_TOL}",
@@ -988,6 +998,8 @@ def _ffn_kernels(gen, device, records):
                         unfused_ms=_unfused_ms(*args, act, p, dyt))
                 if name == "vit" and act == activation and \
                         dtype == torch.bfloat16:
+                    _call_profile("ffn_fwd", label, lambda: ffn.ffn_fwd(
+                        *args, act, p, seed))
                     _call_profile("ffn_bwd", label, lambda: ffn.ffn_bwd(
                         *args, dyt, act, p, seed))
         _ffn_mask_check(gen, device, name, b, l, e, f)
@@ -1179,7 +1191,7 @@ def _mbconv_kernels(gen, device, records):
             if not rel <= MBCONV_REL_TOL:
                 fail(f"{name} {label}: relative L2 error {rel!r} > "
                      f"{MBCONV_REL_TOL}")
-            if name == "mbconv_ka_bwd":
+            if name in ("mbconv_kb_bwd", "mbconv_ka_bwd"):
                 _repeats(f"{name} {label}", got, fn(*args))
                 if block in KA_BWD_PROFILED:
                     _call_profile(name, label, lambda: fn(*args))
@@ -2119,7 +2131,8 @@ def phase_ffn_train(device):
     """20 full-width train steps of ``flagship_vit(fused_ffn=True)``; then
     dropout-0 steps against ``ffn_core``'s plain versions on the card (the
     same math) and against the unfused route (other bf16 rounding points,
-    held statistically beside the nudged-input floor)."""
+    held statistically beside the nudged-input floor); then train pairs/s
+    of the fused and the unfused route in turns."""
     import torch
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
@@ -2205,12 +2218,24 @@ def phase_ffn_train(device):
                         FFN_NAMED_GRADS, (("kernel", "unfused"),),
                         ("unfused", "nudged unfused"))
 
-    rates = {"fused FFN": BATCH * timed / seconds}
-    unfused = flagship_vit()
-    ustate, ustep = _train_state(unfused, init, device)
-    _pairs_per_s(ustate, ustep, batch, WARMUP_STEPS)
-    rates["unfused FFN"] = _pairs_per_s(ustate, ustep, batch, PLAIN_STEPS)
-    print(f"ffn train: train pairs/s {rates}", flush=True)
+    # the fused and the unfused route in turns (fused, unfused, unfused,
+    # fused), each after its own warm-up, so that a wall that drifts within
+    # the call moves both alike
+    routes = {}
+    for name, fused in (("fused FFN", True), ("unfused FFN", False)):
+        st, step = _train_state(flagship_vit(fused_ffn=fused), init, device)
+        _pairs_per_s(st, step, batch, WARMUP_STEPS)
+        routes[name] = [st, step]
+    rates = {name: [] for name in routes}
+    for name in ("fused FFN", "unfused FFN", "unfused FFN", "fused FFN"):
+        st, step = routes[name]
+        rates[name].append(_pairs_per_s(st, step, batch, PLAIN_STEPS))
+    del routes
+    mean = statistics.fmean
+    print(f"summary: ffn train, fused against unfused FFN in turns (fused, "
+          f"unfused, unfused, fused): {mean(rates['fused FFN'])!r} against "
+          f"{mean(rates['unfused FFN'])!r} pairs/s over {PLAIN_STEPS} steps "
+          f"({rates['fused FFN']} / {rates['unfused FFN']})", flush=True)
     return launches
 
 
@@ -2562,8 +2587,8 @@ def _device_ms(prof, steps):
 
 
 def phase_profile(device):
-    """The ViT flagship's encode batch and train step, and the micro-step of
-    each card (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S with and without
+    """The ViT flagship's encode batch and train step (the train step also
+    with ``fused_ffn``), and the micro-step of each card (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S with and without
     ``fused_ffn``) by kernel."""
     from multimodal_plankton_recognition_torch.models.flagships import (
         synthetic_batch_b0, synthetic_batch_vit)
@@ -2573,6 +2598,7 @@ def phase_profile(device):
     with _env("PLANKTON_ATTN_FUSE_PROJ", "1"):
         _profile_encode(device, "fuse_proj ")
         _profile_train(device, "fuse_proj ")
+    _profile_train(device, "fused_ffn ", fused_ffn=True)
     _profile_card(device, "card", CARD, (("kernel", {}),
                                          ("plain", PLAIN_CARD)),
                   synthetic_batch_vit)
@@ -2634,11 +2660,11 @@ def _profile_encode(device, route=""):
     print(f"profile {route}vit encode: {json.dumps(out)}", flush=True)
 
 
-def _profile_train(device, route=""):
+def _profile_train(device, route="", **model_args):
     """The ViT flagship's ``train_step`` (batch 256, buckets 16, dropout
     0.1) by kernel: ``PROFILE_STEPS`` steps after a warm-up, the wall per
     step of as many unprofiled steps of the same process and weights;
-    ``route`` prefixes the label."""
+    ``route`` prefixes the label, ``model_args`` go to ``flagship_vit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from multimodal_plankton_recognition_torch.models.flagships import (
@@ -2647,7 +2673,7 @@ def _profile_train(device, route=""):
     init = init_weights_(flagship_vit(dtype=torch.float32),
                          torch.Generator().manual_seed(0)).state_dict()
     batch = synthetic_batch_vit(BATCH, seed=3, device=device)
-    state, step = _train_state(flagship_vit(), init, device)
+    state, step = _train_state(flagship_vit(**model_args), init, device)
     _pairs_per_s(state, step, batch, WARMUP_STEPS)
     wall = BATCH / _pairs_per_s(state, step, batch, PROFILE_STEPS) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
@@ -2703,15 +2729,17 @@ def _profile_card(device, what, base, paths, make_batch):
 
 
 def phase_kernel_profile(device):
-    """Kernels 10 and 16 alone (``--kernel-profile``): device ms by
-    ``cuda_ms`` at every ``FFN_SHAPES`` row (GELU, bf16, p 0; ViT-T also
-    p 0.1) beside the unfused cuBLAS backward and the bound, and at every
-    ``MBCONV_SHAPES`` row (B 64) with the sum over B0's 12 stride-1
-    blocks; one profiled call of kernel 10 at ViT-T and of kernel 16 at
-    ``KA_BWD_PROFILED``, by CUDA kernel; the peak device memory of one
-    fused-FFN flagship train step. It drives whatever package lies
-    beside this script, so a copy of the script in a checkout of another
-    commit times that commit's kernels (before and after, in one call)."""
+    """Kernels 9, 10, 15 and 16 alone (``--kernel-profile``): device ms by
+    ``cuda_ms``. Kernels 9 and 10 at every ``FFN_SHAPES`` row (GELU, bf16,
+    p 0; ViT-T also p 0.1; kernel 9 also f32 x at the card's profile row)
+    beside the unfused cuBLAS forward or backward and the bound; kernels 15
+    and 16 at every ``MBCONV_SHAPES`` row (B 64), kernel 15 beside its plain
+    version and its bound, each with the sum over B0's 12 stride-1 blocks;
+    one profiled call by CUDA kernel of kernels 9 and 10 at ViT-T and of
+    kernels 15 and 16 at ``KA_BWD_PROFILED``; the peak device memory of one
+    fused-FFN flagship train step. It drives whatever package lies beside
+    this script, so a copy of the script in a checkout of another commit
+    times that commit's kernels (before and after, in one call)."""
     import torch
     from multimodal_plankton_recognition_torch.ops import build, ffn
     from multimodal_plankton_recognition_torch.ops import mbconv as mb
@@ -2724,12 +2752,28 @@ def phase_kernel_profile(device):
             + shift
 
     for name, (b, l, e, f, act) in FFN_SHAPES.items():
-        args = (rnd(b, l, e).to(torch.bfloat16), rnd(e, f, scale=e ** -0.5),
-                rnd(f, scale=0.1), rnd(f, e, scale=f ** -0.5),
-                rnd(e, scale=0.1))
+        w = (rnd(e, f, scale=e ** -0.5), rnd(f, scale=0.1),
+             rnd(f, e, scale=f ** -0.5), rnd(e, scale=0.1))
+        x = rnd(b, l, e)
         dy = rnd(b, l, e).to(torch.bfloat16)
-        for p in (0.0, 0.1) if name == "vit" else (0.0,):
-            label = f"{name} B={b} L={l} E={e} F={f} {act} bfloat16 p={p}"
+        cases = [(torch.bfloat16, 0.0)]
+        if name == "vit":
+            cases.append((torch.bfloat16, 0.1))
+        if name == "card profile":
+            cases.append((torch.float32, 0.0))
+        for dtype, p in cases:
+            args = (x.to(dtype), *w)
+            label = (f"{name} B={b} L={l} E={e} F={f} {act} "
+                     f"{str(dtype)[6:]} p={p}")
+            call = functools.partial(ffn.ffn_fwd, *args, act, p, 4321)
+            bound = _bound(args, call(), 4 * b * l * e * f)
+            print(f"kernel-profile ffn_fwd [{label}]: {cuda_ms(call)!r} ms, "
+                  f"unfused {_unfused_ms(*args, act, p)!r} ms, bound "
+                  f"{bound[0]!r} ms ({bound[1]})", flush=True)
+            if name == "vit" and p == 0.0:
+                _call_profile("ffn_fwd", label, call)
+            if dtype != torch.bfloat16:
+                continue
             call = functools.partial(ffn.ffn_bwd, *args, dy, act, p, 4321)
             bound = _bound((args, dy), call(), 10 * b * l * e * f)
             print(f"kernel-profile ffn_bwd [{label}]: {cuda_ms(call)!r} ms, "
@@ -2737,28 +2781,47 @@ def phase_kernel_profile(device):
                   f"{bound[0]!r} ms ({bound[1]})", flush=True)
             if name == "vit" and p == 0.0:
                 _call_profile("ffn_bwd", label, call)
-    total = 0.0
+    totals = {"mbconv_kb_bwd": 0.0, "mbconv_ka_bwd": 0.0}
     b = B0_CARD["bs"]
-    for block, (hw, cin, mid, _, k, _) in MBCONV_SHAPES.items():
+    for block, (hw, cin, mid, cout, k, r) in MBCONV_SHAPES.items():
         expand = mid != cin
         x = rnd(b, hw, hw, cin).to(torch.bfloat16)
         wexp = rnd(cin, mid, scale=cin ** -0.5) if expand else None
         g1 = rnd(mid, scale=0.1, shift=1.0) if expand else None
         b1 = rnd(mid, scale=0.1) if expand else None
         wdw = rnd(k, k, mid, scale=1.0 / k)
+        g2, b2 = rnd(mid, scale=0.1, shift=1.0), rnd(mid, scale=0.1)
+        wr, br = rnd(mid, r, scale=mid ** -0.5), rnd(r, scale=0.1)
+        we, be = rnd(r, mid, scale=r ** -0.5), rnd(mid, scale=0.1)
+        wproj = rnd(mid, cout, scale=mid ** -0.5)
+        dy3 = rnd(b, hw, hw, cout).to(torch.bfloat16)
         dy2 = rnd(b, hw, hw, mid).to(torch.bfloat16)
-        _, m1, v1, _, _ = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
-        call = functools.partial(mb.ka_bwd, x, dy2, wexp, g1, b1, wdw, m1,
-                                 v1, k)
-        ms = cuda_ms(call)
-        total += B0_BLOCKS[block] * ms
-        label = f"{block} B={b} H=W={hw} cin={cin} mid={mid} k={k}"
-        print(f"kernel-profile mbconv_ka_bwd [{label}]: {ms!r} ms",
-              flush=True)
-        if block in KA_BWD_PROFILED:
-            _call_profile("mbconv_ka_bwd", label, call)
-    print(f"kernel-profile mbconv_ka_bwd: sum over B0's {MBCONV_BLOCKS} "
-          f"stride-1 blocks {total!r} ms", flush=True)
+        y2, m1, v1, m2, v2 = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+        n = b * hw * hw
+        kb_args = (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
+        label = (f"{block} B={b} H=W={hw} cin={cin} mid={mid} cout={cout} "
+                 f"k={k} r={r}")
+        for name, call, plain, flops in (
+                ("mbconv_kb_bwd", functools.partial(mb.kb_bwd, *kb_args),
+                 functools.partial(mb.kb_bwd_reference, *kb_args),
+                 4 * n * mid * cout + 12 * b * mid * r),
+                ("mbconv_ka_bwd", functools.partial(
+                    mb.ka_bwd, x, dy2, wexp, g1, b1, wdw, m1, v1, k), None,
+                 None)):
+            ms = cuda_ms(call)
+            totals[name] += B0_BLOCKS[block] * ms
+            more = ""
+            if plain is not None:
+                bound = _bound(kb_args, plain(), flops)
+                more = (f", plain {cuda_ms(plain)!r} ms, bound "
+                        f"{bound[0]!r} ms ({bound[1]})")
+            print(f"kernel-profile {name} [{label}]: {ms!r} ms{more}",
+                  flush=True)
+            if block in KA_BWD_PROFILED:
+                _call_profile(name, label, call)
+    for name, total in totals.items():
+        print(f"kernel-profile {name}: sum over B0's {MBCONV_BLOCKS} "
+              f"stride-1 blocks {total!r} ms", flush=True)
 
     from multimodal_plankton_recognition_torch.models.flagships import (
         flagship_vit, init_weights_, synthetic_batch_vit)
@@ -2864,8 +2927,8 @@ def main(argv=None) -> None:
                         help="also break each card's micro-step device "
                              "time down by kernel (torch.profiler)")
     parser.add_argument("--kernel-profile", action="store_true",
-                        help="only time and profile kernels 10 and 16 (no "
-                             "paths, no result line)")
+                        help="only time and profile kernels 9, 10, 15 and "
+                             "16 (no paths, no result line)")
     args = parser.parse_args(argv)
     device = phase_device()
     if args.kernel_profile:

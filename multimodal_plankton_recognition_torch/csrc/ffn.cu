@@ -28,14 +28,23 @@
 // Design. x and the weights are flattened to rows: x (rows, E); w1 is
 // passed transposed, w1t (F, E), and w2 is (F, E), both bf16 with F
 // zero-padded by the wrapper to a multiple of 64 (hidden units of value 0
-// and gradient 0).
-//   forward (ffn_fwd_kernel): a block of 8 warps owns a tile of 64 rows
-//     and walks the hidden dimension in chunks of FC = 64 columns (32 for
-//     E > 192): x tile in shared memory; per chunk, the w1t and w2 rows of
-//     the chunk are staged, h_pre = x . w1c goes through shared memory for
-//     the elementwise step, the bf16 hidden chunk stays in shared memory
-//     and y += h . w2c accumulates in registers (bf16 WMMA 16x16x16). The
-//     hidden never reaches device memory.
+// and gradient 0). Both directions walk the hidden dimension in chunks of
+// 64 columns inside persistent row kernels on wgmma: a producer warpgroup
+// (its registers handed to the consumers with setmaxnreg) streams each
+// chunk's w1t and w2 rows through a ring of TMA slots, two consumer
+// warpgroups run the products and the elementwise step in registers.
+//   forward (ffn_fwd_rows_kernel): the x tile comes in by TMA (the wrapper
+//     rounds an f32 x to bf16 once). Per chunk, h_pre = x . w1c^T on
+//     wgmma, + b1, bf16, act, bf16 and dropout in registers, the bf16 h
+//     chunk into a swizzled staging box, then y += h . w2c (the box as A,
+//     the w2 slot read N-major in place) in f32 registers over every chunk;
+//     the epilogue adds b2 and casts once. Nothing but y reaches device
+//     memory. For E <= 192 each consumer warpgroup owns its own 64 rows of
+//     a 128-row tile (kPing: 128-thread barriers only, and chunk c + 1's
+//     h_pre product is issued before chunk c's y product, so an
+//     elementwise step runs under the tensor cores' work); at E 384 y would
+//     take 192 registers a thread, so both share a 64-row tile (kSplit: 32
+//     hidden columns each, alternate 64-column boxes of y).
 //   backward: five products, not seven, on wgmma.
 //     ffn_bwd_rows_kernel, persistent over 64-row tiles: the x and dy
 //       tiles are resident in shared memory (TMA, double-buffered for
@@ -64,169 +73,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "dropout.cuh"
 #include "hopper_gemm.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
 using namespace hg;  // bf16, pack2 and the Hopper GEMM
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int BM = 64;         // rows of a tile
-constexpr int kPadH = 8;       // bf16 row padding (16 bytes: ldmatrix banks)
-constexpr int kPadF = 4;       // f32 row padding (16 bytes)
 constexpr float kC = 0.7978845608028654f;  // sqrt(2/pi)
-
-template <int E>
-struct Cfg {
-  static_assert(E % 32 == 0 && E <= 384, "width must be a multiple of 32");
-  static constexpr int FC = E <= 192 ? 64 : 32;  // hidden columns a chunk
-  static constexpr int LDE = E + kPadH;   // bf16 row of width E
-  static constexpr int LDC = FC + kPadH;  // bf16 row of a chunk
-  static constexpr int LDS = FC + kPadF;  // f32 row of a chunk
-  static constexpr int ET = E / 16;       // 16-wide tiles of E
-  static constexpr int CT = FC / 16;      // 16-wide tiles of a chunk
-  // warp w: row tile w % 4, column half w / 4
-  static constexpr int CF = CT / 2;  // chunk fragments of a warp (64 x FC)
-  static constexpr int YF = ET / 2;  // fragments of a warp in a 64 x E tile
-  // shared memory (bytes, each a multiple of 128)
-  static constexpr size_t kTile = (size_t)BM * LDE * 2;  // x or dy
-  static constexpr size_t kW = (size_t)FC * LDE * 2;     // a weight chunk
-  static constexpr size_t kS = (size_t)BM * LDS * 4;     // f32 chunk
-  static constexpr size_t kH = (size_t)BM * LDC * 2;     // bf16 chunk
-  static constexpr size_t kFwd = kTile + 2 * kW + kS + kH;
-};
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    BCol;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float act(float z, bool relu) {
-  if (relu) return fmaxf(z, 0.f);
-  const float u = kC * (z + 0.044715f * z * z * z);
-  return 0.5f * z * (1.f + tanhf(u));
-}
-
-// 8 consecutive elements as 8 bf16
-__device__ __forceinline__ uint4 load8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load8(const float* p) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  return make_uint4(pack2(a.x, a.y), pack2(a.z, a.w), pack2(b.x, b.y),
-                    pack2(b.z, b.w));
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(
-      pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-      pack2(v[6], v[7]));
-}
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// n rows of width E (rows >= valid are zero) into shared memory as bf16
-template <int E, typename T>
-__device__ __forceinline__ void load_rows(bf16* dst, const T* src, int row0,
-                                          int valid, int n) {
-  constexpr int V = E / 8;
-  for (int i = threadIdx.x; i < n * V; i += kThreads) {
-    const int r = i / V, c = i - r * V;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid) v = load8(src + (size_t)(row0 + r) * E + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Cfg<E>::LDE + c * 8) = v;
-  }
-}
-
-// S (64 x FC, f32) = A (64 x E tile) . W^T, W the chunk's FC rows of width E
-template <int E>
-__device__ __forceinline__ void chunk_product(const bf16* A, const bf16* W,
-                                              float* S, int warp) {
-  using C = Cfg<E>;
-  const int mt = warp & 3, nt0 = (warp >> 2) * C::CF;
-  Acc acc[C::CF];
-#pragma unroll
-  for (int c = 0; c < C::CF; ++c) wmma::fill_fragment(acc[c], 0.f);
-#pragma unroll 4
-  for (int kt = 0; kt < C::ET; ++kt) {
-    ARow a;
-    wmma::load_matrix_sync(a, A + mt * 16 * C::LDE + kt * 16, C::LDE);
-#pragma unroll
-    for (int c = 0; c < C::CF; ++c) {
-      BCol b;
-      wmma::load_matrix_sync(b, W + (nt0 + c) * 16 * C::LDE + kt * 16,
-                             C::LDE);
-      wmma::mma_sync(acc[c], a, b, acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C::CF; ++c)
-    wmma::store_matrix_sync(S + mt * 16 * C::LDS + (nt0 + c) * 16, acc[c],
-                            C::LDS, wmma::mem_row_major);
-}
-
-// acc (the warp's fragments of a 64 x E tile) += H (64 x FC) . W (FC x E)
-template <int E>
-__device__ __forceinline__ void wide_product(Acc (&acc)[Cfg<E>::YF],
-                                             const bf16* H, const bf16* W,
-                                             int warp) {
-  using C = Cfg<E>;
-  const int mt = warp & 3, nt0 = (warp >> 2) * C::YF;
-#pragma unroll
-  for (int kt = 0; kt < C::CT; ++kt) {
-    ARow a;
-    wmma::load_matrix_sync(a, H + mt * 16 * C::LDC + kt * 16, C::LDC);
-#pragma unroll
-    for (int j = 0; j < C::YF; ++j) {
-      BRow b;
-      wmma::load_matrix_sync(b, W + kt * 16 * C::LDE + (nt0 + j) * 16,
-                             C::LDE);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-// the warp's fragments of a 64 x E tile (+ bias) to rows row0.. of out,
-// through a 16 x 16 f32 staging tile of the warp
-template <int E, typename T>
-__device__ __forceinline__ void store_tile(Acc (&acc)[Cfg<E>::YF],
-                                           float* stage, T* out,
-                                           const float* bias, int row0,
-                                           int rows, int warp, int lane) {
-  using C = Cfg<E>;
-  const int mt = warp & 3, nt0 = (warp >> 2) * C::YF;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const int row = row0 + mt * 16 + r;
-#pragma unroll
-  for (int j = 0; j < C::YF; ++j) {
-    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (row < rows) {
-      const int col = (nt0 + j) * 16 + c0;
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        v[q] = stage[r * 16 + c0 + q] + (bias ? bias[col + q] : 0.f);
-      store8(out + (size_t)row * E + col, v);
-    }
-    __syncwarp();
-  }
 }
 
 struct Drop {
@@ -239,49 +98,6 @@ struct Drop {
   }
 };
 
-template <int E, typename T>
-__global__ void __launch_bounds__(kThreads)
-ffn_fwd_kernel(const T* __restrict__ x, const bf16* __restrict__ w1t,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, T* __restrict__ y, int rows,
-               int F, bool relu, Drop drop) {
-  using C = Cfg<E>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* W1c = reinterpret_cast<bf16*>(smem + C::kTile);
-  bf16* W2c = reinterpret_cast<bf16*>(smem + C::kTile + C::kW);
-  float* S = reinterpret_cast<float*>(smem + C::kTile + 2 * C::kW);
-  bf16* H = reinterpret_cast<bf16*>(smem + C::kTile + 2 * C::kW + C::kS);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BM;
-
-  load_rows<E>(X, x, row0, rows, BM);
-  Acc acc[C::YF];
-#pragma unroll
-  for (int j = 0; j < C::YF; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += C::FC) {
-    __syncthreads();  // the previous chunk is done with W1c, W2c and H
-    load_rows<E>(W1c, w1t + (size_t)f0 * E, 0, C::FC, C::FC);
-    load_rows<E>(W2c, w2 + (size_t)f0 * E, 0, C::FC, C::FC);
-    __syncthreads();
-    chunk_product<E>(X, W1c, S, warp);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * C::FC; i += kThreads) {
-      const int r = i / C::FC, c = i - r * C::FC;
-      const float hp = round_bf16(S[r * C::LDS + c] + b1[f0 + c]);
-      float h = round_bf16(act(hp, relu));
-      if (drop.thr)
-        h = drop.keep(row0 + r, f0 + c) ? round_bf16(h * drop.inv_keep) : 0.f;
-      H[r * C::LDC + c] = __float2bfloat16_rn(h);
-    }
-    __syncthreads();
-    wide_product<E>(acc, H, W2c, warp);
-  }
-  __syncthreads();
-  store_tile<E>(acc, S + warp * 256, y, b2, row0, rows, warp, lane);
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -289,21 +105,369 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int E, typename T>
-int launch_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
-               const void* b2, void* y, int rows, int F, bool relu, Drop drop,
-               cudaStream_t stream) {
-  using C = Cfg<E>;
-  cudaError_t err = set_smem(ffn_fwd_kernel<E, T>, C::kFwd);
+// 2 consumer warpgroups and a producer warpgroup (one thread of which
+// issues the loads): whole warpgroups, so that setmaxnreg can move the
+// producer's registers to the consumers
+constexpr int kRowThreads = 3 * 128;
+constexpr int kMaxSlots = 6;               // weight slots: 3 chunks ahead
+
+// ----------------------------- kernel 9 -----------------------------------
+
+// The forward's two layouts of a block tile. kPing: 128 rows, each
+// consumer warpgroup owns 64 of them and all 64 hidden columns of every
+// chunk, stages its own h and syncs on its own 128-thread barrier, so the
+// two warpgroups drift apart and one's elementwise step runs under the
+// other's wgmma; each streamed weight chunk serves 128 rows. kSplit: 64
+// rows shared by both warpgroups, each taking 32 hidden columns of a chunk
+// (m64n32k16) and alternate 64-column boxes of y, a 256-thread barrier a
+// chunk (y's registers, 64 x E f32 a warpgroup under kPing, do not fit at
+// E 384).
+enum FwdMode { kPing = 0, kSplit = 1 };
+
+// weight slots of eb boxes that fit beside tbuf x tiles of xb boxes, hbox
+// staging boxes, the mbarriers and the alignment slack (kMaxSlots at most)
+constexpr int fwd_slots(int eb, int xb, int hbox, int tbuf) {
+  const long long left = (long long)kSmemMax -
+                         (long long)(tbuf * xb + hbox) * kBox - 16 * tbuf -
+                         16 * kMaxSlots - 1024;
+  const long long n = left / ((long long)eb * kBox);
+  return (int)(n < kMaxSlots ? n : kMaxSlots);
+}
+
+template <int E, int MODE>
+struct FwdCfg {
+  static_assert(E % 64 == 0 && E <= 384, "width must be 64, 128, 192, 384");
+  static_assert(MODE == kSplit || E <= 192, "kPing holds 64 x E f32 of y");
+  static constexpr int EB = E / 64;              // 64-column boxes of a row
+  static constexpr int RT = MODE == kPing ? 128 : 64;  // rows of a tile
+  static constexpr int XB = RT / 64 * EB;        // boxes of an x tile
+  static constexpr int NH = MODE == kPing ? 32 : 16;  // h_pre floats
+  static constexpr int NY = MODE == kPing ? EB : (EB + 1) / 2;  // y boxes
+  // h staging boxes: kPing two a warpgroup (chunk c + 1's elementwise step
+  // runs while chunk c's y product still reads its box); kSplit two shared
+  // boxes (both warpgroups finish chunk c's wait before either writes
+  // chunk c + 1's)
+  static constexpr int HBOX = MODE == kPing ? 4 : 2;
+  // Shared memory, bytes from a 1024-byte boundary: TBUF x tiles, NSLOT
+  // weight slots (EB boxes of 64 hidden rows: a chunk of w1t or of w2),
+  // the h staging boxes, the mbarriers. Two x tiles where that still
+  // leaves every weight slot, else one. Constants of the instance, so
+  // every offset and ring index is (the consumers' registers are few:
+  // 64 x E f32 of y and 64 x 64 of h_pre at E 192).
+  static constexpr int TBUF =
+      fwd_slots(EB, XB, HBOX, 2) >= kMaxSlots ? 2 : 1;
+  static constexpr int NSLOT = fwd_slots(EB, XB, HBOX, TBUF);
+  // kPing issues chunk c + 1's w1t rows while chunk c - 1's and c's w2
+  // rows are still in use: 4 slots at least
+  static_assert(NSLOT >= (MODE == kPing ? 4 : 3), "too few weight slots");
+  static constexpr uint32_t SLOTS = TBUF * XB * kBox;
+  static constexpr uint32_t STAGING = SLOTS + NSLOT * EB * kBox;
+  static constexpr uint32_t BARS = STAGING + HBOX * kBox;
+  static constexpr size_t BYTES = BARS + 16 * (TBUF + NSLOT) + 1024;
+};
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The tanh GELU as 0.5 z (1 + tanh(u)) = z / (1 + e^(-2u)), u = sqrt(2/pi)
+// (z + 0.044715 z^3): exp2 and a reciprocal on the special-function unit,
+// no branch (tanhf's branches keep the compiler from interleaving the
+// elements of a chunk), a few f32 ulps from tanhf's form before the bf16
+// rounding that follows
+__device__ __forceinline__ float gelu(float z) {
+  const float u = kC * fmaf(0.044715f * z, z * z, z);
+  return __fdividef(z, 1.f + __expf(-2.f * u));
+}
+
+// The forward's elementwise step on a thread's h_pre values of the chunk
+// at hidden column f0 (NH / 4 column pairs at f0 + cb0 + 8 i (+ 1), tile
+// rows r and r + 8, rows row0 and row0 + 8 of x), branch free: + b1,
+// bf16, act, bf16, dropout; packed bf16 pairs into the swizzled staging
+// box
+template <bool RELU, bool DROP, int NH>
+__device__ __forceinline__ void hidden_step(const float (&hp)[NH],
+                                            const float* __restrict__ b1,
+                                            uint8_t* hst, int r, int cb0,
+                                            int f0, int row0,
+                                            const Drop& drop) {
+  uint32_t key0 = 0, key1 = 0;  // the rows' dropout keys
+  if (DROP) {
+    key0 = dropout_key(drop.seed, (uint32_t)row0);
+    key1 = dropout_key(drop.seed, (uint32_t)(row0 + 8));
+  }
+#pragma unroll
+  for (int i = 0; i < NH / 4; ++i) {
+    const int cb = cb0 + 8 * i;
+    const float2 bb = *reinterpret_cast<const float2*>(b1 + f0 + cb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float z = round_bf16(hp[4 * i + 2 * h + e] + (e ? bb.y : bb.x));
+        float hv = round_bf16(RELU ? fmaxf(z, 0.f) : gelu(z));
+        if (DROP) {
+          const bool keep = dropout_bits(h ? key1 : key0,
+                                         (uint32_t)(f0 + cb + e)) >= drop.thr;
+          hv = keep ? round_bf16(hv * drop.inv_keep) : 0.f;
+        }
+        v[e] = hv;
+      }
+      *reinterpret_cast<uint32_t*>(hst + swz(r + 8 * h, cb)) =
+          pack2(v[0], v[1]);
+    }
+  }
+}
+
+// y (rows, E) = (dropped act(x . w1 + b1)) . w2 + b2, cast once to TY.
+// x_map: x (rows, E) bf16, boxes of 64 x 64; w1_map, w2_map: w1t and w2
+// (Fp, E) bf16, boxes of 64 x 64. Block b owns the row tiles b, b +
+// gridDim.x, ... of RT rows; the hidden dimension goes by chunks of 64
+// columns, whose w1t and w2 rows the producer streams through the slot
+// ring (w1t's, then w2's).
+//
+// A consumer warpgroup's chunk: hp = x . w1c^T (wgmma, K-major from the
+// x tile and the w1t slot) in f32 registers; the elementwise step in
+// registers (+ b1, bf16, act, bf16, dropout) into a bf16 staging box; y +=
+// h . w2c (the staging box as A, the w2 slot read N-major in place). Under
+// kPing the next chunk's hp product is issued before this chunk's y
+// product and waited for alone (wgmma.wait_group 1), so each warpgroup's
+// elementwise step also runs under its own y product.
+template <int E, int MODE, typename TY>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ffn_fwd_rows_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap w1_map,
+                        const __grid_constant__ CUtensorMap w2_map,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ b2, TY* __restrict__ y,
+                        int rows, int Fp, bool relu, Drop drop) {
+  using C = FwdCfg<E, MODE>;
+  constexpr int EB = C::EB, RT = C::RT, XB = C::XB;
+  constexpr int tbuf = C::TBUF, nslot = C::NSLOT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t slot0 = base + C::SLOTS, h0 = base + C::STAGING;
+  const uint32_t tile_full = base + C::BARS;
+  const uint32_t tile_empty = tile_full + 8 * tbuf;
+  const uint32_t slot_full = tile_empty + 8 * tbuf;
+  const uint32_t slot_empty = slot_full + 8 * nslot;
+  const int tiles = (rows + RT - 1) / RT, chunks = Fp / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto x_s = [&](int buf) { return base + (uint32_t)buf * XB * kBox; };
+  auto slot_s = [&](int s) { return slot0 + (uint32_t)s * EB * kBox; };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < tbuf; ++b) {
+      mbar_init(tile_full + 8 * b, 1);
+      mbar_init(tile_empty + 8 * b, 8);  // each consumer warp
+    }
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(slot_full + 8 * s, 1);
+      mbar_init(slot_empty + 8 * s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0, li = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++li) {
+        const int buf = li % tbuf;
+        mbar_wait(tile_empty + 8 * buf, ((li / tbuf) & 1) ^ 1);
+        mbar_expect_tx(tile_full + 8 * buf, XB * kBox);
+        for (int q = 0; q < XB; ++q)  // rows 64 (q / EB), cols 64 (q % EB)
+          tma_load(x_s(buf) + q * kBox, &x_map, tile_full + 8 * buf,
+                   (q % EB) * 64, t * RT + (q / EB) * 64);
+        for (int c = 0; c < chunks; ++c) {
+          for (int w = 0; w < 2; ++w, ++it) {  // w1t rows, then w2 rows
+            const int s = it % nslot;
+            mbar_wait(slot_empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(slot_full + 8 * s, EB * kBox);
+#pragma unroll
+            for (int kb = 0; kb < EB; ++kb)
+              tma_load(slot_s(s) + kb * kBox, w ? &w2_map : &w1_map,
+                       slot_full + 8 * s, kb * 64, c * 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // the consumers: thread t holds rows r, r + 8 and columns 8 i + cq (+ 1)
+  // of each wgmma tile. kPing: warpgroup wg owns rows [64 wg, 64 wg + 64)
+  // of the tile and every y box; kSplit: hidden columns [32 wg, 32 wg +
+  // 32) of each chunk and the y boxes wg, wg + 2, ...
+  // warpgroup index, broadcast so that the compiler knows it is the same
+  // across a warp: a branch on it is then not divergent, and ptxas need
+  // not serialize the wgmma around it
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r = (warp & 3) * 16 + (lane >> 2), cq = (lane & 3) * 2;
+  const int cb0 = (MODE == kPing ? 0 : wg * 32) + cq;
+  const uint32_t xrow = MODE == kPing ? (uint32_t)wg * EB * kBox : 0u;
+  const uint32_t hcol = MODE == kPing ? 0u : (uint32_t)wg * 32 * 128;
+  auto h_s = [&](int c) {
+    return h0 + (uint32_t)((MODE == kPing ? 2 * wg : 0) + (c & 1)) * kBox;
+  };
+  auto ybox = [&](int j) { return MODE == kPing ? j : 2 * j + wg; };
+  auto hp_product = [&](float (&hp)[C::NH], int buf, int s) {
+#pragma unroll
+    for (int i = 0; i < C::NH; ++i) hp[i] = 0.f;
+    fence_regs(hp);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < EB; ++kb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_k(x_s(buf) + xrow + kb * kBox + kk * 32);
+        const uint64_t db = desc_k(slot_s(s) + kb * kBox + hcol + kk * 32);
+        if constexpr (MODE == kPing)
+          wgmma64<0, 0>(hp, da, db);
+        else
+          wgmma32<0, 0>(hp, da, db);
+      }
+    wgmma_commit();
+  };
+  int it = 0, li = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++li) {
+    const int buf = li % tbuf;
+    const int row0 = t * RT + (MODE == kPing ? wg * 64 : 0) + r;
+    float ya[C::NY][32];
+#pragma unroll
+    for (int j = 0; j < C::NY; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ya[j][i] = 0.f;
+    fence_acc(ya);
+    float hp[C::NH];
+    mbar_wait(tile_full + 8 * buf, (li / tbuf) & 1);
+    mbar_wait(slot_full + 8 * (it % nslot), (it / nslot) & 1);
+    hp_product(hp, buf, it % nslot);
+
+    for (int c = 0; c < chunks; ++c) {
+      const int s1 = (it + 2 * c) % nslot, s2 = (it + 2 * c + 1) % nslot;
+      // chunk c's hp (and, under kPing, y up to chunk c - 2; under kSplit
+      // y up to chunk c - 1)
+      if (MODE == kPing && c > 0)
+        wgmma_wait1();
+      else
+        wgmma_wait();
+      fence_regs(hp);
+      fence_acc(ya);
+      if (lane == 0) {
+        mbar_arrive(slot_empty + 8 * s1);  // w1t's rows are done
+        if (c == chunks - 1) mbar_arrive(tile_empty + 8 * buf);
+        const int done = MODE == kPing ? c - 2 : c - 1;  // w2's rows
+        if (done >= 0)
+          mbar_arrive(slot_empty + 8 * ((it + 2 * done + 1) % nslot));
+      }
+
+      // the elementwise step: hp becomes the dropped bf16 h
+      uint8_t* hst = smem_raw + (h_s(c) - raw);
+      const int f0 = c * 64;
+      if (relu) {
+        if (drop.thr)
+          hidden_step<true, true>(hp, b1, hst, r, cb0, f0, row0, drop);
+        else
+          hidden_step<true, false>(hp, b1, hst, r, cb0, f0, row0, drop);
+      } else {
+        if (drop.thr)
+          hidden_step<false, true>(hp, b1, hst, r, cb0, f0, row0, drop);
+        else
+          hidden_step<false, false>(hp, b1, hst, r, cb0, f0, row0, drop);
+      }
+      fence_async_smem();
+      if constexpr (MODE == kPing)
+        bar_sync(1 + wg, 128);
+      else
+        bar_sync(1, 256);
+
+      if (MODE == kPing && c + 1 < chunks) {  // chunk c + 1's hp first
+        const int n1 = (it + 2 * c + 2) % nslot;
+        mbar_wait(slot_full + 8 * n1, ((it + 2 * c + 2) / nslot) & 1);
+        hp_product(hp, buf, n1);
+      }
+      // y += h (64 x 64) . w2c (64 x E), this warpgroup's boxes
+      mbar_wait(slot_full + 8 * s2, ((it + 2 * c + 1) / nslot) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_k(h_s(c) + kk * 32);
+#pragma unroll
+        for (int j = 0; j < C::NY; ++j)
+          if (ybox(j) < EB)
+            wgmma64<0, 1>(ya[j], da,
+                          desc_mn(slot_s(s2) + ybox(j) * kBox + kk * 2048));
+      }
+      wgmma_commit();
+      if (MODE == kSplit && c + 1 < chunks) {
+        const int n1 = (it + 2 * c + 2) % nslot;
+        mbar_wait(slot_full + 8 * n1, ((it + 2 * c + 2) / nslot) & 1);
+        hp_product(hp, buf, n1);
+      }
+    }
+    wgmma_wait();
+    fence_acc(ya);
+    if (lane == 0) {  // the last chunks' w2 rows
+      if (MODE == kPing && chunks >= 2)
+        mbar_arrive(slot_empty + 8 * ((it + 2 * chunks - 3) % nslot));
+      mbar_arrive(slot_empty + 8 * ((it + 2 * chunks - 1) % nslot));
+    }
+    it += 2 * chunks;
+
+    // y + b2, cast once to TY
+#pragma unroll
+    for (int j = 0; j < C::NY; ++j) {
+      if (ybox(j) >= EB) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = ybox(j) * 64 + 8 * i + cq;
+        const float c0 = b2[col], c1 = b2[col + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= rows) continue;
+          const float v0 = ya[j][4 * i + 2 * h] + c0;
+          const float v1 = ya[j][4 * i + 2 * h + 1] + c1;
+          if constexpr (sizeof(TY) == 4)
+            *reinterpret_cast<float2*>(y + (size_t)row * E + col) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(y + (size_t)row * E + col) =
+                pack2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <int E, int MODE, typename TY>
+int launch_fwd(const void* x, const void* w1t, const void* b1,
+               const void* w2, const void* b2, void* y, int rows, int Fp,
+               bool relu, Drop drop, cudaStream_t stream) {
+  using C = FwdCfg<E, MODE>;
+  CUtensorMap xm, w1m, w2m;
+  if (!make_map(&xm, x, rows, E, 64) || !make_map(&w1m, w1t, Fp, E, 64) ||
+      !make_map(&w2m, w2, Fp, E, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(ffn_fwd_rows_kernel<E, MODE, TY>, C::BYTES);
   if (err != cudaSuccess) return (int)err;
-  ffn_fwd_kernel<E, T><<<(rows + BM - 1) / BM, kThreads, C::kFwd, stream>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w1t),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<T*>(y), rows, F, relu, drop);
+  const int tiles = (rows + C::RT - 1) / C::RT;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  ffn_fwd_rows_kernel<E, MODE, TY><<<grid, kRowThreads, C::BYTES, stream>>>(
+      xm, w1m, w2m, static_cast<const float*>(b1),
+      static_cast<const float*>(b2), static_cast<TY*>(y), rows, Fp, relu,
+      drop);
   return (int)cudaGetLastError();
 }
 
-// act(z) as act computes it, and act'(z), with one tanh
+// ----------------------------- kernel 10 ----------------------------------
+
+// act(z) and act'(z), with one tanh
 __device__ __forceinline__ void act_pair(float z, bool relu, float& a,
                                          float& da) {
   if (relu) {
@@ -318,15 +482,10 @@ __device__ __forceinline__ void act_pair(float z, bool relu, float& a,
        0.5f * z * (1.f - t * t) * kC * (1.f + 0.134145f * z * z);
 }
 
-// 2 consumer warpgroups and a producer warpgroup (one thread of which
-// issues the loads): whole warpgroups, so that setmaxnreg can move the
-// producer's registers to the consumers
-constexpr int kRowThreads = 3 * 128;
-constexpr int kMaxSlots = 6;               // weight slots: 3 chunks ahead
-
-// shared memory of the row kernel, bytes from a 1024-byte boundary: tbuf
-// x and dy tiles (E / 64 boxes each), nslot weight slots (E / 64 boxes of
-// 64 hidden rows), the dpre and h staging boxes, the column-sum exchange
+// shared memory of the backward's row kernel, bytes from a 1024-byte
+// boundary: tbuf x and dy tiles (E / 64 boxes each), nslot weight slots (E
+// / 64 boxes of 64 hidden rows), the dpre and h staging boxes, the
+// column-sum exchange
 // (2 parities x 2 warpgroups x 4 warps x 32 floats), the mbarriers
 struct RowSmem {
   int eb, tbuf, nslot;
@@ -670,28 +829,31 @@ int launch_bwd(const void* x, const void* w1t, const void* b1,
 
 extern "C" {
 
-// x, y: (rows, E), bf16 (x_f32 = 0) or f32; w1t and w2: (F, E) bf16 (w1
-// transposed), F a multiple of 64; b1 (F,) and b2 (E,) f32. All contiguous,
-// 16-byte aligned. Dropout: keep a hidden unit when its hash bits are >= thr
-// (thr = 0: eval mode), scale kept ones by inv_keep. Returns a cudaError_t
-// code (0 = launched).
+// x: (rows, E) bf16 (the wrapper rounds an f32 x once); y: (rows, E), f32
+// when y_f32, else bf16; w1t and w2: (F, E) bf16 (w1 transposed), F a
+// multiple of 64; b1 (F,) and b2 (E,) f32. All contiguous, 16-byte
+// aligned. Dropout: keep a hidden unit when its hash bits are >= thr (thr
+// = 0: eval mode), scale kept ones by inv_keep. The tile layout is kPing
+// for E <= 192, kSplit for E 384. Returns a cudaError_t code (0 =
+// launched).
 int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
             const void* b2, void* y, int rows, int E, int F, int relu,
-            int x_f32, unsigned seed, unsigned thr, float inv_keep,
+            int y_f32, unsigned seed, unsigned thr, float inv_keep,
             void* stream) {
-  if (F % 64 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (F % 64 || F <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const Drop drop{seed, thr, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(W)                                                              \
-  (x_f32 ? launch_fwd<W, float>(x, w1t, b1, w2, b2, y, rows, F, relu, drop, \
-                                s)                                          \
-         : launch_fwd<W, bf16>(x, w1t, b1, w2, b2, y, rows, F, relu, drop, s))
+#define FWD(W, M)                                                           \
+  (y_f32 ? launch_fwd<W, M, float>(x, w1t, b1, w2, b2, y, rows, F, relu,    \
+                                   drop, s)                                 \
+         : launch_fwd<W, M, bf16>(x, w1t, b1, w2, b2, y, rows, F, relu,     \
+                                  drop, s))
   switch (E) {
-    case 64: return FWD(64);
-    case 128: return FWD(128);
-    case 192: return FWD(192);
-    case 384: return FWD(384);
+    case 64: return FWD(64, kPing);
+    case 128: return FWD(128, kPing);
+    case 192: return FWD(192, kPing);
+    case 384: return FWD(384, kSplit);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FWD

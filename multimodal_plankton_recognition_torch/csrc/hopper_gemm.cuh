@@ -2,9 +2,10 @@
 // (sm_90a): mbarriers, TMA and wgmma building blocks, a persistent row
 // GEMM and a weight-gradient GEMM with a fixed-order group sum.
 // Included by csrc/attention_block.cu (kernels 11-12), csrc/ffn.cu
-// (kernel 10's weight gradients), csrc/mbconv_bwd.cu (kernel 16's y1, dx
-// and dwexp) and csrc/hopper_gemm.cu (the entry points the card tests
-// call).
+// (kernels 9 and 10: their row kernels on the building blocks, kernel 10's
+// weight gradients), csrc/mbconv_bwd.cu (kernel 15's passes on the
+// building blocks and its dwproj; kernel 16's y1, dx and dwexp) and
+// csrc/hopper_gemm.cu (the entry points the card tests call).
 //
 //   gemm_rows_kernel: C (M, N) = A (M, K) . B (+ f32 bias), one bf16
 //     rounding. A persistent block owns a BN-column slice of C and keeps
@@ -127,6 +128,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the box at (column c0, row c1, matrix c2) of a 3-D `map`
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -596,6 +619,27 @@ inline bool make_map(CUtensorMap* map, const void* p, int rows, int cols,
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(p), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `mats` row-major (rows, cols) bf16 matrices back to back, in boxes of 64
+// columns x box_rows rows of one matrix, 128-byte swizzle: a box that
+// reaches past a matrix's last row loads zeros there and stores nothing
+// there, so a box never mixes two matrices
+inline bool make_map3(CUtensorMap* map, const void* p, int mats, int rows,
+                      int cols, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (!encode || mats <= 0 || !tma_ok(p, rows, cols)) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(p), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -64,11 +64,6 @@ __host__ __device__ inline size_t align16(size_t n) {
 }
 // spatial splits of a sample in squeeze_kernel
 inline int squeeze_splits(int HW) { return cdiv(HW, 1024); }
-// pixel splits of a weight gradient's sum (gemm_pixels blocks)
-inline int pixel_splits(long long N) {
-  const int s = cdiv(N, 2048);
-  return s < 1 ? 1 : (s > 128 ? 128 : s);
-}
 
 // ---------------------------------------------------------------------------
 // tiled product on CUDA cores: a 64 x 64 output tile per block of 256
@@ -120,34 +115,6 @@ __device__ void gemm_rows(Tile& s, int mlen, int K, int n0, int ncols,
       const int j = e % BN, kk = e / BN;
       s.b[kk][j] = (k0 + kk < K && n0 + j < ncols) ? bload(k0 + kk, n0 + j)
                                                    : 0.f;
-    }
-    __syncthreads();
-    tile_fma(s, acc);
-    __syncthreads();
-  }
-}
-
-// acc[i][j] = sum_{n in [p0, p1)} A(n, m0 + i') * D(n, n0 + j'): a weight
-// gradient's tile over a range of pixels, for rows m0 + i' < mrows and
-// columns n0 + j' < ncols.
-template <class ALoad, class DLoad>
-__device__ void gemm_pixels(Tile& s, int p0, int p1, int m0, int mrows,
-                            int n0, int ncols, ALoad aload, DLoad dload,
-                            float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int q0 = p0; q0 < p1; q0 += BK) {
-    for (int e = threadIdx.x; e < BK * BM; e += kThreads) {
-      const int m = e % BM, kk = e / BM;
-      s.a[kk][m] = (q0 + kk < p1 && m0 + m < mrows) ? aload(q0 + kk, m0 + m)
-                                                    : 0.f;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += kThreads) {
-      const int j = e % BN, kk = e / BN;
-      s.b[kk][j] = (q0 + kk < p1 && n0 + j < ncols) ? dload(q0 + kk, n0 + j)
-                                                    : 0.f;
     }
     __syncthreads();
     tile_fma(s, acc);

@@ -29,12 +29,21 @@
 //
 // Design. Every global reduction is a pass that writes per-block partial
 // sums and a reduce kernel adding them in a fixed order (no float
-// atomics).
-// Kernel 15: a3 is recomputed, never stored: da3 (a product over cout) is
-// recomputed in each of the three passes that need it (the dse sums, the
-// dz2 sums, the dy2 apply); its products run on CUDA cores in f32, and the
-// weight gradient dwproj is a grid of (64 x 64 weight tile, pixel split)
-// blocks with a fixed-order sum over the splits.
+// atomics), so a run repeats bit for bit.
+// Kernel 15: three passes (kb_pass_kernel) over blocks of one sample's
+// 64-pixel tile x a 64-channel slice of mid, each loading the wproj slice
+// and its y2 and dy3 tiles by TMA (3-D maps (B, HW, C): a tile never mixes
+// two samples, so the per-sample SE sums stay exact and in order) and
+// recomputing da3 = dy3 . wproj^T on wgmma in f32 (never rounded, as the
+// TPU kernel keeps it; recomputing costs less than storing it in f32):
+// the squeeze and dse sums per tile; after the SE kernels (the tiles'
+// sums added per sample, one block a sample, then one thread per SE
+// weight gradient), BN2's sums of dz2 and dz2 xhat2 (per tile, per
+// sample, then over the samples), writing a3 = bf16(a2 se) once to
+// scratch; then dy2. dwproj =
+// a3^T . dy3 runs on the shared weight-gradient GEMM (hopper_gemm.cuh
+// wgrad_kernel, fixed-order group sums). mid and cout must be multiples of
+// 8 (TMA's 16-byte rows: ops/mbconv.py check_channels).
 // Kernel 16: its three products run on the shared Hopper GEMM
 // (hopper_gemm.cuh, wgmma fed by TMA): y1 once into scratch (bf16, as the
 // TPU kernel rounds it), dx = bf16(dy1 . wexp^T) with wexp read K-major in
@@ -56,50 +65,321 @@ namespace {
 
 // --------------------------- kernel 15 ------------------------------------
 
-// da3 tile: rows of pixels base + m (m < mlen), columns j0 .. of mid
-__device__ __forceinline__ void da3_tile(Tile& s, const bf16* __restrict__ dy3,
-                                         const bf16* __restrict__ wproj,
-                                         size_t base, int mlen, int j0,
-                                         int mid, int cout, float acc[4][4]) {
-  gemm_rows(
-      s, mlen, cout, j0, mid,
-      [&](int m, int o) { return f32(dy3[(base + m) * cout + o]); },
-      [&](int o, int c) { return f32(wproj[(size_t)c * cout + o]); }, acc);
+using hg::boxes;
+using hg::bulk_commit;
+using hg::bulk_wait;
+using hg::desc_k;
+using hg::fence_async_smem;
+using hg::fence_regs;
+using hg::kBox;
+using hg::mbar_expect_tx;
+using hg::mbar_fence_init;
+using hg::mbar_init;
+using hg::mbar_wait;
+using hg::smem_u32;
+using hg::swz;
+using hg::tma_load;
+using hg::tma_load3;
+using hg::tma_store3;
+using hg::wgmma64;
+using hg::wgmma_commit;
+using hg::wgmma_fence;
+using hg::wgmma_wait;
+
+// The three passes over (sample, 64-pixel tile, 64-channel slice of mid):
+// kDse: per tile, the column sums of a2 (the squeeze) and of da3 * a2 (dse);
+// kSums: the column sums of dz2 and dz2 * xhat2, and a3 = bf16(a2 se) to
+// scratch; kApply: dy2. Each recomputes da3 = dy3 . wproj^T for its tile on
+// wgmma (f32, never rounded, as the TPU kernel keeps it): 1.4 us of tensor
+// work at stage2_block1, where storing it in f32 and reading it back would
+// move 116 MB.
+enum KbPass { kDse = 0, kSums = 1, kApply = 2 };
+
+// Shared memory of a pass block, bytes from a 1024-byte boundary: kb boxes
+// of the wproj slice (64 channels x 64 of cout each), then `stages` (1 or
+// 2) stages of kb boxes of a dy3 tile and one box of a y2 tile (written
+// over in place by a3 or dy2, then stored from there), 64 x 8 per-channel
+// floats, the 4 warps' column sums (2 x 4 x 64 floats), two mbarriers.
+struct KbSmem {
+  int kb, stages;
+  __host__ __device__ uint32_t stage(int s) const {
+    return (uint32_t)(kb + s * (kb + 1)) * kBox;
+  }
+  __host__ __device__ uint32_t par() const { return stage(stages); }
+  __host__ __device__ uint32_t red() const { return par() + 64 * 8 * 4; }
+  __host__ __device__ uint32_t bar() const { return red() + 2 * 4 * 64 * 4; }
+  __host__ __device__ uint32_t bytes() const { return bar() + 16 + 1024; }
+};
+
+// SiLU(z) and SiLU'(z) from one exp. a is mbconv.cuh's silu(z) bit for bit
+// (expf and an IEEE division), so the recomputed a2 is the one kernel 14's
+// squeeze_kernel summed (a2_of); SiLU'(z), which no forward rounds, takes
+// the sigmoid from the fast reciprocal (a few f32 ulps)
+__device__ __forceinline__ void silu_pair(float z, float& a, float& da) {
+  const float d = 1.f + expf(-z);
+  const float s = __fdividef(1.f, d);
+  a = z / d;
+  da = s * (1.f + z * (1.f - s));
 }
 
-// grid (B * tiles per sample, mid / BN): dsep[tile][c] = sum of da3 * a2
-// over the tile's pixels (tiles never straddle samples)
-__global__ void __launch_bounds__(kThreads)
-dse_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dy3,
-           const float* __restrict__ g2, const float* __restrict__ b2,
-           const float* __restrict__ mv2, const bf16* __restrict__ wproj,
-           float* __restrict__ dsep, int HW, int tps, int mid, int cout) {
-  __shared__ Tile s;
-  const int b = blockIdx.x / tps, p0 = (blockIdx.x % tps) * BM;
-  const int mlen = min(BM, HW - p0), j0 = blockIdx.y * BN;
-  const size_t base = (size_t)b * HW + p0;
-  float acc[4][4];
-  da3_tile(s, dy3, wproj, base, mlen, j0, mid, cout, acc);
-  float v0[4][4];
-  const int r = tile_row(), c = tile_col();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ch = j0 + c + j;
-      v0[i][j] = (r + i < mlen && ch < mid)
-                     ? acc[i][j] * a2_of(f32(y2[(base + r + i) * mid + ch]),
-                                         g2, b2, mv2, mid, ch)
-                     : 0.f;
+// Block (g, j): channels [64 j, 64 j + 64) of mid, tiles [g T / G, (g +
+// 1) T / G) in order (G = gridDim.x; with one stage, G = T). Tile t: sample b = t / tps, pixels
+// [64 (t % tps), + 64) of it (tps = ceil(HW / 64) tiles a sample, so a
+// tile never mixes two samples: the 3-D maps load zeros past HW and store
+// nothing there). One warpgroup: thread 0 loads the wproj slice once and
+// the tiles by TMA, two stages deep (tile k + 2 into the stage tile k
+// leaves); per tile the warpgroup runs da3 (m64n64, K = cout, both
+// operands K-major), then the pass's epilogue in registers. part: kDse
+// writes (sq, dse) at part + (0, T mid) + t mid, kSums (sums of dz2, of
+// dz2 xhat2) likewise; se, ds: (B, mid) from se_bwd_kernel; db2s, dg2s:
+// BN2's sums (kApply).
+template <int PASS>
+__global__ void __launch_bounds__(128)
+    kb_pass_kernel(const __grid_constant__ CUtensorMap y2_map,
+                   const __grid_constant__ CUtensorMap dy3_map,
+                   const __grid_constant__ CUtensorMap wp_map,
+                   const __grid_constant__ CUtensorMap out_map,
+                   const float* __restrict__ g2, const float* __restrict__ b2,
+                   const float* __restrict__ mv2,
+                   const float* __restrict__ se,
+                   const float* __restrict__ ds,
+                   const float* __restrict__ db2s,
+                   const float* __restrict__ dg2s, float* __restrict__ part,
+                   int T, int HW, int tps, int mid, int cout, float n_inv,
+                   int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int kb = boxes(cout);
+  const KbSmem L{kb, stages};
+  uint8_t* gen = smem_raw + (base - raw);
+  float* par = reinterpret_cast<float*>(gen + L.par());
+  float* red = reinterpret_cast<float*>(gen + L.red());
+  const uint32_t bar = base + L.bar();
+  const int j0 = blockIdx.y * 64;
+  const int t0 = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int n = (int)((long long)(blockIdx.x + 1) * T / gridDim.x) - t0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the dy3 and y2 tiles of the block's k-th tile into stage k % 2 (the
+  // first also brings the wproj slice)
+  auto load = [&](int k) {
+    const int t = t0 + k, st = k & 1;
+    const int b = t / tps, p0 = (t % tps) * 64;
+    const uint32_t full = bar + 8 * st, dst = base + L.stage(st);
+    mbar_expect_tx(full, (k == 0 ? 2 * kb + 1 : kb + 1) * kBox);
+    for (int q = 0; q < kb; ++q) {
+      if (k == 0) tma_load(base + q * kBox, &wp_map, full, q * 64, j0);
+      tma_load3(dst + q * kBox, &dy3_map, full, q * 64, p0, b);
     }
-  tile_col_sums(v0, v0, dsep + blockIdx.x * (size_t)mid, nullptr, j0, mid);
+    tma_load3(dst + kb * kBox, &y2_map, full, j0, p0, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    mbar_fence_init();
+    load(0);
+    if (n > 1) load(1);
+  }
+  // per channel: m2, 1 / sqrt(v2 + eps), g2, b2, then db2 / N and dg2 / N
+  // (kApply), and per tile the sample's se and ds / HW
+  if (tid < 64) {
+    const int ch = j0 + tid;
+    const bool in = ch < mid;
+    float* q = par + tid * 8;
+    q[0] = in ? mv2[ch] : 0.f;
+    q[1] = in ? inv_std(mv2[mid + ch]) : 0.f;
+    q[2] = in ? g2[ch] : 0.f;
+    q[3] = in ? b2[ch] : 0.f;
+    if (PASS == kApply) {
+      q[6] = in ? db2s[ch] * n_inv : 0.f;
+      q[7] = in ? dg2s[ch] * n_inv : 0.f;
+    }
+  }
+
+  for (int k = 0; k < n; ++k) {
+    const int t = t0 + k, st = k & 1;
+    const int b = t / tps, p0 = (t % tps) * 64;
+    const uint32_t dy3_s = base + L.stage(st), y_s = dy3_s + kb * kBox;
+    if (PASS != kDse && tid < 64) {
+      const int ch = j0 + tid;
+      const bool in = ch < mid;
+      par[tid * 8 + 4] = in ? se[(size_t)b * mid + ch] : 0.f;
+      par[tid * 8 + 5] = in ? ds[(size_t)b * mid + ch] : 0.f;
+    }
+    __syncthreads();  // par written; the previous tile's red read
+    mbar_wait(bar + 8 * st, (k >> 1) & 1);
+
+    // da3 (64 pixels x 64 channels) = dy3 tile . wproj slice^T, f32
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    wgmma_fence();
+    for (int q = 0; q < kb; ++q)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (q * 64 + kk * 16 < cout)
+          wgmma64<0, 0>(acc, desc_k(dy3_s + q * kBox + kk * 32),
+                        desc_k(base + q * kBox + kk * 32));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+
+    // thread t holds pixels r, r + 8 and channels 8 i + cq (+ 1) of the
+    // tile; channel groups past mid (the last slice of a mid that is not a
+    // multiple of 64) are skipped, a branch the whole block takes alike
+    const int r = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
+    float c0[16], c1[16];  // its column sums over its two pixels
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) c0[2 * i + e] = c1[2 * i + e] = 0.f;
+      if (j0 + 8 * i >= mid) continue;
+      const float* q0 = par + (8 * i + cq) * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r + 8 * h;
+        const bool valid = p0 + row < HW;
+        uint32_t* yp = reinterpret_cast<uint32_t*>(
+            gen + (y_s - base) + swz(row, 8 * i + cq));
+        const float2 yv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(yp));
+        float out[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* q = q0 + 8 * e;
+          const float xhat = ((e ? yv.y : yv.x) - q[0]) * q[1];
+          const float z = rb(xhat * q[2] + q[3]);
+          float a, da;
+          silu_pair(z, a, da);
+          a = rb(a);  // a2
+          const float d3 = acc[4 * i + 2 * h + e];
+          if (PASS == kDse) {
+            c0[2 * i + e] += valid ? a : 0.f;
+            c1[2 * i + e] += d3 * a;  // dy3 is 0 past HW
+            continue;
+          }
+          const float dz = (d3 * q[4] + q[5]) * da;
+          if (PASS == kSums) {
+            out[e] = a * q[4];  // a3
+            c0[2 * i + e] += valid ? dz : 0.f;
+            c1[2 * i + e] += valid ? dz * xhat : 0.f;
+          } else {
+            out[e] = (q[2] * q[1]) * (dz - q[6] - xhat * q[7]);  // dy2
+          }
+        }
+        if (PASS != kDse) *yp = hg::pack2(out[0], out[1]);
+      }
+    }
+
+    if (PASS != kDse) {  // a3 or dy2 back where y2 was, then out by TMA
+      fence_async_smem();
+      __syncthreads();
+      if (tid == 0) {
+        tma_store3(&out_map, y_s, j0, p0, b);
+        bulk_commit();
+      }
+    }
+    if (PASS != kApply) {
+      // column sums over the warp's 16 pixels, then the 4 warps in order
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          c0[q] += __shfl_xor_sync(0xffffffffu, c0[q], o);
+          c1[q] += __shfl_xor_sync(0xffffffffu, c1[q], o);
+        }
+      if (lane < 4)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            red[warp * 64 + 8 * i + cq + e] = c0[2 * i + e];
+            red[256 + warp * 64 + 8 * i + cq + e] = c1[2 * i + e];
+          }
+      __syncthreads();
+      if (j0 + (tid & 63) < mid) {
+        const int c = tid & 63, w = tid >> 6;  // w: which of the two sums
+        const float* rw = red + w * 256 + c;
+        part[((size_t)w * T + t) * mid + j0 + c] =
+            ((rw[0] + rw[64]) + rw[128]) + rw[192];
+      }
+    }
+    // every thread is done with this stage (a barrier followed the
+    // epilogue): tile k + 2 into it, once its store has read it
+    if (tid == 0 && k + 2 < n) {
+      if (PASS != kDse) hg::bulk_wait_read();
+      load(k + 2);
+    }
+  }
+  if (PASS != kDse && tid == 0) bulk_wait();
 }
 
-// grid B: the SE chain and its backward per sample. Writes se, ds / HW,
-// s, dsv (B, mid) and ub, dsu (B, r).
+// grid (B, mid / 32, 2): out[(a B + b) mid + c] = the sum over sample b's
+// tps tiles, in a fixed order, of part[(a T + b tps + t) mid + c] (the
+// per-tile sums of array a of a pass). Block: 32 channels x 32 lanes;
+// lane l adds tiles l, l + 32, ..., then lane 0 the 32 lanes in order.
+__global__ void __launch_bounds__(1024)
+    tile_sums_kernel(const float* __restrict__ part, int tps, int mid,
+                     float* __restrict__ out) {
+  __shared__ float red[32][33];
+  const int tx = threadIdx.x % 32, l = threadIdx.x / 32;
+  const int b = blockIdx.x, a = blockIdx.z, c = blockIdx.y * 32 + tx;
+  const size_t T = (size_t)gridDim.x * tps;
+  float acc = 0.f;
+  if (c < mid)
+    for (int t = l; t < tps; t += 32)
+      acc += part[(a * T + (size_t)b * tps + t) * mid + c];
+  red[l][tx] = acc;
+  __syncthreads();
+  if (l == 0 && c < mid) {
+    float s = 0.f;
+    for (int q = 0; q < 32; ++q) s += red[q][tx];
+    out[((size_t)a * gridDim.x + b) * mid + c] = s;
+  }
+}
+
+template <int PASS>
+cudaError_t launch_pass(const CUtensorMap& y2m, const CUtensorMap& dy3m,
+                        const CUtensorMap& wpm, const CUtensorMap& outm,
+                        const float* g2, const float* b2, const float* mv2,
+                        const float* se, const float* ds, const float* db2s,
+                        const float* dg2s, float* part, int T, int HW,
+                        int tps, int mid, int cout, float n_inv,
+                        cudaStream_t st) {
+  // Where each block gets 6 tiles or more and two fit on an SM, as many
+  // blocks as fit on the card at once, each walking its share of the tiles
+  // two stages deep; else one tile a block, one stage, and more blocks to
+  // an SM (measured on an H100 at B0's shapes: the deep blocks win at
+  // 112^2 to 28^2, where there are many tiles a slice, and lose at 14^2
+  // and 7^2, where they hold fewer blocks to an SM)
+  const int slices = boxes(mid), kb = boxes(cout);
+  auto fit = [&](int stages) {  // blocks an SM: shared memory, 16 at most
+    const long long n = (long long)hg::kSmemMax /
+                        (KbSmem{kb, stages}.bytes() + 1024);
+    return n < 1 ? 1LL : (n > 16 ? 16LL : n);
+  };
+  long long g = hg::sm_count() * fit(2) / slices;
+  const int stages = fit(2) >= 2 && g >= 1 && T >= 6 * g ? 2 : 1;
+  if (stages == 1) g = T;
+  const size_t smem = KbSmem{kb, stages}.bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kb_pass_kernel<PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  kb_pass_kernel<PASS><<<dim3((int)g, slices), 128, smem, st>>>(
+      y2m, dy3m, wpm, outm, g2, b2, mv2, se, ds, db2s, dg2s, part, T, HW,
+      tps, mid, cout, n_inv, stages);
+  return cudaGetLastError();
+}
+
+// grid B: the SE chain and its backward per sample, from the per-sample
+// sums sq of a2 and dse of da3 a2 (B, mid). Writes se, ds / HW, s, dsv
+// (B, mid) and ub, dsu (B, r).
 __global__ void __launch_bounds__(kThreads)
-se_bwd_kernel(const float* __restrict__ sq, const float* __restrict__ dsep,
-              int S, int tps, int HW, const bf16* __restrict__ wr,
+se_bwd_kernel(const float* __restrict__ sq, const float* __restrict__ dse,
+              int HW, const bf16* __restrict__ wr,
               const float* __restrict__ br, const bf16* __restrict__ we,
               const float* __restrict__ be, int mid, int r,
               float* __restrict__ se_o, float* __restrict__ ds_o,
@@ -113,12 +393,9 @@ se_bwd_kernel(const float* __restrict__ sq, const float* __restrict__ dsep,
   float* ub = su + r;
   float* dsu = ub + r;
   const int b = blockIdx.x;
-  se_sample(sq, S, HW, b, wr, br, we, be, mid, r, s, su, ub, se);
-  for (int c = threadIdx.x; c < mid; c += kThreads) {
-    float dse = 0.f;
-    for (int t = 0; t < tps; ++t) dse += dsep[((size_t)b * tps + t) * mid + c];
-    dsv[c] = dse * se[c] * (1.f - se[c]);
-  }
+  se_sample(sq, 1, HW, b, wr, br, we, be, mid, r, s, su, ub, se);
+  for (int c = threadIdx.x; c < mid; c += kThreads)
+    dsv[c] = dse[(size_t)b * mid + c] * se[c] * (1.f - se[c]);
   __syncthreads();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int j = warp; j < r; j += kThreads / 32) {
@@ -172,91 +449,6 @@ se_wgrad_kernel(const float* __restrict__ s, const float* __restrict__ dsv,
     for (int b = 0; b < B; ++b) acc += dsu[(size_t)b * r + idx];
     dbr[idx] = acc;
   }
-}
-
-// grid (N / BM, mid / BN). APPLY = false: column sums of dz2 and dz2 xhat2
-// per tile into part; APPLY = true: dy2 from the reduced sums db2s, dg2s.
-template <bool APPLY>
-__global__ void __launch_bounds__(kThreads)
-dz2_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dy3,
-           const float* __restrict__ g2, const float* __restrict__ b2,
-           const float* __restrict__ mv2, const bf16* __restrict__ wproj,
-           const float* __restrict__ se, const float* __restrict__ ds,
-           const float* __restrict__ db2s, const float* __restrict__ dg2s,
-           bf16* __restrict__ dy2, float* __restrict__ part, int N, int HW,
-           int mid, int cout) {
-  __shared__ Tile s;
-  const int n0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
-  const int mlen = min(BM, N - n0);
-  float acc[4][4];
-  da3_tile(s, dy3, wproj, (size_t)n0, mlen, j0, mid, cout, acc);
-  float v0[4][4], v1[4][4];
-  const int r = tile_row(), c = tile_col();
-  const float nf = (float)N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ch = j0 + c + j;
-      const int n = n0 + r + i;
-      float dz = 0.f, xhat = 0.f;
-      if (r + i < mlen && ch < mid) {
-        const float inv = inv_std(mv2[mid + ch]);
-        xhat = (f32(y2[(size_t)n * mid + ch]) - mv2[ch]) * inv;
-        const float z = rb(xhat * g2[ch] + b2[ch]);
-        const size_t bc = (size_t)(n / HW) * mid + ch;
-        dz = (acc[i][j] * se[bc] + ds[bc]) * dsilu(z);
-        if (APPLY)
-          dy2[(size_t)n * mid + ch] = to_bf(
-              (g2[ch] * inv) * (dz - db2s[ch] / nf - xhat * (dg2s[ch] / nf)));
-      }
-      v0[i][j] = dz;
-      v1[i][j] = dz * xhat;
-    }
-  if (!APPLY) {
-    const size_t T = gridDim.x;
-    tile_col_sums(v0, v1, part + blockIdx.x * (size_t)mid,
-                  part + (T + blockIdx.x) * (size_t)mid, j0, mid);
-  }
-}
-
-// Weight gradient out[k][j] = sum over pixels of A(n, k) D(n, j), split:
-// grid (rows / BM, cols / BN, splits); part[split][k][j]
-template <class ALoad, class DLoad>
-__device__ void wgrad_tile(Tile& s, long long N, int rows, int cols,
-                           ALoad aload, DLoad dload, float* part) {
-  const int S = gridDim.z, sp = blockIdx.z;
-  const int chunk = cdiv(N, S);
-  const int p0 = sp * chunk, p1 = (int)min((long long)p0 + chunk, N);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[4][4];
-  gemm_pixels(s, p0, p1, m0, rows, n0, cols, aload, dload, acc);
-  const int r = tile_row(), c = tile_col();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (m0 + r + i < rows && n0 + c + j < cols)
-        part[((size_t)sp * rows + m0 + r + i) * cols + n0 + c + j] =
-            acc[i][j];
-}
-
-// dwproj partials: A = a3 (recomputed), D = dy3
-__global__ void __launch_bounds__(kThreads)
-wproj_grad_kernel(const bf16* __restrict__ y2, const bf16* __restrict__ dy3,
-                  const float* __restrict__ g2, const float* __restrict__ b2,
-                  const float* __restrict__ mv2, const float* __restrict__ se,
-                  float* __restrict__ part, int N, int HW, int mid,
-                  int cout) {
-  __shared__ Tile s;
-  wgrad_tile(
-      s, N, mid, cout,
-      [&](int n, int c) {
-        const float a2 =
-            a2_of(f32(y2[(size_t)n * mid + c]), g2, b2, mv2, mid, c);
-        return rb(a2 * se[(size_t)(n / HW) * mid + c]);
-      },
-      [&](int n, int o) { return f32(dy3[(size_t)n * cout + o]); }, part);
 }
 
 // --------------------------- kernel 16 ------------------------------------
@@ -475,38 +667,6 @@ cudaError_t launch_dw_bwd(bool apply, const bf16* x, const bf16* y1,
   return cudaGetLastError();
 }
 
-struct KbScratch {
-  float *sq, *dsep, *se, *ds, *s, *dsv, *ub, *dsu, *part;
-  size_t floats;
-};
-
-KbScratch kb_scratch(float* base, int B, int H, int W, int mid, int r,
-                     int cout) {
-  const int HW = H * W;
-  const long long N = (long long)B * HW;
-  const int S = squeeze_splits(HW), tps = cdiv(HW, BM);
-  const size_t part_a = 2 * (size_t)cdiv(N, BM) * mid;
-  const size_t part_b = (size_t)pixel_splits(N) * mid * cout;
-  KbScratch k;
-  size_t o = 0;
-  auto take = [&](size_t n) {
-    float* p = base ? base + o : nullptr;
-    o += n;
-    return p;
-  };
-  k.sq = take((size_t)B * S * mid);
-  k.dsep = take((size_t)B * tps * mid);
-  k.se = take((size_t)B * mid);
-  k.ds = take((size_t)B * mid);
-  k.s = take((size_t)B * mid);
-  k.dsv = take((size_t)B * mid);
-  k.ub = take((size_t)B * r);
-  k.dsu = take((size_t)B * r);
-  k.part = take(part_a > part_b ? part_a : part_b);
-  k.floats = o;
-  return k;
-}
-
 struct KaScratch {
   float *dwp, *bnp, *wpart;
   bf16 *dy1, *y1;
@@ -542,70 +702,84 @@ KaScratch ka_scratch(unsigned char* base, int B, int H, int W, int cin,
 
 extern "C" {
 
-// Bytes of scratch mbconv_kb_bwd needs.
-long long mbconv_kb_bwd_scratch(int B, int H, int W, int mid, int r,
-                                int cout) {
-  return (long long)(kb_scratch(nullptr, B, H, W, mid, r, cout).floats * 4);
-}
+#define CHECK(call)                        \
+  do {                                     \
+    const cudaError_t e_ = (call);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
 
 // y2, dy3: (B, H, W, mid) and (B, H, W, cout) bf16; g2, b2, mv2, wr, br,
 // we, be, wproj as mbconv_kb_fwd; outs: dy2 (B, H, W, mid) bf16, dwproj
 // (mid, cout), dwr (mid, r), dbr (r), dwe (r, mid), dbe (mid), dg2 (mid),
-// db2 (mid) f32. Returns a cudaError_t code.
+// db2 (mid) f32. Scratch (ops/mbconv.py kb_bwd_scratch): part 2 x B
+// ceil(H W / 64) x mid f32; sample: 2 x B x mid per-sample sums, se, ds,
+// s, dsv (B, mid), then ub, dsu (B, r) f32; a3 (B H W, mid) bf16; wpart
+// groups x mid cout f32, 1 <=
+// groups <= ceil(B H W / 64). mid and cout multiples of 8 (16-byte rows),
+// y2, dy3, wproj and a3 16-byte aligned. Returns a cudaError_t code.
 int mbconv_kb_bwd(const void* y2, const void* dy3, const void* g2,
                   const void* b2, const void* mv2, const void* wr,
                   const void* br, const void* we, const void* be,
                   const void* wproj, void* dy2, void* dwproj, void* dwr,
                   void* dbr, void* dwe, void* dbe, void* dg2, void* db2,
-                  void* scratch, int B, int H, int W, int mid, int r,
-                  int cout, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || mid < 1 || r < 1 || cout < 1)
+                  void* part, void* sample, void* a3, void* wpart, int B,
+                  int H, int W, int mid, int r, int cout, int groups,
+                  void* stream) {
+  const long long N = (long long)B * H * W;
+  if (B < 1 || H < 1 || W < 1 || mid < 1 || r < 1 || cout < 1 || mid % 8 ||
+      cout % 8 || groups < 1 || groups > cdiv(N, 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int HW = H * W;
-  const long long N = (long long)B * HW;
-  const int S = squeeze_splits(HW), tps = cdiv(HW, BM);
-  const KbScratch k =
-      kb_scratch(static_cast<float*>(scratch), B, H, W, mid, r, cout);
-  const bf16* y2b = static_cast<const bf16*>(y2);
-  const bf16* dy3b = static_cast<const bf16*>(dy3);
+  const int HW = H * W, tps = cdiv(HW, 64), T = B * tps;
+  CUtensorMap y2m, dy3m, wpm, a3m, dy2m;
+  if (!hg::make_map3(&y2m, y2, B, HW, mid, 64) ||
+      !hg::make_map3(&dy3m, dy3, B, HW, cout, 64) ||
+      !hg::make_map(&wpm, wproj, mid, cout, 64) ||
+      !hg::make_map3(&a3m, a3, B, HW, mid, 64) ||
+      !hg::make_map3(&dy2m, dy2, B, HW, mid, 64))
+    return (int)cudaErrorInvalidValue;
   const float* g2f = static_cast<const float*>(g2);
   const float* b2f = static_cast<const float*>(b2);
   const float* mv = static_cast<const float*>(mv2);
-  const bf16* wrb = static_cast<const bf16*>(wr);
-  const bf16* web = static_cast<const bf16*>(we);
-  const bf16* wpb = static_cast<const bf16*>(wproj);
   float* db2f = static_cast<float*>(db2);
   float* dg2f = static_cast<float*>(dg2);
+  float* pt = static_cast<float*>(part);
+  float* samp = static_cast<float*>(sample);  // per-sample pass sums
+  float* se = samp + 2 * (size_t)B * mid;
+  float* ds = se + (size_t)B * mid;
+  float* s = ds + (size_t)B * mid;
+  float* dsv = s + (size_t)B * mid;
+  float* ub = dsv + (size_t)B * mid;
+  float* dsu = ub + (size_t)B * r;
 
-  squeeze_kernel<<<dim3(B, cdiv(mid, CC), S), kThreads, 0, st>>>(
-      y2b, g2f, b2f, mv, k.sq, HW, mid);
-  dse_kernel<<<dim3(B * tps, cdiv(mid, BN)), kThreads, 0, st>>>(
-      y2b, dy3b, g2f, b2f, mv, wpb, k.dsep, HW, tps, mid, cout);
+  const dim3 sums_grid(B, cdiv(mid, 32), 2);
+  // the squeeze and dse sums per tile, then per sample; the SE chain and
+  // its backward per sample; the SE weight gradients
+  CHECK(launch_pass<kDse>(y2m, dy3m, wpm, y2m, g2f, b2f, mv, nullptr,
+                          nullptr, nullptr, nullptr, pt, T, HW, tps, mid,
+                          cout, 0.f, st));
+  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, tps, mid, samp);
   const size_t smem = (3 * (size_t)mid + 3 * (size_t)r) * 4;
   se_bwd_kernel<<<B, kThreads, smem, st>>>(
-      k.sq, k.dsep, S, tps, HW, wrb, static_cast<const float*>(br), web,
-      static_cast<const float*>(be), mid, r, k.se, k.ds, k.s, k.dsv, k.ub,
-      k.dsu);
+      samp, samp + (size_t)B * mid, HW, static_cast<const bf16*>(wr),
+      static_cast<const float*>(br), static_cast<const bf16*>(we),
+      static_cast<const float*>(be), mid, r, se, ds, s, dsv, ub, dsu);
   se_wgrad_kernel<<<cdiv(2LL * r * mid + mid + r, kThreads), kThreads, 0,
-                    st>>>(k.s, k.dsv, k.ub, k.dsu, B, mid, r,
+                    st>>>(s, dsv, ub, dsu, B, mid, r,
                           static_cast<float*>(dwr), static_cast<float*>(dbr),
                           static_cast<float*>(dwe), static_cast<float*>(dbe));
-  const int T = cdiv(N, BM);
-  const dim3 grid(T, cdiv(mid, BN));
-  dz2_kernel<false><<<grid, kThreads, 0, st>>>(
-      y2b, dy3b, g2f, b2f, mv, wpb, k.se, k.ds, nullptr, nullptr, nullptr,
-      k.part, (int)N, HW, mid, cout);
-  reduce(k.part, 2, T, mid, db2f, dg2f, 0.f, st);
-  dz2_kernel<true><<<grid, kThreads, 0, st>>>(
-      y2b, dy3b, g2f, b2f, mv, wpb, k.se, k.ds, db2f, dg2f,
-      static_cast<bf16*>(dy2), nullptr, (int)N, HW, mid, cout);
-  const int SP = pixel_splits(N);
-  wproj_grad_kernel<<<dim3(cdiv(mid, BM), cdiv(cout, BN), SP), kThreads, 0,
-                      st>>>(y2b, dy3b, g2f, b2f, mv, k.se, k.part, (int)N, HW,
-                            mid, cout);
-  reduce(k.part, 1, SP, mid * cout, static_cast<float*>(dwproj), nullptr,
-         0.f, st);
+  // BN2's sums (and a3), then dy2
+  CHECK(launch_pass<kSums>(y2m, dy3m, wpm, a3m, g2f, b2f, mv, se, ds,
+                           nullptr, nullptr, pt, T, HW, tps, mid, cout, 0.f,
+                           st));
+  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, tps, mid, samp);
+  reduce(samp, 2, B, mid, db2f, dg2f, 0.f, st);
+  CHECK(launch_pass<kApply>(y2m, dy3m, wpm, dy2m, g2f, b2f, mv, se, ds,
+                            db2f, dg2f, pt, T, HW, tps, mid, cout,
+                            1.f / (float)N, st));
+  // dwproj = a3^T . dy3, fixed-order group sums
+  CHECK(hg::wgrad(a3, dy3, static_cast<float*>(wpart), groups, dwproj,
+                  nullptr, (int)N, mid, cout, st));
   return (int)cudaGetLastError();
 }
 
@@ -616,12 +790,6 @@ long long mbconv_ka_bwd_scratch(int B, int H, int W, int cin, int mid, int k,
                                groups)
       .bytes;
 }
-
-#define CHECK(call)                        \
-  do {                                     \
-    const cudaError_t e_ = (call);         \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 // x: (B, H, W, cin) bf16; dy2: (B, H, W, mid) bf16; wexp, g1, b1 as
 // mbconv_ka_fwd (null without an expand, then mid == cin; expand says

@@ -11,11 +11,12 @@ module names are the Flax tree's (``stem_conv``, ``stage2_block1.expand_bn``,
 ``se.reduce`` ...), so ``convert.py`` maps it one to one.
 
 ``fused`` (the card's ``fused_mbconv``) declares the same modules and only
-picks the route of a block: in train mode, at stride 1, in bf16, the block
-core runs ``ops.mbconv.mbconv_core`` (kernels 13-16 on the card) and BN3 +
-the residual run here from its statistics, as the JAX fused block does;
-eval mode, stride-2 blocks, f32 and ``fused=False`` take the plain
-composition (cuDNN convolutions on the card). The spatial means (SE and
+picks the route of a block: in train mode, at stride 1, the block core
+runs ``ops.mbconv.mbconv_core`` (kernels 13-16 on the card) on x rounded to
+bf16, in either model dtype, and BN3 + the residual run here in the model
+dtype from its statistics, as the JAX fused block does; eval mode,
+stride-2 blocks and ``fused=False`` take the plain composition (cuDNN
+convolutions on the card). The spatial means (SE and
 head) sum in f32 and round once to the compute dtype, as ``jnp.mean`` of a
 bf16 array does.
 """
@@ -88,8 +89,7 @@ class _MBConv(nn.Module):
         self.project_bn = BatchNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (self.fused and self.training and self.stride == 1
-                and x.dtype == torch.bfloat16):
+        if self.fused and self.training and self.stride == 1:
             y = self._fused(x)
         else:
             y = x
@@ -101,8 +101,9 @@ class _MBConv(nn.Module):
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
         """The block core through ``mbconv_core`` on NHWC views of the
-        weights and of x, then BN3 from its batch statistics (the JAX
-        block's ``_bn``), updating the three running statistics."""
+        weights and of x (both rounded to bf16 inside it), then BN3 in f32
+        from its batch statistics, cast to x's dtype (the JAX block's
+        ``_bn``), updating the three running statistics (f32)."""
         mid, k = self.dw_conv.out_channels, self.kernel
         se = self.se
         wexp = g1 = b1 = None

@@ -4,8 +4,10 @@ backward.
 
 Port of ``multimodal_plankton_recognition_tpu/ops/pallas/experimental/
 ffn.py``: the TPU kernels ``_fwd_kernel`` (kernel 9) and ``_bwd_kernel``
-(kernel 10) become ``ffn_fwd_kernel`` and the backward of ``csrc/ffn.cu``
-(``ffn_bwd_rows_kernel`` and the shared Hopper GEMM's weight gradients).
+(kernel 10) become the forward and the backward of ``csrc/ffn.cu``
+(``ffn_fwd_rows_kernel``; ``ffn_bwd_rows_kernel`` and the shared Hopper
+GEMM's weight gradients), both built on ``csrc/hopper_gemm.cuh``'s
+``wgmma`` and TMA pieces.
 ``ffn_reference`` and ``ffn_bwd_reference`` are their plain PyTorch
 versions, with the TPU kernels' rounding points (``ffn.py:101-185``,
 ``:272-281``):
@@ -53,8 +55,7 @@ ACTIVATIONS = ("gelu", "relu")
 #: model widths E the CUDA kernels are instantiated for (csrc/ffn.cu): the
 #: ViTs' 192 and 384 and the profile transformers' 64, 128 and 192
 SUPPORTED_WIDTHS = (64, 128, 192, 384)
-#: the kernels' hidden chunks are 64 columns (32 in the forward for E >
-#: 192); F is zero-padded to this
+#: the kernels' hidden chunks are 64 columns; F is zero-padded to this
 F_ALIGN = 64
 _C = 0.7978845608028654  # sqrt(2/pi), flax nn.gelu's tanh approximation
 BF16 = torch.bfloat16
@@ -145,7 +146,7 @@ _SCALARS = [ctypes.c_int] * 5 + [ctypes.c_uint, ctypes.c_uint,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """ffn_fwd(x, w1t, b1, w2, b2, y, rows, E, F, relu, x_f32, seed, thr,
+    """ffn_fwd(x, w1t, b1, w2, b2, y, rows, E, F, relu, y_f32, seed, thr,
     inv_keep, stream); ffn_bwd(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2, db2,
     dpre, h, colpart, wpart, groups, rows, E, F, relu, dx_f32, seed, thr,
     inv_keep, stream). Both return a cudaError_t."""
@@ -224,14 +225,16 @@ def ffn_fwd(x, w1, b1, w2, b2, activation: str = "gelu",
     dtype. ``ffn_fwd.launches`` counts launches."""
     if _on_cpu(x):
         return ffn_reference(x, w1, b1, w2, b2, activation, dropout_p, seed)
-    (x2, w1t, b1p, w2p, b2f, rows, e, _, fp, (relu, x_f32), thr,
+    (x2, w1t, b1p, w2p, b2f, rows, e, _, fp, (relu, y_f32), thr,
      inv_keep) = _prep(x, w1, b1, w2, b2, activation, dropout_p)
+    # h_pre reads x rounded to bf16 (the TPU kernel's _bf): once here
+    xb = x2 if x2.dtype == BF16 else x2.to(BF16)
     y = torch.empty_like(x2)
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.ffn_fwd(x2.data_ptr(), w1t.data_ptr(), b1p.data_ptr(),
+        err = lib.ffn_fwd(xb.data_ptr(), w1t.data_ptr(), b1p.data_ptr(),
                           w2p.data_ptr(), b2f.data_ptr(), y.data_ptr(), rows,
-                          e, fp, relu, x_f32, seed & _MASK32, thr, inv_keep,
+                          e, fp, relu, y_f32, seed & _MASK32, thr, inv_keep,
                           torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "ffn_fwd")
     ffn_fwd.launches += 1

@@ -8,10 +8,12 @@ mbconv.py``. Its four TPU kernels become hand-written Hopper kernels:
 * ``ka_fwd`` (``_ka_fwd_kernel``, kernel 13) and ``kb_fwd``
   (``_kb_fwd_kernel``, kernel 14) in ``csrc/mbconv_fwd.cu``;
 * ``kb_bwd`` (``_kb_bwd_kernel``, kernel 15) and ``ka_bwd``
-  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``; kernel 16's
-  three products (y1, dx, dwexp) run on the shared Hopper GEMM
-  (``csrc/hopper_gemm.cuh``), so it takes cin and mid only in multiples
-  of 8 (``check_channels``).
+  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``, on the shared
+  Hopper GEMM's pieces (``csrc/hopper_gemm.cuh``: TMA, ``wgmma``): kernel
+  15's passes recompute da3 on ``wgmma`` and its dwproj runs on the
+  weight-gradient GEMM, kernel 16's three products (y1, dx, dwexp) on the
+  GEMM; so they take cin, mid and cout only in multiples of 8
+  (``check_channels``).
 
 ``*_reference`` are their plain PyTorch versions, with the bf16 rounding
 points of ``mbconv_reference`` (``mbconv.py:771-818``): y1, z1, z2, su, sv
@@ -45,7 +47,7 @@ from . import build, hopper_gemm
 from .attention import _aligned
 
 __all__ = ["mbconv_core", "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd",
-           "check_channels",
+           "check_channels", "kb_bwd_scratch",
            "ka_fwd_reference", "kb_fwd_reference", "kb_bwd_reference",
            "ka_bwd_reference", "EPS"]
 
@@ -217,7 +219,9 @@ def _fwd_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("mbconv_bwd")
-    _declare(lib, "mbconv_kb_bwd", 19, 6)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mbconv_kb_bwd.argtypes = [vp] * 22 + [ci] * 7 + [vp]
+    lib.mbconv_kb_bwd.restype = ci
     _declare(lib, "mbconv_ka_bwd", 13, 8)
     return lib
 
@@ -239,15 +243,37 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach().float().contiguous()
 
 
-def check_channels(cin: int, mid: int) -> None:
-    """Kernel 16 reads rows of cin and mid bf16 channels with TMA and
-    16-byte copies: each must be a multiple of 8 (16 bytes). Raises
-    before any launch otherwise."""
-    for name, c in (("cin", cin), ("mid", mid)):
-        if c % 8:
+def check_channels(cin: Optional[int] = None, mid: Optional[int] = None,
+                   cout: Optional[int] = None) -> None:
+    """Kernels 15 and 16 read rows of cin, mid and cout bf16 channels with
+    TMA and 16-byte copies: each given must be a multiple of 8 (16 bytes).
+    Raises before any launch otherwise."""
+    for name, c in (("cin", cin), ("mid", mid), ("cout", cout)):
+        if c is not None and c % 8:
             raise ValueError(f"{name} = {c}: a row of {c} bf16 channels is "
-                             f"not a multiple of 16 bytes, which kernel 16 "
-                             f"needs")
+                             f"not a multiple of 16 bytes, which kernels 15 "
+                             f"and 16 need")
+
+
+def kb_bwd_scratch(b: int, h: int, w: int, mid: int, r: int, cout: int,
+                   groups: int):
+    """Kernel 15's scratch: ({name: (byte offset, bytes)}, total bytes),
+    each part on a 256-byte boundary: the per-tile f32 column sums, 2 × T
+    × mid for T = B·ceil(HW / 64) tiles (the first pass's sums of a2 and
+    da3·a2, later the second pass's of dz2 and dz2·xhat2); per sample, f32:
+    those sums added over the sample's tiles (2, B, mid), the SE values
+    se, ds / HW, s and dsv (B, mid), and ub and dsu (B, r); bf16(a2·se)
+    (B·H·W, mid) bf16, which dwproj reads; dwproj's f32 group partials
+    (groups, mid·cout)."""
+    tiles = b * -(-(h * w) // 64)
+    sizes = {"part": 2 * tiles * mid * 4,
+             "sample": (6 * b * mid + 2 * b * r) * 4,
+             "a3": b * h * w * mid * 2, "wpart": groups * mid * cout * 4}
+    layout, offset = {}, 0
+    for name, size in sizes.items():
+        layout[name] = (offset, size)
+        offset += -(-size // 256) * 256
+    return layout, offset
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -324,16 +350,25 @@ def kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
     _check_x(dy3, "dy3")
     b, h, w, mid = y2.shape
     r, cout = wr.shape[1], wproj.shape[1]
-    f32 = functools.partial(torch.empty, dtype=torch.float32,
-                            device=y2.device)
-    dy2 = torch.empty_like(y2)
+    check_channels(mid=mid, cout=cout)
+    device = y2.device
+    f32 = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    dy2 = torch.empty(y2.shape, dtype=BF16, device=device)
     outs = (f32((mid, cout)), f32((mid, r)), f32(r), f32((r, mid)),
             f32(mid), f32(mid), f32(mid))
-    _call(_bwd_lib(), "mbconv_kb_bwd",
-          (y2.contiguous(), dy3.contiguous(), _f32(g2), _f32(b2),
-           _f32(torch.stack([m2, v2])), _bf(wr), _f32(br), _bf(we),
-           _f32(be), _bf(wproj), dy2, *outs),
-          (b, h, w, mid, r, cout), y2.device)
+    groups = hopper_gemm.wgrad_groups(b * h * w, mid, cout,
+                                      hopper_gemm.sm_count(device))
+    layout, total = kb_bwd_scratch(b, h, w, mid, r, cout, groups)
+    scratch = torch.empty(total, dtype=torch.uint8, device=device)
+    parts = [scratch.data_ptr() + offset for offset, _ in layout.values()]
+    tensors = (_aligned(y2), _aligned(dy3), _f32(g2), _f32(b2),
+               _f32(torch.stack([m2, v2])), _bf(wr), _f32(br), _bf(we),
+               _f32(be), _aligned(_bf(wproj)), dy2, *outs)
+    lib = _bwd_lib()
+    err = lib.mbconv_kb_bwd(*map(_ptr, tensors), *parts, b, h, w, mid, r,
+                            cout, groups,
+                            torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch(err, lib, "mbconv_kb_bwd")
     kb_bwd.launches += 1
     return (dy2, *outs)
 

@@ -177,12 +177,13 @@ def test_efficientnet_f32_matches_flax(b0_variables, train):
 @pytest.mark.parametrize("dtype,train,fused,calls", [
     (torch.bfloat16, True, True, 12),    # the 12 stride-1 blocks
     (torch.bfloat16, False, True, 0),    # eval: the plain composition
-    (torch.float32, True, True, 0),      # the kernels take bf16 only
+    (torch.float32, True, True, 12),     # f32 too: x rounded to bf16
     (torch.bfloat16, True, False, 0),    # fused_mbconv off
 ])
 def test_block_routes(dtype, train, fused, calls, monkeypatch):
     """``fused`` only picks the route: ``mbconv_core`` for the stride-1
-    blocks of a bf16 train-mode forward, the plain composition otherwise."""
+    blocks of a train-mode forward in either dtype, as the JAX fused block,
+    the plain composition otherwise."""
     seen = []
 
     def counting_core(*args):

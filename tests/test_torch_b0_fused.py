@@ -1,11 +1,13 @@
-"""The bf16 fused MBConv route against the JAX package's: one fused block
-and the whole fused EfficientNet-B0 in train mode, the port's plain
-``mbconv_core`` (the kernels' CPU versions) against the Flax modules
-through the Pallas kernels in interpret mode, on weights converted by
-``convert.py``.
+"""The fused MBConv route against the JAX package's: one fused block (bf16,
+and f32 at stride 1, where both frameworks round x to bf16 for the kernels
+and run BN3 in f32) and the whole fused EfficientNet-B0 in train mode, the
+port's plain ``mbconv_core`` (the kernels' CPU versions) against the Flax
+modules through the Pallas kernels in interpret mode, on weights converted
+by ``convert.py``.
 
 Tolerances, of max(1, max|·|) of the JAX value: one block to 3e-2 and its
-running statistics to 2e-2 (``tests/test_mbconv.py``'s own bounds); the
+running statistics to 2e-2 (``tests/test_mbconv.py``'s own bounds), in
+either dtype: the f32 block's core is the bf16 kernels' all the same; the
 whole fused B0 statistically, correlation > 0.95 and relative RMS < 0.3,
 as ``tests/test_mbconv.py`` holds the JAX fused net to its unfused one.
 """
@@ -19,11 +21,14 @@ import torch
 from multimodal_plankton_recognition_tpu.models.image.efficientnet import (
     EfficientNet as JaxEfficientNet, _MBConv as JaxMBConv,
 )
+from multimodal_plankton_recognition_tpu.ops.pallas.experimental import (
+    mbconv as jax_mbconv,
+)
 from multimodal_plankton_recognition_torch.convert import from_flax
+from multimodal_plankton_recognition_torch.models.image import efficientnet
 from multimodal_plankton_recognition_torch.models.image.efficientnet import (
     EfficientNet, _MBConv,
 )
-
 
 
 def _np(tree):
@@ -88,6 +93,49 @@ def test_fused_block_matches_jax_fused(cin, cout, er, stride, k,
         got = block(xt.contiguous(memory_format=torch.channels_last))
     assert got.dtype == torch.bfloat16
     _close(got.permute(0, 2, 3, 1).float().numpy(), want, 3e-2, "block")
+    _stats_close(block, upd["batch_stats"], 2e-2)
+
+
+@pytest.mark.parametrize("cin,cout,er,stride,k",
+                         [b for b in BLOCKS if b[3] == 1])
+def test_f32_fused_block_matches_jax_fused(cin, cout, er, stride, k,
+                                           monkeypatch):
+    """One f32 train-mode block at stride 1 takes the kernel route in both
+    frameworks (the JAX block has no dtype gate): x rounded to bf16 for
+    ``mbconv_core``, BN3 and the residual in f32; output and the three
+    running statistics (f32) against the Flax block through the Pallas
+    kernels (interpret mode), and both cores reached once."""
+    monkeypatch.setenv("PLANKTON_FUSED_INTERPRET", "1")
+    calls = {"jax": 0, "port": 0}
+
+    def counting(side, real):
+        def core(*args):
+            calls[side] += 1
+            return real(*args)
+        return core
+
+    monkeypatch.setattr(jax_mbconv, "mbconv_core",
+                        counting("jax", jax_mbconv.mbconv_core))
+    monkeypatch.setattr(efficientnet, "mbconv_core",
+                        counting("port", efficientnet.mbconv_core))
+    x = np.random.RandomState(5).randn(4, 12, 12, cin).astype(np.float32)
+    xj = jnp.asarray(x)
+    variables = _np(JaxMBConv(cin, cout, er, stride, k, 0.25,
+                              jnp.float32).init(jax.random.key(1), xj,
+                                                train=False))
+    want, upd = JaxMBConv(cin, cout, er, stride, k, 0.25, jnp.float32,
+                          fused=True).apply(variables, xj, train=True,
+                                            mutable=["batch_stats"])
+    assert want.dtype == jnp.float32
+    block = _MBConv(cin, cout, er, stride, k, 0.25, fused=True)
+    block.load_state_dict(from_flax(variables), strict=True)
+    block.train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = block(xt.contiguous(memory_format=torch.channels_last))
+    assert calls == {"jax": 1, "port": 1}
+    assert got.dtype == torch.float32
+    _close(got.permute(0, 2, 3, 1).numpy(), want, 3e-2, "block")
     _stats_close(block, upd["batch_stats"], 2e-2)
 
 

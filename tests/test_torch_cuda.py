@@ -52,11 +52,14 @@ that are multiples of 8 but not of 64: ``gemm_rows`` within one bf16 step
 (both round one f32 sum, summed in another order), ``wgrad`` within 1e-5
 of its largest value (times the square root of the rows), a second call
 bit for bit equal to the first; a row of 20 bf16 values (40 bytes) is
-refused on the host by the wrapper and by the C entry point. Kernel 10 is
-held at every width with F 2024, bf16 and f32 x, p 0 and 0.1, and kernel
-16 at B0's eight stride-1 block shapes and a ragged 9 x 9 one, each at
-the FFN or MBConv tolerances and repeated bit for bit; kernel 16 refuses
-channels that are not a multiple of 8 before any launch.
+refused on the host by the wrapper and by the C entry point. Kernels 9
+and 10 are held at every width with F 2024 and a row count that is not a
+multiple of 128, bf16 and f32 x, p 0 and 0.1 (kernel 9 also with ReLU),
+and kernels 15 and 16 at
+B0's eight stride-1 block shapes, a ragged 9 x 9 one and (kernel 15) B 1,
+each at the FFN or MBConv tolerances and repeated bit for bit; kernel 16
+refuses cin or mid, kernel 15 cout, that is not a multiple of 8 before
+any launch.
 """
 
 import pytest
@@ -642,6 +645,44 @@ def test_mbconv_core_autograd_launches_all_four(cuda):
                     want_grads, "grads")
 
 
+def test_f32_fused_block_takes_the_kernels(cuda):
+    """An f32 train-mode block at stride 1 with ``fused`` runs kernels
+    13-16 once each (x rounded to bf16 for them), returns f32 and its
+    gradients as the same block's plain versions give them on the CPU."""
+    from multimodal_plankton_recognition_torch.models.image.efficientnet \
+        import _MBConv
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    torch.manual_seed(0)
+    block = _MBConv(16, 16, 6, 1, 3, 0.25, fused=True).train()
+    x = torch.randn(4, 16, 12, 12).contiguous(
+        memory_format=torch.channels_last)
+
+    def run(device):
+        b = block.to(device)
+        xd = x.to(device).requires_grad_()
+        out = b(xd)
+        out.square().sum().backward()
+        grads = [xd.grad] + [p.grad for p in b.parameters()]
+        b.zero_grad()
+        return out, grads
+
+    counts = [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd,
+                                   mbconv.kb_bwd, mbconv.ka_bwd)]
+    got, got_grads = run(cuda)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd,
+                                 mbconv.ka_bwd)] == [c + 1 for c in counts]
+    assert got.dtype == torch.float32
+    want, want_grads = run("cpu")
+    top = max(1.0, want.abs().max().item())
+    assert (got.cpu() - want).abs().max().item() <= MBCONV_TOL * top
+    for g, w in zip(got_grads, want_grads):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        rel = ((g.cpu() - w).norm() / max(w.norm().item(), 1e-30)).item()
+        assert rel <= 2e-2, rel
+
+
 def test_mbconv_refuses_what_the_kernels_do_not_take(cuda):
     from multimodal_plankton_recognition_torch.ops import mbconv
 
@@ -1156,6 +1197,28 @@ def test_ffn_bwd_at_every_width_repeats(cuda, shape, dtype, p):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", FFN_WIDE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ffn_fwd_at_every_width_repeats(cuda, shape, dtype, activation, p):
+    """Kernel 9 at E 64-384 with F 2024 and a ragged last tile, bf16 and
+    f32 x, GELU and ReLU, p 0 and 0.1: within the FFN tolerances of its
+    plain version, and a second call bit for bit equal to the first."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    x, w1, b1, w2, b2, _ = _ffn_inputs(cuda, *shape, dtype, seed=6)
+    args = (x, w1, b1, w2, b2, activation, p, 13)
+    before = ffn.ffn_fwd.launches
+    got, again = ffn.ffn_fwd(*args), ffn.ffn_fwd(*args)
+    assert ffn.ffn_fwd.launches == before + 2
+    want = ffn.ffn_reference(*args)
+    torch.cuda.synchronize()
+    _ffn_close([got], [want], "y")
+    assert torch.equal(got, again)
+
+
 # B0's eight stride-1 block shapes (chip_smoke.py MBCONV_SHAPES: H = W,
 # cin, mid, cout, k, SE width) at a small batch, and a ragged 9 x 9 one
 KA_BWD_SHAPES = [(2, 112, 112, 32, 32, 16, 3, 8),
@@ -1202,3 +1265,40 @@ def test_mbconv_ka_bwd_refuses_unaligned_channels(cuda):
     with pytest.raises(ValueError, match="16 bytes"):
         mbconv.ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, 3)
     assert mbconv.ka_bwd.launches == before
+
+
+@pytest.mark.parametrize("shape", KA_BWD_SHAPES + [(1, 28, 28, 40, 240, 40,
+                                                     5, 10)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_kb_bwd_at_b0_shapes_repeats(cuda, shape):
+    """Kernel 15 at B0's block shapes, a ragged 9 x 9 one and B 1: within
+    the MBConv tolerances of its plain version, and a second call bit for
+    bit equal to the first (fixed-order sums, no float atomics)."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3,
+     _) = _mbconv_inputs(cuda, *shape, seed=4)
+    y2, _, _, m2, v2 = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    args = (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
+    before = mbconv.kb_bwd.launches
+    got = mbconv.kb_bwd(*args)
+    again = mbconv.kb_bwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.kb_bwd.launches == before + 2
+    _close_to_plain(got, mbconv.kb_bwd_reference(*args), "kb_bwd")
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_mbconv_kb_bwd_refuses_unaligned_cout(cuda):
+    """A cout that is not a multiple of 8 (16-byte rows of dy3 and wproj)
+    is refused before any launch."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3,
+     _) = _mbconv_inputs(cuda, 1, 5, 5, 8, 48, 12, 3, 2)
+    y2, _, _, m2, v2 = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, 3)
+    before = mbconv.kb_bwd.launches
+    with pytest.raises(ValueError, match="cout = 12.*16 bytes"):
+        mbconv.kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
+    assert mbconv.kb_bwd.launches == before

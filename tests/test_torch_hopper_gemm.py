@@ -1,7 +1,7 @@
 """The shared Hopper GEMM's host side on the CPU (``ops/hopper_gemm.py``):
 its plain versions against ``jnp.dot`` in f32, its tile and group choices,
-TMA's row rule, and the scratch layouts of kernels 10 and 16 that rest on
-it. The kernels themselves run only on a card (``tests/test_torch_cuda.py``,
+TMA's row rule, and the scratch layouts and channel rules of kernels 10,
+15 and 16 that rest on it. The kernels themselves run only on a card (``tests/test_torch_cuda.py``,
 marked ``gpu``).
 
 ``gemm_rows_reference`` rounds once to bf16 after an f32 sum, as
@@ -145,3 +145,38 @@ def test_mbconv_channels_kernel_16_takes(cin, mid):
 def test_mbconv_channels_kernel_16_refuses(cin, mid):
     with pytest.raises(ValueError, match="16 bytes"):
         mbconv.check_channels(cin, mid)
+
+
+@pytest.mark.parametrize("cout", [16, 24, 40, 80, 112, 192, 320])
+def test_mbconv_channels_kernel_15_takes_b0_couts(cout):
+    """B0's projection widths are rows of a multiple of 16 bytes."""
+    mbconv.check_channels(mid=144, cout=cout)
+
+
+@pytest.mark.parametrize("cout", [12, 20, 3, 100])
+def test_mbconv_channels_kernel_15_refuses(cout):
+    with pytest.raises(ValueError, match=f"cout = {cout}: .*16 bytes"):
+        mbconv.check_channels(mid=144, cout=cout)
+
+
+@pytest.mark.parametrize("b,h,w,mid,r,cout,groups", [
+    (64, 56, 56, 144, 6, 24, 22), (64, 112, 112, 32, 8, 16, 132),
+    (64, 7, 7, 1152, 48, 320, 3), (3, 9, 9, 144, 6, 24, 1),
+    (1, 1, 1, 8, 1, 8, 1)])
+def test_kb_bwd_scratch_layout(b, h, w, mid, r, cout, groups):
+    """Kernel 15's scratch: the per-tile column sums (2, B·ceil(HW / 64),
+    mid) f32, a tile never holding two samples; the per-sample sums (2,
+    B, mid), SE values (4, B, mid) and (2, B, r) f32; a3 (B·H·W, mid) bf16;
+    the dwproj group partials (groups, mid·cout) f32; back to back on
+    256-byte boundaries."""
+    layout, total = mbconv.kb_bwd_scratch(b, h, w, mid, r, cout, groups)
+    tiles = b * -(-(h * w) // 64)
+    want = {"part": 2 * tiles * mid * 4,
+            "sample": (2 * b * mid + 4 * b * mid + 2 * b * r) * 4,
+            "a3": b * h * w * mid * 2, "wpart": groups * mid * cout * 4}
+    assert {k: n for k, (_, n) in layout.items()} == want
+    offsets = [o for o, _ in layout.values()]
+    assert offsets[0] == 0 and all(o % 256 == 0 for o in offsets)
+    ends = [o + n for o, n in layout.values()]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total < ends[-1] + 256
