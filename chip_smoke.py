@@ -7,7 +7,7 @@ the attention module's unpacked (separate q, k, v) route and its fused
 attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --kernel-profile   # kernels 9, 10, 15, 16 alone
+    python3 chip_smoke.py --kernel-profile   # kernels 9, 10, 13-16 alone
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -18,10 +18,13 @@ fatal on failure:
    register / spill report; the attention backward's 12 instances (two
    kernels, six head dims), the shared Hopper GEMM's 9 instances
    (``gemm_rows_kernel``, ``wgrad_kernel`` of ``csrc/hopper_gemm.cuh``:
-   wgmma and TMA) in each of the four libraries that include it, kernel
-   10's 8 ``ffn_bwd_rows_kernel`` instances, kernel 9's 8
-   ``ffn_fwd_rows_kernel`` and kernel 15's 3 ``kb_pass_kernel`` must spill
-   0 bytes;
+   wgmma and TMA) in each of the five libraries that include it, its 3
+   column-sum instances (``gemm_sums``) in ``mbconv_fwd`` and
+   ``hopper_gemm``, kernel 10's 8 ``ffn_bwd_rows_kernel`` instances,
+   kernel 9's 8 ``ffn_fwd_rows_kernel``, kernel 15's 3 ``kb_pass_kernel``
+   and kernels 13-14's ``ka_a1_kernel``, 2 ``ka_dw_kernel``,
+   ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel`` must
+   spill 0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -63,9 +66,9 @@ fatal on failure:
    * MBConv kernels 13-16 (``ka_fwd``, ``kb_fwd``, ``kb_bwd``, ``ka_bwd`` vs
      their ``*_reference``) at each of the 8 distinct shapes of B0's
      stride-1 blocks at B 64, every output within 2e-2 of max(1,
-     max|plain|) and 1e-3 relative L2; kernels 15 and 16 also a second
-     call bit for bit equal to the first, and one profiled call by CUDA
-     kernel at ``KA_BWD_PROFILED`` (stage2_block1, stage1_block0);
+     max|plain|) and 1e-3 relative L2, a second call of each bit for bit
+     equal to the first, and one profiled call of each by CUDA kernel at
+     ``KA_BWD_PROFILED`` (stage2_block1, stage1_block0);
    * attention on separate q, k, v (kernels 3 and 4: ``mha`` / ``mha_bwd``
      vs ``mha_reference`` / ``mha_bwd_reference``) at the flagship's two
      shapes as kernels 1-2 above, the exact-sum mask check at D = 24, and
@@ -210,14 +213,15 @@ most time. The line before the last is a JSON record of the kernels; the
 last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.
 
-``--kernel-profile`` runs phase 1 and the build of kernels 9, 10, 15 and
-16 only, times them at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row
-(kernel 9 beside the unfused cuBLAS forward, kernel 15 beside its plain
-version, each beside its bound; the MBConv kernels summed over B0's stride-1 blocks), profiles one
-call of each by CUDA kernel and takes the peak memory of one fused-FFN
-flagship train step; it prints no result line. Run from a copy of this
-script in a checkout of another commit, it times that commit's kernels,
-so two commits compare in one call.
+``--kernel-profile`` runs phase 1 and the build of kernels 9, 10 and 13-16
+only, times them at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row
+(kernel 9 beside the unfused cuBLAS forward, kernels 13-15 beside their
+plain versions, each beside its bound; the MBConv kernels summed over
+B0's stride-1 blocks), profiles one call of each by CUDA kernel and takes
+the peak memory of one fused-FFN flagship train step; it prints no
+result line. Run from a copy of this script in a checkout of another
+commit, it times that commit's kernels, so two commits compare in one
+call.
 """
 
 from __future__ import annotations
@@ -261,16 +265,23 @@ BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
 BWD_INSTANCES = 2 * 6
 # the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
 # weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
-# library that includes it, kernel 10's row kernel (four widths x two dx
+# library that includes it, and its three column-sum instances (gemm_sums)
+# where they are called; kernel 10's row kernel (four widths x two dx
 # types) and kernel 9's (four widths, each in its one tile layout, x two
-# y types) in csrc/ffn.cu, kernel 15's three passes in csrc/mbconv_bwd.cu;
-# 0 spill bytes each. Matched in the mangled names with their length
-# prefixes, so that mbconv_bwd's se_wgrad_kernel is not taken for one.
+# y types) in csrc/ffn.cu; kernel 15's three passes in csrc/mbconv_bwd.cu;
+# kernel 13's a1 pass and depthwise pass (k 3 and 5), kernel 14's
+# squeeze, SE step and projection (its weight slice resident or streamed)
+# in csrc/mbconv_fwd.cu; 0 spill bytes each. Matched in the
+# mangled names with their length prefixes, so that mbconv_bwd's
+# se_wgrad_kernel is not taken for one.
 GEMM_ENTRIES = ("16gemm_rows_kernel", "12wgrad_kernel",
                 "19ffn_bwd_rows_kernel", "19ffn_fwd_rows_kernel",
-                "14kb_pass_kernel")
+                "14kb_pass_kernel", "12ka_a1_kernel", "12ka_dw_kernel",
+                "17kb_squeeze_kernel", "13se_fwd_kernel", "14kb_proj_kernel")
 GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9 + 3,
-                  "hopper_gemm": 9, "ffn": 9 + 8 + 8}
+                  "mbconv_fwd": 9 + 3 + 1 + 2 + 1 + 1 + 2,
+                  "hopper_gemm": 9 + 3,
+                  "ffn": 9 + 8 + 8}
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -336,7 +347,7 @@ MBCONV_BLOCKS = 12  # B0's stride-1 blocks: each MBConv kernel per micro-step
 B0_BLOCKS = {"stage1_block0": 1, "stage2_block1": 1, "stage3_block1": 1,
              "stage4_block1": 2, "stage5_block0": 1, "stage5_block1": 2,
              "stage6_block1": 3, "stage7_block0": 1}
-# kernels 15 and 16's shapes broken down by CUDA kernel (one profiled call
+# the MBConv kernels' shapes broken down by CUDA kernel (one profiled call
 # each): the widest expand and the block without one
 KA_BWD_PROFILED = ("stage2_block1", "stage1_block0")
 STAT_CORR, STAT_RMS = 0.95, 0.3  # the JAX package's fused-vs-unfused bounds
@@ -1191,10 +1202,9 @@ def _mbconv_kernels(gen, device, records):
             if not rel <= MBCONV_REL_TOL:
                 fail(f"{name} {label}: relative L2 error {rel!r} > "
                      f"{MBCONV_REL_TOL}")
-            if name in ("mbconv_kb_bwd", "mbconv_ka_bwd"):
-                _repeats(f"{name} {label}", got, fn(*args))
-                if block in KA_BWD_PROFILED:
-                    _call_profile(name, label, lambda: fn(*args))
+            _repeats(f"{name} {label}", got, fn(*args))
+            if block in KA_BWD_PROFILED:
+                _call_profile(name, label, lambda: fn(*args))
             _report(records, name, label, err,
                     f"{MBCONV_TOL} of max(1, max|plain|) per output; "
                     f"relative L2 {rel!r} (tol {MBCONV_REL_TOL})",
@@ -2729,22 +2739,23 @@ def _profile_card(device, what, base, paths, make_batch):
 
 
 def phase_kernel_profile(device):
-    """Kernels 9, 10, 15 and 16 alone (``--kernel-profile``): device ms by
+    """Kernels 9, 10 and 13-16 alone (``--kernel-profile``): device ms by
     ``cuda_ms``. Kernels 9 and 10 at every ``FFN_SHAPES`` row (GELU, bf16,
     p 0; ViT-T also p 0.1; kernel 9 also f32 x at the card's profile row)
-    beside the unfused cuBLAS forward or backward and the bound; kernels 15
-    and 16 at every ``MBCONV_SHAPES`` row (B 64), kernel 15 beside its plain
-    version and its bound, each with the sum over B0's 12 stride-1 blocks;
-    one profiled call by CUDA kernel of kernels 9 and 10 at ViT-T and of
-    kernels 15 and 16 at ``KA_BWD_PROFILED``; the peak device memory of one
-    fused-FFN flagship train step. It drives whatever package lies beside
-    this script, so a copy of the script in a checkout of another commit
-    times that commit's kernels (before and after, in one call)."""
+    beside the unfused cuBLAS forward or backward and the bound; kernels
+    13-16 at every ``MBCONV_SHAPES`` row (B 64), each beside its bound and
+    13-15 beside their plain versions, each with the sum over B0's 12
+    stride-1 blocks; one profiled call by CUDA kernel of kernels 9 and 10
+    at ViT-T and of kernels 13-16 at ``KA_BWD_PROFILED``; the peak device
+    memory of one fused-FFN flagship train step. It drives whatever
+    package lies beside this script, so a copy of the script in a checkout
+    of another commit times that commit's kernels (before and after, in
+    one call)."""
     import torch
     from multimodal_plankton_recognition_torch.ops import build, ffn
     from multimodal_plankton_recognition_torch.ops import mbconv as mb
 
-    build.build_all(("ffn", "mbconv_bwd"))
+    build.build_all(("ffn", "mbconv_fwd", "mbconv_bwd"))
     gen = torch.Generator(device=device).manual_seed(0)
 
     def rnd(*shape, scale=1.0, shift=0.0):
@@ -2781,7 +2792,8 @@ def phase_kernel_profile(device):
                   f"{bound[0]!r} ms ({bound[1]})", flush=True)
             if name == "vit" and p == 0.0:
                 _call_profile("ffn_bwd", label, call)
-    totals = {"mbconv_kb_bwd": 0.0, "mbconv_ka_bwd": 0.0}
+    totals = {f"mbconv_{k}": 0.0
+              for k in ("ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd")}
     b = B0_CARD["bs"]
     for block, (hw, cin, mid, cout, k, r) in MBCONV_SHAPES.items():
         expand = mid != cin
@@ -2798,25 +2810,34 @@ def phase_kernel_profile(device):
         dy2 = rnd(b, hw, hw, mid).to(torch.bfloat16)
         y2, m1, v1, m2, v2 = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
         n = b * hw * hw
-        kb_args = (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
+        se = 4 * b * mid * r  # the SE products, per pass
         label = (f"{block} B={b} H=W={hw} cin={cin} mid={mid} cout={cout} "
                  f"k={k} r={r}")
-        for name, call, plain, flops in (
-                ("mbconv_kb_bwd", functools.partial(mb.kb_bwd, *kb_args),
-                 functools.partial(mb.kb_bwd_reference, *kb_args),
-                 4 * n * mid * cout + 12 * b * mid * r),
-                ("mbconv_ka_bwd", functools.partial(
-                    mb.ka_bwd, x, dy2, wexp, g1, b1, wdw, m1, v1, k), None,
-                 None)):
+        # (name, wrapper, plain version or None, arguments, bf16 products),
+        # the products as _mbconv_kernels counts them
+        for name, fn, plain, args, flops in (
+                ("mbconv_ka_fwd", mb.ka_fwd, mb.ka_fwd_reference,
+                 (x, wexp, g1, b1, wdw, k),
+                 2 * n * cin * mid * expand + 2 * n * mid * k * k),
+                ("mbconv_kb_fwd", mb.kb_fwd, mb.kb_fwd_reference,
+                 (y2, g2, b2, m2, v2, wr, br, we, be, wproj),
+                 2 * n * mid * cout + se),
+                ("mbconv_kb_bwd", mb.kb_bwd, mb.kb_bwd_reference,
+                 (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj),
+                 4 * n * mid * cout + 3 * se),
+                ("mbconv_ka_bwd", mb.ka_bwd, None,
+                 (x, dy2, wexp, g1, b1, wdw, m1, v1, k),
+                 6 * n * cin * mid * expand + 4 * n * mid * k * k)):
+            call = functools.partial(fn, *args)
             ms = cuda_ms(call)
             totals[name] += B0_BLOCKS[block] * ms
             more = ""
             if plain is not None:
-                bound = _bound(kb_args, plain(), flops)
-                more = (f", plain {cuda_ms(plain)!r} ms, bound "
-                        f"{bound[0]!r} ms ({bound[1]})")
-            print(f"kernel-profile {name} [{label}]: {ms!r} ms{more}",
-                  flush=True)
+                more = (f", plain "
+                        f"{cuda_ms(functools.partial(plain, *args))!r} ms")
+            bound = _bound(args, call(), flops)
+            print(f"kernel-profile {name} [{label}]: {ms!r} ms{more}, bound "
+                  f"{bound[0]!r} ms ({bound[1]})", flush=True)
             if block in KA_BWD_PROFILED:
                 _call_profile(name, label, call)
     for name, total in totals.items():
@@ -2927,8 +2948,8 @@ def main(argv=None) -> None:
                         help="also break each card's micro-step device "
                              "time down by kernel (torch.profiler)")
     parser.add_argument("--kernel-profile", action="store_true",
-                        help="only time and profile kernels 9, 10, 15 and "
-                             "16 (no paths, no result line)")
+                        help="only time and profile kernels 9, 10 and "
+                             "13-16 (no paths, no result line)")
     args = parser.parse_args(argv)
     device = phase_device()
     if args.kernel_profile:

@@ -1,8 +1,9 @@
 // The shared Hopper GEMM of hopper_gemm.cuh behind plain C entry points,
 // loaded with ctypes by ops/hopper_gemm.py, so that the card tests can
 // hold it against torch.matmul at any width the kernels take. The main
-// paths reach the same code inside kernels 10, 11-12 and 16
-// (csrc/ffn.cu, csrc/attention_block.cu, csrc/mbconv_bwd.cu).
+// paths reach the same code inside kernels 10, 11-12, 13 and 16
+// (csrc/ffn.cu, csrc/attention_block.cu, csrc/mbconv_fwd.cu,
+// csrc/mbconv_bwd.cu).
 
 #include "hopper_gemm.cuh"
 
@@ -14,6 +15,15 @@ int hopper_gemm_rows(const void* a, const void* w, int tb, const void* bias,
                      void* c, int M, int N, int K, void* stream) {
   return (int)hg::gemm(a, w, tb, bias, c, M, N, K,
                        static_cast<cudaStream_t>(stream));
+}
+
+// c (M, N) bf16 = a (M, K) . w for w (K, N) bf16, and part (2, 2
+// ceil(M / 128), N) f32: each 64-row chunk's column sums of c and c^2
+// (kernel 13's expand). Returns a cudaError_t code.
+int hopper_gemm_sums(const void* a, const void* w, void* c, void* part,
+                     int M, int N, int K, void* stream) {
+  return (int)hg::gemm_sums(a, w, c, static_cast<float*>(part), M, N, K,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // dw (N, K) = g^T x and, when db is given, db (N,) = the column sums of g,

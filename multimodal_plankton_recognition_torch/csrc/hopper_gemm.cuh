@@ -3,9 +3,11 @@
 // GEMM and a weight-gradient GEMM with a fixed-order group sum.
 // Included by csrc/attention_block.cu (kernels 11-12), csrc/ffn.cu
 // (kernels 9 and 10: their row kernels on the building blocks, kernel 10's
-// weight gradients), csrc/mbconv_bwd.cu (kernel 15's passes on the
-// building blocks and its dwproj; kernel 16's y1, dx and dwexp) and
-// csrc/hopper_gemm.cu (the entry points the card tests call).
+// weight gradients), csrc/mbconv_fwd.cu (kernel 13's expand with its
+// column sums; kernel 14's passes on the building blocks),
+// csrc/mbconv_bwd.cu (kernel 15's passes on the building blocks and its
+// dwproj; kernel 16's y1, dx and dwexp) and csrc/hopper_gemm.cu (the
+// entry points the card tests call).
 //
 //   gemm_rows_kernel: C (M, N) = A (M, K) . B (+ f32 bias), one bf16
 //     rounding. A persistent block owns a BN-column slice of C and keeps
@@ -18,7 +20,9 @@
 //     nn.Linear holds it) or N-major (a weight (K, N) read in place along
 //     its rows), which wgmma takes through its transpose bit. The epilogue
 //     adds the bias, rounds once in registers, writes a swizzled staging
-//     tile and stores it with TMA.
+//     tile and stores it with TMA. With SUMS (gemm_sums, kernel 13's
+//     expand) it also writes, for every 64-row chunk, the column sums of
+//     the rounded C and of its squares, read back from the staging tile.
 //   wgrad_kernel: dW (N, K) = G^T X, a sum over every row of G (rows, N)
 //     and X (rows, K). A block owns a 64 x TK tile of dW and one group of
 //     64-row chunks; one warpgroup runs wgmma on both operands M- and
@@ -292,14 +296,20 @@ __device__ __forceinline__ uint32_t swz(int row, int col) {
 // (boxes(K) boxes of BN rows when TB = 0; boxes(K) x BN / 64 boxes of 64
 // rows when TB = 1), `stages` ring slots of one A box, two 64 x BN
 // staging tiles of C (one a warpgroup, as BN / 64 swizzled boxes), the
-// mbarriers.
-template <int BN, int TB>
+// mbarriers; with SUMS, then 8 BN floats (sums_bytes).
+//
+// SUMS: part (2, C, N) f32, C = 2 ceil(M / 128) chunks of 64 rows (chunk
+// 2 t + w: warpgroup w's rows of row tile t): part[0][c][n] = the sum of
+// the rounded C over the chunk's rows < M, part[1][c][n] that of its
+// squares. Thread t of a warpgroup adds column t % 64 of each staging box
+// over the rows [32 (t / 64), + 32) in order, then the two halves add.
+template <int BN, int TB, int SUMS = 0>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     gemm_rows_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __grid_constant__ CUtensorMap b_map,
                      const __grid_constant__ CUtensorMap c_map,
                      const float* __restrict__ bias, int M, int N, int K,
-                     int stages) {
+                     int stages, float* __restrict__ part) {
   constexpr int NJ = BN / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -427,6 +437,38 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         if (n0 + 64 * j < N)
           tma_store(&c_map, c_wg + j * kBox, n0 + 64 * j, t * kBM + wg * 64);
       bulk_commit();
+    }
+    if constexpr (SUMS) {
+      const int c = tid & 63, hh = tid >> 6;
+      const int row0 = 32 * hh;
+      const int rows = min(32, M - (t * kBM + wg * 64 + row0));
+      float* red = reinterpret_cast<float*>(smem_raw + (b_full + 16 - raw)) +
+                   wg * 4 * BN;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll 8
+        for (int rr = 0; rr < rows; ++rr) {
+          const float y = __bfloat162float(*reinterpret_cast<const bf16*>(
+              c_gen + j * kBox + swz(row0 + rr, c)));
+          s1 += y;
+          s2 += y * y;
+        }
+        red[(2 * hh) * BN + 64 * j + c] = s1;
+        red[(2 * hh + 1) * BN + 64 * j + c] = s2;
+      }
+      bar_sync(1 + wg, 128);
+      if (hh == 0) {
+        const size_t chunks = 2 * (size_t)tiles, chunk = 2 * t + wg;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = n0 + 64 * j + c, o = 64 * j + c;
+          if (col < N) {
+            part[chunk * N + col] = red[o] + red[2 * BN + o];
+            part[(chunks + chunk) * N + col] = red[BN + o] + red[3 * BN + o];
+          }
+        }
+      }
     }
   }
   if (tid == 0) bulk_wait();
@@ -653,20 +695,27 @@ inline int sm_count() {
   return n > 0 ? n : 1;
 }
 
+// shared memory the SUMS epilogue adds: its 16-byte alignment and the
+// per-warpgroup column sums
+__host__ __device__ constexpr size_t sums_bytes(int BN) {
+  return 16 + 8 * (size_t)BN * 4;
+}
+
 // ring stages that fit beside a (BN, K) weight slice, its staging tiles,
-// the alignment slack and the barriers
-inline int gemm_stages(int BN, int K) {
+// the alignment slack, the barriers and `extra` bytes
+inline int gemm_stages(int BN, int K, size_t extra = 0) {
   const long long left = (long long)kSmemMax -
                          (long long)BN * boxes(K) * kBK * 2 -
-                         2LL * 64 * BN * 2 - 1024 - 16 * kMaxStages - 8;
+                         2LL * 64 * BN * 2 - 1024 - 16 * kMaxStages - 8 -
+                         (long long)extra;
   const long long n = left / (long long)kATile;
   return (int)(n < kMaxStages ? n : kMaxStages);
 }
 
-template <int BN, int TB>
+template <int BN, int TB, int SUMS = 0>
 cudaError_t gemm_launch(const void* a, const void* b, const float* bias,
                         void* c, int M, int N, int K, int stages,
-                        cudaStream_t s) {
+                        cudaStream_t s, float* part = nullptr) {
   CUtensorMap am, bm, cm;
   const bool ok = make_map(&am, a, M, K, kBM) &&
                   (TB == 0 ? make_map(&bm, b, N, K, BN)
@@ -675,16 +724,17 @@ cudaError_t gemm_launch(const void* a, const void* b, const float* bias,
   if (!ok) return cudaErrorInvalidValue;
   const size_t smem = (size_t)BN * boxes(K) * kBK * 2 +
                       (size_t)stages * kATile + 2 * 64 * BN * 2 +
-                      16 * stages + 8 + 1024;
+                      16 * stages + 8 + 1024 + (SUMS ? sums_bytes(BN) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_rows_kernel<BN, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gemm_rows_kernel<BN, TB, SUMS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kBM - 1) / kBM, slices = (N + BN - 1) / BN;
   int per = sm_count() / slices;
   per = per < 1 ? 1 : (per > tiles ? tiles : per);
-  gemm_rows_kernel<BN, TB><<<dim3(slices, per), kGemmThreads, smem, s>>>(
-      am, bm, cm, bias, M, N, K, stages);
+  gemm_rows_kernel<BN, TB, SUMS>
+      <<<dim3(slices, per), kGemmThreads, smem, s>>>(am, bm, cm, bias, M, N,
+                                                     K, stages, part);
   return cudaGetLastError();
 }
 
@@ -704,6 +754,28 @@ inline cudaError_t gemm(const void* a, const void* w, int tb,
                                    gemm_stages(BN, K), s)               \
               : gemm_launch<BN, 0>(a, w, fb, c, M, N, K,                \
                                    gemm_stages(BN, K), s);
+  GEMM(192)
+  GEMM(128)
+  GEMM(64)
+#undef GEMM
+  return cudaErrorInvalidValue;
+}
+
+// gemm's C (M, N) = A . W for W (K, N), no bias, and its 64-row chunks'
+// column sums of C and C^2 into part (2, 2 ceil(M / 128), N) f32
+// (gemm_rows_kernel's SUMS). The slice rule of gemm with room for the
+// sums. A template, so that only the libraries that call it hold its
+// kernels.
+template <int = 0>
+cudaError_t gemm_sums(const void* a, const void* w, void* c, float* part,
+                      int M, int N, int K, cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || !part)
+    return cudaErrorInvalidValue;
+#define GEMM(BN)                                                           \
+  if ((N % BN == 0 || BN == 64) && gemm_stages(BN, K, sums_bytes(BN)) >= 4) \
+    return gemm_launch<BN, 1, 1>(a, w, nullptr, c, M, N, K,                \
+                                 gemm_stages(BN, K, sums_bytes(BN)), s,    \
+                                 part);
   GEMM(192)
   GEMM(128)
   GEMM(64)

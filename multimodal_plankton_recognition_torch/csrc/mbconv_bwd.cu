@@ -113,7 +113,7 @@ struct KbSmem {
 
 // SiLU(z) and SiLU'(z) from one exp. a is mbconv.cuh's silu(z) bit for bit
 // (expf and an IEEE division), so the recomputed a2 is the one kernel 14's
-// squeeze_kernel summed (a2_of); SiLU'(z), which no forward rounds, takes
+// squeeze stored (mbconv_fwd.cu); SiLU'(z), which no forward rounds, takes
 // the sigmoid from the fast reciprocal (a few f32 ulps)
 __device__ __forceinline__ void silu_pair(float z, float& a, float& da) {
   const float d = 1.f + expf(-z);
@@ -316,30 +316,6 @@ __global__ void __launch_bounds__(128)
   if (PASS != kDse && tid == 0) bulk_wait();
 }
 
-// grid (B, mid / 32, 2): out[(a B + b) mid + c] = the sum over sample b's
-// tps tiles, in a fixed order, of part[(a T + b tps + t) mid + c] (the
-// per-tile sums of array a of a pass). Block: 32 channels x 32 lanes;
-// lane l adds tiles l, l + 32, ..., then lane 0 the 32 lanes in order.
-__global__ void __launch_bounds__(1024)
-    tile_sums_kernel(const float* __restrict__ part, int tps, int mid,
-                     float* __restrict__ out) {
-  __shared__ float red[32][33];
-  const int tx = threadIdx.x % 32, l = threadIdx.x / 32;
-  const int b = blockIdx.x, a = blockIdx.z, c = blockIdx.y * 32 + tx;
-  const size_t T = (size_t)gridDim.x * tps;
-  float acc = 0.f;
-  if (c < mid)
-    for (int t = l; t < tps; t += 32)
-      acc += part[(a * T + (size_t)b * tps + t) * mid + c];
-  red[l][tx] = acc;
-  __syncthreads();
-  if (l == 0 && c < mid) {
-    float s = 0.f;
-    for (int q = 0; q < 32; ++q) s += red[q][tx];
-    out[((size_t)a * gridDim.x + b) * mid + c] = s;
-  }
-}
-
 template <int PASS>
 cudaError_t launch_pass(const CUtensorMap& y2m, const CUtensorMap& dy3m,
                         const CUtensorMap& wpm, const CUtensorMap& outm,
@@ -452,72 +428,9 @@ se_wgrad_kernel(const float* __restrict__ s, const float* __restrict__ dsv,
 }
 
 // --------------------------- kernel 16 ------------------------------------
-
-// The depthwise passes' tiles: a block owns (sample b, output rows r0 ..
-// r0 + kDwTH, output columns w0 .. w0 + tw, channels c0 .. c0 + CC); the
-// halo adds P rows and columns on each side. Thread (g, c): channel c0 +
-// c, pixel group g (kGroups of them).
-constexpr int kDwTH = 8;   // output rows of a block
-constexpr int kDwTW = 32;  // output columns of a block, at most
-
-struct DwTile {
-  int B, H, W, mid, K, P, tw;
-  bool expand;
-  __host__ __device__ int row_tiles() const { return cdiv(H, kDwTH); }
-  __host__ __device__ int col_tiles() const { return cdiv(W, tw); }
-  __host__ __device__ int tiles() const {
-    return B * row_tiles() * col_tiles();
-  }
-  __host__ __device__ int hr() const { return kDwTH + 2 * P; }
-  __host__ __device__ int hc() const { return tw + 2 * P; }
-  // a zero-padded (hr, hc, CC) bf16 halo: a1 or dy2
-  __host__ __device__ size_t halo_bytes() const {
-    return align16((size_t)hr() * hc() * CC * 2);
-  }
-  // y1 of the output pixels (kDwTH, tw, CC) bf16, with an expand
-  __host__ __device__ size_t center_bytes() const {
-    return expand ? align16((size_t)kDwTH * tw * CC * 2) : 0;
-  }
-};
-
-// the width of a column tile: W in the fewest tiles of at most kDwTW
-inline DwTile dw_tile(int B, int H, int W, int mid, int k, bool expand) {
-  const int n = cdiv(W, kDwTW);
-  return DwTile{B, H, W, mid, k, k / 2, cdiv(W, n), expand};
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when
-// !valid (src is then not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// The block's rows [r0 - P0, r0 - P0 + nr) x columns [w0 - P0, w0 - P0 +
-// nc) of a per-channel NHWC tensor v (mid channels) into dst[(rr * nc +
-// cc) * CC + c], 8 channels (16 bytes) a copy, zeros outside the image
-// and for channels >= mid. Asynchronous: cp_wait_all and a barrier before
-// use.
-__device__ __forceinline__ void load_box(const bf16* __restrict__ v,
-                                         const DwTile& g, int b, int r0,
-                                         int w0, int c0, int P0, int nr,
-                                         int nc, bf16* dst) {
-  for (int e = threadIdx.x; e < nr * nc * (CC / 8); e += kThreads) {
-    const int q = e % (CC / 8), pix = e / (CC / 8);
-    const int rr = pix / nc, cc = pix % nc;
-    const int r = r0 - P0 + rr, w = w0 - P0 + cc, ch = c0 + 8 * q;
-    const bool valid = r >= 0 && r < g.H && w >= 0 && w < g.W && ch < g.mid;
-    cp16(dst + pix * CC + 8 * q,
-         valid ? v + (((size_t)b * g.H + r) * g.W + w) * g.mid + ch : v,
-         valid);
-  }
-}
+// Its depthwise tiles, DwTile and load_box, are mbconv.cuh's (kernel 13's
+// depthwise pass takes the same). Thread (g, c) of a block: channel c0 + c,
+// pixel group g (kGroups of them).
 
 // grid (tiles, mid / CC). APPLY = false: partial dwdw (k*k, mid) and, with
 // an expand, partial sums of dz1 and dz1 xhat1 per block; APPLY = true:
@@ -758,7 +671,7 @@ int mbconv_kb_bwd(const void* y2, const void* dy3, const void* g2,
   CHECK(launch_pass<kDse>(y2m, dy3m, wpm, y2m, g2f, b2f, mv, nullptr,
                           nullptr, nullptr, nullptr, pt, T, HW, tps, mid,
                           cout, 0.f, st));
-  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, tps, mid, samp);
+  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, T, tps, mid, samp);
   const size_t smem = (3 * (size_t)mid + 3 * (size_t)r) * 4;
   se_bwd_kernel<<<B, kThreads, smem, st>>>(
       samp, samp + (size_t)B * mid, HW, static_cast<const bf16*>(wr),
@@ -772,7 +685,7 @@ int mbconv_kb_bwd(const void* y2, const void* dy3, const void* g2,
   CHECK(launch_pass<kSums>(y2m, dy3m, wpm, a3m, g2f, b2f, mv, se, ds,
                            nullptr, nullptr, pt, T, HW, tps, mid, cout, 0.f,
                            st));
-  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, tps, mid, samp);
+  tile_sums_kernel<<<sums_grid, 1024, 0, st>>>(pt, T, tps, mid, samp);
   reduce(samp, 2, B, mid, db2f, dg2f, 0.f, st);
   CHECK(launch_pass<kApply>(y2m, dy3m, wpm, dy2m, g2f, b2f, mv, se, ds,
                             db2f, dg2f, pt, T, HW, tps, mid, cout,

@@ -3,12 +3,15 @@ and tile choices, and its two kernels behind ``csrc/hopper_gemm.cu`` for
 the card tests.
 
 The main paths reach the same device code inside kernels 10
-(``ops/ffn.py``), 11-12 (``ops/attention_block.py``) and 16
+(``ops/ffn.py``), 11-12 (``ops/attention_block.py``), 13 and 16
 (``ops/mbconv.py``); the wrappers here are not on any path.
 
 * ``gemm_rows``: C (M, N) = bf16(A (M, K) · W + bias), A and W bf16, W
   (N, K) as ``nn.Linear`` holds it or (K, N) (``transposed``), f32
   accumulation, one rounding (``gemm_rows_reference``);
+* ``gemm_sums``: the same C for W (K, N) without a bias, and per 64-row
+  chunk the f32 column sums of C and C² from the GEMM's epilogue
+  (kernel 13's expand and its BN1 statistics; ``gemm_sums_reference``);
 * ``wgrad``: dW (N, K) = Gᵀ·X and db = Σ G over every row, f32, summed
   in row groups whose partials are added in index order
   (``wgrad_reference``).
@@ -28,8 +31,8 @@ import torch
 
 from . import build
 
-__all__ = ["gemm_rows", "gemm_rows_reference", "wgrad", "wgrad_reference",
-           "check_rows", "wgrad_tile_boxes", "wgrad_groups", "sm_count",
+__all__ = ["gemm_rows", "gemm_rows_reference", "gemm_sums",
+           "gemm_sums_reference", "wgrad", "wgrad_reference", "check_rows", "wgrad_tile_boxes", "wgrad_groups", "sm_count",
            "BOX"]
 
 BOX = 64  # bf16 columns of one TMA box (128 bytes, the swizzle span)
@@ -91,6 +94,20 @@ def gemm_rows_reference(a: torch.Tensor, w: torch.Tensor,
     return out.to(BF16)
 
 
+def gemm_sums_reference(a: torch.Tensor, w: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``gemm_sums``: (c, sums) with c = bf16(a · w) for w
+    (K, N), and sums (2, 2·ceil(M / 128), N) f32: each 64-row chunk's
+    column sums of c and of c² (0 past M)."""
+    c = gemm_rows_reference(a, w, None, True)
+    m, n = c.shape
+    chunks = 2 * -(-m // 128)
+    cf = torch.zeros((chunks * 64, n), dtype=torch.float32, device=c.device)
+    cf[:m] = c.float()
+    cf = cf.reshape(chunks, 64, n)
+    return c, torch.stack([cf.sum(1), (cf * cf).sum(1)])
+
+
 def wgrad_reference(g: torch.Tensor, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``wgrad``: (gᵀ·x, Σ g over rows) in f32."""
@@ -103,6 +120,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.hopper_gemm_rows.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, vp]
     lib.hopper_gemm_rows.restype = ci
+    lib.hopper_gemm_sums.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.hopper_gemm_sums.restype = ci
     lib.hopper_wgrad.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci, vp]
     lib.hopper_wgrad.restype = ci
     return lib
@@ -142,6 +161,32 @@ def gemm_rows(a: torch.Tensor, w: torch.Tensor,
     return c
 
 
+def gemm_sums(a: torch.Tensor, w: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gemm_rows_kernel`` with its column-sum epilogue on CUDA, the plain
+    version on the CPU: (c (M, N) bf16, sums (2, 2·ceil(M / 128), N) f32)
+    for w (K, N). ``gemm_sums.launches`` counts launches."""
+    if _on_cpu(a):
+        return gemm_sums_reference(a, w)
+    check_rows(a, "a")
+    check_rows(w, "w")
+    m, k = a.shape
+    n = w.shape[1]
+    if w.shape[0] != k:
+        raise ValueError(f"w {tuple(w.shape)} does not fit a {tuple(a.shape)}")
+    c = torch.empty((m, n), dtype=BF16, device=a.device)
+    sums = torch.empty((2, 2 * -(-m // 128), n), dtype=torch.float32,
+                       device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        err = lib.hopper_gemm_sums(a.data_ptr(), w.data_ptr(), c.data_ptr(),
+                                   sums.data_ptr(), m, n, k,
+                                   torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, lib, "hopper_gemm_sums")
+    gemm_sums.launches += 1
+    return c, sums
+
+
 def wgrad(g: torch.Tensor, x: torch.Tensor,
           groups: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``wgrad_kernel`` and its group sum on CUDA, the plain version on the
@@ -171,4 +216,5 @@ def wgrad(g: torch.Tensor, x: torch.Tensor,
 
 
 gemm_rows.launches = 0
+gemm_sums.launches = 0
 wgrad.launches = 0

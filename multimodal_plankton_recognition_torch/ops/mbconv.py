@@ -3,17 +3,25 @@ SiLU → depthwise k×k → BN2 → SiLU → squeeze-excite → project 1×1, wi
 train-mode batch statistics.
 
 Port of ``multimodal_plankton_recognition_tpu/ops/pallas/experimental/
-mbconv.py``. Its four TPU kernels become hand-written Hopper kernels:
+mbconv.py``. Its four TPU kernels become hand-written Hopper kernels, all
+on the shared Hopper GEMM's pieces (``csrc/hopper_gemm.cuh``: TMA,
+``wgmma``):
 
 * ``ka_fwd`` (``_ka_fwd_kernel``, kernel 13) and ``kb_fwd``
-  (``_kb_fwd_kernel``, kernel 14) in ``csrc/mbconv_fwd.cu``;
+  (``_kb_fwd_kernel``, kernel 14) in ``csrc/mbconv_fwd.cu``: kernel 13's
+  expand on the row GEMM (y1 stored once, its column sums from the
+  GEMM's epilogue) and a depthwise pass that reads y1, kernel 14's
+  projection on ``wgmma`` from the a2 boxes the squeeze stored, turned
+  into a3 in place;
 * ``kb_bwd`` (``_kb_bwd_kernel``, kernel 15) and ``ka_bwd``
-  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``, on the shared
-  Hopper GEMM's pieces (``csrc/hopper_gemm.cuh``: TMA, ``wgmma``): kernel
-  15's passes recompute da3 on ``wgmma`` and its dwproj runs on the
+  (``_ka_bwd_kernel``, kernel 16) in ``csrc/mbconv_bwd.cu``: kernel 15's
+  passes recompute da3 on ``wgmma`` and its dwproj runs on the
   weight-gradient GEMM, kernel 16's three products (y1, dx, dwexp) on the
-  GEMM; so they take cin, mid and cout only in multiples of 8
-  (``check_channels``).
+  GEMM.
+
+So all four take cin, mid and cout only in multiples of 8
+(``check_channels``), and ``ka_fwd_scratch``, ``kb_fwd_scratch`` and
+``kb_bwd_scratch`` lay out the scratch that the wrappers hand them.
 
 ``*_reference`` are their plain PyTorch versions, with the bf16 rounding
 points of ``mbconv_reference`` (``mbconv.py:771-818``): y1, z1, z2, su, sv
@@ -47,7 +55,8 @@ from . import build, hopper_gemm
 from .attention import _aligned
 
 __all__ = ["mbconv_core", "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd",
-           "check_channels", "kb_bwd_scratch",
+           "check_channels", "dw_tiles", "ka_fwd_scratch",
+           "kb_fwd_scratch", "kb_bwd_scratch",
            "ka_fwd_reference", "kb_fwd_reference", "kb_bwd_reference",
            "ka_bwd_reference", "EPS"]
 
@@ -211,8 +220,11 @@ def _declare(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("mbconv_fwd")
-    _declare(lib, "mbconv_ka_fwd", 8, 6)
-    _declare(lib, "mbconv_kb_fwd", 12, 6)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mbconv_ka_fwd.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    lib.mbconv_ka_fwd.restype = ci
+    lib.mbconv_kb_fwd.argtypes = [vp] * 18 + [ci] * 6 + [vp]
+    lib.mbconv_kb_fwd.restype = ci
     return lib
 
 
@@ -245,14 +257,64 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def check_channels(cin: Optional[int] = None, mid: Optional[int] = None,
                    cout: Optional[int] = None) -> None:
-    """Kernels 15 and 16 read rows of cin, mid and cout bf16 channels with
-    TMA and 16-byte copies: each given must be a multiple of 8 (16 bytes).
+    """Kernels 13-16 read rows of cin, mid and cout bf16 channels with TMA
+    and 16-byte copies: each given must be a multiple of 8 (16 bytes).
     Raises before any launch otherwise."""
     for name, c in (("cin", cin), ("mid", mid), ("cout", cout)):
         if c is not None and c % 8:
             raise ValueError(f"{name} = {c}: a row of {c} bf16 channels is "
-                             f"not a multiple of 16 bytes, which kernels 15 "
-                             f"and 16 need")
+                             f"not a multiple of 16 bytes, which kernels "
+                             f"13-16 need")
+
+
+def _layout(sizes):
+    """({name: (byte offset, bytes)}, total bytes): the parts back to back,
+    each on a 256-byte boundary."""
+    layout, offset = {}, 0
+    for name, size in sizes.items():
+        layout[name] = (offset, size)
+        offset += -(-size // 256) * 256
+    return layout, offset
+
+
+def dw_tiles(b: int, h: int, w: int) -> int:
+    """Tiles of the depthwise passes (kernels 13 and 16; ``dw_tile`` in
+    ``csrc/mbconv.cuh``): 8 rows by W cut into the fewest column tiles of
+    at most 32, per sample."""
+    cols = -(-w // 32)
+    tw = -(-w // cols)
+    return b * -(-h // 8) * -(-w // tw)
+
+
+def ka_fwd_scratch(b: int, h: int, w: int, mid: int, expand: bool):
+    """Kernel 13's scratch: ({name: (byte offset, bytes)}, total bytes),
+    each part on a 256-byte boundary: y1 (B·H·W, mid) bf16, stored once by
+    the expand GEMM; that GEMM's column sums of y1 and y1² per 64-row
+    chunk, (2, 2·ceil(B·H·W / 128), mid) f32 (y1 and these empty without an
+    expand); the depthwise tiles' column sums of y2 and y2², (2,
+    ``dw_tiles``, mid) f32; the first level of the reduction over either,
+    (2, ceil(rows / 256), mid) f32."""
+    chunks = 2 * -(-(b * h * w) // 128) if expand else 0
+    tiles = dw_tiles(b, h, w)
+    return _layout({"y1": b * h * w * mid * 2 if expand else 0,
+                    "part1": 2 * chunks * mid * 4,
+                    "part2": 2 * tiles * mid * 4,
+                    "level": 2 * -(-max(chunks, tiles) // 256) * mid * 4})
+
+
+def kb_fwd_scratch(b: int, h: int, w: int, mid: int, cout: int):
+    """Kernel 14's scratch, laid out as ``ka_fwd_scratch``'s: a2 (B·H·W,
+    mid) bf16, stored once by the squeeze for the projection; then f32:
+    the squeeze's column sums of a2 per tile, (T, mid) for T =
+    B·ceil(HW / 64) tiles of one sample each; those added per sample (B,
+    mid; where a sample has more than 32 tiles); se (B, mid); the
+    projection's column sums of y3 and y3² per tile (2, T, cout); the
+    first level of their reduction (2, ceil(T / 256), cout)."""
+    tiles = b * -(-(h * w) // 64)
+    return _layout({"a2": b * h * w * mid * 2, "sq": tiles * mid * 4,
+                    "sample": b * mid * 4, "se": b * mid * 4,
+                    "part": 2 * tiles * cout * 4,
+                    "level": 2 * -(-tiles // 256) * cout * 4})
 
 
 def kb_bwd_scratch(b: int, h: int, w: int, mid: int, r: int, cout: int,
@@ -266,14 +328,10 @@ def kb_bwd_scratch(b: int, h: int, w: int, mid: int, r: int, cout: int,
     (B·H·W, mid) bf16, which dwproj reads; dwproj's f32 group partials
     (groups, mid·cout)."""
     tiles = b * -(-(h * w) // 64)
-    sizes = {"part": 2 * tiles * mid * 4,
-             "sample": (6 * b * mid + 2 * b * r) * 4,
-             "a3": b * h * w * mid * 2, "wpart": groups * mid * cout * 4}
-    layout, offset = {}, 0
-    for name, size in sizes.items():
-        layout[name] = (offset, size)
-        offset += -(-size // 256) * 256
-    return layout, offset
+    return _layout({"part": 2 * tiles * mid * 4,
+                    "sample": (6 * b * mid + 2 * b * r) * 4,
+                    "a3": b * h * w * mid * 2,
+                    "wpart": groups * mid * cout * 4})
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -297,6 +355,13 @@ def _check_x(x: torch.Tensor, what: str) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
+def _scratch_parts(layout, total, device):
+    """One scratch allocation of ``total`` bytes and the address of each
+    part of ``layout``; the tensor keeps them alive."""
+    scratch = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    return scratch, [scratch.data_ptr() + o for o, _ in layout.values()]
+
+
 def ka_fwd(x, wexp, g1, b1, wdw, k: int):
     """Kernel 13: the expand, BN1 statistics and apply, SiLU and the
     depthwise conv; (y2 bf16, m1, v1, m2, v2). ``ka_fwd.launches``."""
@@ -304,19 +369,27 @@ def ka_fwd(x, wexp, g1, b1, wdw, k: int):
         return ka_fwd_reference(x, wexp, g1, b1, wdw, k)
     _check_x(x, "x")
     b, h, w, cin = x.shape
-    mid = wexp.shape[1] if wexp is not None else cin
+    expand = wexp is not None
+    mid = wexp.shape[1] if expand else cin
     if k not in KERNEL_SIZES:
         raise ValueError(f"depthwise kernel size {k} is not one of "
                          f"{KERNEL_SIZES}")
-    y2 = torch.empty((b, h, w, mid), dtype=BF16, device=x.device)
-    stats = torch.empty((4, mid), dtype=torch.float32, device=x.device)
-    if wexp is None:
+    check_channels(cin, mid)
+    device = x.device
+    y2 = torch.empty((b, h, w, mid), dtype=BF16, device=device)
+    stats = torch.empty((4, mid), dtype=torch.float32, device=device)
+    if not expand:
         stats[0].zero_()
         stats[1].fill_(1.0)
-    _call(_fwd_lib(), "mbconv_ka_fwd",
-          (x.contiguous(), _bf(wexp), _f32(g1), _f32(b1),
-           _bf(wdw.reshape(k * k, mid)), y2, stats),
-          (b, h, w, cin, mid, k), x.device)
+    scratch, parts = _scratch_parts(
+        *ka_fwd_scratch(b, h, w, mid, expand), device)
+    tensors = (_aligned(x), _aligned(_bf(wexp)) if expand else None,
+               _f32(g1), _f32(b1), _bf(wdw.reshape(k * k, mid)), y2, stats)
+    lib = _fwd_lib()
+    err = lib.mbconv_ka_fwd(*map(_ptr, tensors), *parts, b, h, w, cin, mid,
+                            k, int(expand),
+                            torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch(err, lib, "mbconv_ka_fwd")
     ka_fwd.launches += 1
     return y2, stats[0], stats[1], stats[2], stats[3]
 
@@ -329,13 +402,20 @@ def kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
     _check_x(y2, "y2")
     b, h, w, mid = y2.shape
     r, cout = wr.shape[1], wproj.shape[1]
-    y3 = torch.empty((b, h, w, cout), dtype=BF16, device=y2.device)
-    stats = torch.empty((2, cout), dtype=torch.float32, device=y2.device)
-    _call(_fwd_lib(), "mbconv_kb_fwd",
-          (y2.contiguous(), _f32(g2), _f32(b2),
-           _f32(torch.stack([m2, v2])), _bf(wr), _f32(br), _bf(we),
-           _f32(be), _bf(wproj), y3, stats),
-          (b, h, w, mid, r, cout), y2.device)
+    check_channels(mid=mid, cout=cout)
+    device = y2.device
+    y3 = torch.empty((b, h, w, cout), dtype=BF16, device=device)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=device)
+    scratch, parts = _scratch_parts(
+        *kb_fwd_scratch(b, h, w, mid, cout), device)
+    tensors = (_aligned(y2), _f32(g2), _f32(b2), _f32(m2), _f32(v2),
+               _bf(wr), _f32(br), _bf(we),
+               _f32(be), _aligned(_bf(wproj)), y3, stats)
+    lib = _fwd_lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.mbconv_kb_fwd(*map(_ptr, tensors), *parts, b, h, w, mid, r,
+                            cout, stream)
+    build.check_launch(err, lib, "mbconv_kb_fwd")
     kb_fwd.launches += 1
     return y3, stats[0], stats[1]
 

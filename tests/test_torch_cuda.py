@@ -52,14 +52,19 @@ that are multiples of 8 but not of 64: ``gemm_rows`` within one bf16 step
 (both round one f32 sum, summed in another order), ``wgrad`` within 1e-5
 of its largest value (times the square root of the rows), a second call
 bit for bit equal to the first; a row of 20 bf16 values (40 bytes) is
-refused on the host by the wrapper and by the C entry point. Kernels 9
+refused on the host by the wrapper and by the C entry point. Its
+column-sum epilogue (``gemm_sums``, kernel 13's expand) at ragged M and
+N 24, 144 and 1152: c within one bf16 step, each 64-row chunk's sums
+within 1e-5 of the largest |sum| of torch's sums over the same rounded
+rows, a second call bit for bit. Kernels 9
 and 10 are held at every width with F 2024 and a row count that is not a
 multiple of 128, bf16 and f32 x, p 0 and 0.1 (kernel 9 also with ReLU),
-and kernels 15 and 16 at
-B0's eight stride-1 block shapes, a ragged 9 x 9 one and (kernel 15) B 1,
-each at the FFN or MBConv tolerances and repeated bit for bit; kernel 16
-refuses cin or mid, kernel 15 cout, that is not a multiple of 8 before
-any launch.
+and kernels 13-16 at
+B0's eight stride-1 block shapes, a ragged 9 x 9 one (B 3) and (kernels
+13-15) B 1, kernels 13-14 also at k 5 without an expand,
+each at the FFN or MBConv tolerances and repeated bit for bit; kernels
+13 and 16 refuse cin or mid, kernels 14 and 15 mid or cout, that is not
+a multiple of 8 before any launch.
 """
 
 import pytest
@@ -1147,6 +1152,42 @@ def test_hopper_wgrad_at_any_width(cuda, rows, n, k):
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
 
 
+@pytest.mark.parametrize("m,n,k", [(195, 24, 24), (1000, 144, 24),
+                                   (12608, 144, 24), (77, 1152, 192),
+                                   (130, 1152, 192), (300, 240, 40)],
+                         ids=lambda s: str(s))
+def test_hopper_gemm_sums_at_any_width(cuda, m, n, k):
+    """``gemm_sums`` (the row GEMM with its column-sum epilogue): c as
+    torch.matmul rounds it, within one bf16 step; each 64-row chunk's
+    column sums of c and c^2 as torch sums the same rounded rows, within
+    1e-5 of the largest |sum| (another order), chunks past M 0; a second
+    call bit for bit equal to the first."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=cuda)
+         * k ** -0.5).to(torch.bfloat16)
+    before = hg.gemm_sums.launches
+    c, sums = hg.gemm_sums(a, w)
+    again = hg.gemm_sums(a, w)
+    torch.cuda.synchronize()
+    assert hg.gemm_sums.launches == before + 2
+    want = (a.float() @ w.float()).to(torch.bfloat16)
+    err = (c.float() - want.float()).abs()
+    assert (err <= 2 ** -7 * want.float().abs() + 1e-6).all(), \
+        err.max().item()
+    chunks = 2 * -(-m // 128)
+    rows = torch.zeros((chunks * 64, n), device=cuda)
+    rows[:m] = c.float()
+    rows = rows.reshape(chunks, 64, n)
+    assert sums.shape == (2, chunks, n)
+    for got, ref in ((sums[0], rows.sum(1)), (sums[1], rows.square().sum(1))):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
+    assert torch.equal(c, again[0]) and torch.equal(sums, again[1])
+
+
 def test_hopper_gemm_refuses_unaligned_rows(cuda):
     """A row stride that is not a multiple of 16 bytes is refused on the
     host, by the wrapper and by the entry point, before any launch."""
@@ -1302,3 +1343,70 @@ def test_mbconv_kb_bwd_refuses_unaligned_cout(cuda):
     with pytest.raises(ValueError, match="cout = 12.*16 bytes"):
         mbconv.kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
     assert mbconv.kb_bwd.launches == before
+
+
+# kernels 13 and 14: B0's shapes and the ragged 9 x 9 one (B 3), B 1, and
+# k 5 without an expand
+FWD_SHAPES = KA_BWD_SHAPES + [(1, 28, 28, 40, 240, 40, 5, 10),
+                              (2, 14, 14, 32, 32, 16, 5, 8)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_ka_fwd_at_b0_shapes_repeats(cuda, shape):
+    """Kernel 13 at B0's block shapes: within the MBConv tolerances of its
+    plain version, and a second call bit for bit equal to the first
+    (fixed-order sums, no float atomics)."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    (x, wexp, g1, b1, wdw, *_) = _mbconv_inputs(cuda, *shape, seed=5)
+    args = (x, wexp, g1, b1, wdw, k)
+    before = mbconv.ka_fwd.launches
+    got = mbconv.ka_fwd(*args)
+    again = mbconv.ka_fwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.ka_fwd.launches == before + 2
+    _close_to_plain(got, mbconv.ka_fwd_reference(*args), "ka_fwd")
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_kb_fwd_at_b0_shapes_repeats(cuda, shape):
+    """Kernel 14 at B0's block shapes, on the plain y2 and statistics:
+    within the MBConv tolerances of its plain version, and a second call
+    bit for bit equal to the first."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, *_) = \
+        _mbconv_inputs(cuda, *shape, seed=6)
+    y2, _, _, m2, v2 = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    args = (y2, g2, b2, m2, v2, wr, br, we, be, wproj)
+    before = mbconv.kb_fwd.launches
+    got = mbconv.kb_fwd(*args)
+    again = mbconv.kb_fwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.kb_fwd.launches == before + 2
+    _close_to_plain(got, mbconv.kb_fwd_reference(*args), "kb_fwd")
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_mbconv_fwd_refuses_unaligned_channels(cuda):
+    """Kernels 13 and 14 refuse cin, mid or cout that is not a multiple of
+    8 (16-byte rows) before any launch."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    (x, wexp, g1, b1, wdw, *_) = _mbconv_inputs(cuda, 1, 5, 5, 12, 72, 8, 3,
+                                                2)
+    (_, _, _, _, _, g2, b2, wr, br, we, be, wproj, *_) = _mbconv_inputs(
+        cuda, 1, 5, 5, 8, 48, 12, 3, 2)
+    y2 = torch.zeros((1, 5, 5, 48), dtype=torch.bfloat16, device=cuda)
+    z = torch.zeros(48, device=cuda)
+    before = mbconv.ka_fwd.launches, mbconv.kb_fwd.launches
+    with pytest.raises(ValueError, match="cin = 12.*kernels 13-16"):
+        mbconv.ka_fwd(x, wexp, g1, b1, wdw, 3)
+    with pytest.raises(ValueError, match="cout = 12.*kernels 13-16"):
+        mbconv.kb_fwd(y2, g2, b2, z, z, wr, br, we, be, wproj)
+    assert (mbconv.ka_fwd.launches, mbconv.kb_fwd.launches) == before

@@ -1,14 +1,15 @@
 """The shared Hopper GEMM's host side on the CPU (``ops/hopper_gemm.py``):
 its plain versions against ``jnp.dot`` in f32, its tile and group choices,
-TMA's row rule, and the scratch layouts and channel rules of kernels 10,
-15 and 16 that rest on it. The kernels themselves run only on a card (``tests/test_torch_cuda.py``,
-marked ``gpu``).
+TMA's row rule, and the scratch layouts and channel rules of kernels 10
+and 13-16 that rest on it. The kernels themselves run only on a card
+(``tests/test_torch_cuda.py``, marked ``gpu``).
 
 ``gemm_rows_reference`` rounds once to bf16 after an f32 sum, as
 ``jnp.dot(..., preferred_element_type=f32)`` then a cast does: both sum in
 f32 in another order, so an output may land one bf16 step (2^-7 relative
 at most) apart. ``wgrad_reference`` is f32 throughout: 1e-5 of the largest
-|value|.
+|value|. ``gemm_sums_reference``'s chunk sums are held to f32 sums of the
+same rounded rows in numpy, within 1e-5 of the largest |sum|.
 """
 
 import jax.numpy as jnp
@@ -180,3 +181,141 @@ def test_kb_bwd_scratch_layout(b, h, w, mid, r, cout, groups):
     ends = [o + n for o, n in layout.values()]
     assert all(e <= o for e, o in zip(ends, offsets[1:]))
     assert ends[-1] <= total < ends[-1] + 256
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 24, 24), (130, 144, 24),
+                                   (77, 1152, 192), (64, 8, 8)])
+def test_gemm_sums_reference_matches_jnp(m, n, k):
+    """The column-sum GEMM's plain version: c as ``jnp.dot`` rounds it, and
+    per 64-row chunk (2·ceil(M / 128) of them, 0 past M) the column sums
+    of the rounded c and of its squares."""
+    rs = np.random.RandomState(m + n)
+    a, w = _bf16(rs, m, k), _bf16(rs, k, n, scale=k ** -0.5)
+    c, sums = hopper_gemm.gemm_sums(a, w)  # CPU: plain
+    want = jnp.dot(jnp.asarray(a.float().numpy()),
+                   jnp.asarray(w.float().numpy()),
+                   preferred_element_type=jnp.float32)
+    want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    assert c.dtype == torch.bfloat16 and c.shape == (m, n)
+    err = np.abs(c.float().numpy() - want)
+    assert (err <= 2.0 ** -7 * np.abs(want) + 1e-6).all(), err.max()
+    chunks = 2 * -(-m // 128)
+    assert sums.shape == (2, chunks, n) and sums.dtype == torch.float32
+    rows = np.zeros((chunks * 64, n), np.float32)
+    rows[:m] = c.float().numpy()
+    rows = rows.reshape(chunks, 64, n)
+    for got, ref in ((sums[0], rows.sum(1)), (sums[1], (rows ** 2).sum(1))):
+        assert np.abs(got.numpy() - ref).max() <= \
+            1e-5 * max(1.0, np.abs(ref).max())
+    assert (sums[:, -(-m // 64):] == 0).all()  # chunks wholly past M
+
+
+@pytest.mark.parametrize("w,tiles", [(112, 4), (56, 2), (28, 1), (14, 1),
+                                     (7, 1), (9, 1), (33, 2), (64, 2),
+                                     (65, 3)])
+def test_dw_tiles(w, tiles):
+    """The depthwise passes' tiles: 8 rows by W in the fewest column tiles
+    of at most 32 (``dw_tile`` in ``csrc/mbconv.cuh``), per sample."""
+    cols = -(-w // tiles)
+    assert cols <= 32 and -(-w // cols) == tiles
+    assert mbconv.dw_tiles(3, 17, w) == 3 * 3 * tiles
+
+
+@pytest.mark.parametrize("b,h,w,mid,expand", [
+    (64, 112, 112, 32, False), (64, 56, 56, 144, True),
+    (64, 7, 7, 1152, True), (3, 9, 9, 144, True), (1, 1, 1, 8, True)])
+def test_ka_fwd_scratch_layout(b, h, w, mid, expand):
+    """Kernel 13's scratch: y1 (B·H·W, mid) bf16 with an expand; the GEMM's
+    chunk sums (2, 2·ceil(B·H·W / 128), mid) f32; the depthwise tiles' sums
+    (2, tiles, mid) f32; the first reduction level (2, ceil(rows / 256),
+    mid) f32 for the taller of the two; back to back on 256-byte
+    boundaries."""
+    layout, total = mbconv.ka_fwd_scratch(b, h, w, mid, expand)
+    n = b * h * w
+    chunks = 2 * -(-n // 128) if expand else 0
+    tiles = mbconv.dw_tiles(b, h, w)
+    want = {"y1": n * mid * 2 if expand else 0,
+            "part1": 2 * chunks * mid * 4, "part2": 2 * tiles * mid * 4,
+            "level": 2 * -(-max(chunks, tiles) // 256) * mid * 4}
+    assert {k: v for k, (_, v) in layout.items()} == want
+    offsets = [o for o, _ in layout.values()]
+    assert offsets[0] == 0 and all(o % 256 == 0 for o in offsets)
+    ends = [o + v for o, v in layout.values()]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total < ends[-1] + 256
+
+
+@pytest.mark.parametrize("b,h,w,mid,cout", [
+    (64, 112, 112, 32, 16), (64, 56, 56, 144, 24), (64, 7, 7, 1152, 320),
+    (3, 9, 9, 144, 24), (1, 1, 1, 8, 8)])
+def test_kb_fwd_scratch_layout(b, h, w, mid, cout):
+    """Kernel 14's scratch: a2 (B·H·W, mid) bf16; then f32: the squeeze's
+    per-tile sums (T, mid) for T = B·ceil(HW / 64) tiles of one sample
+    each; per-sample sums, se (B, mid) each; the projection's per-tile
+    sums (2, T, cout); their first reduction level (2, ceil(T / 256),
+    cout); on 256-byte boundaries, so that TMA and 16-byte loads take
+    every part."""
+    layout, total = mbconv.kb_fwd_scratch(b, h, w, mid, cout)
+    tiles = b * -(-(h * w) // 64)
+    want = {"a2": b * h * w * mid * 2, "sq": tiles * mid * 4,
+            "sample": b * mid * 4, "se": b * mid * 4,
+            "part": 2 * tiles * cout * 4,
+            "level": 2 * -(-tiles // 256) * cout * 4}
+    assert {k: v for k, (_, v) in layout.items()} == want
+    offsets = [o for o, _ in layout.values()]
+    assert offsets[0] == 0 and all(o % 256 == 0 for o in offsets)
+    ends = [o + v for o, v in layout.values()]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total < ends[-1] + 256
+
+
+def test_mbconv_channel_rule_names_kernels_13_to_16():
+    with pytest.raises(ValueError, match="mid = 140: .*16 bytes, which "
+                                         "kernels 13-16 need"):
+        mbconv.check_channels(24, 140)
+
+
+def _refuse_launch(monkeypatch):
+    """Route CPU tensors to the kernels' side of the wrappers, with a
+    library that fails the test if anything reaches it."""
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+    monkeypatch.setattr(mbconv, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(mbconv, "_fwd_lib", no_library)
+
+
+@pytest.mark.parametrize("cin,mid,what", [(12, 72, "cin = 12"),
+                                          (24, 140, "mid = 140"),
+                                          (20, 20, "cin = 20")])
+def test_ka_fwd_checks_channels_before_any_launch(monkeypatch, cin, mid,
+                                                  what):
+    """Kernel 13's wrapper applies the channel rule (with and without an
+    expand) before it allocates or launches anything."""
+    rs = np.random.RandomState(cin)
+    x = _bf16(rs, 1, 5, 5, cin)
+    expand = mid != cin
+    wexp = torch.zeros((cin, mid)) if expand else None
+    g1 = torch.ones(mid) if expand else None
+    b1 = torch.zeros(mid) if expand else None
+    before = mbconv.ka_fwd.launches
+    _refuse_launch(monkeypatch)
+    with pytest.raises(ValueError, match=f"{what}: .*kernels 13-16"):
+        mbconv.ka_fwd(x, wexp, g1, b1, torch.zeros((3, 3, mid)), 3)
+    assert mbconv.ka_fwd.launches == before
+
+
+@pytest.mark.parametrize("mid,cout,what", [(72, 12, "cout = 12"),
+                                           (140, 24, "mid = 140")])
+def test_kb_fwd_checks_channels_before_any_launch(monkeypatch, mid, cout,
+                                                  what):
+    """Kernel 14's wrapper applies the channel rule to mid and cout before
+    it allocates or launches anything."""
+    rs = np.random.RandomState(mid)
+    y2 = _bf16(rs, 1, 5, 5, mid)
+    z = torch.zeros(mid)
+    before = mbconv.kb_fwd.launches
+    _refuse_launch(monkeypatch)
+    with pytest.raises(ValueError, match=f"{what}: .*kernels 13-16"):
+        mbconv.kb_fwd(y2, z, z, z, z, torch.zeros((mid, 2)), torch.zeros(2),
+                      torch.zeros((2, mid)), z, torch.zeros((mid, cout)))
+    assert mbconv.kb_fwd.launches == before
