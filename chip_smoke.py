@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
 card: the ViT flagship's encode and train step, the ViT-S SigLIP model
 card's train path, the B0 flagship's encode and the B0 CLIP model card's
-train path with ``fused_mbconv``, the same ViT paths with ``fused_ffn``,
+train path with ``fused_mbconv``, the ViT flagship's train step with
+global negatives (one bucket of 256), the same ViT paths with ``fused_ffn``,
 the attention module's unpacked (separate q, k, v) route and its fused
 attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --kernel-profile   # kernels 9, 10, 13-16 alone
+    python3 chip_smoke.py --kernel-profile   # kernels 5, 6, 9, 10, 13-16 alone
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -23,8 +24,8 @@ fatal on failure:
    ``hopper_gemm``, kernel 10's 8 ``ffn_bwd_rows_kernel`` instances,
    kernel 9's 8 ``ffn_fwd_rows_kernel``, kernel 15's 3 ``kb_pass_kernel``
    and kernels 13-14's ``ka_a1_kernel``, 2 ``ka_dw_kernel``,
-   ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel`` must
-   spill 0 bytes;
+   ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel``, and
+   kernels 5-6's 10 instances (``CLIP_ENTRIES``) must spill 0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -54,10 +55,15 @@ fatal on failure:
      dV must equal the plain version's bit for bit; kernels 2 and 4 also
      at ``EDGE_SHAPES``, as kernels 1 and 3;
    * CLIP loss forward and backward (``clip_fwd`` / ``clip_bwd`` vs
-     ``clip_loss_fused_reference`` / ``clip_loss_bwd_reference``) at 16
-     buckets of 16 and 1 bucket of 256, width 512: loss within 1e-5
-     relative, gradients within 1e-2 of the largest, d logit_scale within
-     1e-3 relative;
+     ``clip_loss_fused_reference`` / ``clip_loss_bwd_reference``) at
+     ``CLIP_SHAPES`` (16 buckets of 16, 4 of 16, 1 of 64, 1 of 256) and one
+     bucket of 512 (no cap), width 512, bf16: loss within 1e-5 relative,
+     gradients within 1e-2 of the largest, d logit_scale within 1e-3
+     relative; a second call of each, and the backward recomputing the
+     forward's statistics, bit for bit equal to the backward given them;
+     both backward forms timed in turns; bounds at the f32 rate (the
+     products are f32 on the CUDA cores; SigLIP's too); one profiled call
+     of each by CUDA kernel at 1 x 256 and 16 x 16;
    * SigLIP loss forward and backward (``siglip_fwd`` / ``siglip_bwd`` vs
      ``siglip_loss_fused_reference`` / ``siglip_loss_bwd_reference``) at 4
      buckets of 16 (the card), 16 of 16 and 1 of 256, width 512, bf16, at
@@ -127,6 +133,15 @@ fatal on failure:
    dropout 0 on the kernel path and on the plain path (the attention
    kernels' plain versions, unfused CLIP loss): losses within 1e-2, named gradients within 5e-2
    relative (L2); and the plain path's train pairs/s;
+5b. global: ``negatives: global`` (model_cards/example_multi.yaml): the
+   flagship of 5. with the same weights and f32 masters through
+   ``make_multi_steps(..., buckets=1)``, one bucket of 256, takes 5
+   train steps; per step 14 + 14 attention and 1 + 1 CLIP launches;
+   losses finite, the least of the last 4 below the first, every master
+   moved; one dropout-0 step against the CLIP kernels' plain versions
+   (``_plain_clip``): loss within 1e-2, named gradients within 5e-2; a
+   ``summary:`` line of train pairs/s at buckets 16 and 1, timed in turns
+   (16, 1, 1, 16);
 6. card: ``CARD`` (the dict of model_cards/multi/
    vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
    128 wide with 4 heads of 32, SigLIP, bs 64 in 4 buckets, accumulation
@@ -213,9 +228,12 @@ most time. The line before the last is a JSON record of the kernels; the
 last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.
 
-``--kernel-profile`` runs phase 1 and the build of kernels 9, 10 and 13-16
-only, times them at every ``FFN_SHAPES`` and ``MBCONV_SHAPES`` row
-(kernel 9 beside the unfused cuBLAS forward, kernels 13-15 beside their
+``--kernel-profile`` runs phase 1 and the build of kernels 5, 6, 9, 10 and
+13-16 only, times them at every ``CLIP_SHAPES``, ``FFN_SHAPES`` and
+``MBCONV_SHAPES`` row (kernels 5 and 6 beside their plain versions, the
+backward also given the forward's statistics where the commit takes them,
+and both sides of the commit's CLIP tile choices in turns;
+kernel 9 beside the unfused cuBLAS forward, kernels 13-15 beside their
 plain versions, each beside its bound; the MBConv kernels summed over
 B0's stride-1 blocks), profiles one call of each by CUDA kernel and takes
 the peak memory of one fused-FFN flagship train step; it prints no
@@ -263,6 +281,13 @@ BWD_REL_L2_TOL = 1e-2
 # ptxas must report 0 spill bytes for each
 BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
 BWD_INSTANCES = 2 * 6
+# kernels 5-6 (csrc/clip_loss.cu), bf16 and f32 each: the forward at 16-
+# and 32-row tiles, the one-block backward (16-row tiles), the two-kernel
+# backward's dz and dx kernels; 0 spill bytes each (mangled names with
+# their length prefixes)
+CLIP_ENTRIES = ("15clip_fwd_kernel", "21clip_bwd_small_kernel",
+                "14clip_dz_kernel", "14clip_dx_kernel")
+CLIP_INSTANCES = 2 * (2 + 1 + 1 + 1)
 # the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
 # weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
 # library that includes it, and its three column-sum instances (gemm_sums)
@@ -285,6 +310,16 @@ GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9 + 3,
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
+# (buckets, N) of the CLIP kernels, width 512: the flagship (16 x 16), the
+# cards (4 x 16), a card with global negatives (1 x 64) and the flagship's
+# global-negatives phase (1 x 256)
+CLIP_SHAPES = ((16, 16), (4, 16), (1, 64), (1, 256))
+CLIP_UNCAPPED = (1, 512)  # past the old 256-row cap: checked and timed
+CLIP_PROFILED = ((1, 256), (16, 16))  # profiled by CUDA kernel
+# where --kernel-profile times both sides of the CLIP kernels' tile choices
+CLIP_REGIME_SHAPES = ((16, 16), (4, 16), (1, 32), (1, 64), (1, 128),
+                      (1, 256), (1, 512))
+GLOBAL_STEPS = 5  # train steps of the global-negatives phase
 # SigLIP (scale, bias): the head's init and the saturated ends where a
 # naive softplus would overflow
 SIGLIP_SCALARS = ((1.0, -10.0), (5.0, 30.0), (5.0, -30.0))
@@ -326,9 +361,11 @@ FUSE_PROJ_ROUNDS = 3
 FLAX_STEPS = 3  # train steps of fused_attention=False (flax's attention)
 BLOCK_REL_TOL = 2e-3  # relative L2 of the attention block's y and dx
 # the least time of a kernel: NVIDIA's data sheet for one H100 SXM (dense,
-# at 700 W); bytes over the HBM rate, bf16 products over the tensor rate
+# at 700 W); bytes over the HBM rate, products of bf16 operands over the
+# tensor rate, products with an f32 operand over the CUDA cores' rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 # the 8 distinct shapes of B0's 12 stride-1 MBConv blocks, which the kernel
 # phase checks at the card's batch of 64: first block of that shape ->
 # (H = W, cin, mid, cout, k, SE width)
@@ -522,7 +559,7 @@ def phase_build():
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(REPO)}", flush=True)
         log = lib.with_suffix(".log")
-        func, spills, gemms = "", {}, {}  # {entry: [stores, loads]}
+        func, spills, gemms, clips = "", {}, {}, {}  # {entry: [st, ld]}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
@@ -540,6 +577,8 @@ def phase_build():
                         spills[func] = counts
                     if any(k in func for k in GEMM_ENTRIES):
                         gemms[func] = counts
+                    if any(k in func for k in CLIP_ENTRIES):
+                        clips[func] = counts
         if name == "attention_bwd":
             if len(spills) != BWD_INSTANCES:
                 fail(f"ptxas reported {len(spills)} backward kernel "
@@ -548,6 +587,15 @@ def phase_build():
             if spilled:
                 fail(f"backward kernels spill registers: {spilled}")
             print(f"  ptxas: {len(spills)} backward instances, 0 spill "
+                  f"bytes", flush=True)
+        if name == "clip_loss":
+            if len(clips) != CLIP_INSTANCES:
+                fail(f"ptxas reported {len(clips)} CLIP kernel instances, "
+                     f"expected {CLIP_INSTANCES}")
+            spilled = {e: n for e, n in clips.items() if any(n)}
+            if spilled:
+                fail(f"CLIP kernels spill registers: {spilled}")
+            print(f"  ptxas: {len(clips)} CLIP kernel instances, 0 spill "
                   f"bytes", flush=True)
         if name in GEMM_INSTANCES:
             if len(gemms) != GEMM_INSTANCES[name]:
@@ -610,13 +658,14 @@ def _nbytes(*tensors) -> int:
     return total
 
 
-def _bound(inputs, outputs, flops):
+def _bound(inputs, outputs, flops, rate=BF16_FLOPS, f32_flops=0):
     """(ms, "bytes" or "operations"): the least time of a function on this
     card, the larger of its bytes (each input read once, each output
-    written once) over the HBM rate and its bf16 products over the tensor
-    rate."""
+    written once) over the HBM rate and its operations: ``flops`` over
+    ``rate`` (bf16 on the tensor cores unless given) plus ``f32_flops``
+    (products with an f32 operand) over the CUDA cores' f32 rate."""
     by_bytes = _nbytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS * 1e3
+    by_ops = (flops / rate + f32_flops / F32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -1047,44 +1096,94 @@ def _ffn_mask_check(gen, device, name, b, l, e, f):
              f"version's")
 
 
+def _clip_rate(emb):
+    """The rate of the CLIP logits' products on ``emb``'s rows: bf16
+    products are exact in f32, so the tensor cores' bf16 rate; f32 rows
+    at the CUDA cores' rate."""
+    import torch
+
+    return BF16_FLOPS if emb.dtype == torch.bfloat16 else F32_FLOPS
+
+
+def _clip_inputs(gen, device, buckets, n):
+    """Seeded bf16 embeddings of ``buckets`` x ``n`` rows, width 512, and
+    the scale and cotangent every CLIP row uses."""
+    import torch
+
+    img, prof = (torch.randn((buckets * n, 512), generator=gen,
+                             device=device).to(torch.bfloat16)
+                 for _ in range(2))
+    return (img, prof, torch.full((), 0.7, device=device),
+            torch.full((), 1.3, device=device))
+
+
 def _clip_kernels(gen, device, records):
+    """Kernels 5 and 6 against their plain versions at ``CLIP_SHAPES`` and
+    ``CLIP_UNCAPPED``: the loss within 1e-5 relative, the gradients within
+    1e-2 of the largest, d logit_scale within 1e-3 relative; a second call
+    of each and the backward recomputing the forward's statistics equal
+    to the backward given them, bit for bit; device ms of each, the plain
+    versions' and the recomputing backward's (the two backward forms in
+    turns); one profiled call of each by CUDA kernel at
+    ``CLIP_PROFILED``."""
     import torch
     from multimodal_plankton_recognition_torch.ops.contrastive import (
         clip_bwd, clip_fwd, clip_loss_bwd_reference,
         clip_loss_fused_reference)
 
-    for buckets, n in ((BUCKETS, BATCH // BUCKETS), (1, BATCH)):
-        img = torch.randn((buckets * n, 512), generator=gen, device=device
-                          ).to(torch.bfloat16)
-        prof = torch.randn((buckets * n, 512), generator=gen, device=device
-                           ).to(torch.bfloat16)
-        scale = torch.full((), 0.7, device=device)
-        g = torch.full((), 1.3, device=device)
+    for buckets, n in CLIP_SHAPES + (CLIP_UNCAPPED,):
+        img, prof, scale, g = _clip_inputs(gen, device, buckets, n)
         label = f"buckets={buckets} N={n} D=512"
+        loss, stats = clip_fwd(img, prof, scale, buckets, keep=True)
         want = clip_loss_fused_reference(img, prof, scale, buckets)
-        err = _check(f"clip_fwd {label}", clip_fwd(img, prof, scale, buckets),
-                     want, CLIP_LOSS_TOL, want.abs().item())
-        # the logits of each bucket: 2 N^2 D; the backward also 2 + 2
+        err = _check(f"clip_fwd {label}", loss, want, CLIP_LOSS_TOL,
+                     want.abs().item())
+        got = clip_bwd(img, prof, scale, g, buckets, stats)
+        ref = clip_loss_bwd_reference(img, prof, scale, g, buckets)
+        top = max(w.float().abs().max().item() for w in ref[:2])
+        gerr = max(_check(f"clip_bwd {what} {label}", got[i], ref[i],
+                          CLIP_GRAD_TOL, top)
+                   for i, what in enumerate(("d_image", "d_profile")))
+        _check(f"clip_bwd d_logit_scale {label}", got[2], ref[2],
+               CLIP_SCALE_TOL, ref[2].abs().item())
+        exact = {"fwd again": torch.equal(loss, clip_fwd(img, prof, scale,
+                                                         buckets)),
+                 "bwd again": all(map(torch.equal, got, clip_bwd(
+                     img, prof, scale, g, buckets, stats))),
+                 "bwd recomputing": all(map(torch.equal, got, clip_bwd(
+                     img, prof, scale, g, buckets)))}
+        print(f"kernel clip [{label}]: bit for bit {exact} (must all be "
+              f"True)", flush=True)
+        if not all(exact.values()):
+            fail(f"clip {label}: a second call or the recomputing backward "
+                 f"differs from the first call: {exact}")
+        # the logits of each bucket: 2 N^2 D products of the embeddings;
+        # the backward's d_in and d_pn as many again each, of f32 ds
         flops = 2 * buckets * n * n * 512
+        rate = _clip_rate(img)
         _report(records, "clip_fwd", label, err * want.abs().item(),
                 CLIP_LOSS_TOL * want.abs().item(),
                 cuda_ms(lambda: clip_fwd(img, prof, scale, buckets)),
                 cuda_ms(lambda: clip_loss_fused_reference(img, prof, scale,
                                                           buckets)),
-                _bound((img, prof, scale), want, flops))
-        got = clip_bwd(img, prof, scale, g, buckets)
-        want = clip_loss_bwd_reference(img, prof, scale, g, buckets)
-        top = max(w.float().abs().max().item() for w in want[:2])
-        err = max(_check(f"clip_bwd {what} {label}", got[i], want[i],
-                         CLIP_GRAD_TOL, top)
-                  for i, what in enumerate(("d_image", "d_profile")))
-        _check(f"clip_bwd d_logit_scale {label}", got[2], want[2],
-               CLIP_SCALE_TOL, want[2].abs().item())
-        _report(records, "clip_bwd", label, err * top, CLIP_GRAD_TOL * top,
-                cuda_ms(lambda: clip_bwd(img, prof, scale, g, buckets)),
+                _bound((img, prof, scale), (loss, stats), flops, rate))
+        given = functools.partial(clip_bwd, img, prof, scale, g, buckets,
+                                  stats)
+        recomputing = functools.partial(clip_bwd, img, prof, scale, g,
+                                        buckets)
+        turns = [cuda_ms(f) for f in (given, recomputing, recomputing,
+                                      given)]
+        _report(records, "clip_bwd", label, gerr * top, CLIP_GRAD_TOL * top,
+                (turns[0] + turns[3]) / 2,
                 cuda_ms(lambda: clip_loss_bwd_reference(img, prof, scale, g,
                                                         buckets)),
-                _bound((img, prof, scale, g), got, 3 * flops))
+                _bound((img, prof, scale, g, stats), got, flops, rate,
+                       2 * flops),
+                recomputing_ms=(turns[1] + turns[2]) / 2)
+        if (buckets, n) in CLIP_PROFILED:
+            _call_profile("clip_fwd", label, lambda: clip_fwd(
+                img, prof, scale, buckets))
+            _call_profile("clip_bwd", label, given)
 
 
 def _siglip_kernels(gen, device, records):
@@ -1507,7 +1606,7 @@ def phase_slice(device):
     return launches
 
 
-def _train_state(model, state_dict, device):
+def _train_state(model, state_dict, device, buckets=BUCKETS):
     from multimodal_plankton_recognition_torch.config import OptimConfig
     from multimodal_plankton_recognition_torch.train import (
         create_train_state, make_multi_steps, make_optimizer)
@@ -1516,7 +1615,7 @@ def _train_state(model, state_dict, device):
                                     nesterov=True))
     model.to(device)
     state = create_train_state(model, state_dict, tx)
-    train_step, _ = make_multi_steps(model, tx, buckets=BUCKETS)
+    train_step, _ = make_multi_steps(model, tx, buckets=buckets)
     return state, train_step
 
 
@@ -1655,6 +1754,104 @@ def phase_train(device):
         plain_rate = _pairs_per_s(pstate, pstep, batch, PLAIN_STEPS)
     print(f"train: plain path {plain_rate!r} pairs/s over {PLAIN_STEPS} "
           f"steps", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_clip():
+    """The CLIP wrappers swapped for their plain versions under the same
+    autograd function, on the card's tensors: the global phase's
+    comparison route; fails if a CLIP kernel launched inside."""
+    from multimodal_plankton_recognition_torch.ops import contrastive
+
+    before = {n: _counts()[n] for n in ("clip_fwd", "clip_bwd")}
+    kernels = contrastive.clip_fwd, contrastive.clip_bwd
+    contrastive.clip_fwd = contrastive.clip_loss_fused_reference
+    contrastive.clip_bwd = contrastive.clip_loss_bwd_reference
+    try:
+        yield
+    finally:
+        contrastive.clip_fwd, contrastive.clip_bwd = kernels
+    after = {n: _counts()[n] for n in before}
+    if after != before:
+        fail(f"the plain CLIP route launched kernels: {before} -> {after}")
+
+
+def phase_global(device):
+    """``negatives: global`` on the ViT flagship: phase 5's weights and f32
+    masters through ``make_multi_steps(..., buckets=1)`` (one bucket of
+    256, as ``step_buckets`` gives a card with global negatives):
+    ``GLOBAL_STEPS`` train steps with 14 + 14 attention and 1 + 1 CLIP
+    launches each, finite losses, the least of the last steps below the
+    first, every master moved; one dropout-0 step against the CLIP
+    kernels' plain versions (loss 1e-2, named gradients 5e-2); a
+    ``summary:`` line of train pairs/s at buckets 16 and 1 in turns (16,
+    1, 1, 16). Returns the launches of the ``GLOBAL_STEPS`` steps."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_, synthetic_batch_vit)
+
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                         clip_bwd=1)
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+    state, train_step = _train_state(flagship_vit(), init, device, buckets=1)
+    _reset_counts()
+    losses = []
+    for _ in range(GLOBAL_STEPS):
+        state, loss = train_step(state, batch, 0)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = _counts()
+    losses = [float(x) for x in losses]
+    print(f"global: {GLOBAL_STEPS} steps of {BATCH} pairs in one bucket: "
+          f"losses {losses}; launches {launches}", flush=True)
+    want = {n: c * GLOBAL_STEPS for n, c in per_step.items()}
+    if launches != want:
+        fail(f"global: expected launches {want}, got {launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"global: non-finite train loss: {losses}")
+    if not min(losses[1:]) < losses[0]:
+        fail(f"global: train loss did not fall: {losses}")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved:
+        fail(f"global: master weights that did not move: {unmoved}")
+    del state, train_step
+
+    grads, step_losses = {}, {}
+    for path in ("kernel", "plain"):
+        m = flagship_vit(dropout=0.0)
+        st, step = _train_state(m, init, device, buckets=1)
+        with _plain_clip() if path == "plain" else contextlib.nullcontext():
+            _, loss = step(st, batch, 0)
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in NAMED_GRADS}
+        del m, st
+    loss_err = abs(step_losses["kernel"] - step_losses["plain"])
+    print(f"global step, dropout 0: loss kernel {step_losses['kernel']!r} "
+          f"plain CLIP {step_losses['plain']!r} (|diff| {loss_err!r}, tol "
+          f"{STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"global: kernel and plain CLIP steps disagree on the loss: "
+             f"{loss_err}")
+    _grad_diffs("global", grads, NAMED_GRADS, STEP_GRAD_TOL)
+
+    routes = {b: _train_state(flagship_vit(), init, device, buckets=b)
+              for b in (BUCKETS, 1)}
+    rates = {b: [] for b in routes}
+    for b in routes:
+        _pairs_per_s(*routes[b], batch, WARMUP_STEPS)
+    for b in (BUCKETS, 1, 1, BUCKETS):
+        rates[b].append(_pairs_per_s(*routes[b], batch, PLAIN_STEPS))
+    mean = {b: statistics.mean(r) for b, r in rates.items()}
+    print(f"summary: global negatives, train pairs/s over {PLAIN_STEPS} "
+          f"steps in turns (16, 1, 1, 16): buckets {BUCKETS} "
+          f"{rates[BUCKETS]!r}, buckets 1 {rates[1]!r}; ratio 1 / {BUCKETS} "
+          f"{mean[1] / mean[BUCKETS]!r}", flush=True)
     return launches
 
 
@@ -2738,10 +2935,110 @@ def _profile_card(device, what, base, paths, make_batch):
     print(f"profile {what}: {json.dumps(out)}", flush=True)
 
 
+def _clip_profile(gen, device):
+    """Kernels 5 and 6 at ``CLIP_SHAPES`` for ``--kernel-profile``, through
+    the call every commit of the port takes (``clip_fwd(img, prof, scale,
+    buckets)``, ``clip_bwd(img, prof, scale, g, buckets)``: the backward
+    recomputing the forward's statistics), beside the plain versions and
+    the bounds; where ``clip_bwd`` takes the forward's statistics, that
+    form too (the autograd path's); where the commit chooses its tiles
+    (``clip_fwd_tile``, ``clip_bwd_tile``), both sides of each choice at
+    ``CLIP_REGIME_SHAPES`` (``_clip_regimes``)."""
+    import inspect
+    from multimodal_plankton_recognition_torch.ops import contrastive as ct
+
+    for buckets, n in CLIP_SHAPES:
+        img, prof, scale, g = _clip_inputs(gen, device, buckets, n)
+        label = f"buckets={buckets} N={n} D=512"
+        flops = 2 * buckets * n * n * 512
+        rate = _clip_rate(img)
+        fwd = functools.partial(ct.clip_fwd, img, prof, scale, buckets)
+        bound = _bound((img, prof, scale), fwd(), flops, rate)
+        plain = cuda_ms(functools.partial(ct.clip_loss_fused_reference, img,
+                                          prof, scale, buckets))
+        print(f"kernel-profile clip_fwd [{label}]: {cuda_ms(fwd)!r} ms, "
+              f"plain {plain!r} ms, bound {bound[0]!r} ms ({bound[1]})",
+              flush=True)
+        bwd = functools.partial(ct.clip_bwd, img, prof, scale, g, buckets)
+        bound = _bound((img, prof, scale, g), bwd(), flops, rate, 2 * flops)
+        more = ""
+        if "stats" in inspect.signature(ct.clip_bwd).parameters:
+            stats = ct.clip_fwd(img, prof, scale, buckets, keep=True)[1]
+            more = (f", given the forward's statistics "
+                    f"{cuda_ms(functools.partial(bwd, stats=stats))!r} ms")
+        plain = cuda_ms(functools.partial(ct.clip_loss_bwd_reference, img,
+                                          prof, scale, g, buckets))
+        print(f"kernel-profile clip_bwd [{label}]: {cuda_ms(bwd)!r} ms"
+              f"{more}, plain {plain!r} ms, bound {bound[0]!r} ms "
+              f"({bound[1]})", flush=True)
+    if hasattr(ct, "clip_fwd_tile"):
+        for buckets, n in CLIP_REGIME_SHAPES:
+            _clip_regimes(ct, gen, device, buckets, n)
+
+
+@contextlib.contextmanager
+def _clip_tile_as(ct, choice, tile):
+    """The CLIP wrappers and ``clip_scratch`` on ``tile``-row tiles at
+    every N where ``choice`` (``"clip_fwd_tile"`` or ``"clip_bwd_tile"``)
+    is asked."""
+    chosen = getattr(ct, choice)
+    setattr(ct, choice, lambda n: tile)
+    try:
+        yield
+    finally:
+        setattr(ct, choice, chosen)
+
+
+def _clip_regimes(ct, gen, device, buckets, n):
+    """Both sides of the CLIP kernels' two choices at one shape, in turns
+    (chosen, other, other, chosen): the forward on 16- and on 32-row tiles
+    and, where a bucket is one 16-row tile (the one-block backward's only
+    shapes), the backward given the forward's statistics on one block a
+    bucket and on the two kernels of 32-row tiles. The other choice agrees
+    with the chosen one within the kernels' tolerances."""
+    img, prof, scale, g = _clip_inputs(gen, device, buckets, n)
+    label = f"buckets={buckets} N={n} D=512"
+    stats = ct.clip_fwd(img, prof, scale, buckets, keep=True)[1]
+    calls = {"fwd": functools.partial(ct.clip_fwd, img, prof, scale,
+                                      buckets)}
+    if n <= 16:
+        calls["bwd"] = functools.partial(ct.clip_bwd, img, prof, scale, g,
+                                         buckets, stats)
+    out, times = {}, {}
+    for what, call in calls.items():
+        choice = f"clip_{what}_tile"
+        chosen = getattr(ct, choice)(n)
+        other = 48 - chosen  # 16 <-> 32
+        for tile in (chosen, other, other, chosen):
+            with _clip_tile_as(ct, choice, tile):
+                out.setdefault((what, tile), call())
+                times.setdefault((what, tile), []).append(cuda_ms(call))
+        names = ({16: "16-row tiles", 32: "32-row tiles"} if what == "fwd"
+                 else {16: "one block a bucket", 32: "two kernels"})
+        ms = {t: sum(times[what, t]) / 2 for t in (chosen, other)}
+        print(f"kernel-profile clip regimes {what} [{label}]: "
+              f"{names[chosen]} (chosen) {ms[chosen]!r} ms, "
+              f"{names[other]} {ms[other]!r} ms, in turns", flush=True)
+    want, got = out["fwd", 16].item(), out["fwd", 32].item()
+    if abs(got - want) > CLIP_LOSS_TOL * abs(want):
+        fail(f"clip regimes {label}: the forward gives {want!r} on 16-row "
+             f"tiles, {got!r} on 32-row tiles")
+    if "bwd" in calls:
+        grads = out["bwd", 16][:2], out["bwd", 32][:2]
+        top = max(t.float().abs().max().item() for t in grads[0])
+        for a, b in zip(*grads):
+            if (a.float() - b.float()).abs().max().item() > \
+                    CLIP_GRAD_TOL * top:
+                fail(f"clip regimes {label}: the two-kernel backward differs "
+                     f"from the one-block backward beyond {CLIP_GRAD_TOL}")
+
+
 def phase_kernel_profile(device):
-    """Kernels 9, 10 and 13-16 alone (``--kernel-profile``): device ms by
-    ``cuda_ms``. Kernels 9 and 10 at every ``FFN_SHAPES`` row (GELU, bf16,
-    p 0; ViT-T also p 0.1; kernel 9 also f32 x at the card's profile row)
+    """Kernels 5, 6, 9, 10 and 13-16 alone (``--kernel-profile``): device
+    ms by ``cuda_ms``. Kernels 5 and 6 at every ``CLIP_SHAPES`` row
+    (``_clip_profile``, with both sides of their tile choices); kernels 9
+    and 10 at every ``FFN_SHAPES`` row (GELU, bf16, p 0; ViT-T also p
+    0.1; kernel 9 also f32 x at the card's profile row)
     beside the unfused cuBLAS forward or backward and the bound; kernels
     13-16 at every ``MBCONV_SHAPES`` row (B 64), each beside its bound and
     13-15 beside their plain versions, each with the sum over B0's 12
@@ -2755,8 +3052,9 @@ def phase_kernel_profile(device):
     from multimodal_plankton_recognition_torch.ops import build, ffn
     from multimodal_plankton_recognition_torch.ops import mbconv as mb
 
-    build.build_all(("ffn", "mbconv_fwd", "mbconv_bwd"))
+    build.build_all(("ffn", "mbconv_fwd", "mbconv_bwd", "clip_loss"))
     gen = torch.Generator(device=device).manual_seed(0)
+    _clip_profile(gen, device)
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=device) * scale \
@@ -2865,7 +3163,9 @@ def _rank_table():
     its 14 attention and FFN launches, its profile encoder 2; B0's 12
     blocks take their ``MBCONV_SHAPES`` row by ``B0_BLOCKS``. Train paths
     run dropout 0.1 in the profile encoder (and the FFN), encode paths
-    none; eval steps inside the card paths count as train launches."""
+    none; eval steps inside the card paths count as train launches. The
+    loss kernels run at each path's bucket shape: the flagship's 16 x 16,
+    the cards' 4 x 16 and the global phase's 1 x 256."""
     vit, prof = 12 / ATTENTION_LAYERS, 2 / ATTENTION_LAYERS
 
     def pair(a, b, vit_mode, prof_mode, rows=SHAPES):
@@ -2874,13 +3174,13 @@ def _rank_table():
 
     flag, card = ("vit", "profile"), ("card vit", "card profile")
     fwd_train = {p: pair(*flag, "eval", "train p=0.1")
-                 for p in ("train", "ffn_train")}
+                 for p in ("train", "global", "ffn_train")}
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
                       for p in ("card", "ffn_card")})
     fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
                ffn_encode=pair(*flag, "eval", "eval"))
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
-           for p in ("train", "ffn_train")}
+           for p in ("train", "global", "ffn_train")}
     bwd.update({p: pair(*card, "p=0.0", "p=0.1")
                 for p in ("card", "ffn_card")})
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
@@ -2889,10 +3189,16 @@ def _rank_table():
                                   "gelu bfloat16 p=0.1", FFN_SHAPES),
                 "ffn_card": pair(*card, "gelu bfloat16 p=0.1",
                                  "gelu bfloat16 p=0.1", FFN_SHAPES)}
-    clip = {p: [(f"buckets={BUCKETS} N={BATCH // BUCKETS} D=512", None, 1.0)]
-            for p in ("train", "b0_card", "ffn_train", "unpacked",
-                      "fuse_proj", "flax_attention")}
-    siglip = {p: [("buckets=4 N=16 D=512", None, 1.0)]
+    def loss_rows(buckets, n):
+        return [(f"buckets={buckets} N={n} D=512", None, 1.0)]
+
+    clip = {p: loss_rows(BUCKETS, BATCH // BUCKETS)
+            for p in ("train", "ffn_train", "unpacked", "fuse_proj",
+                      "flax_attention")}
+    clip["b0_card"] = loss_rows(B0_CARD["buckets"],
+                                B0_CARD["bs"] // B0_CARD["buckets"])
+    clip["global"] = loss_rows(1, BATCH)
+    siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
               for p in ("card", "ffn_card")}
     b0 = {"b0_card": [(f"{blk} ", "", n / MBCONV_BLOCKS)
                       for blk, n in B0_BLOCKS.items()]}
@@ -2948,8 +3254,8 @@ def main(argv=None) -> None:
                         help="also break each card's micro-step device "
                              "time down by kernel (torch.profiler)")
     parser.add_argument("--kernel-profile", action="store_true",
-                        help="only time and profile kernels 9, 10 and "
-                             "13-16 (no paths, no result line)")
+                        help="only time and profile kernels 5, 6, 9, 10 "
+                             "and 13-16 (no paths, no result line)")
     args = parser.parse_args(argv)
     device = phase_device()
     if args.kernel_profile:
@@ -2958,6 +3264,7 @@ def main(argv=None) -> None:
     phase_build()
     records = phase_kernel(device)
     launches = {"encode": phase_slice(device), "train": phase_train(device),
+                "global": phase_global(device),
                 "card": phase_card(device),
                 "b0_encode": phase_b0_encode(device),
                 "b0_card": phase_b0_card(device),

@@ -15,14 +15,17 @@ entries (``torch.autograd.Function``s): kernels on a CUDA tensor, plain
 versions on a CPU tensor, an error otherwise. Their values are the
 semantics of ``ops.losses.clip_loss`` and ``ops.losses.siglip_loss``. The
 scalars (``logit_scale``, ``logit_bias``) and the cotangent stay on the
-device: no step reads them on the host.
+device: no step reads them on the host. The CLIP forward keeps its
+statistics (each row's and column's lse, the norms: ``clip_fwd(...,
+keep=True)``) and the backward takes them, so it needs no second pass
+over the logits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,13 +33,17 @@ from . import build
 
 __all__ = ["clip_loss_fused", "clip_fwd", "clip_bwd",
            "clip_loss_fused_reference", "clip_loss_bwd_reference",
+           "clip_fwd_tile", "clip_bwd_tile", "clip_scratch",
            "siglip_loss_fused", "siglip_fwd", "siglip_bwd",
            "siglip_loss_fused_reference", "siglip_loss_bwd_reference",
-           "MAX_BUCKET"]
+           "SIGLIP_MAX_BUCKET"]
 
-#: largest bucket (rows per bucket) the kernels take (csrc/*_loss.cu)
-MAX_BUCKET = 256
+#: largest bucket (rows per bucket) the SigLIP kernels take
+#: (csrc/siglip_loss.cu); the CLIP kernels take any
+SIGLIP_MAX_BUCKET = 256
 _SIGLIP_ROWS = 8  # rows of a tile in csrc/siglip_loss.cu
+_CLIP_TR = 32  # output rows of a d_in / d_pn tile in csrc/clip_loss.cu
+_CLIP_FWD_TILE16_ROWS = 128  # see clip_fwd_tile
 _EPS = 1e-12
 
 
@@ -58,38 +65,57 @@ def _buckets(image_emb, profile_emb, buckets):
 def clip_loss_fused_reference(image_emb: torch.Tensor,
                               profile_emb: torch.Tensor,
                               logit_scale: torch.Tensor,
-                              buckets: int = 1) -> torch.Tensor:
+                              buckets: int = 1, keep: bool = False):
     """Plain version of the forward kernel: per bucket, normalise, logits
-    exp(scale)·i·pᵀ, symmetric cross-entropy; mean over buckets (f32)."""
+    exp(scale)·i·pᵀ, symmetric cross-entropy; mean over buckets (f32).
+    With ``keep``, (loss, stats): stats (4, B) f32 holds each row's lse
+    over its bucket's columns, each column's lse over its rows, and the
+    image and profile norms max(‖x‖, 1e-12), which the backward takes."""
     x, y, n = _buckets(image_emb, profile_emb, buckets)
-    i, _ = _normalize(x)
-    p, _ = _normalize(y)
+    i, i_nrm = _normalize(x)
+    p, p_nrm = _normalize(y)
     z = (i @ p.transpose(1, 2)) * torch.exp(logit_scale.float())
     diag = torch.diagonal(z, dim1=1, dim2=2)
     lse_r = torch.logsumexp(z, dim=2)
     lse_c = torch.logsumexp(z, dim=1)
     losses = ((lse_r - diag).sum(1) + (lse_c - diag).sum(1)) * 0.5 / n
-    return losses.mean()
+    if not keep:
+        return losses.mean()
+    stats = torch.stack([t.reshape(-1) for t in (lse_r, lse_c, i_nrm,
+                                                  p_nrm)])
+    return losses.mean(), stats
 
 
 def clip_loss_bwd_reference(image_emb: torch.Tensor,
                             profile_emb: torch.Tensor,
                             logit_scale: torch.Tensor, g: torch.Tensor,
-                            buckets: int = 1
+                            buckets: int = 1,
+                            stats: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Plain version of the backward kernel: (d_image, d_profile) in the
     embedding dtype and d logit_scale (summed over buckets) for the
-    cotangent ``g`` of the mean loss."""
+    cotangent ``g`` of the mean loss. With the forward's ``stats`` the
+    norms and both softmaxes come from them (exp(z − lse)); without, as
+    the TPU kernel recomputes them."""
     x, y, n = _buckets(image_emb, profile_emb, buckets)
-    i, i_nrm = _normalize(x)
-    p, p_nrm = _normalize(y)
+    if stats is None:
+        i, i_nrm = _normalize(x)
+        p, p_nrm = _normalize(y)
+    else:
+        lse_r, lse_c, i_nrm, p_nrm = (t.reshape(buckets, n, 1)
+                                      for t in stats)
+        i, p = x / i_nrm, y / p_nrm
     scale_e = torch.exp(logit_scale.float())
     s = i @ p.transpose(1, 2)
     z = s * scale_e
     eye = torch.eye(n, dtype=z.dtype, device=z.device)
-    soft_r = torch.softmax(z, dim=2)
-    soft_c = torch.softmax(z, dim=1)
+    if stats is None:
+        soft_r = torch.softmax(z, dim=2)
+        soft_c = torch.softmax(z, dim=1)
+    else:
+        soft_r = torch.exp(z - lse_r)
+        soft_c = torch.exp(z - lse_c.transpose(1, 2))
     gb = g.float() / buckets  # d(total)/d(bucket loss)
     dz = gb * 0.5 / n * ((soft_r - eye) + (soft_c - eye))
     d_scale = (dz * s).sum(dim=(1, 2)) * scale_e
@@ -103,16 +129,62 @@ def clip_loss_bwd_reference(image_emb: torch.Tensor,
             d_scale.sum().to(logit_scale.dtype))
 
 
+def clip_fwd_tile(n: int) -> int:
+    """Rows and columns of the CLIP forward's similarity tiles for buckets
+    of ``n``: 16 up to ``_CLIP_FWD_TILE16_ROWS`` rows (more blocks), else
+    32 (fewer (max, sum of exp) pairs for the last block to merge); the
+    crossover as ``chip_smoke.py --kernel-profile`` times it on the H100."""
+    return 16 if n <= _CLIP_FWD_TILE16_ROWS else 32
+
+
+def clip_bwd_tile(n: int) -> int:
+    """The CLIP backward's tiles: 16 for a bucket of one 16-row tile (the
+    one-block backward), else 32 (the two-kernel backward, which the
+    one-block backward on 32-row tiles lost to on the H100)."""
+    return 16 if n <= 16 else 32
+
+
+def clip_scratch(buckets: int, n: int) -> Dict[str, int]:
+    """f32 elements of the CLIP kernels' device scratch for ``buckets`` of
+    ``n`` rows (``csrc/clip_loss.cu``): ``fwd``: the (max, sum of exp)
+    pairs of every row and column of every tile, then the diagonal;
+    ``bwd``: one-block backward, each bucket's d logit_scale partial;
+    else the two N x NP operands of d_in and d_pn (NP: n rounded up to
+    32), the line partials of q and every tile's d logit_scale partial."""
+    rows = buckets * n
+    fwd = 4 * rows * -(-n // clip_fwd_tile(n)) + rows
+    tile = clip_bwd_tile(n)
+    if tile == 16:
+        return {"fwd": fwd, "bwd": buckets}
+    tiles = -(-n // tile)
+    np_ = -(-n // _CLIP_TR) * _CLIP_TR
+    return {"fwd": fwd, "bwd": 2 * rows * np_ + 2 * rows * tiles
+            + buckets * tiles * tiles}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("clip_loss")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.clip_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.clip_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.clip_fwd.restype = ci
-    lib.clip_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                             vp]
+    lib.clip_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
     lib.clip_bwd.restype = ci
     return lib
+
+
+@functools.cache
+def _ticket(device: int, stream: int) -> torch.Tensor:
+    """The CLIP kernels' completion ticket for one stream of one card: a
+    zeroed int32 that every launch leaves at 0 again, so launches on one
+    stream share it and launches on two streams never do."""
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda",
+                                                                 device))
+
+
+def _ticket_ptr(dev: torch.device) -> int:
+    return _ticket(dev.index,
+                   torch.cuda.current_stream(dev).cuda_stream).data_ptr()
 
 
 def _on_cpu(image_emb: torch.Tensor, loss: str = "CLIP") -> bool:
@@ -146,69 +218,91 @@ def _check_cuda_args(image_emb, profile_emb, logit_scale, buckets,
     b, d = image_emb.shape
     if buckets < 1 or b % buckets:
         raise ValueError(f"batch {b} is not divisible by buckets={buckets}")
-    n = b // buckets
-    if n > MAX_BUCKET:
-        raise ValueError(f"bucket of {n} rows exceeds the kernels' "
-                         f"{MAX_BUCKET}")
     _check_scalar("logit_scale", logit_scale, image_emb)
-    return n, d
+    return b // buckets, d
 
 
-def clip_fwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
-             logit_scale: torch.Tensor, buckets: int = 1) -> torch.Tensor:
-    """Mean bucketed CLIP loss (f32 scalar): the forward kernel for CUDA
-    tensors, the plain version for CPU tensors. ``clip_fwd.launches``
-    counts launches."""
-    if _on_cpu(image_emb):
-        return clip_loss_fused_reference(image_emb, profile_emb, logit_scale,
-                                         buckets)
-    n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets)
-    image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
+def _clip_stats(image_emb, profile_emb, logit_scale, buckets, n, d):
+    """Launch kernel 5 on contiguous embeddings: (loss, stats)."""
     dev = image_emb.device
-    losses = torch.empty(buckets, dtype=torch.float32, device=dev)
-    scratch = torch.empty(buckets * (2 * n * d + n * n), dtype=torch.float32,
-                          device=dev)
+    rows = buckets * n
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    stats = torch.empty((4, rows), dtype=torch.float32, device=dev)
+    scratch = torch.empty(clip_scratch(buckets, n)["fwd"],
+                          dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.clip_fwd(image_emb.data_ptr(), profile_emb.data_ptr(),
-                           logit_scale.data_ptr(), losses.data_ptr(),
-                           scratch.data_ptr(), buckets, n, d,
+                           logit_scale.data_ptr(), loss.data_ptr(),
+                           stats.data_ptr(), scratch.data_ptr(),
+                           _ticket_ptr(dev), buckets, n, d,
+                           clip_fwd_tile(n),
                            int(image_emb.dtype == torch.bfloat16),
                            torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "clip_fwd")
+    return loss, stats
+
+
+def clip_fwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
+             logit_scale: torch.Tensor, buckets: int = 1,
+             keep: bool = False):
+    """Mean bucketed CLIP loss (f32 scalar): the forward kernel for CUDA
+    tensors, the plain version for CPU tensors; with ``keep``, (loss,
+    stats), the statistics ``clip_bwd`` takes. ``clip_fwd.launches``
+    counts launches."""
+    if _on_cpu(image_emb):
+        return clip_loss_fused_reference(image_emb, profile_emb, logit_scale,
+                                         buckets, keep)
+    n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets)
+    loss, stats = _clip_stats(image_emb.contiguous(),
+                              profile_emb.contiguous(), logit_scale, buckets,
+                              n, d)
     clip_fwd.launches += 1
-    return losses.mean()
+    return (loss, stats) if keep else loss
 
 
 def clip_bwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
-             logit_scale: torch.Tensor, g: torch.Tensor, buckets: int = 1
+             logit_scale: torch.Tensor, g: torch.Tensor, buckets: int = 1,
+             stats: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d_image, d_profile, d_logit_scale) for the cotangent ``g`` of the
     mean loss: the backward kernel for CUDA tensors, the plain version for
-    CPU tensors. ``clip_bwd.launches`` counts launches."""
+    CPU tensors. ``stats``: the forward's (``clip_fwd(..., keep=True)``);
+    without them the forward kernel runs first for them (counted here, not
+    as ``clip_fwd``): the gradients are the same bits either way.
+    ``clip_bwd.launches`` counts calls."""
     if _on_cpu(image_emb):
         return clip_loss_bwd_reference(image_emb, profile_emb, logit_scale,
-                                       g, buckets)
+                                       g, buckets, stats)
     n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets)
     image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
     dev = image_emb.device
-    gb = (g.float() / buckets).reshape(1).contiguous()
+    _check_scalar("g", g, image_emb)
+    if stats is None:
+        stats = _clip_stats(image_emb, profile_emb, logit_scale, buckets, n,
+                            d)[1]
+    elif (stats.shape != (4, buckets * n) or stats.dtype != torch.float32
+          or stats.device != dev or not stats.is_contiguous()):
+        raise ValueError(f"stats must be the forward's contiguous (4, "
+                         f"{buckets * n}) f32 statistics on {dev}")
     d_img = torch.empty_like(image_emb)
     d_prof = torch.empty_like(profile_emb)
-    d_scale = torch.empty(buckets, dtype=torch.float32, device=dev)
-    scratch = torch.empty(buckets * (4 * n * d + n * n), dtype=torch.float32,
-                          device=dev)
+    d_scale = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(clip_scratch(buckets, n)["bwd"],
+                          dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.clip_bwd(image_emb.data_ptr(), profile_emb.data_ptr(),
-                           logit_scale.data_ptr(), gb.data_ptr(),
-                           d_img.data_ptr(), d_prof.data_ptr(),
-                           d_scale.data_ptr(), scratch.data_ptr(), buckets,
-                           n, d, int(image_emb.dtype == torch.bfloat16),
+                           logit_scale.data_ptr(), g.data_ptr(),
+                           stats.data_ptr(), d_img.data_ptr(),
+                           d_prof.data_ptr(), d_scale.data_ptr(),
+                           scratch.data_ptr(), _ticket_ptr(dev),
+                           buckets, n, d, clip_bwd_tile(n),
+                           int(image_emb.dtype == torch.bfloat16),
                            torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "clip_bwd")
     clip_bwd.launches += 1
-    return d_img, d_prof, d_scale.sum().to(logit_scale.dtype)
+    return d_img, d_prof, d_scale
 
 
 clip_fwd.launches = 0
@@ -216,20 +310,24 @@ clip_bwd.launches = 0
 
 
 class _ClipLoss(torch.autograd.Function):
-    """Forward saves the embeddings and the scale; backward recomputes the
-    logits (as the TPU kernel does) and returns all three gradients."""
+    """Forward saves the embeddings, the scale and the forward's statistics
+    (lse of every row and column, the norms: 4 B floats); backward
+    recomputes the logits (as the TPU kernel does) and returns all three
+    gradients."""
 
     @staticmethod
     def forward(ctx, image_emb, profile_emb, logit_scale, buckets):
-        ctx.save_for_backward(image_emb, profile_emb, logit_scale)
+        loss, stats = clip_fwd(image_emb, profile_emb, logit_scale, buckets,
+                               keep=True)
+        ctx.save_for_backward(image_emb, profile_emb, logit_scale, stats)
         ctx.buckets = buckets
-        return clip_fwd(image_emb, profile_emb, logit_scale, buckets)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        image_emb, profile_emb, logit_scale = ctx.saved_tensors
-        di, dp, ds = clip_bwd(image_emb, profile_emb, logit_scale, g,
-                              ctx.buckets)
+        image_emb, profile_emb, logit_scale, stats = ctx.saved_tensors
+        di, dp, ds = clip_bwd(image_emb, profile_emb, logit_scale,
+                              g.float().contiguous(), ctx.buckets, stats)
         return di, dp, ds.reshape(logit_scale.shape), None
 
 
@@ -312,6 +410,9 @@ def _siglip_cuda_args(image_emb, profile_emb, logit_scale, logit_bias,
     row tiles per bucket)."""
     n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets,
                             "SigLIP")
+    if n > SIGLIP_MAX_BUCKET:
+        raise ValueError(f"bucket of {n} rows exceeds the SigLIP kernels' "
+                         f"{SIGLIP_MAX_BUCKET}")
     _check_scalar("logit_bias", logit_bias, image_emb)
     return n, d, -(-n // _SIGLIP_ROWS)
 

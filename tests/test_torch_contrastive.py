@@ -11,8 +11,13 @@ math is f32 inside, so the loss keeps 1e-6, and the gradients, rounded to
 bf16 on return, may differ by one bf16 step where the f32 values straddle a
 rounding boundary: 1e-2 relative. The unfused bf16 loss rounds the
 normalised embeddings and similarities to bf16 on both sides, in another
-order: 2e-2.
+order: 2e-2. The backward's plain version given the forward's statistics
+(exp(z - lse) in place of the softmax) keeps the same tolerances against
+JAX and against itself recomputing them.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,13 +35,20 @@ from multimodal_plankton_recognition_tpu.ops.pallas.contrastive import (
 from multimodal_plankton_recognition_torch.models.multi import (
     CoordinationHead,
 )
-from multimodal_plankton_recognition_torch.ops import losses
+from multimodal_plankton_recognition_torch.ops import contrastive, losses
 from multimodal_plankton_recognition_torch.ops.contrastive import (
-    clip_bwd, clip_fwd, clip_loss_bwd_reference, clip_loss_fused,
-    clip_loss_fused_reference,
+    clip_bwd, clip_bwd_tile, clip_fwd, clip_fwd_tile, clip_loss_bwd_reference,
+    clip_loss_fused, clip_loss_fused_reference, clip_scratch,
 )
 
 BUCKETS = [1, 2, 4]
+REPO = Path(__file__).resolve().parents[1]
+# the CUDA kernels' regime edges: one 16-row tile (the one-block backward),
+# the first bucket of 32-row tiles (the two-kernel backward) and one row
+# past one and two 32-row tiles; D 32 takes 16-byte loads, D 33 the scalar
+# path
+EDGE_N = [1, 16, 17, 33, 65]
+EDGE_D = [32, 33]
 
 
 def _emb(b=16, d=32, seed=0):
@@ -73,6 +85,113 @@ def test_plain_versions_match_jax_kernels_interpret(buckets, dtype):
         np.testing.assert_allclose(got_g.float().numpy(), want_g, rtol=tol,
                                    atol=tol * np.abs(want_g).max())
     np.testing.assert_allclose(ds.item(), float(gs), rtol=1e-5)
+
+
+def _assert_grads(got, want, dtype):
+    """(d_image, d_profile, d_scale) against JAX's at the file's
+    tolerances."""
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    for got_g, want_g in zip(got[:2], want[:2]):
+        want_g = np.asarray(want_g, np.float32)
+        np.testing.assert_allclose(got_g.float().numpy(), want_g, rtol=tol,
+                                   atol=tol * np.abs(want_g).max())
+    np.testing.assert_allclose(got[2].item(), float(want[2]), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", EDGE_D)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_plain_versions_match_jax_at_the_regime_edges(n, d, dtype):
+    """Two buckets of ``n`` rows: the plain forward (with its statistics)
+    and backward against the JAX kernels in interpret mode."""
+    img, prof, scale = _emb(b=2 * n, d=d, seed=n + d)
+    loss, grads = _jax_fused(img, prof, scale, 2, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    ti, tp = (torch.from_numpy(x).to(tdt) for x in (img, prof))
+    ts = torch.tensor(scale)
+    got, stats = clip_fwd(ti, tp, ts, 2, keep=True)
+    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-6)
+    assert stats.shape == (4, 2 * n) and stats.dtype == torch.float32
+    _assert_grads(clip_bwd(ti, tp, ts, torch.tensor(1.0), 2), grads, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [16, 33])
+def test_bwd_reference_takes_the_forward_statistics(n, dtype):
+    """The backward's plain version given the forward's statistics equals
+    the one recomputing them and JAX's gradients."""
+    img, prof, scale = _emb(b=2 * n, d=33, seed=40 + n)
+    _, grads = _jax_fused(img, prof, scale, 2, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    ti, tp = (torch.from_numpy(x).to(tdt) for x in (img, prof))
+    ts, g = torch.tensor(scale), torch.tensor(1.0)
+    stats = clip_loss_fused_reference(ti, tp, ts, 2, keep=True)[1]
+    given = clip_bwd(ti, tp, ts, g, 2, stats=stats)
+    _assert_grads(given, grads, dtype)
+    recomputing = clip_loss_bwd_reference(ti, tp, ts, g, 2)
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    for a, b in zip(given, recomputing):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   rtol=tol, atol=tol * b.abs().max().item())
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 32, 33, 64, 128, 129, 256, 300,
+                               512])
+def test_clip_kernel_layout(n):
+    """The tiles of each regime and the scratch the wrapper allocates for
+    them (``csrc/clip_loss.cu``): the forward on 16-row tiles up to
+    ``_CLIP_FWD_TILE16_ROWS`` rows, 32 above; the backward on one 16-row
+    tile a bucket up to 16 rows (the one-block backward, which needs one
+    float a bucket), above that the two-kernel backward on 32-row tiles
+    (two N x NP operands, the q partials and a partial a tile); no cap on
+    n."""
+    buckets = 3
+    rows = buckets * n
+    tile = clip_fwd_tile(n)
+    assert tile == (16 if n <= contrastive._CLIP_FWD_TILE16_ROWS else 32)
+    sizes = clip_scratch(buckets, n)
+    assert sizes["fwd"] == 2 * 2 * rows * -(-n // tile) + rows
+    tile = clip_bwd_tile(n)
+    assert tile == (16 if n <= 16 else 32)
+    tiles = -(-n // tile)
+    if n <= 16:
+        assert tiles == 1 and sizes["bwd"] == buckets
+    else:
+        np_ = -(-n // 32) * 32
+        assert np_ % 32 == 0 and n <= np_ < n + 32
+        assert sizes["bwd"] == (2 * rows * np_ + 2 * rows * tiles
+                                + buckets * tiles ** 2)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("kernel", ["clip_fwd", "clip_bwd", "siglip_fwd",
+                                    "siglip_bwd"])
+def test_smoke_ranks_the_loss_kernels_at_timed_shapes(kernel):
+    """Every label ``chip_smoke._rank_table`` ranks a loss kernel at is a
+    shape the kernel phase times (``CLIP_SHAPES``, ``SIGLIP_SHAPES``), and
+    each path's label is the bucket shape its step runs."""
+    smoke = _smoke()
+    shapes = smoke.CLIP_SHAPES if kernel.startswith("clip") \
+        else smoke.SIGLIP_SHAPES
+    timed = {f"buckets={b} N={n} D=512" for b, n in shapes}
+    paths = smoke._rank_table()[kernel]
+    for path, rows in paths.items():
+        assert [r[0] for r in rows if r[1] is None] == [r[0] for r in rows]
+        assert {r[0] for r in rows} <= timed, (path, rows)
+    if kernel.startswith("clip"):
+        assert paths["train"][0][0] == "buckets=16 N=16 D=512"
+        assert paths["b0_card"][0][0] == "buckets=4 N=16 D=512"
+        assert paths["global"][0][0] == "buckets=1 N=256 D=512"
+    else:
+        assert paths["card"][0][0] == "buckets=4 N=16 D=512"
 
 
 @pytest.mark.parametrize("buckets", BUCKETS)

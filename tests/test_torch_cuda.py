@@ -16,7 +16,12 @@ inputs whose every sum is exact (q = k = 0, v = ±1) the train-mode
 forward must equal its plain version bit for bit, which pins the dropout
 mask. CLIP: the loss to 1e-5 relative (f32 math on both sides), gradients
 to 1e-2 of their largest value (rounded to the embedding dtype),
-d logit_scale to 1e-3 relative; SigLIP the same, d logit_bias like
+d logit_scale to 1e-3 relative, at one and several 16-row tiles (the
+one-block backward) and 32-row tiles (the two-kernel one), the first
+bucket past 16 rows, ragged widths and one bucket of
+512 (the CLIP kernels have no bucket cap; SigLIP's is 256); a second call
+and the backward recomputing the forward's statistics equal the first
+call given them bit for bit; SigLIP the same, d logit_bias like
 d logit_scale, also at scale 5 with bias ±30 where a naive softplus would
 overflow. The attention kernels are also held at the SigLIP card's shapes
 (ViT-S: L 197, 6 heads of 64; profile: L 225, 4 heads of 32 with mask and
@@ -79,7 +84,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
 )
 from multimodal_plankton_recognition_torch.ops import attention_block as ab
 from multimodal_plankton_recognition_torch.ops.contrastive import (
-    MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
+    SIGLIP_MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
     clip_loss_fused, clip_loss_fused_reference, siglip_bwd, siglip_fwd,
     siglip_loss_bwd_reference, siglip_loss_fused,
     siglip_loss_fused_reference,
@@ -409,8 +414,11 @@ def _embeddings(cuda, rows, d, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("buckets,n,d", [(1, 1, 8), (4, 16, 512),
-                                         (16, 16, 512), (1, 256, 512),
-                                         (2, 100, 33)])
+                                         (16, 16, 512), (1, 64, 512),
+                                         (1, 256, 512), (1, 512, 512),
+                                         (3, 17, 40), (2, 100, 33),
+                                         (1, 300, 40), (2, 16, 640),
+                                         (1, 16, 1000), (1, 12, 603)])
 def test_clip_kernels_match_plain(cuda, buckets, n, d, dtype):
     img, prof = _embeddings(cuda, buckets * n, d, dtype)
     scale = torch.full((), 0.7, device=cuda)
@@ -422,7 +430,11 @@ def test_clip_kernels_match_plain(cuda, buckets, n, d, dtype):
                                                       before[1] + 1)
     want = clip_loss_fused_reference(img, prof, scale, buckets)
     want_grads = clip_loss_bwd_reference(img, prof, scale, g, buckets)
+    again = (clip_fwd(img, prof, scale, buckets),
+             clip_bwd(img, prof, scale, g, buckets))
     torch.cuda.synchronize()
+    assert torch.equal(again[0], loss)
+    assert all(map(torch.equal, again[1], grads))
     # absolute floors: a bucket of one row has loss and gradients 0
     assert abs(loss.item() - want.item()) <= 1e-5 * max(abs(want.item()), 1)
     for got, ref in zip(grads[:2], want_grads[:2]):
@@ -445,13 +457,78 @@ def test_clip_autograd_launches_both_kernels(cuda):
     assert all(t.grad is not None for t in (*leaves, scale))
 
 
-def test_clip_bucket_above_max_raises(cuda):
-    img, prof = _embeddings(cuda, MAX_BUCKET + 1, 16, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("buckets,n,d", [(16, 16, 512), (2, 20, 512),
+                                         (1, 256, 512), (2, 100, 33),
+                                         (2, 16, 640), (1, 16, 1000),
+                                         (1, 12, 603)])
+def test_clip_saved_statistics_give_the_same_gradients(cuda, buckets, n, d,
+                                                       dtype):
+    """The backward given the forward's statistics (the autograd path)
+    equals the backward recomputing them, bit for bit, and autograd
+    through ``clip_loss_fused`` equals both."""
+    img, prof = _embeddings(cuda, buckets * n, d, dtype, seed=2)
+    scale = torch.full((), 0.7, device=cuda)
+    g = torch.ones((), device=cuda)
+    loss, stats = clip_fwd(img, prof, scale, buckets, keep=True)
+    assert stats.shape == (4, buckets * n) and torch.isfinite(stats).all()
+    given = clip_bwd(img, prof, scale, g, buckets, stats)
+    recomputing = clip_bwd(img, prof, scale, g, buckets)
+    leaves = [t.clone().requires_grad_() for t in (img, prof, scale)]
+    clip_loss_fused(*leaves, buckets).backward()
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, given, recomputing))
+    assert all(torch.equal(a, t.grad) for a, t in zip(given, leaves))
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("buckets,n,d", [(4, 16, 512), (1, 40, 512),
+                                         (1, 64, 33)])
+def test_clip_forward_takes_either_tile(cuda, monkeypatch, buckets, n, d,
+                                        tile):
+    """The forward kernel on 16- or 32-row tiles at any N (the wrapper
+    chooses by N; ``--kernel-profile`` times the other choice) agrees with
+    the plain version, statistics included."""
+    from multimodal_plankton_recognition_torch.ops import contrastive
+
+    img, prof = _embeddings(cuda, buckets * n, d, torch.bfloat16, seed=4)
+    scale = torch.full((), 0.7, device=cuda)
+    monkeypatch.setattr(contrastive, "clip_fwd_tile", lambda _n: tile)
+    loss, stats = clip_fwd(img, prof, scale, buckets, keep=True)
+    want, want_stats = clip_loss_fused_reference(img, prof, scale, buckets,
+                                                 keep=True)
+    torch.cuda.synchronize()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5)
+
+
+def test_siglip_bucket_above_max_raises(cuda):
+    img, prof = _embeddings(cuda, SIGLIP_MAX_BUCKET + 1, 16, torch.bfloat16)
     scale = torch.zeros((), device=cuda)
+    bias = torch.full((), -10.0, device=cuda)
+    before = siglip_fwd.launches, siglip_bwd.launches
     with pytest.raises(ValueError, match="exceeds"):
-        clip_fwd(img, prof, scale, 1)
+        siglip_fwd(img, prof, scale, bias, 1)
     with pytest.raises(ValueError, match="exceeds"):
-        clip_bwd(img, prof, scale, torch.ones((), device=cuda), 1)
+        siglip_bwd(img, prof, scale, bias, torch.ones((), device=cuda), 1)
+    assert (siglip_fwd.launches, siglip_bwd.launches) == before
+
+
+def test_clip_takes_a_bucket_of_257(cuda):
+    """One row past SigLIP's cap: the CLIP kernels take it (a ragged last
+    32-row tile) and agree with the plain versions."""
+    img, prof = _embeddings(cuda, 257, 16, torch.bfloat16, seed=3)
+    scale = torch.zeros((), device=cuda)
+    g = torch.ones((), device=cuda)
+    loss = clip_fwd(img, prof, scale, 1)
+    grads = clip_bwd(img, prof, scale, g, 1)
+    want = clip_loss_fused_reference(img, prof, scale, 1)
+    want_grads = clip_loss_bwd_reference(img, prof, scale, g, 1)
+    torch.cuda.synchronize()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    top = max(r.float().abs().max().item() for r in want_grads[:2])
+    for got, ref in zip(grads[:2], want_grads[:2]):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * top
 
 
 SIGLIP_SCALARS = [(0.7, -10.0), (5.0, 30.0), (5.0, -30.0)]
@@ -502,7 +579,7 @@ def test_siglip_autograd_launches_both_kernels(cuda):
 
 
 def test_siglip_refuses_what_the_kernels_do_not_take(cuda):
-    img, prof = _embeddings(cuda, MAX_BUCKET + 1, 16, torch.bfloat16)
+    img, prof = _embeddings(cuda, SIGLIP_MAX_BUCKET + 1, 16, torch.bfloat16)
     scale = torch.zeros((), device=cuda)
     with pytest.raises(ValueError, match="exceeds"):
         siglip_fwd(img, prof, scale, scale, 1)
