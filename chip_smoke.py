@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
 card: the ViT flagship's encode and train step, the ViT-S SigLIP model
-card's train path, the B0 flagship's encode and the B0 CLIP model card's
-train path with ``fused_mbconv``, the ViT flagship's train step with
-global negatives (one bucket of 256), the same ViT paths with ``fused_ffn``,
+card's train path, also with global negatives (one bucket of 64), the B0
+flagship's encode and the B0 CLIP model card's train path with
+``fused_mbconv``, the ViT flagship's train step with global negatives
+(one bucket of 256), the same ViT paths with ``fused_ffn``,
 the attention module's unpacked (separate q, k, v) route and its fused
 attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --kernel-profile   # kernels 5, 6, 9, 10, 13-16 alone
+    python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
 
 Needs a CUDA card (device 0) and ``nvcc``; there is no CPU path. Phases, each
 fatal on failure:
@@ -24,8 +25,9 @@ fatal on failure:
    ``hopper_gemm``, kernel 10's 8 ``ffn_bwd_rows_kernel`` instances,
    kernel 9's 8 ``ffn_fwd_rows_kernel``, kernel 15's 3 ``kb_pass_kernel``
    and kernels 13-14's ``ka_a1_kernel``, 2 ``ka_dw_kernel``,
-   ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel``, and
-   kernels 5-6's 10 instances (``CLIP_ENTRIES``) must spill 0 bytes;
+   ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel``,
+   kernels 5-6's 10 instances (``CLIP_ENTRIES``) and kernels 7-8's 10
+   (``SIGLIP_ENTRIES``) must spill 0 bytes;
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
@@ -61,14 +63,21 @@ fatal on failure:
      gradients within 1e-2 of the largest, d logit_scale within 1e-3
      relative; a second call of each, and the backward recomputing the
      forward's statistics, bit for bit equal to the backward given them;
-     both backward forms timed in turns; bounds at the f32 rate (the
-     products are f32 on the CUDA cores; SigLIP's too); one profiled call
-     of each by CUDA kernel at 1 x 256 and 16 x 16;
+     both backward forms timed in turns; bounds by operand type (the
+     forward's and a recomputing backward's 2 N^2 D products of bf16 rows
+     at the bf16 tensor rate, exact in f32; the backward's 4 N^2 D
+     products of f32 ds at the f32 rate); one profiled call of each by
+     CUDA kernel at 1 x 256 and 16 x 16;
    * SigLIP loss forward and backward (``siglip_fwd`` / ``siglip_bwd`` vs
-     ``siglip_loss_fused_reference`` / ``siglip_loss_bwd_reference``) at 4
-     buckets of 16 (the card), 16 of 16 and 1 of 256, width 512, bf16, at
-     the head's init (scale 1, bias −10) and at scale 5 with bias ±30: the
-     CLIP tolerances, d logit_bias like d logit_scale;
+     ``siglip_loss_fused_reference`` / ``siglip_loss_bwd_reference``) at
+     ``SIGLIP_SHAPES`` (4 buckets of 16, the card; 16 of 16; 1 of 64, the
+     card with global negatives; 1 of 256) and one bucket of 512 (no
+     cap), width 512, bf16, at the head's init (scale 1, bias −10) and at
+     scale 5 with bias ±30: the CLIP tolerances, d logit_bias like
+     d logit_scale, a second call of each bit for bit equal to the first,
+     the bounds as CLIP's; one profiled call of each by CUDA kernel at 4 x
+     16 and 1 x 256 must show one forward kernel, one backward kernel at N
+     <= 16 and two above, and no PyTorch kernel;
    * MBConv kernels 13-16 (``ka_fwd``, ``kb_fwd``, ``kb_bwd``, ``ka_bwd`` vs
      their ``*_reference``) at each of the 8 distinct shapes of B0's
      stride-1 blocks at B 64, every output within 2e-2 of max(1,
@@ -139,7 +148,7 @@ fatal on failure:
    train steps; per step 14 + 14 attention and 1 + 1 CLIP launches;
    losses finite, the least of the last 4 below the first, every master
    moved; one dropout-0 step against the CLIP kernels' plain versions
-   (``_plain_clip``): loss within 1e-2, named gradients within 5e-2; a
+   (``_plain_loss``): loss within 1e-2, named gradients within 5e-2; a
    ``summary:`` line of train pairs/s at buckets 16 and 1, timed in turns
    (16, 1, 1, 16);
 6. card: ``CARD`` (the dict of model_cards/multi/
@@ -156,6 +165,15 @@ fatal on failure:
    micro-step on the kernel and on the plain path (the attention kernels'
    plain versions, unfused SigLIP): losses within 1e-2, named gradients within 5e-2
    relative; and the plain path's train pairs/s;
+6b. siglip_global: ``CARD`` with ``negatives: global``, so
+   ``step_buckets`` makes each micro-step's 64 pairs one bucket (the
+   SigLIP backward's two-kernel path), the card's masters and optimizer
+   through ``make_multi_steps``: 5 micro-steps at 14 + 14 attention and
+   1 + 1 SigLIP launches each; losses finite, the least of the last 4
+   below the first, every master moved (``coordination.logit_bias``
+   among them); one dropout-0 micro-step against the SigLIP kernels'
+   plain versions (``_plain_loss``): loss within 1e-2, named gradients
+   within 5e-2;
 7. B0 encode: the full-width B0 flagship (bf16, dim_embed 512, seeded
    random weights; its BatchNorm statistics set by one momentum-0
    train-mode pass over a seeded batch) encodes 2,048 pairs in batches of
@@ -228,11 +246,13 @@ most time. The line before the last is a JSON record of the kernels; the
 last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.
 
-``--kernel-profile`` runs phase 1 and the build of kernels 5, 6, 9, 10 and
-13-16 only, times them at every ``CLIP_SHAPES``, ``FFN_SHAPES`` and
-``MBCONV_SHAPES`` row (kernels 5 and 6 beside their plain versions, the
-backward also given the forward's statistics where the commit takes them,
-and both sides of the commit's CLIP tile choices in turns;
+``--kernel-profile`` runs phase 1 and the build of kernels 5-10 and 13-16
+only, times them at every ``CLIP_SHAPES``, ``SIGLIP_SHAPES``,
+``FFN_SHAPES`` and ``MBCONV_SHAPES`` row (kernels 5-8 beside their plain
+versions, kernel 6 also given the forward's statistics where the commit
+takes them, kernels 7-8 also at ``SIGLIP_UNCAPPED`` unless the commit
+caps the bucket, both sides of the commit's CLIP and SigLIP tile choices
+in turns;
 kernel 9 beside the unfused cuBLAS forward, kernels 13-15 beside their
 plain versions, each beside its bound; the MBConv kernels summed over
 B0's stride-1 blocks), profiles one call of each by CUDA kernel and takes
@@ -288,6 +308,10 @@ BWD_INSTANCES = 2 * 6
 CLIP_ENTRIES = ("15clip_fwd_kernel", "21clip_bwd_small_kernel",
                 "14clip_dz_kernel", "14clip_dx_kernel")
 CLIP_INSTANCES = 2 * (2 + 1 + 1 + 1)
+# kernels 7-8 (csrc/siglip_loss.cu), the same layout: 0 spill bytes each
+SIGLIP_ENTRIES = ("17siglip_fwd_kernel", "23siglip_bwd_small_kernel",
+                  "16siglip_dz_kernel", "16siglip_dx_kernel")
+SIGLIP_INSTANCES = 2 * (2 + 1 + 1 + 1)
 # the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
 # weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
 # library that includes it, and its three column-sum instances (gemm_sums)
@@ -319,11 +343,16 @@ CLIP_PROFILED = ((1, 256), (16, 16))  # profiled by CUDA kernel
 # where --kernel-profile times both sides of the CLIP kernels' tile choices
 CLIP_REGIME_SHAPES = ((16, 16), (4, 16), (1, 32), (1, 64), (1, 128),
                       (1, 256), (1, 512))
-GLOBAL_STEPS = 5  # train steps of the global-negatives phase
+GLOBAL_STEPS = 5  # train steps (micro-steps) of the global phases
 # SigLIP (scale, bias): the head's init and the saturated ends where a
 # naive softplus would overflow
 SIGLIP_SCALARS = ((1.0, -10.0), (5.0, 30.0), (5.0, -30.0))
-SIGLIP_SHAPES = ((4, 16), (16, 16), (1, 256))  # (buckets, N), width 512
+# (buckets, N) of the SigLIP kernels, width 512: the card (4 x 16), 16 x
+# 16, the card with global negatives (1 x 64) and one bucket of 256
+SIGLIP_SHAPES = ((4, 16), (16, 16), (1, 64), (1, 256))
+SIGLIP_UNCAPPED = (1, 512)  # past the old 256-row cap: checked and timed
+# profiled by CUDA kernel: the one-block backward and the two kernels
+SIGLIP_PROFILED = ((4, 16), (1, 256))
 SLICE_TOL = 5e-2
 STEP_LOSS_TOL = 1e-2
 STEP_GRAD_TOL = 5e-2
@@ -393,6 +422,10 @@ CARD_EPOCHS = 2
 CARD_VALID = 2     # eval steps per epoch
 PROFILE_STEPS = 8  # two SGD updates at accumulation 4
 PROFILE_ROWS = 30  # kernels printed per path
+# the host's calls that start work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+COPY_CALLS = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
 #: model_cards/multi/vit_s_16_transformer_2_512_siglip.yaml as a dict
 #: literal (the card's machine has no PyYAML); tests/test_torch_card.py
 #: holds it equal to the file
@@ -559,7 +592,8 @@ def phase_build():
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(REPO)}", flush=True)
         log = lib.with_suffix(".log")
-        func, spills, gemms, clips = "", {}, {}, {}  # {entry: [st, ld]}
+        # {entry: [st, ld]}
+        func, spills, gemms, losses = "", {}, {}, {}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
@@ -577,8 +611,9 @@ def phase_build():
                         spills[func] = counts
                     if any(k in func for k in GEMM_ENTRIES):
                         gemms[func] = counts
-                    if any(k in func for k in CLIP_ENTRIES):
-                        clips[func] = counts
+                    if any(k in func for k in CLIP_ENTRIES
+                           + SIGLIP_ENTRIES):
+                        losses[func] = counts
         if name == "attention_bwd":
             if len(spills) != BWD_INSTANCES:
                 fail(f"ptxas reported {len(spills)} backward kernel "
@@ -588,14 +623,16 @@ def phase_build():
                 fail(f"backward kernels spill registers: {spilled}")
             print(f"  ptxas: {len(spills)} backward instances, 0 spill "
                   f"bytes", flush=True)
-        if name == "clip_loss":
-            if len(clips) != CLIP_INSTANCES:
-                fail(f"ptxas reported {len(clips)} CLIP kernel instances, "
-                     f"expected {CLIP_INSTANCES}")
-            spilled = {e: n for e, n in clips.items() if any(n)}
+        if name in ("clip_loss", "siglip_loss"):
+            loss, want = (("CLIP", CLIP_INSTANCES) if name == "clip_loss"
+                          else ("SigLIP", SIGLIP_INSTANCES))
+            if len(losses) != want:
+                fail(f"ptxas reported {len(losses)} {loss} kernel instances, "
+                     f"expected {want}")
+            spilled = {e: n for e, n in losses.items() if any(n)}
             if spilled:
-                fail(f"CLIP kernels spill registers: {spilled}")
-            print(f"  ptxas: {len(clips)} CLIP kernel instances, 0 spill "
+                fail(f"{loss} kernels spill registers: {spilled}")
+            print(f"  ptxas: {len(losses)} {loss} kernel instances, 0 spill "
                   f"bytes", flush=True)
         if name in GEMM_INSTANCES:
             if len(gemms) != GEMM_INSTANCES[name]:
@@ -954,10 +991,12 @@ def _repeats(label, got, again):
         fail(f"{label}: two calls differ")
 
 
-def _call_profile(name, label, call):
+def _call_profile(name, label, call, launches=None):
     """Device ms of one call by CUDA kernel (torch.profiler, after a
     warm-up call): the breakdown of one wrapper launch; returns the
-    total."""
+    total. With ``launches``, fails unless the call launched exactly that
+    many kernels, all the wrapper's own (``_check_launches``: no PyTorch
+    kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -973,7 +1012,33 @@ def _call_profile(name, label, call):
           f"{sum(n for _, n in rows.values()):.0f} launches", flush=True)
     for key, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"  {ms:9.4f} ms {n:4.0f}x {key[:110]}", flush=True)
+    if launches is not None:
+        _check_launches(name, label, prof, rows, launches)
     return total
+
+
+
+def _check_launches(name, label, prof, rows, launches):
+    """Fails unless the profiled call made exactly ``launches`` kernel
+    launches (counted on the host, where the profiler records every
+    launch call, PyTorch's among them), no copy or fill, and every
+    device-side kernel the profiler recorded is the wrapper's own (its
+    name holds the loss's). The device-side records of a kernel of a few
+    microseconds can be missing from a short profile after earlier ones
+    in the same process; the host's launch calls are not."""
+    own = name.split("_")[0] + "_"
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(LAUNCH_CALLS + COPY_CALLS)}
+    made = sum(n for k, n in host.items() if k.startswith(LAUNCH_CALLS))
+    copies = {k: n for k, n in host.items() if k.startswith(COPY_CALLS)}
+    foreign = [key for key in rows if own not in key]
+    seen = sum(n for _, n in rows.values())
+    print(f"profile {name} [{label}]: {made} launches on the host "
+          f"(expected {launches}), {seen:.0f} kernels recorded on the "
+          f"device, all its own: {not foreign}", flush=True)
+    if made != launches or copies or foreign or seen > launches:
+        fail(f"profile {name} [{label}]: {made} launches, expected "
+             f"{launches}; copies {copies}; other kernels {foreign}")
 
 
 def _unfused_ms(x, w1, b1, w2, b2, activation, p, dy=None):
@@ -1186,30 +1251,43 @@ def _clip_kernels(gen, device, records):
             _call_profile("clip_bwd", label, given)
 
 
+def _siglip_inputs(gen, device, buckets, n):
+    """Seeded bf16 embeddings of ``buckets`` x ``n`` rows, width 512."""
+    import torch
+
+    return [torch.randn((buckets * n, 512), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2)]
+
+
 def _siglip_kernels(gen, device, records):
-    """SigLIP forward and backward against their plain versions at each
-    shape and (scale, bias); timed at the head's init scalars."""
+    """Kernels 7 and 8 against their plain versions at ``SIGLIP_SHAPES``
+    and ``SIGLIP_UNCAPPED``, each at the three ``SIGLIP_SCALARS``: the CLIP
+    tolerances, d logit_bias like d logit_scale; a second call of each bit
+    for bit equal to the first; device ms of each and its plain version at
+    the head's init scalars, beside the bound (the forward's and the
+    backward's recomputed 2 N^2 D products of bf16 rows at the bf16 tensor
+    rate, the backward's 4 N^2 D products of f32 ds at the f32 rate); one
+    profiled call of each by CUDA kernel at ``SIGLIP_PROFILED``: one
+    forward kernel, one backward kernel for a bucket of 16 rows or fewer
+    and two above, and no PyTorch kernel."""
     import torch
     from multimodal_plankton_recognition_torch.ops.contrastive import (
         siglip_bwd, siglip_fwd, siglip_loss_bwd_reference,
         siglip_loss_fused_reference)
 
     g = torch.full((), 1.3, device=device)
-    for buckets, n in SIGLIP_SHAPES:
-        img, prof = (torch.randn((buckets * n, 512), generator=gen,
-                                 device=device).to(torch.bfloat16)
-                     for _ in range(2))
+    for buckets, n in SIGLIP_SHAPES + (SIGLIP_UNCAPPED,):
+        img, prof = _siglip_inputs(gen, device, buckets, n)
         for i, (s, b) in enumerate(SIGLIP_SCALARS):
             scale = torch.full((), s, device=device)
             bias = torch.full((), b, device=device)
             args = (img, prof, scale, bias)
             label = f"buckets={buckets} N={n} D=512" + (
                 f" scale={s} bias={b}" if i else "")
+            loss = siglip_fwd(*args, buckets)
             want = siglip_loss_fused_reference(*args, buckets)
-            loss_bound = _bound(args, want, 2 * buckets * n * n * 512)
             loss_scale = want.abs().item()
-            loss_err = _check(f"siglip_fwd {label}",
-                              siglip_fwd(*args, buckets), want,
+            loss_err = _check(f"siglip_fwd {label}", loss, want,
                               CLIP_LOSS_TOL, loss_scale)
             got = siglip_bwd(*args, g, buckets)
             want = siglip_loss_bwd_reference(*args, g, buckets)
@@ -1220,24 +1298,39 @@ def _siglip_kernels(gen, device, records):
             for k, what in ((2, "d_logit_scale"), (3, "d_logit_bias")):
                 _check(f"siglip_bwd {what} {label}", got[k], want[k],
                        CLIP_SCALE_TOL, want[k].abs().item())
+            exact = {"fwd again": torch.equal(loss, siglip_fwd(*args,
+                                                                buckets)),
+                     "bwd again": all(map(torch.equal, got, siglip_bwd(
+                         *args, g, buckets)))}
+            print(f"kernel siglip [{label}]: loss err {loss_err!r} "
+                  f"(relative, tol {CLIP_LOSS_TOL}), grad err {err!r} (of "
+                  f"the largest, tol {CLIP_GRAD_TOL}), finite; bit for bit "
+                  f"{exact} (must all be True)", flush=True)
+            if not all(exact.values()):
+                fail(f"siglip {label}: a second call differs from the "
+                     f"first: {exact}")
             if i:
-                print(f"kernel siglip [{label}]: loss err {loss_err!r} "
-                      f"(relative, tol {CLIP_LOSS_TOL}), grad err {err!r} "
-                      f"(of the largest, tol {CLIP_GRAD_TOL}), finite",
-                      flush=True)
                 continue
+            flops = 2 * buckets * n * n * 512
+            rate = _clip_rate(img)
             _report(records, "siglip_fwd", label, loss_err * loss_scale,
                     CLIP_LOSS_TOL * loss_scale,
                     cuda_ms(lambda: siglip_fwd(*args, buckets)),
                     cuda_ms(lambda: siglip_loss_fused_reference(*args,
                                                                 buckets)),
-                    loss_bound)
+                    _bound(args, loss, flops, rate))
             _report(records, "siglip_bwd", label, err * top,
                     CLIP_GRAD_TOL * top,
                     cuda_ms(lambda: siglip_bwd(*args, g, buckets)),
                     cuda_ms(lambda: siglip_loss_bwd_reference(*args, g,
                                                               buckets)),
-                    _bound((args, g), got, 3 * 2 * buckets * n * n * 512))
+                    _bound((args, g), got, flops, rate, 2 * flops))
+            if (buckets, n) in SIGLIP_PROFILED:
+                _call_profile("siglip_fwd", label,
+                              lambda: siglip_fwd(*args, buckets), 1)
+                _call_profile("siglip_bwd", label,
+                              lambda: siglip_bwd(*args, g, buckets),
+                              1 if n <= 16 else 2)
 
 
 def _mbconv_kernels(gen, device, records):
@@ -1758,23 +1851,30 @@ def phase_train(device):
 
 
 @contextlib.contextmanager
-def _plain_clip():
-    """The CLIP wrappers swapped for their plain versions under the same
-    autograd function, on the card's tensors: the global phase's
-    comparison route; fails if a CLIP kernel launched inside."""
+def _plain_loss(loss):
+    """The ``loss`` wrappers (``"clip"`` or ``"siglip"``) swapped for their
+    plain versions under the same autograd function, on the card's
+    tensors: the global phases' comparison route; fails if a kernel of
+    that loss launched inside."""
     from multimodal_plankton_recognition_torch.ops import contrastive
 
-    before = {n: _counts()[n] for n in ("clip_fwd", "clip_bwd")}
-    kernels = contrastive.clip_fwd, contrastive.clip_bwd
-    contrastive.clip_fwd = contrastive.clip_loss_fused_reference
-    contrastive.clip_bwd = contrastive.clip_loss_bwd_reference
+    names = (f"{loss}_fwd", f"{loss}_bwd")
+    plain = {"clip": (contrastive.clip_loss_fused_reference,
+                      contrastive.clip_loss_bwd_reference),
+             "siglip": (contrastive.siglip_loss_fused_reference,
+                        contrastive.siglip_loss_bwd_reference)}[loss]
+    before = {n: _counts()[n] for n in names}
+    kernels = [getattr(contrastive, n) for n in names]
+    for n, fn in zip(names, plain):
+        setattr(contrastive, n, fn)
     try:
         yield
     finally:
-        contrastive.clip_fwd, contrastive.clip_bwd = kernels
+        for n, fn in zip(names, kernels):
+            setattr(contrastive, n, fn)
     after = {n: _counts()[n] for n in before}
     if after != before:
-        fail(f"the plain CLIP route launched kernels: {before} -> {after}")
+        fail(f"the plain {loss} route launched kernels: {before} -> {after}")
 
 
 def phase_global(device):
@@ -1825,7 +1925,8 @@ def phase_global(device):
     for path in ("kernel", "plain"):
         m = flagship_vit(dropout=0.0)
         st, step = _train_state(m, init, device, buckets=1)
-        with _plain_clip() if path == "plain" else contextlib.nullcontext():
+        with (_plain_loss("clip") if path == "plain"
+              else contextlib.nullcontext()):
             _, loss = step(st, batch, 0)
         step_losses[path] = float(loss)
         grads[path] = {n: m.get_parameter(n).grad.float()
@@ -2048,6 +2149,89 @@ def phase_card(device):
                                   CARD_STEPS - WARMUP_STEPS)
     print(f"card: plain path {plain_rate!r} train pairs/s over "
           f"{CARD_STEPS - WARMUP_STEPS} micro-steps", flush=True)
+    return launches
+
+
+def phase_siglip_global(device):
+    """``negatives: global`` on the SigLIP card: ``CARD`` with
+    ``coordination_args.negatives: global``, whose ``step_buckets`` is 1,
+    so each micro-step's 64 pairs are one bucket (kernel 8 on its
+    two-kernel path); the card's f32 masters and optimizer (accumulation
+    4) through ``make_multi_steps``: ``GLOBAL_STEPS`` micro-steps with 14 +
+    14 attention and 1 + 1 SigLIP launches each, finite losses, the least
+    of the last below the first, every master moved (one update, after
+    micro-step 4; ``coordination.logit_bias`` among them); one dropout-0
+    micro-step against the SigLIP kernels' plain versions
+    (``_plain_loss``): loss within 1e-2, named gradients within 5e-2.
+    Returns the launches of the ``GLOBAL_STEPS`` micro-steps."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model, step_buckets)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, siglip_fwd=1,
+                         siglip_bwd=1)
+    glob = {"coordination_args": {"negatives": "global"}}
+    card, model, tx, train_step, _ = _card(**glob)
+    if step_buckets(card) != 1:
+        fail(f"siglip_global: step_buckets gives {step_buckets(card)}, "
+             f"not one bucket")
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    model.to(device)
+    state = create_train_state(model, init, tx)
+    batch = synthetic_batch_vit(card.bs, seed=4, device=device)
+    _reset_counts()
+    losses = []
+    for _ in range(GLOBAL_STEPS):
+        state, loss = train_step(state, batch, card.seed)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = _counts()
+    losses = [float(x) for x in losses]
+    print(f"siglip_global: {GLOBAL_STEPS} micro-steps of {card.bs} pairs in "
+          f"one bucket, accumulation "
+          f"{card.trainer_args.accumulate_grad_batches}: losses {losses}; "
+          f"launches {launches}", flush=True)
+    want = {n: c * GLOBAL_STEPS for n, c in per_step.items()}
+    if launches != want:
+        fail(f"siglip_global: expected launches {want}, got {launches}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"siglip_global: non-finite train loss: {losses}")
+    if not min(losses[1:]) < losses[0]:
+        fail(f"siglip_global: train loss did not fall: {losses}")
+    unmoved = [n for n, m in state.params.items()
+               if torch.equal(m, init[n].to(device))]
+    if unmoved or "coordination.logit_bias" not in state.params:
+        fail(f"siglip_global: master weights that did not move: {unmoved}")
+    del model, state
+
+    no_drop = {"image_encoder_args": {"dropout": 0.0},
+               "profile_encoder_args": {"dropout": 0.0}, **glob}
+    grads, step_losses = {}, {}
+    for path in ("kernel", "plain"):
+        _, m, tx, step, _ = _card(**no_drop)
+        m.to(device)
+        st = create_train_state(m, init, tx)
+        with (_plain_loss("siglip") if path == "plain"
+              else contextlib.nullcontext()):
+            _, loss = step(st, batch, card.seed)
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float()
+                       for n in CARD_NAMED_GRADS}
+        del m, st
+    loss_err = abs(step_losses["kernel"] - step_losses["plain"])
+    print(f"siglip_global micro-step, dropout 0: loss kernel "
+          f"{step_losses['kernel']!r} plain SigLIP {step_losses['plain']!r} "
+          f"(|diff| {loss_err!r}, tol {STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"siglip_global: kernel and plain SigLIP micro-steps disagree "
+             f"on the loss: {loss_err}")
+    _grad_diffs("siglip_global", grads, CARD_NAMED_GRADS, STEP_GRAD_TOL)
     return launches
 
 
@@ -2977,10 +3161,10 @@ def _clip_profile(gen, device):
 
 
 @contextlib.contextmanager
-def _clip_tile_as(ct, choice, tile):
-    """The CLIP wrappers and ``clip_scratch`` on ``tile``-row tiles at
-    every N where ``choice`` (``"clip_fwd_tile"`` or ``"clip_bwd_tile"``)
-    is asked."""
+def _tile_as(ct, choice, tile):
+    """The loss wrappers and their scratch sizes on ``tile``-row tiles at
+    every N where ``choice`` (``"clip_fwd_tile"``, ``"siglip_bwd_tile"``,
+    ...) is asked."""
     chosen = getattr(ct, choice)
     setattr(ct, choice, lambda n: tile)
     try:
@@ -2990,53 +3174,122 @@ def _clip_tile_as(ct, choice, tile):
 
 
 def _clip_regimes(ct, gen, device, buckets, n):
-    """Both sides of the CLIP kernels' two choices at one shape, in turns
-    (chosen, other, other, chosen): the forward on 16- and on 32-row tiles
-    and, where a bucket is one 16-row tile (the one-block backward's only
-    shapes), the backward given the forward's statistics on one block a
-    bucket and on the two kernels of 32-row tiles. The other choice agrees
-    with the chosen one within the kernels' tolerances."""
+    """``_loss_regimes`` of the CLIP kernels at one shape, the backward
+    given the forward's statistics."""
     img, prof, scale, g = _clip_inputs(gen, device, buckets, n)
-    label = f"buckets={buckets} N={n} D=512"
     stats = ct.clip_fwd(img, prof, scale, buckets, keep=True)[1]
-    calls = {"fwd": functools.partial(ct.clip_fwd, img, prof, scale,
-                                      buckets)}
-    if n <= 16:
-        calls["bwd"] = functools.partial(ct.clip_bwd, img, prof, scale, g,
-                                         buckets, stats)
+    _loss_regimes(ct, "clip", n, f"buckets={buckets} N={n} D=512",
+                  functools.partial(ct.clip_fwd, img, prof, scale, buckets),
+                  functools.partial(ct.clip_bwd, img, prof, scale, g,
+                                    buckets, stats))
+
+
+def _loss_regimes(ct, loss, n, label, fwd, bwd):
+    """Both sides of a loss's two kernel choices at one shape, in turns
+    (chosen, other, other, chosen): the forward ``fwd`` on 16- and on
+    32-row tiles and, where a bucket is one 16-row tile (the one-block
+    backward's only shapes), the backward ``bwd`` on one block a bucket
+    and on the two kernels of 32-row tiles. The other choice agrees with
+    the chosen one within the kernels' tolerances."""
+    calls = {"fwd": fwd, "bwd": bwd} if n <= 16 else {"fwd": fwd}
     out, times = {}, {}
     for what, call in calls.items():
-        choice = f"clip_{what}_tile"
+        choice = f"{loss}_{what}_tile"
         chosen = getattr(ct, choice)(n)
         other = 48 - chosen  # 16 <-> 32
         for tile in (chosen, other, other, chosen):
-            with _clip_tile_as(ct, choice, tile):
+            with _tile_as(ct, choice, tile):
                 out.setdefault((what, tile), call())
                 times.setdefault((what, tile), []).append(cuda_ms(call))
         names = ({16: "16-row tiles", 32: "32-row tiles"} if what == "fwd"
                  else {16: "one block a bucket", 32: "two kernels"})
         ms = {t: sum(times[what, t]) / 2 for t in (chosen, other)}
-        print(f"kernel-profile clip regimes {what} [{label}]: "
+        print(f"kernel-profile {loss} regimes {what} [{label}]: "
               f"{names[chosen]} (chosen) {ms[chosen]!r} ms, "
               f"{names[other]} {ms[other]!r} ms, in turns", flush=True)
     want, got = out["fwd", 16].item(), out["fwd", 32].item()
     if abs(got - want) > CLIP_LOSS_TOL * abs(want):
-        fail(f"clip regimes {label}: the forward gives {want!r} on 16-row "
+        fail(f"{loss} regimes {label}: the forward gives {want!r} on 16-row "
              f"tiles, {got!r} on 32-row tiles")
     if "bwd" in calls:
-        grads = out["bwd", 16][:2], out["bwd", 32][:2]
-        top = max(t.float().abs().max().item() for t in grads[0])
-        for a, b in zip(*grads):
+        one, two = out["bwd", 16], out["bwd", 32]
+        top = max(t.float().abs().max().item() for t in one[:2])
+        for a, b in zip(one[:2], two[:2]):
             if (a.float() - b.float()).abs().max().item() > \
                     CLIP_GRAD_TOL * top:
-                fail(f"clip regimes {label}: the two-kernel backward differs "
-                     f"from the one-block backward beyond {CLIP_GRAD_TOL}")
+                fail(f"{loss} regimes {label}: the two-kernel backward "
+                     f"differs from the one-block backward beyond "
+                     f"{CLIP_GRAD_TOL}")
+        for a, b in zip(one[2:], two[2:]):  # d logit_scale (, d logit_bias)
+            if abs(a.item() - b.item()) > CLIP_SCALE_TOL * abs(a.item()):
+                fail(f"{loss} regimes {label}: the two backwards' scalar "
+                     f"gradients differ beyond {CLIP_SCALE_TOL}")
+
+
+def _siglip_profile(device):
+    """Kernels 7 and 8 for ``--kernel-profile`` at every ``SIGLIP_SHAPES``
+    row and at ``SIGLIP_UNCAPPED``, at the head's init scalars, beside
+    their plain versions and bounds (inputs from a generator of their own,
+    so the other kernels' inputs do not depend on which rows ran); a
+    commit whose SigLIP kernels have a bucket cap (``SIGLIP_MAX_BUCKET``)
+    skips the rows above it. Where the commit chooses SigLIP's tiles
+    (``siglip_fwd_tile``, ``siglip_bwd_tile``), both sides of each choice
+    at ``CLIP_REGIME_SHAPES`` (``_siglip_regimes``)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import contrastive as ct
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    cap = getattr(ct, "SIGLIP_MAX_BUCKET", None)
+    scale, bias = (torch.full((), v, device=device)
+                   for v in SIGLIP_SCALARS[0])
+    g = torch.full((), 1.3, device=device)
+    for buckets, n in SIGLIP_SHAPES + (SIGLIP_UNCAPPED,):
+        label = f"buckets={buckets} N={n} D=512"
+        if cap is not None and n > cap:
+            print(f"kernel-profile siglip [{label}]: skipped, above this "
+                  f"commit's cap of {cap} rows", flush=True)
+            continue
+        img, prof = _siglip_inputs(gen, device, buckets, n)
+        args = (img, prof, scale, bias)
+        flops = 2 * buckets * n * n * 512
+        rate = _clip_rate(img)
+        fwd = functools.partial(ct.siglip_fwd, *args, buckets)
+        bwd = functools.partial(ct.siglip_bwd, *args, g, buckets)
+        for name, call, plain, bound in (
+                ("siglip_fwd", fwd, functools.partial(
+                    ct.siglip_loss_fused_reference, *args, buckets),
+                 _bound(args, fwd(), flops, rate)),
+                ("siglip_bwd", bwd, functools.partial(
+                    ct.siglip_loss_bwd_reference, *args, g, buckets),
+                 _bound((args, g), bwd(), flops, rate, 2 * flops))):
+            print(f"kernel-profile {name} [{label}]: {cuda_ms(call)!r} ms, "
+                  f"plain {cuda_ms(plain)!r} ms, bound {bound[0]!r} ms "
+                  f"({bound[1]})", flush=True)
+    if hasattr(ct, "siglip_fwd_tile"):
+        for buckets, n in CLIP_REGIME_SHAPES:
+            _siglip_regimes(ct, gen, device, buckets, n)
+
+
+def _siglip_regimes(ct, gen, device, buckets, n):
+    """``_loss_regimes`` of the SigLIP kernels at one shape, at the head's
+    init scalars."""
+    import torch
+
+    img, prof = _siglip_inputs(gen, device, buckets, n)
+    args = (img, prof) + tuple(torch.full((), v, device=device)
+                               for v in SIGLIP_SCALARS[0])
+    g = torch.full((), 1.3, device=device)
+    _loss_regimes(ct, "siglip", n, f"buckets={buckets} N={n} D=512",
+                  functools.partial(ct.siglip_fwd, *args, buckets),
+                  functools.partial(ct.siglip_bwd, *args, g, buckets))
 
 
 def phase_kernel_profile(device):
-    """Kernels 5, 6, 9, 10 and 13-16 alone (``--kernel-profile``): device
-    ms by ``cuda_ms``. Kernels 5 and 6 at every ``CLIP_SHAPES`` row
-    (``_clip_profile``, with both sides of their tile choices); kernels 9
+    """Kernels 5-10 and 13-16 alone (``--kernel-profile``): device ms by
+    ``cuda_ms``. Kernels 5 and 6 at every ``CLIP_SHAPES`` row
+    (``_clip_profile``, with both sides of their tile choices), kernels 7
+    and 8 at every ``SIGLIP_SHAPES`` row (``_siglip_profile``, the same);
+    kernels 9
     and 10 at every ``FFN_SHAPES`` row (GELU, bf16, p 0; ViT-T also p
     0.1; kernel 9 also f32 x at the card's profile row)
     beside the unfused cuBLAS forward or backward and the bound; kernels
@@ -3052,9 +3305,11 @@ def phase_kernel_profile(device):
     from multimodal_plankton_recognition_torch.ops import build, ffn
     from multimodal_plankton_recognition_torch.ops import mbconv as mb
 
-    build.build_all(("ffn", "mbconv_fwd", "mbconv_bwd", "clip_loss"))
+    build.build_all(("ffn", "mbconv_fwd", "mbconv_bwd", "clip_loss",
+                     "siglip_loss"))
     gen = torch.Generator(device=device).manual_seed(0)
     _clip_profile(gen, device)
+    _siglip_profile(device)
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=device) * scale \
@@ -3165,7 +3420,8 @@ def _rank_table():
     run dropout 0.1 in the profile encoder (and the FFN), encode paths
     none; eval steps inside the card paths count as train launches. The
     loss kernels run at each path's bucket shape: the flagship's 16 x 16,
-    the cards' 4 x 16 and the global phase's 1 x 256."""
+    the cards' 4 x 16, the global phase's 1 x 256 and the SigLIP card's
+    global phase's 1 x 64."""
     vit, prof = 12 / ATTENTION_LAYERS, 2 / ATTENTION_LAYERS
 
     def pair(a, b, vit_mode, prof_mode, rows=SHAPES):
@@ -3176,13 +3432,13 @@ def _rank_table():
     fwd_train = {p: pair(*flag, "eval", "train p=0.1")
                  for p in ("train", "global", "ffn_train")}
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
-                      for p in ("card", "ffn_card")})
+                      for p in ("card", "siglip_global", "ffn_card")})
     fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
                ffn_encode=pair(*flag, "eval", "eval"))
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
            for p in ("train", "global", "ffn_train")}
     bwd.update({p: pair(*card, "p=0.0", "p=0.1")
-                for p in ("card", "ffn_card")})
+                for p in ("card", "siglip_global", "ffn_card")})
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
                                    "gelu bfloat16 p=0.0", FFN_SHAPES),
                 "ffn_train": pair(*flag, "gelu bfloat16 p=0.1",
@@ -3200,6 +3456,7 @@ def _rank_table():
     clip["global"] = loss_rows(1, BATCH)
     siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
               for p in ("card", "ffn_card")}
+    siglip["siglip_global"] = loss_rows(1, CARD["bs"])
     b0 = {"b0_card": [(f"{blk} ", "", n / MBCONV_BLOCKS)
                       for blk, n in B0_BLOCKS.items()]}
     block = {"fuse_proj": pair(*flag, "p=0.0", "p=0.1")}
@@ -3254,8 +3511,8 @@ def main(argv=None) -> None:
                         help="also break each card's micro-step device "
                              "time down by kernel (torch.profiler)")
     parser.add_argument("--kernel-profile", action="store_true",
-                        help="only time and profile kernels 5, 6, 9, 10 "
-                             "and 13-16 (no paths, no result line)")
+                        help="only time and profile kernels 5-10 and "
+                             "13-16 (no paths, no result line)")
     args = parser.parse_args(argv)
     device = phase_device()
     if args.kernel_profile:
@@ -3266,6 +3523,7 @@ def main(argv=None) -> None:
     launches = {"encode": phase_slice(device), "train": phase_train(device),
                 "global": phase_global(device),
                 "card": phase_card(device),
+                "siglip_global": phase_siglip_global(device),
                 "b0_encode": phase_b0_encode(device),
                 "b0_card": phase_b0_card(device),
                 "ffn_encode": phase_ffn_encode(device),

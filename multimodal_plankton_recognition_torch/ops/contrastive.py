@@ -18,7 +18,10 @@ scalars (``logit_scale``, ``logit_bias``) and the cotangent stay on the
 device: no step reads them on the host. The CLIP forward keeps its
 statistics (each row's and column's lse, the norms: ``clip_fwd(...,
 keep=True)``) and the backward takes them, so it needs no second pass
-over the logits.
+over the logits. The SigLIP backward needs nothing from its forward (dz
+depends on z alone, and it takes the norms from its own staged rows). On
+the card each wrapper returns the kernels' own scalars: no PyTorch op runs
+after a launch.
 """
 
 from __future__ import annotations
@@ -36,14 +39,11 @@ __all__ = ["clip_loss_fused", "clip_fwd", "clip_bwd",
            "clip_fwd_tile", "clip_bwd_tile", "clip_scratch",
            "siglip_loss_fused", "siglip_fwd", "siglip_bwd",
            "siglip_loss_fused_reference", "siglip_loss_bwd_reference",
-           "SIGLIP_MAX_BUCKET"]
+           "siglip_fwd_tile", "siglip_bwd_tile", "siglip_scratch"]
 
-#: largest bucket (rows per bucket) the SigLIP kernels take
-#: (csrc/siglip_loss.cu); the CLIP kernels take any
-SIGLIP_MAX_BUCKET = 256
-_SIGLIP_ROWS = 8  # rows of a tile in csrc/siglip_loss.cu
-_CLIP_TR = 32  # output rows of a d_in / d_pn tile in csrc/clip_loss.cu
+_GRAD_TR = 32  # output rows of a d_in / d_pn tile in csrc/contrastive.cuh
 _CLIP_FWD_TILE16_ROWS = 128  # see clip_fwd_tile
+_SIGLIP_FWD_TILE16_ROWS = 256  # see siglip_fwd_tile
 _EPS = 1e-12
 
 
@@ -157,7 +157,7 @@ def clip_scratch(buckets: int, n: int) -> Dict[str, int]:
     if tile == 16:
         return {"fwd": fwd, "bwd": buckets}
     tiles = -(-n // tile)
-    np_ = -(-n // _CLIP_TR) * _CLIP_TR
+    np_ = -(-n // _GRAD_TR) * _GRAD_TR
     return {"fwd": fwd, "bwd": 2 * rows * np_ + 2 * rows * tiles
             + buckets * tiles * tiles}
 
@@ -175,9 +175,10 @@ def _lib() -> ctypes.CDLL:
 
 @functools.cache
 def _ticket(device: int, stream: int) -> torch.Tensor:
-    """The CLIP kernels' completion ticket for one stream of one card: a
-    zeroed int32 that every launch leaves at 0 again, so launches on one
-    stream share it and launches on two streams never do."""
+    """The loss kernels' completion ticket for one stream of one card,
+    shared by CLIP and SigLIP: a zeroed int32 that every launch leaves at
+    0 again, so launches on one stream share it and launches on two
+    streams never do."""
     return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda",
                                                                  device))
 
@@ -392,57 +393,91 @@ def siglip_loss_bwd_reference(image_emb: torch.Tensor,
             d_bias.sum().to(logit_bias.dtype))
 
 
+def siglip_fwd_tile(n: int) -> int:
+    """Rows and columns of the SigLIP forward's tiles for buckets of ``n``:
+    16 up to ``_SIGLIP_FWD_TILE16_ROWS`` rows (more blocks), else 32 (fewer
+    partials and less re-staging); the crossover as ``chip_smoke.py
+    --kernel-profile``'s ``siglip regimes`` lines time it on the H100. It
+    lies above CLIP's (``clip_fwd_tile``): SigLIP's last block adds one
+    float a tile, where CLIP's merges (max, sum of exp) pairs of every
+    line."""
+    return 16 if n <= _SIGLIP_FWD_TILE16_ROWS else 32
+
+
+def siglip_bwd_tile(n: int) -> int:
+    """The SigLIP backward's tiles: 16 for a bucket of one 16-row tile (the
+    one-block backward), else 32 (the two-kernel backward), as CLIP's
+    (``clip_bwd_tile``)."""
+    return clip_bwd_tile(n)
+
+
+def siglip_scratch(buckets: int, n: int) -> Dict[str, int]:
+    """f32 elements of the SigLIP kernels' device scratch for ``buckets``
+    of ``n`` rows (``csrc/siglip_loss.cu``): ``fwd``: one partial sum a
+    tile; ``bwd``: one-block backward, each bucket's partials of d
+    logit_scale and d logit_bias; else the two N x NP operands of d_in and
+    d_pn (NP: n rounded up to 32), the line partials of q, the norms (nx
+    | ny) and each tile's two partials."""
+    rows = buckets * n
+    fwd = buckets * (-(-n // siglip_fwd_tile(n))) ** 2
+    tile = siglip_bwd_tile(n)
+    if tile == 16:
+        return {"fwd": fwd, "bwd": 2 * buckets}
+    tiles = -(-n // tile)
+    np_ = -(-n // _GRAD_TR) * _GRAD_TR
+    return {"fwd": fwd, "bwd": 2 * rows * np_ + 2 * rows * tiles + 2 * rows
+            + 2 * buckets * tiles * tiles}
+
+
 @functools.cache
 def _siglip_lib() -> ctypes.CDLL:
     lib = build.load("siglip_loss")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.siglip_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.siglip_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.siglip_fwd.restype = ci
-    lib.siglip_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                               ci, ci, ci, vp]
+    lib.siglip_bwd.argtypes = [vp] * 11 + [ci] * 5 + [vp]
     lib.siglip_bwd.restype = ci
     return lib
 
 
 def _siglip_cuda_args(image_emb, profile_emb, logit_scale, logit_bias,
                       buckets):
-    """Validate what the SigLIP kernels take; return (bucket size, width,
-    row tiles per bucket)."""
+    """Validate what the SigLIP kernels take; return (bucket size,
+    width)."""
     n, d = _check_cuda_args(image_emb, profile_emb, logit_scale, buckets,
                             "SigLIP")
-    if n > SIGLIP_MAX_BUCKET:
-        raise ValueError(f"bucket of {n} rows exceeds the SigLIP kernels' "
-                         f"{SIGLIP_MAX_BUCKET}")
     _check_scalar("logit_bias", logit_bias, image_emb)
-    return n, d, -(-n // _SIGLIP_ROWS)
+    return n, d
 
 
 def siglip_fwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
                logit_scale: torch.Tensor, logit_bias: torch.Tensor,
                buckets: int = 1) -> torch.Tensor:
     """Mean bucketed SigLIP loss (f32 scalar): the forward kernel for CUDA
-    tensors, the plain version for CPU tensors. ``siglip_fwd.launches``
-    counts launches."""
+    tensors (one launch, which writes the mean itself), the plain version
+    for CPU tensors. ``siglip_fwd.launches`` counts launches."""
     if _on_cpu(image_emb, "SigLIP"):
         return siglip_loss_fused_reference(image_emb, profile_emb,
                                            logit_scale, logit_bias, buckets)
-    n, d, tiles = _siglip_cuda_args(image_emb, profile_emb, logit_scale,
-                                    logit_bias, buckets)
+    n, d = _siglip_cuda_args(image_emb, profile_emb, logit_scale, logit_bias,
+                             buckets)
     image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
     dev = image_emb.device
-    rows = 2 * buckets * n
-    partial = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
-    scratch = torch.empty(rows * (d + 1), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(siglip_scratch(buckets, n)["fwd"],
+                          dtype=torch.float32, device=dev)
     lib = _siglip_lib()
     with torch.cuda.device(dev):
         err = lib.siglip_fwd(image_emb.data_ptr(), profile_emb.data_ptr(),
                              logit_scale.data_ptr(), logit_bias.data_ptr(),
-                             partial.data_ptr(), scratch.data_ptr(), buckets,
-                             n, d, int(image_emb.dtype == torch.bfloat16),
+                             loss.data_ptr(), scratch.data_ptr(),
+                             _ticket_ptr(dev), buckets, n, d,
+                             siglip_fwd_tile(n),
+                             int(image_emb.dtype == torch.bfloat16),
                              torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "siglip_fwd")
     siglip_fwd.launches += 1
-    return (partial.sum(dim=1) / n).mean()
+    return loss
 
 
 def siglip_bwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
@@ -451,37 +486,38 @@ def siglip_bwd(image_emb: torch.Tensor, profile_emb: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """(d_image, d_profile, d_logit_scale, d_logit_bias) for the cotangent
-    ``g`` of the mean loss: the backward kernel for CUDA tensors, the plain
-    version for CPU tensors. ``siglip_bwd.launches`` counts launches."""
+    ``g`` of the mean loss: the backward kernel for CUDA tensors (one
+    launch for buckets of up to 16 rows, two above; the scalars are the
+    kernels' own), the plain version for CPU tensors.
+    ``siglip_bwd.launches`` counts calls."""
     if _on_cpu(image_emb, "SigLIP"):
         return siglip_loss_bwd_reference(image_emb, profile_emb, logit_scale,
                                          logit_bias, g, buckets)
-    n, d, tiles = _siglip_cuda_args(image_emb, profile_emb, logit_scale,
-                                    logit_bias, buckets)
+    n, d = _siglip_cuda_args(image_emb, profile_emb, logit_scale, logit_bias,
+                             buckets)
+    _check_scalar("g", g, image_emb)
     image_emb, profile_emb = image_emb.contiguous(), profile_emb.contiguous()
     dev = image_emb.device
-    rows = 2 * buckets * n
-    gb = (g.float() / buckets).reshape(1).contiguous()
     d_img = torch.empty_like(image_emb)
     d_prof = torch.empty_like(profile_emb)
-    ds_part = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
-    db_part = torch.empty((buckets, tiles), dtype=torch.float32, device=dev)
-    scratch = torch.empty(rows * (d + 1)
-                          + buckets * 2 * tiles * _SIGLIP_ROWS * d,
+    d_scale = torch.empty((), dtype=torch.float32, device=dev)
+    d_bias = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(siglip_scratch(buckets, n)["bwd"],
                           dtype=torch.float32, device=dev)
     lib = _siglip_lib()
     with torch.cuda.device(dev):
         err = lib.siglip_bwd(image_emb.data_ptr(), profile_emb.data_ptr(),
                              logit_scale.data_ptr(), logit_bias.data_ptr(),
-                             gb.data_ptr(), d_img.data_ptr(),
-                             d_prof.data_ptr(), ds_part.data_ptr(),
-                             db_part.data_ptr(), scratch.data_ptr(), buckets,
-                             n, d, int(image_emb.dtype == torch.bfloat16),
+                             g.data_ptr(), d_img.data_ptr(),
+                             d_prof.data_ptr(), d_scale.data_ptr(),
+                             d_bias.data_ptr(), scratch.data_ptr(),
+                             _ticket_ptr(dev), buckets, n, d,
+                             siglip_bwd_tile(n),
+                             int(image_emb.dtype == torch.bfloat16),
                              torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "siglip_bwd")
     siglip_bwd.launches += 1
-    return (d_img, d_prof, ds_part.sum().to(logit_scale.dtype),
-            db_part.sum().to(logit_bias.dtype))
+    return d_img, d_prof, d_scale, d_bias
 
 
 siglip_fwd.launches = 0
@@ -505,7 +541,8 @@ class _SiglipLoss(torch.autograd.Function):
     def backward(ctx, g):
         image_emb, profile_emb, logit_scale, logit_bias = ctx.saved_tensors
         di, dp, ds, db = siglip_bwd(image_emb, profile_emb, logit_scale,
-                                    logit_bias, g, ctx.buckets)
+                                    logit_bias, g.float().contiguous(),
+                                    ctx.buckets)
         return (di, dp, ds.reshape(logit_scale.shape),
                 db.reshape(logit_bias.shape), None)
 

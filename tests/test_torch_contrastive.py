@@ -192,6 +192,7 @@ def test_smoke_ranks_the_loss_kernels_at_timed_shapes(kernel):
         assert paths["global"][0][0] == "buckets=1 N=256 D=512"
     else:
         assert paths["card"][0][0] == "buckets=4 N=16 D=512"
+        assert paths["siglip_global"][0][0] == "buckets=1 N=64 D=512"
 
 
 @pytest.mark.parametrize("buckets", BUCKETS)

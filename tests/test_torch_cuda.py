@@ -19,12 +19,15 @@ to 1e-2 of their largest value (rounded to the embedding dtype),
 d logit_scale to 1e-3 relative, at one and several 16-row tiles (the
 one-block backward) and 32-row tiles (the two-kernel one), the first
 bucket past 16 rows, ragged widths and one bucket of
-512 (the CLIP kernels have no bucket cap; SigLIP's is 256); a second call
+512 (the loss kernels have no bucket cap); a second call
 and the backward recomputing the forward's statistics equal the first
-call given them bit for bit; SigLIP the same, d logit_bias like
-d logit_scale, also at scale 5 with bias ±30 where a naive softplus would
-overflow. The attention kernels are also held at the SigLIP card's shapes
-(ViT-S: L 197, 6 heads of 64; profile: L 225, 4 heads of 32 with mask and
+call given them bit for bit; SigLIP the same (a bucket of 257 and 512,
+widths above 512 at N <= 16, both sides of its tile choices), d
+logit_bias like d logit_scale, also at scale 5 with bias ±30 where a
+naive softplus would overflow; one profiled call of each SigLIP wrapper
+shows one CUDA kernel for the forward and one or two for the backward.
+The attention kernels are also held at the SigLIP card's shapes (ViT-S:
+L 197, 6 heads of 64; profile: L 225, 4 heads of 32 with mask and
 dropout 0.1). Kernels 3-4 share the device code of 1-2 and must equal them
 bit for bit. The fused FFN: each output within 2e-2 of max(1, its largest
 plain value) and 2e-3 relative L2 (both sides round the hidden through
@@ -84,7 +87,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
 )
 from multimodal_plankton_recognition_torch.ops import attention_block as ab
 from multimodal_plankton_recognition_torch.ops.contrastive import (
-    SIGLIP_MAX_BUCKET, clip_bwd, clip_fwd, clip_loss_bwd_reference,
+    clip_bwd, clip_fwd, clip_loss_bwd_reference,
     clip_loss_fused, clip_loss_fused_reference, siglip_bwd, siglip_fwd,
     siglip_loss_bwd_reference, siglip_loss_fused,
     siglip_loss_fused_reference,
@@ -502,21 +505,9 @@ def test_clip_forward_takes_either_tile(cuda, monkeypatch, buckets, n, d,
     torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5)
 
 
-def test_siglip_bucket_above_max_raises(cuda):
-    img, prof = _embeddings(cuda, SIGLIP_MAX_BUCKET + 1, 16, torch.bfloat16)
-    scale = torch.zeros((), device=cuda)
-    bias = torch.full((), -10.0, device=cuda)
-    before = siglip_fwd.launches, siglip_bwd.launches
-    with pytest.raises(ValueError, match="exceeds"):
-        siglip_fwd(img, prof, scale, bias, 1)
-    with pytest.raises(ValueError, match="exceeds"):
-        siglip_bwd(img, prof, scale, bias, torch.ones((), device=cuda), 1)
-    assert (siglip_fwd.launches, siglip_bwd.launches) == before
-
-
 def test_clip_takes_a_bucket_of_257(cuda):
-    """One row past SigLIP's cap: the CLIP kernels take it (a ragged last
-    32-row tile) and agree with the plain versions."""
+    """One row past the old 256-row cap: the CLIP kernels take it (a
+    ragged last 32-row tile) and agree with the plain versions."""
     img, prof = _embeddings(cuda, 257, 16, torch.bfloat16, seed=3)
     scale = torch.zeros((), device=cuda)
     g = torch.ones((), device=cuda)
@@ -534,13 +525,39 @@ def test_clip_takes_a_bucket_of_257(cuda):
 SIGLIP_SCALARS = [(0.7, -10.0), (5.0, 30.0), (5.0, -30.0)]
 
 
+def _siglip_close(loss, grads, want, want_grads, dtype):
+    assert torch.isfinite(loss)
+    assert abs(loss.item() - want.item()) <= 1e-5 * max(abs(want.item()), 1)
+    _siglip_grads_close(grads, want_grads, dtype)
+
+
+def _siglip_grads_close(grads, want_grads, dtype):
+    for got, ref in zip(grads[:2], want_grads[:2]):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        top = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() \
+            <= 1e-2 * top + 1e-7
+    for got, ref in zip(grads[2:], want_grads[2:]):
+        assert got.shape == () and got.dtype == torch.float32
+        assert torch.isfinite(got)
+        assert abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-7
+
+
 @pytest.mark.parametrize("scale_bias", SIGLIP_SCALARS,
                          ids=["init", "bias+30", "bias-30"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("buckets,n,d", [(1, 1, 8), (4, 16, 512),
-                                         (16, 16, 512), (1, 256, 512),
-                                         (2, 100, 33), (3, 9, 40)])
+                                         (16, 16, 512), (1, 17, 512),
+                                         (1, 64, 512), (1, 256, 512),
+                                         (1, 257, 512), (1, 512, 512),
+                                         (2, 100, 33), (3, 9, 40),
+                                         (2, 16, 640), (1, 16, 1000),
+                                         (1, 12, 603)])
 def test_siglip_kernels_match_plain(cuda, buckets, n, d, dtype, scale_bias):
+    """Both kernels against their plain versions: one bucket of 16 rows or
+    fewer (the one-block backward, its ring streamed again at D > 512),
+    above that the two-kernel backward, no cap on N; one launch count per
+    call, and a second call equal to the first bit for bit."""
     img, prof = _embeddings(cuda, buckets * n, d, dtype)
     scale = torch.full((), scale_bias[0], device=cuda)
     bias = torch.full((), scale_bias[1], device=cuda)
@@ -553,17 +570,96 @@ def test_siglip_kernels_match_plain(cuda, buckets, n, d, dtype, scale_bias):
     want = siglip_loss_fused_reference(img, prof, scale, bias, buckets)
     want_grads = siglip_loss_bwd_reference(img, prof, scale, bias, g,
                                            buckets)
+    again = (siglip_fwd(img, prof, scale, bias, buckets),
+             siglip_bwd(img, prof, scale, bias, g, buckets))
     torch.cuda.synchronize()
-    assert torch.isfinite(loss)
-    assert abs(loss.item() - want.item()) <= 1e-5 * max(abs(want.item()), 1)
-    for got, ref in zip(grads[:2], want_grads[:2]):
-        assert got.dtype == dtype and torch.isfinite(got).all()
-        top = ref.float().abs().max().item()
-        assert (got.float() - ref.float()).abs().max().item() \
-            <= 1e-2 * top + 1e-7
-    for got, ref in zip(grads[2:], want_grads[2:]):
-        assert torch.isfinite(got)
-        assert abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-7
+    assert torch.equal(again[0], loss)
+    assert all(map(torch.equal, again[1], grads))
+    _siglip_close(loss, grads, want, want_grads, dtype)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_siglip_launches_per_call(cuda, n):
+    """One profiled call of each wrapper: one CUDA kernel for the forward,
+    one (a bucket of 16 rows) or two (above) for the backward, and no
+    PyTorch kernel in either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    img, prof = _embeddings(cuda, 4 * n, 512, torch.bfloat16, seed=6)
+    scale = torch.zeros((), device=cuda)
+    bias = torch.full((), -10.0, device=cuda)
+    g = torch.ones((), device=cuda)
+    calls = {"fwd": lambda: siglip_fwd(img, prof, scale, bias, 4),
+             "bwd": lambda: siglip_bwd(img, prof, scale, bias, g, 4)}
+    for what, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            call()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        want = 1 if what == "fwd" or n <= 16 else 2
+        assert sum(kernels.values()) == want, kernels
+        assert all("siglip_" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("buckets,n,d", [(4, 16, 512), (1, 40, 512),
+                                         (1, 300, 33)])
+def test_siglip_forward_takes_either_tile(cuda, monkeypatch, buckets, n, d,
+                                          tile):
+    """The forward kernel on 16- or 32-row tiles at any N (the wrapper
+    chooses by N; ``--kernel-profile`` times the other choice) agrees with
+    the plain version."""
+    from multimodal_plankton_recognition_torch.ops import contrastive
+
+    img, prof = _embeddings(cuda, buckets * n, d, torch.bfloat16, seed=4)
+    scale = torch.full((), 0.7, device=cuda)
+    bias = torch.full((), -10.0, device=cuda)
+    monkeypatch.setattr(contrastive, "siglip_fwd_tile", lambda _n: tile)
+    loss = siglip_fwd(img, prof, scale, bias, buckets)
+    want = siglip_loss_fused_reference(img, prof, scale, bias, buckets)
+    torch.cuda.synchronize()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("buckets,n,d", [(4, 16, 512), (2, 9, 40),
+                                         (1, 16, 1000)])
+def test_siglip_backward_two_kernels_at_one_tile(cuda, monkeypatch, buckets,
+                                                 n, d, dtype):
+    """At one 16-row tile a bucket the two-kernel backward (the other side
+    of ``siglip_bwd_tile``, which ``--kernel-profile`` times) agrees with
+    the plain version too."""
+    from multimodal_plankton_recognition_torch.ops import contrastive
+
+    img, prof = _embeddings(cuda, buckets * n, d, dtype, seed=5)
+    args = (img, prof, torch.full((), 0.7, device=cuda),
+            torch.full((), -10.0, device=cuda))
+    g = torch.full((), 1.3, device=cuda)
+    monkeypatch.setattr(contrastive, "siglip_bwd_tile", lambda _n: 32)
+    grads = siglip_bwd(*args, g, buckets)
+    want = siglip_loss_bwd_reference(*args, g, buckets)
+    torch.cuda.synchronize()
+    _siglip_grads_close(grads, want, dtype)
+
+
+def test_siglip_takes_a_bucket_of_257(cuda):
+    """One row past the old 256-row cap: the SigLIP kernels take it (a
+    ragged last 32-row tile) and agree with the plain versions."""
+    img, prof = _embeddings(cuda, 257, 16, torch.bfloat16, seed=3)
+    scale = torch.zeros((), device=cuda)
+    bias = torch.full((), -10.0, device=cuda)
+    g = torch.ones((), device=cuda)
+    loss = siglip_fwd(img, prof, scale, bias, 1)
+    grads = siglip_bwd(img, prof, scale, bias, g, 1)
+    want = siglip_loss_fused_reference(img, prof, scale, bias, 1)
+    want_grads = siglip_loss_bwd_reference(img, prof, scale, bias, g, 1)
+    torch.cuda.synchronize()
+    _siglip_close(loss, grads, want, want_grads, torch.bfloat16)
 
 
 def test_siglip_autograd_launches_both_kernels(cuda):
@@ -579,10 +675,11 @@ def test_siglip_autograd_launches_both_kernels(cuda):
 
 
 def test_siglip_refuses_what_the_kernels_do_not_take(cuda):
-    img, prof = _embeddings(cuda, SIGLIP_MAX_BUCKET + 1, 16, torch.bfloat16)
+    img, prof = _embeddings(cuda, 10, 16, torch.bfloat16)
     scale = torch.zeros((), device=cuda)
-    with pytest.raises(ValueError, match="exceeds"):
-        siglip_fwd(img, prof, scale, scale, 1)
+    before = siglip_fwd.launches, siglip_bwd.launches
+    with pytest.raises(ValueError, match="divisible"):
+        siglip_fwd(img, prof, scale, scale, 4)
     img, prof = _embeddings(cuda, 8, 16, torch.bfloat16)
     with pytest.raises(ValueError, match="logit_bias"):
         siglip_fwd(img, prof, scale, torch.zeros(()), 1)  # bias on the CPU
@@ -590,8 +687,11 @@ def test_siglip_refuses_what_the_kernels_do_not_take(cuda):
         siglip_bwd(img, prof, scale, scale.double(), torch.ones((),
                                                                 device=cuda),
                    1)
+    with pytest.raises(ValueError, match="g must be"):
+        siglip_bwd(img, prof, scale, scale, torch.ones(2, device=cuda), 1)
     with pytest.raises(TypeError, match="SigLIP"):
         siglip_fwd(img.half(), prof.half(), scale, scale, 1)
+    assert (siglip_fwd.launches, siglip_bwd.launches) == before
 
 
 # the SigLIP card: ViT-S (E 384) and its profile encoder (E 128), batch 64

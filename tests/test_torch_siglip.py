@@ -36,15 +36,23 @@ from multimodal_plankton_recognition_torch.models.multi import (
     CoordinationHead,
 )
 from multimodal_plankton_recognition_torch.ops import losses
+from multimodal_plankton_recognition_torch.ops import contrastive
 from multimodal_plankton_recognition_torch.ops.contrastive import (
-    siglip_bwd, siglip_fwd, siglip_loss_bwd_reference, siglip_loss_fused,
-    siglip_loss_fused_reference,
+    siglip_bwd, siglip_bwd_tile, siglip_fwd, siglip_fwd_tile,
+    siglip_loss_bwd_reference, siglip_loss_fused, siglip_loss_fused_reference,
+    siglip_scratch,
 )
 
 # (logit_scale, logit_bias): a moderate pair, the init bias, and the
 # saturated ends where a naive log(1 + e^x) would overflow
 SCALARS = [(0.7, -3.0), (1.0, -10.0), (5.0, 30.0), (5.0, -30.0)]
 SCALAR_TOL = 1e-4
+# the CUDA kernels' regime edges, each at its own width: one row, one
+# 16-row tile (the one-block backward), the first bucket of 32-row tiles
+# (the two-kernel backward), one row past one 32-row tile and past the
+# old 256-row cap; D 24 and 40 take 16-byte loads in bf16, 33 the scalar
+# path, 32 both
+EDGE_N_D = [(1, 24), (16, 32), (17, 33), (33, 40), (257, 24)]
 
 
 def _emb(b=16, d=32, seed=0):
@@ -87,6 +95,65 @@ def test_plain_versions_match_jax_kernels_interpret(buckets, dtype, scale,
                                atol=1e-7)
     np.testing.assert_allclose(db.item(), float(gb), rtol=SCALAR_TOL,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("scale,bias", [(1.0, -10.0), (5.0, 30.0),
+                                        (5.0, -30.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", EDGE_N_D)
+def test_plain_versions_match_jax_at_the_regime_edges(n, d, dtype, scale,
+                                                      bias):
+    """Two buckets of ``n`` rows at the kernels' regime edges: the plain
+    forward and backward against the JAX kernels in interpret mode, at the
+    head's init scalars and at the saturated ends; N 257 is past the old
+    cap, which the kernels no longer have."""
+    img, prof = _emb(b=2 * n, d=d, seed=n + d)
+    loss, (gi, gp, gs, gb) = _jax_fused(img, prof, scale, bias, 2,
+                                        getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    ti, tp = (torch.from_numpy(x).to(tdt) for x in (img, prof))
+    ts, tb = torch.tensor(scale), torch.tensor(bias)
+    got = siglip_fwd(ti, tp, ts, tb, 2)
+    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-5)
+    di, dp, ds, db = siglip_bwd(ti, tp, ts, tb, torch.tensor(1.0), 2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for got_g, want_g in ((di, gi), (dp, gp)):
+        want_g = np.asarray(want_g, np.float32)
+        assert got_g.dtype == tdt and torch.isfinite(got_g).all()
+        np.testing.assert_allclose(got_g.float().numpy(), want_g, rtol=tol,
+                                   atol=tol * np.abs(want_g).max())
+    np.testing.assert_allclose(ds.item(), float(gs), rtol=SCALAR_TOL,
+                               atol=1e-7)
+    np.testing.assert_allclose(db.item(), float(gb), rtol=SCALAR_TOL,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 64, 128, 129, 256, 300, 512])
+def test_siglip_kernel_layout(n):
+    """The tiles of each regime and the scratch the wrapper allocates for
+    them (``csrc/siglip_loss.cu``): the forward on 16-row tiles up to
+    ``_SIGLIP_FWD_TILE16_ROWS`` rows, 32 above, with one partial a tile;
+    the backward on one 16-row tile a bucket up to 16 rows (the one-block
+    backward: two partials a bucket), above that on 32-row tiles (two N x
+    NP operands, the q partials, the norms and two partials a tile); no
+    cap on n."""
+    buckets = 3
+    rows = buckets * n
+    tile = siglip_fwd_tile(n)
+    assert tile == (16 if n <= contrastive._SIGLIP_FWD_TILE16_ROWS else 32)
+    sizes = siglip_scratch(buckets, n)
+    assert sizes["fwd"] == buckets * (-(-n // tile)) ** 2
+    tile = siglip_bwd_tile(n)
+    assert tile == (16 if n <= 16 else 32)
+    tiles = -(-n // tile)
+    if n <= 16:
+        assert tiles == 1 and sizes["bwd"] == 2 * buckets
+    else:
+        np_ = -(-n // 32) * 32
+        assert np_ % 32 == 0 and n <= np_ < n + 32
+        assert sizes["bwd"] == (2 * rows * np_ + 2 * rows * tiles + 2 * rows
+                                + 2 * buckets * tiles ** 2)
+    assert not hasattr(contrastive, "SIGLIP_MAX_BUCKET")
 
 
 @pytest.mark.parametrize("buckets", [1, 2, 4])
