@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
-card: the ViT flagship's encode and train step, the ViT-S SigLIP model
-card's train path, also with global negatives (one bucket of 64), the B0
-flagship's encode and the B0 CLIP model card's train path with
-``fused_mbconv``, the ViT flagship's train step with global negatives
-(one bucket of 256), the same ViT paths with ``fused_ffn``,
-the attention module's unpacked (separate q, k, v) route and its fused
-attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
+card: the ViT flagship's encode and train step, its card trained from
+packed pairs with device augmentation, checkpointed, restored and served,
+the ViT-S SigLIP model card's train path, also with global negatives
+(one bucket of 64), the B0 flagship's encode and the B0 CLIP model
+card's train path with ``fused_mbconv``, the ViT flagship's train step
+with global negatives (one bucket of 256), the same ViT paths with
+``fused_ffn``, the attention module's unpacked (separate q, k, v) route
+and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -151,6 +152,30 @@ fatal on failure:
    (``_plain_loss``): loss within 1e-2, named gradients within 5e-2; a
    ``summary:`` line of train pairs/s at buckets 16 and 1, timed in turns
    (16, 1, 1, 16);
+5c. serve_checkpoint: the ViT flagship's card (``flagship_card("vit")``,
+   ``device_augment: true``) trained from packed pairs, checkpointed,
+   restored and served. ``write_packed_splits`` writes, with numpy, json
+   and csv alone, a packed train split of 512 pairs at the oversize 236
+   and a test split of 2,048 at 224 in the JAX package's layout (CSVs and
+   stub payloads for the stale guard); ``Fitter`` trains 2 epochs from
+   ``PackedMultiSet(train, device_augment=True)`` (the cnn tokenizer at
+   the oversize, ``multi_train_augment`` kind transformer as the step's
+   ``augment_fn``), validates on the test split in a fixed order and
+   saves through ``CheckpointManager(save_top_k=1,
+   monitor="valid_loss")``; an ``on_epoch_end`` hook loads the masters
+   into the module and encodes a fixed 256-pair batch. Launches: 14 + 14
+   attention and 1 + 1 CLIP a train step, 14 + 1 an eval step, 14 a hook
+   encode; the valid loss falling, every master moved, exactly the step
+   directory top-k keeps for the history. ``load_from_checkpoint(...,
+   device="cuda")``: parameters equal the best epoch's masters in bf16
+   bit for bit, buffers f32, the fixed batch's embeddings equal the best
+   epoch's bit for bit. The test split
+   through ``encode_arrays`` on the restored model: 14 launches a batch,
+   finite, unit norm, self-gallery k = 1 >= 0.99. A ``summary:`` line
+   with the card's name and power limit: save and load ms, checkpoint
+   bytes, encode pairs/s of the restored and the in-memory model in turns,
+   train pairs/s with device augmentation and with the packed host suffix
+   in turns;
 6. card: ``CARD`` (the dict of model_cards/multi/
    vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
    128 wide with 4 heads of 32, SigLIP, bs 64 in 4 buckets, accumulation
@@ -344,6 +369,10 @@ CLIP_PROFILED = ((1, 256), (16, 16))  # profiled by CUDA kernel
 CLIP_REGIME_SHAPES = ((16, 16), (4, 16), (1, 32), (1, 64), (1, 128),
                       (1, 256), (1, 512))
 GLOBAL_STEPS = 5  # train steps (micro-steps) of the global phases
+SERVE_TRAIN = 512  # packed train pairs of the serve_checkpoint phase
+SERVE_CLASSES = 16
+SERVE_EPOCHS = 2
+SERVE_PASSES = 2  # passes over the train split a timed turn
 # SigLIP (scale, bias): the head's init and the saturated ends where a
 # naive softplus would overflow
 SIGLIP_SCALARS = ((1.0, -10.0), (5.0, 30.0), (5.0, -30.0))
@@ -548,6 +577,15 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3, calls: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+@functools.cache
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
@@ -557,11 +595,7 @@ def phase_device():
     if not (REPO / PACKAGE / "csrc").is_dir():
         fail(f"{PACKAGE}/csrc not found beside chip_smoke.py: run it from a "
              "checkout of the repository")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi(), flush=True)
     # full-f32 products for the plain versions and the kNN distances
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1954,6 +1988,353 @@ def phase_global(device):
           f"{rates[BUCKETS]!r}, buckets 1 {rates[1]!r}; ratio 1 / {BUCKETS} "
           f"{mean[1] / mean[BUCKETS]!r}", flush=True)
     return launches
+
+
+def write_packed_splits(root, target: int, n_train: int, n_test: int,
+                        classes: int, seed: int):
+    """A packed ``train`` and ``test`` split under ``root`` in the JAX
+    package's layout (``data/packed.py``), from seeded numpy arrays alone
+    (no PIL, no pandas): ``<split>.csv`` (image, profile, class) whose
+    rows name two stub payload files, and ``packed_t<target>/<split>/``
+    with ``meta.json`` holding the CSV's mtime, its row count and the
+    stubs' fingerprint, so the stale guard reads them. Train images are
+    uint8 planes at the oversize ceil(1.05 * target), profiles f32
+    (oversize, 6); test images and profiles at ``target``, the centre of
+    the same patterns. Each class has its own image rings, profile waves,
+    image size and profile length, each pair its own noise, so a pair's
+    image and profile share a class the model can learn. Returns
+    ``root``."""
+    import csv
+    import json
+    import numpy as np
+    from multimodal_plankton_recognition_torch.data.packed import (
+        _payload_fingerprint, cache_dir)
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    over = math.ceil(1.05 * target)
+    lo = (over - target) // 2
+    # radial image rings and time-symmetric profile waves: the random crop
+    # (at most 6% of a side) and the flips leave a class's pattern nearly
+    # as it is, so every batch shows the model the same classes
+    yy, xx = np.mgrid[:over, :over] - (over - 1) / 2
+    radius = np.hypot(yy, xx)[None] / over
+    ring = rs.uniform(1.0, 4.0, (classes, 1, 1))
+    shift = rs.uniform(0.0, 2 * np.pi, (classes, 1, 1))
+    image_patterns = 128 + 96 * np.cos(2 * np.pi * ring * radius + shift)
+    steps = (np.arange(over) - (over - 1) / 2)[None, :, None] / over
+    freq = rs.uniform(0.5, 3.0, (classes, 1, 6))
+    phase = rs.uniform(0.0, 2 * np.pi, (classes, 1, 6))
+    profile_patterns = 0.8 * np.cos(2 * np.pi * freq * steps + phase)
+    class_shapes = rs.randint(60, 380, (classes, 2))
+    class_lens = rs.randint(40, 1900, (classes, 1))
+    (root / "stubs").mkdir(exist_ok=True)
+    (root / "stubs" / "image.png").write_bytes(b"stub image")
+    (root / "stubs" / "profile.csv").write_text("stub profile\n")
+    for split, n in (("train", n_train), ("test", n_test)):
+        side = over if split == "train" else target
+        cut = slice(0, over) if split == "train" else slice(lo, lo + target)
+        labels = rs.permutation(np.arange(n) % classes)
+        names = np.array([f"class_{c:02d}" for c in labels])
+        noise = rs.randint(-24, 25, (n, side, side))
+        images = np.clip(image_patterns[labels][:, cut, cut] + noise, 0,
+                         255).astype(np.uint8)
+        profiles = (profile_patterns[labels][:, cut] + 0.05 * rs.randn(
+            n, side, 6)).astype(np.float32)
+        annotation = root / f"{split}.csv"
+        with open(annotation, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["image", "profile", "class"])
+            writer.writerows(["stubs/image.png", "stubs/profile.csv", c]
+                             for c in names)
+        out = cache_dir(annotation, target)
+        out.mkdir(parents=True, exist_ok=True)
+        np.save(out / "images.npy", images)
+        np.save(out / "profiles.npy", profiles)
+        np.save(out / "shapes.npy", (class_shapes[labels] + rs.randint(
+            -10, 11, (n, 2))).astype(np.int32))
+        np.save(out / "lens.npy", (class_lens[labels] + rs.randint(
+            -20, 21, (n, 1))).astype(np.int32))
+        np.save(out / "labels.npy", names)
+        (out / "meta.json").write_text(json.dumps({
+            "target_size": target, "train": split == "train", "rows": n,
+            "source": annotation.name,
+            "source_mtime": annotation.stat().st_mtime,
+            "payload_fingerprint": _payload_fingerprint(
+                ["stubs/image.png"] * n, ["stubs/profile.csv"] * n, root)}))
+    return root
+
+
+def _collated(dataset, tokenizer, vocab, n=None):
+    """The first ``n`` items of ``dataset`` (all by default) collated into
+    one batch of numpy arrays, and their class ids."""
+    from multimodal_plankton_recognition_torch.data.pipeline import (
+        multi_collate_fn)
+
+    items = [dataset[i] for i in range(n or len(dataset))]
+    arrays = multi_collate_fn(tokenizer)(items)
+    return arrays, vocab.transform([s["label"] for s in items])
+
+
+def _loader_pairs_per_s(state, train_step, loader, put, passes):
+    """Train pairs/s of ``passes`` passes over ``loader`` (host batches,
+    the copy to the card and the steps), ended by a synchronize."""
+    import torch
+
+    n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for batch in loader:
+            state, _ = train_step(state, put(batch), 0)
+            n += batch["image"].shape[0]
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def phase_serve_checkpoint(device):
+    """Train from packed pairs, checkpoint, restore and serve, on the ViT
+    flagship's card (``flagship_card("vit")`` with ``device_augment``):
+    ``write_packed_splits`` writes ``SERVE_TRAIN`` train pairs at the
+    oversize and a ``GALLERY``-pair test split; ``Fitter`` trains
+    ``SERVE_EPOCHS`` epochs from ``PackedMultiSet(train,
+    device_augment=True)`` through the cnn tokenizer at the oversize and
+    ``multi_train_augment`` (kind transformer) as the step's
+    ``augment_fn``, validates on the test split (in a fixed order) and
+    checkpoints through
+    ``CheckpointManager(save_top_k=1)``; an ``on_epoch_end`` hook loads
+    the masters into the module and encodes a fixed batch. Checks:
+    launches 14 + 14 + 1 + 1 a train step, 14 + 1 an eval step, 14 a hook
+    encode; the valid loss (the test split in a fixed order) falling,
+    every master moved; exactly the step
+    directory top-k keeps for the history; ``load_from_checkpoint`` gives
+    the best epoch's masters in bf16 bit for bit and its embeddings bit
+    for bit; the test split encoded through ``encode_arrays`` at 14
+    launches a batch, finite, unit norm, self-gallery k = 1 >= 0.99.
+    Times: save and load ms, checkpoint bytes, encode pairs/s of the
+    restored and the in-memory model in turns, train pairs/s with device
+    augmentation and with the packed host suffix in turns. Returns the
+    launches of the fit and the serving encode."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.data.packed import (
+        PackedMultiSet)
+    from multimodal_plankton_recognition_torch.data.pipeline import (
+        Loader, multi_collate_fn)
+    from multimodal_plankton_recognition_torch.data.tokenize import (
+        get_tokenizer)
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model, step_buckets)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_card, init_weights_)
+    from multimodal_plankton_recognition_torch.ops.augment import (
+        multi_train_augment)
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+    from multimodal_plankton_recognition_torch.train import (
+        Fitter, create_train_state, make_multi_steps, make_optimizer)
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        PAYLOAD_FILE, CheckpointManager, load_from_checkpoint)
+    from multimodal_plankton_recognition_torch.utils import LabelVocab
+
+    d = flagship_card("vit")
+    d.update(device_augment=True, packed_cache=True)
+    card = ModelCard.from_dict(d)
+    ts, bs = card.target_size, card.bs
+    train_steps, valid_steps = SERVE_TRAIN // bs, GALLERY // bs
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                         clip_bwd=1)
+    per_eval = _per_step(mha_qkv_fwd=ATTENTION_LAYERS, clip_fwd=1)
+    per_encode = _per_step(mha_qkv_fwd=ATTENTION_LAYERS)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_packed_splits(Path(tmp) / "data", ts, SERVE_TRAIN,
+                                   GALLERY, SERVE_CLASSES, seed=5)
+        train_set = PackedMultiSet(root / "train.csv", ts,
+                                   device_augment=True)
+        test_set = PackedMultiSet(root / "test.csv", ts)
+        vocab = LabelVocab(train_set.class_names)
+        train_tok = get_tokenizer("cnn", ts, pad_to=card.oversize)
+        eval_tok = get_tokenizer("transformer", ts, pad_to=ts + 1)
+
+        def loader(dataset, tokenizer, seed, shuffle=True):
+            return Loader(dataset, bs, multi_collate_fn(tokenizer),
+                          shuffle=shuffle, drop_last=True,
+                          num_workers=card.num_workers, seed=seed)
+
+        def put(batch):
+            return {k: torch.as_tensor(v).to(device, non_blocking=True)
+                    for k, v in batch.items()}
+
+        if train_set.images.shape[1:] != (card.oversize, card.oversize):
+            fail(f"serve_checkpoint: packed train images "
+                 f"{train_set.images.shape}, not at the oversize")
+        model = build_multi_model(card).to(device)
+        init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                             torch.Generator().manual_seed(0)).state_dict()
+        tx = make_optimizer(card.optim_args,
+                            card.trainer_args.accumulate_grad_batches)
+        state = create_train_state(model, init, tx)
+        train_step, eval_step = make_multi_steps(
+            model, tx, step_buckets(card),
+            augment_fn=lambda b, g: multi_train_augment(
+                b, ts, g, kind="transformer"))
+        fixed, fixed_labels = _collated(test_set, eval_tok, vocab, bs)
+        fixed = {k: torch.as_tensor(v).to(device) for k, v in fixed.items()}
+
+        losses, by_epoch, masters, save_ms = [], {}, {}, []
+
+        def counted_train_step(state, batch, seed):
+            if batch["image"].shape[1:3] != (card.oversize, card.oversize):
+                fail(f"serve_checkpoint: train batch {batch['image'].shape}"
+                     f", not the oversize prefix")
+            state, loss = train_step(state, batch, seed)
+            losses.append(loss)
+            return state, loss
+
+        def on_epoch_end(epoch, state, metrics):
+            state.load_into(model)
+            masters[epoch] = {n: m.clone() for n, m in state.params.items()}
+            by_epoch[epoch] = encode_arrays(model, fixed, fixed_labels, bs,
+                                            device)
+
+        class TimedManager(CheckpointManager):
+            def save(self, epoch, state, metrics):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                saved = super().save(epoch, state, metrics)
+                save_ms.append((time.perf_counter() - t0) * 1e3)
+                return saved
+
+        ckpt = Path(tmp) / "checkpoints"
+        mngr = TimedManager(ckpt, monitor="valid_loss", save_top_k=1,
+                            metadata={"card": card.to_dict(), "kind": "multi",
+                                      "class_names": vocab.to_list()})
+        fitter = Fitter(counted_train_step, eval_step, checkpointer=mngr,
+                        max_epochs=SERVE_EPOCHS, seed=card.seed,
+                        hooks={"on_epoch_end": on_epoch_end}, put_fn=put)
+        _reset_counts()
+        torch.cuda.synchronize()
+        # the test split in a fixed order: the same buckets every epoch, so
+        # its loss moves with the weights alone
+        state = fitter.fit(state, loader(train_set, train_tok, card.seed),
+                           loader(test_set, eval_tok, card.seed + 1,
+                                  shuffle=False))
+        torch.cuda.synchronize()
+        fit_launches = _counts()
+        history = fitter.history
+        losses = [float(x) for x in losses]
+        print(f"serve_checkpoint: {SERVE_EPOCHS} epochs of {train_steps} "
+              f"steps of {bs} packed pairs (device augmentation) and "
+              f"{valid_steps} eval steps; history {history}; micro-step "
+              f"losses {losses}; launches {fit_launches}", flush=True)
+        want = {n: SERVE_EPOCHS * (train_steps * per_step[n] + valid_steps
+                                   * per_eval[n] + per_encode[n])
+                for n in per_step}
+        if fit_launches != want:
+            fail(f"serve_checkpoint: expected launches {want}, got "
+                 f"{fit_launches}")
+        if len(history) != SERVE_EPOCHS or not all(
+                math.isfinite(h["train_loss"]) and
+                math.isfinite(h["valid_loss"]) for h in history):
+            fail(f"serve_checkpoint: non-finite losses or history: {history}")
+        if not history[-1]["valid_loss"] < history[0]["valid_loss"]:
+            fail(f"serve_checkpoint: the valid loss did not fall: "
+                 f"{history}")
+        unmoved = [n for n, m in state.params.items()
+                   if torch.equal(m, init[n].to(device))]
+        if unmoved:
+            fail(f"serve_checkpoint: masters that did not move: {unmoved}")
+        # save_top_k = 1, mode min: the least valid_loss, the later of ties
+        best = max(range(len(history)),
+                   key=lambda e: (-history[e]["valid_loss"], e))
+        kept = sorted(p.name for p in ckpt.iterdir() if p.name.isdigit())
+        if kept != [str(best)] or mngr.best_step() != best:
+            fail(f"serve_checkpoint: kept {kept} (best step "
+                 f"{mngr.best_step()}), top-k keeps [{best}]")
+        ckpt_bytes = sum(p.stat().st_size for p in (ckpt / str(best))
+                         .iterdir()) + (ckpt / "plankton_metadata.json"
+                                        ).stat().st_size
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, payload, meta = load_from_checkpoint(ckpt, device=device)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if payload["step"] != (best + 1) * train_steps or \
+                meta["class_names"] != vocab.to_list():
+            fail(f"serve_checkpoint: restored step {payload['step']} or "
+                 f"classes {meta['class_names']} are not epoch {best}'s")
+        params = dict(restored.named_parameters())
+        for n, m in masters[best].items():
+            if not torch.equal(payload["params"][n].to(device), m) or \
+                    not torch.equal(params[n], m.to(params[n].dtype)):
+                fail(f"serve_checkpoint: restored {n} is not the best "
+                     f"epoch's master (in {params[n].dtype})")
+        if any(p.dtype != torch.bfloat16 for n, p in params.items()
+               if not n.startswith("coordination.")) or any(
+                b.dtype != torch.float32 for b in restored.buffers()):
+            fail("serve_checkpoint: the restored module is not bf16 with "
+                 "f32 buffers")
+        again = encode_arrays(restored, fixed, fixed_labels, bs, device)
+        for key in ("image", "profile"):
+            if not np.array_equal(again[key], by_epoch[best][key]):
+                diff = np.abs(again[key] - by_epoch[best][key]).max()
+                fail(f"serve_checkpoint: restored {key} embeddings differ "
+                     f"from epoch {best}'s by up to {diff}")
+        print(f"serve_checkpoint: kept step {kept}, restored bit for bit "
+              f"(masters in bf16 and {bs}-pair embeddings of epoch {best})",
+              flush=True)
+
+        gallery, labels = _collated(test_set, eval_tok, vocab)
+        gallery = {k: torch.as_tensor(v).to(device)
+                   for k, v in gallery.items()}
+        _reset_counts()
+        emb = encode_arrays(restored, gallery, labels, bs, device)
+        torch.cuda.synchronize()
+        serve_launches = _counts()
+        want = {n: c * valid_steps for n, c in per_encode.items()}
+        if serve_launches != want:
+            fail(f"serve_checkpoint: encode launches {serve_launches}, "
+                 f"expected {want}")
+        _check_embeddings("serve_checkpoint (restored model, packed test "
+                          "split)", emb, labels, device)
+
+        rates = {"restored": [], "in-memory": []}
+        state.load_into(model)
+        models = {"restored": restored, "in-memory": model}
+        for name in ("restored", "in-memory", "in-memory", "restored"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_arrays(models[name], gallery, labels, bs, device)
+            torch.cuda.synchronize()
+            rates[name].append(GALLERY / (time.perf_counter() - t0))
+        host_step, _ = make_multi_steps(model, tx, step_buckets(card))
+        routes = {
+            "device augmentation": (train_step, loader(
+                train_set, train_tok, card.seed)),
+            "host suffix": (host_step, loader(
+                PackedMultiSet(root / "train.csv", ts), eval_tok, card.seed))}
+        train_rates = {name: [] for name in routes}
+        for name in routes:
+            _loader_pairs_per_s(state, *routes[name], put, 1)
+        for name in ("device augmentation", "host suffix", "host suffix",
+                     "device augmentation"):
+            train_rates[name].append(_loader_pairs_per_s(
+                state, *routes[name], put, SERVE_PASSES))
+    print(f"summary: serve_checkpoint on {_smi()}: save ms {save_ms!r}, "
+          f"load ms {load_ms!r}, checkpoint bytes {ckpt_bytes}; encode "
+          f"pairs/s in turns (restored, in-memory, in-memory, restored): "
+          f"{rates!r}; train pairs/s over {SERVE_PASSES} passes of "
+          f"{SERVE_TRAIN} packed pairs in turns (device augmentation, host "
+          f"suffix, host suffix, device augmentation): {train_rates!r}",
+          flush=True)
+    return {n: fit_launches[n] + serve_launches[n] for n in fit_launches}
 
 
 def _card(base=CARD, **overrides):
@@ -3430,13 +3811,14 @@ def _rank_table():
 
     flag, card = ("vit", "profile"), ("card vit", "card profile")
     fwd_train = {p: pair(*flag, "eval", "train p=0.1")
-                 for p in ("train", "global", "ffn_train")}
+                 for p in ("train", "global", "serve_checkpoint",
+                           "ffn_train")}
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
                       for p in ("card", "siglip_global", "ffn_card")})
     fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
                ffn_encode=pair(*flag, "eval", "eval"))
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
-           for p in ("train", "global", "ffn_train")}
+           for p in ("train", "global", "serve_checkpoint", "ffn_train")}
     bwd.update({p: pair(*card, "p=0.0", "p=0.1")
                 for p in ("card", "siglip_global", "ffn_card")})
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
@@ -3449,8 +3831,8 @@ def _rank_table():
         return [(f"buckets={buckets} N={n} D=512", None, 1.0)]
 
     clip = {p: loss_rows(BUCKETS, BATCH // BUCKETS)
-            for p in ("train", "ffn_train", "unpacked", "fuse_proj",
-                      "flax_attention")}
+            for p in ("train", "serve_checkpoint", "ffn_train", "unpacked",
+                      "fuse_proj", "flax_attention")}
     clip["b0_card"] = loss_rows(B0_CARD["buckets"],
                                 B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
@@ -3522,6 +3904,7 @@ def main(argv=None) -> None:
     records = phase_kernel(device)
     launches = {"encode": phase_slice(device), "train": phase_train(device),
                 "global": phase_global(device),
+                "serve_checkpoint": phase_serve_checkpoint(device),
                 "card": phase_card(device),
                 "siglip_global": phase_siglip_global(device),
                 "b0_encode": phase_b0_encode(device),

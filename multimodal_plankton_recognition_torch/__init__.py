@@ -19,7 +19,13 @@ serving and the card path, with the fused MBConv block (``ops.mbconv``)
 for ``fused_mbconv``; for both transformer encoders, the fused
 feed-forward block (``ops.ffn``) for ``fused_ffn``, and the attention
 module's separate-q/k/v route (``PLANKTON_ATTN_QKV_PACKED=0`` or
-``PLANKTON_ATTN_STACKED=0``). Kernels: ``csrc/attention_fwd.cu``,
+``PLANKTON_ATTN_STACKED=0``); checkpoints (``train.checkpoint``: top-k
+retention, ``load_from_checkpoint``) and serving from them
+(``retrieval.encode.encode_dataset`` / ``encode_split``,
+``scripts/encode_torch.py``; ``scripts/checkpoint_from_jax.py`` carries
+an orbax checkpoint over), the packed input cache (``data.packed``, read
+with numpy alone) and the device augmentation of the train step
+(``ops.augment``, ``make_multi_steps(..., augment_fn=...)``). Kernels: ``csrc/attention_fwd.cu``,
 ``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu``, ``csrc/siglip_loss.cu``,
 ``csrc/mbconv_fwd.cu``, ``csrc/mbconv_bwd.cu`` and ``csrc/ffn.cu``.
 """

@@ -291,6 +291,10 @@ class ModelCard:
         (reference: src/data.py:78,133)."""
         return math.ceil(1.05 * self.target_size)
 
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON/YAML-serializable card contents (for checkpoint metadata)."""
+        return dict(self.raw)
+
 
 def load_card(path: str | Path) -> ModelCard:
     """Parse a YAML model card. PyYAML is imported here, not at module

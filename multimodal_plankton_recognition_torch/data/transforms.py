@@ -1,6 +1,10 @@
-"""Eval-time image and profile transforms (``data/transforms.py`` of the
-JAX package): ``ImageTransformTest``, ``ProfileTransformTest`` and the
-helpers they call, in numpy. PIL is imported inside the image functions.
+"""Deterministic image and profile transforms (``data/transforms.py`` of
+the JAX package): the eval transforms ``ImageTransformTest`` and
+``ProfileTransformTest``, the oversize train prefixes
+``ImageTransformOversize`` and ``ProfileTransformOversize`` (whose random
+crop, flips and noise run later, on the card in ``ops.augment`` or on the
+host in ``data.packed``), and the helpers they call, in numpy. PIL is
+imported inside the image functions.
 
 Conventions: images come out channel-last ``(H, W, 1)`` float32 in [-1, 1];
 profiles ``(L, D)`` float32 with D = 6 pulse channels.
@@ -18,6 +22,12 @@ PROFILE_LOG_CEILINGS = np.array(
     [9.6058, 8.9211, 8.9211, 8.9211, 8.9211, 8.9211], dtype=np.float32)
 
 SCALEBAR_ROWS = 25  # the burned-in scale bar occupies the top 25 px
+
+_default_rng = np.random.default_rng(0)
+
+
+def _rng(rng: Optional[np.random.Generator]) -> np.random.Generator:
+    return rng if rng is not None else _default_rng
 
 
 def resize_edge(img, target_res: int = 224) -> np.ndarray:
@@ -98,3 +108,36 @@ class ProfileTransformTest:
         x = np.log1p(np.asarray(profile, dtype=np.float32))
         x = x / self.ceilings[:x.shape[-1]] * 2.0 - 1.0
         return resample_linear(x, self.target_size).astype(np.float32)
+
+
+class ImageTransformOversize:
+    """Deterministic prefix of the train image transform: crop the scale
+    bar, resize to ceil(1.05 * target) with edge padding, rescale to
+    [-1, 1]. The random crop and flips come after it."""
+
+    def __init__(self, target_size: int = 224) -> None:
+        self.oversize = math.ceil(1.05 * target_size)
+
+    def __call__(self, img, rng: Optional[np.random.Generator] = None
+                 ) -> np.ndarray:
+        img = img.convert("L")
+        img = img.crop((0, SCALEBAR_ROWS, img.width, img.height))
+        arr = resize_edge(img, self.oversize)
+        return (arr.astype(np.float32) / 255.0 * 2.0 - 1.0)[..., None]
+
+
+class ProfileTransformOversize:
+    """Deterministic prefix of the train profile transform: log1p,
+    ceiling-normalize, [-1, 1], resample to ceil(1.05 * target). The
+    random crop and noise come after it."""
+
+    def __init__(self, target_size: int = 224,
+                 ceilings: np.ndarray = PROFILE_LOG_CEILINGS) -> None:
+        self.oversize = math.ceil(1.05 * target_size)
+        self.ceilings = np.asarray(ceilings, dtype=np.float32)
+
+    def __call__(self, profile: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        x = np.log1p(np.asarray(profile, dtype=np.float32))
+        x = x / self.ceilings[:x.shape[-1]] * 2.0 - 1.0
+        return resample_linear(x, self.oversize).astype(np.float32)

@@ -1,10 +1,12 @@
 """The two flagships and their synthetic batches (``models/flagships.py``
 of the JAX package): EfficientNet-B0 + ProfileCNN and ViT-T/16 +
 ProfileTransformer, each with the CLIP head; plus a seeded random
-initialisation for runs without a checkpoint."""
+initialisation for runs without a checkpoint, and each flagship as a
+model card (``flagship_card``), which a checkpoint's metadata stores."""
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -65,6 +67,46 @@ def flagship_vit(dim_embed: int = 512, fused_attention: bool = True,
         coordination_args={"method": "clip", "fused": fused_loss},
         dtype=dtype,
     )
+
+
+_FLAGSHIP_CARDS = {
+    "vit": {
+        "bs": 256, "buckets": 16, "target_size": 224, "dim_embedding": 512,
+        "image_encoder_args": {"name": "vit_tiny_patch16_224",
+                               "in_chans": 1, "metadata": True,
+                               "fused_attention": True, "fused_ffn": False},
+        "profile_encoder_args": {"kind": "transformer", "dim_in": 6,
+                                 "dim_hidden": 192, "num_layers": 2,
+                                 "num_head": 8, "target_size": 224,
+                                 "fused_attention": True,
+                                 "fused_ffn": False},
+        "coordination_args": {"method": "clip", "fused": True},
+        "optim_args": {"lr": 5e-3, "momentum": 0.9, "weight_decay": 1e-3,
+                       "nesterov": True},
+        "trainer_args": {"precision": "16-mixed"},
+    },
+    "b0": {
+        "bs": 256, "buckets": 16, "target_size": 224, "dim_embedding": 512,
+        "image_encoder_args": {"name": "efficientnet_b0", "in_chans": 1,
+                               "metadata": True},
+        "profile_encoder_args": {"kind": "cnn", "dim_in": 6,
+                                 "blocks": [2, 2, 2, 2],
+                                 "base_channels": 32},
+        "coordination_args": {"method": "clip", "fused": True},
+        "optim_args": {"lr": 5e-3, "momentum": 0.9, "weight_decay": 1e-3,
+                       "nesterov": True},
+        "trainer_args": {"precision": "16-mixed"},
+    },
+}
+
+
+def flagship_card(name: str) -> dict:
+    """The model-card dict (``config.ModelCard.from_dict``) whose
+    ``models.build.build_multi_model`` is ``flagship_vit()`` (``name``
+    "vit") or ``flagship_b0()`` ("b0"): batch 256 in 16 buckets, bf16
+    (``precision: 16-mixed``), SGD lr 5e-3, momentum 0.9, nesterov,
+    weight decay 1e-3. JSON-serializable (lists, no tuples)."""
+    return copy.deepcopy(_FLAGSHIP_CARDS[name])
 
 
 def synthetic_batch_b0(bs: int, img: int = 224, plen: int = 224,

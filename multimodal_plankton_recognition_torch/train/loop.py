@@ -11,13 +11,17 @@ backpropagate, upcast the gradients to f32 and update the masters; with
 train-mode forward, so once per micro-step, also while gradients
 accumulate, as the JAX step returns ``batch_stats`` every micro-step; the
 eval step normalizes with them and leaves them alone. A batch's ``label``
-(class ids, for ArcFace) goes to the coordination head. Nothing in the
-step reads a device value on the host, so steps queue on the card back to
-back; ``Fitter`` reads the losses once per epoch.
+(class ids, for ArcFace) goes to the coordination head. With an
+``augment_fn`` (``ops.augment.multi_train_augment``: the random tail of
+the train transforms on the card) the step first runs it on the batch,
+drawing from a second CPU generator seeded from (seed, step), so the
+dropout draws are the same with or without it. Nothing in the step reads
+a device value on the host, so steps queue on the card back to back;
+``Fitter`` reads the losses once per epoch and hands each epoch to the
+checkpointer (``train.checkpoint.CheckpointManager``).
 
-Not ported yet (ROADMAP.md): ``augment_fn`` (the on-device random
-transforms), ``make_classifier_steps``, ``train_multi``, checkpointing and
-the CLI.
+Not ported yet (ROADMAP.md): ``make_classifier_steps``, ``train_multi``
+and the CLI.
 """
 
 from __future__ import annotations
@@ -33,23 +37,32 @@ from ..models.dropout import dropout_rng
 from .optim import Optimizer
 from .state import TrainState
 
-def _step_generator(seed: int, step: int) -> torch.Generator:
+AUGMENT_STREAM = 1  # the augmentation generator's third seed word
+
+
+def _step_generator(seed: int, step: int, *stream: int) -> torch.Generator:
     """The CPU generator of one step, seeded from (seed, step) through
     numpy's ``SeedSequence`` (torch's CPU generator keeps 32 bits of a
-    seed, so the pair is hashed, not packed)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    seed, so the pair is hashed, not packed); ``stream`` words give
+    another generator of the same step."""
+    state = np.random.SeedSequence([seed, step, *stream]).generate_state(1)[0]
     return torch.Generator().manual_seed(int(state))
 
 
-def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1
+def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
+                     augment_fn: Optional[Callable] = None
                      ) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) for ``model`` (a ``MultiModel`` at its
-    compute dtype) and the optimizer ``tx``."""
+    compute dtype) and the optimizer ``tx``. ``augment_fn(batch,
+    generator) -> batch`` runs on each train batch before the loss."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Tuple[TrainState, torch.Tensor]:
         """One micro-step; returns the updated state and the loss (a
         device scalar)."""
+        if augment_fn is not None:
+            batch = augment_fn(batch, _step_generator(seed, state.step,
+                                                      AUGMENT_STREAM))
         state.load_into(model).train()
         model.zero_grad(set_to_none=True)
         with dropout_rng(_step_generator(seed, state.step)):

@@ -1587,3 +1587,82 @@ def test_mbconv_fwd_refuses_unaligned_channels(cuda):
     with pytest.raises(ValueError, match="cout = 12.*kernels 13-16"):
         mbconv.kb_fwd(y2, g2, b2, z, z, wr, br, we, be, wproj)
     assert (mbconv.ka_fwd.launches, mbconv.kb_fwd.launches) == before
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """The ViT flagship's card (batch 32) trained 2 steps on the card,
+    saved, and ``load_from_checkpoint(..., device="cuda")``: the module's
+    parameters are the masters in bf16 bit for bit, and it encodes a batch
+    bit for bit as the in-memory module holding the same masters."""
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model, step_buckets,
+    )
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_card, init_weights_, synthetic_batch_vit,
+    )
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays,
+    )
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_multi_steps, make_optimizer,
+    )
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        CheckpointManager, load_from_checkpoint,
+    )
+
+    d = flagship_card("vit")
+    d["bs"] = 32
+    card = ModelCard.from_dict(d)
+    model = build_multi_model(card).to(cuda)
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    tx = make_optimizer(card.optim_args)
+    state = create_train_state(model, init, tx)
+    step, _ = make_multi_steps(model, tx, step_buckets(card))
+    batch = synthetic_batch_vit(32, seed=1, device=cuda)
+    for _ in range(2):
+        state, _ = step(state, batch, 0)
+    mngr = CheckpointManager(tmp_path, metadata={
+        "card": card.to_dict(), "kind": "multi", "class_names": []})
+    assert mngr.save(0, state, {"valid_loss": 1.0})
+    restored, payload, _ = load_from_checkpoint(tmp_path, device="cuda")
+    assert all(t.device.type == "cpu" for t in payload["params"].values())
+    params = dict(restored.named_parameters())
+    for n, m in state.params.items():
+        assert params[n].device == m.device
+        assert torch.equal(params[n], m.to(params[n].dtype)), n
+    state.load_into(model)
+    labels = torch.arange(32).numpy()
+    want = encode_arrays(model, batch, labels, 16, cuda)
+    got = encode_arrays(restored, batch, labels, 16, cuda)
+    for key in ("image", "profile"):
+        assert (got[key] == want[key]).all(), key
+
+
+def test_augment_on_the_card_equals_the_cpu_apply(cuda):
+    """``apply_augment`` on CUDA tensors equals its CPU run on the same
+    draws, and ``multi_train_augment`` on a CUDA batch uses the draws of
+    its (CPU) generator, for every tokenize contract."""
+    from multimodal_plankton_recognition_torch.ops.augment import (
+        apply_augment, draw_augment, multi_train_augment,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    batch = {"image": torch.rand(8, 236, 236, 1, generator=gen) * 2 - 1,
+             "profile": torch.randn(8, 236, 6, generator=gen),
+             "image_shape": torch.randint(50, 400, (8, 2), generator=gen,
+                                          dtype=torch.int32)}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    for kind in ("transformer", "lstm", "cnn"):
+        draws = draw_augment(batch, 224, torch.Generator().manual_seed(1))
+        want = apply_augment(batch, draws, 224, kind)
+        got = apply_augment(on_card, draws, 224, kind)
+        again = multi_train_augment(on_card, 224,
+                                    torch.Generator().manual_seed(1), kind)
+        torch.cuda.synchronize()
+        assert sorted(got) == sorted(want) == sorted(again)
+        for k in want:
+            assert got[k].device.type == "cuda", k
+            assert torch.equal(got[k].cpu(), want[k]), (kind, k)
+            assert torch.equal(again[k].cpu(), want[k]), (kind, k)

@@ -8,8 +8,11 @@ path, the train path and the model-card path ``config.ModelCard.from_dict``
 → ``models.build`` → ``train.Fitter``) load none of jax, flax, pandas, PIL
 or yaml, which the card's machine need not have. ``config.load_card``
 imports yaml, and the port's own host layers (``data.dataset``,
-``data.transforms``, ``data.profile_io``, behind ``encode_csv``) pandas
-and PIL, only when called.
+``data.transforms``, ``data.profile_io``, behind ``encode_csv``, and
+``data.packed.pack_split``) pandas and PIL, only when called. The port's
+encode CLI (``scripts/encode_torch.py``) imports no JAX either; the bridge
+from orbax (``scripts/checkpoint_from_jax.py``) does, and so lives
+outside the package.
 """
 
 import ast
@@ -23,6 +26,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch",
     "multimodal_plankton_recognition_torch.convert",
     "multimodal_plankton_recognition_torch.data.dataset",
+    "multimodal_plankton_recognition_torch.data.packed",
     "multimodal_plankton_recognition_torch.data.pipeline",
     "multimodal_plankton_recognition_torch.data.profile_io",
     "multimodal_plankton_recognition_torch.data.tokenize",
@@ -40,11 +44,15 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.models.profile.factory",
     "multimodal_plankton_recognition_torch.models.profile.transformer",
     "multimodal_plankton_recognition_torch.ops.attention",
+    "multimodal_plankton_recognition_torch.ops.augment",
     "multimodal_plankton_recognition_torch.ops.build",
     "multimodal_plankton_recognition_torch.ops.ffn",
     "multimodal_plankton_recognition_torch.ops.knn",
     "multimodal_plankton_recognition_torch.ops.losses",
     "multimodal_plankton_recognition_torch.retrieval.encode",
+    "multimodal_plankton_recognition_torch.train.checkpoint",
+    "multimodal_plankton_recognition_torch.utils",
+    "multimodal_plankton_recognition_torch.utils.labels",
 ]
 TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.config",
@@ -52,7 +60,9 @@ TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.models.dropout",
     "multimodal_plankton_recognition_torch.ops.contrastive",
     "multimodal_plankton_recognition_torch.ops.mbconv",
+    "multimodal_plankton_recognition_torch.ops.augment",
     "multimodal_plankton_recognition_torch.train",
+    "multimodal_plankton_recognition_torch.train.checkpoint",
     "multimodal_plankton_recognition_torch.train.early_stopping",
     "multimodal_plankton_recognition_torch.train.logging",
     "multimodal_plankton_recognition_torch.train.loop",
@@ -96,6 +106,27 @@ def test_no_source_imports_jax():
                  "multimodal_plankton_recognition_tpu"}
     for path in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]:
         assert not set(_imported_roots(path)) & forbidden, path
+
+
+def test_encode_cli_imports_no_jax():
+    """``scripts/encode_torch.py`` names no JAX module, and running it
+    (``--help``) loads none of the forbidden modules."""
+    script = REPO / "scripts" / "encode_torch.py"
+    assert not set(_imported_roots(script)) & {
+        "jax", "jaxlib", "flax", "optax", "orbax",
+        "multimodal_plankton_recognition_tpu"}
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(script)!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({str(script)!r}, run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        f"print(sorted(m for m in {FORBIDDEN!r} if m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
