@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's serving and training paths on one CUDA
 card: the ViT flagship's encode and train step, its card trained from
 packed pairs with device augmentation, checkpointed, restored and served,
-the ViT-S SigLIP model card's train path, also with global negatives
-(one bucket of 64), the B0 flagship's encode and the B0 CLIP model
+the B0 SigLIP model card trained through the train CLI from packed
+pairs and resumed, the ViT-S SigLIP model card's train path, also with
+global negatives (one bucket of 64), the B0 flagship's encode and the B0 CLIP model
 card's train path with ``fused_mbconv``, the ViT flagship's train step
 with global negatives (one bucket of 256), the same ViT paths with
 ``fused_ffn``, the attention module's unpacked (separate q, k, v) route
@@ -176,6 +177,25 @@ fatal on failure:
    bytes, encode pairs/s of the restored and the in-memory model in turns,
    train pairs/s with device augmentation and with the packed host suffix
    in turns;
+5d. drive: ``B0_SIGLIP_CARD`` (model_cards/multi/efficientnet_b0_cnn_2_
+   512_siglip.yaml: EfficientNet-B0 + ProfileCNN 2-2-2-2, SigLIP, bs 64 in
+   4 buckets, accumulation 4, bf16, cuDNN convolutions) with
+   ``packed_cache: true``, written as a ``.json`` card, trained through
+   ``scripts/train_multi_torch.py``'s ``main`` in this process on 1,024
+   packed train and 512 test pairs at 224 (``write_packed_splits``; the
+   host suffix's crop, flips and noise on the ``Loader``'s threads). Run
+   1 (3 epochs, ``--profile``): exactly 3 x (16 + 8) SigLIP forward and
+   3 x 16 backward launches and no other kernel's; finite losses, the
+   last epoch's train loss below the first's, every f32 master moved from
+   the card's seeded init; ``<logs>/<card>_<data>/version_0`` with 3
+   metrics lines, the checkpoints top-5 keeps, the metadata's kind and
+   classes; a trace of epoch 0 alone. Run 2 (``--resume``, 1 epoch):
+   step 48 (the latest kept) to 64 in ``version_1``, 24 + 16 launches. A
+   ``summary: drive`` line: train pairs/s by epoch, epoch 0's device busy
+   ms and the idle share against epoch 2's unprofiled wall, the train
+   ``Loader``'s host pairs/s alone, and train pairs/s through ``Fitter``
+   with the pinned non-blocking put, the plain put and one batch already
+   on the card, in turns;
 6. card: ``CARD`` (the dict of model_cards/multi/
    vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
    128 wide with 4 heads of 32, SigLIP, bs 64 in 4 buckets, accumulation
@@ -373,6 +393,13 @@ SERVE_TRAIN = 512  # packed train pairs of the serve_checkpoint phase
 SERVE_CLASSES = 16
 SERVE_EPOCHS = 2
 SERVE_PASSES = 2  # passes over the train split a timed turn
+DRIVE_TRAIN = 1024  # packed train pairs of the drive phase: 16 micro-steps
+DRIVE_TEST = 512    # its test pairs: 8 eval steps of 64
+DRIVE_CLASSES = 16
+DRIVE_EPOCHS = 3    # the first run's epochs; the resumed run takes one more
+#: train pairs/s through Fitter timed in turns: the pinned non-blocking put,
+#: the plain put, and one batch already on the card (no Loader, no copy)
+DRIVE_TURNS = ("pinned", "plain", "resident", "resident", "plain", "pinned")
 # SigLIP (scale, bias): the head's init and the saturated ends where a
 # naive softplus would overflow
 SIGLIP_SCALARS = ((1.0, -10.0), (5.0, 30.0), (5.0, -30.0))
@@ -494,6 +521,27 @@ B0_CARD = {
         "kind": "cnn", "dim_in": 6, "blocks": [2, 2, 2, 2],
         "base_channels": 32, "dropout": 0.1, "metadata": True},
     "coordination_args": {"method": "clip", "negatives": "bucketed",
+                          "fused": True},
+    "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                   "nesterov": True},
+    "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                     "max_epochs": 200, "accumulate_grad_batches": 4,
+                     "check_val_every_n_epoch": 1},
+}
+#: model_cards/multi/efficientnet_b0_cnn_2_512_siglip.yaml as a dict
+#: literal, the ``drive`` phase's card (it adds ``packed_cache: true``);
+#: tests/test_torch_card.py holds it equal to the file
+B0_SIGLIP_CARD = {
+    "precision": "medium", "dim_embedding": 512, "max_len": 256,
+    "target_size": 224, "bs": 64, "buckets": 4, "num_workers": 8,
+    "patience": 20, "save_top_k": 5,
+    "image_encoder_args": {
+        "name": "efficientnet_b0", "pretrained": False, "num_classes": 0,
+        "metadata": True, "in_chans": 1, "dropout": 0.1},
+    "profile_encoder_args": {
+        "kind": "cnn", "dim_in": 6, "blocks": [2, 2, 2, 2],
+        "base_channels": 32, "dropout": 0.1, "metadata": True},
+    "coordination_args": {"method": "siglip", "negatives": "bucketed",
                           "fused": True},
     "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
                    "nesterov": True},
@@ -2337,6 +2385,203 @@ def phase_serve_checkpoint(device):
     return {n: fit_launches[n] + serve_launches[n] for n in fit_launches}
 
 
+def _trace_device_ms(path):
+    """(device busy ms, {name: ms}) of a Chrome trace: the durations of its
+    device events (kernels, copies, sets; one stream, so they do not
+    overlap) and the 8 largest names by time."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    # the host's ranges only: on a card each also shows as a device range
+    sgd = sum(e.get("name") == "Optimizer.step#SGD.step" and
+              e.get("cat") == "user_annotation" for e in events)
+    return sum(by_name.values()), top, sgd
+
+
+def phase_drive(device):
+    """The shipped B0 SigLIP card (``B0_SIGLIP_CARD``, EfficientNet-B0 +
+    ProfileCNN 2-2-2-2, SigLIP, bs 64 in 4 buckets, accumulation 4, bf16;
+    ``packed_cache: true`` added) trained through the train CLI
+    (``scripts/train_multi_torch.py``'s ``main``, in this process, from a
+    ``.json`` card) on ``write_packed_splits``' ``DRIVE_TRAIN`` train and
+    ``DRIVE_TEST`` test pairs at 224. Run 1: ``--max-epochs`` 3
+    ``--profile``: launches exactly 3 x (16 + 8) SigLIP forward and 3 x 16
+    backward, no other kernel; 3 finite history rows, the last train loss
+    below the first, every f32 master moved from the card's seeded init;
+    the run directory ``<logs>/<card stem>_<data's last two parts>/
+    version_0`` with 3 lines of ``metrics.jsonl``, the checkpoint steps
+    top-5 keeps, ``kind: multi`` and the classes in the metadata; a trace
+    of epoch 0 alone (its SGD updates). Run 2: ``--resume`` run 1's
+    checkpoints ``--max-epochs 1``: resumed at step 48 (the latest kept),
+    ends at step 64 in ``version_1``. A ``summary: drive`` line: train
+    pairs/s of each epoch (``Fitter``'s, the epoch's eval in its wall),
+    epoch 0's device busy ms from the trace, the idle share 1 - busy /
+    (epoch 2's unprofiled wall, the same steps), the host pairs/s of one
+    pass of the driver's train ``Loader`` alone, and train pairs/s through
+    ``Fitter`` with the pinned non-blocking put, with the plain
+    ``torch.as_tensor(v).to(device)`` put and on one batch already on the
+    card, in turns (``DRIVE_TURNS``).
+    Returns the launches of runs 1 and 2."""
+    import importlib.util
+    import tempfile
+
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.data.pipeline import (
+        device_put)
+    from multimodal_plankton_recognition_torch.models.build import (
+        step_buckets)
+    from multimodal_plankton_recognition_torch.train import (
+        Fitter, drivers, make_multi_steps)
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        METADATA_FILE, CheckpointManager)
+
+    spec = importlib.util.spec_from_file_location(
+        "train_multi_torch", REPO / "scripts" / "train_multi_torch.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    card_dict = dict(B0_SIGLIP_CARD, packed_cache=True)
+    card = ModelCard.from_dict(card_dict)
+    bs = card.bs
+    micro, evals = DRIVE_TRAIN // bs, DRIVE_TEST // bs
+    updates = micro // card.trainer_args.accumulate_grad_batches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = write_packed_splits(tmp / "data", card.target_size,
+                                   DRIVE_TRAIN, DRIVE_TEST, DRIVE_CLASSES,
+                                   seed=7)
+        data_s = time.perf_counter() - t0
+        card_path = tmp / "b0_siglip.json"
+        card_path.write_text(json.dumps(card_dict))
+        logs = tmp / "logs"
+        args = ["-d", str(root), "-m", str(card_path), "-l", str(logs)]
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = cli.main(args + ["--max-epochs", str(DRIVE_EPOCHS),
+                                 "--profile"])
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t0
+        launches = _counts()
+        want = _per_step(siglip_fwd=DRIVE_EPOCHS * (micro + evals),
+                         siglip_bwd=DRIVE_EPOCHS * micro)
+        history = first["history"]
+        print(f"drive: run 1 ({DRIVE_EPOCHS} epochs of {micro} micro-steps "
+              f"and {evals} eval steps, profiled epoch 0) in {run1_s!r} s; "
+              f"history {history}; launches {launches}", flush=True)
+        if launches != want:
+            fail(f"drive: expected launches {want}, got {launches}")
+        if len(history) != DRIVE_EPOCHS or not all(
+                math.isfinite(h["train_loss"]) and
+                math.isfinite(h["valid_loss"]) for h in history):
+            fail(f"drive: non-finite losses or history: {history}")
+        if not history[-1]["train_loss"] < history[0]["train_loss"]:
+            fail(f"drive: the train loss did not fall: {history}")
+        init = drivers.init_masters(card)
+        state = first["state"]
+        if any(m.dtype != torch.float32 for m in state.params.values()):
+            fail("drive: masters are not f32")
+        unmoved = [n for n, m in state.params.items()
+                   if torch.equal(m.cpu(), init[n])]
+        if unmoved:
+            fail(f"drive: masters that did not move: {unmoved}")
+        run = logs / ("_".join([card_path.stem, *root.parts[-2:]])) \
+            / "version_0"
+        if Path(first["logdir"]) != run:
+            fail(f"drive: run directory {first['logdir']}, not {run}")
+        lines = (run / "metrics.jsonl").read_text().splitlines()
+        if len(lines) != DRIVE_EPOCHS:
+            fail(f"drive: metrics.jsonl has {len(lines)} lines")
+        # save_top_k, mode min: the least valid_loss, the later of ties
+        ranked = sorted(range(DRIVE_EPOCHS),
+                        key=lambda e: (history[e]["valid_loss"], -e))
+        top = sorted(ranked[:card.save_top_k])
+        kept = sorted(int(p.name) for p in (run / "checkpoints").iterdir()
+                      if p.name.isdigit())
+        meta = json.loads((run / "checkpoints" / METADATA_FILE).read_text())
+        classes = [f"class_{c:02d}" for c in range(DRIVE_CLASSES)]
+        if kept != top or meta["kind"] != "multi" or \
+                meta["class_names"] != classes:
+            fail(f"drive: kept {kept} (top-k keeps {top}), metadata kind "
+                 f"{meta['kind']!r} classes {meta['class_names']}")
+        trace = run / "profile" / drivers.TRACE_FILE
+        if not trace.is_file():
+            fail(f"drive: no trace at {trace}")
+        busy_ms, top_kernels, sgd = _trace_device_ms(trace)
+        if sgd != updates or not busy_ms > 0:
+            fail(f"drive: the trace holds {sgd} SGD updates (epoch 0 has "
+                 f"{updates}) and {busy_ms} device ms")
+
+        _reset_counts()
+        second = cli.main(args + ["--resume", str(run / "checkpoints"),
+                                  "--max-epochs", "1"])
+        torch.cuda.synchronize()
+        resumed = CheckpointManager(run / "checkpoints",
+                                    save_top_k=0).restore()["step"]
+        launches2 = _counts()
+        want = _per_step(siglip_fwd=micro + evals, siglip_bwd=micro)
+        if launches2 != want:
+            fail(f"drive: run 2 launches {launches2}, expected {want}")
+        if resumed != DRIVE_EPOCHS * micro or \
+                second["state"].step != resumed + micro or \
+                Path(second["logdir"]) != run.parent / "version_1":
+            fail(f"drive: run 2 resumed at {resumed}, ended at step "
+                 f"{second['state'].step} in {second['logdir']}")
+        print(f"drive: run 2 resumed at step {resumed} (the latest kept), "
+              f"ended at {second['state'].step} in version_1; history "
+              f"{second['history']}", flush=True)
+
+        train_set, test_set = drivers.multi_datasets(card, root)
+        train_loader, _ = drivers.multi_loaders(card, train_set, test_set,
+                                                device)
+        t0 = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in train_loader)
+        loader_rate = n / (time.perf_counter() - t0)
+        model, tx, state = drivers.multi_state(card, device)
+        train_step, eval_step = make_multi_steps(model, tx,
+                                                 step_buckets(card))
+        batch = device_put(device)(next(iter(train_loader)))
+        puts = {"pinned": device_put(device),
+                "plain": lambda b: {k: torch.as_tensor(v).to(device)
+                                    for k, v in b.items()},
+                "resident": lambda b: b}
+        put_rates = {name: [] for name in puts}
+        for name in DRIVE_TURNS:
+            put = puts[name]
+            loader, _ = drivers.multi_loaders(card, train_set, test_set,
+                                              device)
+            if name == "plain":  # numpy batches, as the collate makes them
+                loader.collate_fn = loader.collate_fn.collate_fn
+            elif name == "resident":
+                loader = [batch] * micro
+            fitter = Fitter(train_step, eval_step, seed=card.seed,
+                            put_fn=put)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = fitter.fit(state, loader)
+            torch.cuda.synchronize()
+            put_rates[name].append(DRIVE_TRAIN / (time.perf_counter() - t0))
+    rates = [h["samples_per_sec"] for h in history]
+    wall_ms = 1e3 * DRIVE_TRAIN / rates[-1]
+    print(f"summary: drive on {_smi()}: B0 SigLIP card through "
+          f"scripts/train_multi_torch.py from {DRIVE_TRAIN} packed pairs "
+          f"(written in {data_s!r} s); train pairs/s by epoch (Fitter's, "
+          f"eval in the wall; epoch 0 profiled) {rates!r}; epoch 0 device "
+          f"busy {busy_ms!r} ms against epoch {DRIVE_EPOCHS - 1}'s "
+          f"unprofiled wall {wall_ms!r} ms: idle {1 - busy_ms / wall_ms!r};"
+          f" epoch 0's largest device names (ms) {top_kernels!r}; the "
+          f"driver's train Loader alone {loader_rate!r} host pairs/s; "
+          f"train pairs/s through Fitter in turns {DRIVE_TURNS} (pinned: "
+          f"the driver's non-blocking put; resident: one batch already on "
+          f"the card) {put_rates!r}", flush=True)
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
 def _card(base=CARD, **overrides):
     """A card (the SigLIP one unless ``base`` is given) and the port's
     train-step pieces built from it: (card, bf16 model on the CPU,
@@ -3837,7 +4082,7 @@ def _rank_table():
                                 B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
     siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
-              for p in ("card", "ffn_card")}
+              for p in ("card", "ffn_card", "drive")}
     siglip["siglip_global"] = loss_rows(1, CARD["bs"])
     b0 = {"b0_card": [(f"{blk} ", "", n / MBCONV_BLOCKS)
                       for blk, n in B0_BLOCKS.items()]}
@@ -3905,6 +4150,7 @@ def main(argv=None) -> None:
     launches = {"encode": phase_slice(device), "train": phase_train(device),
                 "global": phase_global(device),
                 "serve_checkpoint": phase_serve_checkpoint(device),
+                "drive": phase_drive(device),
                 "card": phase_card(device),
                 "siglip_global": phase_siglip_global(device),
                 "b0_encode": phase_b0_encode(device),

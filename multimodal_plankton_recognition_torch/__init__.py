@@ -25,7 +25,11 @@ retention, ``load_from_checkpoint``) and serving from them
 ``scripts/encode_torch.py``; ``scripts/checkpoint_from_jax.py`` carries
 an orbax checkpoint over), the packed input cache (``data.packed``, read
 with numpy alone) and the device augmentation of the train step
-(``ops.augment``, ``make_multi_steps(..., augment_fn=...)``). Kernels: ``csrc/attention_fwd.cu``,
+(``ops.augment``, ``make_multi_steps(..., augment_fn=...)``); and the
+train driver (``train.drivers.train_multi``, ``scripts/train_multi_torch.py``)
+with the CSV path's random train transforms and a seeded init in the
+Flax initialisers' distributions (``models.initializers``). Kernels:
+``csrc/attention_fwd.cu``,
 ``csrc/attention_bwd.cu``, ``csrc/clip_loss.cu``, ``csrc/siglip_loss.cu``,
 ``csrc/mbconv_fwd.cu``, ``csrc/mbconv_bwd.cu`` and ``csrc/ffn.cu``.
 """

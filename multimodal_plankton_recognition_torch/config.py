@@ -2,15 +2,17 @@
 
 The same dataclasses, defaults, compat shims (key-sniffed profile encoder
 kind, stale ``dim_out`` / ``max_len`` keys) and checks, raising the same
-``CardError``s. The only difference: PyYAML is imported inside
-``load_card``, so building a model from a card dict
-(``ModelCard.from_dict`` → ``models.build.build_multi_model``) imports no
-yaml, which the card's machine lacks.
+``CardError``s. The differences: ``load_card`` also reads a ``.json``
+card, and imports PyYAML inside, only for a YAML card, so building a
+model from a card dict or a JSON card (``ModelCard.from_dict`` →
+``models.build.build_multi_model``) imports no yaml, which the card's
+machine lacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -202,7 +204,7 @@ class ModelCard:
     optim_args: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     trainer_args: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
     # Extensions of the JAX package (absent from reference cards,
-    # defaulted); nothing in the port reads them yet (ROADMAP.md).
+    # defaulted); read by the train driver (train/drivers.py).
     mesh: Optional[Dict[str, int]] = None      # e.g. {data: 8, model: 1}
     device_augment: bool = False  # run crop/flip/noise on device in the step
     loader: str = "threads"       # 'threads' | 'grain' (multiprocess workers)
@@ -297,13 +299,17 @@ class ModelCard:
 
 
 def load_card(path: str | Path) -> ModelCard:
-    """Parse a YAML model card. PyYAML is imported here, not at module
-    import: the card's machine has none, and the card path (``from_dict``)
-    does not need it."""
-    import yaml
-
+    """Parse a model card: JSON for a ``.json`` file (a JSON document is
+    YAML too, so the JAX package's ``load_card`` reads the same file into
+    the same card), YAML otherwise. PyYAML is imported only for a YAML
+    card: the card's machine has none."""
     with open(path, "r") as stream:
-        d = yaml.safe_load(stream)
+        if Path(path).suffix == ".json":
+            d = json.load(stream)
+        else:
+            import yaml
+
+            d = yaml.safe_load(stream)
     if not isinstance(d, dict):
         raise CardError(f"Model card {path} did not parse to a mapping")
     return ModelCard.from_dict(d)

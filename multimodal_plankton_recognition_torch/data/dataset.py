@@ -1,7 +1,9 @@
 """Multimodal dataset (``data/dataset.py`` of the JAX package): one (image,
 pulse-shape profile, class) triple per row of an annotations table whose
 ``image`` and ``profile`` paths resolve relative to the table's directory.
-pandas is imported inside ``MultiSet.__init__``."""
+pandas is imported inside ``MultiSet.__init__``. An optional
+``pair_augmentation(image, profile, rng)`` runs after both transforms, on
+the same generator."""
 
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ class MultiSet:
 
     def __init__(self, annotation_path: Path | str,
                  image_transforms: Callable,
-                 profile_transform: Callable) -> None:
+                 profile_transform: Callable,
+                 pair_augmentation: Optional[Callable] = None) -> None:
         import pandas as pd
 
         annotation_path = Path(annotation_path)
@@ -33,6 +36,7 @@ class MultiSet:
         self.class_names = np.unique(self.table["class"])
         self.image_transforms = image_transforms
         self.profile_transform = profile_transform
+        self.pair_augmentation = pair_augmentation
 
     def __len__(self) -> int:
         return len(self.table)
@@ -42,7 +46,7 @@ class MultiSet:
         row = self.table.iloc[index]
         image = load_image(self.parent / row["image"])
         profile = load_profile_csv(self.parent / row["profile"])
-        return {
+        item = {
             "image": self.image_transforms(image, rng),
             "profile": self.profile_transform(profile, rng),
             "label": row["class"],
@@ -50,3 +54,7 @@ class MultiSet:
                                     dtype=np.int32),
             "profile_length": np.array([profile.shape[0]], dtype=np.int32),
         }
+        if self.pair_augmentation:
+            item["image"], item["profile"] = self.pair_augmentation(
+                item["image"], item["profile"], rng)
+        return item

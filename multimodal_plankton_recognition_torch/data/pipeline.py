@@ -1,10 +1,15 @@
 """Host input pipeline (``data/pipeline.py`` of the JAX package): a
-deterministic threaded batch loader and the contrastive collate.
+deterministic threaded batch loader, the contrastive collate, and the
+copy of host batches to the card (JAX's ``prefetch_to_device``).
 
 Samples load on worker threads (PIL releases the GIL while it decodes);
 each sample's random generator comes from (seed, epoch, index), so a run
-repeats whatever the scheduling. Not ported: the multi-host sharding of
-the loader and the supervised collates.
+repeats whatever the scheduling. For the card, ``PinnedCollate`` pins each
+batch on the loader's producer thread, and ``device_put`` copies it with
+``non_blocking=True``: the host queues the copy and the step that reads
+it without waiting, so while the card runs one step the next batch is
+already queued behind it. Not ported: the multi-host sharding of the
+loader and the supervised collates.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator
 
 import numpy as np
+import torch
 
 
 class Loader:
@@ -123,3 +129,28 @@ class MultiCollate:
 
 def multi_collate_fn(tokenizer: Callable, vocab=None) -> Callable:
     return MultiCollate(tokenizer, vocab)
+
+
+class PinnedCollate:
+    """``collate_fn``'s batch as CPU tensors in page-locked memory, made
+    on the thread that collates (the loader's producer), so the card's
+    copy of it can run without a host wait."""
+
+    def __init__(self, collate_fn: Callable) -> None:
+        self.collate_fn = collate_fn
+
+    def __call__(self, samples) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                for k, v in self.collate_fn(samples).items()}
+
+
+def device_put(device: torch.device | str) -> Callable:
+    """A ``Fitter`` ``put_fn`` that places a batch on ``device``: on the
+    CPU ``torch.as_tensor`` of each array; on a card a non-blocking copy
+    of each (pinned, ``PinnedCollate``) tensor."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return lambda batch: {k: torch.as_tensor(v)
+                              for k, v in batch.items()}
+    return lambda batch: {k: torch.as_tensor(v).to(device, non_blocking=True)
+                          for k, v in batch.items()}

@@ -1,10 +1,17 @@
-"""Deterministic image and profile transforms (``data/transforms.py`` of
-the JAX package): the eval transforms ``ImageTransformTest`` and
-``ProfileTransformTest``, the oversize train prefixes
+"""Image and profile transforms (``data/transforms.py`` of the JAX
+package): the eval transforms ``ImageTransformTest`` and
+``ProfileTransformTest``; the random train transforms
+``ImageTransformTrain``, ``ProfileTransformTrain`` and the joint flip
+``PairAugmentation`` of the CSV path; the oversize train prefixes
 ``ImageTransformOversize`` and ``ProfileTransformOversize`` (whose random
 crop, flips and noise run later, on the card in ``ops.augment`` or on the
-host in ``data.packed``), and the helpers they call, in numpy. PIL is
+host in ``data.packed``); and the helpers they call, in numpy. PIL is
 imported inside the image functions.
+
+The random transforms draw from the one ``numpy.random.Generator`` a
+sample is given, in the JAX package's order: the image crop (dy, then dx)
+and its flip coin, the profile crop start and its noise, then the pair's
+coin. With the same generator they give the JAX package's bits.
 
 Conventions: images come out channel-last ``(H, W, 1)`` float32 in [-1, 1];
 profiles ``(L, D)`` float32 with D = 6 pulse channels.
@@ -13,7 +20,7 @@ profiles ``(L, D)`` float32 with D = 6 pulse channels.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -141,3 +148,57 @@ class ProfileTransformOversize:
         x = np.log1p(np.asarray(profile, dtype=np.float32))
         x = x / self.ceilings[:x.shape[-1]] * 2.0 - 1.0
         return resample_linear(x, self.oversize).astype(np.float32)
+
+
+class ImageTransformTrain:
+    """The oversize prefix (``ImageTransformOversize``), then a random
+    ``target_size`` crop (offsets dy, then dx) and a vertical flip on a
+    coin's 0."""
+
+    def __init__(self, target_size: int = 224) -> None:
+        self.target_size = target_size
+        self.prefix = ImageTransformOversize(target_size)
+
+    def __call__(self, img, rng: Optional[np.random.Generator] = None
+                 ) -> np.ndarray:
+        g = _rng(rng)
+        x = self.prefix(img)
+        t = self.target_size
+        dy = int(g.integers(0, x.shape[0] - t + 1))
+        dx = int(g.integers(0, x.shape[1] - t + 1))
+        x = x[dy:dy + t, dx:dx + t]
+        if g.integers(0, 2) == 0:
+            x = x[::-1]
+        return np.ascontiguousarray(x)
+
+
+class ProfileTransformTrain:
+    """The oversize prefix (``ProfileTransformOversize``), then a random
+    ``target_size`` crop and N(0, 1e-3) noise."""
+
+    def __init__(self, target_size: int = 224,
+                 ceilings: np.ndarray = PROFILE_LOG_CEILINGS) -> None:
+        self.target_size = target_size
+        self.prefix = ProfileTransformOversize(target_size, ceilings)
+
+    def __call__(self, profile: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        g = _rng(rng)
+        x = self.prefix(profile)
+        start = int(g.integers(0, x.shape[0] - self.target_size + 1))
+        x = x[start:start + self.target_size]
+        x = x + 1e-3 * g.standard_normal(x.shape).astype(np.float32)
+        return x.astype(np.float32)
+
+
+class PairAugmentation:
+    """On a coin's 0, flip the image horizontally and reverse the profile
+    in time together, so the two modalities stay consistent."""
+
+    def __call__(self, image: np.ndarray, profile: np.ndarray,
+                 rng: Optional[np.random.Generator] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        if _rng(rng).integers(0, 2) == 0:
+            image = np.ascontiguousarray(image[:, ::-1])
+            profile = np.ascontiguousarray(profile[::-1])
+        return image, profile

@@ -1,21 +1,23 @@
 """The two flagships and their synthetic batches (``models/flagships.py``
 of the JAX package): EfficientNet-B0 + ProfileCNN and ViT-T/16 +
-ProfileTransformer, each with the CLIP head; plus a seeded random
-initialisation for runs without a checkpoint, and each flagship as a
-model card (``flagship_card``), which a checkpoint's metadata stores."""
+ProfileTransformer, each with the CLIP head, and each flagship as a model
+card (``flagship_card``), which a checkpoint's metadata stores. The seeded
+random initialisation for runs without a checkpoint, ``init_weights_``,
+lives in ``models.initializers`` and is re-exported here."""
 
 from __future__ import annotations
 
 import copy
-import math
 from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from .image.vit import ViT
+from .initializers import init_weights_
 from .multi import MultiModel
+
+__all__ = ["flagship_b0", "flagship_vit", "flagship_card", "init_weights_",
+           "synthetic_batch_b0", "synthetic_batch_vit"]
 
 
 def flagship_b0(dim_embed: int = 512, fused_loss: bool = True,
@@ -142,30 +144,3 @@ def synthetic_batch_vit(bs: int, img: int = 224, target_size: int = 224,
         "padding_mask": np.zeros((bs, length), bool),
     }
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-
-@torch.no_grad()
-def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``, after the Flax initialisers:
-    lecun-normal Dense and conv kernels (fan-in of a depthwise kernel:
-    k·k), zero biases, unit LayerNorm scales, N(0, 0.02) position tables,
-    a zero CLS token; norms keep their unit scales, zero biases and
-    running statistics (0 mean, 1 variance)."""
-    def normal_(t: torch.Tensor, std: float) -> None:
-        t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            normal_(m.weight, 1.0 / math.sqrt(fan_in))
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            normal_(m.weight, 0.02)
-        elif isinstance(m, nn.LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-        elif isinstance(m, ViT):
-            normal_(m.pos_embed, 0.02)
-            m.cls_token.zero_()
-    return model

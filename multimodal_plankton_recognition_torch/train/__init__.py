@@ -1,6 +1,7 @@
 """Contrastive training (``train/`` of the JAX package): the optimizer, the
 train state with f32 master weights, the train / eval steps, the epoch
-loop (``Fitter``), checkpoints, early stopping and the metrics writer."""
+loop (``Fitter``), checkpoints, early stopping and the metrics writer;
+``drivers.train_multi`` wires them to a card and a dataset."""
 
 from .checkpoint import CheckpointManager, load_from_checkpoint
 from .early_stopping import EarlyStopping

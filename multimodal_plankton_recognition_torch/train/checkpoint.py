@@ -182,6 +182,20 @@ def read_metadata(directory: Path | str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def read_port_metadata(directory: Path | str) -> Dict[str, Any]:
+    """``read_metadata``, refusing a directory without the port's format
+    marker (an orbax directory of the JAX package) with a message that
+    names the bridge."""
+    meta = read_metadata(directory)
+    if meta.get("format") != FORMAT:
+        raise ValueError(
+            f"{directory} is not a checkpoint of the PyTorch port: its "
+            f"{METADATA_FILE} has no \"format\": \"{FORMAT}\" marker (an "
+            f"orbax checkpoint of the JAX package?); carry it over with "
+            f"python {BRIDGE} -k {directory} -o <new directory>")
+    return meta
+
+
 def load_from_checkpoint(directory: Path | str, step: Optional[int] = None,
                          device: torch.device | str = "cuda"
                          ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
@@ -196,13 +210,7 @@ def load_from_checkpoint(directory: Path | str, step: Optional[int] = None,
     metadata)``, the payload on the CPU."""
     device = require_device(device)
     directory = Path(directory).resolve()
-    meta = read_metadata(directory)
-    if meta.get("format") != FORMAT:
-        raise ValueError(
-            f"{directory} is not a checkpoint of the PyTorch port: its "
-            f"{METADATA_FILE} has no \"format\": \"{FORMAT}\" marker (an "
-            f"orbax checkpoint of the JAX package?); carry it over with "
-            f"python {BRIDGE} -k {directory} -o <new directory>")
+    meta = read_port_metadata(directory)
     kind = meta.get("kind", "multi")
     if kind in ("image", "profile"):
         raise NotImplementedError(

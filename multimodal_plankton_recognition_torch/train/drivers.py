@@ -1,0 +1,261 @@
+"""The contrastive train driver behind ``scripts/train_multi_torch.py``
+(``train_multi`` of the JAX package's ``train/drivers.py``).
+
+The file contracts are the JAX driver's: ``<dataset>/train.csv`` and
+``<dataset>/test.csv`` in (or their packed caches, ``packed_cache:
+true``), ``<logdir>/<card>_<dataset>/version_k/`` out, with
+``metrics.jsonl``, ``checkpoints/`` (the port's format,
+``train.checkpoint``) and, under ``--profile``, a trace of the first
+epoch in ``profile/``. The steps are the card's: ``build_multi_model``,
+f32 masters from a seeded init (``models.initializers``: the Flax
+initialisers' distributions, drawn from ``card.seed``; no sample batch),
+``make_multi_steps`` at ``step_buckets`` with the card's device
+augmentation, ``Fitter`` with top-k checkpoints on ``valid_loss`` and
+early stopping. On a card the loaders pin each batch on their producer
+thread and the steps read it through a non-blocking copy
+(``data.pipeline.PinnedCollate``, ``device_put``).
+
+Not ported, as TPU machinery: ``use_tpu_runtime_flags``,
+``enable_compilation_cache`` and ``use_fast_prng``. Card options that
+need a module not ported yet raise before any step: ``loader: grain``
+(ROADMAP.md queue 1 module 8), a ``mesh`` of more than one device (module
+7), and, from ``build_multi_model``, ``pretrained``. ``parallel:
+shard_map`` on one device is the plain step, as in JAX.
+"""
+
+from __future__ import annotations
+
+import copy
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..config import ModelCard, load_card
+from ..data.dataset import MultiSet
+from ..data.pipeline import (
+    Loader, PinnedCollate, device_put, multi_collate_fn,
+)
+from ..data.tokenize import get_tokenizer
+from ..data.transforms import (
+    ImageTransformOversize, ImageTransformTrain, PairAugmentation,
+    ProfileTransformOversize, ProfileTransformTrain,
+)
+from ..models.build import build_multi_model, step_buckets
+from ..models.initializers import init_weights_
+from ..ops.augment import multi_train_augment
+from ..ops.knn import require_device
+from ..retrieval.encode import eval_pipeline
+from ..utils import LabelVocab
+from .checkpoint import CheckpointManager, read_port_metadata
+from .early_stopping import EarlyStopping
+from .logging import MetricsWriter
+from .loop import Fitter, make_multi_steps
+from .optim import Optimizer, make_optimizer
+from .state import TrainState, create_train_state
+
+TRACE_FILE = "epoch_0.pt.trace.json"
+
+
+def _run_name(card_name: str, data_path: Path) -> str:
+    """``<card name>_<the data path's last two parts>``."""
+    parts = [p for p in data_path.parts if p not in (".", "..", "/")]
+    return card_name + "_" + "_".join(parts[-2:])
+
+
+def _refuse_unported(card: ModelCard) -> None:
+    if card.loader == "grain":
+        raise NotImplementedError(
+            "loader: grain (the process-based loader) is not ported yet "
+            "(ROADMAP.md queue 1 module 8); use loader: threads")
+    mesh = card.mesh or {}
+    if (mesh.get("data") or 1) * (mesh.get("model") or 1) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh} asks for more than one device; the parallel "
+            f"layer is not ported yet (ROADMAP.md queue 1 module 7)")
+
+
+def multi_datasets(card: ModelCard, data_path: Path | str):
+    """(train set, test set) of the JAX driver's three branches: the
+    packed caches; the CSV path with the oversize prefixes (device
+    augmentation); the CSV path with the random train transforms and the
+    pair augmentation."""
+    data_path = Path(data_path)
+    ts = card.target_size
+    if card.packed_cache:
+        from ..data.packed import PackedMultiSet
+
+        return (PackedMultiSet(data_path / "train.csv", ts,
+                               device_augment=card.device_augment),
+                PackedMultiSet(data_path / "test.csv", ts))
+    if card.device_augment:
+        train_set = MultiSet(data_path / "train.csv",
+                             ImageTransformOversize(ts),
+                             ProfileTransformOversize(ts))
+    else:
+        train_set = MultiSet(data_path / "train.csv", ImageTransformTrain(ts),
+                             ProfileTransformTrain(ts), PairAugmentation())
+    image_tf, profile_tf, _ = eval_pipeline(card, "multi")
+    return train_set, MultiSet(data_path / "test.csv", image_tf, profile_tf)
+
+
+def multi_loaders(card: ModelCard, train_set, test_set,
+                  device: torch.device | str) -> Tuple[Loader, Loader]:
+    """The driver's train and valid ``Loader``s (both shuffled, last
+    partial batch dropped; seeds ``card.seed`` and ``card.seed + 1``) on
+    the eval pipeline's tokenizer; under device augmentation the train
+    tokenizer pads to the oversize, where the step crops. ArcFace batches carry class ids, and the card's
+    head gets ``out_features`` from the train classes. On a card the
+    batches come pinned."""
+    valid_tok = eval_pipeline(card, "multi")[2]
+    train_tok = valid_tok
+    if card.device_augment:
+        train_tok = get_tokenizer("cnn", card.target_size,
+                                  pad_to=card.oversize)
+    coord = card.coordination_args or {}
+    vocab = None
+    if coord.get("method") == "arcface":
+        vocab = LabelVocab(train_set.class_names)
+        coord.setdefault("out_features", len(vocab))
+    pin = torch.device(device).type == "cuda"
+
+    def loader(dataset, tokenizer, seed):
+        collate = multi_collate_fn(tokenizer, vocab)
+        return Loader(dataset, card.bs,
+                      PinnedCollate(collate) if pin else collate,
+                      shuffle=True, drop_last=True,
+                      num_workers=card.num_workers, seed=seed)
+
+    return (loader(train_set, train_tok, card.seed),
+            loader(test_set, valid_tok, card.seed + 1))
+
+
+def init_masters(card: ModelCard) -> Dict[str, torch.Tensor]:
+    """The card's f32 initial weights (and BatchNorm statistics) as a
+    state dict on the CPU, drawn from ``card.seed``."""
+    model = build_multi_model(card, dtype=torch.float32)
+    return init_weights_(model,
+                         torch.Generator().manual_seed(card.seed)).state_dict()
+
+
+def multi_state(card: ModelCard, device: torch.device | str,
+                resume: Optional[str | Path] = None
+                ) -> Tuple[torch.nn.Module, Optimizer, TrainState]:
+    """(model on ``device`` at the card's compute dtype, optimizer, train
+    state): f32 masters from ``init_masters``, or, with ``resume``, the
+    latest step kept in that port checkpoint directory (its step, masters,
+    BatchNorm statistics, momentum and pending gradient mean)."""
+    tx = make_optimizer(card.optim_args,
+                        card.trainer_args.accumulate_grad_batches)
+    model = build_multi_model(card).to(device)
+    if not resume:
+        return model, tx, create_train_state(model, init_masters(card), tx)
+    read_port_metadata(resume)
+    # save_top_k=0 ranks nothing, so the "best" step is the latest one,
+    # as the JAX driver's orbax manager without best_fn restores it
+    payload = CheckpointManager(resume, save_top_k=0).restore()
+    state = create_train_state(
+        model, {**payload["params"], **payload["batch_stats"]}, tx)
+    state.step = payload["step"]
+    state.opt.load_state_dict(payload["opt"])
+    if payload["grad_acc"] is not None:
+        state.grad_acc = {n: g.to(device)
+                          for n, g in payload["grad_acc"].items()}
+    return model, tx, state
+
+
+class _Profiler:
+    """torch.profiler over the first epoch, when enabled: started before
+    the fit, stopped at the end of epoch 0 (or of the fit), its Chrome
+    trace written to ``<directory>/epoch_0.pt.trace.json``."""
+
+    def __init__(self, directory: Path, enabled: bool,
+                 device: torch.device) -> None:
+        self.directory = directory
+        self.enabled = enabled
+        self.device = device
+        self.prof = None
+
+    def start(self) -> None:
+        if not self.enabled:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=activities)
+        self.prof.start()
+
+    def stop_after_first_epoch(self, epoch: int, *_) -> None:
+        if epoch == 0:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(self.directory / TRACE_FILE))
+
+
+def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
+                logdir: str | Path = "logs",
+                max_epochs: Optional[int] = None,
+                resume: Optional[str | Path] = None,
+                profile: bool = False,
+                device: torch.device | str = "cuda") -> Dict[str, Any]:
+    """Contrastive cross-modal pretraining from the card ``modelcard`` (a
+    YAML or JSON path, or a ``ModelCard``) on the split directory
+    ``dataset``, on ``device`` (the card unless the caller names another;
+    without a card the default raises). ``max_epochs`` overrides the
+    card's; ``resume`` continues from the latest step of a port checkpoint
+    directory; ``profile`` traces the first epoch. Returns ``{"history",
+    "logdir", "best_step", "state"}``."""
+    device = require_device(device)
+    if isinstance(modelcard, ModelCard):
+        card = copy.deepcopy(modelcard)
+        card_name = card.raw.get("name", "card")
+    else:
+        card = load_card(modelcard)
+        card_name = Path(modelcard).stem
+    _refuse_unported(card)
+    if max_epochs is not None:
+        card.trainer_args.max_epochs = max_epochs
+    data_path = Path(dataset)
+
+    train_set, test_set = multi_datasets(card, data_path)
+    train_loader, valid_loader = multi_loaders(card, train_set, test_set,
+                                               device)
+    model, tx, state = multi_state(card, device, resume)
+    augment_fn = None
+    if card.device_augment:
+        ts = card.target_size
+        kind = (card.profile_encoder_args or {}).get("kind", "cnn")
+        augment_fn = lambda b, g: multi_train_augment(b, ts, g, kind=kind)
+    train_step, eval_step = make_multi_steps(model, tx, step_buckets(card),
+                                             augment_fn=augment_fn)
+
+    writer = MetricsWriter(logdir, name=_run_name(card_name, data_path))
+    ckpt = CheckpointManager(
+        writer.logdir / "checkpoints", monitor="valid_loss", mode="min",
+        save_top_k=card.save_top_k,
+        metadata={"card": card.to_dict(), "kind": "multi",
+                  "class_names": [str(c) for c in train_set.class_names]})
+    profiler = _Profiler(writer.logdir / "profile", profile, device)
+    trainer = card.trainer_args
+    fitter = Fitter(train_step, eval_step, writer=writer, checkpointer=ckpt,
+                    early_stopping=EarlyStopping("valid_loss", "min",
+                                                 card.patience),
+                    min_epochs=trainer.min_epochs,
+                    max_epochs=trainer.max_epochs,
+                    check_val_every_n_epoch=trainer.check_val_every_n_epoch,
+                    seed=card.seed, put_fn=device_put(device),
+                    hooks={"on_epoch_end": profiler.stop_after_first_epoch})
+    profiler.start()
+    try:
+        state = fitter.fit(state, train_loader, valid_loader)
+    finally:
+        profiler.stop()
+    writer.close()
+    return {"history": fitter.history, "logdir": str(writer.logdir),
+            "best_step": ckpt.best_step(), "state": state}

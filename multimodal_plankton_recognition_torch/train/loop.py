@@ -20,19 +20,20 @@ a device value on the host, so steps queue on the card back to back;
 ``Fitter`` reads the losses once per epoch and hands each epoch to the
 checkpointer (``train.checkpoint.CheckpointManager``).
 
-Not ported yet (ROADMAP.md): ``make_classifier_steps``, ``train_multi``
-and the CLI.
+Not ported yet (ROADMAP.md): ``make_classifier_steps``. The driver
+that wires these to a card and a dataset is ``train.drivers``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..data.pipeline import device_put
 from ..models.dropout import dropout_rng
 from .optim import Optimizer
 from .state import TrainState
@@ -100,10 +101,6 @@ def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
     return train_step, eval_step
 
 
-def _as_tensors(batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v) for k, v in batch.items()}
-
-
 class Fitter:
     """Epoch-driven training (the JAX package's ``Fitter``, a Lightning
     ``Trainer`` equivalent): per epoch, every train batch through
@@ -113,7 +110,7 @@ class Fitter:
     ``on_epoch_end`` hook, the checkpointer (any object with ``save(epoch,
     state, metrics)`` and ``wait()``) and early stopping once
     ``min_epochs`` have run. ``put_fn`` places a batch (default: numpy to
-    CPU tensors)."""
+    CPU tensors, ``data.pipeline.device_put("cpu")``)."""
 
     def __init__(self, train_step: Callable, eval_step: Callable,
                  writer=None, checkpointer=None, early_stopping=None,
@@ -123,7 +120,7 @@ class Fitter:
                  put_fn: Optional[Callable] = None) -> None:
         self.train_step = train_step
         self.eval_step = eval_step
-        self.put_fn = put_fn or _as_tensors
+        self.put_fn = put_fn or device_put("cpu")
         self.writer = writer
         self.checkpointer = checkpointer
         self.early_stopping = early_stopping

@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Contrastive cross-modal pretraining CLI of the PyTorch port, with the
+flags of ``scripts/train_multi.py``; it runs on the card unless ``--device
+cpu`` is given:
+
+    python scripts/train_multi_torch.py -d DATASET_DIR -m MODELCARD.yaml
+    python scripts/train_multi_torch.py -d DATASET_DIR -m card.json \\
+        --resume logs/<run>/version_0/checkpoints --max-epochs 10
+
+A ``.json`` card needs no PyYAML. Logs and checkpoints go to
+``<logdir>/<card>_<dataset>/version_k/``; ``--profile`` writes a
+torch.profiler trace of the first epoch to its ``profile/``.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from multimodal_plankton_recognition_torch.train.drivers import (  # noqa: E402
+    train_multi,
+)
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-d", "--dataset",
+                        help="Location to dataset tables.", required=True)
+    parser.add_argument("-m", "--modelcard", required=True,
+                        help="Path to model card (yaml or json file).")
+    parser.add_argument("-l", "--logdir", default="logs",
+                        help="Metrics and checkpoint output directory.")
+    parser.add_argument("--resume", default=None,
+                        help="Port checkpoint dir to resume from (its latest "
+                             "step: masters, statistics, optimizer state, "
+                             "step).")
+    parser.add_argument("--profile", action="store_true",
+                        help="Write a torch.profiler trace of the first "
+                             "epoch into the run's logdir.")
+    parser.add_argument("--max-epochs", type=int, default=None,
+                        help="Override the card's max_epochs.")
+    parser.add_argument("--device", default="cuda",
+                        help="Device to train on (default: the card).")
+    args = parser.parse_args(argv)
+
+    print(f"Training from model card {args.modelcard}")
+    result = train_multi(args.dataset, args.modelcard, args.logdir,
+                         max_epochs=args.max_epochs, resume=args.resume,
+                         profile=args.profile, device=args.device)
+    print(f"Logs and checkpoints in {result['logdir']}; "
+          f"best epoch {result['best_step']}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

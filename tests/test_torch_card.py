@@ -93,6 +93,20 @@ def test_every_card_parses_as_in_jax(path):
     assert _fields(config.load_card(path)) == _fields(want)
 
 
+@pytest.mark.parametrize("path", CARDS, ids=lambda p: f"{p.parent.name}/"
+                         f"{p.stem}")
+def test_json_card_loads_as_the_yaml_card(path, tmp_path):
+    """The card's dict written as JSON: the port's ``load_card`` (json,
+    no yaml) and the JAX package's (yaml, which reads JSON) give the card
+    that each gives for the YAML file."""
+    json_path = tmp_path / f"{path.stem}.json"
+    json_path.write_text(json.dumps(_load_yaml(path)))
+    want = _fields(jax_config.load_card(path))
+    assert _fields(jax_config.load_card(json_path)) == want
+    assert _fields(config.load_card(json_path)) == want
+    assert _fields(config.load_card(path)) == want
+
+
 BAD_CARDS = {
     "method": {"bs": 8, "coordination_args": {"method": "nope"}},
     "buckets": {"bs": 10, "buckets": 4},
@@ -139,6 +153,15 @@ def test_smoke_card_literal_is_the_yaml_card():
     b0 = _load_yaml(B0_CARDS[0])
     b0["image_encoder_args"]["fused_mbconv"] = True
     assert smoke.B0_CARD == b0
+
+
+def test_smoke_b0_siglip_literal_is_the_yaml_card():
+    """The ``drive`` phase's card: the shipped B0 SigLIP YAML as it is."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.B0_SIGLIP_CARD == _load_yaml(B0_CARDS[1])
 
 
 def test_siglip_card_builds_the_full_model():

@@ -72,7 +72,10 @@ B0's eight stride-1 block shapes, a ragged 9 x 9 one (B 3) and (kernels
 13-15) B 1, kernels 13-14 also at k 5 without an expand,
 each at the FFN or MBConv tolerances and repeated bit for bit; kernels
 13 and 16 refuse cin or mid, kernels 14 and 15 mid or cout, that is not
-a multiple of 8 before any launch.
+a multiple of 8 before any launch. The train driver
+(``train.drivers.train_multi``) trains a small bf16 SigLIP card from
+packed pairs on the card for 2 epochs through pinned batches, with the
+SigLIP kernels' launches counted.
 """
 
 import pytest
@@ -1666,3 +1669,57 @@ def test_augment_on_the_card_equals_the_cpu_apply(cuda):
             assert got[k].device.type == "cuda", k
             assert torch.equal(got[k].cpu(), want[k]), (kind, k)
             assert torch.equal(again[k].cpu(), want[k]), (kind, k)
+
+
+def test_driver_trains_a_packed_card_on_the_card(cuda, tmp_path):
+    """``train.drivers.train_multi`` on a small bf16 SigLIP card from
+    packed pairs (``chip_smoke.write_packed_splits``, numpy alone): 2
+    epochs on the card through pinned batches and the non-blocking put,
+    the SigLIP kernels launched once a micro-step each and once an eval
+    step, finite losses, a checkpoint kept."""
+    import importlib.util
+    from pathlib import Path
+
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.ops import contrastive
+    from multimodal_plankton_recognition_torch.train import drivers
+
+    repo = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  repo / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    root = smoke.write_packed_splits(tmp_path / "data", 32, 48, 16, 4,
+                                     seed=0)
+    card = ModelCard.from_dict({
+        "bs": 8, "buckets": 2, "target_size": 32, "dim_embedding": 32,
+        "num_workers": 2, "save_top_k": 1, "packed_cache": True,
+        "image_encoder_args": {
+            "name": "vit_tiny_patch16_224", "in_chans": 1,
+            "metadata": True, "fused_attention": True, "dropout": 0.1,
+            "backbone_kwargs": {"img_size": 32, "depth": 2,
+                                "embed_dim": 48, "num_heads": 3}},
+        "profile_encoder_args": {
+            "kind": "transformer", "dim_in": 6, "dim_hidden": 64,
+            "num_layers": 2, "num_head": 4, "target_size": 32,
+            "dim_feedforward": 96, "fused_attention": True, "dropout": 0.1},
+        "coordination_args": {"method": "siglip", "fused": True},
+        "trainer_args": {"precision": "16-mixed", "max_epochs": 2}})
+    train_set, test_set = drivers.multi_datasets(card, root)
+    loader, _ = drivers.multi_loaders(card, train_set, test_set, cuda)
+    assert all(t.is_pinned() for t in next(iter(loader)).values())
+    for fn in (contrastive.siglip_fwd, contrastive.siglip_bwd):
+        fn.launches = 0
+    out = drivers.train_multi(root, card, logdir=tmp_path / "logs",
+                              device="cuda")
+    torch.cuda.synchronize()
+    train_steps, eval_steps = 48 // 8, 16 // 8
+    assert contrastive.siglip_fwd.launches == 2 * (train_steps + eval_steps)
+    assert contrastive.siglip_bwd.launches == 2 * train_steps
+    assert out["state"].step == 2 * train_steps
+    assert all(m.device.type == "cuda" and m.dtype == torch.float32
+               for m in out["state"].params.values())
+    assert all(torch.isfinite(torch.tensor([h["train_loss"],
+                                            h["valid_loss"]])).all()
+               for h in out["history"])
+    assert out["best_step"] in (0, 1)

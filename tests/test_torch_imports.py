@@ -9,8 +9,9 @@ path, the train path and the model-card path ``config.ModelCard.from_dict``
 or yaml, which the card's machine need not have. ``config.load_card``
 imports yaml, and the port's own host layers (``data.dataset``,
 ``data.transforms``, ``data.profile_io``, behind ``encode_csv``, and
-``data.packed.pack_split``) pandas and PIL, only when called. The port's
-encode CLI (``scripts/encode_torch.py``) imports no JAX either; the bridge
+``data.packed.pack_split``, ``data.synthetic``) pandas and PIL, only
+when called. The port's CLIs (``scripts/encode_torch.py``,
+``scripts/train_multi_torch.py``) import no JAX either; the bridge
 from orbax (``scripts/checkpoint_from_jax.py``) does, and so lives
 outside the package.
 """
@@ -29,6 +30,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.data.packed",
     "multimodal_plankton_recognition_torch.data.pipeline",
     "multimodal_plankton_recognition_torch.data.profile_io",
+    "multimodal_plankton_recognition_torch.data.synthetic",
     "multimodal_plankton_recognition_torch.data.tokenize",
     "multimodal_plankton_recognition_torch.data.transforms",
     "multimodal_plankton_recognition_torch.models.attention",
@@ -39,6 +41,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.models.image.encoder",
     "multimodal_plankton_recognition_torch.models.image.registry",
     "multimodal_plankton_recognition_torch.models.image.vit",
+    "multimodal_plankton_recognition_torch.models.initializers",
     "multimodal_plankton_recognition_torch.models.multi",
     "multimodal_plankton_recognition_torch.models.profile.cnn",
     "multimodal_plankton_recognition_torch.models.profile.factory",
@@ -63,6 +66,7 @@ TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.ops.augment",
     "multimodal_plankton_recognition_torch.train",
     "multimodal_plankton_recognition_torch.train.checkpoint",
+    "multimodal_plankton_recognition_torch.train.drivers",
     "multimodal_plankton_recognition_torch.train.early_stopping",
     "multimodal_plankton_recognition_torch.train.logging",
     "multimodal_plankton_recognition_torch.train.loop",
@@ -108,10 +112,10 @@ def test_no_source_imports_jax():
         assert not set(_imported_roots(path)) & forbidden, path
 
 
-def test_encode_cli_imports_no_jax():
-    """``scripts/encode_torch.py`` names no JAX module, and running it
-    (``--help``) loads none of the forbidden modules."""
-    script = REPO / "scripts" / "encode_torch.py"
+def _cli_loads(name):
+    """The forbidden modules that running ``scripts/<name>.py --help``
+    loads; the script must name no JAX module."""
+    script = REPO / "scripts" / f"{name}.py"
     assert not set(_imported_roots(script)) & {
         "jax", "jaxlib", "flax", "optax", "orbax",
         "multimodal_plankton_recognition_tpu"}
@@ -126,7 +130,19 @@ def test_encode_cli_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def test_encode_cli_imports_no_jax():
+    """``scripts/encode_torch.py`` names no JAX module, and running it
+    (``--help``) loads none of the forbidden modules."""
+    assert _cli_loads("encode_torch") == "[]"
+
+
+def test_train_cli_imports_no_jax():
+    """``scripts/train_multi_torch.py`` the same: a JSON card trains with
+    no yaml."""
+    assert _cli_loads("train_multi_torch") == "[]"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
