@@ -3,7 +3,10 @@
 card: the ViT flagship's encode and train step, its card trained from
 packed pairs with device augmentation, checkpointed, restored and served,
 the B0 SigLIP model card trained through the train CLI from packed
-pairs and resumed, the ViT-S SigLIP model card's train path, also with
+pairs and resumed, the supervised ViT-T image and transformer profile
+classifiers trained, checkpointed and restored, the gallery-retrieval
+benchmark in its four modes at the "sea" dataset's scale, the ViT-S
+SigLIP model card's train path, also with
 global negatives (one bucket of 64), the B0 flagship's encode and the B0 CLIP model
 card's train path with ``fused_mbconv``, the ViT flagship's train step
 with global negatives (one bucket of 256), the same ViT paths with
@@ -33,7 +36,9 @@ fatal on failure:
 3. kernels against their plain versions, on the same inputs at the shapes
    the paths run (the ViT flagship, B=256: ViT-T L=197 H=3 D=64 no mask,
    profile L=225 H=8 D=24 random key padding, CLS kept; the SigLIP card,
-   B=64: ViT-S L=197 H=6 D=64, profile L=225 H=4 D=32 with padding), with
+   B=64: ViT-S L=197 H=6 D=64, profile L=225 H=4 D=32 with padding; the
+   classifiers, B=64: ViT-T L=197 H=3 D=64, profile L=257 H=4 D=32 with
+   padding), with
    max abs error, its tolerance, no NaN, median device ms of kernel and
    plain version (CUDA events around 3 back-to-back calls, queued behind a
    sleep kernel so the host's time per call stays off the clock; after
@@ -41,17 +46,19 @@ fatal on failure:
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its products over 989 TFLOP/s (bf16), from the H100 SXM's data sheet:
    * attention forward (``mha_qkv`` vs ``mha_qkv_reference``), eval mode at
-     every shape and train mode (dropout 0.1) at the profile shapes, within
+     every shape and train mode (dropout 0.1) at the profile shapes and
+     the classifier's ViT-T (``DROPOUT_SHAPES``), within
      2e-2, beside ``F.scaled_dot_product_attention`` on the same inputs (the
      library's time; the port never calls it), and also within a relative
      L2 error of 1e-3 (``FWD_REL_L2_TOL``); and train mode on inputs
      whose every sum is exact (q = k = 0, v = ±1), where kernel and plain
      version must agree bit for bit, so a single mask bit that differs
      would show (D = 24 and D = 32); kernels 1 and 3 also at the edges of
-     the forward's tiles (``EDGE_SHAPES``: L 64, 65 and 577 at B 16, ViT-T
+     the forward's tiles (``EDGE_SHAPES``: L 64, 65, 257 and 577 at B 16, ViT-T
      and profile widths, with the exact-sum check at the profile's);
    * attention backward (``mha_qkv_bwd`` vs ``mha_qkv_bwd_reference``) at
-     the ViT shapes and at the profile shapes with mask and dropout 0.1,
+     the ViT shapes (the classifier's ViT-T also at dropout 0.1) and at
+     the profile shapes with mask and dropout 0.1,
      within 1e-2 of the largest |dqkv| and a relative L2 error of 1e-2
      (``BWD_REL_L2_TOL``), a second call bit for bit equal to the first,
      beside SDPA's backward; at the masked shapes an exact-sum check
@@ -196,6 +203,36 @@ fatal on failure:
    ``Loader``'s host pairs/s alone, and train pairs/s through ``Fitter``
    with the pinned non-blocking put, the plain put and one batch already
    on the card, in turns;
+5e. classify: the supervised cards ``IMAGE_CARD`` (model_cards/image/
+   vit_tiny_16.yaml: ViT-T/16 at 224, bs 64, bf16, dropout 0.1 on the
+   feature) and ``PROFILE_CARD`` (model_cards/profile/transformer_2.yaml:
+   128 wide, 2 layers, 4 heads of 32, FFN 1024, 257 tokens with the
+   key-padding mask, dropout 0.1), each built over 38 classes by
+   ``build_for_kind`` with f32 masters from the seeded init, on resident
+   class-structured batches (``CLASSIFY_TRAIN`` train and
+   ``CLASSIFY_VALID`` validation samples: each class a seeded prototype
+   plus noise): ``Fitter`` for 2 epochs through
+   ``make_classifier_steps``, checkpointed on ``valid_acc`` (max), an
+   ``on_epoch_end`` hook predicting the validation arrays. Launches per
+   train step 12 + 12 (image) or 2 + 2 (profile), per eval step and
+   predict batch 12 or 2; losses finite and falling, the best
+   ``valid_acc`` above 5 x chance, every master moved; the checkpoint
+   through ``load_from_checkpoint`` on the card: kind, monitor, class
+   count, and ``predict_arrays`` logits bit for bit the best epoch's;
+   one dropout-0 step against the attention kernels' plain versions
+   (loss 1e-2, named gradients 5e-2); a ``summary: classify`` line of
+   valid_acc, save and load ms, and train and predict samples/s in turns
+   (train, predict, predict, train);
+5f. retrieval: 9,353 class-structured pairs over 38 long-tailed classes
+   (2,225 down to 58) made on the card, encoded by the ViT flagship (14
+   attention launches a batch) into the JAX pickle schema, one flat fold
+   and 5 stratified train/test folds; ``run_suite`` on the card in the
+   four modes at their CLIs' N, K and threshold (raw 20 and cross 10
+   repeats, the folds modes 2): the result schema, k = 1 accuracy at
+   n = 16 above 5 x chance for the fused gallery (raw) and I - I
+   (cross), and one repeat of each mode at n = 16 on the card and on
+   the CPU agreeing on at least 99.9% of each key's rows; a ``summary:
+   retrieval`` line of seconds by mode and the accuracies;
 6. card: ``CARD`` (the dict of model_cards/multi/
    vit_s_16_transformer_2_512_siglip.yaml: ViT-S/16, ProfileTransformer
    128 wide with 4 heads of 32, SigLIP, bs 64 in 4 buckets, accumulation
@@ -279,7 +316,8 @@ fatal on failure:
    then on the fused block's; the train steps also with ``fused_ffn``),
    then 8 micro-steps of each
    card on two
-   routes (the SigLIP card also with and without ``fused_ffn``) under
+   routes (the SigLIP card also with and without ``fused_ffn``), and 8
+   train steps of each supervised card, under
    torch.profiler after 4 warm-up and 8 unprofiled ones:
    device ms per batch or micro-step by kernel, and the idle share, 1 −
    device busy / unprofiled wall.
@@ -316,6 +354,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -413,18 +452,27 @@ SLICE_TOL = 5e-2
 STEP_LOSS_TOL = 1e-2
 STEP_GRAD_TOL = 5e-2
 ATTENTION_LAYERS = 12 + 2  # ViT blocks + ProfileTransformer layers
-# B, L, H, E, mask: the ViT flagship's layers, then the SigLIP card's
+# B, L, H, E, mask: the ViT flagship's layers, the SigLIP card's, then
+# the supervised classifiers' (ViT-T at bs 64; the profile transformer at
+# max_len 256: 257 tokens, one past a 16-row tile edge)
 SHAPES = {"vit": (256, 197, 3, 192, False),
           "profile": (256, 225, 8, 192, True),
           "card vit": (64, 197, 6, 384, False),
-          "card profile": (64, 225, 4, 128, True)}
+          "card profile": (64, 225, 4, 128, True),
+          "cls vit": (64, 197, 3, 192, False),
+          "cls profile": (64, 257, 4, 128, True)}
+# kernels 11-12 run at the flagship's and the SigLIP card's shapes only
+BLOCK_SHAPES = ("vit", "profile", "card vit", "card profile")
+# unmasked shapes also checked in train mode at dropout 0.1 (a masked one
+# always is); the image classifier's ViT runs its attention at 0
+DROPOUT_SHAPES = ("cls vit",)
 # kernels 3-4 (separate q, k, v) run at the flagship's shapes
 SEPARATE_SHAPES = ("vit", "profile")
 # kernels 1-4 at the edges of their 16-row warp tiles and their 256-row
 # shared-memory chunks (577: a ViT at 384 px), at the flagship's widths
 # (ViT-T D 64 unmasked, the profile encoder D 24 masked), B 16
 EDGE_SHAPES = [(name, (16, l) + SHAPES[name][2:])
-               for name in SEPARATE_SHAPES for l in (64, 65, 577)]
+               for name in SEPARATE_SHAPES for l in (64, 65, 257, 577)]
 # B, L, E, F, activation: the fused-FFN layers of the ViT flagship (ViT-T,
 # profile), then of the SigLIP card (ViT-S, profile)
 FFN_SHAPES = {"vit": (256, 197, 192, 768, "gelu"),
@@ -549,6 +597,52 @@ B0_SIGLIP_CARD = {
                      "max_epochs": 200, "accumulate_grad_batches": 4,
                      "check_val_every_n_epoch": 1},
 }
+#: model_cards/image/vit_tiny_16.yaml and model_cards/profile/
+#: transformer_2.yaml as dict literals, the ``classify`` phase's supervised
+#: cards; tests/test_torch_classifier_driver.py holds them equal to the
+#: files
+IMAGE_CARD = {
+    "precision": "medium", "bs": 64, "num_workers": 8, "patience": 20,
+    "save_top_k": 1, "target_size": 224,
+    "image_encoder_args": {
+        "name": "vit_tiny_patch16_224", "pretrained": False, "dropout": 0.1,
+        "metadata": True, "in_chans": 1, "fused_attention": True},
+    "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                   "nesterov": True},
+    "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                     "max_epochs": 300, "accumulate_grad_batches": 1,
+                     "check_val_every_n_epoch": 1},
+}
+PROFILE_CARD = {
+    "precision": "medium", "max_len": 256, "bs": 64, "num_workers": 8,
+    "patience": 20, "save_top_k": 1,
+    "profile_encoder_args": {
+        "kind": "transformer", "dim_in": 6, "dim_hidden": 128,
+        "num_head": 4, "num_layers": 2, "dim_feedforward": 1024,
+        "dropout": 0.1, "activation": "gelu", "target_size": 256,
+        "metadata": True, "fused_attention": True},
+    "optim_args": {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                   "nesterov": True},
+    "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                     "max_epochs": 300},
+}
+# the "sea" dataset's 38 classes (SURVEY.md); the classifiers' resident
+# synthetic train and validation samples; their epochs
+CLASSES = 38
+CLASSIFY_TRAIN = 1024
+CLASSIFY_VALID = 512
+CLASSIFY_EPOCHS = 2
+CHANCE_FACTOR = 5  # accuracies must pass this many times chance, 1/CLASSES
+PROTOTYPE_SEED = 0  # the classes' synthetic image and profile prototypes
+# the retrieval phase's gallery: the "sea" dataset's 9,353 pairs over its
+# 38 classes, long-tailed (class c holds 9,353 (1/c) / H_38, floored, the
+# remainder in class 1: 2,225 down to 58), encoded by the ViT flagship
+RETRIEVAL_PAIRS = 9353
+RETRIEVAL_FOLDS = 5
+# the folds modes' repeats, cut from their scripts' 20 and 10 for time
+RETRIEVAL_FOLD_REPEATS = 2
+RETRIEVAL_CHECK_N = 16  # the n of the accuracy checks and the CPU rerun
+RETRIEVAL_AGREE = 0.999  # card and CPU predictions, each key's rows
 # (not logit_scale: at the init the loss sits at ln 16, a bucket of 16, and
 # d logit_scale is one sum that nearly cancels)
 B0_NAMED_GRADS = (
@@ -870,7 +964,8 @@ def _forward_rows(records, name, qkv, bias, heads, masked, seed, separate):
 
     b, l, e3 = qkv.shape
     e = e3 // 3
-    modes = [("eval", 0.0)] + ([("train p=0.1", 0.1)] if masked else [])
+    modes = [("eval", 0.0)] + ([("train p=0.1", 0.1)]
+                               if masked or name in DROPOUT_SHAPES else [])
     for mode, p in modes:
         label = f"{name} B={b} L={l} H={heads} mask={masked} {mode}"
         out = mha_qkv(qkv, bias, heads, p, seed)
@@ -920,37 +1015,43 @@ def _mask_check(gen, name, qkv, bias, heads, seed, separate):
 def _backward_rows(records, gen, name, qkv, bias, heads, masked, seed,
                    separate):
     """Kernel 2 (and kernel 4 with ``separate``) against its plain version
-    at dropout 0.1 when ``masked``, else 0: the error (absolute, of the
-    largest |dqkv|, and relative L2), a second call bit for bit equal to
-    the first, the device time beside the plain version's, the bound and
-    SDPA's backward; and, when ``masked``, the exact-sum dV check."""
+    at dropout 0.1 when ``masked``, else 0 (and 0.1 in
+    ``DROPOUT_SHAPES``): the error (absolute, of the largest |dqkv|, and
+    relative L2), a second call bit for bit equal to the first, the device
+    time beside the plain version's, the bound and SDPA's backward; and,
+    when ``masked``, the exact-sum dV check."""
     import torch
     from multimodal_plankton_recognition_torch.ops.attention import (
         mha_qkv_bwd, mha_qkv_bwd_reference)
 
     b, l, e3 = qkv.shape
     e = e3 // 3
-    p = 0.1 if masked else 0.0
     dout = torch.randn((b, l, e), generator=gen, device=qkv.device
                        ).to(torch.bfloat16)
-    label = f"{name} B={b} L={l} H={heads} mask={masked} p={p}"
-    got = mha_qkv_bwd(qkv, bias, dout, heads, p, seed)
-    want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, seed)
-    scale = want.float().abs().max().item()
-    err = _check(f"mha_qkv_bwd {label}", got, want, BWD_TOL, scale)
-    if not torch.equal(mha_qkv_bwd(qkv, bias, dout, heads, p, seed), got):
-        fail(f"mha_qkv_bwd {label}: two calls differ")
-    # S recomputed, dV, dP, dQ, dK: 10 B L^2 E
-    _report(records, "mha_qkv_bwd", label, err * scale, BWD_TOL * scale,
-            cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p, seed)),
-            cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads, p,
-                                                  seed)),
-            _bound((qkv, bias, dout), want, 10 * b * l * l * e),
-            _sdpa_ms(qkv, bias, heads, p, dout),
-            rel_l2=_rel_l2(f"mha_qkv_bwd {label}", got, want,
-                           BWD_REL_L2_TOL))
-    if separate:
-        _separate_bwd(records, label, qkv, bias, dout, heads, p, seed, got)
+    rates = [0.1] if masked else [0.0] + (
+        [0.1] if name in DROPOUT_SHAPES else [])
+    for p in rates:
+        label = f"{name} B={b} L={l} H={heads} mask={masked} p={p}"
+        got = mha_qkv_bwd(qkv, bias, dout, heads, p, seed)
+        want = mha_qkv_bwd_reference(qkv, bias, dout, heads, p, seed)
+        scale = want.float().abs().max().item()
+        err = _check(f"mha_qkv_bwd {label}", got, want, BWD_TOL, scale)
+        if not torch.equal(mha_qkv_bwd(qkv, bias, dout, heads, p, seed),
+                           got):
+            fail(f"mha_qkv_bwd {label}: two calls differ")
+        # S recomputed, dV, dP, dQ, dK: 10 B L^2 E
+        _report(records, "mha_qkv_bwd", label, err * scale, BWD_TOL * scale,
+                cuda_ms(lambda: mha_qkv_bwd(qkv, bias, dout, heads, p,
+                                            seed)),
+                cuda_ms(lambda: mha_qkv_bwd_reference(qkv, bias, dout, heads,
+                                                      p, seed)),
+                _bound((qkv, bias, dout), want, 10 * b * l * l * e),
+                _sdpa_ms(qkv, bias, heads, p, dout),
+                rel_l2=_rel_l2(f"mha_qkv_bwd {label}", got, want,
+                               BWD_REL_L2_TOL))
+        if separate:
+            _separate_bwd(records, label, qkv, bias, dout, heads, p, seed,
+                          got)
     if masked:
         _bwd_mask_check(gen, name, bias, heads, e // heads, seed, separate)
 
@@ -1549,7 +1650,7 @@ def _block_close(label, got, want):
 
 def _block_kernels(gen, device, records):
     """Kernels 11 and 12 against their plain versions at the attention
-    shapes (``SHAPES``), eval and train (p 0.1) at the masked ones; kernel
+    shapes of the paths that can take them (``BLOCK_SHAPES``), eval and train (p 0.1) at the masked ones; kernel
     12 on the residual path (the autograd path's: kernel 11's q|k|v and
     o given), beside the recomputing call, the two bit for bit and a
     second call bit for bit; a profile of one call of each at ViT-T; then
@@ -1558,7 +1659,9 @@ def _block_kernels(gen, device, records):
     from multimodal_plankton_recognition_torch.ops import attention_block as ab
 
     seed = 2468
-    for name, (b, l, heads, e, masked) in SHAPES.items():
+    for name in BLOCK_SHAPES:
+        b, l, heads, e, masked = SHAPES[name]
+
         def rnd(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=device) * scale
 
@@ -1838,7 +1941,7 @@ def _pairs_per_s(state, train_step, batch, steps):
     """Train pairs/s over ``steps`` steps, ended by a synchronize."""
     import torch
 
-    bs = batch["image"].shape[0]
+    bs = next(iter(batch.values())).shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -2580,6 +2683,528 @@ def phase_drive(device):
           f"the driver's non-blocking put; resident: one batch already on "
           f"the card) {put_rates!r}", flush=True)
     return {k: launches[k] + launches2[k] for k in launches}
+
+
+def _image_prototypes(classes, size, gen):
+    """One image prototype a class on the card, (classes, size, size, 1):
+    a random 16 x 16 tile in [-1, 1] repeated over the image, so every
+    ViT patch of a class starts from the same pixels."""
+    import torch
+
+    tile = torch.rand((classes, 16, 16), generator=gen,
+                      device=gen.device) * 2 - 1
+    return tile.repeat(1, size // 16, size // 16)[..., None]
+
+
+def _profile_tokens(labels, classes, target, pad_to, proto, rs):
+    """Tokenized profiles of ragged lengths (``target`` / 2 to ``target``,
+    so the key-padding mask is live), each its class's level and waveform
+    over the 6 channels (drawn from ``proto``) plus noise (from ``rs``)."""
+    import numpy as np
+    from multimodal_plankton_recognition_torch.data.tokenize import (
+        tokenize_transformer)
+
+    level = proto.uniform(-1.0, 1.0, (classes, 6))
+    freq = proto.uniform(1.0, 6.0, (classes, 1))
+    phase = proto.uniform(0.0, 2 * np.pi, (classes, 6))
+    lengths = rs.randint(target // 2, target + 1, len(labels))
+    profiles = []
+    for c, n in zip(labels, lengths):
+        t = np.linspace(0.0, 1.0, n)[:, None]
+        wave = np.sin(2 * np.pi * freq[c] * t + phase[c])
+        profiles.append((level[c] + 0.5 * wave + 0.3 * rs.randn(n, 6))
+                        .astype(np.float32))
+    return tokenize_transformer(profiles, target, pad_to=pad_to)
+
+
+def _class_inputs(kind, labels, device, seed, target=224, size=224):
+    """Class-structured inputs of ``labels`` on the card: ``size`` square
+    images (a class's prototype plus N(0, 0.5) noise, and random
+    ``image_shape``) for
+    ``kind`` "image" or "pair", tokenized profiles (at ``target``
+    steps, ``target + 1`` tokens, and random ``profile_len``) for
+    "profile" or "pair". The prototypes are the same for every ``seed``,
+    which draws the noise."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = len(labels)
+    out = {}
+    if kind in ("image", "pair"):
+        proto = _image_prototypes(CLASSES, size, torch.Generator(
+            device=device).manual_seed(PROTOTYPE_SEED))
+        idx = torch.as_tensor(labels, device=device)
+        out["image"] = proto[idx] + 0.5 * torch.randn(
+            (n, size, size, 1), generator=gen, device=device)
+        out["image_shape"] = rs.randint(50, 400, (n, 2)).astype(np.int32)
+    if kind in ("profile", "pair"):
+        out.update(_profile_tokens(labels, CLASSES, target, target + 1,
+                                   np.random.RandomState(PROTOTYPE_SEED), rs))
+        out["profile_len"] = rs.randint(20, 2000, (n, 1)).astype(np.int32)
+    return {k: torch.as_tensor(v).to(device) for k, v in out.items()}
+
+
+def _balanced_labels(n, seed):
+    """``n`` class ids, the classes as even as ``n`` allows, shuffled."""
+    import numpy as np
+
+    return np.random.RandomState(seed).permutation(np.arange(n) % CLASSES)
+
+
+def _classify_card(kind, d, device):
+    """One supervised card's path: ``Fitter`` for ``CLASSIFY_EPOCHS``
+    epochs on resident class-structured batches through
+    ``make_classifier_steps``, checkpointed on ``valid_acc``; the launches
+    of every step and eval step; a dropout-0 step against the attention
+    kernels' plain versions; the checkpoint restored on the card and
+    ``predict_arrays`` against the in-memory model bit for bit; train and
+    predict samples/s in turns. Returns the fit's launches."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind)
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_)
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        predict_arrays)
+    from multimodal_plankton_recognition_torch.train import (
+        Fitter, create_train_state, make_classifier_steps, make_optimizer)
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        CheckpointManager, load_from_checkpoint)
+
+    what = f"classify {kind}"
+    card = ModelCard.from_dict(copy.deepcopy(d))
+    bs = card.bs
+    names = [f"class_{c:02d}" for c in range(CLASSES)]
+    layers = (card.image_encoder_args or {}).get("backbone_kwargs", {}).get(
+        "depth", 12) if kind == "image" else \
+        card.profile_encoder_args["num_layers"]
+    per_step = _per_step(mha_qkv_fwd=layers, mha_qkv_bwd=layers)
+    per_eval = _per_step(mha_qkv_fwd=layers)
+    target = card.max_len if kind == "profile" else 224
+
+    def batches(n, seed):
+        labels = _balanced_labels(n, seed)
+        arrays = _class_inputs(kind, labels, device, seed, target,
+                               card.target_size)
+        arrays["label"] = torch.as_tensor(labels, device=device)
+        return arrays, [{k: v[i:i + bs] for k, v in arrays.items()}
+                        for i in range(0, n, bs)]
+
+    train_arrays, train = batches(CLASSIFY_TRAIN, 11)
+    valid_arrays, valid = batches(CLASSIFY_VALID, 12)
+    fixed = {k: v for k, v in valid_arrays.items() if k != "label"}
+    tokens = fixed.get("profile")
+    if tokens is not None and tokens.shape[1] != SHAPES["cls profile"][1]:
+        fail(f"{what}: {tokens.shape[1]} profile tokens, not "
+             f"{SHAPES['cls profile'][1]}")
+
+    model = build_for_kind(card, kind, names).to(device)
+    init = init_weights_(build_for_kind(card, kind, names,
+                                        dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    tx = make_optimizer(card.optim_args)
+    state = create_train_state(model, init, tx)
+    train_step, eval_step = make_classifier_steps(model, tx)
+
+    def delta(before, want, step):
+        got = {n: c - before[n] for n, c in _counts().items()}
+        if got != want:
+            fail(f"{what} {step}: expected launches {want}, got {got}")
+
+    losses, logits_by_epoch, save_ms = [], {}, []
+    # each epoch's hook predicts the validation arrays: their eval launches
+    per_epoch = {n: len(train) * per_step[n] + 2 * len(valid) * per_eval[n]
+                 for n in per_step}
+
+    def counted_train_step(state, batch, seed):
+        before = _counts()
+        state, loss = train_step(state, batch, seed)
+        delta(before, per_step, f"train step {len(losses) + 1}")
+        losses.append(loss)
+        return state, loss
+
+    def counted_eval_step(state, batch):
+        before = _counts()
+        out = eval_step(state, batch)
+        delta(before, per_eval, "eval step")
+        return out
+
+    def on_epoch_end(epoch, state, metrics):
+        logits_by_epoch[epoch] = predict_arrays(
+            state.load_into(model), fixed, bs, device)
+
+    class TimedManager(CheckpointManager):
+        def save(self, epoch, state, metrics):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = super().save(epoch, state, metrics)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            return saved
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "checkpoints"
+        mngr = TimedManager(ckpt, monitor="valid_acc", mode="max",
+                            save_top_k=card.save_top_k,
+                            metadata={"card": card.to_dict(), "kind": kind,
+                                      "class_names": names})
+        fitter = Fitter(counted_train_step, counted_eval_step,
+                        checkpointer=mngr, max_epochs=CLASSIFY_EPOCHS,
+                        seed=card.seed, put_fn=lambda b: b,
+                        hooks={"on_epoch_end": on_epoch_end})
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = fitter.fit(state, train, valid)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        history = fitter.history
+        losses = [float(x) for x in losses]
+        print(f"{what}: {CLASSIFY_EPOCHS} epochs of {len(train)} steps of "
+              f"{bs}, {len(valid)} eval steps and {len(valid)} predict "
+              f"batches in {fit_s!r} s; history {history}; step losses "
+              f"{losses}; launches {launches}", flush=True)
+        want = {n: CLASSIFY_EPOCHS * c for n, c in per_epoch.items()}
+        if launches != want:
+            fail(f"{what}: expected launches {want}, got {launches}")
+        if not all(map(math.isfinite, losses)) or \
+                len(history) != CLASSIFY_EPOCHS or not all(
+                    math.isfinite(h["valid_loss"]) for h in history):
+            fail(f"{what}: non-finite losses or history: {history}")
+        if not min(losses[-5:]) < losses[0]:
+            fail(f"{what}: train loss did not fall: first {losses[0]}, "
+                 f"last five {losses[-5:]}")
+        accs = [h["valid_acc"] for h in history]
+        if not max(accs) > CHANCE_FACTOR / CLASSES:
+            fail(f"{what}: valid_acc {accs} not above {CHANCE_FACTOR} x "
+                 f"chance ({CHANCE_FACTOR / CLASSES})")
+        unmoved = [n for n, m in state.params.items()
+                   if torch.equal(m, init[n].to(device))]
+        if unmoved or any(m.dtype != torch.float32
+                          for m in state.params.values()):
+            fail(f"{what}: masters not all f32 or not all moved: {unmoved}")
+        if any(p.dtype != torch.bfloat16 for p in model.parameters()):
+            fail(f"{what}: the compute module is not bf16")
+
+        # top-1 by valid_acc, the later epoch on a tie
+        best = max(range(len(history)), key=lambda e: (accs[e], e))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, payload, meta = load_from_checkpoint(ckpt, device=device)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if payload["step"] != (best + 1) * len(train) or \
+                meta["kind"] != kind or meta["_monitor"] != "valid_acc" or \
+                restored.fc.out_features != CLASSES:
+            fail(f"{what}: restored step {payload['step']}, kind "
+                 f"{meta['kind']}, monitor {meta['_monitor']}, "
+                 f"{restored.fc.out_features} classes: not epoch {best}'s")
+        _reset_counts()
+        got = predict_arrays(restored, fixed, bs, device)
+        if _counts() != {n: c * len(valid) for n, c in per_eval.items()}:
+            fail(f"{what}: predict launches {_counts()}")
+        if not np.array_equal(got, logits_by_epoch[best]):
+            diff = np.abs(got - logits_by_epoch[best]).max()
+            fail(f"{what}: restored logits differ from epoch {best}'s by "
+                 f"up to {diff}")
+        labels = valid_arrays["label"].cpu().numpy()
+        restored_acc = float((got.argmax(1) == labels).mean())
+        if restored_acc != accs[best]:
+            fail(f"{what}: restored accuracy {restored_acc}, epoch {best}'s "
+                 f"valid_acc {accs[best]}")
+        print(f"{what}: restored epoch {best} on the card: logits bit for "
+              f"bit, accuracy {restored_acc!r}", flush=True)
+
+    # one step from the same weights at dropout 0 on the kernels and on
+    # their plain versions
+    no_drop = copy.deepcopy(d)
+    no_drop[f"{kind}_encoder_args"]["dropout"] = 0.0
+    no_card = ModelCard.from_dict(no_drop)
+    last = layers - 1
+    named = ("fc.weight",) + ((
+        f"image_encoder.backbone.blocks.{last}.attn.qkv.weight",
+        "image_encoder.backbone.blocks.0.attn.qkv.weight",
+        "image_encoder.backbone.patch_embed.weight") if kind == "image" else (
+        f"profile_encoder.layers.{last}.attn.qkv.weight",
+        "profile_encoder.layers.0.ff1.weight",
+        "profile_encoder.expand.weight"))
+    grads, step_losses = {}, {}
+    for path in ("kernel", "plain"):
+        m = build_for_kind(no_card, kind, names).to(device)
+        no_tx = make_optimizer(no_card.optim_args)
+        st = create_train_state(m, init, no_tx)
+        step, _ = make_classifier_steps(m, no_tx)
+        with (_plain_attention() if path == "plain"
+              else contextlib.nullcontext()):
+            _, loss = step(st, train[0], 0)
+        step_losses[path] = float(loss)
+        grads[path] = {n: m.get_parameter(n).grad.float() for n in named}
+        del m, st
+    loss_err = abs(step_losses["kernel"] - step_losses["plain"])
+    print(f"{what} step, dropout 0: loss kernel {step_losses['kernel']!r} "
+          f"plain {step_losses['plain']!r} (|diff| {loss_err!r}, tol "
+          f"{STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"{what}: kernel and plain steps disagree on the loss: "
+             f"{loss_err}")
+    _grad_diffs(what, grads, named, STEP_GRAD_TOL)
+
+    # train and predict samples/s in turns: train, predict, predict, train
+    rates = {"train": [], "predict": []}
+    for turn in ("train", "predict", "predict", "train"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "train":
+            for batch in train:
+                state, _ = train_step(state, batch, card.seed)
+            n = CLASSIFY_TRAIN
+        else:
+            predict_arrays(state.load_into(model), fixed, bs, device)
+            n = CLASSIFY_VALID
+        torch.cuda.synchronize()
+        rates[turn].append(n / (time.perf_counter() - t0))
+    print(f"summary: classify {kind} on {_smi()}: valid_acc by epoch "
+          f"{accs!r} (chance {1 / CLASSES!r}); save ms {save_ms!r}, load "
+          f"ms {load_ms!r}; samples/s in turns (train, predict, predict, "
+          f"train) at bs {bs}: {rates!r}; host threads alive "
+          f"{threading.active_count()}", flush=True)
+    return launches
+
+
+def phase_classify(device):
+    """The supervised baselines at their shipped widths: ``IMAGE_CARD``
+    (ViT-T/16 at 224, bs 64, bf16, 12 attention layers on kernels 1-2)
+    and ``PROFILE_CARD`` (the profile transformer, 128 wide, 2 layers of
+    4 heads of 32 over 257 tokens with the key-padding mask, dropout 0.1)
+    through ``_classify_card``. Returns the launches of each path."""
+    return {"classify_image": _classify_card("image", IMAGE_CARD, device),
+            "classify_profile": _classify_card("profile", PROFILE_CARD,
+                                               device)}
+
+
+def _long_tailed_labels(n, classes, seed):
+    """``n`` class ids over ``classes`` classes with counts n (1/c) / H,
+    floored, the remainder in class 1 (c = 1 the most common), shuffled."""
+    import numpy as np
+
+    harmonic = sum(1.0 / c for c in range(1, classes + 1))
+    counts = [int(n / c / harmonic) for c in range(1, classes + 1)]
+    counts[0] += n - sum(counts)
+    labels = np.repeat(np.arange(classes), counts)
+    return np.random.RandomState(seed).permutation(labels), counts
+
+
+def _stratified_folds(labels, folds, seed):
+    """Per fold, a boolean test mask: each class's rows shuffled and cut
+    into ``folds`` near-equal parts, fold f testing on part f."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    part = np.empty(len(labels), np.int64)
+    for c in np.unique(labels):
+        idx = rs.permutation(np.flatnonzero(labels == c))
+        part[idx] = np.arange(len(idx)) * folds // len(idx)
+    return [part == f for f in range(folds)]
+
+
+def _bench_constants(mode):
+    """(N, K, TH, REPEATS) of ``scripts/benchmark_<mode>_torch.py``."""
+    import importlib.util
+
+    path = REPO / "scripts" / f"benchmark_{mode}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"bench_{mode}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.N, module.K, getattr(module, "TH", 20), module.REPEATS
+
+
+def _check_schema(what, results, mode, K):
+    """The JAX package's result schema: results[model][fold][n][run] =
+    {"true": names, "pred": {k: names}} or, for the cross modes,
+    {k: {setup: names}} with the 8 setups; names are string arrays of the
+    run's query count."""
+    import numpy as np
+
+    setups = {"I - I", "I - P", "I - I+P", "P - I", "P - P", "P - I+P",
+              "I+P - I", "I+P - P"}
+    for model, folds in results.items():
+        for fold, by_n in folds.items():
+            if not by_n:
+                fail(f"{what}: {model} fold {fold} ran no n")
+            for n, runs in by_n.items():
+                for run, rec in runs.items():
+                    true = rec["true"]
+                    if sorted(rec) != ["pred", "true"] or \
+                            list(rec["pred"]) != list(K) or \
+                            not isinstance(true, np.ndarray) or \
+                            true.dtype.kind != "U":
+                        fail(f"{what}: record {model}/{fold}/{n}/{run} is "
+                             f"not the JAX schema")
+                    for k, pred in rec["pred"].items():
+                        cells = pred if mode.startswith("cross") else {
+                            None: pred}
+                        if mode.startswith("cross") and set(pred) != setups:
+                            fail(f"{what}: setups {sorted(pred)}")
+                        for cell in cells.values():
+                            if cell.shape != true.shape or \
+                                    cell.dtype.kind != "U":
+                                fail(f"{what}: {model}/{fold}/{n}/{run} "
+                                     f"k={k}: predictions {cell.shape} "
+                                     f"{cell.dtype}")
+
+
+def _mean_acc(results, n, k, setup=None):
+    """Mean k-NN accuracy over every model, fold and run at ``n``."""
+    import numpy as np
+
+    accs = []
+    for folds in results.values():
+        for by_n in folds.values():
+            for rec in by_n[n].values():
+                pred = rec["pred"][k]
+                if setup is not None:
+                    pred = pred[setup]
+                accs.append(float(np.mean(pred == rec["true"])))
+    return float(np.mean(accs))
+
+
+def _cells(results):
+    """{(model, fold, n, run, k[, setup]): predictions} of a results
+    pickle."""
+    out = {}
+    for model, folds in results.items():
+        for fold, by_n in folds.items():
+            for n, runs in by_n.items():
+                for run, rec in runs.items():
+                    for k, pred in rec["pred"].items():
+                        if isinstance(pred, dict):
+                            for setup, p in pred.items():
+                                out[(model, fold, n, run, k, setup)] = p
+                        else:
+                            out[(model, fold, n, run, k)] = pred
+    return out
+
+
+def phase_retrieval(device):
+    """The gallery benchmark at the "sea" dataset's scale:
+    ``RETRIEVAL_PAIRS`` class-structured pairs over ``CLASSES`` long-tailed
+    classes, encoded by the ViT flagship on the card (14 attention
+    launches a batch) into the JAX pickle schema (one flat fold; and
+    ``RETRIEVAL_FOLDS`` stratified train/test folds), then ``run_suite``
+    on the card in the four modes at their scripts' N, K and threshold
+    (raw and cross at their scripts' repeats, the folds modes at
+    ``RETRIEVAL_FOLD_REPEATS``): the result schema, k = 1 accuracy at n =
+    16 above 5 x chance for the fused gallery (raw) and for I - I
+    (cross), and one repeat of each mode at n = 16 rerun on the card and
+    on the CPU, which must agree on ``RETRIEVAL_AGREE`` of each key's
+    rows. Returns the encode's launches."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_)
+    from multimodal_plankton_recognition_torch.retrieval.benchmark import (
+        run_suite)
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("retrieval: TF32 is on; the kNN distances need full f32")
+    labels, counts = _long_tailed_labels(RETRIEVAL_PAIRS, CLASSES, 21)
+    names = np.array([f"class_{c:02d}" for c in range(CLASSES)])
+    t0 = time.perf_counter()
+    pairs = _class_inputs("pair", labels, device, 22)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
+    model.to(device).eval()
+    warm = {k: v[:BATCH] for k, v in pairs.items()}
+    encode_arrays(model, warm, names[labels[:BATCH]], BATCH, device)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = encode_arrays(model, pairs, names[labels], BATCH, device)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    launches = _counts()
+    batches = -(-RETRIEVAL_PAIRS // BATCH)
+    want = {n: c * batches
+            for n, c in _per_step(mha_qkv_fwd=ATTENTION_LAYERS).items()}
+    if launches != want:
+        fail(f"retrieval: encode launches {launches}, expected {want}")
+    for key in ("image", "profile"):
+        x = emb[key]
+        if x.shape != (RETRIEVAL_PAIRS, 512) or not np.isfinite(x).all() or \
+                np.abs(np.linalg.norm(x, axis=1) - 1.0).max() > 1e-2:
+            fail(f"retrieval: {key} embeddings {x.shape} not finite unit "
+                 f"rows")
+    del pairs
+    print(f"retrieval: {RETRIEVAL_PAIRS} pairs over {CLASSES} classes "
+          f"(counts {counts[0]} down to {counts[-1]}) made on the card in "
+          f"{setup_s!r} s, encoded in {batches} batches of {BATCH} in "
+          f"{encode_s!r} s ({RETRIEVAL_PAIRS / encode_s!r} pairs/s); "
+          f"launches {launches}", flush=True)
+
+    flat = {"flagship_vit": {1: dict(emb, classes=names)}}
+    nested = {"flagship_vit": {}}
+    for f, test in enumerate(_stratified_folds(labels, RETRIEVAL_FOLDS, 23),
+                             1):
+        nested["flagship_vit"][f] = {
+            split: {k: emb[k][mask] for k in ("image", "profile", "label")}
+            for split, mask in (("train", ~test), ("test", test))}
+        nested["flagship_vit"][f]["classes"] = names
+    seconds, accs, agree = {}, {}, {}
+    for mode in ("raw", "cross", "folds", "cross_folds"):
+        N, K, th, repeats = _bench_constants(mode)
+        data = flat if mode in ("raw", "cross") else nested
+        if mode in ("folds", "cross_folds"):
+            repeats = RETRIEVAL_FOLD_REPEATS
+        t0 = time.perf_counter()
+        results = run_suite(data, mode, N, K, repeats, th=th, seed=0,
+                            device=device)
+        seconds[mode] = time.perf_counter() - t0
+        _check_schema(f"retrieval {mode}", results, mode, K)
+        ns = sorted(next(iter(next(iter(results.values())).values())))
+        setup = {"cross": "I - I", "cross_folds": "I - I"}.get(mode)
+        accs[mode] = _mean_acc(results, RETRIEVAL_CHECK_N, 1, setup)
+        print(f"retrieval {mode}: n {ns} x {repeats} repeats, k {list(K)} "
+              f"in {seconds[mode]!r} s on the card; k=1 accuracy at n="
+              f"{RETRIEVAL_CHECK_N} ({setup or 'I+P'}) {accs[mode]!r}",
+              flush=True)
+        if mode in ("raw", "cross") and \
+                not accs[mode] > CHANCE_FACTOR / CLASSES:
+            fail(f"retrieval {mode}: k=1 accuracy {accs[mode]} at n="
+                 f"{RETRIEVAL_CHECK_N} not above {CHANCE_FACTOR} x chance")
+        # one repeat at n = 16 on the card and on the CPU, the same draws
+        one = {dev: _cells(run_suite(data, mode, (RETRIEVAL_CHECK_N,), K, 1,
+                                     th=th, seed=1, device=dev))
+               for dev in (device, "cpu")}
+        worst = 1.0
+        for key, pred in one[device].items():
+            other = one["cpu"][key]
+            mismatches = int((pred != other).sum())
+            worst = min(worst, 1.0 - mismatches / len(pred))
+            if mismatches:
+                print(f"retrieval {mode}: {key}: {mismatches} of "
+                      f"{len(pred)} rows differ, card against CPU",
+                      flush=True)
+        agree[mode] = worst
+        if one[device].keys() != one["cpu"].keys() or \
+                worst < RETRIEVAL_AGREE:
+            fail(f"retrieval {mode}: card and CPU agree on {worst} of a "
+                 f"key's rows, below {RETRIEVAL_AGREE}")
+    print(f"summary: retrieval on {_smi()}: {RETRIEVAL_PAIRS} pairs, "
+          f"{CLASSES} classes; encode {RETRIEVAL_PAIRS / encode_s!r} pairs/s; "
+          f"seconds by mode on the card {seconds!r}; k=1 accuracy at n="
+          f"{RETRIEVAL_CHECK_N} {accs!r}; card-CPU agreement (least key) "
+          f"{agree!r}", flush=True)
+    return launches
 
 
 def _card(base=CARD, **overrides):
@@ -3605,8 +4230,9 @@ def _device_ms(prof, steps):
 
 def phase_profile(device):
     """The ViT flagship's encode batch and train step (the train step also
-    with ``fused_ffn``), and the micro-step of each card (SigLIP ViT-S; B0 CLIP; SigLIP ViT-S with and without
-    ``fused_ffn``) by kernel."""
+    with ``fused_ffn``), the micro-step of each card (SigLIP ViT-S; B0
+    CLIP; SigLIP ViT-S with and without ``fused_ffn``) and the train step
+    of each supervised card by kernel."""
     from multimodal_plankton_recognition_torch.models.flagships import (
         synthetic_batch_b0, synthetic_batch_vit)
 
@@ -3625,6 +4251,48 @@ def phase_profile(device):
     _profile_card(device, "ffn card", CARD, (("fused FFN", FFN_CARD),
                                              ("unfused FFN", {})),
                   synthetic_batch_vit)
+    _profile_classify(device, "image", IMAGE_CARD)
+    _profile_classify(device, "profile", PROFILE_CARD)
+
+
+def _profile_classify(device, kind, d):
+    """A supervised card's train step (bs 64, the ``classify`` phase's
+    class-structured batch) by kernel, and the idle share against the
+    unprofiled wall per step of the same process and weights."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind)
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_classifier_steps, make_optimizer)
+
+    card = ModelCard.from_dict(d)
+    names = [f"class_{c:02d}" for c in range(CLASSES)]
+    model = build_for_kind(card, kind, names).to(device)
+    init = init_weights_(build_for_kind(card, kind, names,
+                                        dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    tx = make_optimizer(card.optim_args)
+    state = create_train_state(model, init, tx)
+    step, _ = make_classifier_steps(model, tx)
+    labels = _balanced_labels(card.bs, 11)
+    batch = _class_inputs(kind, labels, device, 11,
+                          card.max_len if kind == "profile" else 224,
+                          card.target_size)
+    batch["label"] = torch.as_tensor(labels, device=device)
+    _pairs_per_s(state, step, batch, WARMUP_STEPS + 1)
+    wall = card.bs / _pairs_per_s(state, step, batch, PROFILE_STEPS) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            state, _ = step(state, batch, 0)
+        torch.cuda.synchronize()
+    out = _print_profile(f"classify {kind} (bs {card.bs})", "train step",
+                         prof, PROFILE_STEPS, wall)
+    print(f"profile classify {kind}: {json.dumps(out)}", flush=True)
 
 
 def _print_profile(what, unit, prof, steps, wall):
@@ -4061,11 +4729,17 @@ def _rank_table():
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
                       for p in ("card", "siglip_global", "ffn_card")})
     fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
-               ffn_encode=pair(*flag, "eval", "eval"))
+               ffn_encode=pair(*flag, "eval", "eval"),
+               retrieval=pair(*flag, "eval", "eval"))
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
            for p in ("train", "global", "serve_checkpoint", "ffn_train")}
     bwd.update({p: pair(*card, "p=0.0", "p=0.1")
                 for p in ("card", "siglip_global", "ffn_card")})
+    # the classifiers: one encoder each (the ViT's attention at dropout 0)
+    fwd.update(classify_image=[("cls vit B=64 ", "eval", 1.0)],
+               classify_profile=[("cls profile B=64 ", "train p=0.1", 1.0)])
+    bwd.update(classify_image=[("cls vit B=64 ", "p=0.0", 1.0)],
+               classify_profile=[("cls profile B=64 ", "p=0.1", 1.0)])
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
                                    "gelu bfloat16 p=0.0", FFN_SHAPES),
                 "ffn_train": pair(*flag, "gelu bfloat16 p=0.1",
@@ -4151,6 +4825,8 @@ def main(argv=None) -> None:
                 "global": phase_global(device),
                 "serve_checkpoint": phase_serve_checkpoint(device),
                 "drive": phase_drive(device),
+                **phase_classify(device),
+                "retrieval": phase_retrieval(device),
                 "card": phase_card(device),
                 "siglip_global": phase_siglip_global(device),
                 "b0_encode": phase_b0_encode(device),

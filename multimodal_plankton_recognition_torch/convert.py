@@ -21,7 +21,8 @@ plus ``{"batch_stats": ...}`` for a model with BatchNorm. Leaf rules:
 Module names carry over (``block_3`` -> ``blocks.3``, ``layer_1`` ->
 ``layers.1``), except that the JAX ``ImageEncoder`` is named after its
 backbone in the Flax tree (``vit_tiny_patch16_224``) and ``image_encoder``
-here. A leaf no rule maps raises; ``load_flax`` loads strictly, so a port
+here. The same rules carry the contrastive model's tree and the
+supervised classifiers' (the encoder and the ``fc`` Dense head). A leaf no rule maps raises; ``load_flax`` loads strictly, so a port
 parameter or buffer left unset raises too.
 """
 

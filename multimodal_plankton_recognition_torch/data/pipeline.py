@@ -8,8 +8,9 @@ repeats whatever the scheduling. For the card, ``PinnedCollate`` pins each
 batch on the loader's producer thread, and ``device_put`` copies it with
 ``non_blocking=True``: the host queues the copy and the step that reads
 it without waiting, so while the card runs one step the next batch is
-already queued behind it. Not ported: the multi-host sharding of the
-loader and the supervised collates.
+already queued behind it. The supervised classifiers' collates
+(``ImageCollate``, ``ProfileCollate``) give their integer ``label`` ids.
+Not ported: the multi-host sharding of the loader.
 """
 
 from __future__ import annotations
@@ -127,8 +128,47 @@ class MultiCollate:
         return batch
 
 
+class ImageCollate:
+    """Supervised image-classifier collate: stacked images, ``label`` ids
+    from ``vocab`` and ``image_shape``."""
+
+    def __init__(self, vocab) -> None:
+        self.vocab = vocab
+
+    def __call__(self, samples) -> Dict[str, np.ndarray]:
+        return {
+            "image": np.stack([s["image"] for s in samples]),
+            "label": self.vocab.transform([s["label"] for s in samples]),
+            "image_shape": np.stack([s["image_shape"] for s in samples]),
+        }
+
+
+class ProfileCollate:
+    """Supervised profile-classifier collate: the tokenized profiles,
+    ``label`` ids from ``vocab`` and ``profile_len``."""
+
+    def __init__(self, tokenizer: Callable, vocab) -> None:
+        self.tokenizer = tokenizer
+        self.vocab = vocab
+
+    def __call__(self, samples) -> Dict[str, np.ndarray]:
+        batch = dict(self.tokenizer([s["profile"] for s in samples]))
+        batch["label"] = self.vocab.transform([s["label"] for s in samples])
+        batch["profile_len"] = np.stack(
+            [s["profile_length"] for s in samples])
+        return batch
+
+
 def multi_collate_fn(tokenizer: Callable, vocab=None) -> Callable:
     return MultiCollate(tokenizer, vocab)
+
+
+def image_collate_fn(vocab) -> Callable:
+    return ImageCollate(vocab)
+
+
+def profile_collate_fn(tokenizer: Callable, vocab) -> Callable:
+    return ProfileCollate(tokenizer, vocab)
 
 
 class PinnedCollate:

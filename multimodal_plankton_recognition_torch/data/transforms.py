@@ -1,6 +1,9 @@
 """Image and profile transforms (``data/transforms.py`` of the JAX
 package): the eval transforms ``ImageTransformTest`` and
-``ProfileTransformTest``; the random train transforms
+``ProfileTransformTest``; the raw transforms of the supervised
+classifiers, ``ImageTransforms`` (background statistics from the rim, the
+scale bar covered and the image padded to a square with background noise,
+a LANCZOS resize) and ``ProfileTransform`` (log1p, an optional resample); the random train transforms
 ``ImageTransformTrain``, ``ProfileTransformTrain`` and the joint flip
 ``PairAugmentation`` of the CSV path; the oversize train prefixes
 ``ImageTransformOversize`` and ``ProfileTransformOversize`` (whose random
@@ -10,8 +13,9 @@ imported inside the image functions.
 
 The random transforms draw from the one ``numpy.random.Generator`` a
 sample is given, in the JAX package's order: the image crop (dy, then dx)
-and its flip coin, the profile crop start and its noise, then the pair's
-coin. With the same generator they give the JAX package's bits.
+and its flip coin (``ImageTransforms``: the scale bar's noise, then the
+padding's), the profile crop start and its noise, then the pair's coin.
+With the same generator they give the JAX package's bits.
 
 Conventions: images come out channel-last ``(H, W, 1)`` float32 in [-1, 1];
 profiles ``(L, D)`` float32 with D = 6 pulse channels.
@@ -59,6 +63,77 @@ def resize_edge(img, target_res: int = 224) -> np.ndarray:
     return np.pad(arr, pad + [(0, 0)] * (arr.ndim - 2), mode="edge")
 
 
+def find_background_stats(image: np.ndarray, p: int = 2,
+                          closest: float = 0.80
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Background mode and std from the image rim of thickness ``p``: the
+    per-channel mode over the first and last ``p`` rows and columns, the
+    std over the ``closest`` fraction of rim pixels nearest (L2) to it."""
+    c = 1 if image.ndim < 3 else image.shape[-1]
+    edges = np.concatenate([image[:, :p].reshape(-1, c),
+                            image[:, -p:].reshape(-1, c),
+                            image[:p, :].reshape(-1, c),
+                            image[-p:, :].reshape(-1, c)], axis=0)
+    color_mode = np.empty(c, dtype=edges.dtype)
+    for ch in range(c):
+        vals, counts = np.unique(edges[:, ch], return_counts=True)
+        color_mode[ch] = vals[np.argmax(counts)]
+    n_closest = int(edges.shape[0] * closest)
+    distances = np.sum((edges.astype(np.int64)
+                        - color_mode.astype(np.int64)) ** 2, axis=1)
+    closest_indices = np.argpartition(
+        distances, min(n_closest, len(distances) - 1))[:n_closest]
+    color_std = np.std(edges[closest_indices].astype(float), axis=0)
+    return color_mode, color_std
+
+
+def cover_scale(image: np.ndarray, bg: np.ndarray, std: np.ndarray,
+                rng: Optional[np.random.Generator] = None,
+                rows: int = SCALEBAR_ROWS) -> np.ndarray:
+    """Overwrite the burned-in scale bar (top ``rows`` px) with Gaussian
+    background noise."""
+    g = _rng(rng)
+    image = image.copy()
+    noise = g.normal(loc=float(np.mean(bg)), scale=float(np.mean(std)) + 1e-8,
+                     size=image[:rows].shape)
+    image[:rows] = np.clip(noise, 0, 255).astype(image.dtype)
+    return image
+
+
+def pad_image_to_square(image: np.ndarray, bg: np.ndarray, std: np.ndarray,
+                        rng: Optional[np.random.Generator] = None
+                        ) -> np.ndarray:
+    """Center-pad to a square with background noise (no draw when the
+    image is square already)."""
+    g = _rng(rng)
+    height, width = image.shape[:2]
+    max_side = max(height, width)
+    y_from = (max_side - height) // 2
+    x_from = (max_side - width) // 2
+    if x_from > 0 or y_from > 0:
+        shape = (max_side, max_side) + image.shape[2:]
+        canvas = np.full(shape, fill_value=float(np.mean(bg)),
+                         dtype=np.float64)
+        canvas += g.normal(loc=0.0, scale=float(np.mean(std)) + 1e-8,
+                           size=shape)
+        out = np.clip(canvas, 0, 255).astype(image.dtype)
+        out[y_from:y_from + height, x_from:x_from + width] = image
+        return out
+    return image
+
+
+def to_grayscale(arr: np.ndarray) -> np.ndarray:
+    """ITU-R 601-2 luma, as torchvision's ``rgb_to_grayscale`` (exact for
+    the grayscale crops, where R = G = B)."""
+    if arr.ndim == 2:
+        return arr
+    r, g, b = arr[..., 0], arr[..., 1], arr[..., 2]
+    lum = 0.2989 * r + 0.587 * g + 0.114 * b
+    if arr.dtype == np.uint8:
+        return lum.astype(np.uint8)
+    return lum.astype(arr.dtype)
+
+
 def resample_linear(profile: np.ndarray, target_len: int,
                     antialias: bool = True) -> np.ndarray:
     """Resample a (L, D) profile to (target_len, D) along time, as
@@ -99,6 +174,52 @@ class ImageTransformTest:
         img = img.crop((0, SCALEBAR_ROWS, img.width, img.height))
         arr = resize_edge(img, self.target_size)
         return (arr.astype(np.float32) / 255.0 * 2.0 - 1.0)[..., None]
+
+
+class ImageTransforms:
+    """Raw canonicalization of the supervised baselines: background
+    statistics from the rim, the scale bar overwritten with background
+    noise, a center pad to a square with background noise, then (with
+    ``target_size``) a LANCZOS resize to ``target_size`` square; float
+    [0, 1], (H, W, 1). Takes a ``PIL.Image`` (decoded to L) or a uint8
+    array (an RGB one goes through ``to_grayscale``)."""
+
+    def __init__(self, target_size: Optional[int] = 224) -> None:
+        self.target_size = target_size
+
+    def __call__(self, image, rng: Optional[np.random.Generator] = None
+                 ) -> np.ndarray:
+        if not isinstance(image, np.ndarray):
+            image = np.asarray(image.convert("L"))
+        elif image.ndim == 3:
+            image = to_grayscale(image)
+        bg, std = find_background_stats(image)
+        image = cover_scale(image, bg, std, rng)
+        image = pad_image_to_square(image, bg, std, rng)
+        if self.target_size is not None and \
+                image.shape[0] != self.target_size:
+            from PIL import Image
+
+            image = np.asarray(Image.fromarray(image).resize(
+                (self.target_size, self.target_size),
+                Image.Resampling.LANCZOS))
+        out = image.astype(np.float32) / 255.0
+        return out[..., None]
+
+
+class ProfileTransform:
+    """Raw profile transform: log1p, then a linear resample to
+    ``max_len`` when it is set (0 or None: the profile's own length)."""
+
+    def __init__(self, max_len: Optional[int] = None) -> None:
+        self.max_len = max_len
+
+    def __call__(self, profile: np.ndarray,
+                 rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        profile = np.log1p(np.asarray(profile, dtype=np.float32))
+        if self.max_len:
+            profile = resample_linear(profile, self.max_len)
+        return profile
 
 
 class ProfileTransformTest:

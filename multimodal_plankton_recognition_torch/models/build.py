@@ -1,5 +1,7 @@
 """Model builders from validated model cards (``models/build.py`` of the
-JAX package): one place that maps a ``ModelCard`` to the port's modules.
+JAX package): one place that maps a ``ModelCard`` to the port's modules,
+the contrastive ``MultiModel`` and the supervised ``ImageClassifier`` and
+``ProfileClassifier`` (one output per class name).
 
 Card options the port does not take yet raise ``NotImplementedError``
 naming ``ROADMAP.md``, before any module is built: ``remat``,
@@ -13,11 +15,12 @@ handing it to a ViT only.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 
 from ..config import ModelCard
+from .classifier import ImageClassifier, ProfileClassifier
 from .multi import MultiModel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,3 +70,43 @@ def build_multi_model(card: ModelCard,
         coordination_args=card.coordination_args,
         dtype=dtype or compute_dtype(card),
     )
+
+
+def build_image_classifier(card: ModelCard, class_names: Iterable[str],
+                           dtype: Optional[torch.dtype] = None
+                           ) -> ImageClassifier:
+    """The card's image classifier over ``class_names``, as
+    ``build_multi_model`` builds its model."""
+    return ImageClassifier(
+        n_classes=len(list(class_names)),
+        image_encoder_args=_strip("image_encoder_args",
+                                  card.image_encoder_args),
+        dtype=dtype or compute_dtype(card),
+    )
+
+
+def build_profile_classifier(card: ModelCard, class_names: Iterable[str],
+                             dtype: Optional[torch.dtype] = None
+                             ) -> ProfileClassifier:
+    """The card's profile classifier over ``class_names``."""
+    return ProfileClassifier(
+        n_classes=len(list(class_names)),
+        profile_encoder_args=_strip("profile_encoder_args",
+                                    card.profile_encoder_args),
+        dtype=dtype or compute_dtype(card),
+    )
+
+
+def build_for_kind(card: ModelCard, kind: str,
+                   class_names: Iterable[str] = (),
+                   dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+    """The model of a checkpoint's or driver's ``kind``: ``multi`` (the
+    contrastive model), ``image`` or ``profile`` (a classifier over
+    ``class_names``), at ``dtype`` (default: the card's compute dtype)."""
+    if kind == "multi":
+        return build_multi_model(card, dtype)
+    if kind == "image":
+        return build_image_classifier(card, class_names, dtype)
+    if kind == "profile":
+        return build_profile_classifier(card, class_names, dtype)
+    raise ValueError(f"Unknown checkpoint kind {kind!r}")

@@ -2,7 +2,8 @@
 package's Flax initialisers (what its ``model.init`` draws), shared by
 the train driver and the flagships.
 
-* Dense and conv kernels: ``lecun_normal``, a normal truncated to ±2
+* Dense and conv kernels (the classifiers' ``fc`` heads too):
+  ``lecun_normal``, a normal truncated to ±2
   standard deviations and rescaled so that its standard deviation is
   1/sqrt(fan_in); fan_in is the kernel's input width times its receptive
   field (k·k for a depthwise kernel). The packed q|k|v projection of the

@@ -9,9 +9,9 @@ h-stacks the results, which is how the modalities are fused.
 
 The index lives on the card unless the caller passes ``device="cpu"``;
 without a card the default raises (``require_device``). Not ported (TPU
-machinery): ``approx=True`` (``jax.lax.approx_max_k``),
-``sharded=True`` (mesh-sharded gallery) and the 256-row shape buckets that
-spared XLA a recompile per query size.
+machinery): ``approx=True`` (``jax.lax.approx_max_k``) and the 256-row
+shape buckets that spared XLA a recompile per query size. Not ported
+yet: ``sharded=True`` (the mesh-sharded gallery, queue 1 module 7).
 """
 
 from __future__ import annotations
@@ -81,10 +81,13 @@ class ANNClassifier:
     def __init__(self, X: np.ndarray, y: np.ndarray,
                  device: torch.device | str = "cuda", approx: bool = False,
                  sharded: bool = False, **nndescent_args) -> None:
-        if approx or sharded:
+        if approx:
             raise NotImplementedError(
-                "approx / sharded retrieval is TPU machinery, not ported "
-                "(ROADMAP.md)")
+                "approx retrieval is TPU machinery, not ported (ROADMAP.md)")
+        if sharded:
+            raise NotImplementedError(
+                "sharded retrieval (a row-sharded gallery) is not ported "
+                "yet (ROADMAP.md queue 1 module 7, the parallel layer)")
         self.y_ = np.asarray(y).copy()
         self._gallery = torch.as_tensor(np.asarray(X, np.float32),
                                         device=require_device(device))

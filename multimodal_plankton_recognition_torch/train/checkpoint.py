@@ -37,7 +37,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..config import ModelCard
-from ..models.build import build_multi_model
+from ..models.build import build_for_kind
 from ..ops.knn import require_device
 
 METADATA_FILE = "plankton_metadata.json"
@@ -199,9 +199,10 @@ def read_port_metadata(directory: Path | str) -> Dict[str, Any]:
 def load_from_checkpoint(directory: Path | str, step: Optional[int] = None,
                          device: torch.device | str = "cuda"
                          ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
-    """Rebuild the model from the stored card, load a checkpoint into it
-    and place it on ``device`` (the card unless the caller names another;
-    without a card the default raises).
+    """Rebuild the model from the stored card and kind (``multi``, or an
+    ``image`` / ``profile`` classifier over the stored class names), load
+    a checkpoint into it and place it on ``device`` (the card unless the
+    caller names another; without a card the default raises).
 
     The masters load at the model's compute dtype (``load_state_dict``
     rounds them as ``TrainState.load_into`` does); the BatchNorm
@@ -211,19 +212,14 @@ def load_from_checkpoint(directory: Path | str, step: Optional[int] = None,
     device = require_device(device)
     directory = Path(directory).resolve()
     meta = read_port_metadata(directory)
-    kind = meta.get("kind", "multi")
-    if kind in ("image", "profile"):
-        raise NotImplementedError(
-            f"{kind!r} checkpoints (the supervised classifiers) are not "
-            f"ported yet (queue 1 module 5)")
-    if kind != "multi":
-        raise ValueError(f"Unknown checkpoint kind {kind!r}")
+    model = build_for_kind(ModelCard.from_dict(meta["card"]),
+                           meta.get("kind", "multi"),
+                           meta.get("class_names", ()))
     monitor = meta.get("_monitor")
     mngr = CheckpointManager(directory, monitor=monitor or "valid_loss",
                              mode=meta.get("_mode", "min"),
                              save_top_k=1 if monitor else -1)
     payload = mngr.restore(step)
-    model = build_multi_model(ModelCard.from_dict(meta["card"]))
     model.load_state_dict({**payload["params"], **payload["batch_stats"]},
                           strict=True)
     return model.to(device), payload, meta

@@ -1,5 +1,7 @@
-"""The contrastive train driver behind ``scripts/train_multi_torch.py``
-(``train_multi`` of the JAX package's ``train/drivers.py``).
+"""The train drivers behind ``scripts/train_multi_torch.py``,
+``scripts/train_image_torch.py`` and ``scripts/train_profile_torch.py``
+(``train_multi``, ``train_image`` and ``train_profile`` of the JAX
+package's ``train/drivers.py``).
 
 The file contracts are the JAX driver's: ``<dataset>/train.csv`` and
 ``<dataset>/test.csv`` in (or their packed caches, ``packed_cache:
@@ -15,6 +17,14 @@ early stopping. On a card the loaders pin each batch on their producer
 thread and the steps read it through a non-blocking copy
 (``data.pipeline.PinnedCollate``, ``device_put``).
 
+The supervised classifiers (``_train_classifier``) train on their eval
+pipeline's raw transforms (``ImageTransforms``, ``ProfileTransform``:
+``retrieval.encode.eval_pipeline``) with the pair augmentation, validate
+on the test split in order, keep the top-k checkpoints by ``valid_acc``
+(max), stop early on ``valid_loss``, then restore the best checkpoint
+for the final test: ``test_acc``, and the confusion matrix as the
+``test_cm`` image where the writer has a TensorBoard sink.
+
 Not ported, as TPU machinery: ``use_tpu_runtime_flags``,
 ``enable_compilation_cache`` and ``use_fast_prng``. Card options that
 need a module not ported yet raise before any step: ``loader: grain``
@@ -27,21 +37,22 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import ModelCard, load_card
 from ..data.dataset import MultiSet
 from ..data.pipeline import (
-    Loader, PinnedCollate, device_put, multi_collate_fn,
+    Loader, PinnedCollate, device_put, image_collate_fn, multi_collate_fn,
+    profile_collate_fn,
 )
 from ..data.tokenize import get_tokenizer
 from ..data.transforms import (
     ImageTransformOversize, ImageTransformTrain, PairAugmentation,
     ProfileTransformOversize, ProfileTransformTrain,
 )
-from ..models.build import build_multi_model, step_buckets
+from ..models.build import build_for_kind, step_buckets
 from ..models.initializers import init_weights_
 from ..ops.augment import multi_train_augment
 from ..ops.knn import require_device
@@ -50,7 +61,8 @@ from ..utils import LabelVocab
 from .checkpoint import CheckpointManager, read_port_metadata
 from .early_stopping import EarlyStopping
 from .logging import MetricsWriter
-from .loop import Fitter, make_multi_steps
+from .loop import Fitter, make_classifier_steps, make_multi_steps
+from .metrics import confusion_matrix, render_confusion_matrix
 from .optim import Optimizer, make_optimizer
 from .state import TrainState, create_train_state
 
@@ -130,26 +142,31 @@ def multi_loaders(card: ModelCard, train_set, test_set,
             loader(test_set, valid_tok, card.seed + 1))
 
 
-def init_masters(card: ModelCard) -> Dict[str, torch.Tensor]:
-    """The card's f32 initial weights (and BatchNorm statistics) as a
-    state dict on the CPU, drawn from ``card.seed``."""
-    model = build_multi_model(card, dtype=torch.float32)
+def init_masters(card: ModelCard, kind: str = "multi",
+                 class_names: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """The f32 initial weights (and BatchNorm statistics) of the card's
+    model of ``kind`` (``build_for_kind``) as a state dict on the CPU,
+    drawn from ``card.seed``."""
+    model = build_for_kind(card, kind, class_names, dtype=torch.float32)
     return init_weights_(model,
                          torch.Generator().manual_seed(card.seed)).state_dict()
 
 
 def multi_state(card: ModelCard, device: torch.device | str,
-                resume: Optional[str | Path] = None
+                resume: Optional[str | Path] = None, kind: str = "multi",
+                class_names: Sequence[str] = ()
                 ) -> Tuple[torch.nn.Module, Optimizer, TrainState]:
-    """(model on ``device`` at the card's compute dtype, optimizer, train
-    state): f32 masters from ``init_masters``, or, with ``resume``, the
-    latest step kept in that port checkpoint directory (its step, masters,
-    BatchNorm statistics, momentum and pending gradient mean)."""
+    """(model of ``kind`` on ``device`` at the card's compute dtype,
+    optimizer, train state): f32 masters from ``init_masters``, or, with
+    ``resume``, the latest step kept in that port checkpoint directory
+    (its step, masters, BatchNorm statistics, momentum and pending
+    gradient mean)."""
     tx = make_optimizer(card.optim_args,
                         card.trainer_args.accumulate_grad_batches)
-    model = build_multi_model(card).to(device)
+    model = build_for_kind(card, kind, class_names).to(device)
     if not resume:
-        return model, tx, create_train_state(model, init_masters(card), tx)
+        return model, tx, create_train_state(
+            model, init_masters(card, kind, class_names), tx)
     read_port_metadata(resume)
     # save_top_k=0 ranks nothing, so the "best" step is the latest one,
     # as the JAX driver's orbax manager without best_fn restores it
@@ -198,6 +215,24 @@ class _Profiler:
         prof.export_chrome_trace(str(self.directory / TRACE_FILE))
 
 
+def _card(modelcard: str | Path | ModelCard,
+          max_epochs: Optional[int]) -> Tuple[ModelCard, str]:
+    """(card, its name for the run directory): a copy of a ``ModelCard``
+    (named by its ``name`` key, else "card") or the card at a YAML / JSON
+    path (named by the file's stem); ``max_epochs`` overrides the card's.
+    Raises for the options whose modules are not ported yet."""
+    if isinstance(modelcard, ModelCard):
+        card = copy.deepcopy(modelcard)
+        card_name = card.raw.get("name", "card")
+    else:
+        card = load_card(modelcard)
+        card_name = Path(modelcard).stem
+    _refuse_unported(card)
+    if max_epochs is not None:
+        card.trainer_args.max_epochs = max_epochs
+    return card, card_name
+
+
 def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
                 logdir: str | Path = "logs",
                 max_epochs: Optional[int] = None,
@@ -212,15 +247,7 @@ def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
     directory; ``profile`` traces the first epoch. Returns ``{"history",
     "logdir", "best_step", "state"}``."""
     device = require_device(device)
-    if isinstance(modelcard, ModelCard):
-        card = copy.deepcopy(modelcard)
-        card_name = card.raw.get("name", "card")
-    else:
-        card = load_card(modelcard)
-        card_name = Path(modelcard).stem
-    _refuse_unported(card)
-    if max_epochs is not None:
-        card.trainer_args.max_epochs = max_epochs
+    card, card_name = _card(modelcard, max_epochs)
     data_path = Path(dataset)
 
     train_set, test_set = multi_datasets(card, data_path)
@@ -259,3 +286,99 @@ def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
     writer.close()
     return {"history": fitter.history, "logdir": str(writer.logdir),
             "best_step": ckpt.best_step(), "state": state}
+
+
+def _train_classifier(kind: str, dataset: str | Path,
+                      modelcard: str | Path | ModelCard,
+                      logdir: str | Path = "logs",
+                      max_epochs: Optional[int] = None,
+                      resume: Optional[str | Path] = None,
+                      profile: bool = False,
+                      device: torch.device | str = "cuda") -> Dict[str, Any]:
+    device = require_device(device)
+    card, card_name = _card(modelcard, max_epochs)
+    data_path = Path(dataset)
+    # the raw transforms and the tokenizer the classifier is served with
+    image_tf, profile_tf, tokenizer = eval_pipeline(card, kind)
+    train_set = MultiSet(data_path / "train.csv", image_tf, profile_tf,
+                         PairAugmentation())
+    test_set = MultiSet(data_path / "test.csv", image_tf, profile_tf)
+    vocab = LabelVocab(train_set.class_names)
+    collate = image_collate_fn(vocab) if kind == "image" \
+        else profile_collate_fn(tokenizer, vocab)
+    if device.type == "cuda":
+        collate = PinnedCollate(collate)
+    train_loader = Loader(train_set, card.bs, collate, shuffle=True,
+                          drop_last=True, num_workers=card.num_workers,
+                          seed=card.seed)
+    test_loader = Loader(test_set, card.bs, collate, shuffle=False,
+                         drop_last=False, num_workers=card.num_workers,
+                         seed=card.seed + 1)
+    model, tx, state = multi_state(card, device, resume, kind,
+                                   vocab.to_list())
+    train_step, eval_step = make_classifier_steps(model, tx)
+
+    writer = MetricsWriter(logdir, name=_run_name(card_name, data_path))
+    ckpt = CheckpointManager(
+        writer.logdir / "checkpoints", monitor="valid_acc", mode="max",
+        save_top_k=card.save_top_k,
+        metadata={"card": card.to_dict(), "kind": kind,
+                  "class_names": vocab.to_list()})
+    profiler = _Profiler(writer.logdir / "profile", profile, device)
+    trainer = card.trainer_args
+    put = device_put(device)
+    fitter = Fitter(train_step, eval_step, writer=writer, checkpointer=ckpt,
+                    early_stopping=EarlyStopping("valid_loss", "min",
+                                                 card.patience),
+                    min_epochs=trainer.min_epochs,
+                    max_epochs=trainer.max_epochs,
+                    check_val_every_n_epoch=trainer.check_val_every_n_epoch,
+                    seed=card.seed, put_fn=put,
+                    hooks={"on_epoch_end": profiler.stop_after_first_epoch})
+    profiler.start()
+    try:
+        state = fitter.fit(state, train_loader, test_loader)
+    finally:
+        profiler.stop()
+
+    # the final test on the best checkpoint's masters and statistics
+    best = ckpt.best_step()
+    if best is not None:
+        payload = ckpt.restore(best)
+        with torch.no_grad():
+            for name, master in state.params.items():
+                master.copy_(payload["params"][name])
+            for name, buf in state.batch_stats.items():
+                buf.copy_(payload["batch_stats"][name])
+    test = fitter._eval_epoch(state, test_loader)
+    test_acc = test["valid_acc"]
+    writer.log({"test_acc": test_acc}, step=0)
+    if writer.has_tensorboard:
+        cm = confusion_matrix(test["_pred"], test["_true"], len(vocab))
+        writer.log_image("test_cm",
+                         render_confusion_matrix(cm, vocab.to_list()))
+    writer.close()
+    return {"history": fitter.history, "logdir": str(writer.logdir),
+            "best_step": best, "test_acc": test_acc, "state": state}
+
+
+def train_image(dataset: str | Path, modelcard: str | Path | ModelCard,
+                logdir: str | Path = "logs", max_epochs: Optional[int] = None,
+                resume: Optional[str | Path] = None, profile: bool = False,
+                device: torch.device | str = "cuda") -> Dict[str, Any]:
+    """Supervised image classifier from the card ``modelcard`` on the
+    split directory ``dataset``, on ``device`` (the card unless the caller
+    names another; without a card the default raises). Returns
+    ``{"history", "logdir", "best_step", "test_acc", "state"}``."""
+    return _train_classifier("image", dataset, modelcard, logdir, max_epochs,
+                             resume, profile, device)
+
+
+def train_profile(dataset: str | Path, modelcard: str | Path | ModelCard,
+                  logdir: str | Path = "logs",
+                  max_epochs: Optional[int] = None,
+                  resume: Optional[str | Path] = None, profile: bool = False,
+                  device: torch.device | str = "cuda") -> Dict[str, Any]:
+    """Supervised profile classifier; as ``train_image``."""
+    return _train_classifier("profile", dataset, modelcard, logdir,
+                             max_epochs, resume, profile, device)

@@ -1,5 +1,6 @@
 """TensorBoard metric writer (``train/logging.py`` of the JAX package,
-which is framework-free: copied as it is).
+which is framework-free: copied as it is, with ``has_tensorboard``
+added).
 
 Reproduces the reference's logging contract (tag names ``train_loss``,
 ``valid_loss``, ``valid_acc``, ``test_cm``; one point per epoch with
@@ -43,6 +44,12 @@ class MetricsWriter:
                     self._tb.add_scalar(k, float(v), step)
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+
+    @property
+    def has_tensorboard(self) -> bool:
+        """Whether images are kept: ``log_image`` drops them without a
+        TensorBoard sink (no tensorboardX)."""
+        return self._tb is not None
 
     def log_image(self, tag: str, image_chw: np.ndarray, step: int = 0) -> None:
         """Log an image tensor (C, H, W) uint8 — used for the test-set

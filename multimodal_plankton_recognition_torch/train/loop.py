@@ -20,8 +20,12 @@ a device value on the host, so steps queue on the card back to back;
 ``Fitter`` reads the losses once per epoch and hands each epoch to the
 checkpointer (``train.checkpoint.CheckpointManager``).
 
-Not ported yet (ROADMAP.md): ``make_classifier_steps``. The driver
-that wires these to a card and a dataset is ``train.drivers``.
+``make_classifier_steps`` gives the supervised classifiers' steps the
+same way: cross-entropy on the logits in the module dtype (as JAX takes
+``log_softmax`` of them), the same update, and an eval step that also
+returns the argmax ``pred`` and the batch's ``label``, from which
+``Fitter`` adds ``valid_acc``. The drivers that wire these to a card and
+a dataset are ``train.drivers``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from torch import nn
 
 from ..data.pipeline import device_put
 from ..models.dropout import dropout_rng
+from ..ops.losses import cross_entropy_loss
 from .optim import Optimizer
 from .state import TrainState
 
@@ -48,6 +53,42 @@ def _step_generator(seed: int, step: int, *stream: int) -> torch.Generator:
     another generator of the same step."""
     state = np.random.SeedSequence([seed, step, *stream]).generate_state(1)[0]
     return torch.Generator().manual_seed(int(state))
+
+
+def _train_update(model: nn.Module, tx: Optimizer, state: TrainState,
+                  seed: int, loss_fn: Callable[[], torch.Tensor]
+                  ) -> Tuple[TrainState, torch.Tensor]:
+    """One micro-step of either kind: the masters into ``model`` in train
+    mode, ``loss_fn()`` under the step's dropout generator, its backward,
+    the gradients upcast to f32 and, every ``tx.every_k`` micro-steps
+    (their running mean), the masters' update."""
+    state.load_into(model).train()
+    model.zero_grad(set_to_none=True)
+    with dropout_rng(_step_generator(seed, state.step)):
+        loss = loss_fn()
+    loss.backward()
+    named = dict(model.named_parameters())
+    grads = [torch.zeros_like(m) if named[n].grad is None
+             else named[n].grad.float() for n, m in state.params.items()]
+    k = tx.every_k
+    if k > 1:
+        n_acc = state.step % k
+        if state.grad_acc is None:
+            state.grad_acc = dict(zip(state.params,
+                                      map(torch.zeros_like, grads)))
+        acc = list(state.grad_acc.values())
+        # Welford running mean, as optax.MultiSteps accumulates
+        torch._foreach_add_(acc, torch._foreach_div(
+            torch._foreach_sub(grads, acc), n_acc + 1))
+        grads = acc if n_acc == k - 1 else None
+    if grads is not None:
+        for master, g in zip(state.params.values(), grads):
+            master.grad = g.to(master.dtype)
+        state.opt.step()
+        if k > 1:
+            state.grad_acc = None
+    state.step += 1
+    return state, loss.detach()
 
 
 def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
@@ -64,39 +105,44 @@ def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
         if augment_fn is not None:
             batch = augment_fn(batch, _step_generator(seed, state.step,
                                                       AUGMENT_STREAM))
-        state.load_into(model).train()
-        model.zero_grad(set_to_none=True)
-        with dropout_rng(_step_generator(seed, state.step)):
-            loss = model.loss(buckets=buckets, **batch)
-        loss.backward()
-        named = dict(model.named_parameters())
-        grads = [torch.zeros_like(m) if named[n].grad is None
-                 else named[n].grad.float() for n, m in state.params.items()]
-        k = tx.every_k
-        if k > 1:
-            n_acc = state.step % k
-            if state.grad_acc is None:
-                state.grad_acc = dict(zip(state.params,
-                                          map(torch.zeros_like, grads)))
-            acc = list(state.grad_acc.values())
-            # Welford running mean, as optax.MultiSteps accumulates
-            torch._foreach_add_(acc, torch._foreach_div(
-                torch._foreach_sub(grads, acc), n_acc + 1))
-            grads = acc if n_acc == k - 1 else None
-        if grads is not None:
-            for master, g in zip(state.params.values(), grads):
-                master.grad = g.to(master.dtype)
-            state.opt.step()
-            if k > 1:
-                state.grad_acc = None
-        state.step += 1
-        return state, loss.detach()
+        return _train_update(model, tx, state, seed,
+                             lambda: model.loss(buckets=buckets, **batch))
 
     @torch.no_grad()
     def eval_step(state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         state.load_into(model).eval()
         return {"loss": model.loss(buckets=buckets, **batch)}
+
+    return train_step, eval_step
+
+
+def make_classifier_steps(model: nn.Module, tx: Optimizer
+                          ) -> Tuple[Callable, Callable]:
+    """(train_step, eval_step) for a supervised classifier (an
+    ``ImageClassifier`` or ``ProfileClassifier`` at its compute dtype):
+    the mean cross-entropy of the logits against the batch's ``label``
+    ids; the eval step returns ``loss``, the argmax ``pred`` and
+    ``label``. BatchNorm statistics update in the train-mode forward, as
+    in ``make_multi_steps``."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   seed: int) -> Tuple[TrainState, torch.Tensor]:
+        """One micro-step; returns the updated state and the loss (a
+        device scalar)."""
+        inputs = {k: v for k, v in batch.items() if k != "label"}
+        return _train_update(
+            model, tx, state, seed,
+            lambda: cross_entropy_loss(model(**inputs), batch["label"]))
+
+    @torch.no_grad()
+    def eval_step(state: TrainState,
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        label = batch["label"]
+        inputs = {k: v for k, v in batch.items() if k != "label"}
+        logits = state.load_into(model).eval()(**inputs)
+        return {"loss": cross_entropy_loss(logits, label),
+                "pred": torch.argmax(logits, dim=-1), "label": label}
 
     return train_step, eval_step
 
@@ -139,9 +185,31 @@ class Fitter:
         return torch.stack(losses).float().mean().item()
 
     def _eval_epoch(self, state: TrainState, loader) -> Dict[str, float]:
-        losses = [self.eval_step(state, self.put_fn(batch))["loss"]
-                  for batch in loader]
-        return {"valid_loss": self._mean(losses)}
+        """``valid_loss``; when the eval step returns ``pred``, also
+        ``valid_acc`` and the epoch's ``_pred`` and ``_true`` arrays. The
+        device values are read on the host once, after the last batch."""
+        losses, preds, labels = [], [], []
+        for batch in loader:
+            out = self.eval_step(state, self.put_fn(batch))
+            losses.append(out["loss"])
+            if "pred" in out:
+                preds.append(out["pred"].reshape(-1))
+                labels.append(out["label"].reshape(-1))
+        if not losses:
+            return {"valid_loss": float("nan")}
+        mean = torch.stack(losses).float().mean().reshape(1)
+        flat = torch.cat([mean.double(), *(t.double()
+                                           for t in preds + labels)])
+        flat = flat.cpu().numpy()
+        metrics = {"valid_loss": float(flat[0])}
+        if preds:
+            n = (len(flat) - 1) // 2
+            p = flat[1:1 + n].astype(np.int64)
+            t = flat[1 + n:].astype(np.int64)
+            metrics["valid_acc"] = float((p == t).mean())
+            metrics["_pred"] = p
+            metrics["_true"] = t
+        return metrics
 
     def fit(self, state: TrainState, train_loader,
             valid_loader=None) -> TrainState:
@@ -158,7 +226,8 @@ class Fitter:
                 "train_loss": self._mean(train_losses)}
             if valid_loader is not None and \
                     (epoch + 1) % self.check_val_every_n_epoch == 0:
-                metrics.update(self._eval_epoch(state, valid_loader))
+                metrics.update({k: v for k, v in self._eval_epoch(
+                    state, valid_loader).items() if not k.startswith("_")})
 
             dt = time.monotonic() - t0
             metrics["samples_per_sec"] = n_samples / dt if dt > 0 else 0.0

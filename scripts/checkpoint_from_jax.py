@@ -6,7 +6,9 @@ PyTorch port's checkpoint format (``train/checkpoint.py`` of the port).
         -o logs/run/version_0/checkpoints_torch
 
 Runs where JAX is installed (it imports the JAX package, so it lives
-outside the port). For every kept step it restores the orbax tree as host
+outside the port). Any kind the JAX drivers write: the contrastive
+``multi`` model, the ``image`` and ``profile`` classifiers (rebuilt over
+the stored class names). For every kept step it restores the orbax tree as host
 numpy (the JAX manager's template-free restore), maps the parameters and
 batch statistics with ``convert.from_flax``, the optax SGD momentum trace
 onto each master's ``momentum_buffer`` (in ``TrainState.params`` order;
@@ -64,7 +66,7 @@ def bridge(jax_dir: Path | str, out_dir: Path | str) -> list[int]:
     from multimodal_plankton_recognition_torch.config import ModelCard
     from multimodal_plankton_recognition_torch.convert import from_flax
     from multimodal_plankton_recognition_torch.models.build import (
-        build_multi_model,
+        build_for_kind,
     )
     from multimodal_plankton_recognition_torch.train import (
         create_train_state, make_optimizer,
@@ -77,11 +79,8 @@ def bridge(jax_dir: Path | str, out_dir: Path | str) -> list[int]:
     meta = read_metadata(jax_dir)
     if meta.get("format") == FORMAT:
         raise ValueError(f"{jax_dir} is already in the port's format")
-    if meta.get("kind", "multi") != "multi":
-        raise NotImplementedError(
-            f"{meta['kind']!r} checkpoints (the supervised classifiers) are "
-            f"not ported yet (queue 1 module 5)")
     card = ModelCard.from_dict(meta["card"])
+    kind = meta.get("kind", "multi")
     every_k = card.trainer_args.accumulate_grad_batches
     monitor = meta.get("_monitor", "valid_loss")
     reader = ocp.CheckpointManager(jax_dir)
@@ -102,7 +101,7 @@ def bridge(jax_dir: Path | str, out_dir: Path | str) -> list[int]:
         variables = {"params": restored["params"]}
         if restored.get("batch_stats"):
             variables["batch_stats"] = restored["batch_stats"]
-        model = build_multi_model(card)
+        model = build_for_kind(card, kind, meta.get("class_names", ()))
         state = create_train_state(model, from_flax(variables), tx)
         state.step = int(np.asarray(restored["step"]))
         opt_state = restored["opt_state"]

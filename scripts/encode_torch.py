@@ -12,6 +12,10 @@ Examples:
   python scripts/encode_torch.py -k logs/run/version_0/checkpoints \\
       -d data/ds/fold1 --train-test -o emb.pkl --name vit_clip --fold 1
 
+  # a supervised classifier's logits and labels (JAX's --logits entry)
+  python scripts/encode_torch.py -k logs/run/version_0/checkpoints \\
+      -d data/ds/fold1/test.csv --logits -o logits.pkl --name vit_t
+
 Repeated invocations with --append build multi-model/fold pickles. An
 orbax checkpoint of the JAX package is carried over first with
 ``scripts/checkpoint_from_jax.py``.
@@ -25,11 +29,11 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from multimodal_plankton_recognition_torch.retrieval.encode import (  # noqa: E402
-    encode_dataset, encode_split,
+    encode_dataset, encode_split, predict_classifier,
 )
 
 
-def main() -> None:
+def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("-k", "--checkpoint", required=True,
                         help="Checkpoint directory of the port (with "
@@ -47,20 +51,19 @@ def main() -> None:
                         help="Encode train.csv and test.csv (nested layout).")
     parser.add_argument("--logits", action="store_true",
                         help="Classifier checkpoint: export logits+labels "
-                             "(not ported yet).")
+                             "instead of embeddings.")
     parser.add_argument("--append", action="store_true",
                         help="Merge into an existing pickle.")
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--num-workers", type=int, default=4)
     parser.add_argument("--device", default="cuda",
                         help="Device to encode on (default: the card).")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     if args.logits:
-        raise NotImplementedError(
-            "--logits (classifier checkpoints) is not ported yet (queue 1 "
-            "module 5)")
-    encode = encode_split if args.train_test else encode_dataset
+        encode = predict_classifier
+    else:
+        encode = encode_split if args.train_test else encode_dataset
     entry = encode(args.checkpoint, args.data, args.batch_size,
                    args.num_workers, device=args.device)
 

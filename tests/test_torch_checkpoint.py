@@ -53,7 +53,7 @@ from multimodal_plankton_recognition_torch.data.tokenize import (
     tokenize_transformer,
 )
 from multimodal_plankton_recognition_torch.models.build import (
-    build_multi_model, step_buckets,
+    build_for_kind, build_multi_model, step_buckets,
 )
 from multimodal_plankton_recognition_torch.models.flagships import (
     flagship_card, init_weights_, synthetic_batch_b0,
@@ -529,10 +529,11 @@ def test_encode_cli_writes_the_jax_schema(bridged_k1, synthetic_dataset,
     np.testing.assert_allclose(nested["train"]["profile"],
                                want["vit"][2]["train"]["profile"],
                                rtol=ENCODE_TOL, atol=ENCODE_TOL)
+    # --logits takes a classifier checkpoint, as JAX's predict_classifier
     monkeypatch.setattr(sys, "argv", [
         "encode_torch", "-k", str(bridged["port"]), "-d", "unused.csv",
-        "-o", str(tmp_path / "x.pkl"), "--logits"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+        "-o", str(tmp_path / "x.pkl"), "--logits", "--device", "cpu"])
+    with pytest.raises(ValueError, match="image/profile checkpoint"):
         _script("encode_torch").main()
 
 
@@ -541,18 +542,34 @@ def test_encode_cli_writes_the_jax_schema(bridged_k1, synthetic_dataset,
 
 def test_loader_refuses_orbax_and_classifier_checkpoints(bridged_k1,
                                                          tmp_path):
+    """The loader refuses an orbax directory; since the classifiers were
+    ported, an ``image`` / ``profile`` directory loads as its classifier
+    over the stored classes (and an empty one has no checkpoint), and
+    their eval pipelines are the raw transforms."""
     bridged = bridged_k1
     with pytest.raises(ValueError, match="checkpoint_from_jax.py"):
         load_from_checkpoint(bridged["jax"], device="cpu")
     card = config.ModelCard.from_dict(_vit_card())
+    names = ["a", "b", "c"]
     for kind in ("image", "profile"):
-        CheckpointManager(tmp_path / kind, metadata={
-            "card": card.to_dict(), "kind": kind, "class_names": []})
-        with pytest.raises(NotImplementedError,
-                           match=r"not ported yet \(queue 1 module 5\)"):
+        meta = {"card": card.to_dict(), "kind": kind, "class_names": names}
+        CheckpointManager(tmp_path / kind, metadata=meta)
+        with pytest.raises(FileNotFoundError, match="No checkpoints"):
             load_from_checkpoint(tmp_path / kind, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 module 5"):
-            eval_pipeline(card, kind)
+        model = build_for_kind(card, kind, names)
+        state = create_train_state(
+            model, {k: v.float() for k, v in model.state_dict().items()},
+            make_optimizer(card.optim_args))
+        CheckpointManager(tmp_path / f"{kind}_saved", metadata=meta).save(
+            0, state, {"valid_loss": 1.0})
+        loaded, payload, got = load_from_checkpoint(tmp_path / f"{kind}_saved",
+                                                    device="cpu")
+        assert type(loaded) is type(model) and got["kind"] == kind
+        assert loaded.fc.out_features == len(names)
+        for name, value in loaded.state_dict().items():
+            assert torch.equal(value, model.state_dict()[name]), name
+        image_tf = eval_pipeline(card, kind)[0]
+        assert type(image_tf).__name__ == "ImageTransforms"
 
 
 def test_serving_entry_points_default_to_the_card(bridged_k1,

@@ -75,7 +75,10 @@ each at the FFN or MBConv tolerances and repeated bit for bit; kernels
 a multiple of 8 before any launch. The train driver
 (``train.drivers.train_multi``) trains a small bf16 SigLIP card from
 packed pairs on the card for 2 epochs through pinned batches, with the
-SigLIP kernels' launches counted.
+SigLIP kernels' launches counted. A classifier's train step (a ViT, or a
+profile transformer over 257 tokens with padding) runs its attention
+through kernels 1 and 2 and its eval step through kernel 1; the kNN
+index on the card predicts what the CPU's does.
 """
 
 import pytest
@@ -1723,3 +1726,92 @@ def test_driver_trains_a_packed_card_on_the_card(cuda, tmp_path):
                                             h["valid_loss"]])).all()
                for h in out["history"])
     assert out["best_step"] in (0, 1)
+
+
+@pytest.mark.parametrize("kind", ["image", "profile"])
+def test_classifier_step_launches_the_attention_kernels(cuda, kind):
+    """A bf16 classifier's train step on the card (a 2-block ViT at 32 px,
+    or a 2-layer profile transformer over 257 tokens with padding) runs
+    every attention layer through kernels 1 and 2, its eval step through
+    kernel 1; loss, gradients and predictions finite."""
+    import numpy as np
+
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.data.tokenize import (
+        tokenize_transformer,
+    )
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind,
+    )
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_,
+    )
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_classifier_steps, make_optimizer,
+    )
+
+    d = {"bs": 8, "target_size": 32, "max_len": 256,
+         "trainer_args": {"precision": "16-mixed"}}
+    rs = np.random.RandomState(0)
+    label = torch.arange(8, device=cuda) % 5
+    if kind == "image":
+        d["image_encoder_args"] = {
+            "name": "vit_tiny_patch16_224", "in_chans": 1, "dropout": 0.1,
+            "fused_attention": True,
+            "backbone_kwargs": {"img_size": 32, "depth": 2, "embed_dim": 48,
+                                "num_heads": 3}}
+        batch = {"image": torch.randn(8, 32, 32, 1, device=cuda),
+                 "image_shape": torch.randint(50, 400, (8, 2), device=cuda)}
+    else:
+        d["profile_encoder_args"] = {
+            "kind": "transformer", "dim_in": 6, "dim_hidden": 64,
+            "num_layers": 2, "num_head": 4, "target_size": 256,
+            "dim_feedforward": 96, "fused_attention": True, "dropout": 0.1}
+        tokens = tokenize_transformer(
+            [rs.randn(n, 6).astype(np.float32)
+             for n in rs.randint(100, 257, 8)], 256, pad_to=257)
+        batch = {k: torch.as_tensor(v).to(cuda) for k, v in tokens.items()}
+        batch["profile_len"] = torch.randint(20, 2000, (8, 1), device=cuda)
+    card = ModelCard.from_dict(d)
+    names = [f"c{i}" for i in range(5)]
+    model = build_for_kind(card, kind, names).to(cuda)
+    init = init_weights_(build_for_kind(card, kind, names,
+                                        dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    tx = make_optimizer(card.optim_args)
+    state = create_train_state(model, init, tx)
+    train_step, eval_step = make_classifier_steps(model, tx)
+    before = (mha_qkv.launches, mha_qkv_bwd.launches)
+    state, loss = train_step(state, {**batch, "label": label}, 0)
+    assert (mha_qkv.launches - before[0], mha_qkv_bwd.launches - before[1]) \
+        == (2, 2)
+    out = eval_step(state, {**batch, "label": label})
+    torch.cuda.synchronize()
+    assert mha_qkv.launches - before[0] == 4
+    assert torch.isfinite(loss) and torch.isfinite(out["loss"])
+    assert out["pred"].shape == (8,) and out["pred"].max() < 5
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_knn_on_the_card_predicts_as_the_cpu(cuda):
+    """``ANNClassifier`` with its index on the card gives the CPU index's
+    predictions on continuous random embeddings (TF32 off)."""
+    import numpy as np
+
+    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rs = np.random.RandomState(0)
+        gallery = rs.randn(600, 64).astype(np.float32)
+        labels = rs.randint(0, 12, 600)
+        queries = [rs.randn(300, 64).astype(np.float32) for _ in range(2)]
+        got = ANNClassifier(gallery, labels, cuda).predict_many(
+            *queries, ks=(1, 5, 15))
+        want = ANNClassifier(gallery, labels, "cpu").predict_many(
+            *queries, ks=(1, 5, 15))
+        for k in (1, 5, 15):
+            np.testing.assert_array_equal(got[k], want[k])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -10,16 +10,24 @@ or yaml, which the card's machine need not have. ``config.load_card``
 imports yaml, and the port's own host layers (``data.dataset``,
 ``data.transforms``, ``data.profile_io``, behind ``encode_csv``, and
 ``data.packed.pack_split``, ``data.synthetic``) pandas and PIL, only
-when called. The port's CLIs (``scripts/encode_torch.py``,
-``scripts/train_multi_torch.py``) import no JAX either; the bridge
-from orbax (``scripts/checkpoint_from_jax.py``) does, and so lives
-outside the package.
+when called; ``train.metrics`` and ``retrieval.results`` matplotlib and
+PIL, only when a figure is drawn. The port's CLIs
+(``scripts/encode_torch.py``, ``scripts/train_{multi,image,profile}_torch.py``,
+``scripts/benchmark_{raw,folds,cross,cross_folds}_torch.py``,
+``scripts/results_torch.py``) import no JAX either, and load none of
+the forbidden modules at import; the bridge from orbax
+(``scripts/checkpoint_from_jax.py``) does import JAX, and so lives
+outside the package. ``chip_smoke.py``'s ``classify`` and ``retrieval``
+phases import only modules that load none of them.
 """
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "multimodal_plankton_recognition_torch"
@@ -52,7 +60,9 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.ops.ffn",
     "multimodal_plankton_recognition_torch.ops.knn",
     "multimodal_plankton_recognition_torch.ops.losses",
+    "multimodal_plankton_recognition_torch.retrieval.benchmark",
     "multimodal_plankton_recognition_torch.retrieval.encode",
+    "multimodal_plankton_recognition_torch.retrieval.results",
     "multimodal_plankton_recognition_torch.train.checkpoint",
     "multimodal_plankton_recognition_torch.utils",
     "multimodal_plankton_recognition_torch.utils.labels",
@@ -60,6 +70,7 @@ CARD_PATH_MODULES = [
 TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.config",
     "multimodal_plankton_recognition_torch.models.build",
+    "multimodal_plankton_recognition_torch.models.classifier",
     "multimodal_plankton_recognition_torch.models.dropout",
     "multimodal_plankton_recognition_torch.ops.contrastive",
     "multimodal_plankton_recognition_torch.ops.mbconv",
@@ -70,10 +81,12 @@ TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.train.early_stopping",
     "multimodal_plankton_recognition_torch.train.logging",
     "multimodal_plankton_recognition_torch.train.loop",
+    "multimodal_plankton_recognition_torch.train.metrics",
     "multimodal_plankton_recognition_torch.train.optim",
     "multimodal_plankton_recognition_torch.train.state",
 ]
-FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml")
+FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml", "matplotlib")
+SMOKE_PHASES = ("phase_classify", "phase_retrieval")
 
 
 def _forbidden_after_importing(modules):
@@ -143,6 +156,91 @@ def test_train_cli_imports_no_jax():
     """``scripts/train_multi_torch.py`` the same: a JSON card trains with
     no yaml."""
     assert _cli_loads("train_multi_torch") == "[]"
+
+
+NEW_CLIS = ("train_image_torch", "train_profile_torch",
+            "benchmark_raw_torch", "benchmark_folds_torch",
+            "benchmark_cross_torch", "benchmark_cross_folds_torch",
+            "results_torch")
+
+
+@pytest.fixture(scope="module")
+def new_cli_loads():
+    """{CLI: the forbidden modules that running it (``--help``) loaded},
+    the CLIs of ``NEW_CLIS`` run one after another in one process (one
+    torch import for all of them)."""
+    scripts = {name: str(REPO / "scripts" / f"{name}.py")
+               for name in NEW_CLIS}
+    code = (
+        "import json, runpy, sys\n"
+        "out = {}\n"
+        f"for name, script in {scripts!r}.items():\n"
+        f"    before = {{m for m in {FORBIDDEN!r} if m in sys.modules}}\n"
+        "    sys.argv = [script, '--help']\n"
+        "    try:\n"
+        "        runpy.run_path(script, run_name='__main__')\n"
+        "    except SystemExit:\n"
+        "        pass\n"
+        f"    out[name] = sorted({{m for m in {FORBIDDEN!r} "
+        "if m in sys.modules} - before)\n"
+        "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", NEW_CLIS)
+def test_classifier_and_benchmark_clis_import_no_jax(name, new_cli_loads):
+    """The supervised train CLIs, the benchmark CLIs and the results CLI:
+    no JAX module named, none of the forbidden modules loaded."""
+    script = REPO / "scripts" / f"{name}.py"
+    assert not set(_imported_roots(script)) & {
+        "jax", "jaxlib", "flax", "optax", "orbax",
+        "multimodal_plankton_recognition_tpu"}
+    assert new_cli_loads[name] == []
+
+
+def _smoke_functions():
+    """chip_smoke.py's top-level functions by name."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    return {node.name: node for node in tree.body
+            if isinstance(node, ast.FunctionDef)}
+
+
+def _reached(functions, roots):
+    """The names of ``roots`` and of every chip_smoke.py function they
+    call, transitively."""
+    seen, todo = set(), list(roots)
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in functions:
+            continue
+        seen.add(name)
+        todo.extend(n.id for n in ast.walk(functions[name])
+                    if isinstance(n, ast.Name) and n.id in functions)
+    return seen
+
+
+def test_smoke_classify_and_retrieval_phases_reach_nothing_forbidden():
+    """Every module that the new phases of chip_smoke.py (and the
+    functions of chip_smoke.py they call) import is one of the port's,
+    and importing them all loads none of the forbidden modules."""
+    functions = _smoke_functions()
+    reached = _reached(functions, SMOKE_PHASES)
+    assert set(SMOKE_PHASES) <= reached
+    modules = set()
+    for name in reached:
+        for node in ast.walk(functions[name]):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                modules.add(node.module)
+            elif isinstance(node, ast.Import):
+                modules.update(a.name for a in node.names)
+    ours = {m for m in modules if m.startswith(PACKAGE.name)}
+    assert {f"{PACKAGE.name}.retrieval.benchmark",
+            f"{PACKAGE.name}.models.build"} <= ours
+    assert not {m.split(".")[0] for m in modules} & set(FORBIDDEN)
+    assert _forbidden_after_importing(sorted(ours)) == "[]"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
