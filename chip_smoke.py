@@ -272,6 +272,28 @@ fatal on failure:
    JAX package's statistical bounds (named gradients: correlation > 0.95,
    relative L2 each < 0.3), beside the plain route on nudged images (the
    step's own sensitivity); train pairs/s on the three routes;
+8b. backbones: the module-6 supervised cards at their shipped widths
+   (``BACKBONE_CARDS``: model_cards/image/{resnet18,resnet50,densenet121,
+   densenet169}.yaml at 224 x 224 x 1 and model_cards/profile/
+   lstm_{1,2}.yaml over 256 ragged steps, bs 64, bf16) through the path
+   of 5e.: 0 launches of any kernel of the port; a BatchNorm card's
+   accuracy with batch statistics above 5 x chance (its ``valid_acc``
+   printed beside: Flax's momentum 0.99 leaves 0.99^32 of the running
+   statistics' init after 32 steps), an LSTM card's ``valid_acc``;
+   running statistics moved and f32; restored logits bit for bit; the
+   card's eval logits of 8 rows within ``CPU_LOGIT_TOL`` (relative L2)
+   of the CPU port's on the same bf16 weights; samples/s in turns over
+   ``RATE_BATCHES`` batches; for an LSTM card one forward and backward
+   of its recurrence beside cuDNN's ``nn.LSTM`` at the card's shape (a
+   library reference: the LSTM has no TPU kernel);
+8c. remat: ``B0_CARD`` under ``remat`` false, true and "conv_saves" on
+   the fused route and false and "conv_saves" on the cuDNN route, one
+   dropout-0 micro-step each from the same weights (cuDNN
+   deterministic): gradients bit for bit against the route's no-remat
+   step, else within ``REMAT_REL_L2`` (printed which), running
+   statistics bit for bit (one update), launches exact (kernels 13 and
+   14 24 a micro-step under remat, 15 and 16 12); then each route's peak
+   memory of a micro-step and its micro-step ms in turns;
 9. ffn encode: ``flagship_vit(fused_ffn=True)`` on the weights of 4.
    encodes the gallery (14 FFN-forward and 14 attention launches a batch),
    beside the unfused flagship: embeddings within 5e-2 of it, self-gallery
@@ -626,6 +648,38 @@ PROFILE_CARD = {
     "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
                      "max_epochs": 300},
 }
+#: the module-6 supervised cards of the ``backbones`` phase, as dict
+#: literals: model_cards/image/{resnet18,resnet50,densenet121,
+#: densenet169}.yaml and model_cards/profile/lstm_{1,2}.yaml;
+#: tests/test_torch_backbones.py holds them equal to the files
+_SWEEP_OPTIM = {"lr": 5.0e-3, "momentum": 0.9, "weight_decay": 1.0e-3,
+                "nesterov": True}
+BACKBONE_CARDS = {
+    **{name: ("image", {
+        "precision": "medium", "bs": 64, "num_workers": 8, "patience": 20,
+        "save_top_k": 1, "target_size": 224,
+        "image_encoder_args": {
+            "name": name, "pretrained": False, "dropout": 0.1,
+            "metadata": True, "in_chans": 1},
+        "optim_args": dict(_SWEEP_OPTIM),
+        "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                         "max_epochs": 300, "accumulate_grad_batches": 1,
+                         "check_val_every_n_epoch": 1}})
+       for name in ("resnet18", "resnet50", "densenet121", "densenet169")},
+    **{f"lstm_{layers}": ("profile", {
+        "precision": "medium", "max_len": 256, "bs": 64, "num_workers": 8,
+        "patience": 20, "save_top_k": 1,
+        "profile_encoder_args": {
+            "kind": "lstm", "dim_in": 6, "dim_hidden": 128,
+            "num_layers": layers, "dropout": 0.1, "metadata": True},
+        "optim_args": dict(_SWEEP_OPTIM),
+        "trainer_args": {"precision": "16-mixed", "min_epochs": 40,
+                         "max_epochs": 300}})
+       for layers in (1, 2)},
+}
+RATE_BATCHES = 4  # batches a timed turn of the backbones phase
+REMAT_TIMED_STEPS = 3  # micro-steps a timed turn of the remat phase
+REMAT_REL_L2 = 1e-3  # gradients against no remat, where not bit for bit
 # the "sea" dataset's 38 classes (SURVEY.md); the classifiers' resident
 # synthetic train and validation samples; their epochs
 CLASSES = 38
@@ -633,6 +687,8 @@ CLASSIFY_TRAIN = 1024
 CLASSIFY_VALID = 512
 CLASSIFY_EPOCHS = 2
 CHANCE_FACTOR = 5  # accuracies must pass this many times chance, 1/CLASSES
+CPU_ROWS = 8  # validation rows of the card-vs-CPU logit check
+CPU_LOGIT_TOL = 1e-2  # relative L2, card bf16 logits against the CPU's
 PROTOTYPE_SEED = 0  # the classes' synthetic image and profile prototypes
 # the retrieval phase's gallery: the "sea" dataset's 9,353 pairs over its
 # 38 classes, long-tailed (class c holds 9,353 (1/c) / H_38, floored, the
@@ -2696,13 +2752,17 @@ def _image_prototypes(classes, size, gen):
     return tile.repeat(1, size // 16, size // 16)[..., None]
 
 
-def _profile_tokens(labels, classes, target, pad_to, proto, rs):
+def _profile_tokens(labels, classes, target, pad_to, proto, rs,
+                    encoder="transformer"):
     """Tokenized profiles of ragged lengths (``target`` / 2 to ``target``,
-    so the key-padding mask is live), each its class's level and waveform
-    over the 6 channels (drawn from ``proto``) plus noise (from ``rs``)."""
+    so the key-padding mask is live, or an LSTM's ``last_idx`` varies),
+    each its class's level and waveform over the 6 channels (drawn from
+    ``proto``) plus noise (from ``rs``), tokenized for the ``encoder``
+    kind ("transformer": ``pad_to`` tokens with the CLS row; "lstm":
+    ``pad_to`` steps and ``last_idx``)."""
     import numpy as np
     from multimodal_plankton_recognition_torch.data.tokenize import (
-        tokenize_transformer)
+        tokenize_lstm, tokenize_transformer)
 
     level = proto.uniform(-1.0, 1.0, (classes, 6))
     freq = proto.uniform(1.0, 6.0, (classes, 1))
@@ -2714,15 +2774,19 @@ def _profile_tokens(labels, classes, target, pad_to, proto, rs):
         wave = np.sin(2 * np.pi * freq[c] * t + phase[c])
         profiles.append((level[c] + 0.5 * wave + 0.3 * rs.randn(n, 6))
                         .astype(np.float32))
+    if encoder == "lstm":
+        return tokenize_lstm(profiles, pad_to=pad_to)
     return tokenize_transformer(profiles, target, pad_to=pad_to)
 
 
-def _class_inputs(kind, labels, device, seed, target=224, size=224):
+def _class_inputs(kind, labels, device, seed, target=224, size=224,
+                  encoder="transformer"):
     """Class-structured inputs of ``labels`` on the card: ``size`` square
     images (a class's prototype plus N(0, 0.5) noise, and random
     ``image_shape``) for
     ``kind`` "image" or "pair", tokenized profiles (at ``target``
-    steps, ``target + 1`` tokens, and random ``profile_len``) for
+    steps, ``target + 1`` tokens, and random ``profile_len``; for an
+    ``encoder`` "lstm", ``target`` steps and ``last_idx``) for
     "profile" or "pair". The prototypes are the same for every ``seed``,
     which draws the noise."""
     import numpy as np
@@ -2740,8 +2804,10 @@ def _class_inputs(kind, labels, device, seed, target=224, size=224):
             (n, size, size, 1), generator=gen, device=device)
         out["image_shape"] = rs.randint(50, 400, (n, 2)).astype(np.int32)
     if kind in ("profile", "pair"):
-        out.update(_profile_tokens(labels, CLASSES, target, target + 1,
-                                   np.random.RandomState(PROTOTYPE_SEED), rs))
+        out.update(_profile_tokens(
+            labels, CLASSES, target,
+            target if encoder == "lstm" else target + 1,
+            np.random.RandomState(PROTOTYPE_SEED), rs, encoder))
         out["profile_len"] = rs.randint(20, 2000, (n, 1)).astype(np.int32)
     return {k: torch.as_tensor(v).to(device) for k, v in out.items()}
 
@@ -2753,20 +2819,32 @@ def _balanced_labels(n, seed):
     return np.random.RandomState(seed).permutation(np.arange(n) % CLASSES)
 
 
-def _classify_card(kind, d, device):
+def _classify_card(kind, d, device, label=None, rate_batches=None):
     """One supervised card's path: ``Fitter`` for ``CLASSIFY_EPOCHS``
     epochs on resident class-structured batches through
     ``make_classifier_steps``, checkpointed on ``valid_acc``; the launches
-    of every step and eval step; a dropout-0 step against the attention
-    kernels' plain versions; the checkpoint restored on the card and
-    ``predict_arrays`` against the in-memory model bit for bit; train and
-    predict samples/s in turns. Returns the fit's launches."""
+    of every step and eval step (an attention encoder's kernels 1-2, none
+    for the others); for an attention encoder a dropout-0 step against the
+    attention kernels' plain versions, for the others the card's logits
+    against the CPU port's on the same weights and inputs; the checkpoint
+    restored on the card and ``predict_arrays`` against the in-memory
+    model bit for bit; BatchNorm statistics moved and f32; train and
+    predict samples/s in turns (over ``rate_batches`` batches a turn,
+    default all). A model with BatchNorm normalizes its eval steps with
+    running statistics that still hold 0.99^steps of their init after so
+    short a fit (Flax's momentum), so its accuracy is checked with the
+    batch statistics (BatchNorm in train mode, nothing updated, dropout
+    off) and its ``valid_acc`` printed beside; a model without, by its
+    ``valid_acc``. ``label`` names the card in the output (default:
+    ``kind``). Returns the fit's launches."""
     import copy
     import tempfile
 
     import numpy as np
     import torch
     from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.batchnorm import (
+        MOMENTUM, BatchNorm)
     from multimodal_plankton_recognition_torch.models.build import (
         build_for_kind)
     from multimodal_plankton_recognition_torch.models.initializers import (
@@ -2778,13 +2856,18 @@ def _classify_card(kind, d, device):
     from multimodal_plankton_recognition_torch.train.checkpoint import (
         CheckpointManager, load_from_checkpoint)
 
-    what = f"classify {kind}"
+    what = f"classify {label or kind}"
     card = ModelCard.from_dict(copy.deepcopy(d))
     bs = card.bs
     names = [f"class_{c:02d}" for c in range(CLASSES)]
-    layers = (card.image_encoder_args or {}).get("backbone_kwargs", {}).get(
-        "depth", 12) if kind == "image" else \
-        card.profile_encoder_args["num_layers"]
+    encoder = card.image_encoder_args["name"] if kind == "image" else \
+        card.profile_encoder_args.get("kind", "lstm")
+    attention = encoder.startswith("vit") or encoder == "transformer"
+    layers = 0
+    if attention:
+        layers = (card.image_encoder_args or {}).get(
+            "backbone_kwargs", {}).get("depth", 12) if kind == "image" else \
+            card.profile_encoder_args["num_layers"]
     per_step = _per_step(mha_qkv_fwd=layers, mha_qkv_bwd=layers)
     per_eval = _per_step(mha_qkv_fwd=layers)
     target = card.max_len if kind == "profile" else 224
@@ -2792,7 +2875,7 @@ def _classify_card(kind, d, device):
     def batches(n, seed):
         labels = _balanced_labels(n, seed)
         arrays = _class_inputs(kind, labels, device, seed, target,
-                               card.target_size)
+                               card.target_size, encoder)
         arrays["label"] = torch.as_tensor(labels, device=device)
         return arrays, [{k: v[i:i + bs] for k, v in arrays.items()}
                         for i in range(0, n, bs)]
@@ -2801,9 +2884,10 @@ def _classify_card(kind, d, device):
     valid_arrays, valid = batches(CLASSIFY_VALID, 12)
     fixed = {k: v for k, v in valid_arrays.items() if k != "label"}
     tokens = fixed.get("profile")
-    if tokens is not None and tokens.shape[1] != SHAPES["cls profile"][1]:
+    want_tokens = target if encoder == "lstm" else SHAPES["cls profile"][1]
+    if tokens is not None and tokens.shape[1] != want_tokens:
         fail(f"{what}: {tokens.shape[1]} profile tokens, not "
-             f"{SHAPES['cls profile'][1]}")
+             f"{want_tokens}")
 
     model = build_for_kind(card, kind, names).to(device)
     init = init_weights_(build_for_kind(card, kind, names,
@@ -2882,16 +2966,40 @@ def _classify_card(kind, d, device):
             fail(f"{what}: train loss did not fall: first {losses[0]}, "
                  f"last five {losses[-5:]}")
         accs = [h["valid_acc"] for h in history]
-        if not max(accs) > CHANCE_FACTOR / CLASSES:
-            fail(f"{what}: valid_acc {accs} not above {CHANCE_FACTOR} x "
-                 f"chance ({CHANCE_FACTOR / CLASSES})")
+        has_bn = any(isinstance(m, BatchNorm) for m in model.modules())
+        if has_bn:
+            batch_acc = _batch_stats_accuracy(state.load_into(model),
+                                              valid_arrays, bs)
+            steps = CLASSIFY_EPOCHS * len(train)
+            print(f"{what}: accuracy with batch statistics {batch_acc!r}; "
+                  f"valid_acc (running statistics, {MOMENTUM}^{steps} = "
+                  f"{MOMENTUM ** steps!r} of their init left) {accs!r}",
+                  flush=True)
+        checked = ("batch-statistics accuracy", batch_acc) if has_bn \
+            else ("valid_acc", max(accs))
+        if not checked[1] > CHANCE_FACTOR / CLASSES:
+            fail(f"{what}: {checked[0]} {checked[1]} (valid_acc {accs}) "
+                 f"not above {CHANCE_FACTOR} x chance "
+                 f"({CHANCE_FACTOR / CLASSES})")
         unmoved = [n for n, m in state.params.items()
                    if torch.equal(m, init[n].to(device))]
         if unmoved or any(m.dtype != torch.float32
                           for m in state.params.values()):
             fail(f"{what}: masters not all f32 or not all moved: {unmoved}")
-        if any(p.dtype != torch.bfloat16 for p in model.parameters()):
-            fail(f"{what}: the compute module is not bf16")
+        norms = {f"{n}.{p}" for n, m in model.named_modules()
+                 if isinstance(m, BatchNorm) for p in ("weight", "bias")}
+        if any(p.dtype != (torch.float32 if n in norms else torch.bfloat16)
+               for n, p in model.named_parameters()):
+            fail(f"{what}: the compute module is not bf16 (BatchNorm f32)")
+        stats = state.batch_stats
+        still = [n for n, b in stats.items()
+                 if torch.equal(b, init[n].to(device))]
+        if still or any(b.dtype != torch.float32 for b in stats.values()):
+            fail(f"{what}: running statistics not f32 or not moved: "
+                 f"{still}")
+        if stats:
+            print(f"{what}: {len(stats)} running statistics moved, all f32",
+                  flush=True)
 
         # top-1 by valid_acc, the later epoch on a tie
         best = max(range(len(history)), key=lambda e: (accs[e], e))
@@ -2922,8 +3030,74 @@ def _classify_card(kind, d, device):
         print(f"{what}: restored epoch {best} on the card: logits bit for "
               f"bit, accuracy {restored_acc!r}", flush=True)
 
-    # one step from the same weights at dropout 0 on the kernels and on
-    # their plain versions
+    if attention:
+        _classify_plain_step(what, kind, d, device, layers, names, init,
+                             train[0])
+    else:
+        _classify_cpu_logits(what, restored, fixed)
+    if encoder == "lstm":
+        _lstm_library_ms(what, card, train[0], device)
+
+    # train and predict samples/s in turns: train, predict, predict, train
+    rates = {"train": [], "predict": []}
+    timed = train[:rate_batches]
+    rows = {k: v[:len(timed) * bs] for k, v in fixed.items()}
+    for turn in ("train", "predict", "predict", "train"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "train":
+            for batch in timed:
+                state, _ = train_step(state, batch, card.seed)
+            n = len(timed) * bs
+        else:
+            predict_arrays(state.load_into(model), rows, bs, device)
+            n = len(next(iter(rows.values())))
+        torch.cuda.synchronize()
+        rates[turn].append(n / (time.perf_counter() - t0))
+    print(f"summary: {what} on {_smi()}: valid_acc by epoch "
+          f"{accs!r} (chance {1 / CLASSES!r}); save ms {save_ms!r}, load "
+          f"ms {load_ms!r}; samples/s in turns (train, predict, predict, "
+          f"train) at bs {bs} over {len(timed)} batches: {rates!r}; host "
+          f"threads alive "
+          f"{threading.active_count()}", flush=True)
+    return launches
+
+
+def _batch_stats_accuracy(model, arrays, bs):
+    """Accuracy on ``arrays`` (with ``label``) with every BatchNorm in
+    train mode (normalizing with the batch's statistics, updating none:
+    ``recomputing``) and the rest in eval mode (no dropout)."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.batchnorm import (
+        BatchNorm, recomputing)
+
+    model.eval()
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.train()
+    hits = 0
+    with torch.no_grad(), recomputing():
+        for i in range(0, len(arrays["label"]), bs):
+            batch = {k: v[i:i + bs] for k, v in arrays.items()}
+            label = batch.pop("label")
+            hits += int((model(**batch).argmax(1) == label).sum())
+    model.eval()
+    return hits / len(arrays["label"])
+
+
+def _classify_plain_step(what, kind, d, device, layers, names, init, batch):
+    """One classifier step from the same weights at dropout 0 on the
+    attention kernels and on their plain versions: losses within
+    ``STEP_LOSS_TOL``, named gradients within ``STEP_GRAD_TOL``."""
+    import copy
+
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_classifier_steps, make_optimizer)
+
     no_drop = copy.deepcopy(d)
     no_drop[f"{kind}_encoder_args"]["dropout"] = 0.0
     no_card = ModelCard.from_dict(no_drop)
@@ -2943,7 +3117,7 @@ def _classify_card(kind, d, device):
         step, _ = make_classifier_steps(m, no_tx)
         with (_plain_attention() if path == "plain"
               else contextlib.nullcontext()):
-            _, loss = step(st, train[0], 0)
+            _, loss = step(st, batch, 0)
         step_losses[path] = float(loss)
         grads[path] = {n: m.get_parameter(n).grad.float() for n in named}
         del m, st
@@ -2956,26 +3130,70 @@ def _classify_card(kind, d, device):
              f"{loss_err}")
     _grad_diffs(what, grads, named, STEP_GRAD_TOL)
 
-    # train and predict samples/s in turns: train, predict, predict, train
-    rates = {"train": [], "predict": []}
-    for turn in ("train", "predict", "predict", "train"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if turn == "train":
-            for batch in train:
-                state, _ = train_step(state, batch, card.seed)
-            n = CLASSIFY_TRAIN
-        else:
-            predict_arrays(state.load_into(model), fixed, bs, device)
-            n = CLASSIFY_VALID
-        torch.cuda.synchronize()
-        rates[turn].append(n / (time.perf_counter() - t0))
-    print(f"summary: classify {kind} on {_smi()}: valid_acc by epoch "
-          f"{accs!r} (chance {1 / CLASSES!r}); save ms {save_ms!r}, load "
-          f"ms {load_ms!r}; samples/s in turns (train, predict, predict, "
-          f"train) at bs {bs}: {rates!r}; host threads alive "
-          f"{threading.active_count()}", flush=True)
-    return launches
+
+def _classify_cpu_logits(what, model, fixed):
+    """The card's eval logits of the first ``CPU_ROWS`` validation rows
+    against the same bf16 module's on the CPU: relative L2 within
+    ``CPU_LOGIT_TOL`` (cuDNN's and the CPU's bf16 convolutions and GEMMs
+    round in different places), the worst |difference| printed beside."""
+    import copy
+
+    import torch
+
+    rows = {k: v[:CPU_ROWS] for k, v in fixed.items()}
+    with torch.no_grad():
+        got = model.eval()(**rows).float().cpu()
+        cpu = copy.deepcopy(model).cpu().eval()
+        want = cpu(**{k: v.cpu() for k, v in rows.items()}).float()
+    rel = ((got - want).norm() / want.norm()).item()
+    worst = (got - want).abs().max().item()
+    print(f"{what}: card logits of {CPU_ROWS} rows against the CPU port's "
+          f"(same bf16 weights and inputs): relative L2 {rel!r} (tol "
+          f"{CPU_LOGIT_TOL}), max |diff| {worst!r} of max |logit| "
+          f"{want.abs().max().item()!r}", flush=True)
+    if not (torch.isfinite(got).all() and rel <= CPU_LOGIT_TOL):
+        fail(f"{what}: card and CPU logits disagree: relative L2 {rel}")
+
+
+def _lstm_library_ms(what, card, batch, device):
+    """The library reference of an LSTM card: one cuDNN ``nn.LSTM``
+    forward and backward at the card's shape (bs, steps, width, layers;
+    bf16, its inputs the expanded profile's width) beside the port's
+    recurrence (the card's encoder, forward and backward), CUDA-event
+    median ms of each. Not a kernel row: the LSTM has no TPU kernel."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.dropout import (
+        dropout_rng)
+    from multimodal_plankton_recognition_torch.models.profile.lstm import (
+        ProfileLSTM)
+
+    args = {k: v for k, v in card.profile_encoder_args.items()
+            if k != "kind"}
+    hidden, layers = args["dim_hidden"], args["num_layers"]
+    port = ProfileLSTM(**{**args, "dropout": 0.0}).to(device,
+                                                      torch.bfloat16)
+    lib = torch.nn.LSTM(hidden, hidden, layers, batch_first=True).to(
+        device, torch.bfloat16)
+    lib.flatten_parameters()  # one weight buffer, as cuDNN takes it
+    x = torch.randn(batch["profile"].shape[:2] + (hidden,), device=device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    inputs = {k: batch[k] for k in ("profile", "last_idx", "profile_len")}
+
+    def port_step():
+        port.train()
+        with dropout_rng(torch.Generator().manual_seed(0)):
+            port(**inputs).sum().backward()
+
+    def lib_step():
+        out, _ = lib(x)
+        out.sum().backward()
+
+    port_ms = cuda_ms(port_step, reps=3, warmup=1, calls=1)
+    lib_ms = cuda_ms(lib_step, reps=3, warmup=1, calls=1)
+    print(f"{what}: forward + backward at B={x.shape[0]} T={x.shape[1]} "
+          f"H={hidden} layers={layers} bf16: port recurrence "
+          f"{port_ms!r} ms, cuDNN nn.LSTM (library reference) {lib_ms!r} "
+          f"ms on {_smi()}", flush=True)
 
 
 def phase_classify(device):
@@ -2987,6 +3205,27 @@ def phase_classify(device):
     return {"classify_image": _classify_card("image", IMAGE_CARD, device),
             "classify_profile": _classify_card("profile", PROFILE_CARD,
                                                device)}
+
+
+def phase_backbones(device):
+    """The module-6 supervised cards at their shipped widths
+    (``BACKBONE_CARDS``: ResNet-18/50 and DenseNet-121/169 at 224 x 224 x
+    1, the 1- and 2-layer LSTM over 256 steps, bs 64, bf16) through
+    ``_classify_card``: no kernel of the port on this path. Returns the
+    launches of the six fits together."""
+    t0 = time.perf_counter()
+    total = _per_step()
+    seconds = {}
+    for label, (kind, d) in BACKBONE_CARDS.items():
+        t_card = time.perf_counter()
+        got = _classify_card(kind, d, device, label, RATE_BATCHES)
+        seconds[label] = time.perf_counter() - t_card
+        if any(got.values()):
+            fail(f"backbones {label}: launched kernels of the port: {got}")
+        total = {n: total[n] + got[n] for n in total}
+    print(f"backbones: six cards in {time.perf_counter() - t0!r} s "
+          f"({seconds!r})", flush=True)
+    return total
 
 
 def _long_tailed_labels(n, classes, seed):
@@ -3641,6 +3880,137 @@ def phase_b0_card(device):
           f"mbconv_core {rates['plain']!r}, cuDNN route (fused_mbconv "
           f"false) {rates['cudnn']!r}", flush=True)
     return launches
+
+
+def phase_remat(device):
+    """``remat`` on the B0 CLIP card (``B0_CARD``, ``fused_mbconv: true``):
+    one dropout-0 micro-step from the same weights with ``remat`` false,
+    true and "conv_saves" on the fused route, and false and "conv_saves"
+    on the cuDNN route (``fused_mbconv: false``). Each remat step's
+    gradients against its route's no-remat step (bit for bit, else within
+    ``REMAT_REL_L2``; cuDNN deterministic for these steps), its running
+    statistics bit for bit (one update), and its exact launches (kernels
+    13 and 14 twice a fused block under remat). Then each route's peak
+    memory of a micro-step and its micro-step ms, in turns."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_, synthetic_batch_b0)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    t_phase = time.perf_counter()
+    routes = (("fused", False), ("fused", True), ("fused", "conv_saves"),
+              ("cudnn", False), ("cudnn", "conv_saves"))
+
+    def want(route, remat):
+        if route == "cudnn":
+            return _per_step(clip_fwd=1, clip_bwd=1)
+        fwd = MBCONV_BLOCKS * (2 if remat else 1)
+        return _per_step(clip_fwd=1, clip_bwd=1, mbconv_ka_fwd=fwd,
+                         mbconv_kb_fwd=fwd, mbconv_kb_bwd=MBCONV_BLOCKS,
+                         mbconv_ka_bwd=MBCONV_BLOCKS)
+
+    card, *_ = _card(B0_CARD)
+    init = init_weights_(build_multi_model(card, dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_b0(card.bs, seed=7, device=device)
+    built, runs = {}, {}
+    total = _per_step()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route, remat in routes:
+            over = {"image_encoder_args": {"dropout": 0.0, "remat": remat,
+                                           "fused_mbconv": route == "fused"},
+                    "profile_encoder_args": {"dropout": 0.0}}
+            _, m, tx, step, _ = _card(B0_CARD, **over)
+            m.to(device)
+            st = create_train_state(m, init, tx)
+            _reset_counts()
+            _, loss = step(st, batch, 0)
+            got = _counts()
+            total = {n: total[n] + got[n] for n in total}
+            if got != want(route, remat):
+                fail(f"remat {route} {remat!r} step: expected launches "
+                     f"{want(route, remat)}, got {got}")
+            runs[route, remat] = (
+                float(loss),
+                {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                 if p.grad is not None},
+                {n: b.detach().clone() for n, b in m.named_buffers()})
+            built[route, remat] = (m, step, create_train_state(m, init, tx))
+            del st
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for route, remat in routes:
+        if not remat:
+            continue
+        loss, grads, stats = runs[route, remat]
+        loss0, grads0, stats0 = runs[route, False]
+        exact = loss == loss0 and sorted(grads) == sorted(grads0) and all(
+            torch.equal(grads[n], grads0[n]) for n in grads0)
+        worst = max(((grads[n].float() - grads0[n].float()).norm()
+                     / grads0[n].float().norm().clamp_min(1e-30)).item()
+                    for n in grads0)
+        same_stats = all(torch.equal(stats[n], stats0[n]) for n in stats0)
+        print(f"remat {route} {remat!r}: loss {loss!r} (no remat "
+              f"{loss0!r}); {len(grads0)} gradients "
+              f"{'bit for bit' if exact else 'not bit for bit'}, worst "
+              f"relative L2 {worst!r} (tol {REMAT_REL_L2} where not bit "
+              f"for bit); {len(stats0)} running statistics "
+              f"{'bit for bit' if same_stats else 'DIFFERENT'} after one "
+              f"step", flush=True)
+        if not (exact or (sorted(grads) == sorted(grads0)
+                          and worst <= REMAT_REL_L2)):
+            fail(f"remat {route} {remat!r}: gradients differ from no "
+                 f"remat's: worst relative L2 {worst}")
+        if not same_stats:
+            fail(f"remat {route} {remat!r}: running statistics differ from "
+                 f"one update's")
+
+    peaks, ms = {}, {r: [] for r in routes}
+
+    def counted(r, steps, fn):
+        """``fn()``, which runs ``steps`` micro-steps of route ``r``, with
+        their launches checked and added to the phase's."""
+        nonlocal total
+        _reset_counts()
+        out = fn()
+        got = _counts()
+        total = {n: total[n] + got[n] for n in total}
+        if got != {n: c * steps for n, c in want(*r).items()}:
+            fail(f"remat {r}: {steps} micro-steps launched {got}")
+        return out
+
+    for r in routes:
+        m, step, st = built[r]
+        st, peaks[r] = counted(r, 1, lambda: _peak_step(st, step, batch))
+        built[r] = (m, step, st)
+    for r in routes + routes[::-1]:
+        m, step, st = built[r]
+
+        def timed():
+            nonlocal st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_TIMED_STEPS):
+                st, _ = step(st, batch, 0)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / REMAT_TIMED_STEPS
+
+        ms[r].append(counted(r, REMAT_TIMED_STEPS, timed))
+        built[r] = (m, step, st)
+    for r in routes:
+        print(f"summary: remat {r[0]} {r[1]!r} on {_smi()}: micro-step of "
+              f"{card.bs} ms in turns {ms[r]!r}; peak memory of a "
+              f"micro-step {peaks[r][0]!r} MiB ({peaks[r][1]!r} MiB above "
+              f"what was allocated before it)", flush=True)
+    del built
+    print(f"remat: phase in {time.perf_counter() - t_phase!r} s",
+          flush=True)
+    return total
 
 
 def _held_statistically(what, step_losses, grads, names, held, floor):
@@ -4752,14 +5122,14 @@ def _rank_table():
     clip = {p: loss_rows(BUCKETS, BATCH // BUCKETS)
             for p in ("train", "serve_checkpoint", "ffn_train", "unpacked",
                       "fuse_proj", "flax_attention")}
-    clip["b0_card"] = loss_rows(B0_CARD["buckets"],
-                                B0_CARD["bs"] // B0_CARD["buckets"])
+    clip["b0_card"] = clip["remat"] = loss_rows(
+        B0_CARD["buckets"], B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
     siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
               for p in ("card", "ffn_card", "drive")}
     siglip["siglip_global"] = loss_rows(1, CARD["bs"])
-    b0 = {"b0_card": [(f"{blk} ", "", n / MBCONV_BLOCKS)
-                      for blk, n in B0_BLOCKS.items()]}
+    b0 = {p: [(f"{blk} ", "", n / MBCONV_BLOCKS)
+              for blk, n in B0_BLOCKS.items()] for p in ("b0_card", "remat")}
     block = {"fuse_proj": pair(*flag, "p=0.0", "p=0.1")}
     return {"mha_qkv_fwd": fwd, "mha_qkv_bwd": bwd,
             "mha_fwd": {"unpacked": pair(*flag, "eval", "train p=0.1")},
@@ -4831,6 +5201,8 @@ def main(argv=None) -> None:
                 "siglip_global": phase_siglip_global(device),
                 "b0_encode": phase_b0_encode(device),
                 "b0_card": phase_b0_card(device),
+                "backbones": phase_backbones(device),
+                "remat": phase_remat(device),
                 "ffn_encode": phase_ffn_encode(device),
                 "ffn_train": phase_ffn_train(device),
                 "ffn_card": phase_ffn_card(device),

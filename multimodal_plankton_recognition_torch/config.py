@@ -159,9 +159,9 @@ def _normalize_image_encoder(args: Optional[Dict[str, Any]]) -> Optional[Dict[st
     args.setdefault("dropout", 0.1)
     args.setdefault("metadata", True)
     # NOTE: the reference hard-codes pretrained=True, silently ignoring the
-    # card's flag (reference: src/image_encoder.py:16-17). We honor the flag;
-    # the port does not load pretrained weights yet and raises for
-    # `pretrained: true` and `pretrained_path` (ROADMAP.md).
+    # card's flag (reference: src/image_encoder.py:16-17). We honor the flag:
+    # the train drivers merge `pretrained_path`'s npz into the masters
+    # (models/pretrained.py).
     args.setdefault("pretrained", False)
     return args
 

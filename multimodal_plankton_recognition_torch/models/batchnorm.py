@@ -17,12 +17,17 @@ The batch variance is E[x²] − E[x]², floored at 0 (``use_fast_variance``),
 from x in f32; the output, (x − mean) · (rsqrt(var + eps) · scale) + bias
 in f32, takes the input's dtype. Train mode normalizes with the batch
 statistics and updates the running ones (one update per forward); eval mode
-uses the running ones and leaves them alone.
+uses the running ones and leaves them alone. Inside ``recomputing()`` (the
+recompute of a checkpointed block, ``models/image/efficientnet.py``'s
+``remat``) a train-mode forward leaves them alone too, so they move once a
+step, as Flax's ``nn.remat`` moves ``batch_stats``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import Iterator, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +35,20 @@ from torch import nn
 MOMENTUM = 0.99  # flax.linen.BatchNorm's default
 BN_EPS = 1e-5    # flax.linen.BatchNorm's default
 GN_EPS = 1e-6    # flax.linen.GroupNorm's default
+
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "plankton_bn_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Hold every ``update_stats`` inside the block: the forward it wraps
+    is a recompute of one whose statistics already moved."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def batch_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,7 +103,10 @@ class BatchNorm(_F32Norm):
 
     @torch.no_grad()
     def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """ra = momentum·ra + (1 − momentum)·batch, for mean and var."""
+        """ra = momentum·ra + (1 − momentum)·batch, for mean and var;
+        nothing inside ``recomputing()``."""
+        if _RECOMPUTING.get():
+            return
         for ra, batch in ((self.running_mean, mean), (self.running_var, var)):
             ra.copy_(self.momentum * ra + (1 - self.momentum)
                      * batch.detach().float())

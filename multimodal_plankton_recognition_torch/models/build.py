@@ -3,19 +3,16 @@ JAX package): one place that maps a ``ModelCard`` to the port's modules,
 the contrastive ``MultiModel`` and the supervised ``ImageClassifier`` and
 ``ProfileClassifier`` (one output per class name).
 
-Card options the port does not take yet raise ``NotImplementedError``
-naming ``ROADMAP.md``, before any module is built: ``remat``,
-``pretrained_path`` and ``pretrained: true`` (the image encoder's own
-refusal). So do image backbones and profile-encoder kinds not ported yet
-(``models/image/registry.py``, ``models/profile/factory.py``).
-``fused_mbconv`` goes to the image encoder, which hands it to an
-EfficientNet only; ``fused_ffn`` to either encoder, the image encoder
-handing it to a ViT only.
+The encoder arguments go to the modules as the card gives them:
+``fused_mbconv`` and ``remat`` to the image encoder, which hands them to
+an EfficientNet only; ``fused_ffn`` to either encoder, the image encoder
+handing it to a ViT only; ``pretrained`` and ``pretrained_path`` are
+the train drivers' (they load the npz, ``models.pretrained``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional
+from typing import Iterable, Optional
 
 import torch
 
@@ -24,10 +21,6 @@ from .classifier import ImageClassifier, ProfileClassifier
 from .multi import MultiModel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = {
-    "image_encoder_args": ("remat", "pretrained_path"),
-    "profile_encoder_args": (),
-}
 
 
 def compute_dtype(card: ModelCard) -> torch.dtype:
@@ -43,30 +36,14 @@ def step_buckets(card: ModelCard) -> int:
     return 1 if negatives == "global" else card.buckets
 
 
-def _strip(field: str, args: Optional[Dict[str, Any]]
-           ) -> Optional[Dict[str, Any]]:
-    """Drop the card keys the port's modules do not take; raise for one
-    that is set."""
-    if args is None:
-        return None
-    for key in _NOT_PORTED[field]:
-        if args.get(key):
-            raise NotImplementedError(
-                f"{field}.{key}={args[key]!r} is not ported yet; see "
-                f"ROADMAP.md")
-    return {k: v for k, v in args.items() if k not in _NOT_PORTED[field]}
-
-
 def build_multi_model(card: ModelCard,
                       dtype: Optional[torch.dtype] = None) -> MultiModel:
     """The card's ``MultiModel`` at ``dtype`` (default: the card's compute
     dtype), on the CPU with PyTorch's default initialisation."""
     return MultiModel(
         dim_embed=card.dim_embedding or 512,
-        image_encoder_args=_strip("image_encoder_args",
-                                  card.image_encoder_args),
-        profile_encoder_args=_strip("profile_encoder_args",
-                                    card.profile_encoder_args),
+        image_encoder_args=card.image_encoder_args,
+        profile_encoder_args=card.profile_encoder_args,
         coordination_args=card.coordination_args,
         dtype=dtype or compute_dtype(card),
     )
@@ -79,8 +56,7 @@ def build_image_classifier(card: ModelCard, class_names: Iterable[str],
     ``build_multi_model`` builds its model."""
     return ImageClassifier(
         n_classes=len(list(class_names)),
-        image_encoder_args=_strip("image_encoder_args",
-                                  card.image_encoder_args),
+        image_encoder_args=card.image_encoder_args,
         dtype=dtype or compute_dtype(card),
     )
 
@@ -91,8 +67,7 @@ def build_profile_classifier(card: ModelCard, class_names: Iterable[str],
     """The card's profile classifier over ``class_names``."""
     return ProfileClassifier(
         n_classes=len(list(class_names)),
-        profile_encoder_args=_strip("profile_encoder_args",
-                                    card.profile_encoder_args),
+        profile_encoder_args=card.profile_encoder_args,
         dtype=dtype or compute_dtype(card),
     )
 

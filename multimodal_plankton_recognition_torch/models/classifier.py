@@ -46,6 +46,7 @@ class ProfileClassifier(nn.Module):
                 profile_len: Optional[torch.Tensor] = None,
                 **tokens) -> torch.Tensor:
         """Logits (B, n_classes); ``tokens`` are the tokenizer's ``time``
-        and ``padding_mask``."""
-        return self.fc(self.profile_encoder(profile, profile_len=profile_len,
-                                            **tokens))
+        and ``padding_mask``, or ``last_idx``. The LSTM's f32 feature is
+        cast to the head's dtype, as a Flax Dense casts its input."""
+        x = self.profile_encoder(profile, profile_len=profile_len, **tokens)
+        return self.fc(x.to(self.fc.weight.dtype))

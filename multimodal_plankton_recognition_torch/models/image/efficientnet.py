@@ -19,19 +19,43 @@ stride-2 blocks and ``fused=False`` take the plain composition (cuDNN
 convolutions on the card). The spatial means (SE and
 head) sum in f32 and round once to the compute dtype, as ``jnp.mean`` of a
 bf16 array does.
+
+``se_ratio <= 0`` builds blocks with no ``se`` module (the JAX block
+declares none), and such a block never takes the fused route, whatever
+``fused`` says (``efficientnet.py:263`` of the JAX package).
+
+``remat`` (the card's) recomputes the MBConv blocks in the backward pass,
+each block its own ``torch.utils.checkpoint`` region (``nn.remat`` of the
+JAX block class), in a train-mode forward that takes gradients:
+
+* ``True``: the block's input is kept, the whole block runs again;
+* ``"conv_saves"``: a selective policy keeps the raw outputs of the
+  block's three named convolutions (expand, depthwise, project: JAX's
+  ``checkpoint_name(..., "mbconv_conv")`` points) and recomputes the
+  BN-apply, SiLU and squeeze-excite chains from them. A block on the
+  fused route names nothing inside ``mbconv_core``, so there it is the
+  whole block again, kernels 13 and 14 included, as in JAX.
+
+The recompute runs inside ``batchnorm.recomputing()``, so the running
+statistics move once a step on every route.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ...ops.mbconv import mbconv_core
-from ..batchnorm import BatchNorm
+from ..batchnorm import BatchNorm, recomputing
 
 # (expand_ratio, channels, repeats, stride, kernel) per stage: the B0 table
 B0_STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
@@ -48,6 +72,44 @@ B0_STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
 def _spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over H and W of an NCHW tensor, summed in f32."""
     return x.float().mean((2, 3)).to(x.dtype)
+
+
+#: set while one of a block's named convolutions runs: the "conv_saves"
+#: policy keeps those outputs
+_NAMED_CONV: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "plankton_mbconv_conv", default=False)
+REMAT_MODES = (False, True, "conv_saves")
+
+
+def _named_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``, marked as one of the saves of ``"conv_saves"``."""
+    token = _NAMED_CONV.set(True)
+    try:
+        return conv(x)
+    finally:
+        _NAMED_CONV.reset(token)
+
+
+def _conv_saves_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op is torch.ops.aten.convolution.default and _NAMED_CONV.get():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _recompute(inner):
+    with inner, recomputing():
+        yield
+
+
+def _full_contexts():
+    return contextlib.nullcontext(), _recompute(contextlib.nullcontext())
+
+
+def _conv_saves_contexts():
+    forward, recompute = create_selective_checkpoint_contexts(
+        _conv_saves_policy)
+    return forward, _recompute(recompute)
 
 
 def _conv(cin: int, cout: int, k: int = 1, stride: int = 1,
@@ -75,7 +137,10 @@ class _MBConv(nn.Module):
                  fused: bool = False) -> None:
         super().__init__()
         mid = in_ch * expand_ratio
-        self.stride, self.kernel, self.fused = stride, kernel, fused
+        self.stride, self.kernel = stride, kernel
+        # the fused core declares squeeze-excite: a block without one keeps
+        # the plain route (JAX: `self.fused and self.se_ratio > 0`)
+        self.fused = fused and se_ratio > 0
         self.residual = stride == 1 and in_ch == out_ch
         self.has_expand = expand_ratio != 1
         if self.has_expand:
@@ -84,19 +149,27 @@ class _MBConv(nn.Module):
         self.dw_conv = _conv(mid, mid, kernel, stride, groups=mid)
         self.dw_bn = BatchNorm(mid)
         # the SE width is a share of the block's input channels
-        self.se = _SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
+        self.has_se = se_ratio > 0
+        if self.has_se:
+            self.se = _SqueezeExcite(mid, max(1, int(in_ch * se_ratio)))
         self.project_conv = _conv(mid, out_ch)
         self.project_bn = BatchNorm(out_ch)
 
+    @property
+    def takes_fused_route(self) -> bool:
+        return self.fused and self.training and self.stride == 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and self.training and self.stride == 1:
+        if self.takes_fused_route:
             y = self._fused(x)
         else:
             y = x
             if self.has_expand:
-                y = F.silu(self.expand_bn(self.expand_conv(y)))
-            y = F.silu(self.dw_bn(self.dw_conv(y)))
-            y = self.project_bn(self.project_conv(self.se(y)))
+                y = F.silu(self.expand_bn(_named_conv(self.expand_conv, y)))
+            y = F.silu(self.dw_bn(_named_conv(self.dw_conv, y)))
+            if self.has_se:
+                y = self.se(y)
+            y = self.project_bn(_named_conv(self.project_conv, y))
         return y + x if self.residual else y
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
@@ -129,8 +202,13 @@ class _MBConv(nn.Module):
 
 class EfficientNet(nn.Module):
     def __init__(self, depth_mult: float = 1.0, in_chans: int = 1,
-                 se_ratio: float = 0.25, fused: bool = False) -> None:
+                 se_ratio: float = 0.25, fused: bool = False,
+                 remat: Union[bool, str] = False) -> None:
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{remat!r}")
+        self.remat = remat
         self.stem_conv = _conv(in_chans, 32, 3, 2)
         self.stem_bn = BatchNorm(32)
         blocks = []
@@ -156,8 +234,17 @@ class EfficientNet(nn.Module):
         x = image.to(self.stem_conv.weight.dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         x = F.silu(self.stem_bn(self.stem_conv(x)))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if not remat:
+                x = block(x)
+                continue
+            contexts = _conv_saves_contexts if self.remat == "conv_saves" \
+                and not block.takes_fused_route else _full_contexts
+            # the blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(block, x, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=contexts)
         x = F.silu(self.head_bn(self.head_conv(x)))
         return _spatial_mean(x)
 

@@ -7,14 +7,17 @@ the model's input resolution appended, so ``dim_out = num_features +
 in the JAX module: in bf16 a size like 399 rounds to 400 first. In train
 mode the feature drops at ``dropout`` (``encoder.py:83``).
 
-As in the JAX module, ``fused_mbconv`` reaches only an EfficientNet
-backbone (as its ``fused``) and ``fused_attention`` and ``fused_ffn`` only a
-ViT; the other backbones ignore them.
+As in the JAX module, ``fused_mbconv`` and ``remat`` reach only an
+EfficientNet backbone (as its ``fused`` and ``remat``) and
+``fused_attention`` and ``fused_ffn`` only a ViT; the other backbones
+ignore them. ``pretrained`` and ``pretrained_path`` are card keys the
+module ignores: the train drivers load the npz into the masters
+(``train.drivers``, ``models.pretrained``), as the JAX drivers do.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -29,13 +32,14 @@ class ImageEncoder(nn.Module):
                  num_classes: int = 0, pretrained: bool = False,
                  fused_attention: bool = False, fused_mbconv: bool = False,
                  fused_ffn: bool = False,
+                 remat: Union[bool, str] = False,
+                 pretrained_path: Optional[str] = None,
                  backbone_kwargs: Optional[dict] = None) -> None:
-        """Card keys of the JAX module; ``num_classes`` is accepted for
-        card parity (features only)."""
+        """Card keys of the JAX module; ``num_classes`` (features only),
+        ``pretrained`` and ``pretrained_path`` (the drivers' keys) are
+        accepted for card parity."""
         super().__init__()
-        if pretrained:
-            raise NotImplementedError("pretrained npz weights are not ported "
-                                      "yet (ROADMAP.md)")
+        self.backbone_name = name  # the encoder's name in the Flax tree
         self.metadata = metadata
         self.dropout = dropout
         extra = {}
@@ -45,6 +49,8 @@ class ImageEncoder(nn.Module):
             extra["fused_attention"] = True
         if fused_ffn and name.startswith("vit"):
             extra["fused_ffn"] = True
+        if remat and "efficientnet" in name:
+            extra["remat"] = remat
         extra.update(backbone_kwargs or {})
         self.backbone = create_backbone(name, in_chans=in_chans, **extra)
 

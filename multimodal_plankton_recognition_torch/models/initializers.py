@@ -10,6 +10,10 @@ the train driver and the flagships.
   kernel attention route is three (E, H, D) kernels in the Flax tree,
   whose fan_in Flax counts as E·H; flax's own attention
   (``fused_attention: false``) counts E. Biases are zero.
+* The LSTM cells (``OptimizedLSTMCell``): each gate's input kernel
+  ``lecun_normal``, each gate's (H, H) recurrent kernel orthogonal
+  (``nn.initializers.orthogonal``), the biases zero; the port stacks the
+  four gates of each (``models/profile/lstm.py``).
 * Embedding tables (``nn.Embed``): a normal of std 1/sqrt(features).
 * The ViT's position table: N(0, 0.02); its CLS token: zero.
 * LayerNorm, BatchNorm and GroupNorm: unit scales, zero biases.
@@ -32,6 +36,7 @@ from .attention import FusedSelfAttention
 from .batchnorm import BatchNorm, GroupNorm
 from .image.vit import ViT
 from .multi import CoordinationHead
+from .profile.lstm import LSTMLayer
 
 #: the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNCATED_STD = 0.87962566103423978
@@ -70,6 +75,12 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                            generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, LSTMLayer):
+            for w_ih, w_hh in zip(m.weight_ih.chunk(4), m.weight_hh.chunk(4)):
+                _lecun_normal_(w_ih, w_ih.shape[1], generator)
+                _set_(w_hh, nn.init.orthogonal_(torch.empty(w_hh.shape),
+                                                generator=generator))
+            m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             _normal_(m.weight, 1.0 / math.sqrt(m.embedding_dim), generator)
         elif isinstance(m, (nn.LayerNorm, BatchNorm, GroupNorm)):

@@ -130,15 +130,18 @@ class MultiModel(nn.Module):
                **tokens) -> Dict[str, Optional[torch.Tensor]]:
         """Embed the available modalities; a missing (None) one is skipped.
         ``tokens`` are the profile tokenizer's ``time`` and
-        ``padding_mask``. Dropout follows ``self.training``."""
+        ``padding_mask``, or ``last_idx``. Dropout follows ``self.training``."""
         image_emb = profile_emb = None
         if image is not None:
             image_emb = self.image_projection(
                 self.image_encoder(image, image_shape=image_shape))
         if profile is not None:
+            # the LSTM's feature is f32 in any model dtype; a Flax Dense
+            # casts its input to the module dtype
+            feat = self.profile_encoder(profile, profile_len=profile_len,
+                                        **tokens)
             profile_emb = self.profile_projection(
-                self.profile_encoder(profile, profile_len=profile_len,
-                                     **tokens))
+                feat.to(self.profile_projection.weight.dtype))
         return {"image_emb": image_emb, "profile_emb": profile_emb}
 
     def loss(self, buckets: int = 1, label: Optional[torch.Tensor] = None,

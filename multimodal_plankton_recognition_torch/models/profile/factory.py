@@ -1,5 +1,5 @@
 """Profile-encoder factory (``models/profile/factory.py`` of the JAX
-package). Ported so far: the transformer and cnn kinds."""
+package): the transformer, lstm and cnn kinds."""
 
 from __future__ import annotations
 
@@ -8,9 +8,11 @@ from typing import Any, Dict
 from torch import nn
 
 from .cnn import ProfileCNN
+from .lstm import ProfileLSTM
 from .transformer import ProfileTransformer
 
-_KINDS = {"transformer": ProfileTransformer, "cnn": ProfileCNN}
+_KINDS = {"transformer": ProfileTransformer, "lstm": ProfileLSTM,
+          "cnn": ProfileCNN}
 
 
 def create_profile_encoder(args: Dict[str, Any]) -> nn.Module:
@@ -20,7 +22,6 @@ def create_profile_encoder(args: Dict[str, Any]) -> nn.Module:
         kind = "transformer" if "num_head" in args else (
             "cnn" if "blocks" in args else "lstm")
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"profile encoder kind {kind!r} is not ported yet (ported: "
-            f"{sorted(_KINDS)}); see ROADMAP.md")
+        raise KeyError(f"Unknown profile encoder kind {kind!r} (kinds: "
+                       f"{sorted(_KINDS)})")
     return _KINDS[kind](**args)

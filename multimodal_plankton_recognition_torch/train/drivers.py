@@ -25,12 +25,19 @@ on the test split in order, keep the top-k checkpoints by ``valid_acc``
 for the final test: ``test_acc``, and the confusion matrix as the
 ``test_cm`` image where the writer has a TensorBoard sink.
 
+``pretrained: true`` with a ``pretrained_path`` merges that npz into the
+initial masters and running statistics before the train state is made
+(``models.pretrained.load_pretrained_into``; JAX's
+``_maybe_load_pretrained``), printing JAX's counts; without a path it
+prints JAX's message and trains from scratch. A resumed run takes its
+weights from the checkpoint instead.
+
 Not ported, as TPU machinery: ``use_tpu_runtime_flags``,
 ``enable_compilation_cache`` and ``use_fast_prng``. Card options that
 need a module not ported yet raise before any step: ``loader: grain``
-(ROADMAP.md queue 1 module 8), a ``mesh`` of more than one device (module
-7), and, from ``build_multi_model``, ``pretrained``. ``parallel:
-shard_map`` on one device is the plain step, as in JAX.
+(ROADMAP.md queue 1 module 8) and a ``mesh`` of more than one device
+(module 7). ``parallel: shard_map`` on one device is the plain step, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..data.transforms import (
 )
 from ..models.build import build_for_kind, step_buckets
 from ..models.initializers import init_weights_
+from ..models.pretrained import load_pretrained_into
 from ..ops.augment import multi_train_augment
 from ..ops.knn import require_device
 from ..retrieval.encode import eval_pipeline
@@ -152,12 +160,38 @@ def init_masters(card: ModelCard, kind: str = "multi",
                          torch.Generator().manual_seed(card.seed)).state_dict()
 
 
+def _maybe_load_pretrained(card: ModelCard, masters: Dict[str, torch.Tensor],
+                          kind: str = "multi",
+                          class_names: Sequence[str] = ()
+                          ) -> Dict[str, torch.Tensor]:
+    """``masters`` (a state dict of the card's model of ``kind``) with the
+    card's ``pretrained_path`` npz merged in when the card asks for
+    pretrained weights, as the JAX driver's ``_maybe_load_pretrained``:
+    printing the load's counts, or, with no path, JAX's message, and then
+    ``masters`` as they are."""
+    args = card.image_encoder_args or {}
+    if not args.get("pretrained"):
+        return masters
+    path = args.get("pretrained_path")
+    if not path:
+        print("pretrained: true but no pretrained_path given; "
+              "training from scratch (produce an npz with "
+              "scripts/convert_timm.py)")
+        return masters
+    model = build_for_kind(card, kind, class_names, dtype=torch.float32)
+    model.load_state_dict(masters, strict=True)
+    merged, stats = load_pretrained_into(model, path)
+    print(f"loaded pretrained weights from {path}: {stats}")
+    return merged
+
+
 def multi_state(card: ModelCard, device: torch.device | str,
                 resume: Optional[str | Path] = None, kind: str = "multi",
                 class_names: Sequence[str] = ()
                 ) -> Tuple[torch.nn.Module, Optimizer, TrainState]:
     """(model of ``kind`` on ``device`` at the card's compute dtype,
-    optimizer, train state): f32 masters from ``init_masters``, or, with
+    optimizer, train state): f32 masters from ``init_masters`` and the
+    card's pretrained npz (``_maybe_load_pretrained``), or, with
     ``resume``, the latest step kept in that port checkpoint directory
     (its step, masters, BatchNorm statistics, momentum and pending
     gradient mean)."""
@@ -165,8 +199,9 @@ def multi_state(card: ModelCard, device: torch.device | str,
                         card.trainer_args.accumulate_grad_batches)
     model = build_for_kind(card, kind, class_names).to(device)
     if not resume:
-        return model, tx, create_train_state(
-            model, init_masters(card, kind, class_names), tx)
+        masters = _maybe_load_pretrained(
+            card, init_masters(card, kind, class_names), kind, class_names)
+        return model, tx, create_train_state(model, masters, tx)
     read_port_metadata(resume)
     # save_top_k=0 ranks nothing, so the "best" step is the latest one,
     # as the JAX driver's orbax manager without best_fn restores it

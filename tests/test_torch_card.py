@@ -200,12 +200,50 @@ def test_siglip_card_builds_the_full_model():
     ("image_encoder_args", "pretrained_path", "weights.npz"),
     ("image_encoder_args", "pretrained", True),
 ])
-def test_options_not_ported_raise(field, key, value):
+def test_options_not_ported_raise(field, key, value, capsys):
+    """Named for the refusals these options met before queue 1 module 6
+    was ported: the ViT-S SigLIP card now builds with each (``remat``
+    reaches an EfficientNet only, as in JAX; ``pretrained*`` are the
+    drivers'), and the driver's state on a B0 CLIP card with the option
+    trains one f32 step on the CPU (16 px images, 32 profile steps, one
+    PyTorch thread): ``remat`` reaches the EfficientNet, ``pretrained:
+    true`` with no path prints JAX's message."""
+    from multimodal_plankton_recognition_torch.train import drivers
+    from torch_threads import single_thread
+
+    with single_thread():
+        _option_builds_and_trains(field, key, value, capsys, drivers)
+
+
+def _option_builds_and_trains(field, key, value, capsys, drivers):
     d = _load_yaml(SIGLIP_CARD)
     d[field][key] = value
-    card = config.ModelCard.from_dict(d)
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
-        build_multi_model(card)
+    vit = build_multi_model(config.ModelCard.from_dict(d)).image_encoder
+    assert vit.backbone_name == "vit_small_patch16_224"
+    assert not hasattr(vit.backbone, "remat")
+
+    small = _load_yaml(B0_CARDS[0])
+    small.update(bs=4, buckets=1, trainer_args={"precision": "32"})
+    small[field][key] = value
+    card = config.ModelCard.from_dict(small)
+    model, tx, state = drivers.multi_state(card, "cpu")
+    if key == "remat":
+        assert model.image_encoder.backbone.remat == value
+    printed = capsys.readouterr().out
+    assert ("no pretrained_path given; training from scratch"
+            in printed) == (key == "pretrained")
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(16, 33, 4)
+    batch = {"image": rs.randn(4, 16, 16, 1).astype(np.float32),
+             "image_shape": rs.randint(50, 400, (4, 2)).astype(np.int32),
+             "profile": np.stack([np.pad(rs.randn(n, 6), ((0, 32 - n),
+                                                          (0, 0)))
+                                  for n in lengths]).astype(np.float32),
+             "profile_len": lengths[:, None].astype(np.int32)}
+    train_step, _ = make_multi_steps(model, tx, step_buckets(card))
+    state, loss = train_step(state, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()}, 0)
+    assert torch.isfinite(loss) and state.step == 1
 
 
 @pytest.mark.parametrize("path", B0_CARDS, ids=lambda p: p.stem)

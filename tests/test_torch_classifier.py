@@ -16,7 +16,9 @@ by ``convert.py``, in f32:
   max(1, |·|); the eval step's loss, ``pred`` and ``label``; both sides
   on the same random weights (no init is compiled). B0's cases are in
   ``tests/test_torch_classifier_b0.py`` (``check_forward_step``: its
-  train step's loss and statistics against JAX's forward);
+  train step's loss and statistics against JAX's forward), the
+  module-6 encoders' in ``tests/test_torch_backbone_steps.py`` and
+  ``tests/test_torch_lstm.py`` (this file's harness and cases);
 * bf16 logits into the cross-entropy: the port takes ``log_softmax`` of
   the bf16 logits as JAX does; the two bf16 losses within 2 bf16 steps.
 """
@@ -41,7 +43,7 @@ from multimodal_plankton_recognition_tpu.train.loop import (
 from multimodal_plankton_recognition_torch import config
 from multimodal_plankton_recognition_torch.convert import from_flax
 from multimodal_plankton_recognition_torch.data.tokenize import (
-    tokenize_transformer,
+    tokenize_lstm, tokenize_transformer,
 )
 from multimodal_plankton_recognition_torch.models import build
 from multimodal_plankton_recognition_torch.models.classifier import (
@@ -53,10 +55,12 @@ from multimodal_plankton_recognition_torch.ops.losses import (
 from multimodal_plankton_recognition_torch.train import (
     create_train_state, make_classifier_steps, make_optimizer,
 )
+from torch_threads import single_thread
 
 LOGIT_TOL, LOSS_TOL, GRAD_TOL, UPDATE_TOL, STATS_TOL = (1e-4, 1e-5, 1e-3,
                                                          1e-3, 1e-4)
 STRUCTURAL_ZERO = 1e-4  # of the median gradient RMS
+LOOSE_TOL = 1e-2  # check_train_step's ``loose`` parameters
 N_CLASSES = 5
 BS = 16
 VIT = {"name": "vit_tiny_patch16_224", "in_chans": 1, "metadata": True,
@@ -71,12 +75,27 @@ TRANSFORMER = {"kind": "transformer", "dim_in": 6, "dim_hidden": 64,
                "dropout": 0.0}
 CNN = {"kind": "cnn", "dim_in": 6, "blocks": [1, 1, 1, 1],
        "base_channels": 8, "dropout": 0.0}
+LSTM = {"kind": "lstm", "dim_in": 6, "dim_hidden": 128, "num_layers": 2,
+        "dropout": 0.0}
 # kind, encoder args, image size: the image cards' target_size is the
 # ViT's 32 px and B0's 24 (B0 at B 16: at B 4 its last blocks normalize 4
-# values a channel and f32 rounding alone passes 1e-4)
+# values a channel and f32 rounding alone passes 1e-4); the module-6
+# backbones at 32 px (their cases run at reduced depth in
+# tests/test_torch_backbone_steps.py, the LSTM's in tests/test_torch_lstm.py)
 CASES = {"image-vit": ("image", VIT, 32), "image-b0": ("image", B0, 24),
          "profile-transformer": ("profile", TRANSFORMER, None),
-         "profile-cnn": ("profile", CNN, None)}
+         "profile-cnn": ("profile", CNN, None),
+         **{f"image-{name}": ("image", {"name": name, "in_chans": 1,
+                                        "metadata": True, "dropout": 0.0},
+                              32)
+            for name in ("resnet18", "resnet50")},
+         "image-densenet121": ("image", {"name": "densenet121", "in_chans": 1,
+                                         "metadata": True, "dropout": 0.0},
+                               32),
+         "profile-lstm": ("profile", LSTM, None)}
+# the cases whose model has BatchNorm running statistics
+BN_CASES = {"image-b0", "profile-cnn", "image-resnet18", "image-resnet50",
+            "image-densenet121"}
 
 
 def _card(case: str) -> dict:
@@ -94,7 +113,7 @@ def _batch(case: str, seed: int = 0) -> dict:
     """A classifier batch (numpy) with ``label``: images with their
     shapes, or profiles of ragged lengths tokenized as the profile
     driver does (``max_len + 1`` tokens for a transformer, ``max_len`` for
-    the CNN)."""
+    the CNN and the LSTM, with its ``last_idx``)."""
     kind, args, size = CASES[case]
     rs = np.random.RandomState(seed)
     label = (np.arange(BS) % N_CLASSES).astype(np.int32)
@@ -108,6 +127,11 @@ def _batch(case: str, seed: int = 0) -> dict:
             [rs.randn(n, 6).astype(np.float32) for n in lengths], 40,
             pad_to=41)
         assert tokens["padding_mask"].any()
+    elif args["kind"] == "lstm":
+        lengths = rs.randint(5, 41, BS)
+        tokens = tokenize_lstm(
+            [rs.randn(n, 6).astype(np.float32) for n in lengths], pad_to=40)
+        assert (tokens["last_idx"] < 39).any()
     else:
         tokens = {"profile": rs.randn(BS, 40, 6).astype(np.float32)}
     return {**tokens, "label": label,
@@ -223,8 +247,9 @@ def _close(got, want, tol, what=""):
                                err_msg=what)
 
 
-# B0's cases are in tests/test_torch_classifier_b0.py
-FILE_CASES = [c for c in CASES if c != "image-b0"]
+# B0's cases are in tests/test_torch_classifier_b0.py, the module-6 ones
+# in tests/test_torch_backbone_steps.py and tests/test_torch_lstm.py
+FILE_CASES = ["image-vit", "profile-transformer", "profile-cnn"]
 
 
 @pytest.mark.parametrize("case", FILE_CASES)
@@ -246,9 +271,15 @@ def test_train_step_matches_jax(case):
     check_train_step(case)
 
 
-def check_train_step(case):
+def check_train_step(case, prepare=None, loose=()):
+    """``prepare(model)``, when given, runs on the port's model before
+    its steps (a test's forward hooks); the parameters named in ``loose``
+    have their gradient and update held to ``LOOSE_TOL`` (a caller says
+    why)."""
     want = _jax_run(case)
     model, card = _port_model(case, want["variables"])
+    if prepare is not None:
+        prepare(model)
     batch = _tensors(_batch(case, seed=3))
     tx = make_optimizer(card.optim_args)
     init = from_flax(want["variables"])
@@ -278,11 +309,13 @@ def check_train_step(case):
         delta = state.params[n].double() - init[n].double()
         w = want["after"][n].double() - init[n].double()
         errs[f"update {n}"] = ((delta - w).norm() / w.norm()).item()
+    for n in loose:
+        assert max(errs.pop(n), errs.pop(f"update {n}")) <= LOOSE_TOL, n
     worst = max(errs, key=errs.get)
     assert errs[worst] <= max(GRAD_TOL, UPDATE_TOL), (worst, errs[worst])
     assert all(z < STRUCTURAL_ZERO for z in zeros.values()), zeros
     stats = dict(model.named_buffers())
-    assert bool(stats) == (case == "profile-cnn")
+    assert bool(stats) == (case in BN_CASES)
     for n, buf in stats.items():
         assert buf.dtype == torch.float32, n
         assert not torch.equal(buf, init[n])
@@ -290,15 +323,41 @@ def check_train_step(case):
 
 
 def test_classifier_builders_refuse_unported_encoders():
-    """The module-6 encoders raise at build time, naming the roadmap."""
+    """Named for the refusals the module-6 encoders met before queue 1
+    module 6 was ported: the builders now give each classifier, and one
+    f32 train step on the CPU (32 px, 16 profile steps, B 4, one PyTorch
+    thread) gives a finite loss and a gradient on every parameter."""
+    with single_thread():
+        _module_6_builders_train()
+
+
+def _module_6_builders_train():
+    rs = np.random.RandomState(0)
     for kind, args in (("image", {"name": "resnet18"}),
                        ("image", {"name": "densenet121"}),
                        ("profile", {"kind": "lstm", "dim_in": 6,
                                     "dim_hidden": 8})):
-        d = {f"{kind}_encoder_args": args}
+        d = {f"{kind}_encoder_args": args,
+             "trainer_args": {"precision": "32"}}
         card = config.ModelCard.from_dict(d)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            getattr(build, f"build_{kind}_classifier")(card, _names())
+        model = getattr(build, f"build_{kind}_classifier")(card, _names())
+        if kind == "image":
+            batch = {"image": rs.randn(4, 32, 32, 1),
+                     "image_shape": rs.randint(50, 400, (4, 2))}
+        else:
+            batch = {"profile": rs.randn(4, 16, 6),
+                     "last_idx": np.array([15, 3, 9, 0]),
+                     "profile_len": rs.randint(20, 2000, (4, 1))}
+        batch = {k: torch.as_tensor(v, dtype=torch.float32
+                                    if v.dtype == np.float64 else None)
+                 for k, v in batch.items()}
+        batch["label"] = torch.arange(4) % N_CLASSES
+        tx = make_optimizer(card.optim_args)
+        state = create_train_state(model, model.state_dict(), tx)
+        train_step, _ = make_classifier_steps(model, tx)
+        state, loss = train_step(state, batch, 0)
+        assert torch.isfinite(loss) and state.step == 1
+        assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize("seed", [0, 1])

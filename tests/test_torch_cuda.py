@@ -78,7 +78,11 @@ packed pairs on the card for 2 epochs through pinned batches, with the
 SigLIP kernels' launches counted. A classifier's train step (a ViT, or a
 profile transformer over 257 tokens with padding) runs its attention
 through kernels 1 and 2 and its eval step through kernel 1; the kNN
-index on the card predicts what the CPU's does.
+index on the card predicts what the CPU's does. A resnet18 and an lstm_1
+classifier's f32 step on the card matches the CPU's (no kernel of the
+port); B0's fused blocks under ``remat`` launch kernels 13 and 14 twice
+a block and give the no-remat gradients and running statistics bit for
+bit.
 """
 
 import pytest
@@ -1815,3 +1819,129 @@ def test_knn_on_the_card_predicts_as_the_cpu(cuda):
             np.testing.assert_array_equal(got[k], want[k])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("label", ["resnet18", "lstm_1"])
+def test_module_6_classifier_step_matches_the_cpu(cuda, label):
+    """A resnet18 (32 px) and an lstm_1 (128 wide, 64 ragged steps)
+    classifier's f32 train step on the card against the same step on the
+    CPU, from the same seeded weights (TF32 off): the loss within 1e-4
+    relative, the running statistics within 1e-4, the gradients' median
+    relative L2 within 1e-3 and each within 5e-2 (cuDNN and the CPU sum
+    in other orders, and a pre-activation that lands on the other side
+    of a ReLU moves a gradient by a few percent); no kernel of the
+    port."""
+    import numpy as np
+
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.data.tokenize import (
+        tokenize_lstm,
+    )
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind,
+    )
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_,
+    )
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_classifier_steps, make_optimizer,
+    )
+
+    rs = np.random.RandomState(0)
+    d = {"bs": 8, "target_size": 32, "max_len": 64,
+         "trainer_args": {"precision": "32"}}
+    if label == "resnet18":
+        kind = "image"
+        d["image_encoder_args"] = {"name": "resnet18", "dropout": 0.0}
+        batch = {"image": rs.randn(8, 32, 32, 1).astype(np.float32),
+                 "image_shape": rs.randint(50, 400, (8, 2))}
+    else:
+        kind = "profile"
+        d["profile_encoder_args"] = {"kind": "lstm", "dim_hidden": 128,
+                                     "num_layers": 1, "dropout": 0.0}
+        batch = tokenize_lstm([rs.randn(n, 6).astype(np.float32)
+                               for n in rs.randint(20, 65, 8)], pad_to=64)
+        batch["profile_len"] = rs.randint(20, 2000, (8, 1))
+    batch["label"] = np.arange(8) % 5
+    card = ModelCard.from_dict(d)
+    names = [f"c{i}" for i in range(5)]
+    init = init_weights_(build_for_kind(card, kind, names),
+                         torch.Generator().manual_seed(0)).state_dict()
+    old = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = {n: getattr(f, "launches") for n, f in _port_kernels().items()}
+    try:
+        runs = {}
+        for device in ("cpu", cuda):
+            model = build_for_kind(card, kind, names).to(device)
+            tx = make_optimizer(card.optim_args)
+            state = create_train_state(model, init, tx)
+            train_step, _ = make_classifier_steps(model, tx)
+            state, loss = train_step(state, {k: torch.as_tensor(v).to(device)
+                                             for k, v in batch.items()}, 0)
+            runs[str(device)] = (
+                loss.item(),
+                {n: p.grad.double().cpu()
+                 for n, p in model.named_parameters()},
+                {n: b.cpu() for n, b in model.named_buffers()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
+    assert counts == {n: getattr(f, "launches")
+                      for n, f in _port_kernels().items()}
+    (loss, grads, stats), (want_loss, want_grads, want_stats) = \
+        runs[str(cuda)], runs["cpu"]
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    rel = [((grads[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in want_grads.items()]
+    assert np.median(rel) <= 1e-3 and max(rel) <= 5e-2, max(rel)
+    for n, b in want_stats.items():
+        assert (stats[n] - b).abs().max() <= 1e-4 * max(1.0, b.abs().max())
+
+
+def _port_kernels():
+    from multimodal_plankton_recognition_torch.ops import (
+        attention, contrastive, ffn, mbconv,
+    )
+    return {"mha_qkv": attention.mha_qkv, "mha_qkv_bwd": attention.mha_qkv_bwd,
+            "ffn_fwd": ffn.ffn_fwd, "clip_fwd": contrastive.clip_fwd,
+            "ka_fwd": mbconv.ka_fwd, "kb_fwd": mbconv.kb_fwd,
+            "kb_bwd": mbconv.kb_bwd, "ka_bwd": mbconv.ka_bwd}
+
+
+@pytest.mark.parametrize("remat", [True, "conv_saves"])
+def test_remat_relaunches_kernels_13_14_and_updates_once(cuda, remat):
+    """B0 with ``fused`` in bf16 at 32 px, B 8, one train-mode step with
+    and without ``remat``: under remat kernels 13 and 14 run twice a
+    stride-1 block (the recompute), 15 and 16 once; the gradients and the
+    running statistics equal the no-remat step's bit for bit (one
+    update)."""
+    from multimodal_plankton_recognition_torch.models.image.efficientnet import (  # noqa: E501
+        EfficientNet,
+    )
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_,
+    )
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    kernels = (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd, mbconv.ka_bwd)
+    x = torch.randn(8, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for mode in (False, remat):
+        model = init_weights_(EfficientNet(fused=True, remat=mode),
+                              torch.Generator().manual_seed(0))
+        model = model.to(cuda, torch.bfloat16).train()
+        before = [k.launches for k in kernels]
+        model(x.to(cuda)).float().square().mean().backward()
+        torch.cuda.synchronize()
+        runs[mode] = ([k.launches - b for k, b in zip(kernels, before)],
+                      {n: p.grad.clone() for n, p in model.named_parameters()},
+                      {n: b.clone() for n, b in model.named_buffers()})
+    assert runs[False][0] == [12, 12, 12, 12]
+    assert runs[remat][0] == [24, 24, 12, 12]
+    for n, g in runs[False][1].items():
+        assert torch.equal(runs[remat][1][n], g), n
+    for n, b in runs[False][2].items():
+        assert torch.equal(runs[remat][2][n], b), n

@@ -53,6 +53,7 @@ from multimodal_plankton_recognition_torch.train import drivers
 from multimodal_plankton_recognition_torch.train.checkpoint import (
     CheckpointManager,
 )
+from torch_threads import single_thread
 
 REPO = Path(__file__).resolve().parent.parent
 TS = 32
@@ -337,11 +338,15 @@ def test_arcface_takes_the_class_count(packed_split, tmp_path):
     ({"loader": "grain"}, "module 8"),
     ({"mesh": {"data": 2}}, "module 7"),
     ({"mesh": {"data": 1, "model": 2}}, "module 7"),
-    ({"image_encoder_args": {"pretrained": True}}, "pretrained"),
+    ({"image_encoder_args": {"pretrained": True}}, None),
 ], ids=["grain", "mesh-data", "mesh-model", "pretrained"])
 def test_unported_options_raise_before_any_step(overrides, match,
                                                 packed_split, tmp_path,
-                                                monkeypatch):
+                                                monkeypatch, capsys):
+    """The options of modules not ported yet raise before any step;
+    ``pretrained: true`` (queue 1 module 6, ported) with no
+    ``pretrained_path`` prints the JAX driver's message and trains from
+    scratch: one epoch of steps, the masters the seeded init's."""
     seen = _spy_steps(monkeypatch)
     d = _card(packed_cache=True)
     for key, value in overrides.items():
@@ -349,9 +354,24 @@ def test_unported_options_raise_before_any_step(overrides, match,
             d[key].update(value)
         else:
             d[key] = value
+    card = config.ModelCard.from_dict(d)
+    if match is None:
+        with single_thread():
+            out = drivers.train_multi(packed_split, card, logdir=tmp_path,
+                                      max_epochs=1, device="cpu")
+        assert "pretrained: true but no pretrained_path given; training " \
+            "from scratch (produce an npz with scripts/convert_timm.py)" \
+            in capsys.readouterr().out
+        assert len(seen) == out["state"].step > 0
+        assert math.isfinite(out["history"][0]["train_loss"])
+        init = drivers.init_masters(card)
+        _, _, scratch = drivers.multi_state(card, "cpu")
+        assert all(torch.equal(scratch.params[n], init[n])
+                   for n in scratch.params)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        drivers.train_multi(packed_split, config.ModelCard.from_dict(d),
-                            logdir=tmp_path, device="cpu")
+        drivers.train_multi(packed_split, card, logdir=tmp_path,
+                            device="cpu")
     assert not seen and not any(tmp_path.iterdir())
 
 

@@ -17,8 +17,9 @@ PIL, only when a figure is drawn. The port's CLIs
 ``scripts/results_torch.py``) import no JAX either, and load none of
 the forbidden modules at import; the bridge from orbax
 (``scripts/checkpoint_from_jax.py``) does import JAX, and so lives
-outside the package. ``chip_smoke.py``'s ``classify`` and ``retrieval``
-phases import only modules that load none of them.
+outside the package. ``chip_smoke.py``'s ``classify``, ``retrieval``,
+``backbones`` and ``remat`` phases import only modules that load none of
+them.
 """
 
 import ast
@@ -45,14 +46,18 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.models.batchnorm",
     "multimodal_plankton_recognition_torch.models.ffn",
     "multimodal_plankton_recognition_torch.models.flagships",
+    "multimodal_plankton_recognition_torch.models.image.densenet",
     "multimodal_plankton_recognition_torch.models.image.efficientnet",
     "multimodal_plankton_recognition_torch.models.image.encoder",
     "multimodal_plankton_recognition_torch.models.image.registry",
+    "multimodal_plankton_recognition_torch.models.image.resnet",
     "multimodal_plankton_recognition_torch.models.image.vit",
     "multimodal_plankton_recognition_torch.models.initializers",
     "multimodal_plankton_recognition_torch.models.multi",
+    "multimodal_plankton_recognition_torch.models.pretrained",
     "multimodal_plankton_recognition_torch.models.profile.cnn",
     "multimodal_plankton_recognition_torch.models.profile.factory",
+    "multimodal_plankton_recognition_torch.models.profile.lstm",
     "multimodal_plankton_recognition_torch.models.profile.transformer",
     "multimodal_plankton_recognition_torch.ops.attention",
     "multimodal_plankton_recognition_torch.ops.augment",
@@ -86,7 +91,8 @@ TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.train.state",
 ]
 FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml", "matplotlib")
-SMOKE_PHASES = ("phase_classify", "phase_retrieval")
+SMOKE_PHASES = ("phase_classify", "phase_retrieval", "phase_backbones",
+                "phase_remat")
 
 
 def _forbidden_after_importing(modules):
