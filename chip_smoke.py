@@ -11,7 +11,9 @@ global negatives (one bucket of 64), the B0 flagship's encode and the B0 CLIP mo
 card's train path with ``fused_mbconv``, the ViT flagship's train step
 with global negatives (one bucket of 256), the same ViT paths with
 ``fused_ffn``, the attention module's unpacked (separate q, k, v) route
-and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``).
+and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``), and
+the parallel layer (a process group's mesh step, ``torchrun``, two ranks
+on the one card).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -332,6 +334,19 @@ fatal on failure:
    printed against 5e-2); encode and train pairs/s, and a ``summary:``
    line of encode and train pairs/s on the packed kernel route and on
    this one, timed in turns (packed, flax, flax, packed);
+14b. parallel (queue 1 module 7): an NCCL process group of one rank
+   drives the ViT flagship through ``make_multi_steps(..., mesh=...)``
+   for 3 steps (14 + 14 attention and 1 + 1 CLIP launches a step; losses
+   and masters bit for bit the plain step's; pairs/s of both in turns);
+   ``torchrun --standalone --nproc_per_node 1
+   scripts/train_multi_torch.py`` on the flagship's card with ``mesh:
+   {data: 1}`` over packed pairs for one epoch; beside it two ranks on
+   the one card over gloo (``--parallel-worker``), when gloo takes CUDA
+   tensors here (probed; otherwise printed as not run): the flagship at
+   2 x 128 and the B0 SigLIP card (``fused_mbconv: true``, synchronised
+   BatchNorm, 0 MBConv launches) at 2 x 32 against the one-process step
+   over the global batch, and the row-sharded kNN over 18,706 gallery
+   rows against the unsharded; a ``summary: parallel`` line;
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
@@ -350,6 +365,10 @@ launches there × (device ms − bound ms) at the shapes each path runs
 most time. The line before the last is a JSON record of the kernels; the
 last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.
+
+``--parallel-worker RANK`` (with ``--parallel-init`` and
+``--parallel-out``) is one rank of phase 14b's pair, started by the
+phase itself.
 
 ``--kernel-profile`` runs phase 1 and the build of kernels 5-10 and 13-16
 only, times them at every ``CLIP_SHAPES``, ``SIGLIP_SHAPES``,
@@ -699,6 +718,11 @@ RETRIEVAL_FOLDS = 5
 RETRIEVAL_FOLD_REPEATS = 2
 RETRIEVAL_CHECK_N = 16  # the n of the accuracy checks and the CPU rerun
 RETRIEVAL_AGREE = 0.999  # card and CPU predictions, each key's rows
+PARALLEL_STEPS = 3  # mesh steps of the NCCL group of one rank
+PARALLEL_TIMEOUT = 600  # seconds a rank or the torchrun child may take
+PARALLEL_KNN_GALLERY = 2 * RETRIEVAL_PAIRS  # the fused gallery of 5f.
+PARALLEL_KNN_QUERIES = 2048
+PARALLEL_KNN_K = 51  # the benchmarks' largest k
 # (not logit_scale: at the init the loss sits at ln 16, a bucket of 16, and
 # d logit_scale is one sum that nearly cancels)
 B0_NAMED_GRADS = (
@@ -1940,7 +1964,7 @@ def phase_slice(device):
     return launches
 
 
-def _train_state(model, state_dict, device, buckets=BUCKETS):
+def _train_state(model, state_dict, device, buckets=BUCKETS, mesh=None):
     from multimodal_plankton_recognition_torch.config import OptimConfig
     from multimodal_plankton_recognition_torch.train import (
         create_train_state, make_multi_steps, make_optimizer)
@@ -1949,7 +1973,7 @@ def _train_state(model, state_dict, device, buckets=BUCKETS):
                                     nesterov=True))
     model.to(device)
     state = create_train_state(model, state_dict, tx)
-    train_step, _ = make_multi_steps(model, tx, buckets=buckets)
+    train_step, _ = make_multi_steps(model, tx, buckets=buckets, mesh=mesh)
     return state, train_step
 
 
@@ -4580,6 +4604,428 @@ def phase_flax_attention(device):
     return {n: launches[n] + train_launches[n] for n in launches}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _b0_parallel_card(fused_mbconv):
+    """``B0_SIGLIP_CARD`` at dropout 0, with the ``fused_mbconv`` given."""
+    import copy
+
+    d = copy.deepcopy(B0_SIGLIP_CARD)
+    d["image_encoder_args"].update(dropout=0.0, fused_mbconv=fused_mbconv)
+    d["profile_encoder_args"]["dropout"] = 0.0
+    return d
+
+
+def _vit_one_step(device, batch, mesh=None):
+    """One dropout-0 step of the ViT flagship (the seeded f32 masters of
+    phase 5) on ``batch``: (loss, {name: update of the master, on the
+    CPU})."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_)
+
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    state, step = _train_state(flagship_vit(dropout=0.0), init, device,
+                               mesh=mesh)
+    state, loss = step(state, batch, 0)
+    return float(loss), {n: (state.params[n].cpu() - init[n]).float()
+                         for n in init if n in state.params}
+
+
+def _b0_one_step(device, batch, fused_mbconv, mesh=None):
+    """One dropout-0 micro-step of ``_b0_parallel_card`` (accumulation 4,
+    so the masters hold): (loss, the f32 gradient mean, the change of
+    every running statistic), on the CPU."""
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, drivers, make_multi_steps, make_optimizer)
+
+    card = ModelCard.from_dict(_b0_parallel_card(fused_mbconv))
+    init = drivers.init_masters(card)
+    model = build_multi_model(card).to(device)
+    tx = make_optimizer(card.optim_args,
+                        card.trainer_args.accumulate_grad_batches)
+    state = create_train_state(model, init, tx)
+    step, _ = make_multi_steps(model, tx, card.buckets, mesh=mesh)
+    state, loss = step(state, batch, 0)
+    return (float(loss), {n: g.cpu() for n, g in state.grad_acc.items()},
+            {n: (b.cpu() - init[n]).float()
+             for n, b in state.batch_stats.items()})
+
+
+def _knn_data():
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    return (rs.randn(PARALLEL_KNN_GALLERY, 512).astype(np.float32),
+            rs.randn(PARALLEL_KNN_QUERIES, 512).astype(np.float32))
+
+
+def _cat_rel(got, want):
+    """Relative L2 error of the tensors of ``got`` against ``want``, all
+    names together."""
+    import torch
+
+    g = torch.cat([got[n].reshape(-1) for n in want])
+    w = torch.cat([want[n].reshape(-1) for n in want])
+    return ((g - w).norm() / w.norm()).item()
+
+
+def _cat_corr(got, want):
+    """Pearson correlation of the tensors of ``got`` and ``want``, all
+    names together."""
+    import torch
+
+    g = torch.cat([got[n].reshape(-1) for n in want]).double()
+    w = torch.cat([want[n].reshape(-1) for n in want]).double()
+    return torch.corrcoef(torch.stack([g, w]))[0, 1].item()
+
+
+def parallel_worker(rank: int, init: str, out: str) -> None:
+    """One of the ``parallel`` phase's two ranks on the one card (run as
+    ``chip_smoke.py --parallel-worker RANK --parallel-init INIT
+    --parallel-out DIR``): a gloo group over CUDA tensors, first probed
+    for ``all_reduce``, ``broadcast`` and ``all_gather``; then the ViT
+    flagship's dropout-0 step on this rank's 128 of 256 pairs, the B0
+    SigLIP card's micro-step on its 32 of 64 (``fused_mbconv: true``:
+    synchronised BatchNorm, the plain MBConv route) and the sharded kNN;
+    its results in ``DIR/rank<RANK>.pt``."""
+    import io
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        synthetic_batch_b0, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.parallel.knn import (
+        shard_gallery, sharded_topk)
+    from multimodal_plankton_recognition_torch.parallel.mesh import (
+        create_mesh, shard_batch)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=init, world_size=2,
+                            rank=rank)
+    result = {"probe": {}}
+    try:
+        x = torch.full((4,), float(rank + 1), device=device)
+        for op, call in (
+                ("all_reduce", lambda: dist.all_reduce(x.clone())),
+                ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                ("all_gather", lambda: dist.all_gather(
+                    [torch.empty_like(x) for _ in range(2)], x))):
+            try:
+                call()
+                torch.cuda.synchronize()
+                result["probe"][op] = "ok"
+            except Exception as e:  # the backend's refusal is the result
+                result["probe"][op] = f"{type(e).__name__}: {e}"
+        if any(v != "ok" for v in result["probe"].values()):
+            return
+        mesh = create_mesh(device=device)
+        t0 = time.perf_counter()
+        _reset_counts()
+        vit = shard_batch(synthetic_batch_vit(BATCH, seed=3, device=device),
+                          mesh)
+        result["vit"] = _vit_one_step(device, vit, mesh)
+        torch.cuda.synchronize()
+        result["vit_launches"] = _counts()
+        _reset_counts()
+        b0 = shard_batch(synthetic_batch_b0(B0_SIGLIP_CARD["bs"], seed=7,
+                                            device=device), mesh)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            result["b0"] = _b0_one_step(device, b0, True, mesh)
+        torch.cuda.synchronize()
+        result["b0_launches"] = _counts()
+        result["b0_printed"] = printed.getvalue()
+        gallery, queries = _knn_data()
+        sg = shard_gallery(gallery, mesh)
+        q = torch.from_numpy(queries).to(device)
+        idx, dist_ = sharded_topk(q, sg, PARALLEL_KNN_K, mesh)
+        result["knn"] = (idx.cpu(), dist_.cpu())
+        result["knn_ms"] = cuda_ms(
+            lambda: sharded_topk(q, sg, PARALLEL_KNN_K, mesh), reps=3)
+        result["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _run_ranks(tmp):
+    """Start the two ``parallel_worker`` ranks, wait for both (killed at
+    ``PARALLEL_TIMEOUT``) and return their results."""
+    import torch
+
+    init = f"tcp://localhost:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-worker",
+         str(r), "--parallel-init", init, "--parallel-out", str(tmp)])
+        for r in range(2)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=PARALLEL_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode for proc in procs):
+        fail(f"parallel: a rank failed: exit codes "
+             f"{[p.returncode for p in procs]}")
+    return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def phase_parallel(device):
+    """The parallel layer (queue 1 module 7) on the one card:
+
+    (i) an NCCL process group of one rank (``multihost.initialize``)
+    drives the ViT flagship (bs 256, 16 buckets, bf16, the masters of
+    phase 5) through ``make_multi_steps(..., mesh=...)`` for
+    ``PARALLEL_STEPS`` steps: 14 + 14 attention and 1 + 1 CLIP launches a
+    step, losses and masters bit for bit the plain step's (the gradient
+    all-reduce of one rank changes no bit); train pairs/s of both in
+    turns (plain, mesh, mesh, plain);
+    (ii) ``torchrun --standalone --nproc_per_node 1
+    scripts/train_multi_torch.py`` with the flagship's card as ``.json``
+    (``packed_cache: true``, ``mesh: {data: 1}``) on ``write_packed_splits``'
+    ``DRIVE_TRAIN`` and ``DRIVE_TEST`` pairs, one epoch: exit 0, one
+    ``metrics.jsonl`` line with finite losses;
+    (iii), beside (ii) on the same card: two ranks on the one card
+    (``parallel_worker``) over gloo, when gloo takes CUDA tensors here
+    (probed first; otherwise printed as not run): the flagship's dropout-0
+    step at 2 x 128 and the B0 SigLIP card's micro-step at 2 x 32
+    (synchronised BatchNorm; with ``fused_mbconv: true``, 0 launches of
+    kernels 13-16 and the route printed once) against the one-process step
+    over the global batch (loss within 1e-2; the flagship's updates and the
+    running statistics' change within 5e-2 relative L2; B0's bf16 gradient
+    mean within the JAX package's statistical bounds, relative L2 0.3 and
+    correlation 0.95, beside the one-process step's own nudged-input floor),
+    and the row-sharded kNN (gallery ``PARALLEL_KNN_GALLERY`` x 512, 2,048
+    queries, k 51) against the unsharded ``topk_euclidean`` (the same
+    neighbour lists on ``RETRIEVAL_AGREE`` of the rows, distances within
+    1e-3).
+    Prints a ``summary: parallel`` line; returns (i)'s launches."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_card, flagship_vit, init_weights_, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.parallel import multihost
+    from multimodal_plankton_recognition_torch.parallel.mesh import (
+        create_mesh)
+
+    t_phase = time.perf_counter()
+    per_step = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                         mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                         clip_bwd=1)
+    init = init_weights_(flagship_vit(dtype=torch.float32),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch_vit(BATCH, seed=3, device=device)
+
+    # (i) an NCCL group of one rank
+    if not multihost.initialize(
+            init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+            rank=0, device=device) or dist.get_backend() != "nccl":
+        fail("parallel: no NCCL process group of one rank")
+    try:
+        mesh = create_mesh(device=device)
+        plain_state, plain_step = _train_state(flagship_vit(), init, device)
+        plain_losses = [plain_step(plain_state, batch, 0)[1]
+                        for _ in range(PARALLEL_STEPS)]
+        mesh_state, mesh_step = _train_state(flagship_vit(), init, device,
+                                             mesh=mesh)
+        _reset_counts()
+        torch.cuda.synchronize()
+        mesh_losses = [mesh_step(mesh_state, batch, 0)[1]
+                       for _ in range(PARALLEL_STEPS)]
+        torch.cuda.synchronize()
+        launches = _counts()
+        print(f"parallel (i): NCCL world 1, {PARALLEL_STEPS} flagship steps "
+              f"through the mesh step: losses "
+              f"{[float(x) for x in mesh_losses]} (plain "
+              f"{[float(x) for x in plain_losses]}); launches {launches}",
+              flush=True)
+        want = {n: c * PARALLEL_STEPS for n, c in per_step.items()}
+        if launches != want:
+            fail(f"parallel: expected launches {want}, got {launches}")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(mesh_losses, plain_losses)):
+            fail("parallel: the mesh step's losses are not the plain step's")
+        differ = [n for n, m in mesh_state.params.items()
+                  if not torch.equal(m, plain_state.params[n])]
+        if differ:
+            fail(f"parallel: masters that differ from the plain step's: "
+                 f"{differ[:5]} ({len(differ)})")
+        rates = {"plain": [], "mesh": []}
+        steps = {"plain": (plain_state, plain_step),
+                 "mesh": (mesh_state, mesh_step)}
+        for route in ("plain", "mesh", "mesh", "plain"):
+            rates[route].append(_pairs_per_s(*steps[route], batch,
+                                             PLAIN_STEPS))
+        del plain_state, mesh_state, steps
+    finally:
+        multihost.shutdown()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (ii): the train CLI's data and card
+        root = write_packed_splits(tmp / "data", 224, DRIVE_TRAIN,
+                                   DRIVE_TEST, DRIVE_CLASSES, seed=5)
+        card = dict(flagship_card("vit"), packed_cache=True,
+                    mesh={"data": 1})
+        card_path = tmp / "vit_mesh.json"
+        card_path.write_text(json.dumps(card))
+        # (ii) and (iii) run side by side: separate processes on the card
+        log = tmp / "torchrun.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "1",
+                 str(REPO / "scripts" / "train_multi_torch.py"), "-d",
+                 str(root), "-m", str(card_path), "-l", str(tmp / "logs"),
+                 "--max-epochs", "1"], stdout=out, stderr=subprocess.STDOUT)
+            try:
+                torch.cuda.empty_cache()
+                ranks = _run_ranks(tmp)
+                ranks_s = time.perf_counter() - t0
+                proc.wait(timeout=PARALLEL_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        torchrun_s = time.perf_counter() - t0
+        tail = log.read_text().strip().splitlines()[-8:]
+        print(f"parallel (ii): torchrun --nproc_per_node 1 "
+              f"train_multi_torch.py, 1 epoch, exit {proc.returncode} "
+              f"within {torchrun_s!r} s: " + " | ".join(tail), flush=True)
+        if proc.returncode:
+            fail("parallel: the train CLI under torchrun failed")
+        metrics = list((tmp / "logs").glob("*/version_0/metrics.jsonl"))
+        rows = [json.loads(line) for line in
+                metrics[0].read_text().splitlines()] if metrics else []
+        if len(rows) != 1 or not all(
+                math.isfinite(rows[0].get(k, math.nan))
+                for k in ("train_loss", "valid_loss")):
+            fail(f"parallel: torchrun run's metrics: {rows}")
+    probe = ranks[0]["probe"]
+    ran = all(v == "ok" for r in ranks for v in r["probe"].values())
+    print(f"parallel (iii): gloo on CUDA tensors on one card: {probe}",
+          flush=True)
+    summary = {"seconds": None, "mesh_pairs_per_s": rates["mesh"],
+               "plain_pairs_per_s": rates["plain"],
+               "torchrun_s": torchrun_s, "two_ranks_s": ranks_s}
+    if not ran:
+        print("parallel (iii): not run: this machine's gloo does not take "
+              f"CUDA tensors ({probe})", flush=True)
+    else:
+        summary.update(_check_ranks(device, ranks))
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"summary: parallel ({_smi()}): {json.dumps(summary)}", flush=True)
+    return launches
+
+
+def _check_ranks(device, ranks):
+    """(iii)'s checks of the two ranks' results against this process's
+    one-process steps and unsharded kNN; returns the numbers for the
+    summary."""
+    import torch
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        synthetic_batch_b0, synthetic_batch_vit)
+    from multimodal_plankton_recognition_torch.ops.knn import topk_euclidean
+
+    out = {}
+    vit_loss, vit_upd = _vit_one_step(
+        device, synthetic_batch_vit(BATCH, seed=3, device=device))
+    b0_batch = synthetic_batch_b0(B0_SIGLIP_CARD["bs"], seed=7,
+                                  device=device)
+    b0_loss, b0_grad, b0_stats = _b0_one_step(device, b0_batch, False)
+    # the one-process step's own sensitivity: images nudged by 1e-3
+    g = torch.Generator(device=device).manual_seed(0)
+    nudged = dict(b0_batch, image=b0_batch["image"] * (1 + 1e-3 * torch.randn(
+        b0_batch["image"].shape, generator=g, device=device)))
+    floor = _cat_rel(_b0_one_step(device, nudged, False)[1], b0_grad)
+    out["b0_nudged_floor"] = floor
+    gallery, queries = _knn_data()
+    g = torch.from_numpy(gallery).to(device)
+    q = torch.from_numpy(queries).to(device)
+    ref_idx, ref_dist = (t.cpu() for t in topk_euclidean(q, g,
+                                                         PARALLEL_KNN_K))
+    out["knn_unsharded_ms"] = cuda_ms(
+        lambda: topk_euclidean(q, g, PARALLEL_KNN_K), reps=3)
+    vit_per_rank = _per_step(mha_qkv_fwd=ATTENTION_LAYERS,
+                             mha_qkv_bwd=ATTENTION_LAYERS, clip_fwd=1,
+                             clip_bwd=1)
+    b0_per_rank = _per_step(siglip_fwd=1, siglip_bwd=1)
+    for r, res in enumerate(ranks):
+        loss, upd = res["vit"]
+        rel = _cat_rel(upd, vit_upd)
+        named = {n: ((upd[n] - vit_upd[n]).norm()
+                     / vit_upd[n].norm()).item() for n in NAMED_GRADS}
+        b_loss, b_grad, b_stats = res["b0"]
+        b_rel, s_rel = _cat_rel(b_grad, b0_grad), _cat_rel(b_stats, b0_stats)
+        b_corr = _cat_corr(b_grad, b0_grad)
+        idx, dist_ = res["knn"]
+        same = (idx == ref_idx).all(dim=1).float().mean().item()
+        d_err = (dist_ - ref_dist).abs().max().item()
+        print(f"parallel (iii) rank {r}: flagship 2 x 128 loss {loss!r} "
+              f"(one process {vit_loss!r}), updates relative L2 {rel!r}, "
+              f"named {named}; launches {res['vit_launches']}; B0 SigLIP "
+              f"2 x 32 loss {b_loss!r} (one process {b0_loss!r}), gradient "
+              f"mean relative L2 {b_rel!r} (correlation {b_corr!r}; the "
+              f"one-process step on nudged images {floor!r}), "
+              f"statistics' change {s_rel!r}; "
+              f"launches {res['b0_launches']}; kNN rows equal {same!r}, "
+              f"largest |distance diff| {d_err!r}, sharded "
+              f"{res['knn_ms']!r} ms; rank seconds {res['seconds']!r}",
+              flush=True)
+        if res["vit_launches"] != vit_per_rank:
+            fail(f"parallel: rank {r} flagship launches "
+                 f"{res['vit_launches']}, expected {vit_per_rank}")
+        if res["b0_launches"] != b0_per_rank:
+            fail(f"parallel: rank {r} B0 launches {res['b0_launches']}, "
+                 f"expected {b0_per_rank} (no MBConv kernel)")
+        if res["b0_printed"].count("takes the unfused MBConv route") != 1:
+            fail(f"parallel: rank {r} did not print the MBConv route once: "
+                 f"{res['b0_printed']!r}")
+        for what, got, want in (("flagship", loss, vit_loss),
+                                ("B0", b_loss, b0_loss)):
+            if not abs(got - want) <= STEP_LOSS_TOL:
+                fail(f"parallel: rank {r} {what} loss {got} against the "
+                     f"one-process {want}")
+        bad = {n: e for n, e in named.items() if not e <= STEP_GRAD_TOL}
+        for what, e, tol in (("flagship updates", rel, STEP_GRAD_TOL),
+                             ("B0 gradients", b_rel, STAT_RMS),
+                             ("B0 statistics", s_rel, STEP_GRAD_TOL)):
+            if not e <= tol:
+                bad[what] = e
+        if not b_corr >= STAT_CORR:
+            bad["B0 gradient correlation"] = b_corr
+        if bad:
+            fail(f"parallel: rank {r} against the one-process step: {bad}")
+        if not (same >= RETRIEVAL_AGREE and d_err <= 1e-3):
+            fail(f"parallel: rank {r} sharded kNN: rows equal {same}, "
+                 f"distance diff {d_err}")
+        out[f"rank{r}"] = {"vit_rel": rel, "b0_rel": b_rel,
+                           "b0_corr": b_corr,
+                           "stats_rel": s_rel, "knn_rows_equal": same,
+                           "knn_sharded_ms": res["knn_ms"],
+                           "seconds": res["seconds"]}
+    return out
+
+
 def _device_ms(prof, steps):
     """{kernel: [ms per step, launches per step]} of the device-side events
     only (the aten ops carry device time too and would count it twice)."""
@@ -5095,14 +5541,15 @@ def _rank_table():
     flag, card = ("vit", "profile"), ("card vit", "card profile")
     fwd_train = {p: pair(*flag, "eval", "train p=0.1")
                  for p in ("train", "global", "serve_checkpoint",
-                           "ffn_train")}
+                           "ffn_train", "parallel")}
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
                       for p in ("card", "siglip_global", "ffn_card")})
     fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
                ffn_encode=pair(*flag, "eval", "eval"),
                retrieval=pair(*flag, "eval", "eval"))
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
-           for p in ("train", "global", "serve_checkpoint", "ffn_train")}
+           for p in ("train", "global", "serve_checkpoint", "ffn_train",
+                     "parallel")}
     bwd.update({p: pair(*card, "p=0.0", "p=0.1")
                 for p in ("card", "siglip_global", "ffn_card")})
     # the classifiers: one encoder each (the ViT's attention at dropout 0)
@@ -5121,7 +5568,7 @@ def _rank_table():
 
     clip = {p: loss_rows(BUCKETS, BATCH // BUCKETS)
             for p in ("train", "serve_checkpoint", "ffn_train", "unpacked",
-                      "fuse_proj", "flax_attention")}
+                      "fuse_proj", "flax_attention", "parallel")}
     clip["b0_card"] = clip["remat"] = loss_rows(
         B0_CARD["buckets"], B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
@@ -5184,7 +5631,15 @@ def main(argv=None) -> None:
     parser.add_argument("--kernel-profile", action="store_true",
                         help="only time and profile kernels 5-10 and "
                              "13-16 (no paths, no result line)")
+    parser.add_argument("--parallel-worker", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-init", help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-out", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.parallel_worker is not None:
+        parallel_worker(args.parallel_worker, args.parallel_init,
+                        args.parallel_out)
+        return
     device = phase_device()
     if args.kernel_profile:
         phase_kernel_profile(device)
@@ -5208,7 +5663,8 @@ def main(argv=None) -> None:
                 "ffn_card": phase_ffn_card(device),
                 "unpacked": phase_unpacked(device),
                 "fuse_proj": phase_fuse_proj(device),
-                "flax_attention": phase_flax_attention(device)}
+                "flax_attention": phase_flax_attention(device),
+                "parallel": phase_parallel(device)}
     if args.profile:
         phase_profile(device)
     _ranking(records, launches)

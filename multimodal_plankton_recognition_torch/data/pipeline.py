@@ -10,7 +10,9 @@ batch on the loader's producer thread, and ``device_put`` copies it with
 it without waiting, so while the card runs one step the next batch is
 already queued behind it. The supervised classifiers' collates
 (``ImageCollate``, ``ProfileCollate``) give their integer ``label`` ids.
-Not ported: the multi-host sharding of the loader.
+With ``host_shard=(index, count)`` each rank of a process group loads only
+its contiguous slice of every identically shuffled global batch (JAX's
+multi-host loader; a "host" is a rank here).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +33,21 @@ class Loader:
     def __init__(self, dataset, batch_size: int, collate_fn: Callable,
                  shuffle: bool = False, drop_last: bool = False,
                  num_workers: int = 4, seed: int = 0,
-                 prefetch_batches: int = 2) -> None:
+                 prefetch_batches: int = 2,
+                 host_shard: Optional[Tuple[int, int]] = None,
+                 split_tail: bool = False) -> None:
+        """``batch_size`` is the global batch. ``host_shard=(index,
+        count)`` yields only slice ``index`` of ``count`` equal contiguous
+        slices of each batch; a trailing partial batch gives each rank
+        ``rows // count`` rows and drops the rest, none when that is 0 (as
+        JAX). ``split_tail`` instead splits that batch as
+        ``numpy.array_split`` does, so that every row is some rank's (an
+        empty slice yields ``{}``)."""
+        if host_shard is not None and batch_size % host_shard[1]:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{host_shard[1]} host processes")
+        self.host_shard = host_shard
+        self.split_tail = split_tail
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -57,6 +73,19 @@ class Loader:
         if self.drop_last:
             order = order[: (len(order) // self.batch_size) * self.batch_size]
         return order
+
+    def _shard(self, idx: np.ndarray) -> Optional[np.ndarray]:
+        """This rank's indices of one batch's ``idx``; None where JAX's
+        loader skips the batch."""
+        if self.host_shard is None:
+            return idx
+        p, n = self.host_shard
+        if self.split_tail and len(idx) < self.batch_size:
+            return np.array_split(idx, n)[p]
+        local = len(idx) // n
+        if local == 0:  # a partial batch smaller than the hosts: skipped
+            return None
+        return idx[p * local:(p + 1) * local]
 
     def _load_sample(self, epoch: int, index: int):
         rng = np.random.default_rng(
@@ -85,7 +114,13 @@ class Loader:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for s in starts:
-                        idx = order[s:s + self.batch_size]
+                        idx = self._shard(order[s:s + self.batch_size])
+                        if idx is None:
+                            continue
+                        if not len(idx):
+                            if not put({}):
+                                return
+                            continue
                         samples = list(pool.map(
                             lambda i: self._load_sample(epoch, i), idx))
                         if not put(self.collate_fn(samples)):

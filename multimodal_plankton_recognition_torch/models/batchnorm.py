@@ -21,6 +21,14 @@ uses the running ones and leaves them alone. Inside ``recomputing()`` (the
 recompute of a checkpointed block, ``models/image/efficientnet.py``'s
 ``remat``) a train-mode forward leaves them alone too, so they move once a
 step, as Flax's ``nn.remat`` moves ``batch_stats``.
+
+Inside ``synchronised(mesh)`` (the train steps on more than one data rank,
+``train/loop.py``) a train-mode forward takes the statistics of the
+global batch, as Flax's BatchNorm does over a batch that GSPMD shards:
+each rank's f32 sums of x and x² and its count are summed over the data
+ranks (``parallel.mesh.sum_over_ranks``, whose backward sums the
+cotangents alike) before E[x²] − E[x]², floored at 0. On one data rank
+the context does nothing.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ GN_EPS = 1e-6    # flax.linen.GroupNorm's default
 
 _RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "plankton_bn_recomputing", default=False)
+_SYNC_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "plankton_bn_sync_mesh", default=None)
 
 
 @contextlib.contextmanager
@@ -51,11 +61,51 @@ def recomputing() -> Iterator[None]:
         _RECOMPUTING.reset(token)
 
 
+@contextlib.contextmanager
+def synchronised(mesh) -> Iterator[None]:
+    """Train-mode BatchNorm statistics over ``mesh``'s data ranks inside
+    the block (nothing on one data rank)."""
+    token = _SYNC_MESH.set(mesh if mesh is not None and mesh.distributed
+                           and mesh.n_data > 1 else None)
+    try:
+        yield
+    finally:
+        _SYNC_MESH.reset(token)
+
+
+def sync_mesh():
+    """The mesh of ``synchronised`` in force here, else None."""
+    return _SYNC_MESH.get()
+
+
+def is_synchronised() -> bool:
+    """Whether train-mode statistics are taken over several ranks here (a
+    route that computes them itself, the fused MBConv kernels, must not
+    be taken)."""
+    return _SYNC_MESH.get() is not None
+
+
 def batch_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, max(0, E[x²] − mean²)) over ``dims``, in f32."""
     xf = x.float()
     m = xf.mean(dims)
     return m, torch.clamp((xf * xf).mean(dims) - m * m, min=0.0)
+
+
+def synced_batch_stats(x: torch.Tensor, dims, mesh
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``batch_stats`` over every data rank's rows: the f32 sums of x and
+    x² and the count, summed over the ranks."""
+    from ..parallel.mesh import sum_over_ranks
+
+    xf = x.float()
+    c = xf.shape[1]
+    count = torch.full((1,), float(xf.numel() // c), device=xf.device)
+    sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+    sums = sum_over_ranks(sums, mesh)
+    n = sums[-1]
+    m = sums[:c] / n
+    return m, torch.clamp(sums[c:2 * c] / n - m * m, min=0.0)
 
 
 def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -114,7 +164,9 @@ class BatchNorm(_F32Norm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = (0, *range(2, x.dim()))
-            mean, var = batch_stats(x, dims)
+            mesh = _SYNC_MESH.get()
+            mean, var = batch_stats(x, dims) if mesh is None \
+                else synced_batch_stats(x, dims, mesh)
             self.update_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

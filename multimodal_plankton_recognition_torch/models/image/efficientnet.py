@@ -55,7 +55,9 @@ from torch.utils.checkpoint import (
 )
 
 from ...ops.mbconv import mbconv_core
-from ..batchnorm import BatchNorm, recomputing
+from ..batchnorm import (
+    BatchNorm, is_synchronised, recomputing, sync_mesh, synchronised,
+)
 
 # (expand_ratio, channels, repeats, stride, kernel) per stage: the B0 table
 B0_STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
@@ -97,19 +99,22 @@ def _conv_saves_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 @contextlib.contextmanager
-def _recompute(inner):
-    with inner, recomputing():
+def _recompute(inner, mesh):
+    # the recompute runs in the backward, outside the step's context: the
+    # forward's BatchNorm synchronisation is carried over (``mesh``)
+    with inner, recomputing(), synchronised(mesh):
         yield
 
 
 def _full_contexts():
-    return contextlib.nullcontext(), _recompute(contextlib.nullcontext())
+    return contextlib.nullcontext(), _recompute(contextlib.nullcontext(),
+                                                sync_mesh())
 
 
 def _conv_saves_contexts():
     forward, recompute = create_selective_checkpoint_contexts(
         _conv_saves_policy)
-    return forward, _recompute(recompute)
+    return forward, _recompute(recompute, sync_mesh())
 
 
 def _conv(cin: int, cout: int, k: int = 1, stride: int = 1,
@@ -157,7 +162,11 @@ class _MBConv(nn.Module):
 
     @property
     def takes_fused_route(self) -> bool:
-        return self.fused and self.training and self.stride == 1
+        # the fused kernels take per-rank BatchNorm statistics: over several
+        # data ranks the block keeps the plain route, whose statistics are
+        # synchronised (JAX's multi-chip GSPMD route has no kernel either)
+        return self.fused and self.training and self.stride == 1 \
+            and not is_synchronised()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_fused_route:

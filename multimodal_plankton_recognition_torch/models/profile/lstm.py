@@ -40,9 +40,13 @@ class LSTMLayer(nn.Module):
     def __init__(self, dim_in: int, dim_hidden: int) -> None:
         super().__init__()
         self.dim_hidden = dim_hidden
-        self.weight_ih = nn.Parameter(torch.empty(4 * dim_hidden, dim_in))
-        self.weight_hh = nn.Parameter(torch.empty(4 * dim_hidden,
-                                                  dim_hidden))
+        # PyTorch's nn.LSTM default, U(-1/sqrt(H), 1/sqrt(H)), until
+        # models.initializers (Flax's) or a state dict sets them
+        bound = dim_hidden ** -0.5
+        self.weight_ih = nn.Parameter(
+            torch.empty(4 * dim_hidden, dim_in).uniform_(-bound, bound))
+        self.weight_hh = nn.Parameter(
+            torch.empty(4 * dim_hidden, dim_hidden).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.zeros(4 * dim_hidden))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,10 +8,12 @@ pynndescent one): ``kneighbors(*X)`` queries once per query modality and
 h-stacks the results, which is how the modalities are fused.
 
 The index lives on the card unless the caller passes ``device="cpu"``;
-without a card the default raises (``require_device``). Not ported (TPU
+without a card the default raises (``require_device``). ``sharded=True``
+row-shards the gallery over the data ranks of a mesh (``parallel.knn``;
+by default the mesh of the process group on ``device``, one rank without
+one): every rank must then build it and query it alike. Not ported (TPU
 machinery): ``approx=True`` (``jax.lax.approx_max_k``) and the 256-row
-shape buckets that spared XLA a recompile per query size. Not ported
-yet: ``sharded=True`` (the mesh-sharded gallery, queue 1 module 7).
+shape buckets that spared XLA a recompile per query size.
 """
 
 from __future__ import annotations
@@ -80,25 +82,39 @@ class ANNClassifier:
 
     def __init__(self, X: np.ndarray, y: np.ndarray,
                  device: torch.device | str = "cuda", approx: bool = False,
-                 sharded: bool = False, **nndescent_args) -> None:
+                 sharded: bool = False, mesh=None,
+                 **nndescent_args) -> None:
         if approx:
             raise NotImplementedError(
                 "approx retrieval is TPU machinery, not ported (ROADMAP.md)")
-        if sharded:
-            raise NotImplementedError(
-                "sharded retrieval (a row-sharded gallery) is not ported "
-                "yet (ROADMAP.md queue 1 module 7, the parallel layer)")
         self.y_ = np.asarray(y).copy()
-        self._gallery = torch.as_tensor(np.asarray(X, np.float32),
-                                        device=require_device(device))
+        X = np.asarray(X, np.float32)
+        self._n_gallery = X.shape[0]
+        self._mesh = None
+        if sharded:
+            from ..parallel import knn as pknn
+            from ..parallel.mesh import create_mesh
+
+            self._mesh = mesh if mesh is not None \
+                else create_mesh(device=require_device(device))
+            self._gallery = pknn.shard_gallery(X, self._mesh)
+            self._device = self._mesh.device
+        else:
+            self._gallery = torch.as_tensor(X, device=require_device(device))
+            self._device = self._gallery.device
 
     def kneighbors(self, *X: np.ndarray, k: int = 1, **query_args):
-        k = min(k, self._gallery.shape[0])
+        k = min(k, self._n_gallery)
         out = []
         for x in X:
             q = torch.as_tensor(np.asarray(x, np.float32),
-                                device=self._gallery.device)
-            idx, dist = topk_euclidean(q, self._gallery, k)
+                                device=self._device)
+            if self._mesh is not None:
+                from ..parallel.knn import sharded_topk
+
+                idx, dist = sharded_topk(q, self._gallery, k, self._mesh)
+            else:
+                idx, dist = topk_euclidean(q, self._gallery, k)
             out.append((idx.cpu().numpy(), dist.cpu().numpy()))
         return tuple(out)
 
@@ -109,7 +125,7 @@ class ANNClassifier:
                      **query_args) -> dict:
         """Predictions for several neighbour counts from ONE top-max(ks)
         query per modality (the k-NN set is a prefix of the max-k set)."""
-        kmax = min(max(ks), self._gallery.shape[0])
+        kmax = min(max(ks), self._n_gallery)
         neighbors = self.kneighbors(*X, k=kmax, **query_args)
         out = {}
         for k in ks:

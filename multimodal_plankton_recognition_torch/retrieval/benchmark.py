@@ -16,8 +16,10 @@ Retrieval is the port's exact kNN (``ops.knn.ANNClassifier``) on
 ``device``: the card unless the caller passes another; without a card
 the default raises. The control flow is JAX's, so one seed draws the same
 galleries: one ``numpy.random.Generator`` drawn in model, fold, n, repeat
-order. Not ported yet: ``sharded=True`` / ``set_sharded_retrieval(True)``
-(the row-sharded gallery, queue 1 module 7), which raise.
+order. ``sharded=True`` / ``set_sharded_retrieval(True)`` row-shard each
+gallery over the data ranks of the process group (``parallel.knn``; one
+rank without one): the predictions are the same, and every rank must
+run the suite alike.
 """
 
 from __future__ import annotations
@@ -67,21 +69,21 @@ _ANN_KWARGS = dict(n_neighbors=32, metric="euclidean", diversify_prob=0.0,
                    pruning_degree_multiplier=3.0, low_memory=False,
                    random_state=0)
 
-_SHARDED_REFUSAL = ("sharded retrieval (a row-sharded gallery) is not "
-                    "ported yet (ROADMAP.md queue 1 module 7, the parallel "
-                    "layer)")
+#: when True, galleries are row-sharded over the data ranks
+#: (parallel/knn.py): the same predictions, a rank's share of the memory
+_SHARDED = False
 
 
 def set_sharded_retrieval(enabled: bool = True) -> None:
-    """The JAX package's ``--sharded`` toggle: ``False`` is the one
-    gallery layout of the port; ``True`` raises."""
-    if enabled:
-        raise NotImplementedError(_SHARDED_REFUSAL)
+    """Toggle gallery sharding for every classifier built after it (the
+    benchmark CLIs' ``--sharded``)."""
+    global _SHARDED
+    _SHARDED = enabled
 
 
 def _make_classifier(X: np.ndarray, y: np.ndarray,
                      device: torch.device | str) -> ANNClassifier:
-    return ANNClassifier(X, y, device, **_ANN_KWARGS)
+    return ANNClassifier(X, y, device, sharded=_SHARDED, **_ANN_KWARGS)
 
 
 def _fused_run(image_train, profile_train, label_train, X_test, coder,
@@ -201,8 +203,7 @@ def run_suite(embeddings: Dict, mode: str, N: Sequence[int],
     cross threshold each fold's pool at ``th`` and skip n at or above its
     smallest class; folds and cross_folds skip n above the train split's
     smallest class."""
-    if sharded:
-        raise NotImplementedError(_SHARDED_REFUSAL)
+    set_sharded_retrieval(sharded)
     device = require_device(device)
     key_ = next(iter(embeddings))
     first_fold = next(iter(embeddings[key_].values()))

@@ -32,12 +32,32 @@ initial masters and running statistics before the train state is made
 prints JAX's message and trains from scratch. A resumed run takes its
 weights from the checkpoint instead.
 
+Several cards: launched under ``torchrun --nproc_per_node N``, the
+drivers start the process group (``parallel.multihost.initialize``) and
+train on a mesh of N ranks (``_setup_mesh``, JAX's): ``n_data`` is the
+world over the card's ``mesh: {model: ...}`` (default 1), a card's
+``mesh: {data: ...}`` must equal it, and ``card.bs`` must divide by it
+(JAX's message, naming a process count that divides; JAX would leave
+chips idle instead). Each rank loads its contiguous slice of every
+global batch (``Loader(host_shard=...)``), starts from rank 0's state
+(``replicate_state``; a resume loads on every rank first) and runs
+``make_multi_steps(..., mesh=...)`` (GSPMD's semantics) or, for
+``parallel: shard_map`` on more than one rank, the per-rank step
+(``train.shard_step``; a BatchNorm model raises JAX's error, and
+bucketed negatives whose buckets do not divide by the data ranks print
+JAX's line and take the GSPMD step). Only rank 0 writes the run
+directory, ``metrics.jsonl``, the checkpoints and the trace; every rank
+waits on a barrier after a save. The metrics are all-reduced in the
+steps, so early stopping and the top-k choice take the same branch on
+every rank. The classifiers' eval covers every test row: the trailing
+partial batch is split over the ranks (``split_tail``), where JAX
+replicates it.
+
 Not ported, as TPU machinery: ``use_tpu_runtime_flags``,
-``enable_compilation_cache`` and ``use_fast_prng``. Card options that
-need a module not ported yet raise before any step: ``loader: grain``
-(ROADMAP.md queue 1 module 8) and a ``mesh`` of more than one device
-(module 7). ``parallel: shard_map`` on one device is the plain step, as
-in JAX.
+``enable_compilation_cache`` and ``use_fast_prng``. A card option that
+needs a module not ported yet raises before any step: ``loader: grain``
+(ROADMAP.md queue 1 module 8). ``parallel: shard_map`` on one device is
+the plain step, as in JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +84,10 @@ from ..models.initializers import init_weights_
 from ..models.pretrained import load_pretrained_into
 from ..ops.augment import multi_train_augment
 from ..ops.knn import require_device
+from ..parallel import multihost
+from ..parallel.mesh import (
+    Mesh, barrier, broadcast_object, create_mesh, replicate_state,
+)
 from ..retrieval.encode import eval_pipeline
 from ..utils import LabelVocab
 from .checkpoint import CheckpointManager, read_port_metadata
@@ -72,6 +96,9 @@ from .logging import MetricsWriter
 from .loop import Fitter, make_classifier_steps, make_multi_steps
 from .metrics import confusion_matrix, render_confusion_matrix
 from .optim import Optimizer, make_optimizer
+from .shard_step import (
+    BATCHNORM_REFUSAL, has_batchnorm, make_multi_steps_shard_map,
+)
 from .state import TrainState, create_train_state
 
 TRACE_FILE = "epoch_0.pt.trace.json"
@@ -88,11 +115,63 @@ def _refuse_unported(card: ModelCard) -> None:
         raise NotImplementedError(
             "loader: grain (the process-based loader) is not ported yet "
             "(ROADMAP.md queue 1 module 8); use loader: threads")
-    mesh = card.mesh or {}
-    if (mesh.get("data") or 1) * (mesh.get("model") or 1) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh} asks for more than one device; the parallel "
-            f"layer is not ported yet (ROADMAP.md queue 1 module 7)")
+
+
+def _setup_mesh(card: ModelCard, device: torch.device) -> Mesh:
+    """The run's mesh (JAX's ``_setup_mesh``): the process group the
+    launcher describes, started here if it is not up yet (one process
+    without a launcher), split into ``n_data`` = world / ``model``. A
+    card's ``mesh: {data: ...}`` must match, and ``card.bs`` divide by
+    ``n_data``; otherwise this raises, naming a process count that
+    fits."""
+    multihost.initialize(device=device)
+    cfg = card.mesh or {}
+    n_model = cfg.get("model") or 1
+    world = multihost.process_count()
+    n_data = cfg.get("data")
+    if n_data is None:
+        n_data = max(1, world // n_model)
+    if n_data * n_model != world:
+        raise ValueError(
+            f"mesh {cfg} asks for {n_data} x {n_model} = {n_data * n_model}"
+            f" processes, and this run has {world}; launch it with torchrun "
+            f"--nproc_per_node {n_data * n_model}")
+    if card.bs % n_data != 0:
+        fits = max(d for d in range(1, n_data + 1) if card.bs % d == 0)
+        raise ValueError(
+            f"Batch size {card.bs} not divisible by data-axis size "
+            f"{n_data}; launch torchrun --nproc_per_node {fits * n_model}, "
+            f"whose data axis divides it")
+    return create_mesh(n_data, n_model, device)
+
+
+class _RankCheckpointer:
+    """Rank 0's ``CheckpointManager`` seen from every rank: rank 0 writes
+    (the state is the same on every rank), every rank waits on a barrier
+    after a save, and ``best_step`` is rank 0's."""
+
+    def __init__(self, mesh: Mesh, manager: Optional[CheckpointManager]):
+        self.mesh = mesh
+        self.manager = manager
+
+    def save(self, epoch: int, state, metrics: Dict[str, float]) -> bool:
+        saved = self.manager is not None and \
+            self.manager.save(epoch, state, metrics)
+        barrier(self.mesh)
+        return saved
+
+    def wait(self) -> None:
+        if self.manager is not None:
+            self.manager.wait()
+        barrier(self.mesh)
+
+    def best_step(self) -> Optional[int]:
+        return broadcast_object(
+            self.manager.best_step() if self.manager is not None else None,
+            self.mesh)
+
+    def restore(self, step: int) -> Dict[str, Any]:
+        return self.manager.restore(step)
 
 
 def multi_datasets(card: ModelCard, data_path: Path | str):
@@ -120,13 +199,14 @@ def multi_datasets(card: ModelCard, data_path: Path | str):
 
 
 def multi_loaders(card: ModelCard, train_set, test_set,
-                  device: torch.device | str) -> Tuple[Loader, Loader]:
+                  device: torch.device | str,
+                  mesh: Optional[Mesh] = None) -> Tuple[Loader, Loader]:
     """The driver's train and valid ``Loader``s (both shuffled, last
     partial batch dropped; seeds ``card.seed`` and ``card.seed + 1``) on
     the eval pipeline's tokenizer; under device augmentation the train
     tokenizer pads to the oversize, where the step crops. ArcFace batches carry class ids, and the card's
     head gets ``out_features`` from the train classes. On a card the
-    batches come pinned."""
+    batches come pinned; with a ``mesh``, each rank's slice of them."""
     valid_tok = eval_pipeline(card, "multi")[2]
     train_tok = valid_tok
     if card.device_augment:
@@ -144,7 +224,8 @@ def multi_loaders(card: ModelCard, train_set, test_set,
         return Loader(dataset, card.bs,
                       PinnedCollate(collate) if pin else collate,
                       shuffle=True, drop_last=True,
-                      num_workers=card.num_workers, seed=seed)
+                      num_workers=card.num_workers, seed=seed,
+                      host_shard=mesh.host_shard() if mesh else None)
 
     return (loader(train_set, train_tok, card.seed),
             loader(test_set, valid_tok, card.seed + 1))
@@ -250,6 +331,27 @@ class _Profiler:
         prof.export_chrome_trace(str(self.directory / TRACE_FILE))
 
 
+def _run_outputs(mesh: Mesh, logdir, name: str, monitor: str, mode: str,
+                 card: ModelCard, metadata: Dict[str, Any], profile: bool
+                 ) -> Tuple[Optional[MetricsWriter], _RankCheckpointer, str,
+                            _Profiler]:
+    """(writer, checkpointer, run directory, profiler) of a run: rank 0
+    makes the run directory, its writer, checkpoints (top-k by
+    ``monitor``) and trace; the other ranks get no writer, rank 0's
+    checkpointer behind barriers and the directory's name."""
+    writer = manager = None
+    if mesh.rank == 0:
+        writer = MetricsWriter(logdir, name=name)
+        manager = CheckpointManager(
+            writer.logdir / "checkpoints", monitor=monitor, mode=mode,
+            save_top_k=card.save_top_k, metadata=metadata)
+    run_dir = broadcast_object(
+        str(writer.logdir) if writer is not None else None, mesh)
+    profiler = _Profiler(Path(run_dir) / "profile",
+                         profile and writer is not None, mesh.device)
+    return writer, _RankCheckpointer(mesh, manager), run_dir, profiler
+
+
 def _card(modelcard: str | Path | ModelCard,
           max_epochs: Optional[int]) -> Tuple[ModelCard, str]:
     """(card, its name for the run directory): a copy of a ``ModelCard``
@@ -283,27 +385,27 @@ def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
     "logdir", "best_step", "state"}``."""
     device = require_device(device)
     card, card_name = _card(modelcard, max_epochs)
+    mesh = _setup_mesh(card, device)
+    device = mesh.device
     data_path = Path(dataset)
 
     train_set, test_set = multi_datasets(card, data_path)
     train_loader, valid_loader = multi_loaders(card, train_set, test_set,
-                                               device)
+                                               device, mesh)
     model, tx, state = multi_state(card, device, resume)
+    state = replicate_state(state, mesh)
     augment_fn = None
     if card.device_augment:
         ts = card.target_size
         kind = (card.profile_encoder_args or {}).get("kind", "cnn")
         augment_fn = lambda b, g: multi_train_augment(b, ts, g, kind=kind)
-    train_step, eval_step = make_multi_steps(model, tx, step_buckets(card),
-                                             augment_fn=augment_fn)
+    train_step, eval_step = _multi_steps(card, model, tx, mesh, augment_fn)
 
-    writer = MetricsWriter(logdir, name=_run_name(card_name, data_path))
-    ckpt = CheckpointManager(
-        writer.logdir / "checkpoints", monitor="valid_loss", mode="min",
-        save_top_k=card.save_top_k,
-        metadata={"card": card.to_dict(), "kind": "multi",
-                  "class_names": [str(c) for c in train_set.class_names]})
-    profiler = _Profiler(writer.logdir / "profile", profile, device)
+    writer, ckpt, run_dir, profiler = _run_outputs(
+        mesh, logdir, _run_name(card_name, data_path), "valid_loss", "min",
+        card, {"card": card.to_dict(), "kind": "multi",
+               "class_names": [str(c) for c in train_set.class_names]},
+        profile)
     trainer = card.trainer_args
     fitter = Fitter(train_step, eval_step, writer=writer, checkpointer=ckpt,
                     early_stopping=EarlyStopping("valid_loss", "min",
@@ -312,15 +414,40 @@ def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
                     max_epochs=trainer.max_epochs,
                     check_val_every_n_epoch=trainer.check_val_every_n_epoch,
                     seed=card.seed, put_fn=device_put(device),
-                    hooks={"on_epoch_end": profiler.stop_after_first_epoch})
+                    hooks={"on_epoch_end": profiler.stop_after_first_epoch},
+                    mesh=mesh)
     profiler.start()
     try:
         state = fitter.fit(state, train_loader, valid_loader)
     finally:
         profiler.stop()
-    writer.close()
-    return {"history": fitter.history, "logdir": str(writer.logdir),
+    if writer is not None:
+        writer.close()
+    return {"history": fitter.history, "logdir": run_dir,
             "best_step": ckpt.best_step(), "state": state}
+
+
+def _multi_steps(card: ModelCard, model, tx: Optimizer, mesh: Mesh,
+                 augment_fn):
+    """The card's contrastive steps on ``mesh`` (JAX's choice in
+    ``train_multi``): the per-rank step for ``parallel: shard_map`` on
+    more than one rank, else ``make_multi_steps`` at ``step_buckets``."""
+    buckets = step_buckets(card)
+    if card.parallel == "shard_map" and mesh.world > 1:
+        if has_batchnorm(model):
+            raise ValueError(BATCHNORM_REFUSAL)
+        negatives = (card.coordination_args or {}).get("negatives",
+                                                         "bucketed")
+        try:
+            return make_multi_steps_shard_map(
+                model, tx, mesh, buckets=card.buckets, negatives=negatives,
+                augment_fn=augment_fn)
+        except ValueError as e:
+            # e.g. buckets that do not divide by the data ranks
+            print(f"parallel: shard_map unavailable ({e}); "
+                  f"falling back to GSPMD")
+    return make_multi_steps(model, tx, buckets, augment_fn=augment_fn,
+                            mesh=mesh)
 
 
 def _train_classifier(kind: str, dataset: str | Path,
@@ -332,6 +459,8 @@ def _train_classifier(kind: str, dataset: str | Path,
                       device: torch.device | str = "cuda") -> Dict[str, Any]:
     device = require_device(device)
     card, card_name = _card(modelcard, max_epochs)
+    mesh = _setup_mesh(card, device)
+    device = mesh.device
     data_path = Path(dataset)
     # the raw transforms and the tokenizer the classifier is served with
     image_tf, profile_tf, tokenizer = eval_pipeline(card, kind)
@@ -345,21 +474,20 @@ def _train_classifier(kind: str, dataset: str | Path,
         collate = PinnedCollate(collate)
     train_loader = Loader(train_set, card.bs, collate, shuffle=True,
                           drop_last=True, num_workers=card.num_workers,
-                          seed=card.seed)
+                          seed=card.seed, host_shard=mesh.host_shard())
     test_loader = Loader(test_set, card.bs, collate, shuffle=False,
                          drop_last=False, num_workers=card.num_workers,
-                         seed=card.seed + 1)
+                         seed=card.seed + 1, host_shard=mesh.host_shard(),
+                         split_tail=True)
     model, tx, state = multi_state(card, device, resume, kind,
                                    vocab.to_list())
-    train_step, eval_step = make_classifier_steps(model, tx)
+    state = replicate_state(state, mesh)
+    train_step, eval_step = make_classifier_steps(model, tx, mesh)
 
-    writer = MetricsWriter(logdir, name=_run_name(card_name, data_path))
-    ckpt = CheckpointManager(
-        writer.logdir / "checkpoints", monitor="valid_acc", mode="max",
-        save_top_k=card.save_top_k,
-        metadata={"card": card.to_dict(), "kind": kind,
-                  "class_names": vocab.to_list()})
-    profiler = _Profiler(writer.logdir / "profile", profile, device)
+    writer, ckpt, run_dir, profiler = _run_outputs(
+        mesh, logdir, _run_name(card_name, data_path), "valid_acc", "max",
+        card, {"card": card.to_dict(), "kind": kind,
+               "class_names": vocab.to_list()}, profile)
     trainer = card.trainer_args
     put = device_put(device)
     fitter = Fitter(train_step, eval_step, writer=writer, checkpointer=ckpt,
@@ -369,31 +497,36 @@ def _train_classifier(kind: str, dataset: str | Path,
                     max_epochs=trainer.max_epochs,
                     check_val_every_n_epoch=trainer.check_val_every_n_epoch,
                     seed=card.seed, put_fn=put,
-                    hooks={"on_epoch_end": profiler.stop_after_first_epoch})
+                    hooks={"on_epoch_end": profiler.stop_after_first_epoch},
+                    mesh=mesh)
     profiler.start()
     try:
         state = fitter.fit(state, train_loader, test_loader)
     finally:
         profiler.stop()
 
-    # the final test on the best checkpoint's masters and statistics
+    # the final test on the best checkpoint's masters and statistics,
+    # read by rank 0 and broadcast
     best = ckpt.best_step()
     if best is not None:
-        payload = ckpt.restore(best)
-        with torch.no_grad():
-            for name, master in state.params.items():
-                master.copy_(payload["params"][name])
-            for name, buf in state.batch_stats.items():
-                buf.copy_(payload["batch_stats"][name])
+        if writer is not None:  # rank 0
+            payload = ckpt.restore(best)
+            with torch.no_grad():
+                for name, master in state.params.items():
+                    master.copy_(payload["params"][name])
+                for name, buf in state.batch_stats.items():
+                    buf.copy_(payload["batch_stats"][name])
+        state = replicate_state(state, mesh)
     test = fitter._eval_epoch(state, test_loader)
     test_acc = test["valid_acc"]
-    writer.log({"test_acc": test_acc}, step=0)
-    if writer.has_tensorboard:
-        cm = confusion_matrix(test["_pred"], test["_true"], len(vocab))
-        writer.log_image("test_cm",
-                         render_confusion_matrix(cm, vocab.to_list()))
-    writer.close()
-    return {"history": fitter.history, "logdir": str(writer.logdir),
+    if writer is not None:
+        writer.log({"test_acc": test_acc}, step=0)
+        if writer.has_tensorboard:
+            cm = confusion_matrix(test["_pred"], test["_true"], len(vocab))
+            writer.log_image("test_cm",
+                             render_confusion_matrix(cm, vocab.to_list()))
+        writer.close()
+    return {"history": fitter.history, "logdir": run_dir,
             "best_step": best, "test_acc": test_acc, "state": state}
 
 

@@ -26,6 +26,37 @@ same way: cross-entropy on the logits in the module dtype (as JAX takes
 returns the argmax ``pred`` and the batch's ``label``, from which
 ``Fitter`` adds ``valid_acc``. The drivers that wire these to a card and
 a dataset are ``train.drivers``.
+
+With a ``mesh`` (``parallel.mesh``: one rank of a process group, each
+rank a card and its contiguous rows of the global batch) the steps
+compute what the JAX package's jitted steps compute under GSPMD on an
+n_data-device mesh, the single-device step over the global batch:
+
+* each rank's loss is over its own rows. Buckets are contiguous rows, so
+  where ``buckets`` divides by n_data each rank holds whole buckets and
+  runs the loss (and its kernels) on ``buckets / n_data`` of them; where
+  it does not, every rank gathers all ranks' embeddings
+  (``all_gather_rows``) and computes the loss of the global batch;
+* the f32 gradients and the loss are averaged over the ranks as one flat
+  buffer in a fixed order (``all_reduce_mean_``), so two runs agree bit
+  for bit, before accumulation and the update; the mean of the ranks'
+  gradients is the global loss's, since each gather's backward sums the
+  other ranks' cotangents into this rank's rows;
+* BatchNorm takes the global batch's statistics (``batchnorm.
+  synchronised``), and a fused MBConv block takes its plain route there
+  (kernels 13-16 take per-rank statistics; printed once);
+* dropout and the augmentation draw from the step's generators with the
+  data rank in their seed (``Mesh.rank_words``), as JAX's shard_map step
+  folds in the axis index: a rank's rows get their own draws (JAX's GSPMD
+  step draws one mask over the global batch: the same distribution, other
+  bits);
+* eval losses are the global batch's: the multi step's the mean over the
+  ranks, the classifier's the rows' mean over the ranks' rows, which may
+  differ in number (a split trailing batch), its ``pred`` and ``label``
+  gathered in row order.
+
+On a process group of one rank the collectives run and change no bit, so
+the step is ``make_multi_steps``' bit for bit.
 """
 
 from __future__ import annotations
@@ -38,8 +69,12 @@ import torch
 from torch import nn
 
 from ..data.pipeline import device_put
+from ..models.batchnorm import synchronised
 from ..models.dropout import dropout_rng
 from ..ops.losses import cross_entropy_loss
+from ..parallel.mesh import (
+    Mesh, all_gather_rows, all_reduce_mean_, gather_uneven,
+)
 from .optim import Optimizer
 from .state import TrainState
 
@@ -55,21 +90,34 @@ def _step_generator(seed: int, step: int, *stream: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+def _rank_words(mesh: Optional[Mesh]) -> tuple:
+    return () if mesh is None else mesh.rank_words()
+
+
 def _train_update(model: nn.Module, tx: Optimizer, state: TrainState,
-                  seed: int, loss_fn: Callable[[], torch.Tensor]
+                  seed: int, loss_fn: Callable[[], torch.Tensor],
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[TrainState, torch.Tensor]:
     """One micro-step of either kind: the masters into ``model`` in train
-    mode, ``loss_fn()`` under the step's dropout generator, its backward,
-    the gradients upcast to f32 and, every ``tx.every_k`` micro-steps
-    (their running mean), the masters' update."""
+    mode, ``loss_fn()`` under the step's dropout generator (and, over
+    several data ranks, synchronised BatchNorm), its backward, the
+    gradients upcast to f32 (with a ``mesh``: averaged over the ranks with
+    the loss) and, every ``tx.every_k`` micro-steps (their running mean),
+    the masters' update."""
     state.load_into(model).train()
     model.zero_grad(set_to_none=True)
-    with dropout_rng(_step_generator(seed, state.step)):
+    with dropout_rng(_step_generator(seed, state.step, *_rank_words(mesh))), \
+            synchronised(mesh):
         loss = loss_fn()
     loss.backward()
     named = dict(model.named_parameters())
     grads = [torch.zeros_like(m) if named[n].grad is None
              else named[n].grad.float() for n, m in state.params.items()]
+    loss = loss.detach()
+    if mesh is not None and mesh.distributed:
+        total = loss.float().reshape(1)
+        all_reduce_mean_([*grads, total], mesh)
+        loss = total[0].to(loss.dtype)
     k = tx.every_k
     if k > 1:
         n_acc = state.step % k
@@ -88,43 +136,106 @@ def _train_update(model: nn.Module, tx: Optimizer, state: TrainState,
         if k > 1:
             state.grad_acc = None
     state.step += 1
-    return state, loss.detach()
+    return state, loss
 
 
-def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
-                     augment_fn: Optional[Callable] = None
-                     ) -> Tuple[Callable, Callable]:
-    """(train_step, eval_step) for ``model`` (a ``MultiModel`` at its
-    compute dtype) and the optimizer ``tx``. ``augment_fn(batch,
-    generator) -> batch`` runs on each train batch before the loss."""
+def _mean_over_ranks(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A scalar's mean over the world's ranks (itself without a group)."""
+    if mesh is None or not mesh.distributed:
+        return x
+    total = x.float().reshape(1)
+    all_reduce_mean_([total], mesh)
+    return total[0].to(x.dtype)
+
+
+def mesh_multi_loss(model: nn.Module, buckets: int, mesh: Mesh,
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """This rank's contrastive loss whose mean over the ranks is the loss
+    of the global batch in ``buckets`` buckets: its own whole buckets, or,
+    where ``buckets`` does not divide by the data ranks, the global
+    batch's loss from every rank's gathered embeddings."""
+    if buckets % mesh.n_data == 0:
+        return model.loss(buckets=buckets // mesh.n_data, **batch)
+    batch = dict(batch)
+    label = batch.pop("label", None)
+    emb = model.encode(**batch)
+    if label is not None:
+        label = all_gather_rows(label, mesh)
+    return model.coordination(all_gather_rows(emb["image_emb"], mesh),
+                              all_gather_rows(emb["profile_emb"], mesh),
+                              buckets=buckets, label=label)
+
+
+def note_mbconv_route(model: nn.Module, mesh: Optional[Mesh]) -> None:
+    """Print once that a fused MBConv model takes the plain route over
+    several data ranks, and why."""
+    if mesh is None or mesh.n_data == 1:
+        return
+    if any(getattr(m, "fused", False) and hasattr(m, "takes_fused_route")
+           for m in model.modules()):
+        print(f"parallel: fused_mbconv takes the unfused MBConv route on "
+              f"{mesh.n_data} data ranks: kernels 13-16 compute BatchNorm "
+              f"statistics per rank, which would not be synchronised (JAX's "
+              f"multi-chip GSPMD route takes no kernel either)", flush=True)
+
+
+def multi_steps(model: nn.Module, tx: Optimizer,
+                loss_of: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+                augment_fn: Optional[Callable] = None,
+                mesh: Optional[Mesh] = None) -> Tuple[Callable, Callable]:
+    """(train_step, eval_step) of a contrastive model whose loss of a
+    batch is ``loss_of(batch)``: the body of ``make_multi_steps`` and of
+    the per-rank step (``train.shard_step``)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Tuple[TrainState, torch.Tensor]:
         """One micro-step; returns the updated state and the loss (a
         device scalar)."""
         if augment_fn is not None:
-            batch = augment_fn(batch, _step_generator(seed, state.step,
-                                                      AUGMENT_STREAM))
+            batch = augment_fn(batch, _step_generator(
+                seed, state.step, AUGMENT_STREAM, *_rank_words(mesh)))
         return _train_update(model, tx, state, seed,
-                             lambda: model.loss(buckets=buckets, **batch))
+                             lambda: loss_of(batch), mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         state.load_into(model).eval()
-        return {"loss": model.loss(buckets=buckets, **batch)}
+        return {"loss": _mean_over_ranks(loss_of(batch), mesh)}
 
     return train_step, eval_step
 
 
-def make_classifier_steps(model: nn.Module, tx: Optimizer
+def make_multi_steps(model: nn.Module, tx: Optimizer, buckets: int = 1,
+                     augment_fn: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None
+                     ) -> Tuple[Callable, Callable]:
+    """(train_step, eval_step) for ``model`` (a ``MultiModel`` at its
+    compute dtype) and the optimizer ``tx``. ``augment_fn(batch,
+    generator) -> batch`` runs on each train batch before the loss. With
+    ``mesh`` the steps take this rank's rows of each global batch (GSPMD's
+    semantics, as the module docstring sets out)."""
+    note_mbconv_route(model, mesh)
+    if mesh is None:
+        loss_of = lambda batch: model.loss(buckets=buckets, **batch)
+    else:
+        loss_of = lambda batch: mesh_multi_loss(model, buckets, mesh, batch)
+    return multi_steps(model, tx, loss_of, augment_fn, mesh)
+
+
+def make_classifier_steps(model: nn.Module, tx: Optimizer,
+                          mesh: Optional[Mesh] = None
                           ) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) for a supervised classifier (an
     ``ImageClassifier`` or ``ProfileClassifier`` at its compute dtype):
     the mean cross-entropy of the logits against the batch's ``label``
     ids; the eval step returns ``loss``, the argmax ``pred`` and
     ``label``. BatchNorm statistics update in the train-mode forward, as
-    in ``make_multi_steps``."""
+    in ``make_multi_steps``. With ``mesh``, GSPMD's semantics; an eval
+    batch's rows may then differ in number between the ranks, and a rank
+    may have none (an empty dict)."""
+    note_mbconv_route(model, mesh)
+    spread = mesh is not None and mesh.distributed and mesh.n_data > 1
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Tuple[TrainState, torch.Tensor]:
@@ -133,16 +244,32 @@ def make_classifier_steps(model: nn.Module, tx: Optimizer
         inputs = {k: v for k, v in batch.items() if k != "label"}
         return _train_update(
             model, tx, state, seed,
-            lambda: cross_entropy_loss(model(**inputs), batch["label"]))
+            lambda: cross_entropy_loss(model(**inputs), batch["label"]),
+            mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        label = batch["label"]
-        inputs = {k: v for k, v in batch.items() if k != "label"}
-        logits = state.load_into(model).eval()(**inputs)
-        return {"loss": cross_entropy_loss(logits, label),
-                "pred": torch.argmax(logits, dim=-1), "label": label}
+        if batch:
+            label = batch["label"]
+            inputs = {k: v for k, v in batch.items() if k != "label"}
+            logits = state.load_into(model).eval()(**inputs)
+            loss = cross_entropy_loss(logits, label)
+            pred = torch.argmax(logits, dim=-1)
+        else:  # this rank's share of a small trailing batch
+            loss = torch.zeros((), device=mesh.device)
+            pred = label = torch.zeros(0, dtype=torch.int64,
+                                       device=mesh.device)
+        if not spread:  # every rank holds the whole batch
+            return {"loss": loss, "pred": pred, "label": label}
+        # the mean over every rank's rows: sum(loss × rows) / sum(rows)
+        rows = label.shape[0]
+        total = torch.stack([loss.float() * rows,
+                             torch.tensor(float(rows), device=loss.device)])
+        all_reduce_mean_([total], mesh)
+        return {"loss": (total[0] / total[1]).to(loss.dtype),
+                "pred": gather_uneven(pred, mesh),
+                "label": gather_uneven(label.long(), mesh)}
 
     return train_step, eval_step
 
@@ -156,15 +283,19 @@ class Fitter:
     ``on_epoch_end`` hook, the checkpointer (any object with ``save(epoch,
     state, metrics)`` and ``wait()``) and early stopping once
     ``min_epochs`` have run. ``put_fn`` places a batch (default: numpy to
-    CPU tensors, ``data.pipeline.device_put("cpu")``)."""
+    CPU tensors, ``data.pipeline.device_put("cpu")``). With a ``mesh``
+    each rank's batches are its shards, and ``samples_per_sec`` counts the
+    global batch's rows."""
 
     def __init__(self, train_step: Callable, eval_step: Callable,
                  writer=None, checkpointer=None, early_stopping=None,
                  min_epochs: int = 1, max_epochs: int = 1,
                  check_val_every_n_epoch: int = 1, seed: int = 0,
                  hooks: Optional[Dict[str, Callable]] = None,
-                 put_fn: Optional[Callable] = None) -> None:
+                 put_fn: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None) -> None:
         self.train_step = train_step
+        self.mesh = mesh
         self.eval_step = eval_step
         self.put_fn = put_fn or device_put("cpu")
         self.writer = writer
@@ -219,7 +350,8 @@ class Fitter:
             n_samples = 0
             for batch in train_loader:
                 batch = self.put_fn(batch)
-                n_samples += int(next(iter(batch.values())).shape[0])
+                n_samples += int(next(iter(batch.values())).shape[0]) \
+                    * (self.mesh.n_data if self.mesh is not None else 1)
                 state, loss = self.train_step(state, batch, self.seed)
                 train_losses.append(loss)
             metrics: Dict[str, float] = {

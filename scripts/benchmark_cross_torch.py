@@ -13,6 +13,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from multimodal_plankton_recognition_torch.parallel import (  # noqa: E402
+    multihost,
+)
 from multimodal_plankton_recognition_torch.retrieval.benchmark import (  # noqa: E402
     run_suite,
 )
@@ -32,21 +35,27 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--threshold", type=int, default=TH)
     parser.add_argument("--sharded", action="store_true",
-                        help="Row-shard galleries over the device mesh "
-                             "(not ported yet: raises)")
+                        help="Row-shard galleries over the ranks (under "
+                             "torchrun --nproc_per_node N; one rank "
+                             "without it); rank 0 writes the output")
     parser.add_argument("--device", default="cuda",
                         help="Device of the kNN index (default: the card).")
     args = parser.parse_args(argv)
 
-    with open(args.embeddings, "rb") as buf:
-        embeddings = pickle.load(buf)
+    multihost.initialize(device=args.device)
+    try:
+        with open(args.embeddings, "rb") as buf:
+            embeddings = pickle.load(buf)
 
-    results = run_suite(embeddings, mode="cross", N=N, K=K,
-                        repeats=args.repeats, th=args.threshold,
-                        seed=args.seed, progress=True, sharded=args.sharded,
-                        device=args.device)
-    with open(args.output, "wb") as buf:
-        pickle.dump(results, buf)
+        results = run_suite(embeddings, mode="cross", N=N, K=K,
+                            repeats=args.repeats, th=args.threshold,
+                            seed=args.seed, progress=True,
+                            sharded=args.sharded, device=args.device)
+        if multihost.process_index() == 0:
+            with open(args.output, "wb") as buf:
+                pickle.dump(results, buf)
+    finally:
+        multihost.shutdown()
     return results
 
 

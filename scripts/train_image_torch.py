@@ -8,6 +8,10 @@ without one it raises unless ``--device cpu`` is given):
 Logs and checkpoints (top-k by ``valid_acc``) go to
 ``<logdir>/<card>_<dataset>/version_k/``; the best checkpoint is
 tested at the end. A ``.json`` card needs no PyYAML.
+
+Under ``torchrun --nproc_per_node N`` each process trains on its card's
+share of every batch (the card's ``mesh: {data: N}``, or none); rank 0
+writes the run directory.
 """
 
 import argparse
@@ -16,6 +20,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from multimodal_plankton_recognition_torch.parallel import (  # noqa: E402
+    multihost,
+)
 from multimodal_plankton_recognition_torch.train.drivers import (  # noqa: E402
     train_image,
 )
@@ -40,11 +47,15 @@ def main(argv=None) -> dict:
                         help="Device to train on (default: the card).")
     args = parser.parse_args(argv)
 
-    result = train_image(args.dataset, args.modelcard, args.logdir,
-                         max_epochs=args.max_epochs, resume=args.resume,
-                         profile=args.profile, device=args.device)
-    print(f"Test accuracy: {result['test_acc']:.4f}; "
-          f"logs in {result['logdir']}")
+    multihost.initialize(device=args.device)
+    try:
+        result = train_image(args.dataset, args.modelcard, args.logdir,
+                             max_epochs=args.max_epochs, resume=args.resume,
+                             profile=args.profile, device=args.device)
+        print(f"Test accuracy: {result['test_acc']:.4f}; "
+              f"logs in {result['logdir']}")
+    finally:
+        multihost.shutdown()
     return result
 
 

@@ -10,6 +10,10 @@ cpu`` is given:
 A ``.json`` card needs no PyYAML. Logs and checkpoints go to
 ``<logdir>/<card>_<dataset>/version_k/``; ``--profile`` writes a
 torch.profiler trace of the first epoch to its ``profile/``.
+
+Under ``torchrun --nproc_per_node N`` each process trains on its card's
+share of every batch (the card's ``mesh: {data: N}``, or none); rank 0
+writes the run directory.
 """
 
 import argparse
@@ -18,6 +22,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from multimodal_plankton_recognition_torch.parallel import (  # noqa: E402
+    multihost,
+)
 from multimodal_plankton_recognition_torch.train.drivers import (  # noqa: E402
     train_multi,
 )
@@ -45,11 +52,15 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     print(f"Training from model card {args.modelcard}")
-    result = train_multi(args.dataset, args.modelcard, args.logdir,
-                         max_epochs=args.max_epochs, resume=args.resume,
-                         profile=args.profile, device=args.device)
-    print(f"Logs and checkpoints in {result['logdir']}; "
-          f"best epoch {result['best_step']}")
+    multihost.initialize(device=args.device)
+    try:
+        result = train_multi(args.dataset, args.modelcard, args.logdir,
+                             max_epochs=args.max_epochs, resume=args.resume,
+                             profile=args.profile, device=args.device)
+        print(f"Logs and checkpoints in {result['logdir']}; "
+              f"best epoch {result['best_step']}")
+    finally:
+        multihost.shutdown()
     return result
 
 

@@ -65,6 +65,11 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.ops.ffn",
     "multimodal_plankton_recognition_torch.ops.knn",
     "multimodal_plankton_recognition_torch.ops.losses",
+    "multimodal_plankton_recognition_torch.parallel",
+    "multimodal_plankton_recognition_torch.parallel.contrastive",
+    "multimodal_plankton_recognition_torch.parallel.knn",
+    "multimodal_plankton_recognition_torch.parallel.mesh",
+    "multimodal_plankton_recognition_torch.parallel.multihost",
     "multimodal_plankton_recognition_torch.retrieval.benchmark",
     "multimodal_plankton_recognition_torch.retrieval.encode",
     "multimodal_plankton_recognition_torch.retrieval.results",
@@ -88,6 +93,7 @@ TRAIN_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.train.loop",
     "multimodal_plankton_recognition_torch.train.metrics",
     "multimodal_plankton_recognition_torch.train.optim",
+    "multimodal_plankton_recognition_torch.train.shard_step",
     "multimodal_plankton_recognition_torch.train.state",
 ]
 FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml", "matplotlib")

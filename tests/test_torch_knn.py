@@ -65,7 +65,17 @@ def test_exact_hit_takes_all_the_mass():
 
 
 def test_tpu_only_options_raise():
+    """``approx`` (TPU machinery) raises; ``sharded`` (the parallel layer,
+    ported) on one process is a one-rank gallery that predicts as the
+    default."""
     gallery = np.eye(4, dtype=np.float32)
-    for option in ("approx", "sharded"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ANNClassifier(gallery, np.arange(4), **{option: True})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ANNClassifier(gallery, np.arange(4), approx=True)
+    queries = gallery + 0.1
+    want = ANNClassifier(gallery, np.arange(4), "cpu").kneighbors(queries,
+                                                                 k=2)
+    got = ANNClassifier(gallery, np.arange(4), "cpu",
+                        sharded=True).kneighbors(queries, k=2)
+    for (gi, gd), (wi, wd) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gd, wd)

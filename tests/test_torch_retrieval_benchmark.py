@@ -5,7 +5,8 @@ against the JAX package's.
 On one seeded embeddings pickle (continuous random embeddings, so no two
 distances tie) ``run_suite`` gives JAX's results in all four modes at the
 same seed, class name for class name (the port's kNN on the CPU), with
-the same skip lines; the threshold error and the sharded refusal; the
+the same skip lines; the threshold error and one-process sharded
+retrieval (the default's results); the
 CLIs write the pickles JAX's CLIs write, the results CLI prints what
 JAX's prints, and each package's ``accuracy_table`` reads the other's
 pickle."""
@@ -167,12 +168,19 @@ def test_threshold_drops_every_class_raises(embeddings):
 
 
 def test_sharded_raises_naming_module_7(embeddings):
-    with pytest.raises(NotImplementedError, match="queue 1 module 7"):
-        bench.run_suite(embeddings["flat"], "raw", (4,), (1,), 1,
-                        sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 module 7"):
+    """Queue 1 module 7 is ported: ``sharded=True`` no longer raises, and
+    on one process (a one-rank gallery) gives the default's results;
+    ``set_sharded_retrieval`` toggles it."""
+    kwargs = dict(mode="raw", N=(4,), K=(1,), repeats=1, device="cpu")
+    want = bench.run_suite(embeddings["flat"], **kwargs)
+    try:
+        assert_results_equal(bench.run_suite(embeddings["flat"],
+                                             sharded=True, **kwargs), want)
         bench.set_sharded_retrieval(True)
-    bench.set_sharded_retrieval(False)
+        assert bench._SHARDED
+    finally:
+        bench.set_sharded_retrieval(False)
+    assert not bench._SHARDED
 
 
 def test_default_device_is_the_card(embeddings, monkeypatch):
