@@ -11,9 +11,12 @@ global negatives (one bucket of 64), the B0 flagship's encode and the B0 CLIP mo
 card's train path with ``fused_mbconv``, the ViT flagship's train step
 with global negatives (one bucket of 256), the same ViT paths with
 ``fused_ffn``, the attention module's unpacked (separate q, k, v) route
-and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``), and
+and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``),
 the parallel layer (a process group's mesh step, ``torchrun``, two ranks
-on the one card).
+on the one card), the serving export (the flagship's and the ViT-T
+classifier's checkpoints exported to ``torch.export`` programs and
+served, kernel 1 a registered op of them) and the tail (W8A8
+quantisation, PaCMAP, ``loader: grain`` through the train CLI).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -347,6 +350,26 @@ fatal on failure:
    BatchNorm, 0 MBConv launches) at 2 x 32 against the one-process step
    over the global batch, and the row-sharded kNN over 18,706 gallery
    rows against the unsharded; a ``summary: parallel`` line;
+14c. export (queue 1 module 8): the ViT flagship's card (bf16, seeded
+   masters) saved by ``CheckpointManager`` and exported from there for
+   cuda, stripped and ``--keep-fused``: each program bit for bit its
+   eager encode (``fused_attention: false``, and the kernel route) at b
+   256, 77 and 1, kernel 1 launched 0 and 14 times a call from it; a
+   ``--keep-fused`` retrieval artifact (k 9) over the ``retrieval``
+   phase's 9,353 pairs: 2,048 fresh queries' classes against
+   ``ANNClassifier.predict`` composed by hand (equal on at least 0.999
+   of rows), the gallery's own first 2,048 pairs at accuracy 1.0; the
+   ``vit_tiny_16`` classifier's ``--keep-fused`` artifact, logits bit for
+   bit at 12 launches; export and load seconds, artifact bytes, ms a call
+   of artifact and eager in turns; a ``summary: export`` line;
+14d. tail: ``int8_mm`` (``torch._int_mm``, padded) bit for bit its plain
+   version (an exact f64 product) at the flagship's Dense shapes; the
+   flagship's encode under ``quantized_dense``: cosine to bf16 above
+   ``TAIL_QUANT_COS``, pairs/s in turns; PaCMAP of 4,096 embeddings (450
+   iterations on the card; two calls equal, the separation printed); the
+   B0 SigLIP card through the train CLI, one epoch a run, ``loader:
+   grain`` and ``threads`` in turns: the first batches' hashes equal,
+   pairs/s and idle share; a ``summary: tail`` line;
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
@@ -5026,6 +5049,531 @@ def _check_ranks(device, ranks):
     return out
 
 
+EXPORT_SIZES = (256, 77, 1)  # batch sizes the export phase serves
+EXPORT_QUERIES = 2048  # fresh queries of the retrieval artifact
+EXPORT_AGREE = 0.999  # its classes against the hand-composed kNN, rows
+EXPORT_K = 9
+EXPORT_TIMED = 20  # calls a timed turn at b = 1 (2 at b = 256)
+TAIL_PACMAP_ROWS = 4096
+TAIL_PACMAP_ITERS = 450
+TAIL_QUANT_COS = 0.95  # least cosine of an int8 embedding to its bf16 one
+TAIL_TURNS = ("grain", "threads", "threads", "grain")
+
+
+def _save_card_checkpoint(root, d, kind="multi", class_names=(), seed=0):
+    """A port checkpoint of the card ``d`` (a dict) at ``root``: the
+    card's model of ``kind`` with the f32 masters of a seeded init, saved
+    through ``CheckpointManager``; returns the model on the CPU."""
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind)
+    from multimodal_plankton_recognition_torch.models.initializers import (
+        init_weights_)
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state, make_optimizer)
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        CheckpointManager)
+
+    card = ModelCard.from_dict(d)
+    init = init_weights_(
+        build_for_kind(card, kind, class_names, dtype=torch.float32),
+        torch.Generator().manual_seed(seed)).state_dict()
+    model = build_for_kind(card, kind, class_names)
+    state = create_train_state(model, init, make_optimizer(
+        card.optim_args, card.trainer_args.accumulate_grad_batches))
+    mngr = CheckpointManager(root, metadata={
+        "card": card.to_dict(), "kind": kind,
+        "class_names": list(class_names)})
+    if not mngr.save(0, state, {"valid_loss": 1.0}):
+        fail(f"export: the checkpoint at {root} was not saved")
+    mngr.wait()
+    return model
+
+
+def _dir_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def _wall_ms(fn, calls):
+    """Host milliseconds of one ``fn()`` over ``calls`` calls, ended by a
+    synchronize (a serving call's latency, the host's time included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def _exported(export, load):
+    """(serving model, export s, load s, artifact bytes) of one export."""
+    import torch
+
+    t0 = time.perf_counter()
+    art = export()
+    export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serving = load(art)
+    load_s = time.perf_counter() - t0
+    return serving, export_s, load_s, _dir_bytes(art)
+
+
+def _program_ops(serving):
+    return sorted({str(n.target) for n in serving.program.graph.nodes
+                   if str(n.target).startswith("plankton.")})
+
+
+def phase_export(device):
+    """The serving export on the card (``retrieval/export.py``, through
+    ``export_checkpoint`` and ``export_retrieval_checkpoint`` as
+    ``scripts/export_model_torch.py`` calls them): the ViT flagship's card
+    at full width, bf16, seeded random masters, saved through
+    ``CheckpointManager`` and exported from there, cuda programs only.
+    (i) the stripped artifact against the eager ``fused_attention:
+    false`` encode at b = 256, 77 and 1: bit for bit, 0 launches of kernel
+    1; (ii) the ``--keep-fused`` artifact (kernel 1 a registered op of the
+    program) against the eager kernel-route encode at the same sizes: bit
+    for bit, 14 launches of kernel 1 a call; (iii) a retrieval artifact
+    (``--keep-fused``, k 9) over the ``retrieval`` phase's 9,353 pairs
+    encoded by the kernel route: ``class_id`` of ``EXPORT_QUERIES`` fresh
+    pairs against ``ANNClassifier.predict`` composed by hand (equal on
+    ``EXPORT_AGREE`` of rows), the gallery's own first
+    ``EXPORT_QUERIES`` pairs through it (accuracy 1.0: the exact-hit rule)
+    and through the stripped retrieval artifact (printed); (iv) the
+    ``vit_tiny_16`` classifier's ``--keep-fused`` artifact: logits bit
+    for bit, 12 launches of kernel 1 a call; (v) export and load seconds,
+    artifact bytes, and ms per call (host clock, synchronized) at b = 1
+    and 256 of artifact and eager in turns. Returns the launches of the
+    artifacts' calls: the flagship's (i-iii) and the classifier's (iv)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_for_kind)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_card)
+    from multimodal_plankton_recognition_torch.ops.knn import ANNClassifier
+    from multimodal_plankton_recognition_torch.ops.losses import (
+        l2_normalize)
+    from multimodal_plankton_recognition_torch.retrieval import export as ex
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+
+    d = flagship_card("vit")
+    card = ModelCard.from_dict(d)
+    if not (card.image_encoder_args.get("fused_attention") and
+            card.profile_encoder_args.get("fused_attention")):
+        fail("export: the flagship's card does not set fused_attention")
+    labels, _ = _long_tailed_labels(RETRIEVAL_PAIRS, CLASSES, 21)
+    names = np.array([f"class_{c:02d}" for c in range(CLASSES)])
+    per_call = _per_step(mha_qkv_fwd=ATTENTION_LAYERS)
+    zero = _per_step()
+    launches = _per_step()
+    load = functools.partial(ex.load_artifact, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ckpt"
+        cpu_model = _save_card_checkpoint(ckpt, d, class_names=names)
+        kernel = cpu_model.to(device).eval()
+        flax = build_for_kind(ex._strip_fused(card), "multi").to(device)
+        flax.load_state_dict(kernel.state_dict())
+        flax.eval()
+        arts, times = {}, {}
+        for name, keep in (("stripped", False), ("fused", True)):
+            arts[name], *times[name] = _exported(
+                lambda: ex.export_checkpoint(
+                    ckpt, tmp / name, platforms=("cuda",),
+                    keep_fused=keep), load)
+        if _program_ops(arts["stripped"]) or _program_ops(arts["fused"]) \
+                != ["plankton.mha_qkv_fwd.default"]:
+            fail(f"export: ops in the programs: stripped "
+                 f"{_program_ops(arts['stripped'])}, --keep-fused "
+                 f"{_program_ops(arts['fused'])}")
+        pairs = _class_inputs("pair", labels, device, 22)
+        diffs = {}
+        for b in EXPORT_SIZES:
+            batch = {k: v[:b] for k, v in pairs.items()}
+            for name, eager, want in (("stripped", flax, zero),
+                                      ("fused", kernel, per_call)):
+                module = arts[name].run
+                with torch.no_grad():
+                    _reset_counts()
+                    got = module(batch)
+                    torch.cuda.synchronize()
+                    counts = _counts()
+                    emb = eager.encode(**batch)
+                for k in counts:
+                    launches[k] += counts[k]
+                if counts != want:
+                    fail(f"export: {name} artifact at b={b}: launches "
+                         f"{counts}, expected {want}")
+                for key in ("image_emb", "profile_emb"):
+                    ref = l2_normalize(emb[key])
+                    diff = (got[key].float() - ref.float()).abs().max()
+                    diffs[f"{name} b={b} {key}"] = diff.item()
+                    if got[key].shape != (b, 512) or \
+                            not torch.equal(got[key], ref):
+                        fail(f"export: {name} artifact at b={b}: {key} "
+                             f"{tuple(got[key].shape)} not bit for bit "
+                             f"the eager encode (max abs diff {diff})")
+        print(f"export: (i-ii) artifacts against the eager encodes at b "
+              f"{EXPORT_SIZES}: max abs diff {diffs!r}; kernel-1 launches "
+              f"0 (stripped) and {ATTENTION_LAYERS} (--keep-fused) a call",
+              flush=True)
+
+        # (v) ms per call, artifact and eager in turns
+        lat = {}
+        for b, calls in ((1, EXPORT_TIMED), (256, 2)):
+            batch = {k: v[:b] for k, v in pairs.items()}
+            for name, eager in (("stripped", flax), ("fused", kernel)):
+                module = arts[name].run
+                fns = {"artifact": lambda: module(batch),
+                       "eager": lambda: {k: l2_normalize(v) for k, v in
+                                         eager.encode(**batch).items()}}
+                turns = {"artifact": [], "eager": []}
+                with torch.no_grad():
+                    for who in ("artifact", "eager", "eager", "artifact"):
+                        turns[who].append(_wall_ms(fns[who], calls))
+                lat[f"{name} b={b}"] = turns
+
+        # (iii) the retrieval artifact over the retrieval phase's gallery
+        emb = encode_arrays(kernel, pairs, names[labels], BATCH, device)
+        own = {k: v[:EXPORT_QUERIES] for k, v in pairs.items()}
+        del pairs
+        gallery = tmp / "gallery.pkl"
+        with open(gallery, "wb") as f:
+            pickle.dump({"flagship_vit": {1: dict(emb, classes=names)}}, f)
+        retrieval = {}
+        for name, keep in (("stripped", False), ("fused", True)):
+            retrieval[name], *times[f"retrieval {name}"] = _exported(
+                lambda: ex.export_retrieval_checkpoint(
+                    ckpt, gallery, tmp / f"ret_{name}", k=EXPORT_K,
+                    platforms=("cuda",), keep_fused=keep), load)
+        meta = retrieval["fused"].meta
+        if meta["gallery_size"] != RETRIEVAL_PAIRS or meta["k"] != EXPORT_K \
+                or list(retrieval["fused"].classes) != list(names):
+            fail(f"export: retrieval metadata {meta['gallery_size']} "
+                 f"{meta['k']} {meta['classes'][:3]}")
+        q_labels = _balanced_labels(EXPORT_QUERIES, 31)
+        queries = _class_inputs("pair", q_labels, device, 32)
+        _reset_counts()
+        with torch.no_grad():
+            got = retrieval["fused"].run(queries)
+        torch.cuda.synchronize()
+        counts = _counts()
+        for k in counts:
+            launches[k] += counts[k]
+        batches = _per_step(mha_qkv_fwd=ATTENTION_LAYERS)
+        if counts != batches:
+            fail(f"export: retrieval artifact launches {counts}, expected "
+                 f"{batches}")
+        q = encode_arrays(kernel, queries, names[q_labels], BATCH, device)
+        ann = ANNClassifier(np.concatenate([emb["image"], emb["profile"]]),
+                            np.tile(labels, 2), device=device)
+        want = ann.predict(q["image"], q["profile"], k=EXPORT_K)
+        class_id = got["class_id"].cpu().numpy()
+        agree = float((class_id == want).mean())
+        q_acc = float((class_id == q_labels).mean())
+        self_acc = {}
+        for name, serving in retrieval.items():
+            _reset_counts()
+            with torch.no_grad():
+                ids = serving.run(own)["class_id"].cpu().numpy()
+            counts = _counts()
+            for k in counts:
+                launches[k] += counts[k]
+            self_acc[name] = float((ids == labels[:EXPORT_QUERIES]).mean())
+        print(f"export: (iii) retrieval artifact (k {EXPORT_K}, gallery "
+              f"{RETRIEVAL_PAIRS} pairs fused to {2 * RETRIEVAL_PAIRS} rows)"
+              f": {EXPORT_QUERIES} fresh queries, class_id equal to the "
+              f"hand-composed ANNClassifier.predict on {agree!r} of rows "
+              f"(accuracy {q_acc!r}); the gallery's own first "
+              f"{EXPORT_QUERIES} pairs: accuracy {self_acc['fused']!r} "
+              f"through the --keep-fused artifact (the route that built "
+              f"the gallery), {self_acc['stripped']!r} through the "
+              f"stripped one", flush=True)
+        if agree < EXPORT_AGREE or self_acc["fused"] != 1.0:
+            fail(f"export: retrieval agreement {agree} (least "
+                 f"{EXPORT_AGREE}), self-gallery accuracy "
+                 f"{self_acc['fused']} (must be 1.0)")
+        flagship = launches
+
+        # (iv) the vit_tiny_16 classifier, --keep-fused
+        cls_ckpt = tmp / "cls_ckpt"
+        cls_model = _save_card_checkpoint(cls_ckpt, IMAGE_CARD, "image",
+                                          names, seed=1).to(device).eval()
+        cls, *times["classifier"] = _exported(
+            lambda: ex.export_checkpoint(
+                cls_ckpt, tmp / "cls", platforms=("cuda",),
+                keep_fused=True), load)
+        images = _class_inputs("image", _balanced_labels(64, 33), device, 34)
+        _reset_counts()
+        with torch.no_grad():
+            logits = cls.run(images)["logits"]
+            torch.cuda.synchronize()
+            cls_launches = _counts()
+            ref = cls_model(**images)
+        want = _per_step(mha_qkv_fwd=12)
+        if cls_launches != want or not torch.equal(logits, ref):
+            fail(f"export: classifier artifact launches {cls_launches} "
+                 f"(expected {want}), logits bit for bit "
+                 f"{torch.equal(logits, ref)} (max abs diff "
+                 f"{(logits.float() - ref.float()).abs().max().item()})")
+    print(f"summary: export on {_smi()}: (export s, load s, artifact bytes)"
+          f" {times!r}; ms per call (host clock, synchronized) artifact "
+          f"and eager in turns {lat!r}; the classifier's logits bit for "
+          f"bit, {cls_launches['mha_qkv_fwd']} kernel-1 launches", flush=True)
+    return {"export": flagship, "export_classify": cls_launches}
+
+
+def _batch_hash(batch):
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = batch[k]
+        h.update(np.ascontiguousarray(
+            v.numpy() if hasattr(v, "numpy") else np.asarray(v)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _separation(proj, labels):
+    """JAX's PaCMAP criterion (``tests/test_pacmap.py``): the mean
+    distance between class centres over the mean distance of a point to
+    its class centre."""
+    import numpy as np
+
+    centres, intra = [], []
+    for c in np.unique(labels):
+        pc = proj[labels == c]
+        centres.append(pc.mean(0))
+        intra.append(np.linalg.norm(pc - pc.mean(0), axis=1).mean())
+    centres = np.stack(centres)
+    inter = [np.linalg.norm(centres[i] - centres[j])
+             for i in range(len(centres)) for j in range(i + 1,
+                                                         len(centres))]
+    return float(np.mean(inter) / np.mean(intra))
+
+
+def phase_tail(device):
+    """W8A8 quantisation, PaCMAP and ``loader: grain`` on the card.
+    (vi) ``int8_mm`` (``torch._int_mm`` on padded operands) at every
+    distinct Dense shape of the flagship's quantized encode against its
+    plain version (an exact f64 product on the card): bit for bit; the
+    flagship's encode under ``quantized_dense`` (the kernel route,
+    14 kernel-1 launches a batch) against the bf16 encode: least and mean
+    cosine of the embeddings (least above ``TAIL_QUANT_COS``), pairs/s of
+    both in turns. (vii) PaCMAP of ``TAIL_PACMAP_ROWS`` rows (the image
+    and profile embeddings of the ``retrieval`` phase's first 2,048
+    pairs), ``TAIL_PACMAP_ITERS`` iterations on the card: host
+    pair-selection and device seconds, JAX's cluster-separation ratio by
+    class, two calls equal. (viii) the B0 SigLIP card through the train
+    CLI on the ``drive`` phase's packed pairs, one epoch a run, ``loader:
+    grain`` and ``loader: threads`` in turns (``TAIL_TURNS``; the first
+    of each profiled for its device busy time): the first train batches'
+    hashes equal, train pairs/s of every run, the idle share of each
+    loader (1 - the profiled run's busy ms over its unprofiled run's
+    wall). Returns the launches of the quantized encode and of the
+    train runs."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        flagship_vit, init_weights_)
+    from multimodal_plankton_recognition_torch.ops import pacmap as pm
+    from multimodal_plankton_recognition_torch.ops import quant
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+    from multimodal_plankton_recognition_torch.train import drivers
+
+    # (vi) the int8 product and the quantized encode
+    model = init_weights_(flagship_vit(), torch.Generator().manual_seed(0))
+    model.to(device).eval()
+    labels, _ = _long_tailed_labels(RETRIEVAL_PAIRS, CLASSES, 21)
+    names = np.array([f"class_{c:02d}" for c in range(CLASSES)])
+    n = GALLERY  # the retrieval phase's first 2,048 pairs
+    pairs = {k: v[:n].clone() for k, v in _class_inputs(
+        "pair", labels, device, 22).items()}
+    shapes, real = set(), quant.int8_mm
+
+    def record(a, b):
+        shapes.add((a.shape[0], a.shape[1], b.shape[1]))
+        return real(a, b)
+
+    quant.int8_mm = record
+    try:
+        with torch.no_grad(), quant.quantized_dense():
+            model.encode(**{k: v[:BATCH] for k, v in pairs.items()})
+    finally:
+        quant.int8_mm = real
+    gen = torch.Generator(device=device).manual_seed(9)
+    for m, k, nn_ in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, nn_), generator=gen, device=device,
+                          dtype=torch.int8)
+        if not torch.equal(quant.int8_mm(a, b),
+                           quant.int8_mm_reference(a, b)):
+            fail(f"tail: int8_mm at (M, K, N) = {(m, k, nn_)} differs from "
+                 f"its plain version")
+    int8_ms = {}
+    for m, k, nn_ in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, nn_), generator=gen, device=device,
+                          dtype=torch.int8)
+        int8_ms[f"{m}x{k}x{nn_}"] = (
+            cuda_ms(lambda: quant.int8_mm(a, b)),
+            cuda_ms(lambda: quant.int8_mm_reference(a, b)))
+    print(f"tail: (vi) int8_mm bit for bit its plain version at the "
+          f"flagship's {len(shapes)} Dense shapes (M, K, N) "
+          f"{sorted(shapes)}; device ms (int8, plain f64) {int8_ms!r}",
+          flush=True)
+    bf16 = encode_arrays(model, pairs, names[labels[:n]], BATCH, device)
+    _reset_counts()
+    with quant.quantized_dense():
+        int8 = encode_arrays(model, pairs, names[labels[:n]], BATCH, device)
+    torch.cuda.synchronize()
+    quant_launches = _counts()
+    want = {k: v * (n // BATCH) for k, v in _per_step(
+        mha_qkv_fwd=ATTENTION_LAYERS).items()}
+    if quant_launches != want:
+        fail(f"tail: quantized encode launches {quant_launches}, expected "
+             f"{want}")
+    cos = {key: (bf16[key] * int8[key]).sum(1) for key in ("image",
+                                                           "profile")}
+    least = min(float(c.min()) for c in cos.values())
+    enc_rates = {"bf16": [], "int8": []}
+    for who in ("bf16", "int8", "int8", "bf16"):
+        ctx = quant.quantized_dense() if who == "int8" else \
+            contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_arrays(model, pairs, names[labels[:n]], BATCH, device)
+            torch.cuda.synchronize()
+        enc_rates[who].append(n / (time.perf_counter() - t0))
+    quant_summary = (f"int8 encode of {n} pairs: least cosine to bf16 "
+                     f"{least!r}, pairs/s in turns {enc_rates!r}")
+    print(f"tail: (vi) quantized encode of {n} pairs: cosine to bf16 "
+          f"(least, mean) image ({float(cos['image'].min())!r}, "
+          f"{float(cos['image'].mean())!r}) profile "
+          f"({float(cos['profile'].min())!r}, "
+          f"{float(cos['profile'].mean())!r}); pairs/s in turns "
+          f"{enc_rates!r};"
+          f" launches {quant_launches}", flush=True)
+    if not least > TAIL_QUANT_COS:
+        fail(f"tail: an int8 embedding at cosine {least} to its bf16 one")
+
+    # (vii) PaCMAP over the image and profile embeddings of 2,048 pairs
+    X = np.concatenate([bf16["image"], bf16["profile"]])[:TAIL_PACMAP_ROWS]
+    y = np.concatenate([labels[:n], labels[:n]])[:TAIL_PACMAP_ROWS]
+    t0 = time.perf_counter()
+    pm._select_pairs(X, 10, 0.5, 2.0, 0)
+    pairs_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(pm.pacmap(X, n_iters=TAIL_PACMAP_ITERS, seed=0,
+                              device=device))
+        runs[-1] = (runs[-1], time.perf_counter() - t0)
+    proj, total_s = runs[0]
+    ratio = _separation(proj, y)
+    equal = np.array_equal(runs[0][0], runs[1][0])
+    print(f"tail: (vii) PaCMAP of {X.shape} embeddings, "
+          f"{TAIL_PACMAP_ITERS} iterations: host pair selection "
+          f"{pairs_s!r} s, the whole call {total_s!r} and "
+          f"{runs[1][1]!r} s (device part {total_s - pairs_s!r} s); "
+          f"cluster separation (mean inter-centre / mean intra distance "
+          f"over {CLASSES} classes) {ratio!r}; two calls equal {equal}",
+          flush=True)
+    if not equal or not np.isfinite(proj).all():
+        fail("tail: PaCMAP's two calls differ or are not finite")
+    del pairs, bf16, int8, model
+
+    # (viii) loader: grain against loader: threads through the train CLI
+    spec = importlib.util.spec_from_file_location(
+        "train_multi_torch", REPO / "scripts" / "train_multi_torch.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    drive_launches = _per_step()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        base = dict(B0_SIGLIP_CARD, packed_cache=True)
+        root = write_packed_splits(tmp / "data", base["target_size"],
+                                   DRIVE_TRAIN, DRIVE_TEST, DRIVE_CLASSES,
+                                   seed=7)
+        hashes, rates, busy, wall = {}, {}, {}, {}
+        for i, loader in enumerate(TAIL_TURNS):
+            d = dict(base, loader=loader)
+            card = ModelCard.from_dict(d)
+            if loader not in hashes:
+                train_set, test_set = drivers.multi_datasets(card, root)
+                first, _ = drivers.multi_loaders(card, train_set, test_set,
+                                                 device)
+                hashes[loader] = _batch_hash(next(iter(first)))
+                if hasattr(first, "close"):
+                    first.close()
+            card_path = tmp / f"b0_siglip_{loader}.json"
+            card_path.write_text(json.dumps(d))
+            profile = loader not in busy
+            args = ["-d", str(root), "-m", str(card_path), "-l",
+                    str(tmp / "logs"), "--max-epochs", "1"]
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cli.main(args + (["--profile"] if profile else []))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = _counts()
+            for k in counts:
+                drive_launches[k] += counts[k]
+            rate = out["history"][0]["samples_per_sec"]
+            rates.setdefault(loader, []).append(rate)
+            if profile:
+                trace = Path(out["logdir"]) / "profile" / drivers.TRACE_FILE
+                busy[loader] = _trace_device_ms(trace)[0]
+            else:
+                wall[loader] = 1e3 * DRIVE_TRAIN / rate
+            print(f"tail: (viii) run {i} loader: {loader}"
+                  f"{' (profiled)' if profile else ''} in {run_s!r} s: "
+                  f"train pairs/s {rate!r}; history {out['history']}",
+                  flush=True)
+        micro = DRIVE_TRAIN // base["bs"]
+        evals = DRIVE_TEST // base["bs"]
+        want = _per_step(siglip_fwd=len(TAIL_TURNS) * (micro + evals),
+                         siglip_bwd=len(TAIL_TURNS) * micro)
+        if drive_launches != want:
+            fail(f"tail: train runs' launches {drive_launches}, expected "
+                 f"{want}")
+        if len(set(hashes.values())) != 1:
+            fail(f"tail: the loaders' first batches differ: {hashes}")
+    idle = {k: 1 - busy[k] / wall[k] for k in busy}
+    print(f"summary: tail on {_smi()}: {quant_summary}; PaCMAP of "
+          f"{TAIL_PACMAP_ROWS} rows: pair selection {pairs_s!r} s, call "
+          f"{total_s!r} s, separation {ratio!r}; loader: grain against "
+          f"threads, one epoch of {DRIVE_TRAIN} packed pairs a run in turns "
+          f"{TAIL_TURNS}: first batches' hashes {hashes}; train pairs/s "
+          f"{rates!r}; epoch device busy ms {busy!r} against the "
+          f"unprofiled walls {wall!r}: idle {idle!r}", flush=True)
+    return {"tail": quant_launches, "tail_drive": drive_launches}
+
+
 def _device_ms(prof, steps):
     """{kernel: [ms per step, launches per step]} of the device-side events
     only (the aten ops carry device time too and would count it twice)."""
@@ -5531,7 +6079,8 @@ def _rank_table():
     none; eval steps inside the card paths count as train launches. The
     loss kernels run at each path's bucket shape: the flagship's 16 x 16,
     the cards' 4 x 16, the global phase's 1 x 256 and the SigLIP card's
-    global phase's 1 x 64."""
+    global phase's 1 x 64. The ``export`` path's calls at b 77 and 1 and
+    its retrieval calls (b 2,048) count at the B = 256 record."""
     vit, prof = 12 / ATTENTION_LAYERS, 2 / ATTENTION_LAYERS
 
     def pair(a, b, vit_mode, prof_mode, rows=SHAPES):
@@ -5544,9 +6093,8 @@ def _rank_table():
                            "ffn_train", "parallel")}
     fwd_train.update({p: pair(*card, "eval", "train p=0.1")
                       for p in ("card", "siglip_global", "ffn_card")})
-    fwd = dict(fwd_train, encode=pair(*flag, "eval", "eval"),
-               ffn_encode=pair(*flag, "eval", "eval"),
-               retrieval=pair(*flag, "eval", "eval"))
+    fwd = dict(fwd_train, **{p: pair(*flag, "eval", "eval") for p in (
+        "encode", "ffn_encode", "retrieval", "export", "tail")})
     bwd = {p: pair(*flag, "p=0.0", "p=0.1")
            for p in ("train", "global", "serve_checkpoint", "ffn_train",
                      "parallel")}
@@ -5554,7 +6102,8 @@ def _rank_table():
                 for p in ("card", "siglip_global", "ffn_card")})
     # the classifiers: one encoder each (the ViT's attention at dropout 0)
     fwd.update(classify_image=[("cls vit B=64 ", "eval", 1.0)],
-               classify_profile=[("cls profile B=64 ", "train p=0.1", 1.0)])
+               classify_profile=[("cls profile B=64 ", "train p=0.1", 1.0)],
+               export_classify=[("cls vit B=64 ", "eval", 1.0)])
     bwd.update(classify_image=[("cls vit B=64 ", "p=0.0", 1.0)],
                classify_profile=[("cls profile B=64 ", "p=0.1", 1.0)])
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
@@ -5573,7 +6122,7 @@ def _rank_table():
         B0_CARD["buckets"], B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
     siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
-              for p in ("card", "ffn_card", "drive")}
+              for p in ("card", "ffn_card", "drive", "tail_drive")}
     siglip["siglip_global"] = loss_rows(1, CARD["bs"])
     b0 = {p: [(f"{blk} ", "", n / MBCONV_BLOCKS)
               for blk, n in B0_BLOCKS.items()] for p in ("b0_card", "remat")}
@@ -5664,7 +6213,8 @@ def main(argv=None) -> None:
                 "unpacked": phase_unpacked(device),
                 "fuse_proj": phase_fuse_proj(device),
                 "flax_attention": phase_flax_attention(device),
-                "parallel": phase_parallel(device)}
+                "parallel": phase_parallel(device),
+                **phase_export(device), **phase_tail(device)}
     if args.profile:
         phase_profile(device)
     _ranking(records, launches)

@@ -152,6 +152,7 @@ class PackedMultiSet:
     def __init__(self, annotation_path: Path | str, target_size: int,
                  device_augment: bool = False) -> None:
         annotation_path = Path(annotation_path)
+        self.annotation_path = annotation_path
         self.train = annotation_path.stem == "train"
         self.target_size = target_size
         self.oversize = math.ceil(1.05 * target_size)
@@ -189,6 +190,17 @@ class PackedMultiSet:
 
     def __len__(self) -> int:
         return len(self.labels)
+
+    def __getstate__(self):
+        """A pickle holds the paths, not the arrays: a worker process of
+        ``data.grain_pipeline.GrainLoader`` re-opens the memmaps."""
+        return {"annotation_path": str(self.annotation_path),
+                "target_size": self.target_size,
+                "device_augment": self.device_augment}
+
+    def __setstate__(self, state):
+        self.__init__(state["annotation_path"], state["target_size"],
+                      device_augment=state["device_augment"])
 
     def __getitem__(self, index: int,
                     rng: Optional[np.random.Generator] = None) -> Dict:

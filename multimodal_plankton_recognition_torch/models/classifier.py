@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from .dense import Dense
 from .image.encoder import ImageEncoder
 from .profile.factory import create_profile_encoder
 
@@ -22,7 +23,7 @@ class ImageClassifier(nn.Module):
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.image_encoder = ImageEncoder(**(image_encoder_args or {}))
-        self.fc = nn.Linear(self.image_encoder.dim_out, n_classes)
+        self.fc = Dense(self.image_encoder.dim_out, n_classes)
         self.to(dtype)
 
     def forward(self, image: torch.Tensor,
@@ -39,7 +40,7 @@ class ProfileClassifier(nn.Module):
         super().__init__()
         self.profile_encoder = create_profile_encoder(
             profile_encoder_args or {})
-        self.fc = nn.Linear(self.profile_encoder.dim_out, n_classes)
+        self.fc = Dense(self.profile_encoder.dim_out, n_classes)
         self.to(dtype)
 
     def forward(self, profile: torch.Tensor,

@@ -23,6 +23,7 @@ from torch import nn
 
 from .. import LN_EPS
 from ..attention import FusedSelfAttention
+from ..dense import Dense
 from ..dropout import dropout
 from ..ffn import apply_fused_ffn
 
@@ -41,8 +42,8 @@ class _Block(nn.Module):
         self.attn = FusedSelfAttention(dim, num_heads, fused=fused_attention,
                                        dropout_rate=dropout)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp1 = nn.Linear(dim, hidden)
-        self.mlp2 = nn.Linear(hidden, dim)
+        self.mlp1 = Dense(dim, hidden)
+        self.mlp2 = Dense(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self._drop(self.attn(self.ln1(x)))

@@ -19,6 +19,7 @@ from torch import nn
 from ..config import COORDINATION_METHODS
 from ..ops import losses
 from ..ops.contrastive import clip_loss_fused, siglip_loss_fused
+from .dense import Dense
 from .image.encoder import ImageEncoder
 from .profile.factory import create_profile_encoder
 
@@ -110,9 +111,9 @@ class MultiModel(nn.Module):
         self.image_encoder = ImageEncoder(**(image_encoder_args or {}))
         self.profile_encoder = create_profile_encoder(
             profile_encoder_args or {})
-        self.image_projection = nn.Linear(self.image_encoder.dim_out,
+        self.image_projection = Dense(self.image_encoder.dim_out,
                                           dim_embed, bias=False)
-        self.profile_projection = nn.Linear(self.profile_encoder.dim_out,
+        self.profile_projection = Dense(self.profile_encoder.dim_out,
                                             dim_embed, bias=False)
         coord = dict(coordination_args or {"method": "clip"})
         coord.pop("negatives", None)

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..dense import Dense
 from ..dropout import dropout
 
 
@@ -83,7 +84,7 @@ class ProfileLSTM(nn.Module):
         self.dim_hidden = dim_hidden
         self.metadata = metadata
         self.dropout = dropout
-        self.expand = nn.Linear(dim_in, dim_hidden, bias=False)
+        self.expand = Dense(dim_in, dim_hidden, bias=False)
         self.layers = nn.ModuleList(LSTMLayer(dim_hidden, dim_hidden)
                                     for _ in range(num_layers))
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from .. import LN_EPS
 from ..attention import FusedSelfAttention
+from ..dense import Dense
 from ..dropout import dropout
 from ..ffn import apply_fused_ffn
 
@@ -50,8 +51,8 @@ class _EncoderLayer(nn.Module):
                                        fused=fused_attention,
                                        dropout_rate=dropout)
         self.ln1 = nn.LayerNorm(dim_hidden, eps=LN_EPS)
-        self.ff1 = nn.Linear(dim_hidden, dim_feedforward)
-        self.ff2 = nn.Linear(dim_feedforward, dim_hidden)
+        self.ff1 = Dense(dim_hidden, dim_feedforward)
+        self.ff2 = Dense(dim_feedforward, dim_hidden)
         self.ln2 = nn.LayerNorm(dim_hidden, eps=LN_EPS)
         self.act = _ACTIVATIONS[activation]
 
@@ -87,7 +88,7 @@ class ProfileTransformer(nn.Module):
         self.dim_hidden = dim_hidden
         self.metadata = metadata
         self.dropout = dropout
-        self.expand = nn.Linear(dim_in, dim_hidden, bias=False)
+        self.expand = Dense(dim_in, dim_hidden, bias=False)
         self.position = nn.Embedding(target_size + 2, dim_hidden)
         self.layers = nn.ModuleList(
             _EncoderLayer(dim_hidden, num_head, dim_feedforward, dropout,

@@ -21,6 +21,17 @@ points; ``mha_qkv`` and ``mha`` are the differentiable entries (a
 versions on a CPU tensor. Each wrapper counts its kernel's launches in
 ``.launches``.
 
+Registered ops. Where no gradient will be taken (eval, ``no_grad``,
+``inference_mode``, or no input that requires one), the wrappers call the
+forwards as the registered ops ``plankton::mha_qkv_fwd`` (kernel 1) and
+``plankton::mha_fwd`` (kernel 3): a CUDA implementation that launches
+the kernel, a CPU implementation that runs the plain version, and a fake
+implementation that gives the output's shape from symbolic sizes. So
+``torch.export`` records each as one opaque node, and a program exported
+on the card launches the kernel when it runs; the launch counts are kept
+inside the CUDA implementation. The train path keeps its
+``torch.autograd.Function``.
+
 Layout: head h's q sits at columns ``h*D``, its k at ``E + h*D`` and its v
 at ``2E + h*D`` of the packed last axis (at ``h*D`` of each separate
 operand). ``bias_rows`` is a (B, L) f32 additive key bias (−1e9 on padded
@@ -59,7 +70,7 @@ __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
            "mha_qkv_bwd_reference", "mha", "mha_bwd", "mha_reference",
            "mha_bwd_reference", "hash_bits", "dropout_bits",
            "dropout_threshold", "keep_factor", "SUPPORTED_HEAD_DIMS",
-           "MAX_LENGTH"]
+           "MAX_LENGTH", "mha_qkv_fwd_op", "mha_fwd_op"]
 
 #: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
 SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
@@ -378,15 +389,39 @@ class _MhaQkv(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd will take a gradient through the call."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+@torch.library.custom_op("plankton::mha_qkv_fwd", mutates_args=())
+def mha_qkv_fwd_op(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
+                   heads: int, dropout_p: float, seed: int) -> torch.Tensor:
+    """Kernel 1 as a registered op: the kernel on CUDA, the plain version
+    on the CPU (``_fwd``)."""
+    return _fwd(qkv, bias_rows, heads, dropout_p, seed)
+
+
+@mha_qkv_fwd_op.register_fake
+def _(qkv, bias_rows, heads, dropout_p, seed):
+    b, l, e3 = qkv.shape
+    return qkv.new_empty((b, l, e3 // 3))
+
+
 def mha_qkv(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
             heads: int, dropout_p: float = 0.0,
             seed: int = 0) -> torch.Tensor:
     """Differentiable attention over packed qkv with probability dropout
     ``dropout_p`` (0 in eval mode) drawn from ``seed``: the CUDA kernels
     for a CUDA bf16 tensor, the plain versions for a CPU tensor, an error
-    otherwise (no fallback). ``mha_qkv.launches`` counts forward-kernel
-    launches."""
+    otherwise (no fallback). Without a gradient to take, the registered
+    op ``plankton::mha_qkv_fwd``. ``mha_qkv.launches`` counts
+    forward-kernel launches."""
     dropout_threshold(dropout_p)  # validates p before any launch
+    _check_device(qkv)  # raises on a device with neither
+    if not _needs_grad(qkv):
+        return mha_qkv_fwd_op(qkv, bias_rows, heads, dropout_p, seed)
     return _MhaQkv.apply(qkv, bias_rows, heads, dropout_p, seed)
 
 
@@ -479,7 +514,24 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, an error otherwise. ``mha.launches`` counts forward-kernel
     launches."""
     dropout_threshold(dropout_p)  # validates p before any launch
+    _check_device(q)  # raises on a device with neither
+    if not _needs_grad(q, k, v):
+        return mha_fwd_op(q, k, v, bias_rows, heads, dropout_p, seed)
     return _Mha.apply(q, k, v, bias_rows, heads, dropout_p, seed)
+
+
+@torch.library.custom_op("plankton::mha_fwd", mutates_args=())
+def mha_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias_rows: Optional[torch.Tensor], heads: int,
+               dropout_p: float, seed: int) -> torch.Tensor:
+    """Kernel 3 as a registered op: the kernel on CUDA, the plain version
+    on the CPU (``_mha_fwd``)."""
+    return _mha_fwd(q, k, v, bias_rows, heads, dropout_p, seed)
+
+
+@mha_fwd_op.register_fake
+def _(q, k, v, bias_rows, heads, dropout_p, seed):
+    return torch.empty_like(q)
 
 
 mha.launches = 0

@@ -38,6 +38,10 @@ dtype. When a gradient will be taken, the forward keeps its q|k|v and o
 them, with the same bits, as the TPU kernel does.
 ``attn_block_fwd.launches`` and ``attn_block_bwd.launches`` count kernel
 launches (one per wrapper call, whatever number of passes it runs).
+Where no gradient will be taken, ``attn_block`` calls the forward as the
+registered op ``plankton::attn_block_fwd`` (CUDA: kernel 11; CPU: the
+plain version; a fake implementation for symbolic sizes), so that
+``torch.export`` keeps kernel 11 as one node (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -50,12 +54,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, hopper_gemm
-from .attention import (_MASK32, _aligned, bwd_scratch, dropout_threshold,
-                        mha_qkv_bwd_reference, mha_qkv_reference)
+from .attention import (_MASK32, _aligned, _needs_grad, bwd_scratch,
+                        dropout_threshold, mha_qkv_bwd_reference,
+                        mha_qkv_reference)
 
 __all__ = ["attn_block", "attn_block_fwd", "attn_block_bwd",
            "attn_block_reference", "attn_block_bwd_reference",
-           "SUPPORTED_BLOCKS"]
+           "attn_block_fwd_op", "SUPPORTED_BLOCKS"]
 
 #: (E, heads) the CUDA kernels are instantiated for: ViT-T, the flagship's
 #: profile encoder, ViT-S and the SigLIP card's profile encoder
@@ -346,8 +351,27 @@ def attn_block(x: torch.Tensor, qkv_weight: torch.Tensor,
     E and B L E values) for the backward; under ``no_grad`` or
     ``inference_mode`` it keeps nothing."""
     dropout_threshold(dropout_p)  # validates p before any launch
-    keep = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, qkv_weight, qkv_bias, out_weight,
-                                  out_bias))
+    _on_cpu(x)  # raises on a device with neither kernel nor plain version
+    if not _needs_grad(x, qkv_weight, qkv_bias, out_weight, out_bias):
+        return attn_block_fwd_op(x, qkv_weight, qkv_bias, out_weight,
+                                 out_bias, bias_rows, heads, dropout_p, seed)
     return _AttnBlock.apply(x, qkv_weight, qkv_bias, out_weight, out_bias,
-                            bias_rows, heads, dropout_p, seed, keep)
+                            bias_rows, heads, dropout_p, seed, True)
+
+
+@torch.library.custom_op("plankton::attn_block_fwd", mutates_args=())
+def attn_block_fwd_op(x: torch.Tensor, qkv_weight: torch.Tensor,
+                      qkv_bias: torch.Tensor, out_weight: torch.Tensor,
+                      out_bias: torch.Tensor,
+                      bias_rows: Optional[torch.Tensor], heads: int,
+                      dropout_p: float, seed: int) -> torch.Tensor:
+    """Kernel 11 as a registered op: the kernel on CUDA, the plain version
+    on the CPU (``attn_block_fwd``)."""
+    return attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                          bias_rows, heads, dropout_p, seed, False)
+
+
+@attn_block_fwd_op.register_fake
+def _(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows, heads,
+      dropout_p, seed):
+    return torch.empty_like(x)

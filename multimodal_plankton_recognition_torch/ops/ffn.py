@@ -34,6 +34,11 @@ draw it instead from a counter-based hash of (seed, flattened row
 ``csrc/dropout.cuh``), so the backward regenerates the forward's mask with
 nothing stored, and kernel and plain version agree bit for bit on it. A
 hidden unit is kept when its 32 bits are >= ``p * 2**32``.
+
+Where no gradient will be taken, ``ffn_core`` calls the forward as the
+registered op ``plankton::ffn_fwd`` (CUDA: kernel 9; CPU: the plain
+version; a fake implementation for symbolic sizes), so that
+``torch.export`` keeps kernel 9 as one node (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -45,11 +50,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, hopper_gemm
-from .attention import _MASK32, dropout_threshold, hash_bits, keep_factor
+from .attention import (_MASK32, _needs_grad, dropout_threshold, hash_bits,
+                        keep_factor)
 
 __all__ = ["ffn_core", "ffn_fwd", "ffn_bwd", "ffn_reference",
            "ffn_bwd_reference", "ffn_dropout_bits", "bwd_scratch",
-           "ACTIVATIONS", "SUPPORTED_WIDTHS"]
+           "ffn_fwd_op", "ACTIVATIONS", "SUPPORTED_WIDTHS"]
 
 ACTIVATIONS = ("gelu", "relu")
 #: model widths E the CUDA kernels are instantiated for (csrc/ffn.cu): the
@@ -334,4 +340,21 @@ def ffn_core(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"activation must be one of {ACTIVATIONS}, got "
                          f"{activation!r}")
     dropout_threshold(dropout_p)  # validates p before any launch
+    _on_cpu(x)  # raises on a device with neither kernel nor plain version
+    if not _needs_grad(x, w1, b1, w2, b2):
+        return ffn_fwd_op(x, w1, b1, w2, b2, activation, dropout_p, seed)
     return _FfnCore.apply(x, w1, b1, w2, b2, activation, dropout_p, seed)
+
+
+@torch.library.custom_op("plankton::ffn_fwd", mutates_args=())
+def ffn_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor, activation: str,
+               dropout_p: float, seed: int) -> torch.Tensor:
+    """Kernel 9 as a registered op: the kernel on CUDA, the plain version
+    on the CPU (``ffn_fwd``)."""
+    return ffn_fwd(x, w1, b1, w2, b2, activation, dropout_p, seed)
+
+
+@ffn_fwd_op.register_fake
+def _(x, w1, b1, w2, b2, activation, dropout_p, seed):
+    return torch.empty_like(x)

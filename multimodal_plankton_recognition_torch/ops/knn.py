@@ -49,15 +49,34 @@ def topk_euclidean(queries: torch.Tensor, gallery: torch.Tensor,
     return idx, torch.sqrt(torch.clamp(-scores, min=0.0))
 
 
-def inverse_distance_weights(dist: torch.Tensor) -> torch.Tensor:
+def inverse_distance_weights(dist: torch.Tensor,
+                             exact_eps: float = 0.0) -> torch.Tensor:
     """Inverse-distance weights with the reference's exact-hit rule: when
     any neighbour of a row is at distance 0, those neighbours get weight 1
-    and the rest 0."""
-    w = torch.where(dist > 0, 1.0 / dist.clamp_min(1e-38),
+    and the rest 0. ``exact_eps`` widens the rule to ``dist <= exact_eps``
+    (the serving artifact, ``retrieval/export.py``: a query that is a
+    gallery member lands a little above 0 when the program that embeds it
+    rounds differently from the one that built the gallery); the default
+    0.0 is the reference's rule."""
+    w = torch.where(dist > exact_eps, 1.0 / dist.clamp_min(1e-38),
                     torch.full_like(dist, torch.inf))
     inf_mask = torch.isinf(w)
     inf_row = inf_mask.any(dim=1, keepdim=True)
     return torch.where(inf_row, inf_mask.to(w.dtype), w)
+
+
+def weighted_mode_device(classes: torch.Tensor, weights: torch.Tensor,
+                         n_classes: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise weighted mode on the tensors' device: ``(argmax class id,
+    votes (B, n_classes) f32)``, ties toward the smaller id (``argmax``
+    gives the first maximum). The votes are a one-hot (B, K, C) product
+    summed over the K neighbours, a fixed order on any device: an atomic
+    scatter-add would make the f32 sums, and so a near tie, depend on the
+    order the adds land in."""
+    onehot = torch.nn.functional.one_hot(classes.long(), n_classes)
+    votes = (onehot.float() * weights.float()[..., None]).sum(dim=1)
+    return votes.argmax(dim=1), votes
 
 
 def weighted_mode(classes: np.ndarray, weights: np.ndarray) -> np.ndarray:

@@ -53,11 +53,15 @@ every rank. The classifiers' eval covers every test row: the trailing
 partial batch is split over the ranks (``split_tail``), where JAX
 replicates it.
 
+``loader: grain`` loads in worker processes
+(``data.grain_pipeline.GrainLoader``) in all three drivers, also per
+rank (``host_shard``): the workers collate, the parent pins
+(``pin_memory``); ``loader: threads`` (the default) is ``Loader`` with
+``PinnedCollate``.
+
 Not ported, as TPU machinery: ``use_tpu_runtime_flags``,
-``enable_compilation_cache`` and ``use_fast_prng``. A card option that
-needs a module not ported yet raises before any step: ``loader: grain``
-(ROADMAP.md queue 1 module 8). ``parallel: shard_map`` on one device is
-the plain step, as in JAX.
+``enable_compilation_cache`` and ``use_fast_prng``. ``parallel:
+shard_map`` on one device is the plain step, as in JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ import torch
 
 from ..config import ModelCard, load_card
 from ..data.dataset import MultiSet
+from ..data.grain_pipeline import GrainLoader
 from ..data.pipeline import (
     Loader, PinnedCollate, device_put, image_collate_fn, multi_collate_fn,
     profile_collate_fn,
@@ -110,11 +115,25 @@ def _run_name(card_name: str, data_path: Path) -> str:
     return card_name + "_" + "_".join(parts[-2:])
 
 
-def _refuse_unported(card: ModelCard) -> None:
+def _close(*loaders) -> None:
+    """Stop the worker processes of the loaders that have them."""
+    for loader in loaders:
+        if isinstance(loader, GrainLoader):
+            loader.close()
+
+
+def _make_loader(card: ModelCard, dataset, collate, pin: bool, **kwargs):
+    """The card's loader over ``dataset`` in batches of ``card.bs`` with
+    ``card.num_workers`` (JAX's ``_loader_cls``: ``loader: grain``, worker
+    processes, else the threaded ``Loader``); ``pin``: batches in
+    page-locked memory (``Loader``: on its producer thread;
+    ``GrainLoader``: in the parent, never in a worker)."""
     if card.loader == "grain":
-        raise NotImplementedError(
-            "loader: grain (the process-based loader) is not ported yet "
-            "(ROADMAP.md queue 1 module 8); use loader: threads")
+        return GrainLoader(dataset, card.bs, collate,
+                           num_workers=card.num_workers, pin_memory=pin,
+                           **kwargs)
+    return Loader(dataset, card.bs, PinnedCollate(collate) if pin
+                  else collate, num_workers=card.num_workers, **kwargs)
 
 
 def _setup_mesh(card: ModelCard, device: torch.device) -> Mesh:
@@ -201,8 +220,9 @@ def multi_datasets(card: ModelCard, data_path: Path | str):
 def multi_loaders(card: ModelCard, train_set, test_set,
                   device: torch.device | str,
                   mesh: Optional[Mesh] = None) -> Tuple[Loader, Loader]:
-    """The driver's train and valid ``Loader``s (both shuffled, last
-    partial batch dropped; seeds ``card.seed`` and ``card.seed + 1``) on
+    """The driver's train and valid loaders of the card's ``loader`` (both
+    shuffled, last partial batch dropped; seeds ``card.seed`` and
+    ``card.seed + 1``) on
     the eval pipeline's tokenizer; under device augmentation the train
     tokenizer pads to the oversize, where the step crops. ArcFace batches carry class ids, and the card's
     head gets ``out_features`` from the train classes. On a card the
@@ -220,12 +240,9 @@ def multi_loaders(card: ModelCard, train_set, test_set,
     pin = torch.device(device).type == "cuda"
 
     def loader(dataset, tokenizer, seed):
-        collate = multi_collate_fn(tokenizer, vocab)
-        return Loader(dataset, card.bs,
-                      PinnedCollate(collate) if pin else collate,
-                      shuffle=True, drop_last=True,
-                      num_workers=card.num_workers, seed=seed,
-                      host_shard=mesh.host_shard() if mesh else None)
+        return _make_loader(card, dataset, multi_collate_fn(tokenizer, vocab),
+                            pin, shuffle=True, drop_last=True, seed=seed,
+                            host_shard=mesh.host_shard() if mesh else None)
 
     return (loader(train_set, train_tok, card.seed),
             loader(test_set, valid_tok, card.seed + 1))
@@ -356,15 +373,13 @@ def _card(modelcard: str | Path | ModelCard,
           max_epochs: Optional[int]) -> Tuple[ModelCard, str]:
     """(card, its name for the run directory): a copy of a ``ModelCard``
     (named by its ``name`` key, else "card") or the card at a YAML / JSON
-    path (named by the file's stem); ``max_epochs`` overrides the card's.
-    Raises for the options whose modules are not ported yet."""
+    path (named by the file's stem); ``max_epochs`` overrides the card's."""
     if isinstance(modelcard, ModelCard):
         card = copy.deepcopy(modelcard)
         card_name = card.raw.get("name", "card")
     else:
         card = load_card(modelcard)
         card_name = Path(modelcard).stem
-    _refuse_unported(card)
     if max_epochs is not None:
         card.trainer_args.max_epochs = max_epochs
     return card, card_name
@@ -421,6 +436,7 @@ def train_multi(dataset: str | Path, modelcard: str | Path | ModelCard,
         state = fitter.fit(state, train_loader, valid_loader)
     finally:
         profiler.stop()
+        _close(train_loader, valid_loader)
     if writer is not None:
         writer.close()
     return {"history": fitter.history, "logdir": run_dir,
@@ -470,15 +486,13 @@ def _train_classifier(kind: str, dataset: str | Path,
     vocab = LabelVocab(train_set.class_names)
     collate = image_collate_fn(vocab) if kind == "image" \
         else profile_collate_fn(tokenizer, vocab)
-    if device.type == "cuda":
-        collate = PinnedCollate(collate)
-    train_loader = Loader(train_set, card.bs, collate, shuffle=True,
-                          drop_last=True, num_workers=card.num_workers,
-                          seed=card.seed, host_shard=mesh.host_shard())
-    test_loader = Loader(test_set, card.bs, collate, shuffle=False,
-                         drop_last=False, num_workers=card.num_workers,
-                         seed=card.seed + 1, host_shard=mesh.host_shard(),
-                         split_tail=True)
+    pin = device.type == "cuda"
+    train_loader = _make_loader(card, train_set, collate, pin, shuffle=True,
+                                drop_last=True, seed=card.seed,
+                                host_shard=mesh.host_shard())
+    test_loader = _make_loader(card, test_set, collate, pin, shuffle=False,
+                               drop_last=False, seed=card.seed + 1,
+                               host_shard=mesh.host_shard(), split_tail=True)
     model, tx, state = multi_state(card, device, resume, kind,
                                    vocab.to_list())
     state = replicate_state(state, mesh)
@@ -504,6 +518,7 @@ def _train_classifier(kind: str, dataset: str | Path,
         state = fitter.fit(state, train_loader, test_loader)
     finally:
         profiler.stop()
+        _close(train_loader)
 
     # the final test on the best checkpoint's masters and statistics,
     # read by rank 0 and broadcast
@@ -517,7 +532,10 @@ def _train_classifier(kind: str, dataset: str | Path,
                 for name, buf in state.batch_stats.items():
                     buf.copy_(payload["batch_stats"][name])
         state = replicate_state(state, mesh)
-    test = fitter._eval_epoch(state, test_loader)
+    try:
+        test = fitter._eval_epoch(state, test_loader)
+    finally:
+        _close(test_loader)
     test_acc = test["valid_acc"]
     if writer is not None:
         writer.log({"test_acc": test_acc}, step=0)

@@ -307,14 +307,28 @@ def test_module_6_cards_raise_before_any_step(kind, args, synthetic_dataset,
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"loader": "grain"}, NotImplementedError, "module 8"),
+    ({"loader": "grain", "num_workers": 0}, None, None),
     ({"mesh": {"data": 2}}, ValueError, "torchrun --nproc_per_node 2"),
 ], ids=["grain", "mesh"])
 def test_driver_refusals(overrides, error, match, synthetic_dataset,
                          tmp_path):
-    """``loader: grain`` is not ported yet; a ``mesh`` of two processes in
-    a run of one names the launch that gives them."""
+    """``loader: grain`` (ported: ``data.grain_pipeline``) trains, with
+    the history of ``loader: threads``; a ``mesh`` of two processes in a
+    run of one names the launch that gives them."""
     d = _card("profile", **overrides)
+    if error is None:
+        histories = []
+        for loader in ("grain", "threads"):
+            d["loader"] = loader
+            with single_thread():
+                out = drivers.train_profile(
+                    synthetic_dataset, config.ModelCard.from_dict(d),
+                    logdir=tmp_path / loader, max_epochs=1, device="cpu")
+            histories.append([{k: v for k, v in h.items()
+                               if k != "samples_per_sec"}
+                              for h in out["history"]])
+        assert histories[0] == histories[1]
+        return
     with pytest.raises(error, match=match):
         drivers.train_profile(synthetic_dataset,
                               config.ModelCard.from_dict(d),

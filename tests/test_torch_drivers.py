@@ -335,7 +335,7 @@ def test_arcface_takes_the_class_count(packed_split, tmp_path):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"loader": "grain"}, NotImplementedError, "module 8"),
+    ({"loader": "grain"}, None, "grain"),
     ({"mesh": {"data": 2}}, ValueError, "torchrun --nproc_per_node 2"),
     ({"mesh": {"data": 1, "model": 2}}, ValueError,
      "torchrun --nproc_per_node 2"),
@@ -344,12 +344,13 @@ def test_arcface_takes_the_class_count(packed_split, tmp_path):
 def test_unported_options_raise_before_any_step(overrides, error, match,
                                                 packed_split, tmp_path,
                                                 monkeypatch, capsys):
-    """The options of modules not ported yet raise before any step, and so
-    does a ``mesh`` of more processes than the run has (queue 1 module 7
-    is ported: the message names the launch that gives them);
-    ``pretrained: true`` (queue 1 module 6, ported) with no
+    """A ``mesh`` of more processes than the run has raises before any
+    step (queue 1 module 7 is ported: the message names the launch that
+    gives them); ``pretrained: true`` (queue 1 module 6, ported) with no
     ``pretrained_path`` prints the JAX driver's message and trains from
-    scratch: one epoch of steps, the masters the seeded init's."""
+    scratch: one epoch of steps, the masters the seeded init's; ``loader:
+    grain`` (queue 1 module 8, ported) trains one epoch of steps through
+    its worker processes."""
     seen = _spy_steps(monkeypatch)
     d = _card(packed_cache=True)
     for key, value in overrides.items():
@@ -358,6 +359,13 @@ def test_unported_options_raise_before_any_step(overrides, error, match,
         else:
             d[key] = value
     card = config.ModelCard.from_dict(d)
+    if match == "grain":
+        with single_thread():
+            out = drivers.train_multi(packed_split, card, logdir=tmp_path,
+                                      max_epochs=1, device="cpu")
+        assert len(seen) == out["state"].step > 0
+        assert math.isfinite(out["history"][0]["train_loss"])
+        return
     if match is None:
         with single_thread():
             out = drivers.train_multi(packed_split, card, logdir=tmp_path,

@@ -14,8 +14,11 @@ when called; ``train.metrics`` and ``retrieval.results`` matplotlib and
 PIL, only when a figure is drawn. The port's CLIs
 (``scripts/encode_torch.py``, ``scripts/train_{multi,image,profile}_torch.py``,
 ``scripts/benchmark_{raw,folds,cross,cross_folds}_torch.py``,
-``scripts/results_torch.py``) import no JAX either, and load none of
-the forbidden modules at import; the bridge from orbax
+``scripts/results_torch.py``, ``scripts/export_model_torch.py``,
+``scripts/serve_torch.py``, ``scripts/analysis_torch.py``) import no JAX
+either, and load none of the forbidden modules at import; the serving
+path (``retrieval.export``, ``ops.knn`` and the kernels' op
+registrations) loads none of them, nor the model code; the bridge from orbax
 (``scripts/checkpoint_from_jax.py``) does import JAX, and so lives
 outside the package. ``chip_smoke.py``'s ``classify``, ``retrieval``,
 ``backbones`` and ``remat`` phases import only modules that load none of
@@ -36,6 +39,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch",
     "multimodal_plankton_recognition_torch.convert",
     "multimodal_plankton_recognition_torch.data.dataset",
+    "multimodal_plankton_recognition_torch.data.grain_pipeline",
     "multimodal_plankton_recognition_torch.data.packed",
     "multimodal_plankton_recognition_torch.data.pipeline",
     "multimodal_plankton_recognition_torch.data.profile_io",
@@ -44,6 +48,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.data.transforms",
     "multimodal_plankton_recognition_torch.models.attention",
     "multimodal_plankton_recognition_torch.models.batchnorm",
+    "multimodal_plankton_recognition_torch.models.dense",
     "multimodal_plankton_recognition_torch.models.ffn",
     "multimodal_plankton_recognition_torch.models.flagships",
     "multimodal_plankton_recognition_torch.models.image.densenet",
@@ -65,6 +70,8 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.ops.ffn",
     "multimodal_plankton_recognition_torch.ops.knn",
     "multimodal_plankton_recognition_torch.ops.losses",
+    "multimodal_plankton_recognition_torch.ops.pacmap",
+    "multimodal_plankton_recognition_torch.ops.quant",
     "multimodal_plankton_recognition_torch.parallel",
     "multimodal_plankton_recognition_torch.parallel.contrastive",
     "multimodal_plankton_recognition_torch.parallel.knn",
@@ -72,6 +79,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.parallel.multihost",
     "multimodal_plankton_recognition_torch.retrieval.benchmark",
     "multimodal_plankton_recognition_torch.retrieval.encode",
+    "multimodal_plankton_recognition_torch.retrieval.export",
     "multimodal_plankton_recognition_torch.retrieval.results",
     "multimodal_plankton_recognition_torch.train.checkpoint",
     "multimodal_plankton_recognition_torch.utils",
@@ -98,7 +106,7 @@ TRAIN_PATH_MODULES = [
 ]
 FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml", "matplotlib")
 SMOKE_PHASES = ("phase_classify", "phase_retrieval", "phase_backbones",
-                "phase_remat")
+                "phase_remat", "phase_export", "phase_tail")
 
 
 def _forbidden_after_importing(modules):
@@ -118,6 +126,37 @@ def test_card_path_imports_nothing_forbidden():
 
 def test_train_path_imports_nothing_forbidden():
     assert _forbidden_after_importing(TRAIN_PATH_MODULES) == "[]"
+
+
+#: what loading a serving artifact imports: the export module, the kNN
+#: and the op registrations of the kernels a program may keep
+SERVING_PATH_MODULES = [
+    "multimodal_plankton_recognition_torch.retrieval.export",
+    "multimodal_plankton_recognition_torch.ops.knn",
+    "multimodal_plankton_recognition_torch.ops.attention",
+    "multimodal_plankton_recognition_torch.ops.attention_block",
+    "multimodal_plankton_recognition_torch.ops.ffn",
+]
+
+
+def test_serving_path_imports_nothing_forbidden_nor_the_models():
+    """The serving path loads none of the forbidden modules, and loading
+    an artifact registers the kernels' ops without the model code."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SERVING_PATH_MODULES!r}: importlib.import_module(m)\n"
+        "from multimodal_plankton_recognition_torch.retrieval import "
+        "export\n"
+        "export._register_ops()\n"
+        "import torch\n"
+        "ops = [torch.ops.plankton.mha_qkv_fwd, torch.ops.plankton.mha_fwd,"
+        " torch.ops.plankton.ffn_fwd, torch.ops.plankton.attn_block_fwd]\n"
+        "print(sorted(m for m in sys.modules if m in "
+        f"{FORBIDDEN!r} or '.models' in m))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def _imported_roots(path: Path):
@@ -173,7 +212,8 @@ def test_train_cli_imports_no_jax():
 NEW_CLIS = ("train_image_torch", "train_profile_torch",
             "benchmark_raw_torch", "benchmark_folds_torch",
             "benchmark_cross_torch", "benchmark_cross_folds_torch",
-            "results_torch")
+            "results_torch", "export_model_torch", "serve_torch",
+            "analysis_torch")
 
 
 @pytest.fixture(scope="module")
@@ -204,8 +244,9 @@ def new_cli_loads():
 
 @pytest.mark.parametrize("name", NEW_CLIS)
 def test_classifier_and_benchmark_clis_import_no_jax(name, new_cli_loads):
-    """The supervised train CLIs, the benchmark CLIs and the results CLI:
-    no JAX module named, none of the forbidden modules loaded."""
+    """The supervised train CLIs, the benchmark CLIs, the results CLI and
+    the serving and analysis CLIs: no JAX module named, none of the
+    forbidden modules loaded."""
     script = REPO / "scripts" / f"{name}.py"
     assert not set(_imported_roots(script)) & {
         "jax", "jaxlib", "flax", "optax", "orbax",
