@@ -15,8 +15,11 @@ and its fused attention-block route (``PLANKTON_ATTN_FUSE_PROJ=1``),
 the parallel layer (a process group's mesh step, ``torchrun``, two ranks
 on the one card), the serving export (the flagship's and the ViT-T
 classifier's checkpoints exported to ``torch.export`` programs and
-served, kernel 1 a registered op of them) and the tail (W8A8
-quantisation, PaCMAP, ``loader: grain`` through the train CLI).
+served, kernel 1 a registered op of them), the tail (W8A8
+quantisation, PaCMAP, ``loader: grain`` through the train CLI) and the
+pretrained-weight converter, the pack CLI and the parity tools (the ViT-T
+CLIP card trained from converted weights, from JPEGs to an accuracy
+table; the synthetic accuracy gate).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -370,6 +373,26 @@ fatal on failure:
    B0 SigLIP card through the train CLI, one epoch a run, ``loader:
    grain`` and ``threads`` in turns: the first batches' hashes equal,
    pairs/s and idle share; a ``summary: tail`` line;
+14e. pretrained: (i) the full-width ViT-T backbone's seeded init through
+   the inverse layout (``.safetensors``) and a synthesized B0 state dict
+   (``torch.save``, 3 input channels) converted by
+   ``scripts/convert_timm_torch.py`` and merged into their cards'
+   models: every backbone leaf loaded, bit for bit; the default prefix
+   loads 0; (ii) ``data/synthetic.py``'s JPEG + CSV dataset (8 classes x
+   128), 2 folds (``write_folds``), fold 1 packed at 224 by
+   ``scripts/pack_dataset_torch.py``, every item equal to the CSV path's;
+   (iii) model_cards/multi/vit_t_16_transformer_2_512_clip.yaml from the
+   converted ViT-T through ``scripts/train_multi_torch.py`` (30 epochs,
+   exact launches, the valid loss 5% below the first epoch's, every
+   master moved), then the encode, ``benchmark_raw`` and ``results
+   table`` CLIs (the fused k = 1 accuracy above 2 x chance), and the
+   converted init through the same encode: the trained cross-modal k = 1
+   accuracy 0.05 above the init's; (iv) the five synthetic gate protocols
+   on the card, one ``scripts/parity_gate_torch.py`` process each (its
+   ``precision:`` line: TF32 off, deterministic), each at model seeds 0,
+   1, 2 and held by the CLI's rule, the medians in the JAX package's
+   committed bands, and ``scripts/parity_real_torch.py --dry-run`` to
+   its report; a ``summary: pretrained`` line;
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
@@ -829,6 +852,18 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _cli(name):
+    """The module of ``scripts/<name>.py``, loaded (its ``main`` not
+    run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def phase_device():
@@ -2631,7 +2666,6 @@ def phase_drive(device):
     ``torch.as_tensor(v).to(device)`` put and on one batch already on the
     card, in turns (``DRIVE_TURNS``).
     Returns the launches of runs 1 and 2."""
-    import importlib.util
     import tempfile
 
     import torch
@@ -2645,10 +2679,7 @@ def phase_drive(device):
     from multimodal_plankton_recognition_torch.train.checkpoint import (
         METADATA_FILE, CheckpointManager)
 
-    spec = importlib.util.spec_from_file_location(
-        "train_multi_torch", REPO / "scripts" / "train_multi_torch.py")
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = _cli("train_multi_torch")
     card_dict = dict(B0_SIGLIP_CARD, packed_cache=True)
     card = ModelCard.from_dict(card_dict)
     bs = card.bs
@@ -3302,12 +3333,7 @@ def _stratified_folds(labels, folds, seed):
 
 def _bench_constants(mode):
     """(N, K, TH, REPEATS) of ``scripts/benchmark_<mode>_torch.py``."""
-    import importlib.util
-
-    path = REPO / "scripts" / f"benchmark_{mode}_torch.py"
-    spec = importlib.util.spec_from_file_location(f"bench_{mode}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    module = _cli(f"benchmark_{mode}_torch")
     return module.N, module.K, getattr(module, "TH", 20), module.REPEATS
 
 
@@ -5058,6 +5084,26 @@ TAIL_PACMAP_ROWS = 4096
 TAIL_PACMAP_ITERS = 450
 TAIL_QUANT_COS = 0.95  # least cosine of an int8 embedding to its bf16 one
 TAIL_TURNS = ("grain", "threads", "threads", "grain")
+PRETRAINED_CARD = "model_cards/multi/vit_t_16_transformer_2_512_clip.yaml"
+PRETRAINED_SEED = 1  # the seeded init converted (the card trains from seed 0)
+PRETRAINED_CLASSES = 8
+PRETRAINED_PER_CLASS = 128  # 64 train and 64 test pairs a class a fold
+PRETRAINED_FOLDS = 2
+#: epoch 0 profiled, the last one's wall unprofiled; 8 micro-steps an
+#: epoch, 2 SGD updates (accumulation 4): from the seeded init the loss
+#: sits within 0.3% of ln 16 for about 12 epochs, then falls
+PRETRAINED_EPOCHS = 30
+PRETRAINED_REPEATS = 4  # benchmark_raw's repeats
+PRETRAINED_CHANCE_FACTOR = 2  # the fused k = 1 accuracy at n = 16 passes
+#: the least relative fall of the valid loss from the first epoch to the
+#: last; where the gradients do nothing, weight decay alone moves the
+#: weights by under 0.3% over the run's 60 updates (lr 5e-3, decay 1e-3,
+#: momentum 0.9), and the loss wanders within 0.3% of ln 16 on its plateau
+PRETRAINED_LOSS_DROP = 0.05
+#: the cross-modal setups whose k = 1 accuracy at n = 16 the training must
+#: raise by ``PRETRAINED_CROSS_GAIN`` above the converted init's
+PRETRAINED_CROSS = ("I - P", "P - I")
+PRETRAINED_CROSS_GAIN = 0.05
 
 
 def _save_card_checkpoint(root, d, kind="multi", class_names=(), seed=0):
@@ -5386,7 +5432,6 @@ def phase_tail(device):
     loader (1 - the profiled run's busy ms over its unprofiled run's
     wall). Returns the launches of the quantized encode and of the
     train runs."""
-    import importlib.util
     import tempfile
 
     import numpy as np
@@ -5507,10 +5552,7 @@ def phase_tail(device):
     del pairs, bf16, int8, model
 
     # (viii) loader: grain against loader: threads through the train CLI
-    spec = importlib.util.spec_from_file_location(
-        "train_multi_torch", REPO / "scripts" / "train_multi_torch.py")
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
+    cli = _cli("train_multi_torch")
     drive_launches = _per_step()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -5572,6 +5614,492 @@ def phase_tail(device):
           f"{rates!r}; epoch device busy ms {busy!r} against the "
           f"unprofiled walls {wall!r}: idle {idle!r}", flush=True)
     return {"tail": quant_launches, "tail_drive": drive_launches}
+
+
+def write_folds(data, folds: int, seed: int) -> None:
+    """``scripts/split_kfold.py``'s files without scikit-learn:
+    ``<data>/fold{1..folds}/{train,test}.csv`` from ``annotations.csv``,
+    split by ``_stratified_folds`` (fold f tests on part f), with pandas'
+    index column and the paths one directory up."""
+    import csv
+
+    import numpy as np
+
+    data = Path(data)
+    with open(data / "annotations.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    tests = _stratified_folds(np.array([r["class"] for r in rows]), folds,
+                              seed)
+    for k, test in enumerate(tests, 1):
+        out = data / f"fold{k}"
+        out.mkdir(exist_ok=True)
+        for name, keep in (("train", ~test), ("test", test)):
+            with open(out / f"{name}.csv", "w", newline="") as f:
+                writer = csv.writer(f, lineterminator="\n")
+                writer.writerow(["", "image", "profile", "class"])
+                writer.writerows(
+                    [i, "../" + rows[i]["image"], "../" + rows[i]["profile"],
+                     rows[i]["class"]] for i in np.flatnonzero(keep))
+
+
+def _same_item(what, got, want):
+    import numpy as np
+
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            fail(f"{what}: {key} differs from the CSV path's")
+
+
+def phase_pretrained(device):
+    """The pretrained-weight converter and the reference-parity tools on
+    the card's machine, and the ViT flagship trained from converted
+    weights: (i) ``_pretrained_weights``, (ii) ``_pretrained_pack``,
+    (iii) ``_pretrained_train``, (iv) ``_pretrained_gate``. A ``summary:
+    pretrained`` line. Returns the launches of (iii)."""
+    import tempfile
+
+    from multimodal_plankton_recognition_torch.config import load_card
+
+    vit_card = load_card(REPO / PRETRAINED_CARD)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        loads, lines = _pretrained_weights(tmp, vit_card)
+        fold, sizes, pack_s, pack_mb = _pretrained_pack(
+            tmp, vit_card.target_size)
+        arch = "vit_tiny_patch16_224"
+        train = _pretrained_train(device, tmp, vit_card, fold, sizes,
+                                  *loads[arch, f"{arch}/backbone"])
+        gate_s, dry_s = _pretrained_gate(device, tmp)
+    print(f"summary: pretrained on {_smi()}: converter {lines}; pack "
+          f"{pack_s!r} s, {pack_mb!r} MB; {Path(PRETRAINED_CARD).stem} "
+          f"from the converted ViT-T through scripts/train_multi_torch.py: "
+          f"train pairs/s by epoch (eval in the wall, epoch 0 profiled) "
+          f"{train['rates']!r}, epoch 0 device busy {train['busy_ms']!r} ms "
+          f"against epoch {PRETRAINED_EPOCHS - 1}'s unprofiled wall "
+          f"{train['wall_ms']!r} ms: idle "
+          f"{1 - train['busy_ms'] / train['wall_ms']!r}; encode "
+          f"{train['encode_s']!r} s; fused k = 1 accuracy at n = 16 "
+          f"{train['acc']!r} (the converted init's {train['init_acc']!r}); "
+          f"cross-modal k = 1 at n = 16 {train['cross']!r} (the init's "
+          f"{train['init_cross']!r}); the gate's {gate_s!r} s; dry run "
+          f"{dry_s!r} s", flush=True)
+    return {"pretrained": train["launches"]}
+
+
+def _pretrained_weights(tmp, vit_card):
+    """(i) timm-layout state dicts of the full-width ViT-T and B0
+    backbones: ViT-T's the card's seeded init (``PRETRAINED_SEED``)
+    through the inverse layout (``convert_timm.to_state_dict``), saved as
+    ``.safetensors``; B0's ``synthesize_state_dict`` (3 input channels),
+    saved by ``torch.save``; each converted by
+    ``scripts/convert_timm_torch.py`` at ``--prefix <arch>/backbone`` and
+    at the default prefix, and merged by ``load_pretrained_into`` into
+    its card's model: every backbone leaf loaded, none missing, the
+    loaded backbone through the inverse layout bit for bit the state
+    dict (the stem summed to one channel); the default prefix loads 0.
+    Returns ({(arch, prefix): (npz, counts)}, the printed lines)."""
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.convert import to_flax
+    from multimodal_plankton_recognition_torch.models import convert_timm
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.models.flagships import (
+        init_weights_)
+    from multimodal_plankton_recognition_torch.models.pretrained import (
+        flatten_params, load_pretrained_into)
+
+    convert = _cli("convert_timm_torch")
+    loads, lines = {}, []
+    for arch, card in (("vit_tiny_patch16_224", vit_card),
+                       ("efficientnet_b0", ModelCard.from_dict(B0_CARD))):
+        model = init_weights_(build_multi_model(card, torch.float32),
+                              torch.Generator().manual_seed(PRETRAINED_SEED))
+        tree = to_flax(model.image_encoder.backbone)
+        params, stats = tree["params"], tree.get("batch_stats", {})
+        leaves = len(flatten_params(params)) + len(flatten_params(stats))
+        others = len(flatten_params(to_flax(model)["params"])) + len(
+            flatten_params(to_flax(model).get("batch_stats", {}))) - leaves
+        if arch.startswith("vit"):
+            sd = convert_timm.to_state_dict(arch, params, stats)
+            src = tmp / f"{arch}.safetensors"
+            convert_timm.write_safetensors(sd, src)
+        else:
+            sd = convert_timm.synthesize_state_dict(
+                arch, params, stats, src_in_chans=3, seed=PRETRAINED_SEED)
+            src = tmp / f"{arch}.pth"
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src)
+        stem = next(spec[1] for spec in convert_timm.ARCH_SPECS[arch]()
+                    if spec[0] == "conv_in")
+        want = dict(sd, **{stem: convert_timm._adapt_in_chans(sd[stem], 1)})
+        for prefix in (f"{arch}/backbone", "image_encoder/backbone"):
+            npz = tmp / f"{arch}_{prefix.split('/')[0]}.npz"
+            t0 = time.perf_counter()
+            if convert.main(["-a", arch, "-i", str(src), "-o", str(npz),
+                             "--prefix", prefix]) != 0:
+                fail(f"pretrained: (i) the converter failed on {arch}")
+            secs = time.perf_counter() - t0
+            merged, counts = load_pretrained_into(model, npz)
+            loads[arch, prefix] = (npz, counts)
+            lines.append(f"{arch} {src.suffix} -> prefix {prefix}: "
+                         f"{secs!r} s, {npz.stat().st_size} npz bytes, "
+                         f"{counts}")
+            if prefix != f"{arch}/backbone":
+                if counts["loaded"] != 0 or counts["skipped"] != leaves:
+                    fail(f"pretrained: (i) {arch} at the default prefix "
+                         f"loaded {counts}, not 0 of {leaves}")
+                continue
+            if counts != {"loaded": leaves, "skipped": 0,
+                          "missing": others}:
+                fail(f"pretrained: (i) {arch}: {counts}, not all {leaves} "
+                     f"backbone leaves loaded ({others} other leaves)")
+            model.load_state_dict(merged, strict=True)
+            back = to_flax(model.image_encoder.backbone)
+            got = convert_timm.to_state_dict(arch, back["params"],
+                                             back.get("batch_stats", {}))
+            if list(got) != list(want) or not all(
+                    got[k].dtype == want[k].dtype and
+                    np.array_equal(got[k], want[k]) for k in want):
+                fail(f"pretrained: (i) {arch}: the loaded backbone is not "
+                     f"the state dict bit for bit")
+    print("pretrained: (i) " + "; ".join(lines) + " (loaded backbones bit "
+          "for bit the state dicts through the inverse layout)", flush=True)
+    return loads, lines
+
+
+def _pretrained_pack(tmp, ts):
+    """(ii) ``data/synthetic.py``'s JPEG and CSV dataset
+    (``PRETRAINED_CLASSES`` x ``PRETRAINED_PER_CLASS``), its folds
+    written as ``write_folds`` splits (no scikit-learn), fold 1 packed at
+    ``ts`` by ``scripts/pack_dataset_torch.py``: every item of both
+    caches equal to the CSV path's deterministic prefix. Returns (fold 1's
+    directory, its split sizes, the pack's seconds, its MB)."""
+    from multimodal_plankton_recognition_torch.data import transforms as tf
+    from multimodal_plankton_recognition_torch.data.dataset import MultiSet
+    from multimodal_plankton_recognition_torch.data.packed import (
+        PackedMultiSet, cache_dir)
+    from multimodal_plankton_recognition_torch.data.synthetic import (
+        make_synthetic_dataset)
+
+    data = tmp / "data"
+    t0 = time.perf_counter()
+    make_synthetic_dataset(data, n_classes=PRETRAINED_CLASSES,
+                           n_per_class=PRETRAINED_PER_CLASS,
+                           seed=PRETRAINED_SEED, with_split=False)
+    write_folds(data, PRETRAINED_FOLDS, 0)
+    data_s = time.perf_counter() - t0
+    fold = data / "fold1"
+    t0 = time.perf_counter()
+    _cli("pack_dataset_torch").main(["-d", str(fold), "-t", str(ts)])
+    pack_s = time.perf_counter() - t0
+    pack_mb = sum(f.stat().st_size for split in ("train", "test")
+                  for f in cache_dir(fold / f"{split}.csv",
+                                     ts).iterdir()) / 1e6
+    t0 = time.perf_counter()
+    sizes = {}
+    for split, packed, plain in (
+            ("train", PackedMultiSet(fold / "train.csv", ts,
+                                     device_augment=True),
+             MultiSet(fold / "train.csv", tf.ImageTransformOversize(ts),
+                      tf.ProfileTransformOversize(ts))),
+            ("test", PackedMultiSet(fold / "test.csv", ts),
+             MultiSet(fold / "test.csv", tf.ImageTransformTest(ts),
+                      tf.ProfileTransformTest(ts)))):
+        sizes[split] = len(packed)
+        if len(packed) != len(plain):
+            fail(f"pretrained: (ii) {split}: {len(packed)} packed rows, "
+                 f"{len(plain)} in the CSV")
+        for i in range(len(packed)):
+            _same_item(f"pretrained: (ii) {split} item {i}", packed[i],
+                       plain[i])
+    check_s = time.perf_counter() - t0
+    print(f"pretrained: (ii) {sum(sizes.values())} JPEG + CSV pairs written "
+          f"with their {PRETRAINED_FOLDS} folds in {data_s!r} s; fold 1 "
+          f"({sizes}) packed at {ts} by scripts/pack_dataset_torch.py in "
+          f"{pack_s!r} s, {pack_mb!r} MB; every item equal to the CSV "
+          f"path's ({check_s!r} s)", flush=True)
+    return fold, sizes, pack_s, pack_mb
+
+
+def _pretrained_train(device, tmp, vit_card, fold, sizes, npz, want_counts):
+    """(iii) ``PRETRAINED_CARD`` (ViT-T/16 + ProfileTransformer 2 x 4
+    heads, CLIP, bf16, bs 64 in 4 buckets, the card's kernels) with
+    ``packed_cache``, ``pretrained: true`` and (i)'s npz, through
+    ``scripts/train_multi_torch.py`` for ``PRETRAINED_EPOCHS`` epochs
+    (epoch 0 profiled): the driver's printed counts (i)'s, exact launches
+    (14 + 14 attention and 1 + 1 CLIP a micro-step, 14 + 1 an eval step),
+    finite losses, the train loss falling and the valid loss
+    ``PRETRAINED_LOSS_DROP`` below the first epoch's, every master moved;
+    then ``scripts/encode_torch.py`` on
+    the checkpoint over fold 1's test JPEGs (14 launches a batch, unit
+    rows), ``scripts/benchmark_raw_torch.py`` and ``scripts/results_torch.py
+    table``. The control: the converted init saved as a checkpoint and
+    put through the same encode and benchmark (its launches not counted).
+    The trained model's fused k = 1 accuracy at n = 16 must be above
+    ``PRETRAINED_CHANCE_FACTOR`` x chance, and its cross-modal accuracy
+    (image queries against a profile gallery and back, k = 1, n = 16)
+    ``PRETRAINED_CROSS_GAIN`` above the init's: only the contrastive
+    training aligns the two towers. A backward that gives no useful
+    gradient (zero, or noise) fails the loss and the cross-modal checks;
+    a gradient slightly wrong does not, and is the kernels' checks'
+    business (kernel-vs-plain steps in the earlier phases). Returns the
+    path's launches and the phase's numbers."""
+    import ast
+    import copy
+    import io
+
+    import torch
+    from multimodal_plankton_recognition_torch.config import ModelCard
+    from multimodal_plankton_recognition_torch.models.build import (
+        build_multi_model)
+    from multimodal_plankton_recognition_torch.retrieval.benchmark import (
+        run_suite)
+    from multimodal_plankton_recognition_torch.retrieval.results import (
+        accuracy_table, cross_modal_table)
+    from multimodal_plankton_recognition_torch.train import (
+        CheckpointManager, create_train_state, drivers, make_optimizer)
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        read_port_metadata)
+
+    d = vit_card.to_dict()
+    d["packed_cache"] = True
+    d["image_encoder_args"] = dict(d["image_encoder_args"], pretrained=True,
+                                   pretrained_path=str(npz))
+    card = ModelCard.from_dict(copy.deepcopy(d))
+    card_path = tmp / (Path(PRETRAINED_CARD).stem + ".json")
+    card_path.write_text(json.dumps(d))
+    printed = io.StringIO()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        out = _cli("train_multi_torch").main(
+            ["-d", str(fold), "-m", str(card_path), "-l", str(tmp / "logs"),
+             "--max-epochs", str(PRETRAINED_EPOCHS), "--profile",
+             "--device", str(device)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _counts()
+    print(printed.getvalue(), end="", flush=True)
+    said = [line.split(f"{npz}: ", 1)[1]
+            for line in printed.getvalue().splitlines()
+            if line.startswith(f"loaded pretrained weights from {npz}")]
+    if len(said) != 1 or ast.literal_eval(said[0]) != want_counts:
+        fail(f"pretrained: (iii) the driver printed {said}, not (i)'s "
+             f"{want_counts}")
+    bs = card.bs
+    micro, evals = sizes["train"] // bs, sizes["test"] // bs
+    want = _per_step(
+        mha_qkv_fwd=PRETRAINED_EPOCHS * ATTENTION_LAYERS * (micro + evals),
+        mha_qkv_bwd=PRETRAINED_EPOCHS * ATTENTION_LAYERS * micro,
+        clip_fwd=PRETRAINED_EPOCHS * (micro + evals),
+        clip_bwd=PRETRAINED_EPOCHS * micro)
+    history = out["history"]
+    print(f"pretrained: (iii) {PRETRAINED_EPOCHS} epochs of {micro} "
+          f"micro-steps and {evals} eval steps in {train_s!r} s; history "
+          f"{history}; launches {train_launches}", flush=True)
+    if train_launches != want:
+        fail(f"pretrained: (iii) launches {train_launches}, expected {want}")
+    if len(history) != PRETRAINED_EPOCHS or not all(
+            math.isfinite(h["train_loss"]) and math.isfinite(h["valid_loss"])
+            for h in history) or not (
+            history[-1]["train_loss"] < history[0]["train_loss"] and
+            history[-1]["valid_loss"] <= (1 - PRETRAINED_LOSS_DROP) *
+            history[0]["valid_loss"]):
+        fail(f"pretrained: (iii) losses not finite, or the valid loss not "
+             f"{PRETRAINED_LOSS_DROP} below the first epoch's: {history}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        init = drivers._maybe_load_pretrained(card,
+                                              drivers.init_masters(card))
+    state = out["state"]
+    unmoved = [n for n, m in state.params.items()
+               if m.dtype != torch.float32 or torch.equal(m.cpu(), init[n])]
+    if unmoved:
+        fail(f"pretrained: (iii) masters not f32 or not moved: {unmoved}")
+    run = Path(out["logdir"])
+    busy_ms = _trace_device_ms(run / "profile" / drivers.TRACE_FILE)[0]
+    rates = [h["samples_per_sec"] for h in history]
+
+    name = Path(PRETRAINED_CARD).stem
+    before = _counts()
+    t0 = time.perf_counter()
+    shape = (sizes["test"], card.dim_embedding)
+    entry = _encode_checkpoint(run / "checkpoints", fold, name, bs, device,
+                               tmp / "emb.pkl", shape)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encode_launches = {k: v - before[k] for k, v in _counts().items()}
+    want = _per_step(mha_qkv_fwd=ATTENTION_LAYERS * math.ceil(
+        sizes["test"] / bs))
+    if encode_launches != want:
+        fail(f"pretrained: (iii) encode launches {encode_launches}, "
+             f"expected {want}")
+    t0 = time.perf_counter()
+    results = _cli("benchmark_raw_torch").main(
+        ["-e", str(tmp / "emb.pkl"), "-o", str(tmp / "res.pkl"),
+         "--repeats", str(PRETRAINED_REPEATS), "--device", str(device)])
+    bench_s = time.perf_counter() - t0
+    _cli("results_torch").main(["table", "-r", str(tmp / "res.pkl"), "-k",
+                                "1"])
+    acc = accuracy_table(results, k=1)[name][16]["acc"][0]
+
+    # the control: the converted init through the same encode and suite
+    init_dir = tmp / "init_checkpoints"
+    model = build_multi_model(card)
+    mngr = CheckpointManager(init_dir,
+                             metadata=read_port_metadata(run / "checkpoints"))
+    if not mngr.save(0, create_train_state(model, init, make_optimizer(
+            card.optim_args, card.trainer_args.accumulate_grad_batches)),
+            {"valid_loss": 1.0}):
+        fail("pretrained: (iii) the converted init was not saved")
+    mngr.wait()
+    del model
+    init_entry = _encode_checkpoint(init_dir, fold, "init", bs, device,
+                                    tmp / "init_emb.pkl", shape)
+    init_acc = accuracy_table(_cli("benchmark_raw_torch").main(
+        ["-e", str(tmp / "init_emb.pkl"), "-o", str(tmp / "init_res.pkl"),
+         "--repeats", str(PRETRAINED_REPEATS), "--device", str(device)]),
+        k=1)["init"][16]["acc"][0]
+    table = cross_modal_table(run_suite(
+        {"init": {1: init_entry}, name: {1: entry}}, mode="cross", N=(16,),
+        K=(1,), repeats=PRETRAINED_REPEATS, device=device), 16, 1)
+    cross = {s: table[name][s][0] for s in PRETRAINED_CROSS}
+    init_cross = {s: table["init"][s][0] for s in PRETRAINED_CROSS}
+    gain = min(cross[s] - init_cross[s] for s in PRETRAINED_CROSS)
+    chance = 1 / PRETRAINED_CLASSES
+    print(f"pretrained: (iii) encoded {sizes['test']} test JPEGs in "
+          f"{encode_s!r} s (launches {encode_launches}); benchmark_raw in "
+          f"{bench_s!r} s; fused k = 1 accuracy at n = 16 {acc!r} (the "
+          f"converted init's {init_acc!r}); cross-modal k = 1 at n = 16 "
+          f"{cross!r} (the init's {init_cross!r}): least gain {gain!r}",
+          flush=True)
+    if not acc > PRETRAINED_CHANCE_FACTOR * chance:
+        fail(f"pretrained: (iii) fused accuracy {acc} at n = 16, not above "
+             f"{PRETRAINED_CHANCE_FACTOR} x chance {chance}")
+    if not gain >= PRETRAINED_CROSS_GAIN:
+        fail(f"pretrained: (iii) cross-modal accuracy {cross} not "
+             f"{PRETRAINED_CROSS_GAIN} above the converted init's "
+             f"{init_cross}: the training did not align the towers")
+    return {"launches": {k: train_launches[k] + encode_launches[k]
+                         for k in train_launches},
+            "rates": rates, "busy_ms": busy_ms,
+            "wall_ms": 1e3 * sizes["train"] / rates[-1],
+            "encode_s": encode_s, "acc": acc, "init_acc": init_acc,
+            "cross": cross, "init_cross": init_cross}
+
+
+def _encode_checkpoint(checkpoints, fold, name, bs, device, path, shape):
+    """``scripts/encode_torch.py`` on ``checkpoints`` over fold 1's test
+    JPEGs into ``path``: its entry, the embeddings checked finite unit
+    rows of ``shape``."""
+    import pickle
+
+    import numpy as np
+
+    _cli("encode_torch").main(
+        ["-k", str(checkpoints), "-d", str(fold / "test.csv"), "-o",
+         str(path), "--name", name, "--fold", "1", "--batch-size", str(bs),
+         "--device", str(device)])
+    with open(path, "rb") as f:
+        entry = pickle.load(f)[name][1]
+    for key in ("image", "profile"):
+        x = np.asarray(entry[key], np.float64)
+        if x.shape != shape or not np.isfinite(x).all() or not np.allclose(
+                np.linalg.norm(x, axis=1), 1.0, atol=1e-2):
+            fail(f"pretrained: (iii) {name}'s {key} embeddings {x.shape} "
+                 f"not finite unit rows")
+    return entry
+
+
+def _pretrained_gate(device, tmp):
+    """(iv) the five protocols of ``scripts/parity_gate_torch.py`` on the
+    card, one process each (host-bound steps of 8 pairs; one thread
+    each), all at once: each process's ``precision:`` line must say TF32
+    off and deterministic algorithms on, and each protocol's draws at the
+    CLI's ``MODEL_SEEDS`` are held by its one rule (``held``: the medians
+    in the JAX package's committed bands and the cross-modal pattern),
+    which the process's exit code must agree with. Then
+    ``scripts/parity_real_torch.py --dry-run`` on folds written by
+    ``write_folds``, to its report. Both run no kernel of the port (f32
+    cards, the loss unfused, as JAX's). Returns (the gate's seconds, the
+    dry run's)."""
+    import os
+
+    from multimodal_plankton_recognition_torch.data.synthetic import (
+        make_synthetic_dataset)
+
+    gate = _cli("parity_gate_torch")
+    precision = gate.PRECISION.format(False, False, True)
+    t0 = time.perf_counter()
+    runs = {}
+    for protocol in sorted(gate.PROTOCOL_CARDS):
+        log = tmp / f"gate_{protocol}.log"
+        with open(log, "w") as f:
+            runs[protocol] = (log, subprocess.Popen(
+                [sys.executable, str(REPO / "scripts" /
+                                     "parity_gate_torch.py"),
+                 "--protocols", protocol, "--device", str(device)],
+                stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, OMP_NUM_THREADS="1")))
+    gate_s = {}
+    try:
+        while len(gate_s) < len(runs):
+            for protocol, (_, proc) in runs.items():
+                if protocol not in gate_s and proc.poll() is not None:
+                    gate_s[protocol] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > PARALLEL_TIMEOUT:
+                fail(f"pretrained: (iv) the gate's processes ran past "
+                     f"{PARALLEL_TIMEOUT} s")
+            time.sleep(0.2)
+    finally:
+        for _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for protocol, (log, proc) in sorted(runs.items()):
+        text = log.read_text()
+        if precision not in text.splitlines():
+            fail(f"pretrained: (iv) {protocol}'s run did not print "
+                 f"{precision!r}:\n{text}")
+        draws = [json.loads(line.split(": ", 1)[1])
+                 for seed in gate.MODEL_SEEDS for line in text.splitlines()
+                 if line.startswith(f"{protocol} model seed {seed}: ")]
+        if len(draws) != len(gate.MODEL_SEEDS):
+            fail(f"pretrained: (iv) a run of {protocol} failed:\n{text}")
+        median, errors = gate.held(protocol, draws)
+        print(f"pretrained: (iv) {protocol}: draws at model seeds "
+              f"{gate.MODEL_SEEDS} {draws} (outside the bands alone: "
+              f"{[gate.violations(protocol, d) for d in draws]}); medians "
+              f"{median} against the bands {gate.bands(protocol)}",
+              flush=True)
+        if errors or proc.returncode != 0:
+            fail(f"pretrained: (iv) {protocol}'s medians outside the "
+                 f"committed bands: {errors} (exit {proc.returncode})")
+    gate_s = max(gate_s.values())
+    print(f"pretrained: (iv) the gate's {len(runs)} processes, at once, in "
+          f"{gate_s!r} s; each printed {precision!r}", flush=True)
+    _reset_counts()
+    real = _cli("parity_real_torch")
+    work = tmp / "parity_real"
+    make_synthetic_dataset(work / "data", **real.DRY_DATA)
+    write_folds(work / "data", 2, 0)
+    t0 = time.perf_counter()
+    report = real.main(["--dry-run", "--device", str(device), "--workdir",
+                        str(work), "-o", str(work / "report.json")])
+    dry_s = time.perf_counter() - t0
+    dry_launches = _counts()
+    written = json.loads((work / "report.json").read_text())
+    if written != report or report["failures"] or any(
+            len(x) != 8 for x in report["cross_modal"].values()):
+        fail(f"pretrained: (iv) the dry run's report: {written}")
+    print(f"pretrained: (iv) parity_real_torch.py --dry-run in {dry_s!r} s: "
+          f"fused {report['fused_gallery']}", flush=True)
+    if dry_launches != _per_step():  # an f32 card, the loss unfused
+        fail(f"pretrained: (iv) the dry run launched {dry_launches}")
+    return gate_s, dry_s
 
 
 def _device_ms(prof, steps):
@@ -6080,7 +6608,9 @@ def _rank_table():
     loss kernels run at each path's bucket shape: the flagship's 16 x 16,
     the cards' 4 x 16, the global phase's 1 x 256 and the SigLIP card's
     global phase's 1 x 64. The ``export`` path's calls at b 77 and 1 and
-    its retrieval calls (b 2,048) count at the B = 256 record."""
+    its retrieval calls (b 2,048) count at the B = 256 record; the
+    ``pretrained`` path's ViT-T at the classifier's B = 64 record, its
+    profile encoder (encode included) at the card's train record."""
     vit, prof = 12 / ATTENTION_LAYERS, 2 / ATTENTION_LAYERS
 
     def pair(a, b, vit_mode, prof_mode, rows=SHAPES):
@@ -6106,6 +6636,11 @@ def _rank_table():
                export_classify=[("cls vit B=64 ", "eval", 1.0)])
     bwd.update(classify_image=[("cls vit B=64 ", "p=0.0", 1.0)],
                classify_profile=[("cls profile B=64 ", "p=0.1", 1.0)])
+    # the ViT-T CLIP card from converted weights: ViT-T at bs 64, the
+    # card's profile encoder (its encode counted at the train record)
+    fwd["pretrained"] = pair("cls vit", "card profile", "eval",
+                             "train p=0.1")
+    bwd["pretrained"] = pair("cls vit", "card profile", "p=0.0", "p=0.1")
     ffn_rows = {"ffn_encode": pair(*flag, "gelu bfloat16 p=0.0",
                                    "gelu bfloat16 p=0.0", FFN_SHAPES),
                 "ffn_train": pair(*flag, "gelu bfloat16 p=0.1",
@@ -6121,6 +6656,7 @@ def _rank_table():
     clip["b0_card"] = clip["remat"] = loss_rows(
         B0_CARD["buckets"], B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
+    clip["pretrained"] = loss_rows(4, 64 // 4)  # the card's bs and buckets
     siglip = {p: loss_rows(CARD["buckets"], CARD["bs"] // CARD["buckets"])
               for p in ("card", "ffn_card", "drive", "tail_drive")}
     siglip["siglip_global"] = loss_rows(1, CARD["bs"])
@@ -6214,7 +6750,8 @@ def main(argv=None) -> None:
                 "fuse_proj": phase_fuse_proj(device),
                 "flax_attention": phase_flax_attention(device),
                 "parallel": phase_parallel(device),
-                **phase_export(device), **phase_tail(device)}
+                **phase_export(device), **phase_tail(device),
+                **phase_pretrained(device)}
     if args.profile:
         phase_profile(device)
     _ranking(records, launches)

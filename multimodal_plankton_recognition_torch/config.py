@@ -208,7 +208,7 @@ class ModelCard:
     mesh: Optional[Dict[str, int]] = None      # e.g. {data: 8, model: 1}
     device_augment: bool = False  # run crop/flip/noise on device in the step
     loader: str = "threads"       # 'threads' | 'grain' (multiprocess workers)
-    #: read the packed input cache (scripts/pack_dataset.py) instead of
+    #: read the packed input cache (scripts/pack_dataset_torch.py) instead of
     #: decoding JPEG/CSV per epoch — bit-identical batches, ~10x the
     #: per-core sample rate (data/packed.py)
     packed_cache: bool = False

@@ -20,9 +20,10 @@ ceiling-normalize → resample-to-oversize f32 output; test images and
 profiles the whole eval transform.
 
 ``PackedMultiSet`` reads the cache with numpy alone: its stale guard
-reads the annotation CSV with the ``csv`` module, so the card's machine,
-which has no pandas or PIL, reads real pairs. ``pack_split`` writes a
-cache; it imports pandas and PIL when called.
+reads the annotation CSV with the ``csv`` module, so a machine without
+pandas or PIL reads real pairs. ``pack_split`` (the CLI
+``scripts/pack_dataset_torch.py``) writes a cache; it imports pandas and
+PIL when called.
 """
 
 from __future__ import annotations
@@ -162,7 +163,7 @@ class PackedMultiSet:
         if not meta_path.exists():
             raise FileNotFoundError(
                 f"no packed cache at {root} — build it with "
-                f"scripts/pack_dataset.py -d {annotation_path.parent} "
+                f"scripts/pack_dataset_torch.py -d {annotation_path.parent} "
                 f"-t {target_size}")
         meta = json.loads(meta_path.read_text())
         rows = _read_rows(annotation_path)
@@ -170,7 +171,7 @@ class PackedMultiSet:
                 or meta["rows"] != len(rows):
             raise RuntimeError(
                 f"packed cache at {root} is stale (source csv changed) — "
-                f"re-run scripts/pack_dataset.py")
+                f"re-run scripts/pack_dataset_torch.py")
         # payload files regenerated without touching the csv must also
         # invalidate the cache
         want = meta.get("payload_fingerprint")
@@ -180,7 +181,7 @@ class PackedMultiSet:
             raise RuntimeError(
                 f"packed cache at {root} is stale (image/profile payload "
                 f"files changed since packing) — re-run "
-                f"scripts/pack_dataset.py")
+                f"scripts/pack_dataset_torch.py")
         self.images = np.load(root / "images.npy", mmap_mode="r")
         self.profiles = np.load(root / "profiles.npy", mmap_mode="r")
         self.shapes = np.load(root / "shapes.npy")

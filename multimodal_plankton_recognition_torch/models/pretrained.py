@@ -4,9 +4,9 @@
 An npz holds arrays keyed by ``/``-joined Flax paths (``flatten_params``),
 optionally under a collection prefix: ``params/<path>`` merges into the
 parameters, ``batch_stats/<path>`` into the BatchNorm running statistics,
-and a bare key counts as a parameter. ``scripts/convert_timm.py`` of the
-JAX package writes such files from timm weights, ``save_params_npz`` from
-a tree.
+and a bare key counts as a parameter. ``scripts/convert_timm_torch.py``
+(``models/convert_timm.py``) writes such files from timm weights,
+``save_params_npz`` from a tree.
 
 ``load_pretrained_npz`` merges one into a Flax-layout tree exactly as the
 JAX function does: a key with a known path and shape is loaded (cast to

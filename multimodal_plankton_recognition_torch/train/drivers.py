@@ -274,7 +274,7 @@ def _maybe_load_pretrained(card: ModelCard, masters: Dict[str, torch.Tensor],
     if not path:
         print("pretrained: true but no pretrained_path given; "
               "training from scratch (produce an npz with "
-              "scripts/convert_timm.py)")
+              "scripts/convert_timm_torch.py)")
         return masters
     model = build_for_kind(card, kind, class_names, dtype=torch.float32)
     model.load_state_dict(masters, strict=True)

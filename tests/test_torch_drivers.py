@@ -371,7 +371,7 @@ def test_unported_options_raise_before_any_step(overrides, error, match,
             out = drivers.train_multi(packed_split, card, logdir=tmp_path,
                                       max_epochs=1, device="cpu")
         assert "pretrained: true but no pretrained_path given; training " \
-            "from scratch (produce an npz with scripts/convert_timm.py)" \
+            "from scratch (produce an npz with scripts/convert_timm_torch.py)" \
             in capsys.readouterr().out
         assert len(seen) == out["state"].step > 0
         assert math.isfinite(out["history"][0]["train_loss"])

@@ -15,14 +15,17 @@ PIL, only when a figure is drawn. The port's CLIs
 (``scripts/encode_torch.py``, ``scripts/train_{multi,image,profile}_torch.py``,
 ``scripts/benchmark_{raw,folds,cross,cross_folds}_torch.py``,
 ``scripts/results_torch.py``, ``scripts/export_model_torch.py``,
-``scripts/serve_torch.py``, ``scripts/analysis_torch.py``) import no JAX
+``scripts/serve_torch.py``, ``scripts/analysis_torch.py``, and the
+converter, pack and parity CLIs ``scripts/convert_timm_torch.py``,
+``scripts/pack_dataset_torch.py``, ``scripts/parity_real_torch.py``,
+``scripts/parity_gate_torch.py``) import no JAX
 either, and load none of the forbidden modules at import; the serving
 path (``retrieval.export``, ``ops.knn`` and the kernels' op
 registrations) loads none of them, nor the model code; the bridge from orbax
 (``scripts/checkpoint_from_jax.py``) does import JAX, and so lives
 outside the package. ``chip_smoke.py``'s ``classify``, ``retrieval``,
-``backbones`` and ``remat`` phases import only modules that load none of
-them.
+``backbones``, ``remat``, ``export``, ``tail`` and ``pretrained`` phases
+import only modules that load none of them.
 """
 
 import ast
@@ -48,6 +51,7 @@ CARD_PATH_MODULES = [
     "multimodal_plankton_recognition_torch.data.transforms",
     "multimodal_plankton_recognition_torch.models.attention",
     "multimodal_plankton_recognition_torch.models.batchnorm",
+    "multimodal_plankton_recognition_torch.models.convert_timm",
     "multimodal_plankton_recognition_torch.models.dense",
     "multimodal_plankton_recognition_torch.models.ffn",
     "multimodal_plankton_recognition_torch.models.flagships",
@@ -106,7 +110,8 @@ TRAIN_PATH_MODULES = [
 ]
 FORBIDDEN = ("jax", "flax", "pandas", "PIL", "yaml", "matplotlib")
 SMOKE_PHASES = ("phase_classify", "phase_retrieval", "phase_backbones",
-                "phase_remat", "phase_export", "phase_tail")
+                "phase_remat", "phase_export", "phase_tail",
+                "phase_pretrained")
 
 
 def _forbidden_after_importing(modules):
@@ -213,7 +218,8 @@ NEW_CLIS = ("train_image_torch", "train_profile_torch",
             "benchmark_raw_torch", "benchmark_folds_torch",
             "benchmark_cross_torch", "benchmark_cross_folds_torch",
             "results_torch", "export_model_torch", "serve_torch",
-            "analysis_torch")
+            "analysis_torch", "convert_timm_torch", "pack_dataset_torch",
+            "parity_real_torch", "parity_gate_torch")
 
 
 @pytest.fixture(scope="module")
