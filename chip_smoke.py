@@ -19,7 +19,10 @@ served, kernel 1 a registered op of them), the tail (W8A8
 quantisation, PaCMAP, ``loader: grain`` through the train CLI) and the
 pretrained-weight converter, the pack CLI and the parity tools (the ViT-T
 CLIP card trained from converted weights, from JPEGs to an accuracy
-table; the synthetic accuracy gate).
+table; the synthetic accuracy gate), and the attention and FFN kernels
+at head dims and widths past the shipped cards' (a ViT-S CLIP card with
+a 512-wide profile transformer of 4 heads of 128 and ``fused_ffn``,
+trained through the train CLI and served from its checkpoint).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -29,14 +32,19 @@ fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
-   per source, all at once) and prints the build seconds and ptxas'
-   register / spill report; the attention backward's 12 instances (two
-   kernels, six head dims), the shared Hopper GEMM's 9 instances
-   (``gemm_rows_kernel``, ``wgrad_kernel`` of ``csrc/hopper_gemm.cuh``:
-   wgmma and TMA) in each of the five libraries that include it, its 3
-   column-sum instances (``gemm_sums``) in ``mbconv_fwd`` and
-   ``hopper_gemm``, kernel 10's 8 ``ffn_bwd_rows_kernel`` instances,
-   kernel 9's 8 ``ffn_fwd_rows_kernel``, kernel 15's 3 ``kb_pass_kernel``
+   per build unit, all at once: the attention sources once per range of
+   head dims, 8-64, 72-128, 136-192 and 200-256, the FFN source for widths
+   up to 384 and above) and prints the build seconds (all, and each
+   unit's) and ptxas' register / spill report and C7520 notes; the
+   attention forward's 8 instances and the backward's 16 (two kernels,
+   eight head dims) in each range's library, the shared Hopper GEMM's 9
+   instances (``gemm_rows_kernel``, ``wgrad_kernel`` of
+   ``csrc/hopper_gemm.cuh``: wgmma and TMA) in each of the six libraries
+   that include it, its 3 column-sum instances (``gemm_sums``) in
+   ``mbconv_fwd`` and ``hopper_gemm``, kernel 10's 12
+   ``ffn_bwd_rows_kernel`` instances and 2 ``ffn_bwd_wide_kernel``,
+   kernel 9's 12 ``ffn_fwd_rows_kernel`` and 2 ``ffn_fwd_wide_kernel``,
+   kernel 15's 3 ``kb_pass_kernel``
    and kernels 13-14's ``ka_a1_kernel``, 2 ``ka_dw_kernel``,
    ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel``,
    kernels 5-6's 10 instances (``CLIP_ENTRIES``) and kernels 7-8's 10
@@ -393,6 +401,36 @@ fatal on failure:
    1, 2 and held by the CLI's rule, the medians in the JAX package's
    committed bands, and ``scripts/parity_real_torch.py --dry-run`` to
    its report; a ``summary: pretrained`` line;
+14f. widths: (a) kernels 1-4 against their plain versions at head dims
+   ``WIDTH_HEAD_DIMS`` (20 through the padding route, 40 and 56, and 80 to
+   256) x L 65, 225, 257, masked and not, eval and train (p 0.1), B 16:
+   the forward within 2e-2 and 1e-3 relative L2, the backward within
+   1e-2 of the largest |dqkv| and 1e-2 relative L2, a second backward bit
+   for bit, kernels 3-4 bit for bit 1-2, the exact-sum mask checks (output
+   and dV) bit for bit at the masked shapes; kernels 9-10 at
+   ``WIDTH_FFN`` (E 96, 160, 256, 512, 768, 1024 with F = 4E; E 512 with
+   the profile's F 2,024) at B 16 x L 197, GELU and ReLU, eval and train,
+   within ``FFN_TOL`` and ``FFN_REL_TOL``, second calls bit for bit, the
+   exact-sum mask check; every call launching its kernel. Timed at B 256
+   (``WIDTH_TIMED``, ``WIDTH_FFN_TIMED``): d 128 and d 40 masked at L 225,
+   ViT-S, E 512 F 2,048, E 768, E 384, beside SDPA (forward, backward) or
+   the unfused cuBLAS route; the padding route's copies at d 20. (b)
+   ``WIDTHS_CARD`` with a 512-wide profile transformer of 4 heads of 128,
+   F 2,048 and ``fused_ffn`` on both towers, bs 256 in 16 buckets, packed
+   synthetic pairs, through ``scripts/train_multi_torch.py`` for 3 epochs
+   (exact launches of kernels 1, 2, 9, 10, 5 and 6, none of another; the
+   train loss falling; every master moved), served from its checkpoint
+   through ``encode_arrays`` (2,048 pairs, exact launches, unit rows,
+   self-gallery k = 1 >= 0.99 by the exact kNN), one encode batch against
+   the plain route (every kernel swapped for its plain version) within
+   5e-2; dropout-0 micro-steps on 4 test batches on the kernels, the plain
+   route (CLIP unfused), the plain FFN alone, the plain route on nudged
+   inputs and the card in f32, held on the first as the flagship holds
+   its steps (loss 1e-2; ``NAMED_GRADS`` within 5e-2 of the plain route,
+   ``FFN_NAMED_GRADS`` within 5e-2 of the plain FFN and statistically
+   beside the nudged-input floor), the last profile layer's ff2 bias
+   printed for each batch and route against f32; the micro-step's train
+   pairs/s after warm-up, twice; a ``summary: widths`` line;
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
@@ -448,9 +486,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PACKAGE = "multimodal_plankton_recognition_torch"
 PALLAS = "multimodal_plankton_recognition_tpu/ops/pallas"
-SOURCES = ("attention_fwd", "attention_bwd", "clip_loss", "siglip_loss",
-           "mbconv_fwd", "mbconv_bwd", "ffn", "attention_block",
-           "hopper_gemm")
+# the build units besides the attention libraries (one a range of head
+# dims, ops/build.py ATTENTION_RANGES): the FFN's up to width 384 and above
+SOURCES = ("clip_loss", "siglip_loss", "mbconv_fwd", "mbconv_bwd", "ffn",
+           "ffn_wide", "attention_block", "hopper_gemm")
 BATCH = 256
 BUCKETS = 16
 GALLERY = 2048
@@ -468,10 +507,13 @@ BWD_TOL = 1e-2    # of the largest |dqkv|
 # both round ds and pd to bf16 at the same points, so a wrong tile or
 # chunk of the query or the key side moves it by far more
 BWD_REL_L2_TOL = 1e-2
-# the backward's two kernels (csrc/attention_bwd.cuh) at every head dim:
-# ptxas must report 0 spill bytes for each
+# the attention forward's kernel and the backward's two kernels
+# (csrc/attention_{fwd,bwd}.cuh) at every head dim of each library's
+# range, 8 a library: ptxas must report 0 spill bytes for each
+FWD_ENTRIES = ("mha_fwd_kernel",)
 BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
-BWD_INSTANCES = 2 * 6
+FWD_INSTANCES = 8
+BWD_INSTANCES = 2 * 8
 # kernels 5-6 (csrc/clip_loss.cu), bf16 and f32 each: the forward at 16-
 # and 32-row tiles, the one-block backward (16-row tiles), the two-kernel
 # backward's dz and dx kernels; 0 spill bytes each (mangled names with
@@ -486,9 +528,10 @@ SIGLIP_INSTANCES = 2 * (2 + 1 + 1 + 1)
 # the shared Hopper GEMM (csrc/hopper_gemm.cuh: three column slices x two
 # weight layouts of gemm_rows_kernel, three weight-gradient tiles) in every
 # library that includes it, and its three column-sum instances (gemm_sums)
-# where they are called; kernel 10's row kernel (four widths x two dx
-# types) and kernel 9's (four widths, each in its one tile layout, x two
-# y types) in csrc/ffn.cu; kernel 15's three passes in csrc/mbconv_bwd.cu;
+# where they are called; kernel 10's row kernel (six widths x two dx
+# types) and kernel 9's (six widths, each in its one tile layout, x two
+# y types) in csrc/ffn.cu, their wide kernels (x two types each) in its
+# ffn_wide unit; kernel 15's three passes in csrc/mbconv_bwd.cu;
 # kernel 13's a1 pass and depthwise pass (k 3 and 5), kernel 14's
 # squeeze, SE step and projection (its weight slice resident or streamed)
 # in csrc/mbconv_fwd.cu; 0 spill bytes each. Matched in the
@@ -496,12 +539,13 @@ SIGLIP_INSTANCES = 2 * (2 + 1 + 1 + 1)
 # se_wgrad_kernel is not taken for one.
 GEMM_ENTRIES = ("16gemm_rows_kernel", "12wgrad_kernel",
                 "19ffn_bwd_rows_kernel", "19ffn_fwd_rows_kernel",
+                "19ffn_fwd_wide_kernel", "19ffn_bwd_wide_kernel",
                 "14kb_pass_kernel", "12ka_a1_kernel", "12ka_dw_kernel",
                 "17kb_squeeze_kernel", "13se_fwd_kernel", "14kb_proj_kernel")
 GEMM_INSTANCES = {"attention_block": 9, "mbconv_bwd": 9 + 3,
                   "mbconv_fwd": 9 + 3 + 1 + 2 + 1 + 1 + 2,
                   "hopper_gemm": 9 + 3,
-                  "ffn": 9 + 8 + 8}
+                  "ffn": 9 + 12 + 12, "ffn_wide": 9 + 2 + 2}
 CLIP_LOSS_TOL = 1e-5   # relative
 CLIP_GRAD_TOL = 1e-2   # of the largest |gradient|
 CLIP_SCALE_TOL = 1e-3  # relative
@@ -890,53 +934,63 @@ def phase_build():
         attention, attention_block, build, contrastive, ffn, hopper_gemm,
         mbconv)
 
+    attention_units = tuple(build.attention_unit(way, hi)
+                            for way in ("fwd", "bwd")
+                            for _, hi in build.ATTENTION_RANGES)
+    units = attention_units + SOURCES
     t0 = time.perf_counter()
-    libs = build.build_all(SOURCES)
+    libs = build.build_all(units)
     hopper_gemm._lib()
-    attention._fwd_lib()
-    attention._bwd_lib()
+    for _, hi in build.ATTENTION_RANGES:
+        attention._fwd_lib(hi)
+        attention._bwd_lib(hi)
     attention_block._lib()
     contrastive._lib()
     contrastive._siglip_lib()
     mbconv._fwd_lib()
     mbconv._bwd_lib()
     ffn._lib()
-    print(f"build: {', '.join(SOURCES)} in parallel, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ffn._lib(True)
+    print(f"build: {', '.join(units)} in parallel, "
+          f"{time.perf_counter() - t0:.2f} s; nvcc seconds by unit "
+          f"{build.BUILD_SECONDS!r}", flush=True)
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(REPO)}", flush=True)
         log = lib.with_suffix(".log")
         # {entry: [st, ld]}
-        func, spills, gemms, losses = "", {}, {}, {}
+        func, attn, gemms, losses = "", {}, {}, {}
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
                 print(f"  ptxas: {entry[:96]}", flush=True)
             elif "Function properties for" in line:
                 func = line.split("Function properties for")[1].strip()
-            elif "warning" in line.lower():
+            elif "warning" in line.lower() or "(C7520)" in line:
+                # C7520: wgmma serialized, the note kernels 9-10 watch
                 print(f"  ptxas: {line.strip()}", flush=True)
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas:   {line.strip()}", flush=True)
                 if "spill" in line:
                     counts = [int(w) for w in line.split()
                               if w.isdigit()][1:]
-                    if any(k in func for k in BWD_ENTRIES):
-                        spills[func] = counts
+                    if any(k in func for k in FWD_ENTRIES + BWD_ENTRIES):
+                        attn[func] = counts
                     if any(k in func for k in GEMM_ENTRIES):
                         gemms[func] = counts
                     if any(k in func for k in CLIP_ENTRIES
                            + SIGLIP_ENTRIES):
                         losses[func] = counts
-        if name == "attention_bwd":
-            if len(spills) != BWD_INSTANCES:
-                fail(f"ptxas reported {len(spills)} backward kernel "
-                     f"instances, expected {BWD_INSTANCES}")
-            spilled = {e: n for e, n in spills.items() if any(n)}
+        if name in attention_units:
+            way = "forward" if "fwd" in name else "backward"
+            want = FWD_INSTANCES if way == "forward" else BWD_INSTANCES
+            if len(attn) != want:
+                fail(f"ptxas reported {len(attn)} attention {way} kernel "
+                     f"instances in {name}, expected {want}")
+            spilled = {e: n for e, n in attn.items() if any(n)}
             if spilled:
-                fail(f"backward kernels spill registers: {spilled}")
-            print(f"  ptxas: {len(spills)} backward instances, 0 spill "
-                  f"bytes", flush=True)
+                fail(f"attention {way} kernels spill registers: {spilled}")
+            print(f"  ptxas: {len(attn)} attention {way} instances in "
+                  f"{name}, 0 spill bytes", flush=True)
         if name in ("clip_loss", "siglip_loss"):
             loss, want = (("CLIP", CLIP_INSTANCES) if name == "clip_loss"
                           else ("SigLIP", SIGLIP_INSTANCES))
@@ -1386,6 +1440,64 @@ def _unfused_ms(x, w1, b1, w2, b2, activation, p, dy=None):
                                                retain_graph=True))
 
 
+def _ffn_inputs(gen, device, b, l, e, f):
+    """x, dy (B, L, E) and w1, b1, w2, b2 at the scales of an initialised
+    layer, f32 on the card."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x, dy = rnd(b, l, e), rnd(b, l, e)
+    return x, dy, (rnd(e, f, scale=e ** -0.5), rnd(f, scale=0.1),
+                   rnd(f, e, scale=f ** -0.5), rnd(e, scale=0.1))
+
+
+def _ffn_row(records, name, x, dy, weights, act, dtype, p, seed,
+             timed=True):
+    """Kernels 9 and 10 against their plain versions on one shape, act,
+    dtype and dropout rate: every output within ``FFN_TOL`` and
+    ``FFN_REL_TOL``, a second call of each bit for bit the first; with
+    ``timed``, each kernel's time beside the plain version's, the bound
+    and the unfused route's. Returns (the label, the forward's and the
+    backward's largest absolute error)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    b, l, e = x.shape
+    f = weights[0].shape[1]
+    args = (x.to(dtype), *weights)
+    dyt = dy.to(dtype)
+    label = (f"{name} B={b} L={l} E={e} F={f} {act} {str(dtype)[6:]} "
+             f"p={p}")
+    tol = FFN_TOL[act]
+    got = ffn.ffn_fwd(*args, act, p, seed)
+    err = fwd_err = _ffn_close(f"ffn_fwd {label}", [got],
+                               [ffn.ffn_reference(*args, act, p, seed)], tol)
+    _repeats(f"ffn_fwd {label}", [got], [ffn.ffn_fwd(*args, act, p, seed)])
+    if timed:
+        _report(records, "ffn_fwd", label, err,
+                f"{tol} of max(1, max|plain|); relative L2 {FFN_REL_TOL}",
+                cuda_ms(lambda: ffn.ffn_fwd(*args, act, p, seed)),
+                cuda_ms(lambda: ffn.ffn_reference(*args, act, p, seed)),
+                _bound(args, got, 4 * b * l * e * f), None,
+                unfused_ms=_unfused_ms(*args, act, p))
+    got = ffn.ffn_bwd(*args, dyt, act, p, seed)
+    err = _ffn_close(f"ffn_bwd {label}", got,
+                     ffn.ffn_bwd_reference(*args, dyt, act, p, seed), tol)
+    _repeats(f"ffn_bwd {label}", got, ffn.ffn_bwd(*args, dyt, act, p, seed))
+    if timed:
+        _report(records, "ffn_bwd", label, err,
+                f"{tol} of max(1, max|plain|) per output; relative L2 "
+                f"{FFN_REL_TOL}",
+                cuda_ms(lambda: ffn.ffn_bwd(*args, dyt, act, p, seed)),
+                cuda_ms(lambda: ffn.ffn_bwd_reference(*args, dyt, act, p,
+                                                      seed)),
+                _bound((args, dyt), got, 10 * b * l * e * f), None,
+                unfused_ms=_unfused_ms(*args, act, p, dyt))
+    return label, fwd_err, err
+
+
 def _ffn_kernels(gen, device, records):
     """Kernels 9 and 10 against their plain versions at ``FFN_SHAPES``,
     eval and train (p 0.1), ReLU at the ViT shape and f32 x at the card's
@@ -1395,55 +1507,20 @@ def _ffn_kernels(gen, device, records):
 
     seed = 4321
     for name, (b, l, e, f, activation) in FFN_SHAPES.items():
-        def rnd(*shape, scale=1.0):
-            return torch.randn(shape, generator=gen, device=device) * scale
-
-        x, dy = rnd(b, l, e), rnd(b, l, e)
-        w1, b1 = rnd(e, f, scale=e ** -0.5), rnd(f, scale=0.1)
-        w2, b2 = rnd(f, e, scale=f ** -0.5), rnd(e, scale=0.1)
+        x, dy, weights = _ffn_inputs(gen, device, b, l, e, f)
         cases = [(activation, torch.bfloat16)]
         if name == "vit":
             cases.append(("relu", torch.bfloat16))
         if name == "card profile":
             cases.append((activation, torch.float32))
         for act, dtype in cases:
-            args = (x.to(dtype), w1, b1, w2, b2)
-            dyt = dy.to(dtype)
             for p in (0.0, 0.1):
-                label = (f"{name} B={b} L={l} E={e} F={f} {act} "
-                         f"{str(dtype)[6:]} p={p}")
-                got = ffn.ffn_fwd(*args, act, p, seed)
-                tol = FFN_TOL[act]
-                err = _ffn_close(f"ffn_fwd {label}", [got],
-                                 [ffn.ffn_reference(*args, act, p, seed)],
-                                 tol)
-                _repeats(f"ffn_fwd {label}", [got],
-                         [ffn.ffn_fwd(*args, act, p, seed)])
-                _report(records, "ffn_fwd", label, err,
-                        f"{tol} of max(1, max|plain|); relative L2 "
-                        f"{FFN_REL_TOL}",
-                        cuda_ms(lambda: ffn.ffn_fwd(*args, act, p, seed)),
-                        cuda_ms(lambda: ffn.ffn_reference(*args, act, p,
-                                                          seed)),
-                        _bound(args, got, 4 * b * l * e * f), None,
-                        unfused_ms=_unfused_ms(*args, act, p))
-                got = ffn.ffn_bwd(*args, dyt, act, p, seed)
-                err = _ffn_close(f"ffn_bwd {label}", got,
-                                 ffn.ffn_bwd_reference(*args, dyt, act, p,
-                                                       seed), tol)
-                _repeats(f"ffn_bwd {label}", got,
-                         ffn.ffn_bwd(*args, dyt, act, p, seed))
-                _report(records, "ffn_bwd", label, err,
-                        f"{tol} of max(1, max|plain|) per output; "
-                        f"relative L2 {FFN_REL_TOL}",
-                        cuda_ms(lambda: ffn.ffn_bwd(*args, dyt, act, p,
-                                                    seed)),
-                        cuda_ms(lambda: ffn.ffn_bwd_reference(
-                            *args, dyt, act, p, seed)),
-                        _bound((args, dyt), got, 10 * b * l * e * f), None,
-                        unfused_ms=_unfused_ms(*args, act, p, dyt))
+                label, _, _ = _ffn_row(records, name, x, dy, weights, act,
+                                       dtype, p, seed)
                 if name == "vit" and act == activation and \
                         dtype == torch.bfloat16:
+                    args = (x.to(dtype), *weights)
+                    dyt = dy.to(dtype)
                     _call_profile("ffn_fwd", label, lambda: ffn.ffn_fwd(
                         *args, act, p, seed))
                     _call_profile("ffn_bwd", label, lambda: ffn.ffn_bwd(
@@ -3624,19 +3701,19 @@ def _fit_card(what, card, state, train_step, eval_step, batch, per_step,
     return state, launches, rate
 
 
-def _grad_diffs(what, grads, names, tol):
+def _grad_diffs(what, grads, names, tol, against="plain"):
     """Relative L2 difference of each named gradient, kernel path against
-    ``grads["plain"]``, all printed; fails if one is above ``tol``."""
+    ``grads[against]``, all printed; fails if one is above ``tol``."""
     worst = {}
     for n in names:
-        k, p = grads["kernel"][n], grads["plain"][n]
+        k, p = grads["kernel"][n], grads[against][n]
         rel = ((k - p).norm() / p.norm()).item()
         print(f"  grad {n}: relative L2 diff {rel!r} (tol {tol})",
               flush=True)
         if not rel <= tol:
             worst[n] = rel
     if worst:
-        fail(f"{what}: kernel and plain steps disagree on {worst}")
+        fail(f"{what}: kernel and {against} steps disagree on {worst}")
 
 
 def phase_card(device):
@@ -5104,6 +5181,55 @@ PRETRAINED_LOSS_DROP = 0.05
 #: raise by ``PRETRAINED_CROSS_GAIN`` above the converted init's
 PRETRAINED_CROSS = ("I - P", "P - I")
 PRETRAINED_CROSS_GAIN = 0.05
+# the widths phase: (a) kernels 1-4 at head dims past the shipped cards'
+# (20 takes the padding route to 24; 40 and 56 were not instantiated before,
+# 80-256 are above 64) and lengths 65, 225 and 257 at B 16; kernels 9-10
+# at widths past the shipped 64-384 and the profile's F 2,024 at E 512,
+# F = 4 E otherwise, at B 16 x L 197; (b) the ViT-S CLIP card with a
+# 512-wide profile transformer of 4 heads of 128 and fused_ffn on both
+# towers, through the train CLI and served from its checkpoint
+WIDTHS_CARD = "model_cards/multi/vit_s_16_transformer_2_512_clip.yaml"
+WIDTH_HEAD_DIMS = (20, 40, 56, 80, 96, 128, 160, 256)
+WIDTH_LENGTHS = (65, 225, 257)
+WIDTH_HEADS = 2  # heads of each (a) attention shape
+WIDTH_BATCH = 16
+WIDTH_FFN = tuple((e, 4 * e) for e in (96, 160, 256, 512, 768, 1024)) + (
+    (512, 2024),)
+WIDTH_FFN_LENGTH = 197
+# timed at B 256: (B, L, H, E, mask) of attention and (B, L, E, F, act) of
+# the FFN: the card's profile layers (d 128, E 512 F 2,048) and ViT-S
+# layers, d 40 (E 160, 4 heads) and E 768
+WIDTH_TIMED = {"widths profile": (256, 225, 4, 512, True),
+               "widths d40": (256, 225, 4, 160, True),
+               "widths vit": (256, 197, 6, 384, False)}
+WIDTH_FFN_TIMED = {"widths profile": (256, 225, 512, 2048, "gelu"),
+                   "widths E768": (256, 197, 768, 3072, "gelu"),
+                   "widths vit": (256, 197, 384, 1536, "gelu")}
+WIDTH_REPACK = (256, 225, 4, 20)  # B, L, H, d: the padding route's copy
+WIDTH_TRAIN = 2048  # packed train pairs: 8 micro-steps of 256 an epoch
+WIDTH_CLASSES = 16
+WIDTH_EPOCHS = 3
+# (b)'s dropout-0 micro-steps from the seeded init: (card overrides,
+# kernels on their plain versions, inputs nudged) of each route. "plain":
+# every kernel off, the CLIP loss unfused; "plain FFN": kernels 9-10 alone
+# off (the flagship FFN step's comparison); "nudged plain": the plain
+# route on images and profiles nudged by a relative 1e-3 (the step's own
+# sensitivity); "f32": the card in f32 with the unfused FFN and loss, no
+# kernel of the port (the witness nearest exact arithmetic)
+WIDTH_STEP_ROUTES = {
+    "kernel": ({}, (), False),
+    "plain": (PLAIN_CARD, ("attention", "ffn"), False),
+    "plain FFN": ({}, ("ffn",), False),
+    "nudged plain": (PLAIN_CARD, ("attention", "ffn"), True),
+    "f32": (dict(PLAIN_CARD, image_encoder_args={"fused_ffn": False},
+                 profile_encoder_args={"fused_ffn": False}), (), False)}
+# test batches of 256 each route steps on: the held checks read the first,
+# the others are printed beside it
+WIDTH_STEP_BATCHES = 4
+# the last profile layer's ff2 bias: a sum of dy over the 256 CLS rows
+# alone (the encoder keeps only the CLS token), which the contrastive
+# gradient nearly cancels, so a bf16 perturbation moves it by about 5e-2
+WIDTH_LEAF = "profile_encoder.layers.1.ff2.bias"
 
 
 def _save_card_checkpoint(root, d, kind="multi", class_names=(), seed=0):
@@ -6102,6 +6228,414 @@ def _pretrained_gate(device, tmp):
     return gate_s, dry_s
 
 
+def phase_widths(device):
+    """Head dims and widths past the shipped cards': (a) ``_width_kernels``
+    (kernels 1-4 and 9-10 against their plain versions; the B 256 rows
+    timed into ``records``), (b) ``_width_card``. A ``summary: widths``
+    line. Returns the launches of (b)."""
+    import torch
+
+    t0 = time.perf_counter()
+    records, repack = _width_kernels(device)
+    card = _width_card(device)
+    print(f"summary: widths on {_smi()}: (a) "
+          f"{len(WIDTH_HEAD_DIMS) * len(WIDTH_LENGTHS) * 4} attention and "
+          f"{len(WIDTH_FFN) * 4} FFN shapes against their plain versions; "
+          f"the padding route's copy "
+          f"at B {WIDTH_REPACK[0]} L {WIDTH_REPACK[1]} H {WIDTH_REPACK[2]} "
+          f"d {WIDTH_REPACK[3]} {repack!r} ms (pad q|k|v, unpad out) "
+          f"beside kernel 1's {records['repack kernel ms']!r} ms; (b) "
+          f"{Path(WIDTHS_CARD).stem} with a 512-wide profile transformer of "
+          f"4 heads of 128 and fused_ffn through scripts/train_multi_torch.py"
+          f" and its checkpoint's encode: launches "
+          f"{card['kernel_launches']}; train pairs/s of the micro-step "
+          f"after warm-up, twice, {card['rates']!r} (the CLI's by epoch, "
+          f"eval, checkpoint writes and epoch 0's warm-up in the wall: "
+          f"{card['walls']!r}), "
+          f"loss {card['losses']!r}, encode {card['encode_rate']!r} pairs/s "
+          f"from the checkpoint; the phase {time.perf_counter() - t0!r} s",
+          flush=True)
+    torch.cuda.synchronize()
+    return {"widths": card["launches"]}, records["rows"]
+
+
+def _width_kernels(device):
+    """(a) Kernels 1-4 at every ``WIDTH_HEAD_DIMS`` x ``WIDTH_LENGTHS``,
+    masked and not, eval and train (p 0.1), at B ``WIDTH_BATCH``: kernel 1
+    within ``KERNEL_TOL`` and ``FWD_REL_L2_TOL``, kernel 2 within
+    ``BWD_TOL`` and ``BWD_REL_L2_TOL`` and a second call bit for bit,
+    kernels 3 and 4 bit for bit kernels 1 and 2, and at each masked shape
+    the exact-sum checks (forward output and backward dV, bit for bit);
+    kernels 9-10 at every ``WIDTH_FFN``, GELU and ReLU, eval and train, as
+    ``_ffn_row``, and the exact-sum mask check. Each kernel must launch
+    once a call. Then the ``WIDTH_TIMED`` and ``WIDTH_FFN_TIMED`` rows at B
+    256 with times (kernel, plain, bound, SDPA or the unfused route), and
+    the padding route's copy. Returns ({"rows": {kernel: {label: row}},
+    "repack kernel ms": kernel 1's ms at ``WIDTH_REPACK``}, the copy's
+    ms)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import attention as A
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    seed = 2222
+    heads = WIDTH_HEADS
+    counts = {}
+    _reset_counts()
+    for d in WIDTH_HEAD_DIMS:
+        worst = [0.0] * 4  # forward abs, rel L2; backward abs, rel L2
+        for l in WIDTH_LENGTHS:
+            for masked in (False, True):
+                qkv, bias = _attention_inputs(gen, device, WIDTH_BATCH, l,
+                                              heads * d, masked)
+                q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+                dout = torch.randn((WIDTH_BATCH, l, heads * d),
+                                   generator=gen, device=device
+                                   ).to(torch.bfloat16)
+                for p in (0.0, 0.1):
+                    label = (f"widths d={d} L={l} mask={masked} p={p}")
+                    out = A.mha_qkv(qkv, bias, heads, p, seed)
+                    want = A.mha_qkv_reference(qkv, bias, heads, p, seed)
+                    errs = [_check(f"mha_qkv_fwd {label}", out, want,
+                                   KERNEL_TOL),
+                            _rel_l2(f"mha_qkv_fwd {label}", out, want)]
+                    if not torch.equal(A.mha(q, k, v, bias, heads, p, seed),
+                                       out):
+                        fail(f"mha_fwd {label}: differs from mha_qkv_fwd")
+                    got = A.mha_qkv_bwd(qkv, bias, dout, heads, p, seed)
+                    want = A.mha_qkv_bwd_reference(qkv, bias, dout, heads,
+                                                   p, seed)
+                    scale = max(want.float().abs().max().item(), 1.0)
+                    errs += [_check(f"mha_qkv_bwd {label}", got, want,
+                                    BWD_TOL, scale),
+                             _rel_l2(f"mha_qkv_bwd {label}", got, want,
+                                     BWD_REL_L2_TOL)]
+                    worst = [max(a, b) for a, b in zip(worst, errs)]
+                    if not torch.equal(A.mha_qkv_bwd(qkv, bias, dout, heads,
+                                                     p, seed), got):
+                        fail(f"mha_qkv_bwd {label}: two calls differ")
+                    sep = A.mha_bwd(q, k, v, bias, dout, heads, p, seed)
+                    if not torch.equal(torch.cat(sep, dim=-1), got):
+                        fail(f"mha_bwd {label}: differs from mha_qkv_bwd")
+                if masked:  # exact sums: the masks must agree bit for bit
+                    _mask_check(gen, f"widths d={d}", qkv, bias, heads,
+                                seed, True)
+                    _bwd_mask_check(gen, f"widths d={d}", bias, heads, d,
+                                    seed, True)
+        print(f"widths: kernels 1-4 at d {d} (kernel head dim "
+              f"{A.kernel_head_dim(d)}), L {WIDTH_LENGTHS}, masked and not, "
+              f"p 0 and 0.1: largest forward error {worst[0]!r} (tol "
+              f"{KERNEL_TOL}), relative L2 {worst[1]!r} (tol "
+              f"{FWD_REL_L2_TOL}); backward {worst[2]!r} of max(1, "
+              f"max|plain|) (tol {BWD_TOL}), relative L2 {worst[3]!r} (tol "
+              f"{BWD_REL_L2_TOL}); kernels 3-4 bit for bit 1-2, masks bit "
+              f"for bit", flush=True)
+    n = len(WIDTH_HEAD_DIMS) * len(WIDTH_LENGTHS) * 2
+    attn = _counts()
+    # per shape: 2 rates x (1 + 1 forward, 2 + 1 backward) + the mask checks
+    want = {"mha_qkv_fwd": n * 2 + n // 2, "mha_fwd": n * 2 + n // 2,
+            "mha_qkv_bwd": n * 4 + n // 2, "mha_bwd": n * 2 + n // 2}
+    if {k: attn[k] for k in want} != want or any(
+            v for k, v in attn.items() if k not in want):
+        fail(f"widths: attention launches {attn}, expected {want}")
+    counts.update(want)
+
+    ffn_gen = torch.Generator(device=device).manual_seed(23)
+    _reset_counts()
+    for e, f in WIDTH_FFN:
+        x, dy, weights = _ffn_inputs(ffn_gen, device, WIDTH_BATCH,
+                                     WIDTH_FFN_LENGTH, e, f)
+        worst = {}
+        for act in ("gelu", "relu"):
+            for p in (0.0, 0.1):
+                _, fwd, bwd = _ffn_row(None, "widths", x, dy, weights, act,
+                                       torch.bfloat16, p, seed, timed=False)
+                old = worst.get(act, (0.0, 0.0))
+                worst[act] = (max(old[0], fwd), max(old[1], bwd))
+        _ffn_mask_check(ffn_gen, device, f"widths E={e} F={f}", WIDTH_BATCH,
+                        WIDTH_FFN_LENGTH, e, f)
+        print(f"widths: kernels 9-10 at E {e} F {f} (kernel width "
+              f"{ffn.kernel_width(e)}), p 0 and 0.1: largest (forward, "
+              f"backward) absolute errors {worst} (tol {FFN_TOL} of max(1, "
+              f"max|plain|), relative L2 {FFN_REL_TOL}); two calls bit for "
+              f"bit, the mask bit for bit", flush=True)
+    got = _counts()
+    want = {"ffn_fwd": len(WIDTH_FFN) * 9, "ffn_bwd": len(WIDTH_FFN) * 9}
+    if got != _per_step(**want):
+        fail(f"widths: FFN launches {got}, expected {want}")
+    counts.update(want)
+
+    records = {}
+    for name, (b, l, h, e, masked) in WIDTH_TIMED.items():
+        qkv, bias = _attention_inputs(gen, device, b, l, e, masked)
+        _forward_rows(records, name, qkv, bias, h, masked, seed, False)
+        _backward_rows(records, gen, name, qkv, bias, h, masked, seed,
+                       False)
+    for name, (b, l, e, f, act) in WIDTH_FFN_TIMED.items():
+        x, dy, weights = _ffn_inputs(ffn_gen, device, b, l, e, f)
+        for p in (0.0, 0.1) if name != "widths E768" else (0.0,):
+            _ffn_row(records, name, x, dy, weights, act, torch.bfloat16, p,
+                     seed)
+    b, l, h, d = WIDTH_REPACK
+    qkv, bias = _attention_inputs(gen, device, b, l, h * d, True)
+    out = A.mha_qkv(qkv, None, h)
+    wide = A.pad_heads(out, 1, h, d)  # an output as the kernel writes it
+    repack = cuda_ms(lambda: (A.pad_heads(qkv, 3, h, d),
+                              A.unpad_heads(wide, 1, h, d)))
+    kernel = cuda_ms(lambda: A.mha_qkv(qkv, None, h))
+    print(f"widths: the padding route at B {b} L {l} H {h} d {d} (kernel "
+          f"head dim {A.kernel_head_dim(d)}): copies {repack!r} ms, the "
+          f"whole kernel-1 call {kernel!r} ms", flush=True)
+    print(f"widths: (a) launches {counts} (comparisons with the plain "
+          f"versions, not counted on the path)", flush=True)
+    return {"rows": records, "repack kernel ms": kernel}, repack
+
+
+def _width_card(device):
+    """(b) ``WIDTHS_CARD`` with ``profile_encoder_args`` dim_hidden 512,
+    num_head 4 (d 128), dim_feedforward 2048, fused_ffn, and fused_ffn on
+    the ViT-S/16 (E 384, 6 heads of 64, 12 layers), bf16, CLIP bucketed,
+    bs 256 in 16 buckets, ``packed_cache``, through
+    ``scripts/train_multi_torch.py`` (``WIDTH_EPOCHS`` epochs over
+    ``WIDTH_TRAIN`` packed pairs, eval on ``GALLERY`` test pairs): exact
+    launches of kernels 1, 2, 9, 10, 5 and 6 (14 + 14 attention and FFN
+    and 1 + 1 CLIP a micro-step, 14 + 14 + 1 an eval step) and none of any
+    other; finite losses, the last epoch's train loss below the first's,
+    every master moved from the seeded init. The checkpoint through
+    ``load_from_checkpoint`` on the card, the test pairs through
+    ``encode_arrays`` (14 + 14 launches a batch): finite unit rows,
+    self-gallery k = 1 >= 0.99 by the exact kNN. One encode batch of the
+    restored model on the kernels and on the plain route (every kernel
+    swapped for its plain version) within ``SLICE_TOL``; the dropout-0
+    micro-steps of ``_width_steps``; train pairs/s of the micro-step
+    (``_width_train_rate``)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from multimodal_plankton_recognition_torch.config import (
+        ModelCard, load_card)
+    from multimodal_plankton_recognition_torch.data.packed import (
+        PackedMultiSet)
+    from multimodal_plankton_recognition_torch.data.tokenize import (
+        get_tokenizer)
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+    from multimodal_plankton_recognition_torch.train import drivers
+    from multimodal_plankton_recognition_torch.train.checkpoint import (
+        load_from_checkpoint)
+    from multimodal_plankton_recognition_torch.utils import LabelVocab
+
+    d = load_card(REPO / WIDTHS_CARD).to_dict()
+    d["profile_encoder_args"].update(dim_hidden=512, num_head=4,
+                                     dim_feedforward=2048, fused_ffn=True)
+    d["image_encoder_args"].update(fused_ffn=True)
+    d.update(bs=BATCH, buckets=BUCKETS, packed_cache=True)
+    card = ModelCard.from_dict(copy.deepcopy(d))
+    coordination = card.coordination_args
+    if (coordination["method"], coordination["negatives"],
+            card.trainer_args.compute_dtype) != ("clip", "bucketed",
+                                                 "bfloat16"):
+        fail(f"widths: {WIDTHS_CARD} is not a bf16 bucketed CLIP card")
+    bs, ts = card.bs, card.target_size
+    micro, evals = WIDTH_TRAIN // bs, GALLERY // bs
+    layers = ATTENTION_LAYERS
+    per_micro = dict(mha_qkv_fwd=layers, mha_qkv_bwd=layers, ffn_fwd=layers,
+                     ffn_bwd=layers, clip_fwd=1, clip_bwd=1)
+    per_eval = dict(mha_qkv_fwd=layers, ffn_fwd=layers, clip_fwd=1)
+    per_encode = _per_step(mha_qkv_fwd=layers, ffn_fwd=layers)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = write_packed_splits(tmp / "data", ts, WIDTH_TRAIN, GALLERY,
+                                   WIDTH_CLASSES, seed=22)
+        card_path = tmp / f"{Path(WIDTHS_CARD).stem}_wide.json"
+        card_path.write_text(json.dumps(d))
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _cli("train_multi_torch").main(
+            ["-d", str(root), "-m", str(card_path), "-l", str(tmp / "logs"),
+             "--max-epochs", str(WIDTH_EPOCHS), "--device", str(device)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = _counts()
+        want = _per_step(**{
+            k: WIDTH_EPOCHS * (micro * per_micro[k] +
+                               evals * per_eval.get(k, 0))
+            for k in per_micro})
+        history = out["history"]
+        losses = [h["train_loss"] for h in history]
+        print(f"widths: (b) {WIDTH_EPOCHS} epochs of {micro} micro-steps and "
+              f"{evals} eval steps of {bs} in {train_s!r} s; history "
+              f"{history}; launches {train_launches}", flush=True)
+        if train_launches != want:
+            fail(f"widths: (b) train launches {train_launches}, expected "
+                 f"{want}")
+        if len(history) != WIDTH_EPOCHS or not all(
+                math.isfinite(h["train_loss"]) and
+                math.isfinite(h["valid_loss"]) for h in history) or \
+                not losses[-1] < losses[0]:
+            fail(f"widths: (b) losses not finite or not falling: {history}")
+        init = drivers.init_masters(card)
+        unmoved = [n for n, m in out["state"].params.items()
+                   if m.dtype != torch.float32 or
+                   torch.equal(m.cpu(), init[n])]
+        if unmoved:
+            fail(f"widths: (b) masters not f32 or not moved: {unmoved}")
+
+        restored, _, meta = load_from_checkpoint(
+            Path(out["logdir"]) / "checkpoints", device=device)
+        test_set = PackedMultiSet(root / "test.csv", ts)
+        gallery, labels = _collated(
+            test_set, get_tokenizer("transformer", ts, pad_to=ts + 1),
+            LabelVocab(meta["class_names"]))
+    gallery = {k: torch.as_tensor(v).to(device) for k, v in gallery.items()}
+    first = {k: v[:bs] for k, v in gallery.items()}
+    encode_arrays(restored, first, labels[:bs], bs, device)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = encode_arrays(restored, gallery, labels, bs, device)
+    torch.cuda.synchronize()
+    encode_rate = GALLERY / (time.perf_counter() - t0)
+    encode_launches = _counts()
+    if encode_launches != {k: v * evals for k, v in per_encode.items()}:
+        fail(f"widths: (b) encode launches {encode_launches}, expected "
+             f"{per_encode} a batch")
+    _check_embeddings("widths (b), the restored card", emb, labels, device)
+
+    # the same weights on the kernels and on the plain route: one encode
+    # batch of the restored model; dropout-0 micro-steps from the init
+    kernel_emb = encode_arrays(restored, first, labels[:bs], bs, device)
+    with _plain_attention(), _plain_ffn():
+        _reset_counts()
+        plain_emb = encode_arrays(restored, first, labels[:bs], bs, device)
+        if any(_counts().values()):
+            fail(f"widths: (b) the plain encode launched {_counts()}")
+    for key in ("image", "profile"):
+        diff = float(np.abs(kernel_emb[key] - plain_emb[key]).max())
+        print(f"widths: (b) encode batch, {key} embeddings: max abs diff "
+              f"kernels to plain {diff!r} (tol {SLICE_TOL})", flush=True)
+        if not diff <= SLICE_TOL:
+            fail(f"widths: (b) the {key} embeddings of the kernels and the "
+                 f"plain route differ by {diff}")
+    _width_steps(device, d, init, gallery, _per_step(**per_micro))
+    rates = _width_train_rate(device, d, init, first)
+    launches = {k: train_launches[k] + encode_launches[k]
+                for k in train_launches}
+    return {"launches": launches, "kernel_launches": {
+                k: v for k, v in launches.items() if v},
+            "rates": rates, "walls": [h["samples_per_sec"] for h in history],
+            "losses": losses, "encode_rate": encode_rate}
+
+
+def _width_steps(device, d, init, gallery, per_micro):
+    """(b)'s dropout-0 micro-step from ``init`` on every
+    ``WIDTH_STEP_ROUTES`` route over ``WIDTH_STEP_BATCHES`` test batches.
+    Held on the first batch, as the flagship holds its steps: kernel
+    against plain (every kernel off) within ``STEP_LOSS_TOL`` and
+    ``NAMED_GRADS`` within ``STEP_GRAD_TOL`` (the train phase's bounds);
+    kernel against plain FFN, ``FFN_NAMED_GRADS`` within ``STEP_GRAD_TOL``
+    (the FFN train phase's); kernel against plain, ``FFN_NAMED_GRADS``
+    within the statistical bounds beside the plain route's nudged-input
+    floor (``_held_statistically``). Printed for every batch: the relative
+    L2 of ``WIDTH_LEAF`` between the routes and from each to f32."""
+    import copy
+
+    import torch
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    bs = BATCH
+    batches = [{k: v[i * bs:(i + 1) * bs] for k, v in gallery.items()}
+               for i in range(WIDTH_STEP_BATCHES)]
+    g = torch.Generator(device=device).manual_seed(8)
+    nudged = [dict(b, **{k: b[k] * (1 + 1e-3 * torch.randn(
+        b[k].shape, generator=g, device=device)) for k in ("image",
+                                                            "profile")})
+              for b in batches]
+    d32 = copy.deepcopy(d)
+    d32["trainer_args"]["precision"] = "32"
+    names = FFN_NAMED_GRADS
+    grads = [{} for _ in batches]
+    losses = [{} for _ in batches]
+    for route, (over, plain, nudge) in WIDTH_STEP_ROUTES.items():
+        over = {k: dict(v) for k, v in over.items()}
+        for field in ("image_encoder_args", "profile_encoder_args"):
+            over.setdefault(field, {})["dropout"] = 0.0
+        _, m, tx, step, _ = _card(base=d32 if route == "f32" else d, **over)
+        m.to(device)
+        for i, batch in enumerate(nudged if nudge else batches):
+            st = create_train_state(m, init, tx)
+            _reset_counts()
+            with _plain_attention() if "attention" in plain else \
+                    contextlib.nullcontext(), \
+                    _plain_ffn() if "ffn" in plain else \
+                    contextlib.nullcontext():
+                _, loss = step(st, batch, 0)
+            got = _counts()
+            want = per_micro if route == "kernel" else _per_step(
+                **({k: v for k, v in per_micro.items()
+                    if not k.startswith("ffn")} if route == "plain FFN"
+                   else {}))
+            if got != want:
+                fail(f"widths: (b) {route} micro-step launches {got}")
+            losses[i][route] = float(loss)
+            grads[i][route] = {n: m.get_parameter(n).grad.float()
+                               for n in names}
+            del st
+        del m
+    for i in range(WIDTH_STEP_BATCHES):
+        g_i = grads[i]
+        rel = {f"{a} / {b}": ((g_i[a][WIDTH_LEAF] - g_i[b][WIDTH_LEAF]).norm()
+                              / g_i[b][WIDTH_LEAF].norm()).item()
+               for a, b in (("kernel", "plain"), ("kernel", "plain FFN"),
+                            ("nudged plain", "plain"), ("kernel", "f32"),
+                            ("plain", "f32"), ("plain FFN", "f32"))}
+        print(f"widths: (b) micro-step, dropout 0, test batch {i}: losses "
+              f"{losses[i]}; {WIDTH_LEAF} relative L2 {rel}", flush=True)
+    grads, losses = grads[0], losses[0]
+    loss_err = abs(losses["kernel"] - losses["plain"])
+    print(f"widths: (b) micro-step, dropout 0: loss kernel "
+          f"{losses['kernel']!r} plain {losses['plain']!r} (|diff| "
+          f"{loss_err!r}, tol {STEP_LOSS_TOL})", flush=True)
+    if not loss_err <= STEP_LOSS_TOL:
+        fail(f"widths: (b) kernel and plain micro-steps disagree on the "
+             f"loss: {loss_err}")
+    _grad_diffs("widths (b)", grads, NAMED_GRADS, STEP_GRAD_TOL)
+    _grad_diffs("widths (b)", grads, FFN_NAMED_GRADS, STEP_GRAD_TOL,
+                "plain FFN")
+    _held_statistically("widths (b) micro-step, dropout 0", losses, grads,
+                        FFN_NAMED_GRADS, (("kernel", "plain"),),
+                        ("plain", "nudged plain"))
+
+
+def _width_train_rate(device, d, init, batch):
+    """(b)'s train pairs/s on the kernels: the card's micro-step (dropout
+    on) over ``PLAIN_STEPS`` steps, twice, after ``WARMUP_STEPS``, the
+    launches of every step exact."""
+    from multimodal_plankton_recognition_torch.train import (
+        create_train_state)
+
+    _, m, tx, step, _ = _card(base=d)
+    m.to(device)
+    st = create_train_state(m, init, tx)
+    _pairs_per_s(st, step, batch, WARMUP_STEPS)
+    _reset_counts()
+    rates = [_pairs_per_s(st, step, batch, PLAIN_STEPS) for _ in range(2)]
+    layers = ATTENTION_LAYERS
+    want = _per_step(**{k: 2 * PLAIN_STEPS * v for k, v in dict(
+        mha_qkv_fwd=layers, mha_qkv_bwd=layers, ffn_fwd=layers,
+        ffn_bwd=layers, clip_fwd=1, clip_bwd=1).items()})
+    if _counts() != want:
+        fail(f"widths: (b) timed micro-steps launched {_counts()}")
+    print(f"widths: (b) train pairs/s of the card's micro-step over "
+          f"{PLAIN_STEPS} steps after {WARMUP_STEPS} warm-up steps, twice: "
+          f"{rates!r}", flush=True)
+    return rates
+
+
 def _device_ms(prof, steps):
     """{kernel: [ms per step, launches per step]} of the device-side events
     only (the aten ops carry device time too and would count it twice)."""
@@ -6663,6 +7197,15 @@ def _rank_table():
     b0 = {p: [(f"{blk} ", "", n / MBCONV_BLOCKS)
               for blk, n in B0_BLOCKS.items()] for p in ("b0_card", "remat")}
     block = {"fuse_proj": pair(*flag, "p=0.0", "p=0.1")}
+    # the widths card: ViT-S at B 256 and the 512-wide profile encoder;
+    # its train steps' ViT FFN at dropout 0.1, as the flagship's
+    def wide(vit_mode, prof_mode):
+        return [("widths vit B=256 ", vit_mode, vit),
+                ("widths profile B=256 ", prof_mode, prof)]
+
+    fwd["widths"] = wide("eval", "train p=0.1")
+    bwd["widths"] = wide("p=0.0", "p=0.1")
+    ffn_rows["widths"] = wide("gelu bfloat16 p=0.1", "gelu bfloat16 p=0.1")
     return {"mha_qkv_fwd": fwd, "mha_qkv_bwd": bwd,
             "mha_fwd": {"unpacked": pair(*flag, "eval", "train p=0.1")},
             "mha_bwd": {"unpacked": pair(*flag, "p=0.0", "p=0.1")},
@@ -6752,6 +7295,10 @@ def main(argv=None) -> None:
                 "parallel": phase_parallel(device),
                 **phase_export(device), **phase_tail(device),
                 **phase_pretrained(device)}
+    widths, width_rows = phase_widths(device)
+    launches.update(widths)
+    for name, rows in width_rows.items():
+        records[name].update(rows)
     if args.profile:
         phase_profile(device)
     _ranking(records, launches)

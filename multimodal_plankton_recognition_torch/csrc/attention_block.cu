@@ -91,9 +91,9 @@ int qkv_and_o(const void* x, const void* wqkv, const void* bqkv,
   const bf16* q = static_cast<const bf16*>(qkv);
   CHECK(gemm(x, wqkv, 0, bqkv, qkv, B * L, 3 * E, E,
              static_cast<cudaStream_t>(stream)));
-  CHECK((cudaError_t)attn_fwd::dispatch(q, q + E, q + 2 * E, 3 * E, bias, o,
-                                        B, L, H, D, scale, seed, thr,
-                                        inv_keep, stream));
+  CHECK((cudaError_t)(attn_fwd::dispatch<8, 64>(
+      q, q + E, q + 2 * E, 3 * E, bias, o, B, L, H, D, scale, seed, thr,
+      inv_keep, stream)));
   return 0;
 }
 
@@ -152,10 +152,9 @@ int attn_block_bwd(const void* x, const void* wqkv, const void* bqkv,
   float* part_qkv = static_cast<float*>(part);
   float* part_out = part_qkv + (size_t)g_qkv * (3 * (size_t)E * E + 3 * E);
   CHECK(gemm(dy, wo, 1, nullptr, dout, M, E, E, s));
-  CHECK((cudaError_t)attn_bwd::dispatch(q, q + E, q + 2 * E, 3 * E, bias,
-                                        dout, dq, dq + E, dq + 2 * E, scratch,
-                                        B, L, H, D, scale, seed, thr,
-                                        inv_keep, stream));
+  CHECK((cudaError_t)(attn_bwd::dispatch<8, 64>(
+      q, q + E, q + 2 * E, 3 * E, bias, dout, dq, dq + E, dq + 2 * E,
+      scratch, B, L, H, D, scale, seed, thr, inv_keep, stream)));
   CHECK(gemm(dqkv, wqkv, 1, nullptr, dx, M, E, 3 * E, s));
   CHECK(wgrad(dqkv, x, part_qkv, g_qkv, dwqkv, dbqkv, M, 3 * E, E, s));
   CHECK(wgrad(dy, o, part_out, g_out, dwo, dbo, M, E, E, s));

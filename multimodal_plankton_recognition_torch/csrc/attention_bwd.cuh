@@ -44,7 +44,7 @@
 // a run repeats bit for bit.
 //   A. mha_bwd_q_kernel, query side. A warp holds its 16 rows of q and dO
 //      as A fragments. K_h, V_h and the key bias stream through shared
-//      memory in chunks of kChunk = 256 keys (16-byte cp.async), and the
+//      memory in chunks of kChunk keys (16-byte cp.async), and the
 //      warp makes four rolled passes over 16-key tiles, recomputing z bit
 //      for bit in each: the row max; the row sum of exp(z - max) and its
 //      reciprocal; delta = sum dp * p with dp = dO . V^T on mma (V through
@@ -53,7 +53,7 @@
 //      and (max, sum, 1/sum, delta) per (sample, head, row) to scratch.
 //   B. mha_bwd_kv_kernel, key side. A warp holds its 16 rows of K_h and
 //      V_h as A fragments. Q, dO and their rows' statistics stream through
-//      shared memory in chunks of 256 queries; for each 16-query tile it
+//      shared memory in chunks of kChunk queries; for each 16-query tile it
 //      computes S^T = K . Q^T and dP^T = V . dO^T on mma, p from the
 //      stored max, sum and 1/sum, then ds and pd, and accumulates
 //      dK += dS^T . Q and dV += Pd^T . dO (accumulators reused as A
@@ -71,6 +71,16 @@
 // explicitly, since a padded query has no statistics. Staged rows are
 // strided by an odd number of 16-byte words, so ldmatrix hits no bank
 // conflict, plain or transposed. No length up to MAX_LENGTH is refused.
+// Head dims: every multiple of 8 up to 256 (dispatch's range). Above D 64
+// a block holds one chunk of fewer than 256 rows where 256 would not fit
+// shared memory (Geom::kChunk), and the accumulators that grow with D are
+// cut into column groups so that a thread's registers hold them beside
+// the A fragments: kernel A's dQ (groups of kQT n8-tiles, one dQ pass
+// each, z and dp recomputed) and kernel B's dK and dV (groups of kKT
+// n8-tiles, one walk over the queries each). Staged rows are kW wide,
+// the pad past D zero, so a group's columns never leave the row. The sums
+// of every output column keep their order, so two calls still agree bit
+// for bit.
 // S^T of kernel B need not equal z of kernel A bit for bit (another
 // operand order in the tensor core), so its p may differ from kernel A's
 // by about an ulp.
@@ -94,18 +104,45 @@ using namespace tc;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kChunk = 256;  // keys (A) or queries (B) staged at once
+constexpr int kMaxHeadDim = 256;
+// shared memory a block may take above D 64, where an SM holds one block
+constexpr int kWideSmem = 200 * 1024;
+
+// an odd number of 16-byte words of at least `cols` bf16 columns
+__host__ __device__ constexpr int odd_stride(int cols) {
+  return (cols / 8) % 2 ? cols : cols + 8;
+}
 
 template <int D>
 struct Geom {
-  static_assert(D % 8 == 0 && D <= 64, "head dim: a multiple of 8, <= 64");
+  static_assert(D % 8 == 0 && D >= 8 && D <= kMaxHeadDim,
+                "head dim: a multiple of 8, <= 256");
   static constexpr int kDp = (D + 15) / 16 * 16;  // product depth, padded
   static constexpr int kKSteps = kDp / 16;
+  static constexpr int kNTiles = D / 8;  // n8 tiles of a dQ, dK or dV row
+  // column groups of kernel A's dQ and of kernel B's dK and dV, and n8
+  // tiles a group: registers of a thread hold q and dO (or K and V)
+  // fragments, D / 2 of them, beside 4 kQT (or 8 kKT) accumulators
+  static constexpr int kQMax = D <= 128 ? 16 : 8;
+  static constexpr int kKMax = D <= 128 ? 8 : 4;
+  static constexpr int kQGroups = (kNTiles + kQMax - 1) / kQMax;
+  static constexpr int kQT = (kNTiles + kQGroups - 1) / kQGroups;
+  static constexpr int kKGroups = (kNTiles + kKMax - 1) / kKMax;
+  static constexpr int kKT = (kNTiles + kKGroups - 1) / kKGroups;
+  // staged width: the product depth and every group's columns
+  static constexpr int kW0 = kQGroups * kQT * 8 > kDp ? kQGroups * kQT * 8
+                                                      : kDp;
+  static constexpr int kW = kKGroups * kKT * 8 > kW0 ? kKGroups * kKT * 8
+                                                     : kW0;
   // row stride in elements of every staged operand: an odd number of
   // 16-byte words, so the 8 rows that one ldmatrix phase reads land on 8
   // distinct groups of 4 banks
-  static constexpr int kStride = (kDp / 8) % 2 ? kDp : kDp + 8;
-  static constexpr int kNTiles = D / 8;  // n8 tiles of a dQ, dK or dV row
+  static constexpr int kStride = odd_stride(kW);
+  // keys (A) or queries (B) staged at once: 256, or as many (a multiple
+  // of 16) as fit kWideSmem above D 64 beside kernel A's keep bits
+  static constexpr int kRowBytes = 4 * kStride + 16;
+  static constexpr int kFit = (kWideSmem - 4096) / kRowBytes / 16 * 16;
+  static constexpr int kChunk = D <= 64 || kFit > 256 ? 256 : kFit;
 };
 
 // Block shape per head dim. Registers bound the resident warps: kernel A
@@ -115,23 +152,27 @@ struct Geom {
 // D >= 48, where dK and dV need more. At D <= 24 a block has 4 warps (64
 // rows) and an SM must hold 5 of either (96 registers): 20 warps an SM
 // instead of 16, which ran the flagship profile's backward (D 24) faster
-// on the H100; 8-warp blocks at 3 an SM (80 registers) spill there. ptxas
-// must report 0 spill bytes for every instance.
+// on the H100; 8-warp blocks at 3 an SM (80 registers) spill there. Above
+// D 64 one block of either an SM (the fragments alone take D / 2
+// registers). ptxas must report 0 spill bytes for every instance.
 template <int D>
 struct Cfg {
   static constexpr bool kSmall = D <= 24;
   static constexpr int kWarps = kSmall ? 4 : 8;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kTileRows = 16 * kWarps;  // query rows or keys
-  static constexpr int kMinQ = kSmall ? 5 : 2;
+  static constexpr int kMinQ = kSmall ? 5 : D > 64 ? 1 : 2;
   static constexpr int kMinKV = kSmall ? 5 : D >= 48 ? 1 : 2;
   // kernel A's cache of one chunk's keep bits, per warp: a 32-bit word
   // per lane for every 4 tiles of 16 keys
-  static constexpr int kKeepWords = kWarps * (kChunk / 64) * 32;
+  static constexpr int kLaneWords = (Geom<D>::kChunk + 63) / 64;
+  static constexpr int kKeepWords = kWarps * kLaneWords * 32;
 };
 
 // rows of a streamed operand held in shared memory at length L
+template <int D>
 __host__ __device__ inline int chunk_rows(int L) {
+  constexpr int kChunk = Geom<D>::kChunk;
   return L < kChunk ? (L + 15) / 16 * 16 : kChunk;
 }
 
@@ -140,7 +181,7 @@ __host__ __device__ inline int chunk_rows(int L) {
 template <int D>
 size_t smem_bytes(int L, size_t per_row) {
   return (2 * sizeof(bf16) * Geom<D>::kStride + per_row) *
-         (size_t)chunk_rows(L);
+         (size_t)chunk_rows<D>(L);
 }
 
 // Copy rows [r0, r0 + n) of a (row stride lda) and, with with_c, of c (row
@@ -170,37 +211,48 @@ __device__ __forceinline__ void stage(bf16* as, bf16* cs, const bf16* asrc,
   }
 }
 
-// zero the product-depth pad (columns D to kDp) of two staged operands
+// zero the pad (columns D to kW) of two staged operands: the product
+// depth's and the last column group's, which staging never writes
 template <int D>
-__device__ __forceinline__ void zero_depth_pad(bf16* as, bf16* cs, int cap) {
+__device__ __forceinline__ void zero_pad(bf16* as, bf16* cs, int cap) {
   using G = Geom<D>;
-  if (G::kDp != D) {
-    for (int r = threadIdx.x; r < cap; r += blockDim.x) {
-      *reinterpret_cast<uint4*>(as + r * G::kStride + D) =
+  constexpr int kPieces = (G::kW - D) / 8;
+  if constexpr (kPieces > 0) {
+    for (int i = threadIdx.x; i < cap * kPieces; i += blockDim.x) {
+      const int r = i / kPieces;
+      const int c = D + (i - r * kPieces) * 8;
+      *reinterpret_cast<uint4*>(as + r * G::kStride + c) =
           make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(cs + r * G::kStride + D) =
+      *reinterpret_cast<uint4*>(cs + r * G::kStride + c) =
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-// store rows r0 and r0 + 8 of a (16, D) f32 block as bf16 at out (row
-// stride ld)
+// store rows r0 and r0 + 8 of a (16, 8 NT) f32 block as bf16 at out (row
+// stride ld), the tiles whose first column c0 + 8 n is below D
 template <int NT>
 __device__ __forceinline__ void store_rows(bf16* out, size_t ld,
                                            const float (&x)[NT][4], int r0,
-                                           int L, int quad) {
+                                           int L, int quad, int c0, int D) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + half * 8;
     if (r < L) {
-      bf16* row = out + (size_t)r * ld;
+      bf16* row = out + (size_t)r * ld + c0;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * quad) =
-            pack_bf16(x[n][2 * half], x[n][2 * half + 1]);
+        if (c0 + n * 8 < D)
+          *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * quad) =
+              pack_bf16(x[n][2 * half], x[n][2 * half + 1]);
     }
   }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&x)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
 }
 
 // p and the undropped dp of 16 query rows (A fragments qa of q, da of dO)
@@ -305,8 +357,9 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
                  int L, int H, float scale, uint32_t seed, uint32_t thr,
                  float inv_keep) {
   using G = Geom<D>;
+  constexpr int kChunk = G::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cap = chunk_rows(L);
+  const int cap = chunk_rows<D>(L);
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + (size_t)cap * G::kStride;
   float* bs = reinterpret_cast<float*>(vs + (size_t)cap * G::kStride);
@@ -318,9 +371,9 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
   const int quad = lane & 3;
   const int E = H * D;
   // this lane's keep words (word w at kw[32 w]) when one chunk holds every
-  // key: pass 2 hashes the mask and stores it, pass 3 reads it back
+  // key: pass 2 hashes the mask and stores it, the dQ passes read it back
   uint32_t* kw = reinterpret_cast<uint32_t*>(bs + cap) +
-                 warp * (kChunk / 64) * 32 + lane;
+                 warp * Cfg<D>::kLaneWords * 32 + lane;
   const size_t head = (size_t)b * L * ld + (size_t)h * D;
   const float* brow = bias ? bias + (size_t)b * L : nullptr;
   const uint32_t key = dropout_key(seed, (uint32_t)(b * H + h));
@@ -336,7 +389,7 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
   const bf16* kt = cols_lane(ks, G::kStride, lane);  // K in ds . K
   const bf16* vp = rows_lane(vs, G::kStride, lane);  // V in dO . V^T
 
-  zero_depth_pad<D>(ks, vs, cap);
+  zero_pad<D>(ks, vs, cap);
   if (chunks == 1) {  // K_h and V_h once
     stage<D>(ks, vs, k_in + head, ld, v_in + head, ld, 0, L, true);
     for (int r = threadIdx.x; r < cap; r += blockDim.x)
@@ -352,16 +405,16 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
   load_a<G::kKSteps>(qa, q_in + head, ld, r0, L, D, quad);
   load_a<G::kKSteps>(da, dout + (size_t)b * L * E + (size_t)h * D, E, r0, L,
                      D, quad);
-  float dq[G::kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < G::kNTiles; ++n)
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  float dq[G::kQT][4];
+  zero_acc(dq);
   // per row (r0, r0 + 8): max, sum, 1 / sum rounded to nearest, delta
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float rl[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
 
-  // four passes over the keys: max; sum; delta; dQ
-  for (int pass = 0; pass < 4; ++pass) {
+  // passes over the keys: max; sum; delta; then dQ, once for each of its
+  // column groups
+  for (int pass = 0; pass < 3 + G::kQGroups; ++pass) {
+    const int c0 = (pass - 3) * G::kQT * 8;  // the dQ group's first column
     for (int c = 0; c < chunks; ++c) {
       const int j0 = c * kChunk;
       const int n = min(kChunk, L - j0);
@@ -427,7 +480,7 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
             for (int e = 0; e < 4; ++e)
               delta[e >> 1] = fmaf(dp[t][e], p[t][e], delta[e >> 1]);
         }
-      } else {  // dQ += ds . K
+      } else {  // dQ += ds . K, this group's columns
 #pragma unroll 1
         for (int jt = 0; jt < tiles; ++jt) {
           float p[2][4], dp[2][4];
@@ -446,9 +499,13 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
               p[t][e] = p[t][e] * (dp[t][e] - delta[e >> 1]) * scale;
           uint32_t a[4];
           pack_a(a, p);
-          acc_cols<G::kNTiles>(dq, a, kt + jt * 16 * G::kStride, lane);
+          acc_cols<G::kQT>(dq, a, kt + jt * 16 * G::kStride + c0, lane);
         }
       }
+    }
+    if (pass >= 3) {  // the group's columns of dQ, then a fresh group
+      store_rows<G::kQT>(dq_out + head, ld, dq, r0, L, quad, c0, D);
+      zero_acc(dq);
     }
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
@@ -463,7 +520,6 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
     }
   }
 
-  store_rows<G::kNTiles>(dq_out + head, ld, dq, r0, L, quad);
   if (quad == 0) {
     float4* srow = stats + (size_t)(b * H + h) * L;
 #pragma unroll
@@ -488,8 +544,9 @@ mha_bwd_kv_kernel(const bf16* __restrict__ q_in,
                   int L, int H, float scale, uint32_t seed, uint32_t thr,
                   float inv_keep) {
   using G = Geom<D>;
+  constexpr int kChunk = G::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cap = chunk_rows(L);
+  const int cap = chunk_rows<D>(L);
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* os = qs + (size_t)cap * G::kStride;  // dO
   float4* ss = reinterpret_cast<float4*>(os + (size_t)cap * G::kStride);
@@ -517,7 +574,7 @@ mha_bwd_kv_kernel(const bf16* __restrict__ q_in,
   const bf16* op = rows_lane(os, G::kStride, lane);  // dO in V . dO^T
   const bf16* ot = cols_lane(os, G::kStride, lane);  // dO in Pd^T . dO
 
-  zero_depth_pad<D>(qs, os, cap);
+  zero_pad<D>(qs, os, cap);
   uint32_t ka[G::kKSteps][4], va[G::kKSteps][4];
   load_a<G::kKSteps>(ka, k_in + head, ld, j0, L, D, quad);
   load_a<G::kKSteps>(va, v_in + head, ld, j0, L, D, quad);
@@ -527,82 +584,90 @@ mha_bwd_kv_kernel(const bf16* __restrict__ q_in,
     const int j = j0 + 8 * row;
     bj[row] = j < L ? (bias ? bias[(size_t)b * L + j] : 0.f) : -INFINITY;
   }
-  float dk[G::kNTiles][4], dv[G::kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < G::kNTiles; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
+  float dk[G::kKT][4], dv[G::kKT][4];
 
-  for (int c = 0; c < chunks; ++c) {
-    const int i0 = c * kChunk;
-    const int n = min(kChunk, L - i0);
-    const int rows = (n + 15) / 16 * 16;
-    if (c > 0) __syncthreads();  // every warp is done with the last chunk
-    stage<D>(qs, os, q_in + head, ld, dsrc, E, i0, n, true);
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      if (r < n)
-        cp_async16(ss + r, srow + i0 + r);
-      else  // a padded query: finite placeholders, its ds and pd are zeroed
-        ss[r] = make_float4(0.f, 1.f, 1.f, 0.f);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (key0 >= L) continue;  // nothing to compute, but every barrier
+  // one walk over the queries for each column group of dK and dV; with
+  // one chunk the queries are staged once
+#pragma unroll 1
+  for (int grp = 0; grp < G::kKGroups; ++grp) {
+    const int c0 = grp * G::kKT * 8;  // the group's first column
+    zero_acc(dk);
+    zero_acc(dv);
+    for (int c = 0; c < chunks; ++c) {
+      const int i0 = c * kChunk;
+      const int n = min(kChunk, L - i0);
+      const int rows = (n + 15) / 16 * 16;
+      if (grp == 0 || chunks > 1) {
+        // every warp is done with the last chunk
+        if (grp > 0 || c > 0) __syncthreads();
+        stage<D>(qs, os, q_in + head, ld, dsrc, E, i0, n, true);
+        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+          if (r < n)
+            cp_async16(ss + r, srow + i0 + r);
+          else  // a padded query: finite placeholders, its ds and pd are 0
+            ss[r] = make_float4(0.f, 1.f, 1.f, 0.f);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      if (key0 >= L) continue;  // nothing to compute, but every barrier
 
 #pragma unroll 1
-    for (int it = 0; it < rows / 16; ++it) {
-      float s[2][4], dp[2][4], pd[2][4];
-      dot_rows<G::kKSteps>(s, ka, qp + it * 16 * G::kStride);
-      dot_rows<G::kKSteps>(dp, va, op + it * 16 * G::kStride);
-      uint32_t bits = 0;  // keep bits, 4 t + e for element [t][e]
-      if (cached) {
-        bits = load_tile_bits(kg + (size_t)8 * T * it, lane);
-      } else if (thr) {
+      for (int it = 0; it < rows / 16; ++it) {
+        float s[2][4], dp[2][4], pd[2][4];
+        dot_rows<G::kKSteps>(s, ka, qp + it * 16 * G::kStride);
+        dot_rows<G::kKSteps>(dp, va, op + it * 16 * G::kStride);
+        uint32_t bits = 0;  // keep bits, 4 t + e for element [t][e]
+        if (cached) {
+          bits = load_tile_bits(kg + (size_t)8 * T * it, lane);
+        } else if (thr) {
 #pragma unroll
-        for (int t = 0; t < 2; ++t)
+          for (int t = 0; t < 2; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const uint32_t idx =
-                (uint32_t)(i0 + it * 16 + t * 8 + 2 * quad + (e & 1)) * L +
-                (uint32_t)(j0 + 8 * (e >> 1));
-            bits |= (uint32_t)(dropout_bits(key, idx) >= thr) << (4 * t + e);
-          }
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int col = it * 16 + t * 8 + 2 * quad + cc;  // query - i0
-          const float4 st = ss[col];  // max, sum, 1 / sum, delta
-          const bool valid = i0 + col < L;
-#pragma unroll
-          for (int row = 0; row < 2; ++row) {
-            const int e = 2 * row + cc;
-            const float z = logit(s[t][e], scale, bj[row]);
-            const float p = div_rn(expf(z - st.x), st.y, st.z);
-            float d = dp[t][e];
-            float pk = p;
-            if (thr) {
-              const bool kept = (bits >> (4 * t + e)) & 1u;
-              d = kept ? d * inv_keep : 0.f;
-              pk = kept ? p * inv_keep : 0.f;
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t idx =
+                  (uint32_t)(i0 + it * 16 + t * 8 + 2 * quad + (e & 1)) * L +
+                  (uint32_t)(j0 + 8 * (e >> 1));
+              bits |= (uint32_t)(dropout_bits(key, idx) >= thr)
+                      << (4 * t + e);
             }
-            s[t][e] = valid ? p * (d - st.w) * scale : 0.f;  // ds
-            pd[t][e] = valid ? pk : 0.f;
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int col = it * 16 + t * 8 + 2 * quad + cc;  // query - i0
+            const float4 st = ss[col];  // max, sum, 1 / sum, delta
+            const bool valid = i0 + col < L;
+#pragma unroll
+            for (int row = 0; row < 2; ++row) {
+              const int e = 2 * row + cc;
+              const float z = logit(s[t][e], scale, bj[row]);
+              const float p = div_rn(expf(z - st.x), st.y, st.z);
+              float d = dp[t][e];
+              float pk = p;
+              if (thr) {
+                const bool kept = (bits >> (4 * t + e)) & 1u;
+                d = kept ? d * inv_keep : 0.f;
+                pk = kept ? p * inv_keep : 0.f;
+              }
+              s[t][e] = valid ? p * (d - st.w) * scale : 0.f;  // ds
+              pd[t][e] = valid ? pk : 0.f;
+            }
           }
         }
+        uint32_t a[4];
+        pack_a(a, s);
+        acc_cols<G::kKT>(dk, a, qt + it * 16 * G::kStride + c0, lane);
+        pack_a(a, pd);
+        acc_cols<G::kKT>(dv, a, ot + it * 16 * G::kStride + c0, lane);
       }
-      uint32_t a[4];
-      pack_a(a, s);
-      acc_cols<G::kNTiles>(dk, a, qt + it * 16 * G::kStride, lane);
-      pack_a(a, pd);
-      acc_cols<G::kNTiles>(dv, a, ot + it * 16 * G::kStride, lane);
+    }
+    if (key0 < L) {
+      store_rows<G::kKT>(dk_out + head, ld, dk, j0, L, quad, c0, D);
+      store_rows<G::kKT>(dv_out + head, ld, dv, j0, L, quad, c0, D);
     }
   }
-
-  store_rows<G::kNTiles>(dk_out + head, ld, dk, j0, L, quad);
-  store_rows<G::kNTiles>(dv_out + head, ld, dv, j0, L, quad);
 }
 
 typedef const bf16* cbf16p;
@@ -642,26 +707,26 @@ int launch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
 
 // scratch, 16-byte aligned, written by kernel A and read by kernel B of
 // this call: B H L float4 of row statistics, then, with dropout (thr != 0)
-// and L <= kChunk, B H T^2 tiles of 8 words of keep bits, T = ceil(L / 16)
-// (ops/attention.py bwd_scratch allocates it)
+// and L <= 256, room for B H T^2 tiles of 8 words of keep bits, T =
+// ceil(L / 16), which kernel A writes where one chunk holds every key (L
+// <= Geom::kChunk) (ops/attention.py bwd_scratch allocates it). launch<D>
+// for the head dim D of [LO, HI] (multiples of 8) that equals d;
+// cudaErrorInvalidValue for any other d.
+template <int LO, int HI>
 int dispatch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
              const void* dout, bf16p dq, bf16p dk, bf16p dv, void* scratch,
-             int B, int L, int H, int D, float scale, unsigned seed,
+             int B, int L, int H, int d, float scale, unsigned seed,
              unsigned thr, float inv_keep, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(DIM)                                                       \
-  launch<DIM>(q, k, v, ld, bias, dout, dq, dk, dv, scratch, B, L, H, scale, \
-              seed, thr, inv_keep, s)
-  switch (D) {
-    case 8: return LAUNCH(8);
-    case 16: return LAUNCH(16);
-    case 24: return LAUNCH(24);
-    case 32: return LAUNCH(32);
-    case 48: return LAUNCH(48);
-    case 64: return LAUNCH(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  static_assert(LO % 8 == 0 && LO <= HI, "a range of multiples of 8");
+  if (d == LO)
+    return launch<LO>(q, k, v, ld, bias, dout, dq, dk, dv, scratch, B, L, H,
+                      scale, seed, thr, inv_keep,
+                      static_cast<cudaStream_t>(stream));
+  if constexpr (LO + 8 <= HI)
+    return dispatch<LO + 8, HI>(q, k, v, ld, bias, dout, dq, dk, dv, scratch,
+                                B, L, H, d, scale, seed, thr, inv_keep,
+                                stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace attn_bwd

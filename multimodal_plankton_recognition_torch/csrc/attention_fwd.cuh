@@ -33,7 +33,8 @@
 //
 // Design: grid (query tiles, H, B); a block of 8 warps takes one tile of
 // 128 query rows (16 a warp) of one (sample, head). K_h, V_h and the bias of up
-// to kChunk = 256 keys sit in shared memory, copied with 16-byte cp.async;
+// to kChunk keys (256 for D <= 64, fewer above so that a chunk fits shared
+// memory: Geom::kChunk) sit in shared memory, copied with 16-byte cp.async;
 // keys are padded to a multiple of 16 and the q.k^T depth to a multiple of
 // 16 (D 24 -> 32, D 8 -> 16), every pad zero-filled (stale shared memory
 // times a zero p could still give NaN; a padded key's bias is -inf), and
@@ -52,9 +53,18 @@
 // few warps an SM and no reuse of its instruction stream, while the
 // recomputed q.k^T is cheap on tensor cores.
 //
+// Head dims: every multiple of 8 up to 256, one instance each (dispatch's
+// range; the wrapper pads other head dims to the next multiple of 8). Up
+// to D 128 a warp holds all of O (16 n8-tiles, 64 f32 a thread) beside q's
+// fragments; above, O is cut into kGroups column groups of kGT n8-tiles
+// (V staged kGT kGroups 8 columns wide, the pad zero), and the P.V pass
+// runs once per group, recomputing z, so that q (64 registers at D 256)
+// and one group's O (64) fit a thread's 255 registers. Above D 64 an SM
+// holds one block (MinBlocks).
+//
 // Lengths above kChunk stream K_h (and V_h) through the same shared memory
-// in chunks of 256 keys in each pass, so the rounding points stay those of
-// the one-chunk path and no length is refused (the wrapper caps L at 65535
+// in chunks in each pass, so the rounding points stay those of the
+// one-chunk path and no length is refused (the wrapper caps L at 65535
 // so that the dropout counter r*L + j stays within 32 bits).
 //
 // The kernel launches on the caller's stream, does not synchronise and
@@ -76,31 +86,54 @@ using namespace tc;
 
 constexpr int kWarps = 8;
 constexpr int kTileRows = 16 * kWarps;  // query rows of a tile
-constexpr int kChunk = 256;             // keys of K_h / V_h staged at once
+constexpr int kMaxHeadDim = 256;
+// shared memory a block may take above D 64, where an SM holds one block
+constexpr int kWideSmem = 200 * 1024;
+
+// an odd number of 16-byte words of at least `cols` bf16 columns: rows
+// so strided put the 8 rows that one ldmatrix phase reads on 8 distinct
+// groups of 4 banks
+__host__ __device__ constexpr int odd_stride(int cols) {
+  return (cols / 8) % 2 ? cols : cols + 8;
+}
 
 template <int D>
 struct Geom {
-  static_assert(D % 8 == 0 && D <= 64, "head dim: a multiple of 8, <= 64");
+  static_assert(D % 8 == 0 && D >= 8 && D <= kMaxHeadDim,
+                "head dim: a multiple of 8, <= 256");
   static constexpr int kDp = (D + 15) / 16 * 16;  // q.k^T depth, padded
   static constexpr int kKSteps = kDp / 16;
-  // row strides in elements: an odd number of 16-byte words, so the 8 rows
-  // that one ldmatrix phase reads land on 8 distinct groups of 4 banks
-  static constexpr int kKStride = (kDp / 8) % 2 ? kDp : kDp + 8;
-  static constexpr int kVStride = (D / 8) % 2 ? D : D + 8;
   static constexpr int kOTiles = D / 8;  // n8 tiles of P.V
+  // column groups of O (one P.V pass each) and n8 tiles a group
+  static constexpr int kGroups = (kOTiles + 15) / 16;
+  static constexpr int kGT = (kOTiles + kGroups - 1) / kGroups;
+  static constexpr int kDv = kGroups * kGT * 8;  // V's staged width
+  static constexpr int kKStride = odd_stride(kDp);
+  static constexpr int kVStride = odd_stride(kDv);
+  // keys of K_h / V_h staged at once: 256, or as many (a multiple of 16)
+  // as fit kWideSmem above D 64
+  static constexpr int kRowBytes = 2 * (kKStride + kVStride) + 4;
+  static constexpr int kChunk =
+      D <= 64 ? 256
+              : (kWideSmem / kRowBytes / 16 * 16 < 256
+                     ? kWideSmem / kRowBytes / 16 * 16
+                     : 256);
 };
 
 // blocks an SM must be able to hold, which caps a thread's registers: 2
 // (128 registers) for D 32-64, which fit there with no spill, where
 // ptxas' own choice of 80 spills at D 32; 3 (80 registers) for D <= 24,
-// which fit there too and keep 24 warps an SM resident
+// which fit there too and keep 24 warps an SM resident; 1 above D 64,
+// where q's fragments and O take up to 128 registers
 template <int D>
 struct MinBlocks {
-  static constexpr int value = D >= 32 ? 2 : 3;
+  static constexpr int value = D > 64 ? 1 : D >= 32 ? 2 : 3;
 };
 
 // rows of K and V held in shared memory at length L
+template <int D>
 __host__ __device__ inline int chunk_rows(int L) {
+  constexpr int kChunk = Geom<D>::kChunk;
   return L < kChunk ? (L + 15) / 16 * 16 : kChunk;
 }
 
@@ -108,7 +141,19 @@ template <int D>
 size_t smem_bytes(int L) {
   using G = Geom<D>;
   return (sizeof(__nv_bfloat16) * (G::kKStride + G::kVStride) +
-          sizeof(float)) * (size_t)chunk_rows(L);
+          sizeof(float)) * (size_t)chunk_rows<D>(L);
+}
+
+// zero columns [from, to) of `rows` staged rows (row stride `stride`),
+// 16 bytes at a time: the pads that staging never writes
+__device__ __forceinline__ void zero_cols(__nv_bfloat16* base, int stride,
+                                          int rows, int from, int to) {
+  const int pieces = (to - from) / 8;
+  for (int i = threadIdx.x; i < rows * pieces; i += blockDim.x) {
+    const int r = i / pieces;
+    *reinterpret_cast<uint4*>(base + r * stride + from + (i - r * pieces) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // Copy keys [j0, j0 + n) of K_h (and V_h) into shared memory, their bias
@@ -153,8 +198,9 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
                __nv_bfloat16* __restrict__ out, int L, int H, float scale,
                uint32_t seed, uint32_t thr, float inv_keep) {
   using G = Geom<D>;
+  constexpr int kChunk = G::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cap = chunk_rows(L);
+  const int cap = chunk_rows<D>(L);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = ks + (size_t)cap * G::kKStride;
   float* bs = reinterpret_cast<float*>(vs + (size_t)cap * G::kVStride);
@@ -179,11 +225,10 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
   const __nv_bfloat16* kp = rows_lane(ks, G::kKStride, lane);
   const __nv_bfloat16* vp = cols_lane(vs, G::kVStride, lane);
 
-  if (G::kDp != D) {  // the q.k^T depth pad of K stays zero
-    for (int r = threadIdx.x; r < cap; r += kWarps * 32)
-      *reinterpret_cast<uint4*>(ks + r * G::kKStride + D) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
+  // the pads staging never writes stay zero: K's q.k^T depth, V's columns
+  // past D up to the last O group's
+  if (G::kDp != D) zero_cols(ks, G::kKStride, cap, D, G::kDp);
+  if (G::kDv != D) zero_cols(vs, G::kVStride, cap, D, G::kDv);
   if (chunks == 1) {  // K_h and V_h once
     stage<D>(ks, vs, bs, ksrc, vsrc, brow, ld, 0, L, true);
     cp_async_wait_all();
@@ -195,24 +240,25 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
 
   uint32_t qa[G::kKSteps][4];
   load_a<G::kKSteps>(qa, q_in + head, ld, r0, L, D, quad);
-  float o[G::kOTiles][4];
+  float o[G::kGT][4];
 #pragma unroll
-  for (int n = 0; n < G::kOTiles; ++n)
+  for (int n = 0; n < G::kGT; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float inv0 = 0.f, inv1 = 0.f;  // 1 / l, rounded to nearest
 
-  // three passes over the keys, each recomputing z bit for bit: the row
-  // max; the row sum of exp(z - max); p = exp(z - max) / sum, dropped,
-  // rounded to bf16 and multiplied by V
-  for (int pass = 0; pass < 3; ++pass) {
+  // passes over the keys, each recomputing z bit for bit: the row max; the
+  // row sum of exp(z - max); then, once for each column group of O, p =
+  // exp(z - max) / sum, dropped, rounded to bf16 and multiplied by V
+  for (int pass = 0; pass < 2 + G::kGroups; ++pass) {
+    const int c0 = (pass - 2) * G::kGT * 8;  // the group's first column
     for (int c = 0; c < chunks; ++c) {
       const int j0 = c * kChunk;
       const int n = min(kChunk, L - j0);
       const int tiles = (n + 15) / 16;
       if (chunks > 1) {
         __syncthreads();  // every warp is done with the previous chunk
-        stage<D>(ks, vs, bs, ksrc, vsrc, brow, ld, j0, n, pass == 2);
+        stage<D>(ks, vs, bs, ksrc, vsrc, brow, ld, j0, n, pass >= 2);
         cp_async_wait_all();
         __syncthreads();
       }
@@ -266,7 +312,7 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
               a[2 * t + row] = pack_bf16(x0, x1);
             }
           }
-          acc_cols<G::kOTiles>(o, a, vp + jt * 16 * G::kVStride, lane);
+          acc_cols<G::kGT>(o, a, vp + jt * 16 * G::kVStride + c0, lane);
         }
       }
     }
@@ -278,18 +324,22 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
       l1 = quad_sum(l1);
       inv0 = __frcp_rn(l0);
       inv1 = __frcp_rn(l1);
-    }
-  }
-
+    } else {  // the group's columns of O, then a fresh group
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + half * 8;
-    if (r < L) {
-      __nv_bfloat16* orow = out + ((size_t)b * L + r) * E + h * D;
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + half * 8;
+        if (r < L) {
+          __nv_bfloat16* orow = out + ((size_t)b * L + r) * E + h * D + c0;
 #pragma unroll
-      for (int n = 0; n < G::kOTiles; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * quad) =
-            pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
+          for (int n = 0; n < G::kGT; ++n)
+            if (G::kDv == D || c0 + n * 8 < D)
+              *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * quad) =
+                  pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < G::kGT; ++n)
+        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     }
   }
 }
@@ -312,23 +362,21 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
+// launch<D> for the head dim D of [LO, HI] (multiples of 8) that equals
+// d; cudaErrorInvalidValue for any other d
+template <int LO, int HI>
 int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k,
              const __nv_bfloat16* v, int ld, const void* bias, void* out,
-             int B, int L, int H, int D, float scale, unsigned seed,
+             int B, int L, int H, int d, float scale, unsigned seed,
              unsigned thr, float inv_keep, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(DIM) \
-  launch<DIM>(q, k, v, ld, bias, out, B, L, H, scale, seed, thr, inv_keep, s)
-  switch (D) {
-    case 8: return LAUNCH(8);
-    case 16: return LAUNCH(16);
-    case 24: return LAUNCH(24);
-    case 32: return LAUNCH(32);
-    case 48: return LAUNCH(48);
-    case 64: return LAUNCH(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  static_assert(LO % 8 == 0 && LO <= HI, "a range of multiples of 8");
+  if (d == LO)
+    return launch<LO>(q, k, v, ld, bias, out, B, L, H, scale, seed, thr,
+                      inv_keep, static_cast<cudaStream_t>(stream));
+  if constexpr (LO + 8 <= HI)
+    return dispatch<LO + 8, HI>(q, k, v, ld, bias, out, B, L, H, d, scale,
+                                seed, thr, inv_keep, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace attn_fwd

@@ -66,6 +66,17 @@
 //       db1 and db2 partials in a fixed order. db1 sums the f32 dpre, as
 //       the TPU kernel does, never the stored bf16 one. No float atomics,
 //       so a run repeats bit for bit.
+//   widths: E a multiple of 64 (the wrapper zero-pads x's columns, w1's
+//     rows, w2's columns and b2 to one, and slices y, dx and the weight
+//     gradients back). Up to 384 the row kernels above, one instance per
+//     width (kPing up to 192, kSplit above); beyond, in the library built
+//     with FFN_WIDE (ops/build.py UNITS), ffn_fwd_wide_kernel and
+//     ffn_bwd_wide_kernel: the rows cut into slices of y's (dx's) columns,
+//     h_pre and dh recomputed once a slice rather than the bf16 h written
+//     out for a second GEMM: no hidden but kernel 10's own dpre and h
+//     reaches device memory, and no product needs the shared GEMM's
+//     resident weight slice (64 x F, which does not fit shared memory at
+//     these F), then the same weight gradients.
 //
 // Each kernel launches on the caller's stream, does not synchronise and
 // allocates nothing; the entry points return a cudaError_t code.
@@ -136,7 +147,7 @@ constexpr int fwd_slots(int eb, int xb, int hbox, int tbuf) {
 
 template <int E, int MODE>
 struct FwdCfg {
-  static_assert(E % 64 == 0 && E <= 384, "width must be 64, 128, 192, 384");
+  static_assert(E % 64 == 0 && E <= 384, "width: a multiple of 64, <= 384");
   static_assert(MODE == kSplit || E <= 192, "kPing holds 64 x E f32 of y");
   static constexpr int EB = E / 64;              // 64-column boxes of a row
   static constexpr int RT = MODE == kPing ? 128 : 64;  // rows of a tile
@@ -524,7 +535,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
                         int nslot) {
   constexpr int EB = E / 64;         // 64-column boxes of a row of width E
   constexpr int NDX = (EB + 1) / 2;  // dx boxes of a warpgroup, at most
-  static_assert(E % 64 == 0 && E <= 384, "width must be 64, 128, 192, 384");
+  static_assert(E % 64 == 0 && E <= 384, "width: a multiple of 64, <= 384");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -781,13 +792,521 @@ __global__ void __launch_bounds__(1024)
 }
 
 // weight slots that fit beside the tiles, staging and exchange (0: none)
-inline int row_slots(int E, int tbuf) {
+[[maybe_unused]] inline int row_slots(int E, int tbuf) {
   const RowSmem base{E / 64, tbuf, 0};
   const long long left = (long long)kSmemMax - (long long)base.bytes() -
                          16 * kMaxSlots;
   const long long n = left / ((long long)(E / 64) * kBox);
   return (int)(n < kMaxSlots ? n : kMaxSlots);
 }
+
+// dw1t = bf16(dpre)^T . x and dw2 = h^T . dy on the shared weight-gradient
+// GEMM, then db1 and db2 from the row kernel's per-tile column sums
+inline int weight_grads(const void* x, const void* dy, void* dw1t, void* db1,
+                        void* dw2, void* db2, void* dpre, void* h,
+                        void* colpart, void* wpart, int groups, int rows,
+                        int E, int Fp, cudaStream_t stream) {
+  float* wp = static_cast<float*>(wpart);
+  cudaError_t err =
+      wgrad(dpre, x, wp, groups, dw1t, nullptr, rows, Fp, E, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = wgrad(h, dy, wp, groups, dw2, nullptr, rows, Fp, E, stream);
+  if (err != cudaSuccess) return (int)err;
+  colsum_kernel<<<(Fp + E + 31) / 32, 1024, 0, stream>>>(
+      static_cast<const float*>(colpart), (rows + 63) / 64, Fp, E,
+      static_cast<float*>(db1), static_cast<float*>(db2));
+  return (int)cudaGetLastError();
+}
+
+#ifdef FFN_WIDE
+// ------------------------- kernels 9 and 10 above E 384 ---------------------
+
+// Above E 384 a row tile's x (and dy) no longer fit shared memory beside a
+// chunk's weight rows, nor y's (dx's) 64 x E f32 the consumers' registers.
+// The wide kernels give a block a (64-row tile, slice of at most
+// kWideBoxes 64-column boxes of y or dx) work item: the whole hidden
+// dimension goes by for every slice, and h_pre (and dh) is recomputed
+// once a slice (ceil(E / 384) times), while y (dx) stays in registers
+// over every chunk, never rounded before the end, as in the narrow
+// kernels. x (dy) and the weights stream through one ring of TMA slots:
+// per chunk, one item per 64 columns of E (x's box and w1t's, and, in the
+// backward, dy's and w2's) for the h_pre (dh) products, then one item per
+// two boxes of the slice's w2 (w1t) rows for the y (dx) products. The
+// consumers release a slot once the product that read it is done
+// (wgmma.wait_group 1 once the next product is under way). Hidden columns
+// are split between the two consumer warpgroups (32 each, kSplit's layout),
+// y's (dx's) boxes alternate between them. Kernel 10's slice-0 blocks
+// store dpre, h and the column sums; the other slices only add dx.
+constexpr int kWideBoxes = 6;               // y (dx) boxes of a slice
+constexpr int kWideNY = kWideBoxes / 2;     // ... of a consumer warpgroup
+constexpr int kWideFwdSlots = 10;           // of 2 boxes: 160 KB
+constexpr int kWideBwdSlots = 5;            // of 4 boxes: 160 KB
+
+// slices of E's 64-column boxes (at most kWideBoxes each) and boxes of
+// every slice but maybe the last
+inline void wide_slices(int E, int& slices, int& per) {
+  const int eb = E / 64;
+  slices = (eb + kWideBoxes - 1) / kWideBoxes;
+  per = (eb + slices - 1) / slices;
+}
+
+// y (rows, E) as ffn_fwd_rows_kernel computes it, for E a multiple of 64
+// above 384; maps as there. Block b owns the work items b, b + gridDim.x,
+// ... of (64-row tile t, slice sl): item t slices + sl.
+template <typename TY>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ffn_fwd_wide_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap w1_map,
+                        const __grid_constant__ CUtensorMap w2_map,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ b2, TY* __restrict__ y,
+                        int rows, int E, int Fp, int slices, int per,
+                        bool relu, Drop drop) {
+  constexpr int nslot = kWideFwdSlots;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t h0 = base + nslot * 2 * kBox;
+  const uint32_t full = h0 + 2 * kBox, empty = full + 8 * nslot;
+  const int tiles = (rows + 63) / 64, chunks = Fp / 64, eb = E / 64;
+  const int items = tiles * slices;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto slot_s = [&](int s) { return base + (uint32_t)s * 2 * kBox; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const int t = w / slices, jb0 = (w % slices) * per;
+        const int nb = min(per, eb - jb0);
+        for (int c = 0; c < chunks; ++c) {
+          for (int kb = 0; kb < eb; ++kb, ++it) {  // x's box, w1t's box
+            const int s = it % nslot;
+            mbar_wait(empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, 2 * kBox);
+            tma_load(slot_s(s), &x_map, full + 8 * s, kb * 64, t * 64);
+            tma_load(slot_s(s) + kBox, &w1_map, full + 8 * s, kb * 64,
+                     c * 64);
+          }
+          for (int j = 0; j < nb; j += 2, ++it) {  // two boxes of w2 rows
+            const int s = it % nslot, n = min(2, nb - j);
+            mbar_wait(empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, n * kBox);
+            for (int q = 0; q < n; ++q)
+              tma_load(slot_s(s) + q * kBox, &w2_map, full + 8 * s,
+                       (jb0 + j + q) * 64, c * 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // the consumers: warpgroup wg takes hidden columns [32 wg, 32 wg + 32)
+  // of each chunk and the slice's boxes wg, wg + 2, ...; thread t holds
+  // rows r, r + 8 and columns 8 i + cq (+ 1) of each wgmma tile
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r = (warp & 3) * 16 + (lane >> 2), cq = (lane & 3) * 2;
+  auto h_s = [&](int c) { return h0 + (uint32_t)(c & 1) * kBox; };
+  // the slot of item `it` once its product is done: each warp's arrival
+  auto release = [&](int it) {
+    if (lane == 0) mbar_arrive(empty + 8 * (it % nslot));
+  };
+  int it = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const int t = w / slices, jb0 = (w % slices) * per;
+    const int nb = min(per, eb - jb0);
+    const int row0 = t * 64 + r;
+    float ya[kWideNY][32];
+#pragma unroll
+    for (int j = 0; j < kWideNY; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ya[j][i] = 0.f;
+    fence_acc(ya);
+
+    for (int c = 0; c < chunks; ++c) {
+      // h_pre = x . w1c^T over E's boxes, this warpgroup's 32 columns
+      float hp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hp[i] = 0.f;
+      fence_regs(hp);
+      for (int kb = 0; kb < eb; ++kb, ++it) {
+        const int s = it % nslot;
+        mbar_wait(full + 8 * s, (it / nslot) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma32<0, 0>(hp, desc_k(slot_s(s) + kk * 32),
+                        desc_k(slot_s(s) + kBox + wg * 32 * 128 + kk * 32));
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait1();
+          release(it - 1);
+        }
+      }
+      wgmma_wait();
+      fence_regs(hp);
+      release(it - 1);
+
+      // the elementwise step into this chunk's staging box
+      uint8_t* hst = smem_raw + (h_s(c) - raw);
+      const int f0 = c * 64, cb0 = wg * 32 + cq;
+      if (relu) {
+        if (drop.thr)
+          hidden_step<true, true>(hp, b1, hst, r, cb0, f0, row0, drop);
+        else
+          hidden_step<true, false>(hp, b1, hst, r, cb0, f0, row0, drop);
+      } else {
+        if (drop.thr)
+          hidden_step<false, true>(hp, b1, hst, r, cb0, f0, row0, drop);
+        else
+          hidden_step<false, false>(hp, b1, hst, r, cb0, f0, row0, drop);
+      }
+      fence_async_smem();
+      bar_sync(1, 256);
+
+      // y += h (64 x 64) . w2c (64 x 64 a box), this warpgroup's boxes
+#pragma unroll
+      for (int i = 0; i < kWideNY; ++i) {
+        if (2 * i >= nb) break;
+        const int s = it % nslot;
+        mbar_wait(full + 8 * s, (it / nslot) & 1);
+        wgmma_fence();
+        if (2 * i + wg < nb) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma64<0, 1>(ya[i], desc_k(h_s(c) + kk * 32),
+                          desc_mn(slot_s(s) + wg * kBox + kk * 2048));
+        }
+        wgmma_commit();
+        if (i > 0) {
+          wgmma_wait1();
+          release(it - 1);
+        }
+        ++it;
+      }
+      wgmma_wait();
+      fence_acc(ya);
+      release(it - 1);
+    }
+
+    // y + b2, cast once to TY
+#pragma unroll
+    for (int j = 0; j < kWideNY; ++j) {
+      if (2 * j + wg >= nb) continue;
+      const int box = jb0 + 2 * j + wg;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = box * 64 + 8 * i + cq;
+        const float c0 = b2[col], c1 = b2[col + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= rows) continue;
+          const float v0 = ya[j][4 * i + 2 * h] + c0;
+          const float v1 = ya[j][4 * i + 2 * h + 1] + c1;
+          if constexpr (sizeof(TY) == 4)
+            *reinterpret_cast<float2*>(y + (size_t)row * E + col) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(y + (size_t)row * E + col) =
+                pack2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <typename TY>
+int launch_fwd_wide(const void* x, const void* w1t, const void* b1,
+                    const void* w2, const void* b2, void* y, int rows, int E,
+                    int Fp, bool relu, Drop drop, cudaStream_t stream) {
+  CUtensorMap xm, w1m, w2m;
+  if (!make_map(&xm, x, rows, E, 64) || !make_map(&w1m, w1t, Fp, E, 64) ||
+      !make_map(&w2m, w2, Fp, E, 64))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kWideFwdSlots + 1) * 2 * kBox +
+                      16 * kWideFwdSlots + 1024;
+  cudaError_t err = set_smem(ffn_fwd_wide_kernel<TY>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int slices, per;
+  wide_slices(E, slices, per);
+  const int items = (rows + 63) / 64 * slices;
+  const int grid = items < sm_count() ? items : sm_count();
+  ffn_fwd_wide_kernel<TY><<<grid, kRowThreads, smem, stream>>>(
+      xm, w1m, w2m, static_cast<const float*>(b1),
+      static_cast<const float*>(b2), static_cast<TY*>(y), rows, E, Fp,
+      slices, per, relu, drop);
+  return (int)cudaGetLastError();
+}
+
+// the rows of the backward as ffn_bwd_rows_kernel computes them, for E a
+// multiple of 64 above 384: dx, and, from the slice-0 blocks, bf16(dpre),
+// the dropped bf16 h and the per-tile column sums of dpre and dy (colpart:
+// tiles x (Fp + E) f32, the same layout and order). Maps as there; work
+// items as ffn_fwd_wide_kernel's.
+template <typename TO>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    ffn_bwd_wide_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap dy_map,
+                        const __grid_constant__ CUtensorMap w1_map,
+                        const __grid_constant__ CUtensorMap w2_map,
+                        const __grid_constant__ CUtensorMap dp_map,
+                        const __grid_constant__ CUtensorMap h_map,
+                        const float* __restrict__ b1,
+                        float* __restrict__ colpart, TO* __restrict__ dx,
+                        int rows, int E, int Fp, int slices, int per,
+                        bool relu, Drop drop) {
+  constexpr int nslot = kWideBwdSlots;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t dp_s = base + nslot * 4 * kBox, h_s = dp_s + kBox;
+  float* red = reinterpret_cast<float*>(smem_raw + (h_s + kBox - raw));
+  const uint32_t full = h_s + kBox + 2 * 2 * 4 * 32 * 4;
+  const uint32_t empty = full + 8 * nslot;
+  const int tiles = (rows + 63) / 64, chunks = Fp / 64, eb = E / 64;
+  const int items = tiles * slices;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto slot_s = [&](int s) { return base + (uint32_t)s * 4 * kBox; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const int t = w / slices, jb0 = (w % slices) * per;
+        const int nb = min(per, eb - jb0);
+        for (int c = 0; c < chunks; ++c) {
+          // x's, dy's, w2's and w1t's box of E's columns kb
+          for (int kb = 0; kb < eb; ++kb, ++it) {
+            const int s = it % nslot;
+            const uint32_t d = slot_s(s), bar = full + 8 * s;
+            mbar_wait(empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(bar, 4 * kBox);
+            tma_load(d, &x_map, bar, kb * 64, t * 64);
+            tma_load(d + kBox, &dy_map, bar, kb * 64, t * 64);
+            tma_load(d + 2 * kBox, &w2_map, bar, kb * 64, c * 64);
+            tma_load(d + 3 * kBox, &w1_map, bar, kb * 64, c * 64);
+          }
+          for (int j = 0; j < nb; j += 2, ++it) {  // two boxes of w1t rows
+            const int s = it % nslot, n = min(2, nb - j);
+            mbar_wait(empty + 8 * s, ((it / nslot) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, n * kBox);
+            for (int q = 0; q < n; ++q)
+              tma_load(slot_s(s) + q * kBox, &w1_map, full + 8 * s,
+                       (jb0 + j + q) * 64, c * 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // the consumers: warpgroup wg computes hidden columns [32 wg, 32 wg + 32)
+  // of each chunk and the slice's dx boxes wg, wg + 2, ...; thread t holds
+  // rows r, r + 8 and columns 8 i + cq (+ 1) of each wgmma tile
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int tid = threadIdx.x;
+  const int r = (warp & 3) * 16 + (lane >> 2), cq = (lane & 3) * 2;
+  uint8_t* dp_gen = smem_raw + (dp_s - raw);
+  uint8_t* h_gen = smem_raw + (h_s - raw);
+  const size_t cstride = (size_t)Fp + E;
+  auto release = [&](int it) {
+    if (lane == 0) mbar_arrive(empty + 8 * (it % nslot));
+  };
+  int it = 0, nc = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const int t = w / slices, sl = w % slices, jb0 = sl * per;
+    const int nb = min(per, eb - jb0);
+    float dxa[kWideNY][32];
+#pragma unroll
+    for (int j = 0; j < kWideNY; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dxa[j][i] = 0.f;
+    fence_acc(dxa);
+
+    for (int c = 0; c < chunks; ++c, ++nc) {
+      // dh = dy . w2c^T and h_pre = x . w1c^T over E's boxes
+      float dh[16], hp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dh[i] = hp[i] = 0.f;
+      fence_regs(dh);
+      fence_regs(hp);
+      for (int kb = 0; kb < eb; ++kb, ++it) {
+        const int s = it % nslot;
+        const uint32_t d = slot_s(s);
+        mbar_wait(full + 8 * s, (it / nslot) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t wc = wg * 32 * 128 + kk * 32;
+          wgmma32<0, 0>(dh, desc_k(d + kBox + kk * 32),
+                        desc_k(d + 2 * kBox + wc));
+          wgmma32<0, 0>(hp, desc_k(d + kk * 32), desc_k(d + 3 * kBox + wc));
+        }
+        wgmma_commit();
+        if (c == 0 && sl == 0 && tid < 64) {
+          // db2's partial: the tile's column sums of dy, rows in order
+          // (rows past the end are TMA's zeros)
+          const uint8_t* dyb = smem_raw + (d + kBox - raw);
+          float sum = 0.f;
+          for (int rr = 0; rr < 64; ++rr)
+            sum += __bfloat162float(
+                *reinterpret_cast<const bf16*>(dyb + swz(rr, tid)));
+          colpart[(size_t)t * cstride + Fp + kb * 64 + tid] = sum;
+        }
+        if (kb > 0) {
+          wgmma_wait1();
+          release(it - 1);
+        }
+      }
+      wgmma_wait();
+      fence_regs(dh);
+      fence_regs(hp);
+      release(it - 1);
+
+      // the elementwise step: hp becomes the dropped h, dh becomes dpre
+      const int f0 = c * 64 + wg * 32;
+      float cs[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f0 + 8 * i + cq + e;
+          const float bb = b1[col];
+          cs[2 * i + e] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 4 * i + 2 * h + e;
+            const float z = round_bf16(hp[k] + bb);
+            float a, da;
+            act_pair(z, relu, a, da);
+            float hv = round_bf16(a), dd = dh[k];
+            if (drop.thr) {
+              const bool keep = drop.keep(t * 64 + r + 8 * h, col);
+              dd = keep ? dd * drop.inv_keep : 0.f;
+              hv = keep ? round_bf16(hv * drop.inv_keep) : 0.f;
+            }
+            hp[k] = hv;
+            dh[k] = dd * da;
+            cs[2 * i + e] += dh[k];
+          }
+        }
+      // column sums over the warp's 16 rows, in a fixed order
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          cs[q] += __shfl_xor_sync(0xffffffffu, cs[q], o);
+
+      if (tid == 0) bulk_wait_read();  // the last chunk's stores left staging
+      bar_sync(1, 256);
+      float* rd = red + (((nc & 1) * 2 + wg) * 4 + (warp & 3)) * 32;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t o = swz(r + 8 * h, wg * 32 + 8 * i + cq);
+          *reinterpret_cast<uint32_t*>(dp_gen + o) =
+              pack2(dh[4 * i + 2 * h], dh[4 * i + 2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(h_gen + o) =
+              pack2(hp[4 * i + 2 * h], hp[4 * i + 2 * h + 1]);
+        }
+        if (lane < 4) {
+          rd[8 * i + cq] = cs[2 * i];
+          rd[8 * i + cq + 1] = cs[2 * i + 1];
+        }
+      }
+      fence_async_smem();
+      bar_sync(1, 256);
+      if (sl == 0) {
+        if (tid == 0) {
+          tma_store(&dp_map, dp_s, c * 64, t * 64);
+          tma_store(&h_map, h_s, c * 64, t * 64);
+          bulk_commit();
+        }
+        if ((warp & 3) == 0) {  // db1's partial: the 4 warps' sums in order
+          const float* rw = red + ((nc & 1) * 2 + wg) * 4 * 32;
+          colpart[(size_t)t * cstride + f0 + lane] =
+              ((rw[lane] + rw[32 + lane]) + rw[64 + lane]) + rw[96 + lane];
+        }
+      }
+
+      // dx += bf16(dpre) (64 x 64) . w1c (64 x 64 a box), this
+      // warpgroup's boxes
+#pragma unroll
+      for (int i = 0; i < kWideNY; ++i) {
+        if (2 * i >= nb) break;
+        const int s = it % nslot;
+        mbar_wait(full + 8 * s, (it / nslot) & 1);
+        wgmma_fence();
+        if (2 * i + wg < nb) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma64<0, 1>(dxa[i], desc_k(dp_s + kk * 32),
+                          desc_mn(slot_s(s) + wg * kBox + kk * 2048));
+        }
+        wgmma_commit();
+        if (i > 0) {
+          wgmma_wait1();
+          release(it - 1);
+        }
+        ++it;
+      }
+      wgmma_wait();
+      fence_acc(dxa);
+      release(it - 1);
+    }
+
+    // dx, cast once to x's type
+#pragma unroll
+    for (int j = 0; j < kWideNY; ++j) {
+      if (2 * j + wg >= nb) continue;
+      const int box = jb0 + 2 * j + wg;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = box * 64 + 8 * i + cq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = t * 64 + r + 8 * h;
+          if (row >= rows) continue;
+          const float v0 = dxa[j][4 * i + 2 * h];
+          const float v1 = dxa[j][4 * i + 2 * h + 1];
+          if constexpr (sizeof(TO) == 4)
+            *reinterpret_cast<float2*>(dx + (size_t)row * E + col) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(dx + (size_t)row * E + col) =
+                pack2(v0, v1);
+        }
+      }
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+#endif  // FFN_WIDE
 
 template <int E, typename TO>
 int launch_bwd(const void* x, const void* w1t, const void* b1,
@@ -814,16 +1333,40 @@ int launch_bwd(const void* x, const void* w1t, const void* b1,
       drop, tbuf, nslot);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  float* wp = static_cast<float*>(wpart);
-  err = wgrad(dpre, x, wp, groups, dw1t, nullptr, rows, Fp, E, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = wgrad(h, dy, wp, groups, dw2, nullptr, rows, Fp, E, stream);
-  if (err != cudaSuccess) return (int)err;
-  colsum_kernel<<<(Fp + E + 31) / 32, 1024, 0, stream>>>(
-      static_cast<const float*>(colpart), tiles, Fp, E,
-      static_cast<float*>(db1), static_cast<float*>(db2));
-  return (int)cudaGetLastError();
+  return weight_grads(x, dy, dw1t, db1, dw2, db2, dpre, h, colpart, wpart,
+                      groups, rows, E, Fp, stream);
 }
+
+#ifdef FFN_WIDE
+template <typename TO>
+int launch_bwd_wide(const void* x, const void* w1t, const void* b1,
+                    const void* w2, const void* dy, void* dx, void* dw1t,
+                    void* db1, void* dw2, void* db2, void* dpre, void* h,
+                    void* colpart, void* wpart, int groups, int rows, int E,
+                    int Fp, bool relu, Drop drop, cudaStream_t stream) {
+  CUtensorMap xm, dym, w1m, w2m, dpm, hm;
+  if (!make_map(&xm, x, rows, E, 64) || !make_map(&dym, dy, rows, E, 64) ||
+      !make_map(&w1m, w1t, Fp, E, 64) || !make_map(&w2m, w2, Fp, E, 64) ||
+      !make_map(&dpm, dpre, rows, Fp, 64) || !make_map(&hm, h, rows, Fp, 64))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWideBwdSlots * 4 * kBox + 2 * kBox +
+                      2 * 2 * 4 * 32 * 4 + 16 * kWideBwdSlots + 1024;
+  cudaError_t err = set_smem(ffn_bwd_wide_kernel<TO>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int slices, per;
+  wide_slices(E, slices, per);
+  const int items = (rows + 63) / 64 * slices;
+  const int grid = items < sm_count() ? items : sm_count();
+  ffn_bwd_wide_kernel<TO><<<grid, kRowThreads, smem, stream>>>(
+      xm, dym, w1m, w2m, dpm, hm, static_cast<const float*>(b1),
+      static_cast<float*>(colpart), static_cast<TO*>(dx), rows, E, Fp,
+      slices, per, relu, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return weight_grads(x, dy, dw1t, db1, dw2, db2, dpre, h, colpart, wpart,
+                      groups, rows, E, Fp, stream);
+}
+#endif  // FFN_WIDE
 
 }  // namespace
 
@@ -833,9 +1376,11 @@ extern "C" {
 // when y_f32, else bf16; w1t and w2: (F, E) bf16 (w1 transposed), F a
 // multiple of 64; b1 (F,) and b2 (E,) f32. All contiguous, 16-byte
 // aligned. Dropout: keep a hidden unit when its hash bits are >= thr (thr
-// = 0: eval mode), scale kept ones by inv_keep. The tile layout is kPing
-// for E <= 192, kSplit for E 384. Returns a cudaError_t code (0 =
-// launched).
+// = 0: eval mode), scale kept ones by inv_keep. E a multiple of 64 (the
+// wrapper pads E): this library (ops/build.py UNITS) takes E <= 384 (tile
+// layout kPing for E <= 192, kSplit above) or, built with FFN_WIDE, E
+// above 384 (ffn_fwd_wide_kernel); cudaErrorInvalidValue for the others.
+// Returns a cudaError_t code (0 = launched).
 int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
             const void* b2, void* y, int rows, int E, int F, int relu,
             int y_f32, unsigned seed, unsigned thr, float inv_keep,
@@ -844,6 +1389,13 @@ int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
   if (rows == 0) return 0;
   const Drop drop{seed, thr, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef FFN_WIDE
+  if (E <= 384 || E % 64) return (int)cudaErrorInvalidValue;
+  return y_f32 ? launch_fwd_wide<float>(x, w1t, b1, w2, b2, y, rows, E, F,
+                                        relu, drop, s)
+               : launch_fwd_wide<bf16>(x, w1t, b1, w2, b2, y, rows, E, F,
+                                       relu, drop, s);
+#else
 #define FWD(W, M)                                                           \
   (y_f32 ? launch_fwd<W, M, float>(x, w1t, b1, w2, b2, y, rows, F, relu,    \
                                    drop, s)                                 \
@@ -853,10 +1405,13 @@ int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
     case 64: return FWD(64, kPing);
     case 128: return FWD(128, kPing);
     case 192: return FWD(192, kPing);
+    case 256: return FWD(256, kSplit);
+    case 320: return FWD(320, kSplit);
     case 384: return FWD(384, kSplit);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FWD
+#endif
 }
 
 // x, dy: (rows, E) bf16 (the wrapper rounds an f32 x and dy once); dx:
@@ -865,7 +1420,8 @@ int ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2,
 // (E,) f32. Scratch: dpre and h (rows, Fp) bf16, colpart ceil(rows / 64)
 // x (Fp + E) f32, wpart groups x Fp E f32, 1 <= groups <= ceil(rows /
 // 64) (ops/ffn.py bwd_scratch). All contiguous, 16-byte aligned. Dropout as
-// in ffn_fwd. Returns a cudaError_t code (0 = launched).
+// in ffn_fwd; the widths as there. Returns a cudaError_t code (0 =
+// launched).
 int ffn_bwd(const void* x, const void* w1t, const void* b1, const void* w2,
             const void* dy, void* dx, void* dw1t, void* db1, void* dw2,
             void* db2, void* dpre, void* h, void* colpart, void* wpart,
@@ -876,6 +1432,15 @@ int ffn_bwd(const void* x, const void* w1t, const void* b1, const void* w2,
     return (int)cudaErrorInvalidValue;
   const Drop drop{seed, thr, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef FFN_WIDE
+  if (E <= 384 || E % 64) return (int)cudaErrorInvalidValue;
+  return dx_f32 ? launch_bwd_wide<float>(x, w1t, b1, w2, dy, dx, dw1t, db1,
+                                         dw2, db2, dpre, h, colpart, wpart,
+                                         groups, rows, E, F, relu, drop, s)
+                : launch_bwd_wide<bf16>(x, w1t, b1, w2, dy, dx, dw1t, db1,
+                                        dw2, db2, dpre, h, colpart, wpart,
+                                        groups, rows, E, F, relu, drop, s);
+#else
 #define BWD(W)                                                              \
   (dx_f32 ? launch_bwd<W, float>(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2,    \
                                  db2, dpre, h, colpart, wpart, groups, rows, \
@@ -887,10 +1452,13 @@ int ffn_bwd(const void* x, const void* w1t, const void* b1, const void* w2,
     case 64: return BWD(64);
     case 128: return BWD(128);
     case 192: return BWD(192);
+    case 256: return BWD(256);
+    case 320: return BWD(320);
     case 384: return BWD(384);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BWD
+#endif
 }
 
 const char* cuda_error_string(int code) {

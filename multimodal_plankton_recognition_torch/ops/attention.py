@@ -39,6 +39,16 @@ keys) or ``None`` for no mask. Returns (B, L, E) in the input dtype. The
 bias gets no gradient: the module builds it from the padding mask, and the
 JAX module drops its cotangent too.
 
+Head dims. The kernels are instantiated for every multiple of 8 up to
+``MAX_HEAD_DIM`` = 256 (``KERNEL_HEAD_DIMS``), in four libraries by range
+(``build.ATTENTION_RANGES``). Another head dim up to 256 takes the padding
+route (``pad_heads``): the operands are copied into heads of the next
+multiple of 8, zero in the new columns, which change no q·kᵀ and give
+zero output and gradient columns; the scale stays ``1/sqrt(d)`` of the
+true d, the dropout bits are those of (sample, head, row, key) as before,
+and the outputs are sliced back (``unpad_heads``). A head dim above 256
+is refused before any launch.
+
 Dropout. The TPU kernel draws its mask from the TPU PRNG, which has no
 counterpart here; both kernels and the plain versions draw it instead from
 a counter-based hash of (seed, sample, head, query row, key)
@@ -69,11 +79,16 @@ from . import build
 __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
            "mha_qkv_bwd_reference", "mha", "mha_bwd", "mha_reference",
            "mha_bwd_reference", "hash_bits", "dropout_bits",
-           "dropout_threshold", "keep_factor", "SUPPORTED_HEAD_DIMS",
-           "MAX_LENGTH", "mha_qkv_fwd_op", "mha_fwd_op"]
+           "dropout_threshold", "keep_factor", "MAX_HEAD_DIM",
+           "KERNEL_HEAD_DIMS", "MAX_LENGTH", "mha_qkv_fwd_op", "mha_fwd_op",
+           "kernel_head_dim", "pad_heads", "unpad_heads"]
 
-#: head dims the CUDA kernels are instantiated for (csrc/attention_*.cu)
-SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 48, 64)
+#: the largest head dim the CUDA kernels take (csrc/attention_*.cuh)
+MAX_HEAD_DIM = build.ATTENTION_RANGES[-1][1]
+#: head dims the CUDA kernels are instantiated for: every multiple of 8 up
+#: to MAX_HEAD_DIM, in the libraries of build.ATTENTION_RANGES; the others
+#: up to it are padded to one of these
+KERNEL_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
 #: the longest sequence the kernels take: the dropout counter r*L + j of
 #: csrc/dropout.cuh is 32 bits (the forward and the backward stream longer
 #: rows through shared memory)
@@ -231,19 +246,52 @@ def _declare(fn, n_ptr: int) -> None:
 
 
 @functools.cache
-def _fwd_lib() -> ctypes.CDLL:
-    lib = build.load("attention_fwd")
+def _fwd_lib(d: int = 64) -> ctypes.CDLL:
+    """The forward's library that holds head dim ``d`` of
+    ``KERNEL_HEAD_DIMS``."""
+    lib = build.load(build.attention_unit("fwd", d))
     _declare(lib.mha_qkv_fwd_bf16, 3)
     _declare(lib.mha_fwd_bf16, 5)
     return lib
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load("attention_bwd")
+def _bwd_lib(d: int = 64) -> ctypes.CDLL:
+    lib = build.load(build.attention_unit("bwd", d))
     _declare(lib.mha_qkv_bwd_bf16, 5)
     _declare(lib.mha_bwd_bf16, 9)
     return lib
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run for a true head dim ``d``: the next
+    multiple of 8."""
+    return -(-d // 8) * 8
+
+
+def pad_heads(x: torch.Tensor, parts: int, heads: int, d: int
+              ) -> torch.Tensor:
+    """``x`` (B, L, parts·heads·d) as (B, L, parts·heads·dk), dk =
+    ``kernel_head_dim(d)``: each head's d columns first, zeros after."""
+    dk = kernel_head_dim(d)
+    if dk == d:
+        return x
+    b, l, _ = x.shape
+    out = x.new_zeros((b, l, parts, heads, dk))
+    out[..., :d] = x.reshape(b, l, parts, heads, d)
+    return out.reshape(b, l, parts * heads * dk)
+
+
+def unpad_heads(x: torch.Tensor, parts: int, heads: int, d: int
+                ) -> torch.Tensor:
+    """The inverse of ``pad_heads``: each head's first d columns, as a
+    contiguous (B, L, parts·heads·d)."""
+    dk = kernel_head_dim(d)
+    if dk == d:
+        return x
+    b, l, _ = x.shape
+    return x.reshape(b, l, parts, heads, dk)[..., :d].reshape(
+        b, l, parts * heads * d)
 
 
 def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
@@ -259,11 +307,14 @@ def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
                          f"by heads={heads}, got {tuple(qkv.shape)}")
     b, l, e3 = qkv.shape
     d = e3 // (parts * heads)
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above the kernels' limit "
+                         f"MAX_HEAD_DIM={MAX_HEAD_DIM}")
     # the kernels copy 16 bytes a thread: every row starts on a 16-byte
-    # boundary when the base does (D is a multiple of 8)
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+    # boundary when the base does and D is a multiple of 8; any other D
+    # takes the padding route, whose copy is a fresh contiguous tensor
+    if kernel_head_dim(d) == d and (not qkv.is_contiguous()
+                                    or qkv.data_ptr() % 16):
         raise ValueError(f"{what} must be contiguous and 16-byte aligned")
     if l > MAX_LENGTH:
         raise ValueError(f"sequence length {l} above the kernels' limit "
@@ -318,10 +369,13 @@ def bwd_scratch(b: int, l: int, heads: int, dropout_p: float,
 
 
 def _launch_args(qkv, bias_rows, heads, dropout_p, seed, parts: int = 3):
+    """(B, L, H, the kernels' head dim, the scale of the true head dim,
+    seed, threshold, 1 / (1 - p)): what every entry point takes."""
     d = _check_cuda_args(qkv, bias_rows, heads, parts)
     b, l, _ = qkv.shape
-    return (b, l, heads, d, 1.0 / math.sqrt(d), seed & _MASK32,
-            dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+    return (b, l, heads, kernel_head_dim(d), 1.0 / math.sqrt(d),
+            seed & _MASK32, dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p))
 
 
 def _fwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor], heads: int,
@@ -331,8 +385,11 @@ def _fwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor], heads: int,
         return mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
     args = _launch_args(qkv, bias_rows, heads, dropout_p, seed)
     b, l, e3 = qkv.shape
-    out = torch.empty((b, l, e3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = _fwd_lib()
+    d, dk = e3 // (3 * heads), args[3]
+    qkv = pad_heads(qkv, 3, heads, d)
+    out = torch.empty((b, l, heads * dk), dtype=qkv.dtype,
+                      device=qkv.device)
+    lib = _fwd_lib(dk)
     with torch.cuda.device(qkv.device):
         err = lib.mha_qkv_fwd_bf16(
             qkv.data_ptr(),
@@ -340,7 +397,7 @@ def _fwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor], heads: int,
             out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_fwd")
     mha_qkv.launches += 1
-    return out
+    return unpad_heads(out, 1, heads, d)
 
 
 def mha_qkv_bwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
@@ -357,10 +414,12 @@ def mha_qkv_bwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
     dout = _aligned(dout.to(qkv.dtype))
     if dout.shape != (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3):
         raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
+    d, dk = qkv.shape[2] // (3 * heads), args[3]
+    qkv, dout = pad_heads(qkv, 3, heads, d), pad_heads(dout, 1, heads, d)
     dqkv = torch.empty_like(qkv)
     scratch = bwd_scratch(qkv.shape[0], qkv.shape[1], heads, dropout_p,
                           qkv.device)
-    lib = _bwd_lib()
+    lib = _bwd_lib(dk)
     with torch.cuda.device(qkv.device):
         err = lib.mha_qkv_bwd_bf16(
             qkv.data_ptr(),
@@ -369,7 +428,7 @@ def mha_qkv_bwd(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_bwd")
     mha_qkv_bwd.launches += 1
-    return dqkv
+    return unpad_heads(dqkv, 3, heads, d)
 
 
 class _MhaQkv(torch.autograd.Function):
@@ -449,8 +508,10 @@ def _mha_fwd(q, k, v, bias_rows, heads, dropout_p, seed) -> torch.Tensor:
     if _check_device(q):
         return mha_reference(q, k, v, bias_rows, heads, dropout_p, seed)
     args = _separate(q, k, v, bias_rows, heads, dropout_p, seed)
+    d, dk = q.shape[2] // heads, args[3]
+    q, k, v = (pad_heads(t, 1, heads, d) for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _fwd_lib()
+    lib = _fwd_lib(dk)
     with torch.cuda.device(q.device):
         err = lib.mha_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -458,7 +519,7 @@ def _mha_fwd(q, k, v, bias_rows, heads, dropout_p, seed) -> torch.Tensor:
             out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_fwd (separate q, k, v)")
     mha.launches += 1
-    return out
+    return unpad_heads(out, 1, heads, d)
 
 
 def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -475,10 +536,12 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout = _aligned(dout.to(q.dtype))
     if dout.shape != q.shape:
         raise ValueError(f"dout must be (B, L, E), got {tuple(dout.shape)}")
+    d, dkern = q.shape[2] // heads, args[3]
+    q, k, v, dout = (pad_heads(t, 1, heads, d) for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     scratch = bwd_scratch(q.shape[0], q.shape[1], heads, dropout_p,
                           q.device)
-    lib = _bwd_lib()
+    lib = _bwd_lib(dkern)
     with torch.cuda.device(q.device):
         err = lib.mha_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -487,7 +550,7 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scratch.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attention_bwd (separate q, k, v)")
     mha_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(t, 1, heads, d) for t in (dq, dk, dv))
 
 
 class _Mha(torch.autograd.Function):

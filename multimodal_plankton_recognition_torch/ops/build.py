@@ -8,6 +8,13 @@ shared headers (``csrc/*.cuh``) and the flags, so a changed source rebuilds
 and an unchanged one loads at once. The build happens at first use, never
 at import; ``build_all`` starts one ``nvcc`` per source, all at once.
 
+A source may build into several libraries, its translation units
+(``UNITS``): the same file under other ``-D`` flags, so that the
+instances of a kernel that many shapes need compile in parallel
+(``csrc/attention_{fwd,bwd}.cu`` by range of head dims, ``csrc/ffn.cu``
+by width). Each unit is a name of its own to ``build``, ``load`` and
+``build_all``.
+
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
 """
@@ -20,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -30,6 +38,37 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+#: the head dims (multiples of 8) of each attention library: the first is
+#: the sources' own range, each other a unit of its own
+ATTENTION_RANGES = ((8, 64), (72, 128), (136, 192), (200, 256))
+
+
+def attention_unit(way: str, d: int) -> str:
+    """The unit of ``csrc/attention_<way>.cu`` (way "fwd" or "bwd") that
+    holds head dim ``d``: ``attention_<way>`` for 8-64, else
+    ``attention_<way>_d<top of its range>``."""
+    top = next(hi for _, hi in ATTENTION_RANGES if d <= hi)
+    return f"attention_{way}" + ("" if top == ATTENTION_RANGES[0][1]
+                                 else f"_d{top}")
+
+
+#: unit name -> (source under csrc/ without ``.cu``, its extra nvcc
+#: flags); a name not listed is its own source with no extra flag. The
+#: FFN source takes the widths up to 384 by default.
+UNITS = {
+    **{attention_unit(way, hi): (f"attention_{way}", (f"-DATTN_D_LO={lo}",
+                                                      f"-DATTN_D_HI={hi}"))
+       for way in ("fwd", "bwd") for lo, hi in ATTENTION_RANGES[1:]},
+    "ffn_wide": ("ffn", ("-DFFN_WIDE=1",)),
+}
+#: seconds of each ``nvcc`` this process ran, by unit name
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def _unit(name: str):
+    return UNITS.get(name, (name, ()))
 
 
 class KernelBuildError(RuntimeError):
@@ -52,31 +91,37 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: ``_build/<name>-<hash>.so``."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    """Where unit ``name`` builds to: ``_build/<name>-<hash>.so``, the hash
+    of its source, the shared headers and its flags."""
+    source, flags = _unit(name)
+    digest = hashlib.sha256((CSRC_DIR / f"{source}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists. nvcc's
-    output (ptxas register and spill counts) is kept beside the library
-    as ``.log``."""
+    """Compile unit ``name`` (``csrc/<source>.cu`` under its flags) unless
+    its hashed library exists. nvcc's output (ptxas register and spill
+    counts) is kept beside the library as ``.log``, its seconds in
+    ``BUILD_SECONDS``."""
     lib = library_path(name)
     if lib.exists():
         return lib
+    source, flags = _unit(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           str(CSRC_DIR / f"{source}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(
-            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stderr}{proc.stdout}")
+            f"nvcc failed on csrc/{source}.cu {' '.join(flags)} (exit "
+            f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
     lib.with_suffix(".log").write_text(proc.stderr + proc.stdout)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a torn file
     return lib
@@ -92,8 +137,8 @@ def build_all(names) -> Dict[str, Path]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; one handle per
-    process. Every source exports ``cuda_error_string``."""
+    """Build (if needed) and load unit ``name``; one handle per process.
+    Every source exports ``cuda_error_string``."""
     lib = ctypes.CDLL(str(build(name)))
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p

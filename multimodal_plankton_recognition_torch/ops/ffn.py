@@ -35,6 +35,13 @@ draw it instead from a counter-based hash of (seed, flattened row
 nothing stored, and kernel and plain version agree bit for bit on it. A
 hidden unit is kept when its 32 bits are >= ``p * 2**32``.
 
+Widths. The kernels take E a multiple of 64 (``E_ALIGN``): up to 384
+(``NARROW_WIDTHS``) the row kernels of ``csrc/ffn.cu``, above it the wide
+kernels of the same source built with ``FFN_WIDE`` (the library
+``ffn_wide``). Any other E >= 1 is zero-padded by the wrappers: x's
+columns, w1's rows, w2's columns and b2, which add nothing to any product
+(``_prep``); y, dx and the weight gradients are sliced back.
+
 Where no gradient will be taken, ``ffn_core`` calls the forward as the
 registered op ``plankton::ffn_fwd`` (CUDA: kernel 9; CPU: the plain
 version; a fake implementation for symbolic sizes), so that
@@ -55,12 +62,15 @@ from .attention import (_MASK32, _needs_grad, dropout_threshold, hash_bits,
 
 __all__ = ["ffn_core", "ffn_fwd", "ffn_bwd", "ffn_reference",
            "ffn_bwd_reference", "ffn_dropout_bits", "bwd_scratch",
-           "ffn_fwd_op", "ACTIVATIONS", "SUPPORTED_WIDTHS"]
+           "ffn_fwd_op", "ACTIVATIONS", "NARROW_WIDTHS", "E_ALIGN",
+           "kernel_width"]
 
 ACTIVATIONS = ("gelu", "relu")
-#: model widths E the CUDA kernels are instantiated for (csrc/ffn.cu): the
-#: ViTs' 192 and 384 and the profile transformers' 64, 128 and 192
-SUPPORTED_WIDTHS = (64, 128, 192, 384)
+#: the kernels' boxes are 64 columns; E is zero-padded to a multiple of this
+E_ALIGN = 64
+#: widths the row kernels of csrc/ffn.cu are instantiated for; the wide
+#: kernels (library ffn_wide) take every multiple of 64 above
+NARROW_WIDTHS = (64, 128, 192, 256, 320, 384)
 #: the kernels' hidden chunks are 64 columns; F is zero-padded to this
 F_ALIGN = 64
 _C = 0.7978845608028654  # sqrt(2/pi), flax nn.gelu's tanh approximation
@@ -150,13 +160,20 @@ _SCALARS = [ctypes.c_int] * 5 + [ctypes.c_uint, ctypes.c_uint,
                                  ctypes.c_float, ctypes.c_void_p]
 
 
+def kernel_width(e: int) -> int:
+    """The width the kernels run for a model width ``e``: the next
+    multiple of ``E_ALIGN``."""
+    return -(-e // E_ALIGN) * E_ALIGN
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(wide: bool = False) -> ctypes.CDLL:
     """ffn_fwd(x, w1t, b1, w2, b2, y, rows, E, F, relu, y_f32, seed, thr,
     inv_keep, stream); ffn_bwd(x, w1t, b1, w2, dy, dx, dw1t, db1, dw2, db2,
     dpre, h, colpart, wpart, groups, rows, E, F, relu, dx_f32, seed, thr,
-    inv_keep, stream). Both return a cudaError_t."""
-    lib = build.load("ffn")
+    inv_keep, stream). Both return a cudaError_t. ``wide``: the library of
+    the widths above 384."""
+    lib = build.load("ffn_wide" if wide else "ffn")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ffn_fwd.argtypes = [vp] * 6 + _SCALARS
     lib.ffn_fwd.restype = ci
@@ -182,9 +199,12 @@ def _rows(t: torch.Tensor, rows: int, e: int) -> torch.Tensor:
 
 
 def _prep(x, w1, b1, w2, b2, activation, dropout_p):
-    """Check what the kernels take; return (x as (rows, E), w1ᵀ and w2 as
-    (Fp, E) bf16, b1 (Fp,) and b2 (E,) f32, the scalars): F zero-padded to
-    ``F_ALIGN``, which adds hidden units of value 0 and gradient 0."""
+    """Check what the kernels take; return (x as (rows, Ep), w1ᵀ and w2 as
+    (Fp, Ep) bf16, b1 (Fp,) and b2 (Ep,) f32, rows, e, f, ep, fp, the
+    scalars): F zero-padded to ``F_ALIGN``, which adds hidden units of
+    value 0 and gradient 0, and E to ``E_ALIGN``, which adds input
+    columns of value 0 (x's columns, w1's rows) and output columns the
+    caller drops (w2's columns, b2)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}, got "
                          f"{activation!r}")
@@ -193,9 +213,7 @@ def _prep(x, w1, b1, w2, b2, activation, dropout_p):
                         f"{tuple(x.shape)} {x.dtype}")
     e = x.shape[-1]
     f = w1.shape[1]
-    if e not in SUPPORTED_WIDTHS:
-        raise ValueError(f"width {e} not in {SUPPORTED_WIDTHS}")
-    if (tuple(w1.shape) != (e, f) or tuple(w2.shape) != (f, e)
+    if (e < 1 or tuple(w1.shape) != (e, f) or tuple(w2.shape) != (f, e)
             or b1.numel() != f or b2.numel() != e):
         raise ValueError(f"weights must be w1 ({e}, F), b1 (F,), w2 (F, "
                          f"{e}), b2 ({e},), got {tuple(w1.shape)}, "
@@ -205,24 +223,26 @@ def _prep(x, w1, b1, w2, b2, activation, dropout_p):
         if t.device != x.device:
             raise ValueError(f"weights on {t.device}, x on {x.device}")
     rows = x.numel() // e
-    if rows >= 2 ** 31 // max(e, f):
+    ep, fp = kernel_width(e), -(-f // F_ALIGN) * F_ALIGN
+    if rows >= 2 ** 31 // max(ep, fp):
         raise ValueError(f"{rows} rows exceed the kernels' 32-bit indexing")
-    fp = -(-f // F_ALIGN) * F_ALIGN
 
-    def pad(t: torch.Tensor, dtype) -> torch.Tensor:
+    def pad(t: torch.Tensor, dtype, shape) -> torch.Tensor:
         t = t.detach().to(dtype)
-        if fp == f:
+        if tuple(t.shape) == shape:
             return t.contiguous()
-        out = torch.zeros((fp,) + tuple(t.shape[1:]), dtype=dtype,
-                          device=t.device)
-        out[:f] = t
+        out = torch.zeros(shape, dtype=dtype, device=t.device)
+        out[tuple(slice(0, n) for n in t.shape)] = t
         return out
 
+    x2 = x.reshape(rows, e)
     scalars = (int(activation == "relu"), int(x.dtype == torch.float32))
-    return (_rows(x, rows, e), pad(w1.t(), BF16),
-            pad(b1.reshape(f), torch.float32), pad(w2, BF16),
-            b2.detach().reshape(e).float().contiguous(), rows, e, f, fp,
-            scalars, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+    return (_rows(pad(x2, x.dtype, (rows, ep)), rows, ep),
+            pad(w1.t(), BF16, (fp, ep)), pad(b1.reshape(f), torch.float32,
+                                             (fp,)),
+            pad(w2, BF16, (fp, ep)), pad(b2.reshape(e), torch.float32, (ep,)),
+            rows, e, f, ep, fp, scalars, dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p))
 
 
 def ffn_fwd(x, w1, b1, w2, b2, activation: str = "gelu",
@@ -231,19 +251,21 @@ def ffn_fwd(x, w1, b1, w2, b2, activation: str = "gelu",
     dtype. ``ffn_fwd.launches`` counts launches."""
     if _on_cpu(x):
         return ffn_reference(x, w1, b1, w2, b2, activation, dropout_p, seed)
-    (x2, w1t, b1p, w2p, b2f, rows, e, _, fp, (relu, y_f32), thr,
+    (x2, w1t, b1p, w2p, b2p, rows, e, _, ep, fp, (relu, y_f32), thr,
      inv_keep) = _prep(x, w1, b1, w2, b2, activation, dropout_p)
     # h_pre reads x rounded to bf16 (the TPU kernel's _bf): once here
     xb = x2 if x2.dtype == BF16 else x2.to(BF16)
     y = torch.empty_like(x2)
-    lib = _lib()
+    lib = _lib(ep > NARROW_WIDTHS[-1])
     with torch.cuda.device(x.device):
         err = lib.ffn_fwd(xb.data_ptr(), w1t.data_ptr(), b1p.data_ptr(),
-                          w2p.data_ptr(), b2f.data_ptr(), y.data_ptr(), rows,
-                          e, fp, relu, y_f32, seed & _MASK32, thr, inv_keep,
+                          w2p.data_ptr(), b2p.data_ptr(), y.data_ptr(), rows,
+                          ep, fp, relu, y_f32, seed & _MASK32, thr, inv_keep,
                           torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "ffn_fwd")
     ffn_fwd.launches += 1
+    if ep != e:
+        y = y[:, :e].contiguous()
     return y.reshape(x.shape)
 
 
@@ -273,36 +295,42 @@ def ffn_bwd(x, w1, b1, w2, b2, dy, activation: str = "gelu",
     if _on_cpu(x):
         return ffn_bwd_reference(x, w1, b1, w2, b2, dy, activation,
                                  dropout_p, seed)
-    (x2, w1t, b1p, w2p, _, rows, e, f, fp, (relu, x_f32), thr,
+    (x2, w1t, b1p, w2p, _, rows, e, f, ep, fp, (relu, x_f32), thr,
      inv_keep) = _prep(x, w1, b1, w2, b2, activation, dropout_p)
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got "
                          f"{tuple(dy.shape)}")
     # both products round x and dy to bf16 (the TPU kernel's _bf): once here
     xb = x2 if x2.dtype == BF16 else x2.to(BF16)
-    dyb = _rows(dy.to(x.dtype).to(BF16), rows, e)
-    groups = hopper_gemm.wgrad_groups(rows, fp, e,
+    dyb = dy.to(x.dtype).to(BF16).reshape(rows, e)
+    if ep != e:
+        dyb = torch.nn.functional.pad(dyb, (0, ep - e))
+    dyb = _rows(dyb, rows, ep)
+    groups = hopper_gemm.wgrad_groups(rows, fp, ep,
                                       hopper_gemm.sm_count(x.device))
-    layout, total = bwd_scratch(rows, e, fp, groups)
+    layout, total = bwd_scratch(rows, ep, fp, groups)
     scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
     part = {name: scratch.data_ptr() + offset
             for name, (offset, _) in layout.items()}
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
     dx = torch.empty_like(x2)
-    dw1t, db1, dw2, db2 = f32((fp, e)), f32(fp), f32((fp, e)), f32(e)
-    lib = _lib()
+    dw1t, db1, dw2, db2 = f32((fp, ep)), f32(fp), f32((fp, ep)), f32(ep)
+    lib = _lib(ep > NARROW_WIDTHS[-1])
     with torch.cuda.device(x.device):
         err = lib.ffn_bwd(
             xb.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
             dyb.data_ptr(), dx.data_ptr(), dw1t.data_ptr(), db1.data_ptr(),
             dw2.data_ptr(), db2.data_ptr(), part["dpre"], part["h"],
-            part["colpart"], part["wpart"], groups, rows, e, fp, relu, x_f32,
+            part["colpart"], part["wpart"], groups, rows, ep, fp, relu, x_f32,
             seed & _MASK32, thr, inv_keep,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "ffn_bwd")
     ffn_bwd.launches += 1
-    return (dx.reshape(x.shape), dw1t[:f].t(), db1[:f], dw2[:f], db2)
+    if ep != e:
+        dx = dx[:, :e].contiguous()
+    return (dx.reshape(x.shape), dw1t[:f, :e].t(), db1[:f], dw2[:f, :e],
+            db2[:e])
 
 
 ffn_fwd.launches = 0

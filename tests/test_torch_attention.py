@@ -29,7 +29,9 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.ops.attention import (
-    MAX_LENGTH, _check_cuda_args, mha, mha_bwd, mha_qkv, mha_qkv_reference,
+    MAX_HEAD_DIM, MAX_LENGTH, _check_cuda_args, _launch_args,
+    kernel_head_dim, mha, mha_bwd, mha_qkv, mha_qkv_reference, pad_heads,
+    unpad_heads,
 )
 
 SHAPES = [(3, 17, 48), (4, 21, 32)]  # (heads, L, E): head dims 16 and 8
@@ -121,9 +123,14 @@ def test_module_matches_jax_module(dtype, masked, monkeypatch):
 def test_cuda_admission_rules():
     """What ``_check_cuda_args`` lets through to the kernels, held on CPU
     tensors: a contiguous 16-byte-aligned base (the kernels copy 16 bytes
-    a thread; 4-byte alignment, the old rule, is refused) and at most
-    ``MAX_LENGTH`` tokens (the 32-bit dropout counter), each refused with
-    the rule in its message."""
+    a thread; 4-byte alignment, the old rule, is refused), at most
+    ``MAX_LENGTH`` tokens (the 32-bit dropout counter) and head dims up to
+    ``MAX_HEAD_DIM``, each refused with the rule in its message; and the
+    padding route of a head dim that is not a multiple of 8: the repack's
+    layout (each head's columns first, zeros to the next multiple of 8,
+    q, k and v alike), its inverse, an operand off the 16-byte line or
+    strided let through (the repack copies it), and the launch arguments
+    (the kernels' head dim, the scale of the true one)."""
     b, l, heads, d = 2, 9, 3, 16
     n = b * l * 3 * heads * d
     flat = torch.zeros(n + 8, dtype=torch.bfloat16)
@@ -146,6 +153,41 @@ def test_cuda_admission_rules():
     assert _check_cuda_args(at_limit, None, 1) == 8
     # the dropout counter of the longest row stays within 32 bits
     assert MAX_LENGTH ** 2 <= 2 ** 32 - 1
+
+    # head dims: every one up to MAX_HEAD_DIM, none above
+    for d in (1, 20, 40, 100, MAX_HEAD_DIM):
+        x = torch.zeros((2, 3, 3 * 2 * d), dtype=torch.bfloat16)
+        assert _check_cuda_args(x, None, 2) == d
+    wide = torch.zeros((2, 3, 3 * (MAX_HEAD_DIM + 8)), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
+        _check_cuda_args(wide, None, 1)
+    assert [kernel_head_dim(d) for d in (8, 20, 24, 33, 250, 256)] == [
+        8, 24, 24, 40, 256, 256]
+
+    # the padding route: d 20 runs as 24
+    heads, d = 3, 20
+    rs = np.random.RandomState(7)
+    qkv = torch.from_numpy(rs.randn(b, l, 3 * heads * d).astype(
+        np.float32)).to(torch.bfloat16)
+    padded = pad_heads(qkv, 3, heads, d)
+    assert padded.shape == (b, l, 3 * heads * 24) and padded.is_contiguous()
+    assert padded.data_ptr() % 16 == 0
+    blocks = padded.view(b, l, 3, heads, 24)
+    assert torch.equal(blocks[..., :d],
+                       qkv.view(b, l, 3, heads, d))  # q, k, v; each head
+    assert not blocks[..., d:].any()  # the new columns are zero
+    assert torch.equal(unpad_heads(padded, 3, heads, d), qkv)
+    # the copy is what the kernels read, so the operand itself may be off
+    # the 16-byte line or strided (one row of separate q, k and v)
+    k = qkv.reshape(-1)[heads * d:2 * heads * d].view(1, 1, heads * d)
+    assert k.data_ptr() % 16 and _check_cuda_args(k, None, heads, 1) == d
+    assert pad_heads(k, 1, heads, d).data_ptr() % 16 == 0
+    assert _check_cuda_args(qkv.transpose(0, 1), None, heads) == d
+    same = torch.zeros((b, l, 3 * heads * 24), dtype=torch.bfloat16)
+    assert pad_heads(same, 3, heads, 24) is same  # a multiple of 8: as is
+    args = _launch_args(qkv, None, heads, 0.1, 5)
+    assert args[:4] == (b, l, heads, 24)  # the kernels' head dim
+    assert args[4] == pytest.approx(1 / np.sqrt(d), rel=1e-12)  # the true d
 
 
 def _round_f32(x: Fraction) -> np.float32:

@@ -92,8 +92,8 @@ from multimodal_plankton_recognition_torch.models.attention import (
     FusedSelfAttention,
 )
 from multimodal_plankton_recognition_torch.ops.attention import (
-    SUPPORTED_HEAD_DIMS, mha, mha_bwd, mha_bwd_reference, mha_qkv,
-    mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference, mha_reference,
+    MAX_HEAD_DIM, mha, mha_bwd, mha_bwd_reference, mha_qkv, mha_qkv_bwd,
+    mha_qkv_bwd_reference, mha_qkv_reference, mha_reference,
 )
 from multimodal_plankton_recognition_torch.ops import attention_block as ab
 from multimodal_plankton_recognition_torch.ops.contrastive import (
@@ -114,6 +114,13 @@ BWD_TOL = 1e-2
 # to bf16 at the same points, so a wrong tile or chunk moves it by far more
 BWD_REL_L2_TOL = 1e-2
 SHAPES = [(1, 1, 1), (3, 33, 2), (2, 100, 5)]  # (B, L, heads)
+# the head dims the attention tests sweep: the kernels take every multiple
+# of 8 up to MAX_HEAD_DIM and pad the others (20 -> 24); 40 lies between
+# the shipped dims, and 128, 160 and 256 come from the three libraries
+# above 64 (72-128, 136-192 and 200-256)
+HEAD_DIMS = (8, 16, 20, 24, 32, 40, 48, 64, 128, 160, 256)
+# a head dim past the limit, refused before any launch
+TOO_WIDE = MAX_HEAD_DIM + 8
 
 
 @pytest.fixture
@@ -135,7 +142,7 @@ def _inputs(cuda, b, l, heads, d, masked, seed=0):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,l,heads", SHAPES)
 def test_kernel_matches_plain(cuda, b, l, heads, d, masked):
     qkv, bias = _inputs(cuda, b, l, heads, d, masked)
@@ -172,18 +179,21 @@ def test_refuses_what_the_kernel_does_not_take(cuda):
         mha_qkv(qkv.float(), None, 3)
     with pytest.raises(ValueError, match="contiguous"):
         mha_qkv(qkv.transpose(0, 1), None, 3)
-    odd, _ = _inputs(cuda, 2, 9, 1, 40, False)
-    with pytest.raises(ValueError, match="head dim 40"):
+    odd, _ = _inputs(cuda, 2, 9, 1, TOO_WIDE, False)
+    before = mha_qkv.launches
+    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
         mha_qkv(odd, None, 1)
+    assert mha_qkv.launches == before
     bad_bias = torch.zeros((2, 9), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="bias_rows"):
         mha_qkv(qkv, bad_bias, 3)
 
 
 def test_launch_failure_raises(cuda):
-    """A launch the entry point refuses (head dim 40, called through ctypes
-    past the wrapper's checks: ``dispatch`` returns cudaErrorInvalidValue)
-    raises in ``build.check_launch`` instead of returning garbage. Both
+    """A launch the entry point refuses (head dim 72 in the library of
+    head dims 8-64, called through ctypes past the wrapper's checks:
+    ``dispatch`` returns cudaErrorInvalidValue) raises in
+    ``build.check_launch`` instead of returning garbage. Both
     directions stream the sequence through shared memory in chunks, so a
     long one (L 4000) runs and agrees with its plain version."""
     from multimodal_plankton_recognition_torch.ops import attention, build
@@ -197,20 +207,20 @@ def test_launch_failure_raises(cuda):
     want = mha_qkv_bwd_reference(qkv, None, dout, 1)
     _bwd_close(got, want)
 
-    odd = torch.zeros((1, 9, 120), dtype=torch.bfloat16, device=cuda)
+    odd = torch.zeros((1, 9, 216), dtype=torch.bfloat16, device=cuda)
     out = torch.empty_like(odd)
     scratch = attention.bwd_scratch(1, 9, 1, 0.0, cuda)
-    lib = attention._bwd_lib()
+    lib = attention._bwd_lib(64)
     err = lib.mha_qkv_bwd_bf16(
         odd.data_ptr(), None, odd.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), 1, 9, 1, 40, 1.0, 0, 0, 1.0,
+        scratch.data_ptr(), 1, 9, 1, 72, 1.0, 0, 0, 1.0,
         torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="launch failed"):
         build.check_launch(err, lib, "attention_bwd")
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,l,heads", SHAPES)
 def test_train_mode_kernel_matches_plain(cuda, b, l, heads, d, masked):
     qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=1)
@@ -222,7 +232,7 @@ def test_train_mode_kernel_matches_plain(cuda, b, l, heads, d, masked):
 
 
 @pytest.mark.parametrize("p", [0.1, 0.5])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_train_mode_mask_is_the_plain_mask(cuda, d, p):
     """q = k = 0 makes the softmax uniform and v = ±1 makes every P·V sum
     exact in f32, so kernel and plain version agree bit for bit iff their
@@ -239,7 +249,7 @@ def test_train_mode_mask_is_the_plain_mask(cuda, d, p):
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,l,heads", SHAPES)
 def test_bwd_kernel_matches_plain(cuda, b, l, heads, d, masked, p):
     qkv, bias = _inputs(cuda, b, l, heads, d, masked, seed=3)
@@ -270,9 +280,11 @@ def test_autograd_launches_both_attention_kernels(cuda):
 
 
 def test_bwd_refuses_unsupported_head_dim(cuda):
-    odd, _ = _inputs(cuda, 2, 9, 1, 40, False)
-    with pytest.raises(ValueError, match="head dim 40"):
-        mha_qkv_bwd(odd, None, odd[..., :40].contiguous(), 1)
+    odd, _ = _inputs(cuda, 2, 9, 1, TOO_WIDE, False)
+    before = mha_qkv_bwd.launches
+    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
+        mha_qkv_bwd(odd, None, odd[..., :TOO_WIDE].contiguous(), 1)
+    assert mha_qkv_bwd.launches == before
 
 
 # ------------------ forward kernels 1 and 3: the tile edges ------------------
@@ -284,7 +296,7 @@ EDGE_LENGTHS = [15, 16, 17, 63, 64, 65, 128, 129, 577]
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("l", EDGE_LENGTHS)
 def test_forward_at_the_tile_edges(cuda, l, d, masked, p):
     """Kernels 1 and 3 against their plain versions, and kernel 3 bit for
@@ -307,7 +319,7 @@ def test_forward_at_the_tile_edges(cuda, l, d, masked, p):
 
 
 @pytest.mark.parametrize("l", [17, 65, 129, 577])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_forward_mask_at_the_tile_edges(cuda, d, l):
     """The exact-sum check (q = k = 0, v = ±1: must be 0) of kernels 1 and
     3 at the edges, one chunk and three."""
@@ -335,7 +347,7 @@ def _bwd_close(got, want):
 # ---------------- backward kernels 2 and 4: the tile edges -------------------
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("l", EDGE_LENGTHS)
 def test_backward_at_the_tile_edges(cuda, l, d, masked, p):
     """Kernel 2 against its plain version at the edges of its 16-row tiles,
@@ -371,7 +383,7 @@ def _exact_sum_operands(cuda, b, l, heads, d, seed):
 
 
 @pytest.mark.parametrize("p", [0.1, 0.5])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("l", [17, 129, 577])
 def test_backward_mask_is_the_plain_mask(cuda, l, d, p):
     """On the exact-sum operands dV of kernels 2 and 4 equals the plain
@@ -895,7 +907,7 @@ def _separate(qkv):
 
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,l,heads", SHAPES)
 def test_separate_kernels_match_plain(cuda, b, l, heads, d, masked, p):
     """Kernels 3 and 4 against their plain versions, and bit for bit
@@ -922,7 +934,7 @@ def test_separate_kernels_match_plain(cuda, b, l, heads, d, masked, p):
                        mha_qkv_bwd(qkv, bias, dout, heads, p, 23))
 
 
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_separate_train_mode_mask_is_the_plain_mask(cuda, d):
     """The exact-sum check of kernel 1 (q = k = 0, v = ±1) on kernel 3."""
     b, l, heads = 3, 100, 2
@@ -1083,13 +1095,57 @@ def test_ffn_refuses_what_the_kernels_do_not_take(cuda):
     x, w1, b1, w2, b2, _ = _ffn_inputs(cuda, 2, 5, 64, 128, torch.bfloat16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         ffn.ffn_fwd(x.half(), w1, b1, w2, b2)
+    # no width is refused: 48 takes the padding route to 64
     odd = _ffn_inputs(cuda, 2, 5, 48, 128, torch.bfloat16)
-    with pytest.raises(ValueError, match="width 48"):
-        ffn.ffn_fwd(*odd[:5])
+    _ffn_close([ffn.ffn_fwd(*odd[:5])], [ffn.ffn_reference(*odd[:5])],
+               "width 48")
     with pytest.raises(ValueError, match="weights"):
         ffn.ffn_fwd(x, w1, b1, w1, b2)
     with pytest.raises(ValueError, match="activation"):
         ffn.ffn_fwd(x, w1, b1, w2, b2, "silu")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("e", [96, 512])
+def test_ffn_widths_past_384(cuda, e, p):
+    """Widths the kernels did not take before: 96 (the padding route to
+    128) and 512 (the wide kernels of the ffn_wide library), F = 4 E at
+    ragged rows: kernels 9-10 against their plain versions (GELU), a
+    second call bit for bit, and ReLU on the exact-sum operands of
+    ``test_ffn_dropout_mask_is_the_plain_mask`` bit for bit."""
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    x, w1, b1, w2, b2, dy = _ffn_inputs(cuda, 3, 37, e, 4 * e,
+                                        torch.bfloat16, seed=e)
+    args = (x, w1, b1, w2, b2)
+    before = ffn.ffn_fwd.launches, ffn.ffn_bwd.launches
+    y = ffn.ffn_fwd(*args, "gelu", p, 5)
+    grads = ffn.ffn_bwd(*args, dy, "gelu", p, 5)
+    assert (ffn.ffn_fwd.launches, ffn.ffn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _ffn_close([y], [ffn.ffn_reference(*args, "gelu", p, 5)], "y")
+    _ffn_close(grads, ffn.ffn_bwd_reference(*args, dy, "gelu", p, 5),
+               "grads")
+    assert torch.equal(ffn.ffn_fwd(*args, "gelu", p, 5), y)
+    assert all(torch.equal(a, g) for a, g in zip(
+        ffn.ffn_bwd(*args, dy, "gelu", p, 5), grads))
+    gen = torch.Generator(device=cuda).manual_seed(e)
+    ints = [torch.randint(-1, 2, shape, generator=gen, device=cuda).float()
+            for shape in ((3, 37, e), (e, 4 * e))]
+    signs = [torch.where(torch.rand(shape, generator=gen, device=cuda)
+                         < 0.5, 1.0, -1.0) for shape in ((4 * e, e),
+                                                          (3, 37, e))]
+    exact = (ints[0].to(torch.bfloat16), ints[1],
+             torch.zeros(4 * e, device=cuda), signs[0],
+             torch.zeros(e, device=cuda))
+    sdy = signs[1].to(torch.bfloat16)
+    assert torch.equal(ffn.ffn_fwd(*exact, "relu", 0.1, 77),
+                       ffn.ffn_reference(*exact, "relu", 0.1, 77))
+    got = ffn.ffn_bwd(*exact, sdy, "relu", 0.1, 77)
+    want = ffn.ffn_bwd_reference(*exact, sdy, "relu", 0.1, 77)
+    for i in (0, 1, 3, 4):  # db1 sums dpre = dh / (1 - p), not exact
+        assert torch.equal(got[i], want[i]), i
 
 
 # ---------------- kernels 11-12: the fused attention block ----------------
