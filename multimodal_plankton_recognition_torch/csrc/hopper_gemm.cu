@@ -17,6 +17,10 @@ int hopper_gemm_rows(const void* a, const void* w, int tb, const void* bias,
                        static_cast<cudaStream_t>(stream));
 }
 
+// the route hg::gemm takes for an (N, K) weight: BN > 0 with the weight
+// slice resident, -BN with it streamed beside A, 0 refused (gemm_route)
+int hopper_gemm_route(int N, int K) { return hg::gemm_route(N, K); }
+
 // c (M, N) bf16 = a (M, K) . w for w (K, N) bf16, and part (2, 2
 // ceil(M / 128), N) f32: each 64-row chunk's column sums of c and c^2
 // (kernel 13's expand). Returns a cudaError_t code.

@@ -16,7 +16,13 @@
 //     producer warp keeps a ring of TMA loads (64-column boxes, 128-byte
 //     swizzle) in flight on mbarriers; two consumer warpgroups (64 rows
 //     each) run wgmma.mma_async m64n64k16 (bf16, f32 accumulators) on the
-//     ring and the resident weight. B is K-major (a weight (N, K) as
+//     ring and the resident weight. Where the resident slice would leave
+//     fewer than 4 ring stages (K above 1,152 at BN 64), the STREAM
+//     instances carry the weight's (BN, 64) box of each K step in the
+//     ring stage beside A's box instead: the same products, summed in the
+//     same order over the whole K in f32, the same epilogue, so the
+//     result does not depend on the route (gemm_route picks it). B is
+//     K-major (a weight (N, K) as
 //     nn.Linear holds it) or N-major (a weight (K, N) read in place along
 //     its rows), which wgmma takes through its transpose bit. The epilogue
 //     adds the bias, rounds once in registers, writes a swizzled staging
@@ -296,14 +302,17 @@ __device__ __forceinline__ uint32_t swz(int row, int col) {
 // (boxes(K) boxes of BN rows when TB = 0; boxes(K) x BN / 64 boxes of 64
 // rows when TB = 1), `stages` ring slots of one A box, two 64 x BN
 // staging tiles of C (one a warpgroup, as BN / 64 swizzled boxes), the
-// mbarriers; with SUMS, then 8 BN floats (sums_bytes).
+// mbarriers; with SUMS, then 8 BN floats (sums_bytes). With STREAM no
+// resident slice: a ring slot holds one A box and, after it, the
+// weight's boxes of the same K step (one box of BN rows when TB = 0, BN /
+// 64 boxes of 64 rows when TB = 1: BN 128 bytes either way).
 //
 // SUMS: part (2, C, N) f32, C = 2 ceil(M / 128) chunks of 64 rows (chunk
 // 2 t + w: warpgroup w's rows of row tile t): part[0][c][n] = the sum of
 // the rounded C over the chunk's rows < M, part[1][c][n] that of its
 // squares. Thread t of a warpgroup adds column t % 64 of each staging box
 // over the rows [32 (t / 64), + 32) in order, then the two halves add.
-template <int BN, int TB, int SUMS = 0>
+template <int BN, int TB, int SUMS = 0, int STREAM = 0>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     gemm_rows_kernel(const __grid_constant__ CUtensorMap a_map,
                      const __grid_constant__ CUtensorMap b_map,
@@ -311,13 +320,16 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                      const float* __restrict__ bias, int M, int N, int K,
                      int stages, float* __restrict__ part) {
   constexpr int NJ = BN / 64;
+  // a ring slot: A's box, then (STREAM) the weight's boxes of its K step
+  constexpr uint32_t kSlot = STREAM ? kATile + BN * kBK * 2 : kATile;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const int kblocks = boxes(K);
   const uint32_t b_s = base;
-  const uint32_t a_s = b_s + (uint32_t)BN * kblocks * kBK * 2;
-  const uint32_t c_s = a_s + stages * kATile;
+  const uint32_t a_s =
+      STREAM ? base : b_s + (uint32_t)BN * kblocks * kBK * 2;
+  const uint32_t c_s = a_s + stages * kSlot;
   const uint32_t full = c_s + 2 * 64 * BN * 2;
   const uint32_t empty = full + 8 * stages, b_full = empty + 8 * stages;
   const int tiles = (M + kBM - 1) / kBM;
@@ -336,15 +348,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
   if (warp == 8) {  // the producer: one thread issues every load
     if (lane == 0) {
-      mbar_expect_tx(b_full, (uint32_t)BN * kblocks * kBK * 2);
-      for (int kb = 0; kb < kblocks; ++kb) {
-        if constexpr (TB == 0) {
-          tma_load(b_s + kb * BN * 128, &b_map, b_full, kb * kBK, n0);
-        } else {
+      if constexpr (!STREAM) {
+        mbar_expect_tx(b_full, (uint32_t)BN * kblocks * kBK * 2);
+        for (int kb = 0; kb < kblocks; ++kb) {
+          if constexpr (TB == 0) {
+            tma_load(b_s + kb * BN * 128, &b_map, b_full, kb * kBK, n0);
+          } else {
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            tma_load(b_s + (kb * NJ + j) * kBox, &b_map, b_full, n0 + 64 * j,
-                     kb * kBK);
+            for (int j = 0; j < NJ; ++j)
+              tma_load(b_s + (kb * NJ + j) * kBox, &b_map, b_full,
+                       n0 + 64 * j, kb * kBK);
+          }
         }
       }
       int stage = 0;
@@ -352,9 +366,20 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
         for (int kb = 0; kb < kblocks; ++kb) {
           mbar_wait(empty + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full + 8 * stage, kATile);
-          tma_load(a_s + stage * kATile, &a_map, full + 8 * stage, kb * kBK,
+          mbar_expect_tx(full + 8 * stage, kSlot);
+          tma_load(a_s + stage * kSlot, &a_map, full + 8 * stage, kb * kBK,
                    t * kBM);
+          if constexpr (STREAM) {
+            const uint32_t w = a_s + stage * kSlot + kATile;
+            if constexpr (TB == 0) {
+              tma_load(w, &b_map, full + 8 * stage, kb * kBK, n0);
+            } else {
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+                tma_load(w + j * kBox, &b_map, full + 8 * stage,
+                         n0 + 64 * j, kb * kBK);
+            }
+          }
           if (++stage == stages) {
             stage = 0;
             phase ^= 1;
@@ -370,7 +395,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   const int r = (warp & 3) * 16 + (lane >> 2), cq = (lane & 3) * 2;
   const uint32_t c_wg = c_s + wg * 64 * BN * 2;
   uint8_t* c_gen = smem_raw + (c_wg - raw);
-  mbar_wait(b_full, 0);
+  if constexpr (!STREAM) mbar_wait(b_full, 0);
   int stage = 0;
   uint32_t phase = 0;
   float acc[NJ][32];
@@ -383,19 +408,19 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     for (int kb = 0; kb < kblocks; ++kb) {
       mbar_wait(full + 8 * stage, phase);
       wgmma_fence();
-      const uint32_t a = a_s + stage * kATile + wg * 64 * 128;
+      const uint32_t a = a_s + stage * kSlot + wg * 64 * 128;
+      // the weight's boxes of this K step: resident, or in the ring slot
+      const uint32_t w = STREAM ? a_s + stage * kSlot + kATile
+                                : b_s + kb * BN * 128;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t da = desc_k(a + kk * 32);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           if constexpr (TB == 0)
-            wgmma64<0, 0>(acc[j], da,
-                          desc_k(b_s + kb * BN * 128 + j * 64 * 128 +
-                                 kk * 32));
+            wgmma64<0, 0>(acc[j], da, desc_k(w + j * 64 * 128 + kk * 32));
           else
-            wgmma64<0, 1>(acc[j], da,
-                          desc_mn(b_s + (kb * NJ + j) * kBox + kk * 2048));
+            wgmma64<0, 1>(acc[j], da, desc_mn(w + j * kBox + kk * 2048));
         }
       }
       wgmma_commit();
@@ -712,7 +737,16 @@ inline int gemm_stages(int BN, int K, size_t extra = 0) {
   return (int)(n < kMaxStages ? n : kMaxStages);
 }
 
-template <int BN, int TB, int SUMS = 0>
+// ring stages of the STREAM route (no resident slice: a slot holds A's box
+// and the weight's BN x 64 box): 4 at BN 192, 6 at 128 and 64
+inline int gemm_stream_stages(int BN) {
+  const long long left = (long long)kSmemMax - 2LL * 64 * BN * 2 - 1024 -
+                         16 * kMaxStages - 8;
+  const long long n = left / ((long long)kATile + (long long)BN * kBK * 2);
+  return (int)(n < kMaxStages ? n : kMaxStages);
+}
+
+template <int BN, int TB, int SUMS = 0, int STREAM = 0>
 cudaError_t gemm_launch(const void* a, const void* b, const float* bias,
                         void* c, int M, int N, int K, int stages,
                         cudaStream_t s, float* part = nullptr) {
@@ -722,43 +756,60 @@ cudaError_t gemm_launch(const void* a, const void* b, const float* bias,
                            : make_map(&bm, b, K, N, 64)) &&
                   make_map(&cm, c, M, N, 64);
   if (!ok) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)BN * boxes(K) * kBK * 2 +
-                      (size_t)stages * kATile + 2 * 64 * BN * 2 +
-                      16 * stages + 8 + 1024 + (SUMS ? sums_bytes(BN) : 0);
+  const size_t smem =
+      (STREAM ? (size_t)stages * BN * kBK * 2
+              : (size_t)BN * boxes(K) * kBK * 2) +
+      (size_t)stages * kATile + 2 * 64 * BN * 2 + 16 * stages + 8 + 1024 +
+      (SUMS ? sums_bytes(BN) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_rows_kernel<BN, TB, SUMS>,
+      gemm_rows_kernel<BN, TB, SUMS, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kBM - 1) / kBM, slices = (N + BN - 1) / BN;
   int per = sm_count() / slices;
   per = per < 1 ? 1 : (per > tiles ? tiles : per);
-  gemm_rows_kernel<BN, TB, SUMS>
+  gemm_rows_kernel<BN, TB, SUMS, STREAM>
       <<<dim3(slices, per), kGemmThreads, smem, s>>>(am, bm, cm, bias, M, N,
                                                      K, stages, part);
   return cudaGetLastError();
 }
 
+// The route gemm takes for an (N, K) weight: the widest resident slice
+// (192, 128 or 64 columns) that divides N and leaves room for 4 ring
+// stages, 64 columns (the last slice clipped) where none divides N: BN;
+// where even 64 resident columns leave fewer than 4 stages (K above
+// 1,152), the streamed slice, 128 columns where they divide N, else 64:
+// -BN; 0 for widths gemm refuses (N or K not a multiple of 8).
+// ops/hopper_gemm.py gemm_route mirrors it.
+inline int gemm_route(int N, int K) {
+  if (N <= 0 || K <= 0 || N % 8 || K % 8) return 0;
+  const int slices[3] = {192, 128, 64};
+  for (int i = 0; i < 3; ++i) {
+    const int bn = slices[i];
+    if ((N % bn == 0 || bn == 64) && gemm_stages(bn, K) >= 4) return bn;
+  }
+  return N % 128 == 0 ? -128 : -64;
+}
+
 // C (M, N) = A (M, K) . W^T + bias for a weight W (N, K) (TB = 0), or
-// A . W for W (K, N) (TB = 1): the widest slice (192, 128 or 64 columns)
-// that divides N and leaves room for 4 ring stages; 64 columns, the last
-// slice clipped, where none divides N. N and K multiples of 8.
-inline cudaError_t gemm(const void* a, const void* w, int tb,
-                        const void* bias, void* c, int M, int N, int K,
-                        cudaStream_t s) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8)
-    return cudaErrorInvalidValue;
+// A . W for W (K, N) (TB = 1), on gemm_route's slice. N and K multiples
+// of 8. A template, so that only the libraries that call it hold its
+// kernels.
+template <int = 0>
+cudaError_t gemm(const void* a, const void* w, int tb, const void* bias,
+                 void* c, int M, int N, int K, cudaStream_t s) {
+  const int route = gemm_route(N, K);
+  if (M <= 0 || route == 0) return cudaErrorInvalidValue;
   const float* fb = static_cast<const float*>(bias);
-#define GEMM(BN)                                                        \
-  if ((N % BN == 0 || BN == 64) && gemm_stages(BN, K) >= 4)             \
-    return tb ? gemm_launch<BN, 1>(a, w, fb, c, M, N, K,                \
-                                   gemm_stages(BN, K), s)               \
-              : gemm_launch<BN, 0>(a, w, fb, c, M, N, K,                \
-                                   gemm_stages(BN, K), s);
-  GEMM(192)
-  GEMM(128)
-  GEMM(64)
+#define GEMM(BN, STREAM, STAGES)                                            \
+  return tb ? gemm_launch<BN, 1, 0, STREAM>(a, w, fb, c, M, N, K, STAGES, s) \
+            : gemm_launch<BN, 0, 0, STREAM>(a, w, fb, c, M, N, K, STAGES, s);
+  if (route == 192) GEMM(192, 0, gemm_stages(192, K))
+  if (route == 128) GEMM(128, 0, gemm_stages(128, K))
+  if (route == 64) GEMM(64, 0, gemm_stages(64, K))
+  if (route == -128) GEMM(128, 1, gemm_stream_stages(128))
+  GEMM(64, 1, gemm_stream_stages(64))
 #undef GEMM
-  return cudaErrorInvalidValue;
 }
 
 // gemm's C (M, N) = A . W for W (K, N), no bias, and its 64-row chunks'

@@ -159,8 +159,14 @@ def _split_heads(qkv: torch.Tensor, heads: int):
     return [x[:, :, i].transpose(1, 2) for i in range(3)]  # (B, H, L, D)
 
 
-def _softmax_f32(q, k, bias_rows, d):
-    z = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+def _scale(d: int, scale: Optional[float]) -> float:
+    """The softmax's scale: 1/√d of the operands' head dim unless given
+    (the padding route's plain composition passes the true head dim's)."""
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def _softmax_f32(q, k, bias_rows, scale):
+    z = (q @ k.transpose(-1, -2)) * scale
     if bias_rows is not None:
         z = z + bias_rows.float()[:, None, None, :]
     z = torch.exp(z - z.amax(dim=-1, keepdim=True))
@@ -169,15 +175,17 @@ def _softmax_f32(q, k, bias_rows, d):
 
 def mha_qkv_reference(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
                       heads: int, dropout_p: float = 0.0,
-                      seed: int = 0) -> torch.Tensor:
+                      seed: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch attention with the kernel's numerics: f32 scores from
     the input-dtype operands, f32 softmax, the dropout factor, probabilities
     rounded to the input dtype before P·V, P·V accumulated in f32 and
     rounded on return. In f32 every rounding is the identity (the JAX
-    einsum path). Differentiable by autograd (the plain model path)."""
+    einsum path). Differentiable by autograd (the plain model path).
+    ``scale``: the scores' scale, 1/√D of qkv's head dim by default."""
     b, l, e3 = qkv.shape
     q, k, v = _split_heads(qkv, heads)
-    p = _softmax_f32(q, k, bias_rows, q.shape[-1])
+    p = _softmax_f32(q, k, bias_rows, _scale(q.shape[-1], scale))
     if dropout_p > 0.0:
         p = p * _keep_scale(seed, dropout_p, b, heads, l, qkv.device)
     o = p.to(qkv.dtype).float() @ v
@@ -188,25 +196,27 @@ def mha_qkv_bwd_reference(qkv: torch.Tensor,
                           bias_rows: Optional[torch.Tensor],
                           dout: torch.Tensor, heads: int,
                           dropout_p: float = 0.0,
-                          seed: int = 0) -> torch.Tensor:
+                          seed: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of the backward kernel, after
     ``_bwd_kernel_stacked_qkv``: recomputed f32 softmax; dP = dO·Vᵀ in f32
     with the dropout factor; dZ = P∘(dP − Σ dP∘P); dS = dZ·scale and the
     dropped P rounded to the input dtype before the three products, which
     accumulate in f32. Returns the packed (B, L, 3E) dqkv in the input
-    dtype."""
+    dtype. ``scale`` as ``mha_qkv_reference``'s."""
     b, l, e3 = qkv.shape
     q, k, v = _split_heads(qkv, heads)
     d = q.shape[-1]
+    scale = _scale(d, scale)
     do = dout.to(qkv.dtype).float().reshape(b, l, heads, d).transpose(1, 2)
-    p = _softmax_f32(q, k, bias_rows, d)
+    p = _softmax_f32(q, k, bias_rows, scale)
     dp = do @ v.transpose(-1, -2)
     pd = p
     if dropout_p > 0.0:
         factor = _keep_scale(seed, dropout_p, b, heads, l, qkv.device)
         pd, dp = p * factor, dp * factor
     dz = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = (dz * (1.0 / math.sqrt(d))).to(qkv.dtype).float()
+    ds = (dz * scale).to(qkv.dtype).float()
     pd = pd.to(qkv.dtype).float()
     parts = (ds @ k, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ do)
     dqkv = torch.stack([t.transpose(1, 2) for t in parts], dim=2)

@@ -29,6 +29,21 @@ kernel's (E, E) ``wq``... are their transposed blocks. ``bias_rows`` is a
 attention kernels' counter-hash bits (``ops.attention.dropout_bits``), so
 the same seed gives kernel 11 the mask of kernel 1.
 
+Shapes: any (E, heads) with a head dim d = E / heads up to
+``MAX_HEAD_DIM`` (256), as JAX's kernel. The CUDA libraries hold every
+head dim that is a multiple of 8, by range (``build.attention_unit(
+"block", d)``); for another d the wrapper pads the weights, not the
+activations (``pad_block``): each head's rows of ``qkv_weight`` and
+``qkv_bias`` and columns of ``out_weight`` to d' (the next multiple of 8)
+with zeros, and the kernels run H heads of d' at the softmax scale 1/√d
+of the true d. Zero columns of q and k add nothing to q·kᵀ, and v's zero
+columns give o zero columns, which meet zero weights. Only where E itself
+is not a multiple of 8 (TMA's 16-byte rows) are x and dy padded, to E₈,
+with ``qkv_weight``'s columns, ``out_weight``'s rows and ``out_bias``;
+y, dx and the gradients are sliced back (``unpad_block_grads``). The q|k|v
+and o that the forward keeps for the backward stay in the kernels' layout
+(each head d' wide) on the card.
+
 ``attn_block`` is the differentiable entry (a ``torch.autograd.Function``):
 the kernels for a CUDA tensor, the plain versions for a CPU tensor, an
 error otherwise; it returns the weight gradients in the parameters'
@@ -52,19 +67,19 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build, hopper_gemm
-from .attention import (_MASK32, _aligned, _needs_grad, bwd_scratch,
-                        dropout_threshold, mha_qkv_bwd_reference,
-                        mha_qkv_reference)
+from .attention import (MAX_HEAD_DIM, MAX_LENGTH, _MASK32, _aligned,
+                        _needs_grad, bwd_scratch, dropout_threshold,
+                        kernel_head_dim, mha_qkv_bwd_reference,
+                        mha_qkv_reference, pad_heads, unpad_heads)
 
 __all__ = ["attn_block", "attn_block_fwd", "attn_block_bwd",
            "attn_block_reference", "attn_block_bwd_reference",
-           "attn_block_fwd_op", "SUPPORTED_BLOCKS"]
+           "attn_block_fwd_op", "kernel_widths", "pad_block",
+           "unpad_block_grads"]
 
-#: (E, heads) the CUDA kernels are instantiated for: ViT-T, the flagship's
-#: profile encoder, ViT-S and the SigLIP card's profile encoder
-SUPPORTED_BLOCKS = ((192, 3), (192, 8), (384, 6), (128, 4))
 BF16 = torch.bfloat16
 
 
@@ -81,12 +96,14 @@ def attn_block_reference(x: torch.Tensor, qkv_weight: torch.Tensor,
                          out_bias: torch.Tensor,
                          bias_rows: Optional[torch.Tensor], heads: int,
                          dropout_p: float = 0.0, seed: int = 0,
-                         keep: bool = False):
+                         keep: bool = False, scale: Optional[float] = None):
     """Plain version of kernel 11: y (B, L, E) in x's dtype; with ``keep``,
-    (y, q|k|v (B, L, 3E), o (B, L, E)), the residuals the backward
-    takes."""
+    (y, q|k|v (B, L, 3A), o (B, L, A)), the residuals the backward takes:
+    A = E, or ``out_weight``'s columns where the weights are
+    ``pad_block``'s. ``scale``: the softmax's, 1/√ of q's head dim by
+    default."""
     qkv = _project(x, qkv_weight, qkv_bias, x.dtype)
-    o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
+    o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed, scale)
     y = _project(o, out_weight, out_bias, x.dtype)
     return (y, qkv, o) if keep else y
 
@@ -99,25 +116,28 @@ def attn_block_bwd_reference(x: torch.Tensor, qkv_weight: torch.Tensor,
                              dy: torch.Tensor, heads: int,
                              dropout_p: float = 0.0, seed: int = 0,
                              qkv: Optional[torch.Tensor] = None,
-                             o: Optional[torch.Tensor] = None
+                             o: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, ...]:
     """Plain version of kernel 12: (dx in x's dtype, d qkv_weight (3E, E),
     d qkv_bias (3E,), d out_weight (E, E), d out_bias (E,) in f32). Takes
     the forward's q|k|v and o when given (both or neither), else rebuilds
-    them."""
+    them. ``scale`` as ``attn_block_reference``'s."""
     dt = x.dtype
     b, l, e = x.shape
+    a = out_weight.shape[1]  # the attention's width: E unless padded
     _check_residuals(qkv, o)
     if qkv is None:
         qkv = _project(x, qkv_weight, qkv_bias, dt)
-        o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed)
+        o = mha_qkv_reference(qkv, bias_rows, heads, dropout_p, seed, scale)
     dyf = dy.to(dt).float().reshape(-1, e)
-    do = (dyf @ out_weight.to(dt).float()).to(dt).reshape(b, l, e)
-    dqkv = mha_qkv_bwd_reference(qkv, bias_rows, do, heads, dropout_p, seed)
-    g = dqkv.float().reshape(-1, 3 * e)
+    do = (dyf @ out_weight.to(dt).float()).to(dt).reshape(b, l, a)
+    dqkv = mha_qkv_bwd_reference(qkv, bias_rows, do, heads, dropout_p, seed,
+                                 scale)
+    g = dqkv.float().reshape(-1, 3 * a)
     dx = (g @ qkv_weight.to(dt).float()).to(dt).reshape(b, l, e)
     return (dx, g.T @ x.float().reshape(-1, e), g.sum(0),
-            dyf.T @ o.float().reshape(-1, e), dyf.sum(0))
+            dyf.T @ o.float().reshape(-1, a), dyf.sum(0))
 
 
 def _check_residuals(qkv: Optional[torch.Tensor],
@@ -127,22 +147,70 @@ def _check_residuals(qkv: Optional[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# the padding route: the weights in the kernels' layout
+# ---------------------------------------------------------------------------
+
+def kernel_widths(e: int, heads: int) -> Tuple[int, int, int]:
+    """(d, d', E₈) for a block of width ``e``: the true head dim, the
+    kernels' (the next multiple of 8) and the model width the kernels take
+    (the next multiple of 8)."""
+    d = e // heads
+    return d, kernel_head_dim(d), -(-e // 8) * 8
+
+
+def pad_block(x, qkv_weight, qkv_bias, out_weight, out_bias, heads: int):
+    """x, the weights and the biases in the kernels' layout, each in its
+    own dtype: each head's rows of ``qkv_weight`` (3E, E) and ``qkv_bias``
+    and columns of ``out_weight`` (E, E) zero-padded from d to d'; where E
+    is not a multiple of 8, x's and ``qkv_weight``'s columns and
+    ``out_weight``'s rows and ``out_bias`` zero-padded to E₈. The same
+    tensors where nothing needs padding. ``x`` may be None."""
+    e = out_weight.shape[0]
+    d, _, ek = kernel_widths(e, heads)
+    wqkv = pad_heads(qkv_weight.T[None], 3, heads, d)[0].T
+    bqkv = pad_heads(qkv_bias.reshape(1, 1, -1), 3, heads, d).reshape(-1)
+    wo = pad_heads(out_weight[None], 1, heads, d)[0]
+    if ek != e:
+        x = None if x is None else F.pad(x, (0, ek - e))
+        wqkv = F.pad(wqkv, (0, ek - e))
+        wo, out_bias = F.pad(wo, (0, 0, 0, ek - e)), F.pad(out_bias,
+                                                           (0, ek - e))
+    return x, wqkv, bqkv, wo, out_bias
+
+
+def unpad_block_grads(grads, e: int, heads: int) -> Tuple[torch.Tensor, ...]:
+    """The backward's (dx, d qkv_weight, d qkv_bias, d out_weight, d
+    out_bias) in the kernels' layout (``pad_block``) as the true block's:
+    the padded heads' rows and columns and the columns past E cut away,
+    each contiguous."""
+    d, _, _ = kernel_widths(e, heads)
+    dx, dwqkv, dbqkv, dwo, dbo = grads
+    dwqkv = unpad_heads(dwqkv[:, :e].T[None], 3, heads, d)[0].T
+    dbqkv = unpad_heads(dbqkv.reshape(1, 1, -1), 3, heads, d).reshape(-1)
+    dwo = unpad_heads(dwo[:e][None], 1, heads, d)[0]
+    return (dx[..., :e].contiguous(), dwqkv.contiguous(), dbqkv,
+            dwo.contiguous(), dbo[:e].contiguous())
+
+
+# ---------------------------------------------------------------------------
 # the kernels: csrc/attention_block.cu
 # ---------------------------------------------------------------------------
 
-_SCALARS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_uint,
+_SCALARS = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint,
                                  ctypes.c_uint, ctypes.c_float,
                                  ctypes.c_void_p]
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """attn_block_fwd(x, wqkv, bqkv, wo, bo, bias, qkv, o, y, B, L, H, D,
-    scale, seed, thr, inv_keep, stream); attn_block_bwd(x, wqkv, bqkv, wo,
-    bias, dy, qkv, o, recompute, do, dqkv, dx, dwqkv, dbqkv, dwo, dbo,
-    part, scratch, groups_qkv, groups_out, B, L, H, D, scale, seed, thr,
-    inv_keep, stream). Both return a cudaError_t."""
-    lib = build.load("attention_block")
+def _lib(d: int = 64) -> ctypes.CDLL:
+    """The library (``build.attention_unit("block", d)``) whose range
+    holds the kernels' head dim ``d``: attn_block_fwd(x, wqkv, bqkv, wo,
+    bo, bias, qkv, o, y, B, L, E, H, D, scale, seed, thr, inv_keep,
+    stream); attn_block_bwd(x, wqkv, bqkv, wo, bias, dy, qkv, o,
+    recompute, do, dqkv, dx, dwqkv, dbqkv, dwo, dbo, part, scratch,
+    groups_qkv, groups_out, B, L, E, H, D, scale, seed, thr, inv_keep,
+    stream). Both return a cudaError_t."""
+    lib = build.load(build.attention_unit("block", d))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.attn_block_fwd.argtypes = [vp] * 9 + _SCALARS
     lib.attn_block_fwd.restype = ci
@@ -163,16 +231,20 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 def _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows, heads,
           dropout_p):
-    """Check what the kernels take; return (x, bf16 weights, f32 biases,
-    the bias rows, the launch scalars)."""
+    """Check what the kernels take; return (x, bf16 weights, f32 biases in
+    the kernels' layout (``pad_block``), the bias rows, the launch scalars
+    (B, L, E₈, H, d', 1/√d), the dropout scalars)."""
     if x.dtype != BF16 or x.dim() != 3:
         raise TypeError(f"the attention-block kernels take bf16 (B, L, E) "
                         f"x, got {tuple(x.shape)} {x.dtype} (f32 models use "
                         f"the plain version)")
     b, l, e = x.shape
-    if (e, heads) not in SUPPORTED_BLOCKS:
-        raise ValueError(f"(E, heads) = ({e}, {heads}) not in "
-                         f"{SUPPORTED_BLOCKS}")
+    if heads <= 0 or e % heads:
+        raise ValueError(f"heads={heads} must divide E={e}")
+    d, dk, ek = kernel_widths(e, heads)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above the kernels' limit "
+                         f"MAX_HEAD_DIM={MAX_HEAD_DIM}")
     if (tuple(qkv_weight.shape) != (3 * e, e) or qkv_bias.numel() != 3 * e
             or tuple(out_weight.shape) != (e, e) or out_bias.numel() != e):
         raise ValueError(f"weights must be qkv ({3 * e}, {e}) + ({3 * e},) "
@@ -189,19 +261,23 @@ def _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows, heads,
         raise ValueError(f"bias_rows must be a ({b}, {l}) f32 tensor on "
                          f"{x.device}, got {tuple(bias_rows.shape)} "
                          f"{bias_rows.dtype} on {bias_rows.device}")
-    if b > 65535 or b * l >= 2 ** 31 // (3 * e):
-        raise ValueError(f"B={b}, L={l} exceed the kernels' grid or 32-bit "
-                         f"indexing")
-    d = e // heads
+    if l > MAX_LENGTH:
+        raise ValueError(f"sequence length {l} above the kernels' limit "
+                         f"MAX_LENGTH={MAX_LENGTH}")
+    if b > 65535 or heads > 65535 or b * l >= 2 ** 31 // (3 * heads * dk):
+        raise ValueError(f"B={b}, L={l}, heads={heads} exceed the kernels' "
+                         f"grid or 32-bit indexing")
+    x, wqkv, bqkv, wo, bo = pad_block(
+        x, *(t.detach() for t in (qkv_weight, qkv_bias, out_weight,
+                                  out_bias)), heads)
 
     def f32(t):
-        return t.detach().reshape(-1).float().contiguous()
+        return t.reshape(-1).float().contiguous()
 
-    return (_aligned(x), _aligned(qkv_weight.detach().to(BF16)),
-            f32(qkv_bias), _aligned(out_weight.detach().to(BF16)),
-            f32(out_bias),
+    return (_aligned(x), _aligned(wqkv.to(BF16)), f32(bqkv),
+            _aligned(wo.to(BF16)), f32(bo),
             None if bias_rows is None else bias_rows.contiguous(),
-            (b, l, heads, d, 1.0 / math.sqrt(d)),
+            (b, l, ek, heads, dk, 1.0 / math.sqrt(d)),
             (dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)))
 
 
@@ -214,26 +290,31 @@ def attn_block_fwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
                    dropout_p: float = 0.0, seed: int = 0, keep: bool = False):
     """Kernel 11 on CUDA, the plain version on the CPU: y (B, L, E) in x's
     dtype; with ``keep``, (y, q|k|v, o), which ``attn_block_bwd`` takes
-    back. ``attn_block_fwd.launches`` counts launches."""
+    back (on the card in the kernels' layout: each head d' wide).
+    ``attn_block_fwd.launches`` counts launches."""
     if _on_cpu(x):
         return attn_block_reference(x, qkv_weight, qkv_bias, out_weight,
                                     out_bias, bias_rows, heads, dropout_p,
                                     seed, keep)
-    x, wqkv, bqkv, wo, bo, bias, (b, l, h, d, scale), (thr, inv_keep) = \
-        _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows,
-              heads, dropout_p)
-    e = h * d
-    qkv = torch.empty((b, l, 3 * e), dtype=BF16, device=x.device)
-    o, y = torch.empty_like(x), torch.empty_like(x)
-    lib = _lib()
+    e = x.shape[-1]
+    x, wqkv, bqkv, wo, bo, bias, (b, l, ek, h, dk, scale), \
+        (thr, inv_keep) = _prep(x, qkv_weight, qkv_bias, out_weight,
+                                out_bias, bias_rows, heads, dropout_p)
+    a = h * dk
+    qkv = torch.empty((b, l, 3 * a), dtype=BF16, device=x.device)
+    o = torch.empty((b, l, a), dtype=BF16, device=x.device)
+    y = torch.empty_like(x)
+    lib = _lib(dk)
     with torch.cuda.device(x.device):
         err = lib.attn_block_fwd(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), _ptr(bias), qkv.data_ptr(), o.data_ptr(),
-            y.data_ptr(), b, l, h, d, scale, seed & _MASK32, thr, inv_keep,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), b, l, ek, h, dk, scale, seed & _MASK32, thr,
+            inv_keep, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attn_block_fwd")
     attn_block_fwd.launches += 1
+    if ek != e:
+        y = y[..., :e].contiguous()
     return (y, qkv, o) if keep else y
 
 
@@ -265,32 +346,34 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
                                         out_bias, bias_rows, dy, heads,
                                         dropout_p, seed, qkv, o)
     _check_residuals(qkv, o)
-    x, wqkv, bqkv, wo, _, bias, (b, l, h, d, scale), (thr, inv_keep) = \
-        _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows,
-              heads, dropout_p)
     if dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)}, got "
                          f"{tuple(dy.shape)}")
-    e = h * d
-    rows = b * l
-    dy = _aligned(dy.to(BF16))
+    e = x.shape[-1]
+    x, wqkv, bqkv, wo, _, bias, (b, l, ek, h, dk, scale), \
+        (thr, inv_keep) = _prep(x, qkv_weight, qkv_bias, out_weight,
+                                out_bias, bias_rows, heads, dropout_p)
+    a, rows = h * dk, b * l
+    dy = dy.to(BF16)
+    dy = _aligned(dy if ek == e else F.pad(dy, (0, ek - e)))
     bf = functools.partial(torch.empty, dtype=BF16, device=x.device)
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
     recompute = qkv is None
     if recompute:
-        qkv, o = bf((b, l, 3 * e)), bf((b, l, e))
+        qkv, o = bf((b, l, 3 * a)), bf((b, l, a))
     else:
-        qkv = _residual(qkv, (b, l, 3 * e), x, "qkv")
-        o = _residual(o, (b, l, e), x, "o")
+        qkv = _residual(qkv, (b, l, 3 * a), x, "qkv")
+        o = _residual(o, (b, l, a), x, "o")
     sms = hopper_gemm.sm_count(x.device)
-    g_qkv = hopper_gemm.wgrad_groups(rows, 3 * e, e, sms)
-    g_out = hopper_gemm.wgrad_groups(rows, e, e, sms)
-    dqkv, do, dx = bf((b, l, 3 * e)), bf((b, l, e)), bf((b, l, e))
-    dwqkv, dbqkv, dwo, dbo = f32((3 * e, e)), f32(3 * e), f32((e, e)), f32(e)
-    part = f32(g_qkv * (3 * e * e + 3 * e) + g_out * (e * e + e))
+    g_qkv = hopper_gemm.wgrad_groups(rows, 3 * a, ek, sms)
+    g_out = hopper_gemm.wgrad_groups(rows, ek, a, sms)
+    dqkv, do, dx = bf((b, l, 3 * a)), bf((b, l, a)), bf((b, l, ek))
+    dwqkv, dbqkv, dwo, dbo = (f32((3 * a, ek)), f32(3 * a), f32((ek, a)),
+                              f32(ek))
+    part = f32(g_qkv * (3 * a * ek + 3 * a) + g_out * (ek * a + ek))
     scratch = bwd_scratch(b, l, h, dropout_p, x.device)
-    lib = _lib()
+    lib = _lib(dk)
     with torch.cuda.device(x.device):
         err = lib.attn_block_bwd(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
@@ -298,11 +381,14 @@ def attn_block_bwd(x, qkv_weight, qkv_bias, out_weight, out_bias,
             int(recompute), do.data_ptr(), dqkv.data_ptr(), dx.data_ptr(),
             dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
             dbo.data_ptr(), part.data_ptr(), scratch.data_ptr(), g_qkv,
-            g_out, b, l, h, d, scale, seed & _MASK32, thr, inv_keep,
+            g_out, b, l, ek, h, dk, scale, seed & _MASK32, thr, inv_keep,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, lib, "attn_block_bwd")
     attn_block_bwd.launches += 1
-    return dx, dwqkv, dbqkv, dwo, dbo
+    grads = dx, dwqkv, dbqkv, dwo, dbo
+    if (ek, dk) == (e, e // heads):
+        return grads
+    return unpad_block_grads(grads, e, heads)
 
 
 attn_block_fwd.launches = 0

@@ -11,9 +11,9 @@ at import; ``build_all`` starts one ``nvcc`` per source, all at once.
 A source may build into several libraries, its translation units
 (``UNITS``): the same file under other ``-D`` flags, so that the
 instances of a kernel that many shapes need compile in parallel
-(``csrc/attention_{fwd,bwd}.cu`` by range of head dims, ``csrc/ffn.cu``
-by width). Each unit is a name of its own to ``build``, ``load`` and
-``build_all``.
+(``csrc/attention_{fwd,bwd,block}.cu`` by range of head dims,
+``csrc/ffn.cu`` by width). Each unit is a name of its own to ``build``,
+``load`` and ``build_all``.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
@@ -45,9 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ATTENTION_RANGES = ((8, 64), (72, 128), (136, 192), (200, 256))
 
 
+#: the sources built once per range of head dims: kernels 1 and 3, 2 and
+#: 4, and the fused block (kernels 11-12) around kernels 1-2's device code
+ATTENTION_WAYS = ("fwd", "bwd", "block")
+
+
 def attention_unit(way: str, d: int) -> str:
-    """The unit of ``csrc/attention_<way>.cu`` (way "fwd" or "bwd") that
-    holds head dim ``d``: ``attention_<way>`` for 8-64, else
+    """The unit of ``csrc/attention_<way>.cu`` (way "fwd", "bwd" or
+    "block") that holds head dim ``d``: ``attention_<way>`` for 8-64, else
     ``attention_<way>_d<top of its range>``."""
     top = next(hi for _, hi in ATTENTION_RANGES if d <= hi)
     return f"attention_{way}" + ("" if top == ATTENTION_RANGES[0][1]
@@ -60,7 +65,7 @@ def attention_unit(way: str, d: int) -> str:
 UNITS = {
     **{attention_unit(way, hi): (f"attention_{way}", (f"-DATTN_D_LO={lo}",
                                                       f"-DATTN_D_HI={hi}"))
-       for way in ("fwd", "bwd") for lo, hi in ATTENTION_RANGES[1:]},
+       for way in ATTENTION_WAYS for lo, hi in ATTENTION_RANGES[1:]},
     "ffn_wide": ("ffn", ("-DFFN_WIDE=1",)),
 }
 #: seconds of each ``nvcc`` this process ran, by unit name

@@ -19,6 +19,11 @@ The main paths reach the same device code inside kernels 10
 Every matrix is row-major bf16 whose base is 16-byte aligned and whose row
 stride is a multiple of 16 bytes (8 columns): TMA's rule, which
 ``check_rows`` enforces before any launch.
+
+``gemm_route`` mirrors the header's choice of a row GEMM's column slice:
+the weight slice resident in shared memory where it leaves 4 ring stages
+(K up to 1,152 at 64 columns), else streamed through the ring beside A
+(the same sums and rounding); ``kernel_gemm_route`` asks the library.
 """
 
 from __future__ import annotations
@@ -32,15 +37,49 @@ import torch
 from . import build
 
 __all__ = ["gemm_rows", "gemm_rows_reference", "gemm_sums",
-           "gemm_sums_reference", "wgrad", "wgrad_reference", "check_rows", "wgrad_tile_boxes", "wgrad_groups", "sm_count",
-           "BOX"]
+           "gemm_sums_reference", "wgrad", "wgrad_reference", "check_rows",
+           "wgrad_tile_boxes", "wgrad_groups", "sm_count", "gemm_stages",
+           "gemm_route", "kernel_gemm_route", "BOX"]
 
 BOX = 64  # bf16 columns of one TMA box (128 bytes, the swizzle span)
 BF16 = torch.bfloat16
+# csrc/hopper_gemm.cuh: a block's shared memory (the opt-in maximum), the
+# bytes of one ring stage of A (128 rows x one box), the most stages
+SMEM_MAX = 232448
+_A_STAGE = 128 * BOX * 2
+_MAX_STAGES = 6
 
 
 def _boxes(n: int) -> int:
     return -(-n // BOX)
+
+
+def gemm_stages(bn: int, k: int) -> int:
+    """Ring stages beside a resident (bn, k) weight slice, its staging
+    tiles, the alignment slack and the barriers (``gemm_stages`` in the
+    header), at most 6."""
+    left = (SMEM_MAX - bn * _boxes(k) * BOX * 2 - 2 * 64 * bn * 2 - 1024
+            - 16 * _MAX_STAGES - 8)
+    return min(int(left / _A_STAGE), _MAX_STAGES)  # C's truncation
+
+
+def gemm_route(n: int, k: int) -> int:
+    """The row GEMM's route for an (n, k) weight (``gemm_route`` in the
+    header): the widest resident slice of 192, 128 or 64 columns that
+    divides n (64 always) with 4 ring stages, as +columns; else the
+    streamed slice, 128 columns where they divide n, else 64, as
+    -columns; 0 where n or k is not a multiple of 8."""
+    if n <= 0 or k <= 0 or n % 8 or k % 8:
+        return 0
+    for bn in (192, 128, 64):
+        if (n % bn == 0 or bn == 64) and gemm_stages(bn, k) >= 4:
+            return bn
+    return -128 if n % 128 == 0 else -64
+
+
+def kernel_gemm_route(n: int, k: int) -> int:
+    """``gemm_route`` as the built library answers it (needs nvcc)."""
+    return _lib().hopper_gemm_route(n, k)
 
 
 def check_rows(t: torch.Tensor, what: str) -> None:
@@ -124,6 +163,8 @@ def _lib() -> ctypes.CDLL:
     lib.hopper_gemm_sums.restype = ci
     lib.hopper_wgrad.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci, vp]
     lib.hopper_wgrad.restype = ci
+    lib.hopper_gemm_route.argtypes = [ci, ci]
+    lib.hopper_gemm_route.restype = ci
     return lib
 
 

@@ -43,7 +43,11 @@ output and dx kernel 2's dv bit for bit, which pins the shared mask.
 Its GEMMs are also held at row counts that leave a ragged last tile (195
 and 12,608 rows), kernel 11's kept q|k|v and o against the plain ones;
 kernel 12 given them must equal kernel 12 rebuilding them, and a second
-call the first, bit for bit.
+call the first, bit for bit. The block is held past the shipped (E, heads)
+too: head dim 20 padded on the weights (E 60, whose x is padded to 64,
+and E 160), d 96, d 128 at E 512, E 768 and d 256 at E 1,024, whose dx
+products (K 1,536-3,072) take the GEMM's streamed route; head dim 264 is
+refused before any launch.
 The tensor-core forward (kernels 1 and 3) is also held at the edges of its
 16-key and 128-row tiles and of its 256-key shared-memory chunk (L 15-17,
 63-65, 128-129 and 577, every head dim, masked or not, eval and train),
@@ -64,7 +68,11 @@ refused on the host by the wrapper and by the C entry point. Its
 column-sum epilogue (``gemm_sums``, kernel 13's expand) at ragged M and
 N 24, 144 and 1152: c within one bf16 step, each 64-row chunk's sums
 within 1e-5 of the largest |sum| of torch's sums over the same rounded
-rows, a second call bit for bit. Kernels 9
+rows, a second call bit for bit. Past K 1,152 the row GEMM streams the
+weight beside A: held against cuBLAS's f32 within one bf16 step plus the
+two f32 sums' bound K 2^-24 Σ|a w| (wgmma's accumulator is not IEEE f32),
+and on integer inputs bit for bit the exact sum; the library's route
+equals ``gemm_route``'s, resident at every K up to 1,152. Kernels 9
 and 10 are held at every width with F 2024 and a row count that is not a
 multiple of 128, bf16 and f32 x, p 0 and 0.1 (kernel 9 also with ReLU),
 and kernels 13-16 at
@@ -1150,10 +1158,16 @@ def test_ffn_widths_past_384(cuda, e, p):
 
 # ---------------- kernels 11-12: the fused attention block ----------------
 
-# (B, L, E, heads, mask): the four (E, heads) of the paths, small B
+# (B, L, E, heads, mask): the four (E, heads) of the paths, small B; then
+# widths past them: d 20 (padded to 24) at E 60 (x padded to 64) and E
+# 160, d 96, d 128 at E 512 (dx's K 1,536: the streamed GEMM), E 768
+# (K 2,304) and d 256 at E 1,024 (K 3,072)
 BLOCK_SHAPES = [(2, 197, 192, 3, False), (2, 225, 192, 8, True),
                 (2, 197, 384, 6, False), (3, 225, 128, 4, True),
-                (1, 1, 128, 4, False), (2, 70, 192, 8, True)]
+                (1, 1, 128, 4, False), (2, 70, 192, 8, True),
+                (2, 33, 60, 3, True), (2, 65, 160, 8, True),
+                (2, 33, 96, 1, False), (2, 65, 512, 4, True),
+                (2, 33, 768, 12, False), (1, 33, 1024, 4, True)]
 BLOCK_TOL, BLOCK_REL_TOL, BLOCK_GRAD_TOL = 2e-2, 2e-3, 1e-2
 
 
@@ -1234,7 +1248,10 @@ def test_block_ragged_rows_match_plain(cuda, b, l, e, heads, masked, p):
                          [(2, 197, 192, 3, False, 0.0),
                           (3, 225, 128, 4, True, 0.1),
                           (2, 70, 192, 8, True, 0.1),
-                          (2, 197, 384, 6, False, 0.0)])
+                          (2, 197, 384, 6, False, 0.0),
+                          (2, 33, 60, 3, True, 0.1),
+                          (2, 65, 512, 4, True, 0.1),
+                          (1, 33, 1024, 4, False, 0.0)])
 def test_block_bwd_residuals_and_repeats_bit_for_bit(cuda, b, l, e, heads,
                                                       masked, p):
     """Kernel 12 given the forward's q|k|v and o equals kernel 12
@@ -1314,8 +1331,16 @@ def test_block_refuses_what_the_kernels_do_not_take(cuda):
     args, dy = _block_inputs(cuda, 2, 9, 128, False)
     with pytest.raises(TypeError, match="bf16"):
         ab.attn_block_fwd(args[0].float(), *args[1:], 4)
-    with pytest.raises(ValueError, match="not in"):
-        ab.attn_block_fwd(*args, 8)
+    with pytest.raises(ValueError, match="must divide"):
+        ab.attn_block_fwd(*args, 3)
+    # head dim 264, above kernels 1-4's limit: refused before any launch
+    wide, wide_dy = _block_inputs(cuda, 1, 9, 264, False)
+    before = ab.attn_block_fwd.launches, ab.attn_block_bwd.launches
+    with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
+        ab.attn_block_fwd(*wide, 1)
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM"):
+        ab.attn_block_bwd(*wide, wide_dy, 1)
+    assert (ab.attn_block_fwd.launches, ab.attn_block_bwd.launches) == before
     with pytest.raises(ValueError, match="weights"):
         ab.attn_block_fwd(args[0], args[3], *args[2:], 4)
     # the backward's residuals: both or neither, the forward's shapes
@@ -1369,6 +1394,69 @@ def test_hopper_gemm_rows_at_any_width(cuda, m, n, k, transposed,
     assert (err <= 2 ** -7 * want.float().abs() + 1e-6).all(), \
         err.max().item()
     assert torch.equal(got, hg.gemm_rows(a, w, bias, transposed))
+
+
+# (M, N, K) past the resident weight slice's K (1,152 at 64 columns): the
+# block's dx products at E 512, 768 and 1,024, and a ragged N and M
+GEMM_STREAMED = [(300, 512, 1536), (195, 768, 2304), (130, 1024, 3072),
+                 (77, 200, 1160)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,n,k", GEMM_STREAMED, ids=lambda s: str(s))
+def test_hopper_gemm_streams_the_weight_past_the_resident_k(
+        cuda, m, n, k, transposed, with_bias):
+    """Where a resident slice would leave fewer than 4 ring stages, the
+    row GEMM streams the weight beside A (the route is negative) and
+    still computes bf16(a · w + bias) with f32 sums over the whole K.
+    Against ``gemm_rows_reference`` (cuBLAS's IEEE f32): one bf16 step,
+    plus the two f32 sums' own error bound, K 2^-24 Σ|a w| each (wgmma's
+    accumulator is not IEEE f32: where outputs nearly cancel they land
+    more bf16 steps from the exact sum than cuBLAS's, past this suite's
+    1e-6 floor at these K). On integer inputs every sum is exact in f32,
+    so the output must be bf16(the exact sum) bit for bit, which pins
+    every K step's boxes; a second call bit for bit."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    assert hg.kernel_gemm_route(n, k) == hg.gemm_route(n, k) < 0
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n) if transposed else (n, k), generator=gen,
+                     device=cuda) * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=cuda) if with_bias else None
+    got = hg.gemm_rows(a, w, bias, transposed)
+    want = hg.gemm_rows_reference(a, w, bias, transposed)
+    sums = hg.gemm_rows_reference(a.abs(), w.abs(), None, transposed)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = 2 ** -7 * want.float().abs() + k * 2 ** -23 * sums.float()
+    assert (err <= tol).all(), err.max().item()
+    assert torch.equal(got, hg.gemm_rows(a, w, bias, transposed))
+    ai = torch.randint(-2, 3, (m, k), generator=gen, device=cuda)
+    wi = torch.randint(-1, 2, (k, n) if transposed else (n, k),
+                       generator=gen, device=cuda)
+    exact = (ai.double() @ (wi.double() if transposed else wi.double().t())
+             ).to(torch.bfloat16)
+    assert torch.equal(hg.gemm_rows(ai.to(torch.bfloat16),
+                                    wi.to(torch.bfloat16), None, transposed),
+                       exact)
+
+
+def test_hopper_gemm_keeps_the_resident_route_up_to_k_1152(cuda):
+    """The library's route equals ``gemm_route``'s at every width the
+    paths use; every K up to 1,152 keeps a resident slice (the shipped
+    shapes' route, so their bits), every K above it at N 64 streams."""
+    from multimodal_plankton_recognition_torch.ops import hopper_gemm as hg
+
+    for n in (24, 64, 128, 192, 200, 384, 512, 768, 1024, 2304, 3072):
+        for k in (8, 24, 192, 384, 576, 1024, 1152, 1160, 1536, 2304, 3072):
+            route = hg.kernel_gemm_route(n, k)
+            assert route == hg.gemm_route(n, k), (n, k)
+            if k <= 1152:
+                assert route > 0, (n, k)
+    assert hg.kernel_gemm_route(64, 1160) == -64
+    assert hg.kernel_gemm_route(20, 64) == hg.kernel_gemm_route(64, 20) == 0
 
 
 @pytest.mark.parametrize("rows,n,k", [(195, 24, 144), (12608, 144, 24),
