@@ -23,7 +23,11 @@ table; the synthetic accuracy gate), and the attention and FFN kernels
 at head dims and widths past the shipped cards' (a ViT-S CLIP card with
 a 512-wide profile transformer of 4 heads of 128 and ``fused_ffn``,
 trained through the train CLI and served from its checkpoint, on the
-packed attention route and on the fused attention block).
+packed attention route and on the fused attention block), and the last
+shapes JAX's Pallas kernels take: the MBConv kernels at any channel
+count and odd depthwise size, the attention kernels and the fused block
+past head dim 256 (the same ViT-S card with a one-head 512-wide profile
+transformer, trained through the train CLI and served).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --kernel-profile   # kernels 5-10, 13-16 alone
@@ -35,11 +39,12 @@ fatal on failure:
 2. build: compiles every kernel of the paths from ``csrc/`` (one ``nvcc``
    per build unit, all at once: the attention sources, kernels 1-2's and
    the fused block's, once per range of head dims, 8-64, 72-128, 136-192
-   and 200-256, the FFN source for widths up to 384 and above) and prints
-   the build seconds (all, and each unit's) and ptxas' register / spill
-   report and C7520 notes; the attention forward's 8 instances and the
-   backward's 16 (two kernels, eight head dims) in each range's library
-   and both (24) in each of the block's, the shared Hopper GEMM's
+   and 200-256 by 8, 320-512 by 64 and 640-1,024 by 128, the FFN source
+   for widths up to 384 and above) and prints the build seconds (all, and
+   each unit's) and ptxas' register / spill report and C7520 notes; the
+   attention forward's instances (8 a range up to 256, 4 in each wide
+   one) and the backward's twice as many (two kernels) in each range's
+   library and all three in each of the block's, the shared Hopper GEMM's
    (``csrc/hopper_gemm.cuh``: wgmma and TMA) 3 ``wgrad_kernel``
    instances in each library that includes it and, where ``gemm`` is
    called (the block's four libraries, ``mbconv_bwd``, ``hopper_gemm``),
@@ -49,7 +54,7 @@ fatal on failure:
    ``ffn_bwd_rows_kernel`` instances and 2 ``ffn_bwd_wide_kernel``,
    kernel 9's 12 ``ffn_fwd_rows_kernel`` and 2 ``ffn_fwd_wide_kernel``,
    kernel 15's 3 ``kb_pass_kernel``
-   and kernels 13-14's ``ka_a1_kernel``, 2 ``ka_dw_kernel``,
+   and kernels 13-14's ``ka_a1_kernel``, 6 ``ka_dw_kernel`` (k 1-11),
    ``kb_squeeze_kernel``, ``se_fwd_kernel`` and 2 ``kb_proj_kernel``,
    kernels 5-6's 10 instances (``CLIP_ENTRIES``) and kernels 7-8's 10
    (``SIGLIP_ENTRIES``) must spill 0 bytes;
@@ -441,16 +446,40 @@ fatal on failure:
    beside the nudged-input floor), the last profile layer's ff2 bias
    printed for each batch and route against f32; the micro-step's train
    pairs/s after warm-up, twice. (c) the same card with
-   ``PLANKTON_ATTN_FUSE_PROJ=1`` in the train CLI's environment, 4
-   epochs (32 micro-steps): kernels 11-12 on all 14 attention layers
+   ``PLANKTON_ATTN_FUSE_PROJ=1`` in the train CLI's environment, 2
+   epochs (16 micro-steps): kernels 11-12 on all 14 attention layers
    (ViT-S at (384, 6), the profile encoder at (512, 4)), exact launches
    (14 + 14 of 11-12 and 9-10, 1 + 1 of 5-6 a micro-step; none of
    kernels 1-4), losses falling, every master moved; served from its
    checkpoint (14 + 14 a batch) within 5e-2 of the same checkpoint's
    packed route, self-gallery k = 1 at 1.0; a dropout-0 micro-step held
    against the packed route as (b) holds its steps; encode and train
-   pairs/s beside the packed route in 3 rounds of turns; a ``summary:
+   pairs/s beside the packed route in one round of turns; a ``summary:
    widths`` line;
+14g. shapes: the last shapes JAX's Pallas kernels take. (a) kernels
+   13-16 at ``SHAPE_MBCONV`` (cin 20 and cout 20, mid 180, an expand ratio
+   of 1 at cin 20 and cout 12: the padding route to multiples of 8; k 7)
+   at B 64 and ``SHAPE_MBCONV_K`` (k 1, 9, 11) at B 4: each against its
+   plain version within ``MBCONV_TOL`` and ``MBCONV_REL_TOL``, a second
+   call bit for bit, one launch a call, the padding route bit for bit the
+   kernel on inputs zero-padded by hand; ``mbconv_core``'s outputs and
+   gradients against the plain ``mbconv_core`` route within the same
+   tolerances; the B 64 rows timed. (b) kernels 1-4 at head dims 264,
+   300 (both padded to 320), 320, 384, 512 and 1,024, B 4, L 65, 2 heads,
+   as (a) of the widths phase; kernels 11-12 at (E, heads) (512, 1),
+   (768, 2), (600, 2) (d 300, padded on the weights) and (1,024, 1),
+   masked and not, p 0 and 0.1, as the block's width rows; timed at B
+   256, L 225, masked, one head of 384 and of 512 (``SHAPE_TIMED``)
+   beside SDPA or ``nn.MultiheadAttention`` and the bound. (c)
+   ``WIDTHS_CARD`` with a 512-wide profile transformer of one head (d
+   512), F 2,048 and ``fused_ffn`` on both towers, bs 256, through the
+   train CLI for 2 epochs on kernels 1-2, 9-10 and 5-6 (exact launches,
+   loss falling, masters moved), served from its checkpoint (exact
+   launches, self-gallery k = 1 >= 0.99), then under
+   ``PLANKTON_ATTN_FUSE_PROJ=1`` (kernels 11-12, none of 1-4) a
+   dropout-0 micro-step held against the packed route and the encode
+   within 5e-2 of the packed route's embeddings, every self-match found;
+   a ``summary: shapes`` line;
 15. profile (only with ``--profile``): 8 encode batches of 256 of the ViT
    flagship after a warm-up pass and an unprofiled one, 8 of its train
    steps after 3 warm-up and 8 unprofiled ones (both on the packed route,
@@ -530,11 +559,10 @@ BWD_TOL = 1e-2    # of the largest |dqkv|
 BWD_REL_L2_TOL = 1e-2
 # the attention forward's kernel and the backward's two kernels
 # (csrc/attention_{fwd,bwd}.cuh) at every head dim of each library's
-# range, 8 a library: ptxas must report 0 spill bytes for each
+# range (8 a library up to 256, 4 in each wide one): ptxas must report 0
+# spill bytes for each
 FWD_ENTRIES = ("mha_fwd_kernel",)
 BWD_ENTRIES = ("mha_bwd_q_kernel", "mha_bwd_kv_kernel")
-FWD_INSTANCES = 8
-BWD_INSTANCES = 2 * 8
 # kernels 5-6 (csrc/clip_loss.cu), bf16 and f32 each: the forward at 16-
 # and 32-row tiles, the one-block backward (16-row tiles), the two-kernel
 # backward's dz and dx kernels; 0 spill bytes each (mangled names with
@@ -566,8 +594,9 @@ GEMM_ENTRIES = ("16gemm_rows_kernel", "12wgrad_kernel",
                 "14kb_pass_kernel", "12ka_a1_kernel", "12ka_dw_kernel",
                 "17kb_squeeze_kernel", "13se_fwd_kernel", "14kb_proj_kernel")
 GEMM_ROWS = 3 * 2 + 2 * 2  # gemm's resident and streamed slices x layouts
+# mbconv_fwd's ka_dw_kernel: one instance per depthwise size (1-11, odd)
 GEMM_INSTANCES = {"mbconv_bwd": 3 + GEMM_ROWS + 3,
-                  "mbconv_fwd": 3 + 3 + 1 + 2 + 1 + 1 + 2,
+                  "mbconv_fwd": 3 + 3 + 1 + 6 + 1 + 1 + 2,
                   "hopper_gemm": 3 + GEMM_ROWS + 3,
                   "ffn": 3 + 12 + 12, "ffn_wide": 3 + 2 + 2}
 BLOCK_GEMM_INSTANCES = 3 + GEMM_ROWS  # in each of the block's libraries
@@ -972,17 +1001,19 @@ def phase_build():
         attention, attention_block, build, contrastive, ffn, hopper_gemm,
         mbconv)
 
-    attention_units = tuple(build.attention_unit(way, hi)
-                            for way in build.ATTENTION_WAYS
-                            for _, hi in build.ATTENTION_RANGES)
-    units = attention_units + SOURCES
+    # unit -> the head dims it instantiates
+    attention_units = {build.attention_unit(way, hi): len(range(lo, hi + 1,
+                                                                step))
+                       for way in build.ATTENTION_WAYS
+                       for lo, hi, step in build.ATTENTION_RANGES}
+    units = tuple(attention_units) + SOURCES
     gemm_instances = dict(GEMM_INSTANCES, **{
         build.attention_unit("block", hi): BLOCK_GEMM_INSTANCES
-        for _, hi in build.ATTENTION_RANGES})
+        for _, hi, _ in build.ATTENTION_RANGES})
     t0 = time.perf_counter()
     libs = build.build_all(units)
     hopper_gemm._lib()
-    for _, hi in build.ATTENTION_RANGES:
+    for _, hi, _ in build.ATTENTION_RANGES:
         attention._fwd_lib(hi)
         attention._bwd_lib(hi)
         attention_block._lib(hi)
@@ -1022,9 +1053,10 @@ def phase_build():
                            + SIGLIP_ENTRIES):
                         losses[func] = counts
         if name in attention_units:
-            way, want = (("forward", FWD_INSTANCES) if "fwd" in name else
-                         ("backward", BWD_INSTANCES) if "bwd" in name else
-                         ("block", FWD_INSTANCES + BWD_INSTANCES))
+            dims = attention_units[name]
+            way, want = (("forward", dims) if "fwd" in name else
+                         ("backward", 2 * dims) if "bwd" in name else
+                         ("block", 3 * dims))
             if len(attn) != want:
                 fail(f"ptxas reported {len(attn)} attention {way} kernel "
                      f"instances in {name}, expected {want}")
@@ -1777,71 +1809,117 @@ def _mbconv_kernels(gen, device, records):
     """MBConv kernels 13-16 against their plain versions at B0's blocks of
     ``MBCONV_SHAPES``, each on the inputs its plain version gets (kernel
     14 and 16 on the plain y2, m1, v1)."""
+    for block, shape in MBCONV_SHAPES.items():
+        _mbconv_rows(records, gen, device, block, B0_CARD["bs"], shape,
+                     profiled=block in KA_BWD_PROFILED)
+
+
+def _mbconv_inputs(gen, device, b, shape):
+    """Seeded operands of one MBConv shape (H = W, cin, mid, cout, k, r)
+    at batch ``b``: (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,
+    dy3, dy2); wexp, g1 and b1 None without an expand (mid == cin)."""
     import torch
-    from multimodal_plankton_recognition_torch.ops import mbconv as mb
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=device) * scale \
             + shift
 
-    b = B0_CARD["bs"]
-    for block, (hw, cin, mid, cout, k, r) in MBCONV_SHAPES.items():
-        expand = mid != cin
-        x = rnd(b, hw, hw, cin).to(torch.bfloat16)
-        wexp = rnd(cin, mid, scale=cin ** -0.5) if expand else None
-        g1 = rnd(mid, scale=0.1, shift=1.0) if expand else None
-        b1 = rnd(mid, scale=0.1) if expand else None
-        wdw = rnd(k, k, mid, scale=1.0 / k)
-        g2, b2 = rnd(mid, scale=0.1, shift=1.0), rnd(mid, scale=0.1)
-        wr, br = rnd(mid, r, scale=mid ** -0.5), rnd(r, scale=0.1)
-        we, be = rnd(r, mid, scale=r ** -0.5), rnd(mid, scale=0.1)
-        wproj = rnd(mid, cout, scale=mid ** -0.5)
-        dy3 = rnd(b, hw, hw, cout).to(torch.bfloat16)
-        dy2 = rnd(b, hw, hw, mid).to(torch.bfloat16)
-        y2, m1, v1, m2, v2 = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
-        n = b * hw * hw
-        se = 4 * b * mid * r  # the SE products, per pass
-        # (name, wrapper, plain version, arguments, bf16 products)
-        cases = (
-            ("mbconv_ka_fwd", mb.ka_fwd, mb.ka_fwd_reference,
-             (x, wexp, g1, b1, wdw, k),
-             2 * n * cin * mid * expand + 2 * n * mid * k * k),
-            ("mbconv_kb_fwd", mb.kb_fwd, mb.kb_fwd_reference,
-             (y2, g2, b2, m2, v2, wr, br, we, be, wproj),
-             2 * n * mid * cout + se),
-            ("mbconv_kb_bwd", mb.kb_bwd, mb.kb_bwd_reference,
-             (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj),
-             4 * n * mid * cout + 3 * se),
-            ("mbconv_ka_bwd", mb.ka_bwd, mb.ka_bwd_reference,
-             (x, dy2, wexp, g1, b1, wdw, m1, v1, k),
-             6 * n * cin * mid * expand + 4 * n * mid * k * k))
-        label = (f"{block} B={b} H=W={hw} cin={cin} mid={mid} cout={cout} "
-                 f"k={k} r={r}")
-        for name, fn, plain, args, flops in cases:
-            want = plain(*args)
-            got = fn(*args)
-            err = rel = 0.0
-            for i, (g, w) in enumerate(zip(got, want)):
-                if (g is None) != (w is None):
-                    fail(f"{name} {label}: output {i} is None on one side")
-                if w is None:
-                    continue
-                scale = max(1.0, w.float().abs().max().item())
-                err = max(err, scale * _check(f"{name} {label} output {i}",
-                                              g, w, MBCONV_TOL, scale))
-                diff = (g.float() - w.float()).norm().item()
-                rel = max(rel, diff / max(w.float().norm().item(), 1e-30))
-            if not rel <= MBCONV_REL_TOL:
-                fail(f"{name} {label}: relative L2 error {rel!r} > "
-                     f"{MBCONV_REL_TOL}")
-            _repeats(f"{name} {label}", got, fn(*args))
-            if block in KA_BWD_PROFILED:
-                _call_profile(name, label, lambda: fn(*args))
+    hw, cin, mid, cout, k, r = shape
+    expand = mid != cin
+    return (rnd(b, hw, hw, cin).to(torch.bfloat16),
+            rnd(cin, mid, scale=cin ** -0.5) if expand else None,
+            rnd(mid, scale=0.1, shift=1.0) if expand else None,
+            rnd(mid, scale=0.1) if expand else None,
+            rnd(k, k, mid, scale=1.0 / k),
+            rnd(mid, scale=0.1, shift=1.0), rnd(mid, scale=0.1),
+            rnd(mid, r, scale=mid ** -0.5), rnd(r, scale=0.1),
+            rnd(r, mid, scale=r ** -0.5), rnd(mid, scale=0.1),
+            rnd(mid, cout, scale=mid ** -0.5),
+            rnd(b, hw, hw, cout).to(torch.bfloat16),
+            rnd(b, hw, hw, mid).to(torch.bfloat16))
+
+
+def _mbconv_cases(inputs, shape):
+    """(name, wrapper, plain version, arguments, bf16 products) of kernels
+    13-16 on ``_mbconv_inputs``' operands: kernels 14 and 16 on the plain
+    y2, m1, v1."""
+    from multimodal_plankton_recognition_torch.ops import mbconv as mb
+
+    x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3, dy2 = inputs
+    hw, cin, mid, cout, k, r = shape
+    b = x.shape[0]
+    expand = wexp is not None
+    y2, m1, v1, m2, v2 = mb.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    n = b * hw * hw
+    se = 4 * b * mid * r  # the SE products, per pass
+    return (
+        ("mbconv_ka_fwd", mb.ka_fwd, mb.ka_fwd_reference,
+         (x, wexp, g1, b1, wdw, k),
+         2 * n * cin * mid * expand + 2 * n * mid * k * k),
+        ("mbconv_kb_fwd", mb.kb_fwd, mb.kb_fwd_reference,
+         (y2, g2, b2, m2, v2, wr, br, we, be, wproj),
+         2 * n * mid * cout + se),
+        ("mbconv_kb_bwd", mb.kb_bwd, mb.kb_bwd_reference,
+         (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj),
+         4 * n * mid * cout + 3 * se),
+        ("mbconv_ka_bwd", mb.ka_bwd, mb.ka_bwd_reference,
+         (x, dy2, wexp, g1, b1, wdw, m1, v1, k),
+         6 * n * cin * mid * expand + 4 * n * mid * k * k))
+
+
+def _mbconv_close(label, got, want):
+    """Every output within ``MBCONV_TOL`` of max(1, its largest plain
+    value) and ``MBCONV_REL_TOL`` relative L2; returns (the largest
+    absolute error, the largest relative L2)."""
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None):
+            fail(f"{label}: output {i} is None on one side")
+        if w is None:
+            continue
+        if g.shape != w.shape:
+            fail(f"{label}: output {i} {tuple(g.shape)}, plain "
+                 f"{tuple(w.shape)}")
+        scale = max(1.0, w.float().abs().max().item())
+        err = max(err, scale * _check(f"{label} output {i}", g, w,
+                                      MBCONV_TOL, scale))
+        diff = (g.float() - w.float()).norm().item()
+        rel = max(rel, diff / max(w.float().norm().item(), 1e-30))
+    if not rel <= MBCONV_REL_TOL:
+        fail(f"{label}: relative L2 error {rel!r} > {MBCONV_REL_TOL}")
+    return err, rel
+
+
+def _mbconv_rows(records, gen, device, block, b, shape, profiled=False,
+                 timed=True):
+    """Kernels 13-16 at one MBConv ``shape`` (H = W, cin, mid, cout, k,
+    r) and batch ``b`` against their plain versions (``_mbconv_close``), a
+    second call bit for bit; with ``timed`` each row's device time beside
+    the plain version's and the bound, into ``records``. Returns the
+    cases (``_mbconv_cases``)."""
+    hw, cin, mid, cout, k, r = shape
+    cases = _mbconv_cases(_mbconv_inputs(gen, device, b, shape), shape)
+    label = (f"{block} B={b} H=W={hw} cin={cin} mid={mid} cout={cout} "
+             f"k={k} r={r}")
+    for name, fn, plain, args, flops in cases:
+        want = plain(*args)
+        got = fn(*args)
+        err, rel = _mbconv_close(f"{name} {label}", got, want)
+        _repeats(f"{name} {label}", got, fn(*args))
+        if profiled:
+            _call_profile(name, label, lambda: fn(*args))
+        if timed:
             _report(records, name, label, err,
                     f"{MBCONV_TOL} of max(1, max|plain|) per output; "
                     f"relative L2 {rel!r} (tol {MBCONV_REL_TOL})",
-                    cuda_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args)),
+                    cuda_ms(lambda: fn(*args)),
+                    cuda_ms(lambda: plain(*args)),
                     _bound(args, want, flops))
+        else:
+            print(f"kernel {name} [{label}]: max_abs_err {err!r} (tol "
+                  f"{MBCONV_TOL} of max(1, max|plain|)), relative L2 "
+                  f"{rel!r} (tol {MBCONV_REL_TOL})", flush=True)
+    return cases
 
 
 def _mha_module_ms(args, heads, p=0.0, dy=None, fast=True):
@@ -5300,7 +5378,12 @@ WIDTH_REPACK = (256, 225, 4, 20)  # B, L, H, d: the padding route's copy
 WIDTH_TRAIN = 2048  # packed train pairs: 8 micro-steps of 256 an epoch
 WIDTH_CLASSES = 16
 WIDTH_EPOCHS = 3
-WIDTH_BLOCK_EPOCHS = 4  # (c): 32 micro-steps on the fused block
+# (c): 16 micro-steps on the fused block and one round of turns beside the
+# packed route (once 4 epochs and 3 rounds: cut when the whole script
+# passed 1,000 s, since the shapes phase drives the same card on the
+# block)
+WIDTH_BLOCK_EPOCHS = 2
+WIDTH_BLOCK_ROUNDS = 1
 # (b)'s dropout-0 micro-steps from the seeded init: (card overrides,
 # kernels on their plain versions, inputs nudged) of each route. "plain":
 # every kernel off, the CLIP loss unfused; "plain FFN": kernels 9-10 alone
@@ -6360,41 +6443,28 @@ def phase_widths(device):
             records["rows"])
 
 
-def _width_kernels(device):
-    """(a) Kernels 1-4 at every ``WIDTH_HEAD_DIMS`` x ``WIDTH_LENGTHS``,
-    masked and not, eval and train (p 0.1), at B ``WIDTH_BATCH``: kernel 1
-    within ``KERNEL_TOL`` and ``FWD_REL_L2_TOL``, kernel 2 within
+def _attention_dims(gen, device, tag, dims, lengths, batch, heads, seed):
+    """Kernels 1-4 at every head dim of ``dims`` x ``lengths``, masked and
+    not, eval and train (p 0.1), at B ``batch`` with ``heads`` heads:
+    kernel 1 within ``KERNEL_TOL`` and ``FWD_REL_L2_TOL``, kernel 2 within
     ``BWD_TOL`` and ``BWD_REL_L2_TOL`` and a second call bit for bit,
     kernels 3 and 4 bit for bit kernels 1 and 2, and at each masked shape
-    the exact-sum checks (forward output and backward dV, bit for bit);
-    kernels 9-10 at every ``WIDTH_FFN``, GELU and ReLU, eval and train, as
-    ``_ffn_row``, and the exact-sum mask check. Each kernel must launch
-    once a call. Then the ``WIDTH_TIMED`` and ``WIDTH_FFN_TIMED`` rows at B
-    256 with times (kernel, plain, bound, SDPA or the unfused route), and
-    the padding route's copy. Returns ({"rows": {kernel: {label: row}},
-    "repack kernel ms": kernel 1's ms at ``WIDTH_REPACK``}, the copy's
-    ms)."""
+    the exact-sum checks (forward output and backward dV, bit for bit).
+    ``_attention_counts`` then checks the launches."""
     import torch
     from multimodal_plankton_recognition_torch.ops import attention as A
-    from multimodal_plankton_recognition_torch.ops import ffn
 
-    gen = torch.Generator(device=device).manual_seed(22)
-    seed = 2222
-    heads = WIDTH_HEADS
-    counts = {}
-    _reset_counts()
-    for d in WIDTH_HEAD_DIMS:
+    for d in dims:
         worst = [0.0] * 4  # forward abs, rel L2; backward abs, rel L2
-        for l in WIDTH_LENGTHS:
+        for l in lengths:
             for masked in (False, True):
-                qkv, bias = _attention_inputs(gen, device, WIDTH_BATCH, l,
+                qkv, bias = _attention_inputs(gen, device, batch, l,
                                               heads * d, masked)
                 q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
-                dout = torch.randn((WIDTH_BATCH, l, heads * d),
-                                   generator=gen, device=device
-                                   ).to(torch.bfloat16)
+                dout = torch.randn((batch, l, heads * d), generator=gen,
+                                   device=device).to(torch.bfloat16)
                 for p in (0.0, 0.1):
-                    label = (f"widths d={d} L={l} mask={masked} p={p}")
+                    label = f"{tag} d={d} L={l} mask={masked} p={p}"
                     out = A.mha_qkv(qkv, bias, heads, p, seed)
                     want = A.mha_qkv_reference(qkv, bias, heads, p, seed)
                     errs = [_check(f"mha_qkv_fwd {label}", out, want,
@@ -6419,27 +6489,59 @@ def _width_kernels(device):
                     if not torch.equal(torch.cat(sep, dim=-1), got):
                         fail(f"mha_bwd {label}: differs from mha_qkv_bwd")
                 if masked:  # exact sums: the masks must agree bit for bit
-                    _mask_check(gen, f"widths d={d}", qkv, bias, heads,
+                    _mask_check(gen, f"{tag} d={d}", qkv, bias, heads,
                                 seed, True)
-                    _bwd_mask_check(gen, f"widths d={d}", bias, heads, d,
+                    _bwd_mask_check(gen, f"{tag} d={d}", bias, heads, d,
                                     seed, True)
-        print(f"widths: kernels 1-4 at d {d} (kernel head dim "
-              f"{A.kernel_head_dim(d)}), L {WIDTH_LENGTHS}, masked and not, "
+        print(f"{tag}: kernels 1-4 at d {d} (kernel head dim "
+              f"{A.kernel_head_dim(d)}), L {lengths}, masked and not, "
               f"p 0 and 0.1: largest forward error {worst[0]!r} (tol "
               f"{KERNEL_TOL}), relative L2 {worst[1]!r} (tol "
               f"{FWD_REL_L2_TOL}); backward {worst[2]!r} of max(1, "
               f"max|plain|) (tol {BWD_TOL}), relative L2 {worst[3]!r} (tol "
               f"{BWD_REL_L2_TOL}); kernels 3-4 bit for bit 1-2, masks bit "
               f"for bit", flush=True)
-    n = len(WIDTH_HEAD_DIMS) * len(WIDTH_LENGTHS) * 2
+
+
+def _attention_counts(tag, n):
+    """The launches of ``_attention_dims`` over ``n`` (shape, mask) cases,
+    exact; returns them."""
     attn = _counts()
-    # per shape: 2 rates x (1 + 1 forward, 2 + 1 backward) + the mask checks
+    # per case: 2 rates x (1 + 1 forward, 2 + 1 backward) + the mask checks
     want = {"mha_qkv_fwd": n * 2 + n // 2, "mha_fwd": n * 2 + n // 2,
             "mha_qkv_bwd": n * 4 + n // 2, "mha_bwd": n * 2 + n // 2}
     if {k: attn[k] for k in want} != want or any(
             v for k, v in attn.items() if k not in want):
-        fail(f"widths: attention launches {attn}, expected {want}")
-    counts.update(want)
+        fail(f"{tag}: attention launches {attn}, expected {want}")
+    return want
+
+
+def _width_kernels(device):
+    """(a) Kernels 1-4 at every ``WIDTH_HEAD_DIMS`` x ``WIDTH_LENGTHS``,
+    masked and not, eval and train (p 0.1), at B ``WIDTH_BATCH``: kernel 1
+    within ``KERNEL_TOL`` and ``FWD_REL_L2_TOL``, kernel 2 within
+    ``BWD_TOL`` and ``BWD_REL_L2_TOL`` and a second call bit for bit,
+    kernels 3 and 4 bit for bit kernels 1 and 2, and at each masked shape
+    the exact-sum checks (forward output and backward dV, bit for bit);
+    kernels 9-10 at every ``WIDTH_FFN``, GELU and ReLU, eval and train, as
+    ``_ffn_row``, and the exact-sum mask check. Each kernel must launch
+    once a call. Then the ``WIDTH_TIMED`` and ``WIDTH_FFN_TIMED`` rows at B
+    256 with times (kernel, plain, bound, SDPA or the unfused route), and
+    the padding route's copy. Returns ({"rows": {kernel: {label: row}},
+    "repack kernel ms": kernel 1's ms at ``WIDTH_REPACK``}, the copy's
+    ms)."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import attention as A
+    from multimodal_plankton_recognition_torch.ops import ffn
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    seed = 2222
+    counts = {}
+    _reset_counts()
+    _attention_dims(gen, device, "widths", WIDTH_HEAD_DIMS, WIDTH_LENGTHS,
+                    WIDTH_BATCH, WIDTH_HEADS, seed)
+    counts.update(_attention_counts("widths", len(WIDTH_HEAD_DIMS)
+                                    * len(WIDTH_LENGTHS) * 2))
 
     ffn_gen = torch.Generator(device=device).manual_seed(23)
     _reset_counts()
@@ -6546,8 +6648,8 @@ def _width_card(device):
                                    WIDTH_TRAIN, GALLERY, WIDTH_CLASSES,
                                    seed=22)
         out, restored, gallery, labels, train_launches = _width_cli(
-            device, d, root, tmp, init, "(b)", WIDTH_EPOCHS, per_micro,
-            per_eval)
+            device, d, root, tmp, init, "widths: (b)", WIDTH_EPOCHS,
+            per_micro, per_eval)
         block = _width_block_card(device, d, root, tmp, init)
     history = out["history"]
     gallery = {k: torch.as_tensor(v).to(device) for k, v in gallery.items()}
@@ -6628,21 +6730,21 @@ def _width_cli(device, d, root, tmp, init, what, epochs, per_micro,
         for k in per_micro})
     history = out["history"]
     losses = [h["train_loss"] for h in history]
-    print(f"widths: {what} {epochs} epochs of {micro} micro-steps and "
+    print(f"{what} {epochs} epochs of {micro} micro-steps and "
           f"{evals} eval steps of {bs} in {train_s!r} s; history "
           f"{history}; launches {train_launches}", flush=True)
     if train_launches != want:
-        fail(f"widths: {what} train launches {train_launches}, expected "
+        fail(f"{what} train launches {train_launches}, expected "
              f"{want}")
     if len(history) != epochs or not all(
             math.isfinite(h["train_loss"]) and
             math.isfinite(h["valid_loss"]) for h in history) or \
             not losses[-1] < losses[0]:
-        fail(f"widths: {what} losses not finite or not falling: {history}")
+        fail(f"{what} losses not finite or not falling: {history}")
     unmoved = [n for n, m in out["state"].params.items()
                if m.dtype != torch.float32 or torch.equal(m.cpu(), init[n])]
     if unmoved:
-        fail(f"widths: {what} masters not f32 or not moved: {unmoved}")
+        fail(f"{what} masters not f32 or not moved: {unmoved}")
     restored, _, meta = load_from_checkpoint(
         Path(out["logdir"]) / "checkpoints", device=device)
     test_set = PackedMultiSet(root / "test.csv", ts)
@@ -6680,7 +6782,7 @@ def _width_block_card(device, d, root, tmp, init):
     bs, evals = d["bs"], GALLERY // d["bs"]
     with fuse():
         out, restored, gallery, labels, train_launches = _width_cli(
-            device, d, root, tmp, init, "(c) fused block",
+            device, d, root, tmp, init, "widths: (c) fused block",
             WIDTH_BLOCK_EPOCHS, per_micro, per_eval)
     gallery = {k: torch.as_tensor(v).to(device) for k, v in gallery.items()}
     first = {k: v[:bs] for k, v in gallery.items()}
@@ -6710,7 +6812,7 @@ def _width_block_card(device, d, root, tmp, init):
 
     rates = {"encode": {"packed": [], "block": []},
              "train": {"packed": [], "block": []}}
-    turns = ("packed", "block", "block", "packed") * FUSE_PROJ_ROUNDS
+    turns = ("packed", "block", "block", "packed") * WIDTH_BLOCK_ROUNDS
     from multimodal_plankton_recognition_torch.train import (
         create_train_state)
     _, m, tx, train_step, _ = _card(base=d)
@@ -6729,7 +6831,7 @@ def _width_block_card(device, d, root, tmp, init):
     mean = statistics.fmean
     ratio = {k: mean(v["block"]) / mean(v["packed"])
              for k, v in rates.items()}
-    print(f"widths: (c) in {FUSE_PROJ_ROUNDS} rounds of turns (packed, "
+    print(f"widths: (c) in {WIDTH_BLOCK_ROUNDS} rounds of turns (packed, "
           f"block, block, packed) on {_smi()}:"
           f" encode pairs/s {rates['encode']}, train pairs/s of the "
           f"micro-step over {PLAIN_STEPS} steps {rates['train']}; block / "
@@ -6741,7 +6843,8 @@ def _width_block_card(device, d, root, tmp, init):
             "step": step}
 
 
-def _width_block_step(device, d, init, batch, per_micro):
+def _width_block_step(device, d, init, batch, per_micro,
+                      tag="widths: (c)"):
     """One dropout-0 micro-step of (c)'s card from ``init`` on the fused
     block ("kernel") and on the packed route (kernels 1-2), and the packed
     route on inputs nudged by a relative 1e-3 (the step's own
@@ -6776,23 +6879,23 @@ def _width_block_step(device, d, init, batch, per_micro):
                 else contextlib.nullcontext():
             _, loss = step(st, inputs, 0)
         if _counts() != want:
-            fail(f"widths: (c) {route} micro-step launches {_counts()}, "
+            fail(f"{tag} {route} micro-step launches {_counts()}, "
                  f"expected {want}")
         losses[route] = float(loss)
         grads[route] = {n: m.get_parameter(n).grad.float()
                         for n in FFN_NAMED_GRADS}
         del st
     loss_err = abs(losses["kernel"] - losses["packed"])
-    print(f"widths: (c) micro-step, dropout 0: loss fused block "
+    print(f"{tag} micro-step, dropout 0: loss fused block "
           f"{losses['kernel']!r} packed {losses['packed']!r} (|diff| "
           f"{loss_err!r}, tol {STEP_LOSS_TOL})", flush=True)
     if not loss_err <= STEP_LOSS_TOL:
-        fail(f"widths: (c) the fused-block and packed micro-steps disagree "
+        fail(f"{tag} the fused-block and packed micro-steps disagree "
              f"on the loss: {loss_err}")
-    _grad_diffs("widths (c)", grads, NAMED_GRADS, STEP_GRAD_TOL, "packed")
-    _grad_diffs("widths (c)", grads, FFN_NAMED_GRADS, STEP_GRAD_TOL,
+    _grad_diffs(tag, grads, NAMED_GRADS, STEP_GRAD_TOL, "packed")
+    _grad_diffs(tag, grads, FFN_NAMED_GRADS, STEP_GRAD_TOL,
                 "packed")
-    _held_statistically("widths (c) micro-step, dropout 0", losses, grads,
+    _held_statistically(f"{tag} micro-step, dropout 0", losses, grads,
                         FFN_NAMED_GRADS, (("kernel", "packed"),),
                         ("packed", "nudged packed"))
     return losses
@@ -6902,6 +7005,295 @@ def _width_train_rate(device, d, init, batch):
           f"{PLAIN_STEPS} steps after {WARMUP_STEPS} warm-up steps, twice: "
           f"{rates!r}", flush=True)
     return rates
+
+
+# The shapes phase: the last shapes JAX's Pallas kernels take that the
+# port refused before. (a) MBConv kernels 13-16 at channel counts off the
+# 16-byte line (the padding route) and depthwise sizes past 3 and 5,
+# (H = W, cin, mid, cout, k, SE width): at B 64, timed; cin 20 and cout 20
+# padded to 24, mid 180 to 184, an expand ratio of 1 with cin 20 and cout
+# 12, k 7 on aligned channels; then k 1, 9 and 11 at B 4
+SHAPE_MBCONV = {"shapes c20": (56, 20, 120, 20, 3, 5),
+                "shapes mid180": (28, 30, 180, 30, 5, 7),
+                "shapes expand1": (112, 20, 20, 12, 3, 5),
+                "shapes k7": (14, 40, 240, 40, 7, 10)}
+SHAPE_MBCONV_K = {"shapes k1": (28, 20, 60, 20, 1, 5),
+                  "shapes k9": (28, 20, 60, 20, 9, 5),
+                  "shapes k11": (14, 24, 48, 24, 11, 6)}
+SHAPE_MBCONV_K_BATCH = 4
+# (b) kernels 1-4 past head dim 256 (264 and 300 through the padding route
+# to 320) at B 4, L 65, 2 heads; kernels 11-12 at these (E, heads) (600 / 2
+# = 300 padded on the weights); timed at B 256, L 225, masked, one head
+SHAPE_HEAD_DIMS = (264, 300, 320, 384, 512, 1024)
+SHAPE_BATCH, SHAPE_LENGTH, SHAPE_HEADS = 4, 65, 2
+SHAPE_BLOCKS = ((512, 1), (768, 2), (600, 2), (1024, 1))
+SHAPE_TIMED = {"shapes d384": (256, 225, 1, 384, True),
+               "shapes d512": (256, 225, 1, 512, True)}
+# (c) WIDTHS_CARD with a one-head 512-wide profile transformer (d 512),
+# through the train CLI
+SHAPE_EPOCHS = 2
+
+
+def phase_shapes(device):
+    """The shapes no shipped card reaches and the port refused before:
+    (a) ``_shape_mbconv``, (b) ``_shape_attention`` (their timed rows into
+    the kernel records), (c) ``_shape_card``. A ``summary: shapes`` line.
+    Returns ({"shapes": the launches of (c)}, the timed rows)."""
+    import torch
+
+    t0 = time.perf_counter()
+    records = {}
+    _shape_mbconv(device, records)
+    t_a = time.perf_counter() - t0
+    _shape_attention(device, records)
+    t_b = time.perf_counter() - t0 - t_a
+    card = _shape_card(device)
+    print(f"summary: shapes on {_smi()}: (a) kernels 13-16 and "
+          f"mbconv_core at {len(SHAPE_MBCONV)} shapes at B "
+          f"{B0_CARD['bs']} and {len(SHAPE_MBCONV_K)} at B "
+          f"{SHAPE_MBCONV_K_BATCH} against their plain versions, the "
+          f"padding route bit for bit the kernels on hand-padded inputs, "
+          f"{t_a:.1f} s; (b) kernels 1-4 at head dims {SHAPE_HEAD_DIMS} and "
+          f"11-12 at (E, heads) {SHAPE_BLOCKS}, timed at "
+          f"{list(SHAPE_TIMED)}, {t_b:.1f} s; (c) {Path(WIDTHS_CARD).stem} "
+          f"with a one-head 512-wide profile transformer through the train "
+          f"CLI: launches {card['kernel_launches']}, loss {card['losses']!r}"
+          f", encode {card['encode_rate']!r} pairs/s from the checkpoint, "
+          f"the fused block's micro-step losses {card['step']!r}; the phase "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    torch.cuda.synchronize()
+    return {"shapes": card["launches"]}, records
+
+
+def _hand_pad(t, shape):
+    """``t`` zero-padded to ``shape``, by hand (not the route's helpers)."""
+    import torch
+
+    if t is None or isinstance(t, int):
+        return t
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _hand_padded(name, args, ci, mi, co):
+    """Kernel ``name``'s arguments (``_mbconv_cases``) with cin, mid and
+    cout zero-padded to ci, mi and co."""
+    def rows(t, c):
+        return _hand_pad(t, (*t.shape[:-1], c))
+
+    def vec(*ts):
+        return [_hand_pad(t, (mi,)) for t in ts]
+
+    if name == "mbconv_ka_fwd":
+        x, wexp, g1, b1, wdw, k = args
+        return (rows(x, ci), _hand_pad(wexp, (ci, mi)), *vec(g1, b1),
+                rows(wdw, mi), k)
+    if name == "mbconv_ka_bwd":
+        x, dy2, wexp, g1, b1, wdw, m1, v1, k = args
+        return (rows(x, ci), rows(dy2, mi), _hand_pad(wexp, (ci, mi)),
+                *vec(g1, b1), rows(wdw, mi), *vec(m1, v1), k)
+    y2, *rest = args
+    dy3 = rest.pop(0) if name == "mbconv_kb_bwd" else None
+    g2, b2, m2, v2, wr, br, we, be, wproj = rest
+    head = (rows(y2, mi),) + ((rows(dy3, co),) if dy3 is not None else ())
+    return (*head, *vec(g2, b2, m2, v2), _hand_pad(wr, (mi, wr.shape[1])),
+            br, rows(we, mi), *vec(be), _hand_pad(wproj, (mi, co)))
+
+
+def _shape_mbconv(device, records):
+    """(a) Kernels 13-16 at every ``SHAPE_MBCONV`` shape at B 64 (timed
+    into ``records``) and ``SHAPE_MBCONV_K`` at B
+    ``SHAPE_MBCONV_K_BATCH``: against their plain versions within
+    ``MBCONV_TOL`` and ``MBCONV_REL_TOL`` and a second call bit for bit
+    (``_mbconv_rows``); one launch a call; the padding route bit for bit
+    the kernel on inputs padded by hand and cut back; ``mbconv_core``'s
+    forward and gradients (through m3 and v3 too) against the plain
+    ``mbconv_core`` route (``_plain_mbconv``) within the same tolerances,
+    one launch of each kernel."""
+    import torch
+    from multimodal_plankton_recognition_torch.ops import mbconv as mb
+
+    gen = torch.Generator(device=device).manual_seed(24)
+    for table, b, timed in ((SHAPE_MBCONV, B0_CARD["bs"], True),
+                            (SHAPE_MBCONV_K, SHAPE_MBCONV_K_BATCH, False)):
+        for block, shape in table.items():
+            hw, cin, mid, cout, k, r = shape
+            ci, mi, co = (mb.kernel_channels(c) for c in (cin, mid, cout))
+            label = f"shapes {block} B={b} {shape}"
+            cases = _mbconv_rows(records, gen, device, block, b, shape,
+                                 timed=timed)
+            for name, fn, _, args, _ in cases:
+                _reset_counts()
+                got = fn(*args)
+                if _counts() != _per_step(**{name: 1}):
+                    fail(f"{name} {label}: launches {_counts()}, expected "
+                         f"one of {name}")
+                hand = fn(*_hand_padded(name, args, ci, mi, co))
+                same = all(
+                    (g is None and h is None) or torch.equal(
+                        g, h[tuple(slice(0, n) for n in g.shape)])
+                    for g, h in zip(got, hand))
+                if not same:
+                    fail(f"{name} {label}: the padding route differs from "
+                         f"the kernel on hand-padded inputs")
+            inputs = _mbconv_inputs(gen, device, b, shape)
+            x, *weights = inputs[:12]
+            dy3 = inputs[12]
+            leaves = [t.detach().requires_grad_() for t in (x, *weights)
+                      if t is not None]
+
+            def run():
+                it = iter(leaves)
+                args = [None if t is None else next(it)
+                        for t in (x, *weights)]
+                out = mb.mbconv_core(*args, k=k)
+                loss = ((out[0].float() * dy3.float()).sum()
+                        + out[5].sum() + out[6].sum())
+                return (*out, *torch.autograd.grad(loss, leaves))
+
+            _reset_counts()
+            got = run()
+            want_counts = _per_step(mbconv_ka_fwd=1, mbconv_kb_fwd=1,
+                                    mbconv_kb_bwd=1, mbconv_ka_bwd=1)
+            if _counts() != want_counts:
+                fail(f"mbconv_core {label}: launches {_counts()}")
+            with _plain_mbconv():
+                want = run()
+            if _counts() != want_counts:
+                fail(f"mbconv_core {label}: the plain route launched")
+            err, rel = _mbconv_close(f"mbconv_core {label}", got, want)
+            print(f"mbconv_core [{label}]: forward, statistics and every "
+                  f"gradient against the plain route: max_abs_err {err!r} "
+                  f"(tol {MBCONV_TOL} of max(1, max|plain|)), relative L2 "
+                  f"{rel!r}; each kernel one launch; the padding route bit "
+                  f"for bit the kernels on hand-padded inputs", flush=True)
+
+
+def _shape_attention(device, records):
+    """(b) Kernels 1-4 at every ``SHAPE_HEAD_DIMS`` (``_attention_dims``:
+    masked and not, p 0 and 0.1, masks and second calls bit for bit) and
+    kernels 11-12 at every ``SHAPE_BLOCKS`` (E, heads) (``_block_rows``)
+    at B ``SHAPE_BATCH``, L ``SHAPE_LENGTH``, exact launches; then the
+    ``SHAPE_TIMED`` rows of kernels 1-2 and 11-12 at B 256 into
+    ``records`` (kernel, plain, bound, SDPA or ``nn.MultiheadAttention``).
+    """
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    seed = 2424
+    _reset_counts()
+    _attention_dims(gen, device, "shapes", SHAPE_HEAD_DIMS, (SHAPE_LENGTH,),
+                    SHAPE_BATCH, SHAPE_HEADS, seed)
+    counts = _attention_counts("shapes", len(SHAPE_HEAD_DIMS) * 2)
+    _reset_counts()
+    for e, heads in SHAPE_BLOCKS:
+        for masked in (False, True):
+            _block_rows(None, gen, device, "shapes", SHAPE_BATCH,
+                        SHAPE_LENGTH, heads, e, masked, seed,
+                        both_rates=True)
+    # a (shape, mask) case: 2 rates x (2 forward, 3 backward); a masked
+    # one also the identity check (11 and 12 beside 1 and 2)
+    n = len(SHAPE_BLOCKS)
+    want = _per_step(attn_block_fwd=n * 9, attn_block_bwd=n * 13,
+                     mha_qkv_fwd=n, mha_qkv_bwd=n)
+    if _counts() != want:
+        fail(f"shapes: block launches {_counts()}, expected {want}")
+    counts.update({k: v for k, v in want.items() if v})
+    print(f"shapes: (b) kernels 11-12 at (E, heads) {SHAPE_BLOCKS}, masked "
+          f"and not, p 0 and 0.1, at B {SHAPE_BATCH} L {SHAPE_LENGTH}: every "
+          f"check passed; launches {counts} (comparisons with the plain "
+          f"versions, not counted on the path)", flush=True)
+    for name, (b, l, h, e, masked) in SHAPE_TIMED.items():
+        qkv, bias = _attention_inputs(gen, device, b, l, e, masked)
+        _forward_rows(records, name, qkv, bias, h, masked, seed, False)
+        _backward_rows(records, gen, name, qkv, bias, h, masked, seed,
+                       False)
+        _block_rows(records, gen, device, name, b, l, h, e, masked, seed)
+
+
+def _shape_card(device):
+    """(c) ``WIDTHS_CARD`` with ``profile_encoder_args`` dim_hidden 512,
+    num_head 1 (d 512), dim_feedforward 2048 and fused_ffn, fused_ffn on
+    the ViT-S too, bs 256 in 16 buckets, ``packed_cache``: through the
+    train CLI for ``SHAPE_EPOCHS`` epochs on kernels 1-2, 9-10 and 5-6
+    (``_width_cli``: exact launches, losses falling, every master moved);
+    served from its checkpoint (14 + 14 launches a batch, finite unit
+    rows, self-gallery k = 1 >= 0.99); then under
+    ``PLANKTON_ATTN_FUSE_PROJ=1`` (kernels 11-12, none of 1-4) one
+    dropout-0 micro-step held against the packed route
+    (``_width_block_step``) and the encode, exact launches, within
+    ``SLICE_TOL`` of the packed route's embeddings with every self-match
+    found. Returns its numbers and the path's launches (the CLI, both
+    encodes and the fused block's micro-step)."""
+    import copy
+    import tempfile
+
+    import torch
+    from multimodal_plankton_recognition_torch.config import (
+        ModelCard, load_card)
+    from multimodal_plankton_recognition_torch.retrieval.encode import (
+        encode_arrays)
+    from multimodal_plankton_recognition_torch.train import drivers
+
+    d = load_card(REPO / WIDTHS_CARD).to_dict()
+    d["profile_encoder_args"].update(dim_hidden=512, num_head=1,
+                                     dim_feedforward=2048, fused_ffn=True)
+    d["image_encoder_args"].update(fused_ffn=True)
+    d.update(bs=BATCH, buckets=BUCKETS, packed_cache=True)
+    card = ModelCard.from_dict(copy.deepcopy(d))
+    bs, evals = card.bs, GALLERY // card.bs
+    layers = ATTENTION_LAYERS
+    per_micro = dict(mha_qkv_fwd=layers, mha_qkv_bwd=layers, ffn_fwd=layers,
+                     ffn_bwd=layers, clip_fwd=1, clip_bwd=1)
+    per_eval = dict(mha_qkv_fwd=layers, ffn_fwd=layers, clip_fwd=1)
+    block_micro = dict(per_micro, mha_qkv_fwd=0, mha_qkv_bwd=0,
+                       attn_block_fwd=layers, attn_block_bwd=layers)
+    init = drivers.init_masters(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = write_packed_splits(tmp / "data", card.target_size,
+                                   WIDTH_TRAIN, GALLERY, WIDTH_CLASSES,
+                                   seed=24)
+        out, restored, gallery, labels, train_launches = _width_cli(
+            device, d, root, tmp, init, "shapes: (c)", SHAPE_EPOCHS,
+            per_micro, per_eval)
+    gallery = {k: torch.as_tensor(v).to(device) for k, v in gallery.items()}
+    first = {k: v[:bs] for k, v in gallery.items()}
+    encodes = {}
+    for route in ("packed", "block"):
+        env = (_env("PLANKTON_ATTN_FUSE_PROJ", "1") if route == "block"
+               else contextlib.nullcontext())
+        attn = "attn_block_fwd" if route == "block" else "mha_qkv_fwd"
+        per_batch = _per_step(**{attn: layers, "ffn_fwd": layers})
+        with env:
+            encode_arrays(restored, first, labels[:bs], bs, device)
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb = encode_arrays(restored, gallery, labels, bs, device)
+            torch.cuda.synchronize()
+            rate = GALLERY / (time.perf_counter() - t0)
+            got = _counts()
+        if got != {k: v * evals for k, v in per_batch.items()}:
+            fail(f"shapes: (c) {route} encode launches {got}, expected "
+                 f"{per_batch} a batch")
+        encodes[route] = (emb, rate, got)
+    _check_embeddings("shapes: (c), the restored card", encodes["packed"][0],
+                      labels, device)
+    _check_embeddings("shapes: (c), the restored card on the fused block",
+                      encodes["block"][0], labels, device,
+                      encodes["packed"][0], least=1.0)
+    step = _width_block_step(device, d, init, first, block_micro,
+                             tag="shapes: (c)")
+    path = [train_launches, encodes["packed"][2], encodes["block"][2],
+            _per_step(**block_micro)]
+    launches = {k: sum(p[k] for p in path) for k in train_launches}
+    return {"launches": launches,
+            "kernel_launches": {k: v for k, v in launches.items() if v},
+            "losses": [h["train_loss"] for h in out["history"]],
+            "encode_rate": {r: e[1] for r, e in encodes.items()},
+            "step": step}
 
 
 def _device_ms(prof, steps):
@@ -7455,7 +7847,7 @@ def _rank_table():
     clip = {p: loss_rows(BUCKETS, BATCH // BUCKETS)
             for p in ("train", "serve_checkpoint", "ffn_train", "unpacked",
                       "fuse_proj", "flax_attention", "parallel", "widths",
-                      "widths_block")}
+                      "widths_block", "shapes")}
     clip["b0_card"] = clip["remat"] = loss_rows(
         B0_CARD["buckets"], B0_CARD["bs"] // B0_CARD["buckets"])
     clip["global"] = loss_rows(1, BATCH)
@@ -7479,6 +7871,16 @@ def _rank_table():
     # the same card on the fused block: its ViT-S and profile layers'
     # rows of kernels 11-12 (BLOCK_TIMED)
     block["widths_block"] = wide("p=0.0", "p=0.1")
+    # the shapes card: the same ViT-S, its one-head profile layers at d
+    # 512 (SHAPE_TIMED), the same FFN widths; kernels 11-12 in its fused
+    # block's micro-step and encode
+    def shapes(vit_mode, prof_mode):
+        return [("widths vit B=256 ", vit_mode, vit),
+                ("shapes d512 B=256 ", prof_mode, prof)]
+
+    fwd["shapes"] = shapes("eval", "train p=0.1")
+    bwd["shapes"] = block["shapes"] = shapes("p=0.0", "p=0.1")
+    ffn_rows["shapes"] = ffn_rows["widths"]
     return {"mha_qkv_fwd": fwd, "mha_qkv_bwd": bwd,
             "mha_fwd": {"unpacked": pair(*flag, "eval", "train p=0.1")},
             "mha_bwd": {"unpacked": pair(*flag, "p=0.0", "p=0.1")},
@@ -7568,10 +7970,11 @@ def main(argv=None) -> None:
                 "parallel": phase_parallel(device),
                 **phase_export(device), **phase_tail(device),
                 **phase_pretrained(device)}
-    widths, width_rows = phase_widths(device)
-    launches.update(widths)
-    for name, rows in width_rows.items():
-        records[name].update(rows)
+    for phase in (phase_widths, phase_shapes):
+        paths, rows = phase(device)
+        launches.update(paths)
+        for name, by_label in rows.items():
+            records[name].update(by_label)
     if args.profile:
         phase_profile(device)
     _ranking(records, launches)

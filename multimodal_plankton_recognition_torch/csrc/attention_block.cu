@@ -26,12 +26,13 @@
 // model's. Every weight is read in place: the products that run along a
 // weight's rows (do, dx) take it N-major.
 //
-// Shapes: D any multiple of 8 up to 256 and E any multiple of 8. One
-// library per range of head dims [ATTN_D_LO, ATTN_D_HI] (8-64 by default),
-// as attention_{fwd,bwd}.cu: ops/build.py compiles this source once per
-// range (its UNITS), in parallel. ops/attention_block.py pads other
-// shapes on the weights: each head's rows of Wqkv and bqkv and columns of
-// Wo to the next multiple of 8 with zeros (zero columns of q and k add
+// Shapes: D any multiple of 8 up to 256, of 64 up to 512 or of 128 up to
+// 1,024, and E any multiple of 8. One library per range of head dims ATTN_D_LO, +
+// ATTN_D_STEP, ..., ATTN_D_HI (8-64 by 8 by default), as
+// attention_{fwd,bwd}.cu: ops/build.py compiles this source once per range
+// (its UNITS), in parallel. ops/attention_block.py pads other shapes on
+// the weights: each head's rows of Wqkv and bqkv and columns of Wo to the
+// next instantiated head dim with zeros (zero columns of q and k add
 // nothing to q.k^T, zero columns of v give o zero columns, which meet
 // zero weights), the softmax scale that of the true head dim; where E is
 // not a multiple of 8, x, dy, Wqkv's columns, Wo's rows and bo too. So
@@ -83,6 +84,9 @@
 #define ATTN_D_LO 8
 #define ATTN_D_HI 64
 #endif
+#ifndef ATTN_D_STEP
+#define ATTN_D_STEP 8
+#endif
 
 namespace {
 
@@ -104,9 +108,10 @@ int qkv_and_o(const void* x, const void* wqkv, const void* bqkv,
   const bf16* q = static_cast<const bf16*>(qkv);
   CHECK(gemm(x, wqkv, 0, bqkv, qkv, B * L, 3 * A, E,
              static_cast<cudaStream_t>(stream)));
-  CHECK((cudaError_t)(attn_fwd::dispatch<ATTN_D_LO, ATTN_D_HI>(
-      q, q + A, q + 2 * A, 3 * A, bias, o, B, L, H, D, scale, seed, thr,
-      inv_keep, stream)));
+  CHECK((cudaError_t)(
+      attn_fwd::dispatch<ATTN_D_LO, ATTN_D_HI, ATTN_D_STEP>(
+          q, q + A, q + 2 * A, 3 * A, bias, o, B, L, H, D, scale, seed, thr,
+          inv_keep, stream)));
   return 0;
 }
 
@@ -114,7 +119,7 @@ int qkv_and_o(const void* x, const void* wqkv, const void* bqkv,
 // one of this library's head dims (the dispatch refuses the others)
 bool shapes_ok(int B, int L, int E, int H, int D) {
   return B > 0 && L > 0 && H > 0 && E > 0 && E % 8 == 0 && D >= ATTN_D_LO &&
-         D <= ATTN_D_HI && D % 8 == 0;
+         D <= ATTN_D_HI && (D - ATTN_D_LO) % ATTN_D_STEP == 0;
 }
 
 }  // namespace
@@ -171,9 +176,10 @@ int attn_block_bwd(const void* x, const void* wqkv, const void* bqkv,
   float* part_qkv = static_cast<float*>(part);
   float* part_out = part_qkv + (size_t)g_qkv * (3 * (size_t)A * E + 3 * A);
   CHECK(gemm(dy, wo, 1, nullptr, dout, M, A, E, s));
-  CHECK((cudaError_t)(attn_bwd::dispatch<ATTN_D_LO, ATTN_D_HI>(
-      q, q + A, q + 2 * A, 3 * A, bias, dout, dq, dq + A, dq + 2 * A,
-      scratch, B, L, H, D, scale, seed, thr, inv_keep, stream)));
+  CHECK((cudaError_t)(
+      attn_bwd::dispatch<ATTN_D_LO, ATTN_D_HI, ATTN_D_STEP>(
+          q, q + A, q + 2 * A, 3 * A, bias, dout, dq, dq + A, dq + 2 * A,
+          scratch, B, L, H, D, scale, seed, thr, inv_keep, stream)));
   CHECK(gemm(dqkv, wqkv, 1, nullptr, dx, M, E, 3 * A, s));
   CHECK(wgrad(dqkv, x, part_qkv, g_qkv, dwqkv, dbqkv, M, 3 * A, E, s));
   CHECK(wgrad(dy, o, part_out, g_out, dwo, dbo, M, E, A, s));

@@ -71,7 +71,12 @@
 // explicitly, since a padded query has no statistics. Staged rows are
 // strided by an odd number of 16-byte words, so ldmatrix hits no bank
 // conflict, plain or transposed. No length up to MAX_LENGTH is refused.
-// Head dims: every multiple of 8 up to 256 (dispatch's range). Above D 64
+// Head dims: every multiple of 8 up to 256, of 64 up to 512 and of 128 up
+// to 1,024 (dispatch's range and step). Above D 256 the A fragments of either
+// kernel (q and dO, or K and V: D registers together) are read from
+// device memory where they are used (MemA, mma.cuh), the same values in
+// the same k-step order, so every rounding point stays the resident
+// path's, and the accumulators' groups widen again to D <= 128's. Above D 64
 // a block holds one chunk of fewer than 256 rows where 256 would not fit
 // shared memory (Geom::kChunk), and the accumulators that grow with D are
 // cut into column groups so that a thread's registers hold them beside
@@ -104,7 +109,10 @@ using namespace tc;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 1024;
+// the A fragments held in registers up to this head dim, read where used
+// above it
+constexpr int kResidentHeadDim = 256;
 // shared memory a block may take above D 64, where an SM holds one block
 constexpr int kWideSmem = 200 * 1024;
 
@@ -116,15 +124,18 @@ __host__ __device__ constexpr int odd_stride(int cols) {
 template <int D>
 struct Geom {
   static_assert(D % 8 == 0 && D >= 8 && D <= kMaxHeadDim,
-                "head dim: a multiple of 8, <= 256");
+                "head dim: a multiple of 8, <= 1024");
+  static constexpr bool kResident = D <= kResidentHeadDim;
   static constexpr int kDp = (D + 15) / 16 * 16;  // product depth, padded
   static constexpr int kKSteps = kDp / 16;
   static constexpr int kNTiles = D / 8;  // n8 tiles of a dQ, dK or dV row
   // column groups of kernel A's dQ and of kernel B's dK and dV, and n8
   // tiles a group: registers of a thread hold q and dO (or K and V)
-  // fragments, D / 2 of them, beside 4 kQT (or 8 kKT) accumulators
-  static constexpr int kQMax = D <= 128 ? 16 : 8;
-  static constexpr int kKMax = D <= 128 ? 8 : 4;
+  // fragments, D / 2 of them, beside 4 kQT (or 8 kKT) accumulators (above
+  // D 256 the fragments are not held, and the groups are D 128's)
+  static constexpr bool kWideGroups = D <= 128 || !kResident;
+  static constexpr int kQMax = kWideGroups ? 16 : 8;
+  static constexpr int kKMax = kWideGroups ? 8 : 4;
   static constexpr int kQGroups = (kNTiles + kQMax - 1) / kQMax;
   static constexpr int kQT = (kNTiles + kQGroups - 1) / kQGroups;
   static constexpr int kKGroups = (kNTiles + kKMax - 1) / kKMax;
@@ -259,10 +270,9 @@ __device__ __forceinline__ void zero_acc(float (&x)[NT][4]) {
 // against the 16 keys of a tile (kp: rows_lane of K, vp: of V, bs: the
 // keys' bias): p = exp(z - max) / sum by the corrected division, the
 // forward's p; dp = dO . V^T
-template <int KS>
+template <int KS, class A>
 __device__ __forceinline__ void probs(float (&p)[2][4], float (&dp)[2][4],
-                                      const uint32_t (&qa)[KS][4],
-                                      const uint32_t (&da)[KS][4],
+                                      const A& qa, const A& da,
                                       const bf16* kp, const bf16* vp,
                                       const float* bs, float scale,
                                       const float (&m)[2], const float (&l)[2],
@@ -401,7 +411,7 @@ mha_bwd_q_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
     if (row0 >= L) return;
   }
 
-  uint32_t qa[G::kKSteps][4], da[G::kKSteps][4];
+  typename AFrag<G::kKSteps, G::kResident>::type qa, da;
   load_a<G::kKSteps>(qa, q_in + head, ld, r0, L, D, quad);
   load_a<G::kKSteps>(da, dout + (size_t)b * L * E + (size_t)h * D, E, r0, L,
                      D, quad);
@@ -575,7 +585,7 @@ mha_bwd_kv_kernel(const bf16* __restrict__ q_in,
   const bf16* ot = cols_lane(os, G::kStride, lane);  // dO in Pd^T . dO
 
   zero_pad<D>(qs, os, cap);
-  uint32_t ka[G::kKSteps][4], va[G::kKSteps][4];
+  typename AFrag<G::kKSteps, G::kResident>::type ka, va;
   load_a<G::kKSteps>(ka, k_in + head, ld, j0, L, D, quad);
   load_a<G::kKSteps>(va, v_in + head, ld, j0, L, D, quad);
   float bj[2];  // the keys' bias, -inf past the last key
@@ -710,22 +720,23 @@ int launch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
 // and L <= 256, room for B H T^2 tiles of 8 words of keep bits, T =
 // ceil(L / 16), which kernel A writes where one chunk holds every key (L
 // <= Geom::kChunk) (ops/attention.py bwd_scratch allocates it). launch<D>
-// for the head dim D of [LO, HI] (multiples of 8) that equals d;
-// cudaErrorInvalidValue for any other d.
-template <int LO, int HI>
+// for the head dim D of LO, LO + STEP, ..., HI (multiples of 8) that
+// equals d; cudaErrorInvalidValue for any other d.
+template <int LO, int HI, int STEP = 8>
 int dispatch(cbf16p q, cbf16p k, cbf16p v, int ld, const void* bias,
              const void* dout, bf16p dq, bf16p dk, bf16p dv, void* scratch,
              int B, int L, int H, int d, float scale, unsigned seed,
              unsigned thr, float inv_keep, void* stream) {
-  static_assert(LO % 8 == 0 && LO <= HI, "a range of multiples of 8");
+  static_assert(LO % 8 == 0 && STEP % 8 == 0 && LO <= HI,
+                "a range of multiples of 8");
   if (d == LO)
     return launch<LO>(q, k, v, ld, bias, dout, dq, dk, dv, scratch, B, L, H,
                       scale, seed, thr, inv_keep,
                       static_cast<cudaStream_t>(stream));
-  if constexpr (LO + 8 <= HI)
-    return dispatch<LO + 8, HI>(q, k, v, ld, bias, dout, dq, dk, dv, scratch,
-                                B, L, H, d, scale, seed, thr, inv_keep,
-                                stream);
+  if constexpr (LO + STEP <= HI)
+    return dispatch<LO + STEP, HI, STEP>(q, k, v, ld, bias, dout, dq, dk, dv,
+                                         scratch, B, L, H, d, scale, seed,
+                                         thr, inv_keep, stream);
   return (int)cudaErrorInvalidValue;
 }
 

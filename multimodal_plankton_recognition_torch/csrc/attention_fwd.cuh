@@ -53,14 +53,20 @@
 // few warps an SM and no reuse of its instruction stream, while the
 // recomputed q.k^T is cheap on tensor cores.
 //
-// Head dims: every multiple of 8 up to 256, one instance each (dispatch's
-// range; the wrapper pads other head dims to the next multiple of 8). Up
-// to D 128 a warp holds all of O (16 n8-tiles, 64 f32 a thread) beside q's
-// fragments; above, O is cut into kGroups column groups of kGT n8-tiles
-// (V staged kGT kGroups 8 columns wide, the pad zero), and the P.V pass
-// runs once per group, recomputing z, so that q (64 registers at D 256)
-// and one group's O (64) fit a thread's 255 registers. Above D 64 an SM
-// holds one block (MinBlocks).
+// Head dims: every multiple of 8 up to 256, of 64 up to 512 and of 128 up
+// to 1,024, one instance each (dispatch's range and step; the wrapper
+// pads other head dims to the next instance). Up to D 128 a warp holds
+// all of O (16 n8-tiles, 64 f32 a thread) beside q's fragments; above, O
+// is cut into kGroups column groups of kGT n8-tiles (V staged kGT kGroups
+// 8 columns wide, the pad zero), and the P.V pass runs once per group,
+// recomputing z, so that q (64 registers at D 256) and one group's O (64)
+// fit a thread's 255 registers. Above D 256 q's fragments (D / 2
+// registers) would not fit beside O: a warp reads them from device memory
+// at each k-step where it uses them (MemA, mma.cuh), the same values in
+// the same order, so z and every rounding point stay those of the
+// resident path; only the time grows (the 16 rows are re-read, from L1 or
+// L2, for every 16-key tile of every pass). Above D 64 an SM holds one
+// block (MinBlocks).
 //
 // Lengths above kChunk stream K_h (and V_h) through the same shared memory
 // in chunks in each pass, so the rounding points stay those of the
@@ -86,7 +92,10 @@ using namespace tc;
 
 constexpr int kWarps = 8;
 constexpr int kTileRows = 16 * kWarps;  // query rows of a tile
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 1024;
+// q's fragments held in registers up to this head dim, read where used
+// above it
+constexpr int kResidentHeadDim = 256;
 // shared memory a block may take above D 64, where an SM holds one block
 constexpr int kWideSmem = 200 * 1024;
 
@@ -100,7 +109,8 @@ __host__ __device__ constexpr int odd_stride(int cols) {
 template <int D>
 struct Geom {
   static_assert(D % 8 == 0 && D >= 8 && D <= kMaxHeadDim,
-                "head dim: a multiple of 8, <= 256");
+                "head dim: a multiple of 8, <= 1024");
+  static constexpr bool kResident = D <= kResidentHeadDim;
   static constexpr int kDp = (D + 15) / 16 * 16;  // q.k^T depth, padded
   static constexpr int kKSteps = kDp / 16;
   static constexpr int kOTiles = D / 8;  // n8 tiles of P.V
@@ -238,7 +248,7 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q_in,
     if (row0 >= L) return;
   }
 
-  uint32_t qa[G::kKSteps][4];
+  typename AFrag<G::kKSteps, G::kResident>::type qa;
   load_a<G::kKSteps>(qa, q_in + head, ld, r0, L, D, quad);
   float o[G::kGT][4];
 #pragma unroll
@@ -362,20 +372,21 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
-// launch<D> for the head dim D of [LO, HI] (multiples of 8) that equals
-// d; cudaErrorInvalidValue for any other d
-template <int LO, int HI>
+// launch<D> for the head dim D of LO, LO + STEP, ..., HI (multiples of
+// 8) that equals d; cudaErrorInvalidValue for any other d
+template <int LO, int HI, int STEP = 8>
 int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k,
              const __nv_bfloat16* v, int ld, const void* bias, void* out,
              int B, int L, int H, int d, float scale, unsigned seed,
              unsigned thr, float inv_keep, void* stream) {
-  static_assert(LO % 8 == 0 && LO <= HI, "a range of multiples of 8");
+  static_assert(LO % 8 == 0 && STEP % 8 == 0 && LO <= HI,
+                "a range of multiples of 8");
   if (d == LO)
     return launch<LO>(q, k, v, ld, bias, out, B, L, H, scale, seed, thr,
                       inv_keep, static_cast<cudaStream_t>(stream));
-  if constexpr (LO + 8 <= HI)
-    return dispatch<LO + 8, HI>(q, k, v, ld, bias, out, B, L, H, d, scale,
-                                seed, thr, inv_keep, stream);
+  if constexpr (LO + STEP <= HI)
+    return dispatch<LO + STEP, HI, STEP>(q, k, v, ld, bias, out, B, L, H, d,
+                                         scale, seed, thr, inv_keep, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // internal linkage: the forward and backward libraries each hold their own
 // copy, and neither exports these symbols to the other
 namespace {
@@ -108,6 +110,36 @@ inline void reduce(const float* part, int nar, int T, int C, float* out0,
 
 constexpr int kDwTH = 8;   // output rows of a block
 constexpr int kDwTW = 32;  // output columns of a block, at most
+
+// The depthwise sizes the kernels are instantiated for: every odd k from
+// 1 to kMaxK (ops/mbconv.py MAX_KERNEL_SIZE); up to kRegK a thread holds
+// its channels' k x k weights in registers, above it reads them where
+// used. Even k is refused: the reference's own plain version pads k / 2 on
+// both sides, so its output grows by a row and a column there.
+// What sets kMaxK is registers, not shared memory (a k 11 halo of two
+// buffers takes 99 KB): kernel 16's first depthwise pass keeps k^2 f32
+// partial sums of dwdw a thread beside its other state, 121 of a
+// thread's 255 registers at k 11.
+constexpr int kMaxK = 11;
+constexpr int kRegK = 9;
+
+__host__ __device__ inline bool kernel_size_ok(int k) {
+  return k >= 1 && k <= kMaxK && k % 2 == 1;
+}
+
+// f(std::integral_constant<int, k>{}) for an odd k of 1 .. kMaxK (the
+// caller checked kernel_size_ok)
+template <class F>
+cudaError_t with_k(int k, F f) {
+  switch (k) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    default: return f(std::integral_constant<int, 11>{});
+  }
+}
 
 struct DwTile {
   int B, H, W, mid, K, P, tw;

@@ -493,9 +493,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < K * K; ++t) wacc[t] = 0.f;
   float sdz = 0.f, sdzx = 0.f;
   if (ch < mid) {
-    float wk[K * K];
+    // the channel's k x k weights, in registers up to kRegK, else read
+    // (through L1) where used, one stencil row at a time (as kernel 13's
+    // depthwise pass)
+    constexpr bool kRegW = K <= kRegK;
+    constexpr int kRowUnroll = kRegW ? K : 1;
+    float wk[kRegW ? K * K : 1];
+    if constexpr (kRegW) {
 #pragma unroll
-    for (int t = 0; t < K * K; ++t) wk[t] = f32(wdw[(size_t)t * mid + ch]);
+      for (int t = 0; t < K * K; ++t) wk[t] = f32(wdw[(size_t)t * mid + ch]);
+    }
+    auto weight = [&](int t) {
+      if constexpr (kRegW)
+        return wk[t];
+      else
+        return f32(wdw[(size_t)t * mid + ch]);
+    };
     for (int pix = grp; pix < rows * cols; pix += kGroups) {
       const int row = pix / cols, col = pix % cols;
       const size_t n = ((size_t)b * g.H + r0 + row) * g.W + w0 + col;
@@ -511,13 +524,13 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (!APPLY && !g.expand) continue;
       float da1 = 0.f;
-#pragma unroll
+#pragma unroll kRowUnroll
       for (int i = 0; i < K; ++i)
 #pragma unroll
         for (int j = 0; j < K; ++j)
           da1 = fmaf(
               f32(dys[((row + 2 * P - i) * hc + col + 2 * P - j) * CC + c]),
-              wk[i * K + j], da1);
+              weight(i * K + j), da1);
       if (!g.expand) {  // APPLY: dx = da1
         out[n * mid + ch] = to_bf(da1);
         continue;
@@ -709,16 +722,16 @@ long long mbconv_ka_bwd_scratch(int B, int H, int W, int cin, int mid, int k,
 // which); wdw: (k*k, mid) bf16; mv1: (2, mid) f32 m1, v1 (null without an
 // expand); outs: dx (B, H, W, cin) bf16, dwexp (cin, mid), dwdw (k*k,
 // mid), dg1, db1 (mid) f32 (dwexp, dg1, db1 null without an expand). cin
-// and mid multiples of 8 (16-byte rows), x and dy2 16-byte aligned;
-// groups: dwexp's row groups, 1 <= groups <= ceil(B H W / 64) with an
-// expand. Returns a cudaError_t code.
+// and mid multiples of 8 (16-byte rows), x and dy2 16-byte aligned; k
+// odd, 1 to kMaxK; groups: dwexp's row groups, 1 <= groups <= ceil(B H W
+// / 64) with an expand. Returns a cudaError_t code.
 int mbconv_ka_bwd(const void* x, const void* dy2, const void* wexp,
                   const void* g1, const void* b1, const void* wdw,
                   const void* mv1, void* dx, void* dwexp, void* dwdw,
                   void* dg1, void* db1, void* scratch, int B, int H, int W,
                   int cin, int mid, int k, int expand, int groups,
                   void* stream) {
-  if (B < 1 || H < 1 || W < 1 || cin < 1 || mid < 1 || (k != 3 && k != 5) ||
+  if (B < 1 || H < 1 || W < 1 || cin < 1 || mid < 1 || !kernel_size_ok(k) ||
       cin % 8 || mid % 8 || (expand != 0) != (wexp != nullptr) ||
       (!expand && cin != mid) || (expand && groups < 1) ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
@@ -744,10 +757,11 @@ int mbconv_ka_bwd(const void* x, const void* dy2, const void* wexp,
   // read it instead of recomputing it
   if (expand) CHECK(hg::gemm(x, wexp, 1, nullptr, s.y1, (int)N, mid, cin, st));
   auto dw = [&](bool apply) {
-    return k == 3 ? launch_dw_bwd<3>(apply, xb, s.y1, dy2b, g1f, b1f, mv, wd,
-                                     db1f, dg1f, out, s.dwp, s.bnp, g, st)
-                  : launch_dw_bwd<5>(apply, xb, s.y1, dy2b, g1f, b1f, mv, wd,
-                                     db1f, dg1f, out, s.dwp, s.bnp, g, st);
+    return with_k(k, [&](auto kk) {
+      return launch_dw_bwd<decltype(kk)::value>(apply, xb, s.y1, dy2b, g1f,
+                                                b1f, mv, wd, db1f, dg1f, out,
+                                                s.dwp, s.bnp, g, st);
+    });
   };
   CHECK(dw(false));
   reduce(s.dwp, 1, T, k * k * mid, static_cast<float*>(dwdw), nullptr, 0.f,

@@ -50,8 +50,10 @@
 //       per 64 columns of cout.
 // Every sum over pixels is per-block partials added in index order (no
 // float atomics): two calls agree bit for bit. cin, mid and cout must be
-// multiples of 8 (TMA's and cp.async's 16-byte rows: ops/mbconv.py
-// check_channels). The kernels launch on the caller's stream, do not
+// multiples of 8 (TMA's and cp.async's 16-byte rows); ops/mbconv.py pads
+// other channel counts with zero channels, on the weights and where
+// needed the activations (kernel_channels). k: every odd size from 1 to
+// kMaxK (mbconv.cuh). The kernels launch on the caller's stream, do not
 // synchronise and allocate nothing (the caller passes scratch laid out as
 // ops/mbconv.py ka_fwd_scratch / kb_fwd_scratch say); the entry points
 // return a cudaError_t code.
@@ -215,12 +217,26 @@ __global__ void __launch_bounds__(kThreads)
   const int cp = threadIdx.x % CP, grp = threadIdx.x / CP;
   const int ch = c0 + 2 * cp;  // and ch + 1: mid is even
   const bool in = ch < mid;
-  float wk[K * K][2];
+  // the channel pair's k x k weights, in registers up to kRegK, else read
+  // (through L1) where used, one stencil row at a time (a row loop that is
+  // not unrolled, so that the compiler cannot hoist all k^2 into
+  // registers)
+  constexpr bool kRegW = K <= kRegK;
+  constexpr int kRowUnroll = kRegW ? K : 1;
+  float wk[kRegW ? K * K : 1][2];
+  if constexpr (kRegW) {
 #pragma unroll
-  for (int t = 0; t < K * K; ++t)
+    for (int t = 0; t < K * K; ++t)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      wk[t][e] = in ? f32(wdw[(size_t)t * mid + ch + e]) : 0.f;
+      for (int e = 0; e < 2; ++e)
+        wk[t][e] = in ? f32(wdw[(size_t)t * mid + ch + e]) : 0.f;
+  }
+  auto weight = [&](int t, int e) {
+    if constexpr (kRegW)
+      return wk[t][e];
+    else
+      return f32(wdw[(size_t)t * mid + ch + e]);
+  };
   int k = 0;
   for (int t = blockIdx.x; t < T; t += gridDim.x, ++k) {
     if (t + (int)gridDim.x < T) {
@@ -243,7 +259,7 @@ __global__ void __launch_bounds__(kThreads)
       int row = grp % rows, col = 2 * (grp / rows);
       for (int pp = grp; pp < rows * pairs; pp += kPixGroups) {
         float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [pixel][channel]
-#pragma unroll
+#pragma unroll kRowUnroll
         for (int i = 0; i < K; ++i) {
           float2 a[K + 1];
 #pragma unroll
@@ -252,10 +268,11 @@ __global__ void __launch_bounds__(kThreads)
                 halo[((row + i) * hs + col + j) * CP + cp]);
 #pragma unroll
           for (int j = 0; j < K; ++j) {
-            acc[0][0] = fmaf(a[j].x, wk[i * K + j][0], acc[0][0]);
-            acc[0][1] = fmaf(a[j].y, wk[i * K + j][1], acc[0][1]);
-            acc[1][0] = fmaf(a[j + 1].x, wk[i * K + j][0], acc[1][0]);
-            acc[1][1] = fmaf(a[j + 1].y, wk[i * K + j][1], acc[1][1]);
+            const float w0 = weight(i * K + j, 0), w1 = weight(i * K + j, 1);
+            acc[0][0] = fmaf(a[j].x, w0, acc[0][0]);
+            acc[0][1] = fmaf(a[j].y, w1, acc[0][1]);
+            acc[1][0] = fmaf(a[j + 1].x, w0, acc[1][0]);
+            acc[1][1] = fmaf(a[j + 1].y, w1, acc[1][1]);
           }
         }
 #pragma unroll
@@ -736,13 +753,14 @@ extern "C" {
 // ka_fwd_scratch): y1 (B H W, mid) bf16; part1 (2, 2 ceil(B H W / 128),
 // mid), part2 (2, tiles, mid) and level (2, ceil(max(rows) / 256), mid)
 // f32 (y1 and part1 unused without an expand). cin and mid multiples of
-// 8; x, wexp and y1 16-byte aligned; k 3 or 5. Returns a cudaError_t code.
+// 8; x, wexp and y1 16-byte aligned; k odd, 1 to kMaxK. Returns a
+// cudaError_t code.
 int mbconv_ka_fwd(const void* x, const void* wexp, const void* g1,
                   const void* b1, const void* wdw, void* y2, void* stats,
                   void* y1, void* part1, void* part2, void* level, int B,
                   int H, int W, int cin, int mid, int k, int expand,
                   void* stream) {
-  if (B < 1 || H < 1 || W < 1 || cin < 1 || mid < 1 || (k != 3 && k != 5) ||
+  if (B < 1 || H < 1 || W < 1 || cin < 1 || mid < 1 || !kernel_size_ok(k) ||
       cin % 8 || mid % 8 || (expand != 0) != (wexp != nullptr) ||
       (!expand && cin != mid) || !aligned16(x) ||
       (expand && !aligned16(y1)))
@@ -771,8 +789,9 @@ int mbconv_ka_fwd(const void* x, const void* wexp, const void* g1,
   const bf16* wd = static_cast<const bf16*>(wdw);
   bf16* y2b = static_cast<bf16*>(y2);
   float* p2 = static_cast<float*>(part2);
-  CHECK(k == 3 ? launch_ka_dw<3>(a1, wd, y2b, p2, g, s)
-               : launch_ka_dw<5>(a1, wd, y2b, p2, g, s));
+  CHECK(with_k(k, [&](auto kk) {
+    return launch_ka_dw<decltype(kk)::value>(a1, wd, y2b, p2, g, s);
+  }));
   reduce_tall(p2, 2, g.tiles(), mid, st + 2 * mid, st + 3 * mid, (float)N,
               lv, s);
   return (int)cudaGetLastError();

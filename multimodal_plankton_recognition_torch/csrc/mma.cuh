@@ -108,6 +108,45 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[KSTEPS][4],
   }
 }
 
+// The same A fragments read from device memory one k-step at a time, where
+// they are used: the head dims above 256, whose fragments (D / 2 registers
+// an operand) would not fit a thread's registers beside the accumulators.
+// Each use re-reads the warp's 16 rows (L1 or L2); the values, and so
+// every product, are load_a's.
+struct MemA {
+  const __nv_bfloat16* src;
+  size_t ld;
+  int r0, L, D, quad;
+  __device__ __forceinline__ void step(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (e & 1) * 8;
+      const int c = kk * 16 + (e >> 1) * 8 + 2 * quad;
+      a[e] = 0u;
+      if (r < L && kk * 16 + (e >> 1) * 8 < D)
+        a[e] = *reinterpret_cast<const uint32_t*>(src + (size_t)r * ld + c);
+    }
+  }
+};
+
+template <int KSTEPS>
+__device__ __forceinline__ void load_a(MemA& a, const __nv_bfloat16* src,
+                                       size_t ld, int r0, int L, int D,
+                                       int quad) {
+  a = MemA{src, ld, r0, L, D, quad};
+}
+
+// the A fragments of a 16-row slab: held in registers (RESIDENT) or read
+// where used (MemA)
+template <int KSTEPS, bool RESIDENT>
+struct AFrag {
+  typedef uint32_t type[KSTEPS][4];
+};
+template <int KSTEPS>
+struct AFrag<KSTEPS, false> {
+  typedef MemA type;
+};
+
 // This lane's ldmatrix address in a staged (rows, depth) bf16 operand
 // (row stride `stride` elements) for the B fragments of A . X^T, where X
 // is 16 rows of that operand: matrices (rows 0-7 | 8-15) x (depth lo | hi)
@@ -143,6 +182,22 @@ __device__ __forceinline__ void dot_rows(float (&s)[2][4],
   }
 }
 
+// ... with the fragments read where used, in the same k-step order
+template <int KSTEPS>
+__device__ __forceinline__ void dot_rows(float (&s)[2][4], const MemA& a,
+                                         const __nv_bfloat16* p) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = 0.f;
+#pragma unroll 8
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t f[4], b[4];
+    a.step(kk, f);
+    ldmatrix_x4(b, p + kk * 16);
+    mma16816(s[0], f, b[0], b[1]);
+    mma16816(s[1], f, b[2], b[3]);
+  }
+}
+
 // o[n] += a . X[:, 8n : 8n + 8] for the NT n8 tiles of the 16 rows X
 // staged at p (cols_lane of the tile's first row), read transposed
 template <int NT>
@@ -172,10 +227,9 @@ __device__ __forceinline__ float logit(float s, float scale, float bias) {
 // z of 16 rows (the A fragments a) against the 16 keys X staged at p
 // (rows_lane of the tile's first key), whose bias is at bs: z[t] is the n8
 // half t (keys 8 t + 2 quad + {0, 1}; elements 0-1 on row lane / 4, 2-3
-// on row lane / 4 + 8)
-template <int KSTEPS>
-__device__ __forceinline__ void scores(float (&z)[2][4],
-                                       const uint32_t (&a)[KSTEPS][4],
+// on row lane / 4 + 8); A: the fragments as AFrag holds them
+template <int KSTEPS, class A>
+__device__ __forceinline__ void scores(float (&z)[2][4], const A& a,
                                        const __nv_bfloat16* p,
                                        const float* bs, float scale,
                                        int quad) {

@@ -40,14 +40,26 @@ bias gets no gradient: the module builds it from the padding mask, and the
 JAX module drops its cotangent too.
 
 Head dims. The kernels are instantiated for every multiple of 8 up to
-``MAX_HEAD_DIM`` = 256 (``KERNEL_HEAD_DIMS``), in four libraries by range
-(``build.ATTENTION_RANGES``). Another head dim up to 256 takes the padding
-route (``pad_heads``): the operands are copied into heads of the next
-multiple of 8, zero in the new columns, which change no q·kᵀ and give
-zero output and gradient columns; the scale stays ``1/sqrt(d)`` of the
-true d, the dropout bits are those of (sample, head, row, key) as before,
-and the outputs are sliced back (``unpad_heads``). A head dim above 256
-is refused before any launch.
+256, of 64 up to 512 and of 128 up to ``MAX_HEAD_DIM`` = 1,024
+(``KERNEL_HEAD_DIMS``), in six libraries by range
+(``build.ATTENTION_RANGES``); above 256 they read q's (or K's and V's)
+fragments from device memory where they use them, with the same values
+and rounding points. Another head dim up to 1,024 takes the padding route
+(``pad_heads``): the operands are copied into heads of the next
+instantiated head dim (``kernel_head_dim``: 20 → 24, 300 → 320, 600
+→ 640), zero in
+the new columns, which change no q·kᵀ and give zero output and gradient
+columns; the scale stays ``1/sqrt(d)`` of the true d, the dropout bits are
+those of (sample, head, row, key) as before, and the outputs are sliced
+back (``unpad_heads``). A head dim above 1,024 is refused before any
+launch: the wide library's instances stop there (the backward's
+shared-memory chunk is down to 48 keys at 1,024), a bound of the port's
+own; JAX's Pallas kernel is bound by its VMEM instead.
+
+Lengths. ``MAX_LENGTH`` (65,535) keeps the dropout counter ``r*L + j``
+within 32 bits; the kernels stream longer rows through shared memory.
+JAX's kernel holds a head's (L, L) scores in VMEM, so it cannot take such
+lengths either.
 
 Dropout. The TPU kernel draws its mask from the TPU PRNG, which has no
 counterpart here; both kernels and the plain versions draw it instead from
@@ -85,10 +97,11 @@ __all__ = ["mha_qkv", "mha_qkv_bwd", "mha_qkv_reference",
 
 #: the largest head dim the CUDA kernels take (csrc/attention_*.cuh)
 MAX_HEAD_DIM = build.ATTENTION_RANGES[-1][1]
-#: head dims the CUDA kernels are instantiated for: every multiple of 8 up
-#: to MAX_HEAD_DIM, in the libraries of build.ATTENTION_RANGES; the others
-#: up to it are padded to one of these
-KERNEL_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
+#: head dims the CUDA kernels are instantiated for, in the libraries of
+#: build.ATTENTION_RANGES: every multiple of 8 up to 256, of 64 up to 512,
+#: of 128 up to MAX_HEAD_DIM; the others up to it are padded to the next
+KERNEL_HEAD_DIMS = tuple(d for lo, hi, step in build.ATTENTION_RANGES
+                         for d in range(lo, hi + 1, step))
 #: the longest sequence the kernels take: the dropout counter r*L + j of
 #: csrc/dropout.cuh is 32 bits (the forward and the backward stream longer
 #: rows through shared memory)
@@ -274,9 +287,14 @@ def _bwd_lib(d: int = 64) -> ctypes.CDLL:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run for a true head dim ``d``: the next
-    multiple of 8."""
-    return -(-d // 8) * 8
+    """The head dim the kernels run for a true head dim ``d``: the least
+    of ``KERNEL_HEAD_DIMS`` at or above it (the next multiple of 8 up to
+    256, of 64 up to 512, of 128 above). Raises past ``MAX_HEAD_DIM``."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} above the kernels' limit "
+                         f"MAX_HEAD_DIM={MAX_HEAD_DIM} (the widest "
+                         f"instance of csrc/attention_*.cuh)")
+    return next(k for k in KERNEL_HEAD_DIMS if k >= d)
 
 
 def pad_heads(x: torch.Tensor, parts: int, heads: int, d: int
@@ -317,9 +335,9 @@ def _check_cuda_args(qkv: torch.Tensor, bias_rows: Optional[torch.Tensor],
                          f"by heads={heads}, got {tuple(qkv.shape)}")
     b, l, e3 = qkv.shape
     d = e3 // (parts * heads)
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} above the kernels' limit "
-                         f"MAX_HEAD_DIM={MAX_HEAD_DIM}")
+    if d <= 0:
+        raise ValueError(f"{what} has head dim {d}")
+    kernel_head_dim(d)  # raises past MAX_HEAD_DIM
     # the kernels copy 16 bytes a thread: every row starts on a 16-byte
     # boundary when the base does and D is a multiple of 8; any other D
     # takes the padding route, whose copy is a fresh contiguous tensor
@@ -359,8 +377,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-#: the backward's shared-memory chunk: up to this length its query-side
-#: kernel hands the dropout mask to its key-side kernel (kChunk in
+#: the backward's largest shared-memory chunk (head dims up to 64; fewer
+#: keys above): up to its own chunk's length its query-side kernel hands
+#: the dropout mask to its key-side kernel (kChunk in
 #: csrc/attention_bwd.cuh)
 BWD_CHUNK = 256
 

@@ -30,13 +30,15 @@ attention kernels' counter-hash bits (``ops.attention.dropout_bits``), so
 the same seed gives kernel 11 the mask of kernel 1.
 
 Shapes: any (E, heads) with a head dim d = E / heads up to
-``MAX_HEAD_DIM`` (256), as JAX's kernel. The CUDA libraries hold every
-head dim that is a multiple of 8, by range (``build.attention_unit(
-"block", d)``); for another d the wrapper pads the weights, not the
-activations (``pad_block``): each head's rows of ``qkv_weight`` and
-``qkv_bias`` and columns of ``out_weight`` to d' (the next multiple of 8)
-with zeros, and the kernels run H heads of d' at the softmax scale 1/√d
-of the true d. Zero columns of q and k add nothing to q·kᵀ, and v's zero
+``MAX_HEAD_DIM`` (1,024), the attention kernels' limit (JAX's kernel has
+none but its VMEM). The CUDA libraries hold the head dims of
+``KERNEL_HEAD_DIMS`` (every multiple of 8 up to 256, then of 64 and of
+128), by
+range (``build.attention_unit("block", d)``); for another d the wrapper
+pads the weights, not the activations (``pad_block``): each head's rows of
+``qkv_weight`` and ``qkv_bias`` and columns of ``out_weight`` to d' =
+``kernel_head_dim(d)`` with zeros, and the kernels run H heads of d' at
+the softmax scale 1/√d of the true d. Zero columns of q and k add nothing to q·kᵀ, and v's zero
 columns give o zero columns, which meet zero weights. Only where E itself
 is not a multiple of 8 (TMA's 16-byte rows) are x and dy padded, to E₈,
 with ``qkv_weight``'s columns, ``out_weight``'s rows and ``out_bias``;
@@ -70,7 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build, hopper_gemm
-from .attention import (MAX_HEAD_DIM, MAX_LENGTH, _MASK32, _aligned,
+from .attention import (MAX_LENGTH, _MASK32, _aligned,
                         _needs_grad, bwd_scratch, dropout_threshold,
                         kernel_head_dim, mha_qkv_bwd_reference,
                         mha_qkv_reference, pad_heads, unpad_heads)
@@ -152,7 +154,7 @@ def _check_residuals(qkv: Optional[torch.Tensor],
 
 def kernel_widths(e: int, heads: int) -> Tuple[int, int, int]:
     """(d, d', E₈) for a block of width ``e``: the true head dim, the
-    kernels' (the next multiple of 8) and the model width the kernels take
+    kernels' (``kernel_head_dim``) and the model width the kernels take
     (the next multiple of 8)."""
     d = e // heads
     return d, kernel_head_dim(d), -(-e // 8) * 8
@@ -241,10 +243,7 @@ def _prep(x, qkv_weight, qkv_bias, out_weight, out_bias, bias_rows, heads,
     b, l, e = x.shape
     if heads <= 0 or e % heads:
         raise ValueError(f"heads={heads} must divide E={e}")
-    d, dk, ek = kernel_widths(e, heads)
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} above the kernels' limit "
-                         f"MAX_HEAD_DIM={MAX_HEAD_DIM}")
+    d, dk, ek = kernel_widths(e, heads)  # raises past MAX_HEAD_DIM
     if (tuple(qkv_weight.shape) != (3 * e, e) or qkv_bias.numel() != 3 * e
             or tuple(out_weight.shape) != (e, e) or out_bias.numel() != e):
         raise ValueError(f"weights must be qkv ({3 * e}, {e}) + ({3 * e},) "

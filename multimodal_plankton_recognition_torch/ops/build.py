@@ -40,9 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
-#: the head dims (multiples of 8) of each attention library: the first is
-#: the sources' own range, each other a unit of its own
-ATTENTION_RANGES = ((8, 64), (72, 128), (136, 192), (200, 256))
+#: the head dims of each attention library, (first, last, step): every
+#: multiple of 8 up to 256, then (the head dims whose fragments the
+#: kernels read where they use them) every multiple of 64 up to 512 and of
+#: 128 up to 1,024. The first is the sources' own range, each other a unit
+#: of its own
+ATTENTION_RANGES = ((8, 64, 8), (72, 128, 8), (136, 192, 8), (200, 256, 8),
+                    (320, 512, 64), (640, 1024, 128))
 
 
 #: the sources built once per range of head dims: kernels 1 and 3, 2 and
@@ -52,9 +56,9 @@ ATTENTION_WAYS = ("fwd", "bwd", "block")
 
 def attention_unit(way: str, d: int) -> str:
     """The unit of ``csrc/attention_<way>.cu`` (way "fwd", "bwd" or
-    "block") that holds head dim ``d``: ``attention_<way>`` for 8-64, else
-    ``attention_<way>_d<top of its range>``."""
-    top = next(hi for _, hi in ATTENTION_RANGES if d <= hi)
+    "block") whose range holds head dim ``d``: ``attention_<way>`` for
+    8-64, else ``attention_<way>_d<top of its range>``."""
+    top = next(hi for _, hi, _ in ATTENTION_RANGES if d <= hi)
     return f"attention_{way}" + ("" if top == ATTENTION_RANGES[0][1]
                                  else f"_d{top}")
 
@@ -63,9 +67,9 @@ def attention_unit(way: str, d: int) -> str:
 #: flags); a name not listed is its own source with no extra flag. The
 #: FFN source takes the widths up to 384 by default.
 UNITS = {
-    **{attention_unit(way, hi): (f"attention_{way}", (f"-DATTN_D_LO={lo}",
-                                                      f"-DATTN_D_HI={hi}"))
-       for way in ATTENTION_WAYS for lo, hi in ATTENTION_RANGES[1:]},
+    **{attention_unit(way, hi): (f"attention_{way}", (
+        f"-DATTN_D_LO={lo}", f"-DATTN_D_HI={hi}", f"-DATTN_D_STEP={step}"))
+       for way in ATTENTION_WAYS for lo, hi, step in ATTENTION_RANGES[1:]},
     "ffn_wide": ("ffn", ("-DFFN_WIDE=1",)),
 }
 #: seconds of each ``nvcc`` this process ran, by unit name

@@ -19,9 +19,31 @@ on the shared Hopper GEMM's pieces (``csrc/hopper_gemm.cuh``: TMA,
   weight-gradient GEMM, kernel 16's three products (y1, dx, dwexp) on the
   GEMM.
 
-So all four take cin, mid and cout only in multiples of 8
-(``check_channels``), and ``ka_fwd_scratch``, ``kb_fwd_scratch`` and
+So all four read rows of cin, mid and cout bf16 channels by TMA and
+16-byte copies, in multiples of 8 channels. Other channel counts take the
+padding route: each is rounded up to ``kernel_channels`` (the next
+multiple of 8), the weights get zero rows and columns (``wexp``'s,
+``wproj``'s; ``wdw``'s, ``g1``/``b1``'s, ``g2``/``b2``'s, ``be``'s and
+``we``'s mid columns; ``wr``'s mid rows) and the statistics zero entries,
+and an activation (x, and dy3 or dy2 in the backward) is copied into a
+wider buffer only where its own channel count is not a multiple of 8;
+outputs, statistics and gradients are sliced back. The padding is exact:
+a padded mid channel has y1 = 0, m = v = 0, xhat = z = a1 = y2 = a2 = 0,
+its se of 0.5 meets a zero a2, its da3, ds and dz2 are 0 (``wproj``'s and
+``wr``'s padded rows are 0), and g = 0 on it gives dy = 0; a padded cin or
+cout column meets zero weights. ``mbconv_core`` pads once per call
+(``pad_mbconv``), so its backward reuses the padded weights; each wrapper
+pads what it is given itself. ``ka_fwd_scratch``, ``kb_fwd_scratch`` and
 ``kb_bwd_scratch`` lay out the scratch that the wrappers hand them.
+
+Depthwise sizes: every odd k from 1 to ``MAX_KERNEL_SIZE`` (11) on the
+card (``KERNEL_SIZES``; up to 9 a thread holds its k² weights in
+registers, at 11 it reads them where it uses them); a larger or an even k
+is refused before any launch (``check_kernel_size``). Even k: the
+reference's own plain version (``mbconv_reference``, and ``_depthwise``
+here, ``padding=k // 2``) gives an output a row and a column larger than
+the input, where JAX's kernel keeps H × W, so the two disagree; no
+backbone uses one.
 
 ``*_reference`` are their plain PyTorch versions, with the bf16 rounding
 points of ``mbconv_reference`` (``mbconv.py:771-818``): y1, z1, z2, su, sv
@@ -55,14 +77,21 @@ from . import build, hopper_gemm
 from .attention import _aligned
 
 __all__ = ["mbconv_core", "ka_fwd", "kb_fwd", "kb_bwd", "ka_bwd",
-           "check_channels", "dw_tiles", "ka_fwd_scratch",
+           "kernel_channels", "check_kernel_size", "pad_mbconv",
+           "unpad_mbconv_grads", "dw_tiles", "ka_fwd_scratch",
            "kb_fwd_scratch", "kb_bwd_scratch",
            "ka_fwd_reference", "kb_fwd_reference", "kb_bwd_reference",
-           "ka_bwd_reference", "EPS"]
+           "ka_bwd_reference", "EPS", "KERNEL_SIZES", "MAX_KERNEL_SIZE"]
 
 EPS = 1e-5  # flax.linen.BatchNorm's epsilon
 BF16 = torch.bfloat16
-KERNEL_SIZES = (3, 5)  # the depthwise sizes the kernels are built for
+#: the largest depthwise size the kernels take (kMaxK, csrc/mbconv.cuh):
+#: kernel 16's depthwise pass keeps k² f32 partial sums of dwdw a thread
+#: in registers (121 of 255 at k 11); shared memory is not the bound (two
+#: halo buffers at k 11: 99 KB of 227)
+MAX_KERNEL_SIZE = 11
+#: the depthwise sizes the kernels are built for: every odd k up to it
+KERNEL_SIZES = tuple(range(1, MAX_KERNEL_SIZE + 1, 2))
 
 
 def _r(t: torch.Tensor) -> torch.Tensor:
@@ -255,16 +284,78 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.detach().float().contiguous()
 
 
-def check_channels(cin: Optional[int] = None, mid: Optional[int] = None,
-                   cout: Optional[int] = None) -> None:
-    """Kernels 13-16 read rows of cin, mid and cout bf16 channels with TMA
-    and 16-byte copies: each given must be a multiple of 8 (16 bytes).
-    Raises before any launch otherwise."""
-    for name, c in (("cin", cin), ("mid", mid), ("cout", cout)):
-        if c is not None and c % 8:
-            raise ValueError(f"{name} = {c}: a row of {c} bf16 channels is "
-                             f"not a multiple of 16 bytes, which kernels "
-                             f"13-16 need")
+def kernel_channels(c: int) -> int:
+    """The channel count the kernels run for ``c`` channels: the next
+    multiple of 8 (a row of them is a multiple of 16 bytes, as TMA and the
+    16-byte copies read it)."""
+    return -(-c // 8) * 8
+
+
+def check_kernel_size(k: int) -> None:
+    """Raise before any launch unless kernels 13 and 16 are built for the
+    depthwise size ``k`` (``KERNEL_SIZES``)."""
+    if k in KERNEL_SIZES:
+        return
+    why = (f"an even k, where the reference's plain version pads k // 2 "
+           f"on both sides and its output grows by a row and a column, "
+           f"unlike JAX's kernel" if k % 2 == 0 and k > 0 else
+           f"above MAX_KERNEL_SIZE={MAX_KERNEL_SIZE}: kernel 16 keeps k² "
+           f"f32 partial sums of dwdw a thread in registers")
+    raise ValueError(f"depthwise kernel size {k} is not one of "
+                     f"{KERNEL_SIZES}: {why}")
+
+
+def _zpad(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    """``t`` in the leading block of a zero tensor of ``shape`` (its own
+    dtype and device); ``t`` itself where the shapes agree."""
+    if t is None or tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _widen(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, H, W, C) ``x`` with its channels zero-padded to ``c``."""
+    return _zpad(x, (*x.shape[:-1], c))
+
+
+def _cut(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    """The leading ``shape`` block of ``t``, contiguous (``t`` itself where
+    nothing is cut)."""
+    if t is None or tuple(t.shape) == tuple(shape):
+        return t
+    return t[tuple(slice(0, n) for n in shape)].contiguous()
+
+
+def pad_mbconv(x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,
+               k: int):
+    """``mbconv_core``'s operands in the kernels' widths: cin, mid and cout
+    rounded up to ``kernel_channels``, zero-padded (module docstring);
+    ``wdw`` as (k, k, mid). Tensors that need no padding come back as
+    given; ``x`` and ``wexp`` (with g1 and b1) may be None."""
+    mid, cout = wproj.shape
+    cin = mid if wexp is None else wexp.shape[0]
+    ci, mi, co = (kernel_channels(c) for c in (cin, mid, cout))
+    return (None if x is None else _widen(x, ci), _zpad(wexp, (ci, mi)),
+            _zpad(g1, (mi,)), _zpad(b1, (mi,)),
+            _zpad(wdw.reshape(k, k, mid), (k, k, mi)), _zpad(g2, (mi,)),
+            _zpad(b2, (mi,)), _zpad(wr, (mi, wr.shape[1])), br,
+            _zpad(we, (we.shape[0], mi)), _zpad(be, (mi,)),
+            _zpad(wproj, (mi, co)))
+
+
+def unpad_mbconv_grads(grads, cin: int, mid: int, cout: int):
+    """The backward's (dx, dwexp, dg1, db1, dwdw, dg2, db2, dwr, dbr, dwe,
+    dbe, dwproj) in the kernels' widths cut back to cin, mid and cout, each
+    contiguous (None stays None)."""
+    dx, dwexp, dg1, db1, dwdw, dg2, db2, dwr, dbr, dwe, dbe, dwproj = grads
+    return (_cut(dx, (*dx.shape[:-1], cin)), _cut(dwexp, (cin, mid)),
+            _cut(dg1, (mid,)), _cut(db1, (mid,)),
+            _cut(dwdw, (*dwdw.shape[:-1], mid)), _cut(dg2, (mid,)),
+            _cut(db2, (mid,)), _cut(dwr, (mid, dwr.shape[1])), dbr,
+            _cut(dwe, (dwe.shape[0], mid)), _cut(dbe, (mid,)),
+            _cut(dwproj, (mid, cout)))
 
 
 def _layout(sizes):
@@ -362,19 +453,36 @@ def _scratch_parts(layout, total, device):
     return scratch, [scratch.data_ptr() + o for o, _ in layout.values()]
 
 
+def _aligned_rows(*channels: int) -> None:
+    """The route's 16-byte rule: every channel count a kernel is handed is
+    a multiple of 8 (the padding route made it so)."""
+    assert all(c % 8 == 0 for c in channels), channels
+
+
 def ka_fwd(x, wexp, g1, b1, wdw, k: int):
     """Kernel 13: the expand, BN1 statistics and apply, SiLU and the
-    depthwise conv; (y2 bf16, m1, v1, m2, v2). ``ka_fwd.launches``."""
+    depthwise conv; (y2 bf16, m1, v1, m2, v2). Any cin and mid (the
+    padding route). ``ka_fwd.launches``."""
     if _on_cpu(x):
         return ka_fwd_reference(x, wexp, g1, b1, wdw, k)
     _check_x(x, "x")
+    check_kernel_size(k)
+    cin = x.shape[-1]
+    mid = cin if wexp is None else wexp.shape[1]
+    ci, mi = kernel_channels(cin), kernel_channels(mid)
+    y2, *stats = _ka_fwd(_widen(x, ci), _zpad(wexp, (ci, mi)),
+                         _zpad(g1, (mi,)), _zpad(b1, (mi,)),
+                         _zpad(wdw.reshape(k, k, mid), (k, k, mi)), k)
+    return (_cut(y2, (*y2.shape[:-1], mid)),
+            *(_cut(t, (mid,)) for t in stats))
+
+
+def _ka_fwd(x, wexp, g1, b1, wdw, k: int):
+    """Kernel 13 at channel counts that are multiples of 8."""
     b, h, w, cin = x.shape
     expand = wexp is not None
     mid = wexp.shape[1] if expand else cin
-    if k not in KERNEL_SIZES:
-        raise ValueError(f"depthwise kernel size {k} is not one of "
-                         f"{KERNEL_SIZES}")
-    check_channels(cin, mid)
+    _aligned_rows(cin, mid)
     device = x.device
     y2 = torch.empty((b, h, w, mid), dtype=BF16, device=device)
     stats = torch.empty((4, mid), dtype=torch.float32, device=device)
@@ -396,13 +504,25 @@ def ka_fwd(x, wexp, g1, b1, wdw, k: int):
 
 def kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
     """Kernel 14: BN2 + SiLU, squeeze-excite and the projection; (y3 bf16,
-    m3, v3). ``kb_fwd.launches``."""
+    m3, v3). Any mid and cout (the padding route). ``kb_fwd.launches``."""
     if _on_cpu(y2):
         return kb_fwd_reference(y2, g2, b2, m2, v2, wr, br, we, be, wproj)
     _check_x(y2, "y2")
+    mid, cout = wproj.shape
+    mi, co = kernel_channels(mid), kernel_channels(cout)
+    y3, m3, v3 = _kb_fwd(_widen(y2, mi), *(_zpad(t, (mi,)) for t in (
+        g2, b2, m2, v2)), _zpad(wr, (mi, wr.shape[1])), br,
+        _zpad(we, (we.shape[0], mi)), _zpad(be, (mi,)),
+        _zpad(wproj, (mi, co)))
+    return (_cut(y3, (*y3.shape[:-1], cout)), _cut(m3, (cout,)),
+            _cut(v3, (cout,)))
+
+
+def _kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Kernel 14 at channel counts that are multiples of 8."""
     b, h, w, mid = y2.shape
     r, cout = wr.shape[1], wproj.shape[1]
-    check_channels(mid=mid, cout=cout)
+    _aligned_rows(mid, cout)
     device = y2.device
     y3 = torch.empty((b, h, w, cout), dtype=BF16, device=device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=device)
@@ -421,16 +541,31 @@ def kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj):
 
 
 def kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
-    """Kernel 15: (dy2 bf16, dwproj, dwr, dbr, dwe, dbe, dg2, db2).
-    ``kb_bwd.launches``."""
+    """Kernel 15: (dy2 bf16, dwproj, dwr, dbr, dwe, dbe, dg2, db2). Any mid
+    and cout (the padding route). ``kb_bwd.launches``."""
     if _on_cpu(y2):
         return kb_bwd_reference(y2, dy3, g2, b2, m2, v2, wr, br, we, be,
                                 wproj)
     _check_x(y2, "y2")
     _check_x(dy3, "dy3")
+    mid, cout = wproj.shape
+    r = wr.shape[1]
+    mi, co = kernel_channels(mid), kernel_channels(cout)
+    dy2, dwproj, dwr, dbr, dwe, dbe, dg2, db2 = _kb_bwd(
+        _widen(y2, mi), _widen(dy3, co), *(_zpad(t, (mi,)) for t in (
+            g2, b2, m2, v2)), _zpad(wr, (mi, r)), br,
+        _zpad(we, (we.shape[0], mi)), _zpad(be, (mi,)),
+        _zpad(wproj, (mi, co)))
+    return (_cut(dy2, (*dy2.shape[:-1], mid)), _cut(dwproj, (mid, cout)),
+            _cut(dwr, (mid, r)), dbr, _cut(dwe, (r, mid)),
+            *(_cut(t, (mid,)) for t in (dbe, dg2, db2)))
+
+
+def _kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
+    """Kernel 15 at channel counts that are multiples of 8."""
     b, h, w, mid = y2.shape
     r, cout = wr.shape[1], wproj.shape[1]
-    check_channels(mid=mid, cout=cout)
+    _aligned_rows(mid, cout)
     device = y2.device
     f32 = functools.partial(torch.empty, dtype=torch.float32, device=device)
     dy2 = torch.empty(y2.shape, dtype=BF16, device=device)
@@ -455,14 +590,29 @@ def kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj):
 
 def ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, k: int):
     """Kernel 16: (dx bf16, dwexp, dg1, db1, dwdw (k, k, mid)); dwexp, dg1
-    and db1 are ``None`` without an expand. ``ka_bwd.launches``."""
+    and db1 are ``None`` without an expand. Any cin and mid (the padding
+    route). ``ka_bwd.launches``."""
     if _on_cpu(x):
         return ka_bwd_reference(x, dy2, wexp, g1, b1, wdw, m1, v1, k)
     _check_x(x, "x")
     _check_x(dy2, "dy2")
+    check_kernel_size(k)
+    cin, mid = x.shape[-1], dy2.shape[-1]
+    ci, mi = kernel_channels(cin), kernel_channels(mid)
+    dx, dwexp, dg1, db1, dwdw = _ka_bwd(
+        _widen(x, ci), _widen(dy2, mi), _zpad(wexp, (ci, mi)),
+        *(_zpad(t, (mi,)) for t in (g1, b1)),
+        _zpad(wdw.reshape(k, k, mid), (k, k, mi)),
+        *(_zpad(t, (mi,)) for t in (m1, v1)), k)
+    return (_cut(dx, (*dx.shape[:-1], cin)), _cut(dwexp, (cin, mid)),
+            _cut(dg1, (mid,)), _cut(db1, (mid,)), _cut(dwdw, (k, k, mid)))
+
+
+def _ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, k: int):
+    """Kernel 16 at channel counts that are multiples of 8."""
     b, h, w, cin = x.shape
     mid = dy2.shape[-1]
-    check_channels(cin, mid)
+    _aligned_rows(cin, mid)
     f32 = functools.partial(torch.empty, dtype=torch.float32,
                             device=x.device)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -489,30 +639,48 @@ kb_bwd.launches = 0
 ka_bwd.launches = 0
 
 
-def _grad_as(g: Optional[torch.Tensor], like: Optional[torch.Tensor]):
-    return None if like is None else g.reshape(like.shape).to(like.dtype)
+def _grad_as(g: Optional[torch.Tensor], like):
+    """``g`` in the (shape, dtype) ``like`` of its parameter (None: no
+    parameter, no gradient)."""
+    return None if like is None else g.reshape(like[0]).to(like[1])
 
 
 class _MBConvCore(torch.autograd.Function):
     """Forward: kernels 13 and 14; backward: the m3 / v3 fold, then
-    kernels 15 and 16 (recomputing a1 and a3, as the TPU kernels do)."""
+    kernels 15 and 16 (recomputing a1 and a3, as the TPU kernels do). On
+    the card every operand is padded once (``pad_mbconv``) and kept so
+    for the backward; outputs and gradients are cut back."""
 
     @staticmethod
     def forward(ctx, x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, k):
         ctx.x_dtype = x.dtype
+        ctx.widths = (x.shape[-1], *wproj.shape)  # cin, mid, cout
         x = x.to(BF16)
+        args = (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj)
+        ctx.likes = [None if t is None else (t.shape, t.dtype)
+                     for t in args[1:]]
+        if not _on_cpu(x):
+            check_kernel_size(k)
+            args = pad_mbconv(*args, k)
+        x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj = args
         y2, m1, v1, m2, v2 = ka_fwd(x, wexp, g1, b1, wdw, k)
         y3, m3, v3 = kb_fwd(y2, g2, b2, m2, v2, wr, br, we, be, wproj)
         ctx.save_for_backward(x, y2, y3, wexp, g1, b1, wdw, g2, b2, wr, br,
                               we, be, wproj, m1, v1, m2, v2, m3)
         ctx.k = k
-        ctx.mark_non_differentiable(m1, v1, m2, v2)
-        return y3, m1, v1, m2, v2, m3, v3
+        cin, mid, cout = ctx.widths
+        outs = (_cut(y3, (*y3.shape[:-1], cout)),
+                *(_cut(t, (mid,)) for t in (m1, v1, m2, v2)),
+                _cut(m3, (cout,)), _cut(v3, (cout,)))
+        ctx.mark_non_differentiable(*outs[1:5])
+        return outs
 
     @staticmethod
     def backward(ctx, dy3, _dm1, _dv1, _dm2, _dv2, dm3, dv3):
         (x, y2, y3, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,
          m1, v1, m2, v2, m3) = ctx.saved_tensors
+        cin, mid, cout = ctx.widths
+        y3, m3 = y3[..., :cout], m3[:cout]
         n = y3.shape[0] * y3.shape[1] * y3.shape[2]
         d = dy3.float() if dy3 is not None else torch.zeros_like(
             y3, dtype=torch.float32)
@@ -521,14 +689,15 @@ class _MBConvCore(torch.autograd.Function):
         if dv3 is not None:
             d = d + (y3.float() - m3) * (2.0 / n * dv3)
         dy2, dwproj, dwr, dbr, dwe, dbe, dg2, db2 = kb_bwd(
-            y2, d.to(BF16), g2, b2, m2, v2, wr, br, we, be, wproj)
+            y2, _widen(d.to(BF16), wproj.shape[1]), g2, b2, m2, v2, wr, br,
+            we, be, wproj)
         dx, dwexp, dg1, db1, dwdw = ka_bwd(x, dy2, wexp, g1, b1, wdw, m1,
                                            v1, ctx.k)
-        return (dx.to(ctx.x_dtype), _grad_as(dwexp, wexp), _grad_as(dg1, g1),
-                _grad_as(db1, b1), _grad_as(dwdw, wdw), _grad_as(dg2, g2),
-                _grad_as(db2, b2), _grad_as(dwr, wr), _grad_as(dbr, br),
-                _grad_as(dwe, we), _grad_as(dbe, be),
-                _grad_as(dwproj, wproj), None)
+        grads = unpad_mbconv_grads(
+            (dx, dwexp, dg1, db1, dwdw, dg2, db2, dwr, dbr, dwe, dbe,
+             dwproj), cin, mid, cout)
+        return (grads[0].to(ctx.x_dtype),
+                *map(_grad_as, grads[1:], ctx.likes), None)
 
 
 def mbconv_core(x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj,

@@ -33,6 +33,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
     kernel_head_dim, mha, mha_bwd, mha_qkv, mha_qkv_reference, pad_heads,
     unpad_heads,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SHAPES = [(3, 17, 48), (4, 21, 32)]  # (heads, L, E): head dims 16 and 8
 # the edges of the Hopper forward's 16-key tiles, 16- and 128-row tiles and
@@ -80,9 +81,9 @@ def test_bf16_matches_jax_kernel_interpret(heads, l, e, masked):
     b = 3
     qkv = _qkv(b, l, e, seed=2)
     bias = _bias(_pad(b, l)) if masked else np.zeros((b, l), np.float32)
-    want = mha_core_qkv(jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias),
-                        jnp.zeros((), jnp.int32), heads, 0.0, False, True,
-                        masked)
+    want = jax.jit(lambda x, b: mha_core_qkv(
+        x, b, jnp.zeros((), jnp.int32), heads, 0.0, False, True, masked))(
+            jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias))
     got = mha_qkv(torch.from_numpy(qkv).to(torch.bfloat16),
                   torch.from_numpy(bias) if masked else None, heads)
     assert got.dtype == torch.bfloat16 and got.shape == (b, l, e)
@@ -163,6 +164,12 @@ def test_cuda_admission_rules():
         _check_cuda_args(wide, None, 1)
     assert [kernel_head_dim(d) for d in (8, 20, 24, 33, 250, 256)] == [
         8, 24, 24, 40, 256, 256]
+    # past 256 the wide libraries' multiples of 64 up to 512, of 128 up
+    # to MAX_HEAD_DIM
+    assert MAX_HEAD_DIM == 1024
+    assert [kernel_head_dim(d) for d in (257, 264, 300, 320, 321, 512, 513,
+                                         600, 769, 1000, 1024)] == [
+        320, 320, 320, 320, 384, 512, 640, 640, 896, 1024, 1024]
 
     # the padding route: d 20 runs as 24
     heads, d = 3, 20
@@ -277,8 +284,8 @@ def test_separate_qkv_matches_jax_mha_core(heads, l, e, masked, stacked):
         return jnp.sum(o.astype(jnp.float32) ** 2), o
 
     jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
-    (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1, 2),
-                                          has_aux=True)(jq, jk, jv)
+    (_, want), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(jq, jk, jv)
     leaves = [torch.from_numpy(t).to(torch.bfloat16).requires_grad_()
               for t in (q, k, v)]
     got = mha(*leaves, torch.from_numpy(bias) if masked else None, heads)

@@ -46,6 +46,7 @@ from multimodal_plankton_recognition_torch.ops.attention_block import (
     attn_block, attn_block_bwd, attn_block_bwd_reference, attn_block_fwd,
     attn_block_reference,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 JAX_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 

@@ -40,6 +40,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
     BWD_CHUNK, bwd_scratch, dropout_bits, dropout_threshold, mha_qkv,
     mha_qkv_bwd, mha_qkv_bwd_reference, mha_qkv_reference,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SHAPES = [(3, 17, 48), (4, 21, 32)]  # (heads, L, E): head dims 16 and 8
 # the CUDA backward's tile and chunk edges (16-row tiles, 128-row blocks,
@@ -76,7 +77,7 @@ def test_bwd_reference_f32_matches_jax_grad(heads, l, e, masked):
         return jnp.sum(mha_reference(q, k, v, jnp.asarray(bias), heads)
                        * dout)
 
-    want = np.asarray(jax.grad(f)(jnp.asarray(qkv)))
+    want = np.asarray(jax.jit(jax.grad(f))(jnp.asarray(qkv)))
     got = mha_qkv_bwd_reference(
         torch.from_numpy(qkv), torch.from_numpy(bias) if masked else None,
         torch.from_numpy(dout), heads)
@@ -92,7 +93,7 @@ def test_bwd_bf16_matches_jax_kernel_interpret(heads, l, e, masked, b):
                          heads, 0.0, False, True, masked)
         return jnp.sum(o.astype(jnp.float32) * dout)
 
-    want = jax.grad(f)(jnp.asarray(qkv, jnp.bfloat16))
+    want = jax.jit(jax.grad(f))(jnp.asarray(qkv, jnp.bfloat16))
     # mha_qkv_bwd on a CPU tensor takes the plain version
     got = mha_qkv_bwd(torch.from_numpy(qkv).to(torch.bfloat16),
                       torch.from_numpy(bias) if masked else None,

@@ -37,6 +37,7 @@ from multimodal_plankton_recognition_torch.models.image.vit import ViT
 from multimodal_plankton_recognition_torch.models.profile.transformer import (
     ProfileTransformer,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ALONE_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 LAYER_TOL = {"float32": 1e-5, "bfloat16": 5e-2}

@@ -33,6 +33,7 @@ from multimodal_plankton_recognition_torch.models.image.efficientnet import (
 from multimodal_plankton_recognition_torch.models.profile.cnn import (
     ProfileCNN,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 F32_TOL = 1e-4
 
@@ -163,8 +164,10 @@ def test_efficientnet_f32_matches_flax(b0_variables, train):
     bs = 16 if train else 4
     x = np.random.RandomState(2).randn(bs, 24, 24, 1).astype(np.float32)
     jnet = JaxEfficientNet(in_chans=1, dtype=jnp.float32)
-    want, upd = jnet.apply(variables, jnp.asarray(x), train=train,
-                           mutable=["batch_stats"])
+    # one compile (op-by-op, B0's forward took most of this file's time)
+    want, upd = jax.jit(lambda v, x: jnet.apply(
+        v, x, train=train, mutable=["batch_stats"]))(variables,
+                                                     jnp.asarray(x))
     net = _port_b0(variables).train(train)
     with torch.no_grad():
         got = net(torch.from_numpy(x))

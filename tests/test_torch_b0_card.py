@@ -49,6 +49,7 @@ from multimodal_plankton_recognition_torch.models.flagships import (
 from multimodal_plankton_recognition_torch.train import (
     create_train_state, make_multi_steps, make_optimizer,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 B0_CLIP_CARD = REPO / "model_cards/multi/efficientnet_b0_cnn_2_512_clip.yaml"

@@ -11,6 +11,7 @@ import torch
 from test_torch_b0_card import (
     _stats_close, jax_card_run, port_card_run, small_b0_card, update_errors,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _flat_update(init, values, names):

@@ -36,6 +36,7 @@ from multimodal_plankton_recognition_torch.models.flagships import (
     flagship_b0, synthetic_batch_b0,
 )
 from multimodal_plankton_recognition_torch.ops.losses import l2_normalize
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 B0_CLIP_CARD = REPO / "model_cards/multi/efficientnet_b0_cnn_2_512_clip.yaml"
@@ -74,8 +75,10 @@ def test_flagship_b0_encode_matches_jax(dtype, flagship_variables):
     (the serving path: running statistics, no MBConv kernel)."""
     jmodel = jax_flagship_b0().clone(dtype=getattr(jnp, dtype))
     batch = b0_batch(4)
-    jemb = jmodel.apply(flagship_variables, method="encode", train=False,
-                        **{k: jnp.asarray(v) for k, v in batch.items()})
+    # one compile (op-by-op, B0's encode took most of this file's time)
+    jemb = jax.jit(lambda v, b: jmodel.apply(v, method="encode",
+                                             train=False, **b))(
+        flagship_variables, {k: jnp.asarray(v) for k, v in batch.items()})
     model = flagship_b0(dtype=getattr(torch, dtype))
     load_flax(model, flagship_variables)
     model.eval()

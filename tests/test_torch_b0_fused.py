@@ -29,6 +29,7 @@ from multimodal_plankton_recognition_torch.models.image import efficientnet
 from multimodal_plankton_recognition_torch.models.image.efficientnet import (
     EfficientNet, _MBConv,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _np(tree):
@@ -53,6 +54,15 @@ def _stats_close(module, updated, tol):
     for name, w in want.items():
         assert got[name].dtype == torch.float32, name
         _close(got[name].numpy(), w.numpy(), tol, name)
+
+
+def _train_apply(module, variables, x):
+    """A Flax module's train-mode apply (output, updated batch_stats),
+    jitted: one compile where op-by-op dispatch of the interpreted Pallas
+    kernels took most of this file's time."""
+    return jax.jit(lambda v, x: module.apply(v, x, train=True,
+                                             mutable=["batch_stats"]))(
+        variables, x)
 
 
 @pytest.fixture(scope="module")
@@ -80,11 +90,10 @@ def test_fused_block_matches_jax_fused(cin, cout, er, stride, k,
                        fused=True)
     x = np.random.RandomState(0).randn(4, 12, 12, cin).astype(np.float32)
     xb = jnp.asarray(x, jnp.bfloat16)
-    variables = _np(JaxMBConv(cin, cout, er, stride, k, 0.25,
-                              jnp.bfloat16).init(jax.random.key(0), xb,
-                                                 train=False))
-    want, upd = jblock.apply(variables, xb, train=True,
-                             mutable=["batch_stats"])
+    variables = _np(jax.jit(lambda key: JaxMBConv(
+        cin, cout, er, stride, k, 0.25, jnp.bfloat16).init(
+            key, xb, train=False))(jax.random.key(0)))
+    want, upd = _train_apply(jblock, variables, xb)
     block = _MBConv(cin, cout, er, stride, k, 0.25, fused=True)
     block.load_state_dict(from_flax(variables), strict=True)
     block.to(torch.bfloat16).train()
@@ -120,12 +129,12 @@ def test_f32_fused_block_matches_jax_fused(cin, cout, er, stride, k,
                         counting("port", efficientnet.mbconv_core))
     x = np.random.RandomState(5).randn(4, 12, 12, cin).astype(np.float32)
     xj = jnp.asarray(x)
-    variables = _np(JaxMBConv(cin, cout, er, stride, k, 0.25,
-                              jnp.float32).init(jax.random.key(1), xj,
-                                                train=False))
-    want, upd = JaxMBConv(cin, cout, er, stride, k, 0.25, jnp.float32,
-                          fused=True).apply(variables, xj, train=True,
-                                            mutable=["batch_stats"])
+    variables = _np(jax.jit(lambda key: JaxMBConv(
+        cin, cout, er, stride, k, 0.25, jnp.float32).init(
+            key, xj, train=False))(jax.random.key(1)))
+    want, upd = _train_apply(JaxMBConv(cin, cout, er, stride, k, 0.25,
+                                       jnp.float32, fused=True),
+                             variables, xj)
     assert want.dtype == jnp.float32
     block = _MBConv(cin, cout, er, stride, k, 0.25, fused=True)
     block.load_state_dict(from_flax(variables), strict=True)
@@ -146,8 +155,7 @@ def test_fused_efficientnet_close_to_jax_fused(b0_variables, monkeypatch):
     monkeypatch.setenv("PLANKTON_FUSED_INTERPRET", "1")
     x = np.random.RandomState(3).randn(16, 24, 24, 1).astype(np.float32)
     jnet = JaxEfficientNet(in_chans=1, dtype=jnp.bfloat16, fused=True)
-    want, _ = jnet.apply(b0_variables, jnp.asarray(x), train=True,
-                         mutable=["batch_stats"])
+    want, _ = _train_apply(jnet, b0_variables, jnp.asarray(x))
     net = EfficientNet(in_chans=1, fused=True)
     net.load_state_dict(from_flax(b0_variables), strict=True)
     net.to(torch.bfloat16).train()

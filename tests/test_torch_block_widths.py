@@ -18,7 +18,8 @@ below 1e-4 of the largest bias gradient), the module route 5e-2 in bf16
 columns zero-padded to the next multiple of 8, E to a multiple of 8, the
 softmax scale the true head dim's) equals the unpadded plain version
 within the forward's tolerance, its gradients within 1e-5. A head dim
-above ``MAX_HEAD_DIM`` is refused before any launch.
+past 256 is taken (padded to the wide library's next multiple of 64);
+one above ``MAX_HEAD_DIM`` is refused before any launch.
 """
 
 import math
@@ -44,6 +45,7 @@ from multimodal_plankton_recognition_torch.models.attention import (
 from multimodal_plankton_recognition_torch.ops import attention_block as ab
 from multimodal_plankton_recognition_torch.ops import hopper_gemm
 from multimodal_plankton_recognition_torch.ops.attention import MAX_HEAD_DIM
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 JAX_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 # (E, heads, L): d 20 with E 60, d 20 with E 160, d 96, d 128
@@ -217,17 +219,25 @@ def test_padding_route_composed_with_the_plain_versions(e, heads, p):
 
 
 def test_head_dim_above_the_limit_is_refused():
-    """A head dim of 264 (one past the last kernel instance's range) is
-    refused by the wrappers' checks, with the limit in the message, before
-    any launch; the plain versions on the CPU still take it."""
-    e = 264
-    x = torch.zeros((1, 3, e), dtype=torch.bfloat16)
-    weights = (torch.zeros(3 * e, e), torch.zeros(3 * e), torch.zeros(e, e),
-               torch.zeros(e))
+    """A head dim of 264, past the old limit of 256, is taken: the kernels
+    run it at 320 (``kernel_widths``), the wide library's next head dim.
+    One past ``MAX_HEAD_DIM`` (1,032) is refused by the wrappers' checks,
+    with the limit in the message, before any launch; the plain versions
+    on the CPU still take it."""
+    def block(e):
+        return (torch.zeros((1, 3, e), dtype=torch.bfloat16),
+                (torch.zeros(3 * e, e), torch.zeros(3 * e),
+                 torch.zeros(e, e), torch.zeros(e)))
+
+    x, weights = block(264)
+    assert ab.kernel_widths(264, 1) == (264, 320, 264)
+    *_, (b, l, ek, h, dk, scale), _ = ab._prep(x, *weights, None, 1, 0.0)
+    assert (ek, h, dk) == (264, 1, 320) and scale == 1.0 / math.sqrt(264)
+    assert MAX_HEAD_DIM == 1024
+    x, weights = block(MAX_HEAD_DIM + 8)
     before = ab.attn_block_fwd.launches, ab.attn_block_bwd.launches
     with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
         ab._prep(x, *weights, None, 1, 0.0)
-    assert MAX_HEAD_DIM == 256
     assert (ab.attn_block_fwd.launches, ab.attn_block_bwd.launches) == before
     assert ab.attn_block_fwd(x, *weights, None, 1).shape == x.shape
     with pytest.raises(ValueError, match="must divide"):
@@ -249,16 +259,18 @@ def test_gemm_route_streams_only_past_the_resident_k(n, k, route):
         assert route > 0
 
 
-@pytest.mark.parametrize("e,heads", [(60, 3), (160, 8), (512, 4)])
+@pytest.mark.parametrize("e,heads", [(60, 3), (160, 8), (512, 4),
+                                     (600, 2), (1024, 1)])
 def test_block_unit_holds_the_kernels_head_dim(e, heads):
     """The wrapper loads the block library whose range of head dims holds
-    d' (``csrc/attention_block.cu`` built once per range)."""
+    d' (``csrc/attention_block.cu`` built once per range and step; past
+    256 the wide library's multiples of 64)."""
     from multimodal_plankton_recognition_torch.ops import build
 
     _, dk, _ = ab.kernel_widths(e, heads)
     unit = build.attention_unit("block", dk)
     source, flags = build.UNITS.get(unit, (unit, ()))
     assert source == "attention_block"
-    lo, hi = ((8, 64) if not flags else
-              tuple(int(f.split("=")[1]) for f in flags))
-    assert lo <= dk <= hi and dk % 8 == 0
+    lo, hi, step = ((8, 64, 8) if not flags else
+                    tuple(int(f.split("=")[1]) for f in flags))
+    assert lo <= dk <= hi and (dk - lo) % step == 0

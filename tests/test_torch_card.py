@@ -58,6 +58,7 @@ from multimodal_plankton_recognition_torch.train import (
     EarlyStopping, Fitter, MetricsWriter, create_train_state,
     make_multi_steps, make_optimizer,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CARDS = sorted((REPO / "model_cards").rglob("*.yaml"))
@@ -341,9 +342,9 @@ def _jax_run(precision: str, method: str, steps: int = 2):
                                 card.trainer_args.accumulate_grad_batches)
         batches = [{k: jnp.asarray(v) for k, v in _batch(s).items()}
                    for s in (0, 1)]
-        state = jax_create_train_state(model, jax.random.key(0), batches[0],
-                                       tx, init_kwargs={
-                                           "buckets": card.buckets})
+        state = jax.jit(lambda key: jax_create_train_state(
+            model, key, batches[0], tx,
+            init_kwargs={"buckets": card.buckets}))(jax.random.key(0))
         train_step, _ = jax_make_multi_steps(model, tx, card.buckets)
         init = from_flax({"params": jax.tree.map(np.asarray, state.params)})
         after = []
@@ -525,9 +526,9 @@ def _jax_fused_ffn_run(precision: str):
                                     card.trainer_args.accumulate_grad_batches)
             batches = [{k: jnp.asarray(v) for k, v in _batch(s).items()}
                        for s in (0, 1)]
-            state = jax_create_train_state(
-                model, jax.random.key(0), batches[0], tx,
-                init_kwargs={"buckets": card.buckets})
+            state = jax.jit(lambda key: jax_create_train_state(
+                model, key, batches[0], tx,
+                init_kwargs={"buckets": card.buckets}))(jax.random.key(0))
             train_step, _ = jax_make_multi_steps(model, tx, card.buckets)
             init = from_flax({"params": jax.tree.map(np.asarray,
                                                      state.params)})

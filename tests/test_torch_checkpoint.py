@@ -68,6 +68,7 @@ from multimodal_plankton_recognition_torch.train.checkpoint import (
     CheckpointManager, load_from_checkpoint, read_metadata,
 )
 from multimodal_plankton_recognition_torch.utils import LabelVocab
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CARDS = sorted((REPO / "model_cards").rglob("*.yaml"))
@@ -367,8 +368,9 @@ def _jax_checkpoint(root: Path, every_k: int, steps: int):
     tx = jax_make_optimizer(card.optim_args, every_k)
     batches = [{k: jnp.asarray(v) for k, v in _vit_batch(s).items()}
                for s in range(steps + 1)]
-    state = jax_create_train_state(model, jax.random.key(0), batches[0], tx,
-                                   init_kwargs={"buckets": card.buckets})
+    state = jax.jit(lambda key: jax_create_train_state(
+        model, key, batches[0], tx, init_kwargs={"buckets": card.buckets}))(
+            jax.random.key(0))
     train_step, _ = jax_make_multi_steps(model, tx, card.buckets)
     for b in batches[:steps]:
         state, _ = train_step(state, b, jax.random.key(1))

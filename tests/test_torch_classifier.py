@@ -56,6 +56,7 @@ from multimodal_plankton_recognition_torch.train import (
     create_train_state, make_classifier_steps, make_optimizer,
 )
 from torch_threads import single_thread
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 LOGIT_TOL, LOSS_TOL, GRAD_TOL, UPDATE_TOL, STATS_TOL = (1e-4, 1e-5, 1e-3,
                                                          1e-3, 1e-4)

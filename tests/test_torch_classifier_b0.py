@@ -12,6 +12,7 @@ transformer and CNN cases, the CNN with its running statistics)."""
 from test_torch_classifier import (
     _jax_forward_run, check_forward_step, check_logits,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def test_b0_logits_match_jax():

@@ -26,6 +26,7 @@ from multimodal_plankton_recognition_torch.train.checkpoint import (
     read_metadata,
 )
 from test_torch_classifier_driver import _card, _script, _write_card
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 LOGITS_TOL = 1e-4
 

@@ -54,6 +54,7 @@ from multimodal_plankton_recognition_torch.train.checkpoint import (
 )
 from multimodal_plankton_recognition_torch.utils import LabelVocab
 from torch_threads import single_thread
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 TS = 32

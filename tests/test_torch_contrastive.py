@@ -40,6 +40,7 @@ from multimodal_plankton_recognition_torch.ops.contrastive import (
     clip_bwd, clip_bwd_tile, clip_fwd, clip_fwd_tile, clip_loss_bwd_reference,
     clip_loss_fused, clip_loss_fused_reference, clip_scratch,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BUCKETS = [1, 2, 4]
 REPO = Path(__file__).resolve().parents[1]
@@ -60,7 +61,7 @@ def _emb(b=16, d=32, seed=0):
 def _jax_fused(img, prof, scale, buckets, dtype):
     def f(i, p, s):
         return jax_clip_loss_fused(i, p, s, buckets, True)
-    return jax.value_and_grad(f, argnums=(0, 1, 2))(
+    return jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2)))(
         jnp.asarray(img, dtype), jnp.asarray(prof, dtype), jnp.asarray(scale))
 
 

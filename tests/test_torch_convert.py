@@ -15,13 +15,15 @@ from multimodal_plankton_recognition_torch.convert import from_flax, load_flax
 from multimodal_plankton_recognition_torch.models.flagships import (
     flagship_vit, synthetic_batch_vit,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
 def flagship_variables():
     """Init only (one sample): the full-width tree, no forward is compared."""
     batch = jax_synthetic_batch_vit(1)
-    variables = jax_flagship_vit().init(jax.random.key(0), **batch)
+    variables = jax.jit(lambda key: jax_flagship_vit().init(key, **batch))(
+        jax.random.key(0))
     return jax.tree.map(np.asarray, variables)
 
 

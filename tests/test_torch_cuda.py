@@ -123,10 +123,13 @@ BWD_TOL = 1e-2
 BWD_REL_L2_TOL = 1e-2
 SHAPES = [(1, 1, 1), (3, 33, 2), (2, 100, 5)]  # (B, L, heads)
 # the head dims the attention tests sweep: the kernels take every multiple
-# of 8 up to MAX_HEAD_DIM and pad the others (20 -> 24); 40 lies between
-# the shipped dims, and 128, 160 and 256 come from the three libraries
-# above 64 (72-128, 136-192 and 200-256)
-HEAD_DIMS = (8, 16, 20, 24, 32, 40, 48, 64, 128, 160, 256)
+# of 8 up to 256, of 64 up to 512 and of 128 up to MAX_HEAD_DIM and pad
+# the others (20 -> 24, 300 -> 320); 40 lies between the shipped dims,
+# 128, 160 and 256 come from the three libraries above 64 (72-128,
+# 136-192 and 200-256), and 300, 512 and 1,024 from the wide ones
+# (320-512 by 64, 640-1,024 by 128), whose fragments the kernels read
+# where they use them
+HEAD_DIMS = (8, 16, 20, 24, 32, 40, 48, 64, 128, 160, 256, 300, 512, 1024)
 # a head dim past the limit, refused before any launch
 TOO_WIDE = MAX_HEAD_DIM + 8
 
@@ -760,6 +763,15 @@ MBCONV_SHAPES = [(2, 9, 7, 8, 48, 16, 3, 3), (3, 12, 12, 16, 16, 8, 3, 4),
                  (2, 10, 10, 24, 144, 40, 5, 6),
                  (4, 112, 112, 32, 32, 16, 3, 8),
                  (4, 7, 7, 192, 1152, 320, 3, 48)]
+# channel counts off the 16-byte line (the padding route: cin, mid and cout
+# to the next multiple of 8) and every depthwise size past 3 and 5: cin 20
+# and cout 20, mid 30 and 180, no expand at 20 channels, cout 12; k 1, 7,
+# 9 and 11 (11 reads its weights where it uses them)
+MBCONV_WIDTHS = [(2, 9, 7, 20, 120, 20, 3, 5), (2, 8, 8, 30, 180, 30, 5, 7),
+                 (3, 12, 12, 20, 20, 12, 3, 5), (2, 6, 6, 5, 30, 12, 3, 3),
+                 (2, 14, 14, 40, 240, 40, 7, 10),
+                 (2, 9, 9, 20, 60, 20, 1, 5), (2, 9, 9, 20, 60, 20, 9, 5),
+                 (2, 14, 14, 24, 48, 24, 11, 6)]
 MBCONV_TOL = 2e-2  # of max(1, the largest |plain value|) of each output
 MBCONV_REL_TOL = 1e-3  # relative L2 error of each output
 
@@ -825,6 +837,97 @@ def test_mbconv_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd,
                                  mbconv.ka_bwd)] == [c + 1 for c in counts]
+
+
+def _hand_pad(t, *shape):
+    """``t`` zero-padded to ``shape`` (the last dims; None stays None)."""
+    if t is None:
+        return None
+    shape = (*t.shape[:t.dim() - len(shape)], *shape)
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _cut_as(got, like):
+    return [None if g is None else g[tuple(slice(0, n) for n in w.shape)]
+            for g, w in zip(got, like)]
+
+
+@pytest.mark.parametrize("shape", MBCONV_WIDTHS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_kernels_at_any_width(cuda, shape):
+    """Kernels 13-16 at channel counts that are not multiples of 8 and at
+    depthwise sizes 1-11: each within the plain version's tolerances, one
+    launch a call, and bit for bit the kernel on inputs zero-padded by
+    hand and cut back (the padding route adds and changes nothing)."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    cin, mid, cout, k = shape[3], shape[4], shape[5], shape[6]
+    ci, mi, co = (mbconv.kernel_channels(c) for c in (cin, mid, cout))
+    (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3,
+     dy2) = _mbconv_inputs(cuda, *shape)
+    y2, m1, v1, m2, v2 = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, k)
+    kb = (g2, b2, m2, v2, wr, br, we, be, wproj)
+    kb_pad = (*(_hand_pad(t, mi) for t in (g2, b2, m2, v2)),
+              _hand_pad(wr, mi, wr.shape[1]), br, _hand_pad(we, mi),
+              _hand_pad(be, mi), _hand_pad(wproj, mi, co))
+    ka = (wexp, g1, b1, wdw, m1, v1, k)
+    ka_pad = (_hand_pad(wexp, ci, mi), _hand_pad(g1, mi), _hand_pad(b1, mi),
+              _hand_pad(wdw, mi), _hand_pad(m1, mi), _hand_pad(v1, mi), k)
+    cases = (
+        (mbconv.ka_fwd, mbconv.ka_fwd_reference, (x, *ka[:4], k),
+         (_hand_pad(x, ci), *ka_pad[:4], k)),
+        (mbconv.kb_fwd, mbconv.kb_fwd_reference, (y2, *kb),
+         (_hand_pad(y2, mi), *kb_pad)),
+        (mbconv.kb_bwd, mbconv.kb_bwd_reference, (y2, dy3, *kb),
+         (_hand_pad(y2, mi), _hand_pad(dy3, co), *kb_pad)),
+        (mbconv.ka_bwd, mbconv.ka_bwd_reference, (x, dy2, *ka),
+         (_hand_pad(x, ci), _hand_pad(dy2, mi), *ka_pad)))
+    for fn, plain, args, padded in cases:
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1, fn.__name__
+        _close_to_plain(got, plain(*args), fn.__name__)
+        hand = _cut_as(fn(*padded), got)
+        torch.cuda.synchronize()
+        for i, (g, h) in enumerate(zip(got, hand)):
+            assert (g is None and h is None) or torch.equal(g, h), (
+                f"{fn.__name__}[{i}]: the padding route differs from the "
+                f"kernel on hand-padded inputs")
+
+
+@pytest.mark.parametrize("shape", MBCONV_WIDTHS[:5],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mbconv_core_autograd_at_any_width(cuda, shape):
+    """``mbconv_core`` at channel counts off the 16-byte line: one launch
+    of each kernel (the weights padded once a call), outputs and every
+    gradient as the plain versions give them on the CPU, through a loss on
+    y3 with a fixed cotangent and on m3 and v3."""
+    from multimodal_plankton_recognition_torch.ops import mbconv
+
+    k = shape[6]
+    inputs = _mbconv_inputs(cuda, *shape)
+    args, dy3 = inputs[:12], inputs[12].float()
+
+    def run(device):
+        leaves = [None if a is None else
+                  a.detach().to(device).requires_grad_() for a in args]
+        out = mbconv.mbconv_core(*leaves, k)
+        ((out[0].float() * dy3.to(device)).sum() + 3.0 * out[5].sum()
+         + 2.0 * out[6].sum()).backward()
+        return out, [None if t is None else t.grad for t in leaves]
+
+    counts = [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd,
+                                   mbconv.kb_bwd, mbconv.ka_bwd)]
+    got, got_grads = run(cuda)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (mbconv.ka_fwd, mbconv.kb_fwd, mbconv.kb_bwd,
+                                 mbconv.ka_bwd)] == [c + 1 for c in counts]
+    want, want_grads = run("cpu")
+    _close_to_plain([t.cpu() for t in got], want, "outputs")
+    _close_to_plain([None if g is None else g.cpu() for g in got_grads],
+                    want_grads, "grads")
 
 
 def test_mbconv_core_autograd_launches_all_four(cuda):
@@ -902,9 +1005,17 @@ def test_mbconv_refuses_what_the_kernels_do_not_take(cuda):
                                                     8, 3, 2)
     with pytest.raises(ValueError, match="bf16"):
         mbconv.ka_fwd(x.float(), wexp, g1, b1, wdw, 3)
-    with pytest.raises(ValueError, match="kernel size 7"):
-        mbconv.ka_fwd(x, wexp, g1, b1, torch.zeros((7, 7, 16), device=cuda),
-                      7)
+    # every odd k up to 11 is taken; an even k and k 13 are refused before
+    # any launch
+    before = mbconv.ka_fwd.launches, mbconv.ka_bwd.launches
+    for k in (4, 13):
+        w = torch.zeros((k, k, 16), device=cuda)
+        with pytest.raises(ValueError, match=f"kernel size {k}"):
+            mbconv.ka_fwd(x, wexp, g1, b1, w, k)
+        with pytest.raises(ValueError, match=f"kernel size {k}"):
+            mbconv.ka_bwd(x, x.new_zeros((*x.shape[:3], 16)), wexp, g1, b1,
+                          w, g1, g1, k)
+    assert (mbconv.ka_fwd.launches, mbconv.ka_bwd.launches) == before
 
 
 # ------------------------ kernels 3-4: separate q, k, v ------------------------
@@ -1161,13 +1272,16 @@ def test_ffn_widths_past_384(cuda, e, p):
 # (B, L, E, heads, mask): the four (E, heads) of the paths, small B; then
 # widths past them: d 20 (padded to 24) at E 60 (x padded to 64) and E
 # 160, d 96, d 128 at E 512 (dx's K 1,536: the streamed GEMM), E 768
-# (K 2,304) and d 256 at E 1,024 (K 3,072)
+# (K 2,304) and d 256 at E 1,024 (K 3,072); past head dim 256 (the wide
+# library): d 512, 384, 300 (padded to 320 on the weights) and 1,024
 BLOCK_SHAPES = [(2, 197, 192, 3, False), (2, 225, 192, 8, True),
                 (2, 197, 384, 6, False), (3, 225, 128, 4, True),
                 (1, 1, 128, 4, False), (2, 70, 192, 8, True),
                 (2, 33, 60, 3, True), (2, 65, 160, 8, True),
                 (2, 33, 96, 1, False), (2, 65, 512, 4, True),
-                (2, 33, 768, 12, False), (1, 33, 1024, 4, True)]
+                (2, 33, 768, 12, False), (1, 33, 1024, 4, True),
+                (2, 65, 512, 1, True), (2, 33, 768, 2, False),
+                (2, 65, 600, 2, True), (1, 33, 1024, 1, False)]
 BLOCK_TOL, BLOCK_REL_TOL, BLOCK_GRAD_TOL = 2e-2, 2e-3, 1e-2
 
 
@@ -1333,8 +1447,17 @@ def test_block_refuses_what_the_kernels_do_not_take(cuda):
         ab.attn_block_fwd(args[0].float(), *args[1:], 4)
     with pytest.raises(ValueError, match="must divide"):
         ab.attn_block_fwd(*args, 3)
-    # head dim 264, above kernels 1-4's limit: refused before any launch
+    # head dim 264, past the old limit of 256: taken, padded to 320
     wide, wide_dy = _block_inputs(cuda, 1, 9, 264, False)
+    before = ab.attn_block_fwd.launches, ab.attn_block_bwd.launches
+    _block_close([ab.attn_block_fwd(*wide, 1)],
+                 [ab.attn_block_reference(*wide, 1)], "d 264 fwd")
+    _block_close(ab.attn_block_bwd(*wide, wide_dy, 1),
+                 ab.attn_block_bwd_reference(*wide, wide_dy, 1), "d 264 bwd")
+    assert (ab.attn_block_fwd.launches, ab.attn_block_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    # past MAX_HEAD_DIM: refused before any launch
+    wide, wide_dy = _block_inputs(cuda, 1, 9, TOO_WIDE, False)
     before = ab.attn_block_fwd.launches, ab.attn_block_bwd.launches
     with pytest.raises(ValueError, match=f"MAX_HEAD_DIM={MAX_HEAD_DIM}"):
         ab.attn_block_fwd(*wide, 1)
@@ -1626,17 +1749,20 @@ def test_mbconv_ka_bwd_at_b0_shapes_repeats(cuda, shape):
 
 
 def test_mbconv_ka_bwd_refuses_unaligned_channels(cuda):
-    """Channels that are not a multiple of 8 (16-byte rows) are refused
-    before any launch."""
+    """Channels that are not a multiple of 8 (cin 12, refused before): the
+    padding route takes them, one launch, within the plain version's
+    tolerances."""
     from multimodal_plankton_recognition_torch.ops import mbconv
 
     (x, wexp, g1, b1, wdw, *_, dy2) = _mbconv_inputs(cuda, 1, 5, 5, 12, 72,
                                                      8, 3, 2)
     _, m1, v1, _, _ = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, 3)
+    args = (x, dy2, wexp, g1, b1, wdw, m1, v1, 3)
     before = mbconv.ka_bwd.launches
-    with pytest.raises(ValueError, match="16 bytes"):
-        mbconv.ka_bwd(x, dy2, wexp, g1, b1, wdw, m1, v1, 3)
-    assert mbconv.ka_bwd.launches == before
+    got = mbconv.ka_bwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.ka_bwd.launches == before + 1
+    _close_to_plain(got, mbconv.ka_bwd_reference(*args), "ka_bwd")
 
 
 @pytest.mark.parametrize("shape", KA_BWD_SHAPES + [(1, 28, 28, 40, 240, 40,
@@ -1663,17 +1789,20 @@ def test_mbconv_kb_bwd_at_b0_shapes_repeats(cuda, shape):
 
 
 def test_mbconv_kb_bwd_refuses_unaligned_cout(cuda):
-    """A cout that is not a multiple of 8 (16-byte rows of dy3 and wproj)
-    is refused before any launch."""
+    """A cout that is not a multiple of 8 (12, refused before): dy3 and
+    wproj padded to 16, one launch, within the plain version's
+    tolerances."""
     from multimodal_plankton_recognition_torch.ops import mbconv
 
     (x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj, dy3,
      _) = _mbconv_inputs(cuda, 1, 5, 5, 8, 48, 12, 3, 2)
     y2, _, _, m2, v2 = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, 3)
+    args = (y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
     before = mbconv.kb_bwd.launches
-    with pytest.raises(ValueError, match="cout = 12.*16 bytes"):
-        mbconv.kb_bwd(y2, dy3, g2, b2, m2, v2, wr, br, we, be, wproj)
-    assert mbconv.kb_bwd.launches == before
+    got = mbconv.kb_bwd(*args)
+    torch.cuda.synchronize()
+    assert mbconv.kb_bwd.launches == before + 1
+    _close_to_plain(got, mbconv.kb_bwd_reference(*args), "kb_bwd")
 
 
 # kernels 13 and 14: B0's shapes and the ragged 9 x 9 one (B 3), B 1, and
@@ -1725,22 +1854,27 @@ def test_mbconv_kb_fwd_at_b0_shapes_repeats(cuda, shape):
 
 
 def test_mbconv_fwd_refuses_unaligned_channels(cuda):
-    """Kernels 13 and 14 refuse cin, mid or cout that is not a multiple of
-    8 (16-byte rows) before any launch."""
+    """Kernels 13 and 14 at cin 12 and cout 12 (refused before): taken
+    through the padding route, one launch each, within the plain
+    versions' tolerances."""
     from multimodal_plankton_recognition_torch.ops import mbconv
 
     (x, wexp, g1, b1, wdw, *_) = _mbconv_inputs(cuda, 1, 5, 5, 12, 72, 8, 3,
                                                 2)
     (_, _, _, _, _, g2, b2, wr, br, we, be, wproj, *_) = _mbconv_inputs(
         cuda, 1, 5, 5, 8, 48, 12, 3, 2)
-    y2 = torch.zeros((1, 5, 5, 48), dtype=torch.bfloat16, device=cuda)
-    z = torch.zeros(48, device=cuda)
+    y2 = torch.randn((1, 5, 5, 48), device=cuda).to(torch.bfloat16)
+    m, v = torch.zeros(48, device=cuda), torch.ones(48, device=cuda)
     before = mbconv.ka_fwd.launches, mbconv.kb_fwd.launches
-    with pytest.raises(ValueError, match="cin = 12.*kernels 13-16"):
-        mbconv.ka_fwd(x, wexp, g1, b1, wdw, 3)
-    with pytest.raises(ValueError, match="cout = 12.*kernels 13-16"):
-        mbconv.kb_fwd(y2, g2, b2, z, z, wr, br, we, be, wproj)
-    assert (mbconv.ka_fwd.launches, mbconv.kb_fwd.launches) == before
+    ka = (x, wexp, g1, b1, wdw, 3)
+    kb = (y2, g2, b2, m, v, wr, br, we, be, wproj)
+    _close_to_plain(mbconv.ka_fwd(*ka), mbconv.ka_fwd_reference(*ka),
+                    "ka_fwd")
+    _close_to_plain(mbconv.kb_fwd(*kb), mbconv.kb_fwd_reference(*kb),
+                    "kb_fwd")
+    torch.cuda.synchronize()
+    assert (mbconv.ka_fwd.launches, mbconv.kb_fwd.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):

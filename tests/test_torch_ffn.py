@@ -65,6 +65,7 @@ from multimodal_plankton_recognition_torch.ops.attention import (
 from multimodal_plankton_recognition_torch.ops.ffn import (
     ffn_bwd, ffn_core, ffn_dropout_bits, ffn_fwd, ffn_reference,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 OP_FWD_TOL = {"bfloat16": 1e-2, "float32": 1e-5}  # of the largest |y|
 OP_GRAD_TOL = 1e-4  # of the largest |gradient|
@@ -354,12 +355,16 @@ def _jax_flagship_run():
             model = JaxMultiModel(dtype=jnp.bfloat16, **args)
             tx = jax_make_optimizer(JaxOptimConfig())
             batch = {k: jnp.asarray(v) for k, v in _flagship_batch(0).items()}
-            state = jax_create_train_state(model, jax.random.key(0), batch,
-                                           tx, init_kwargs={"buckets": 2})
+            # one compile each (op-by-op, the interpreted kernels took most
+            # of the file's time)
+            state = jax.jit(lambda key: jax_create_train_state(
+                model, key, batch, tx, init_kwargs={"buckets": 2}))(
+                    jax.random.key(0))
             init = jax.tree.map(np.asarray, state.params)
-            emb = model.apply({"params": state.params}, method="encode",
-                              train=False, **{k: jnp.asarray(v) for k, v in
-                                              _flagship_batch(1).items()})
+            emb = jax.jit(lambda params, b: model.apply(
+                {"params": params}, method="encode", train=False, **b))(
+                    state.params, {k: jnp.asarray(v) for k, v in
+                                   _flagship_batch(1).items()})
             train_step, _ = jax_make_multi_steps(model, tx, buckets=2)
             state, loss = train_step(state, batch, jax.random.key(1))
     finally:

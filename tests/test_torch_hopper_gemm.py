@@ -20,6 +20,7 @@ import torch
 from multimodal_plankton_recognition_torch.ops import (
     ffn, hopper_gemm, mbconv,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _bf16(rs, *shape, scale=1.0):
@@ -139,25 +140,56 @@ def test_ffn_bwd_scratch_layout(rows, e, fp, groups):
 @pytest.mark.parametrize("cin,mid", [(24, 144), (32, 32), (192, 1152),
                                      (8, 48)])
 def test_mbconv_channels_kernel_16_takes(cin, mid):
-    mbconv.check_channels(cin, mid)
+    """Channel counts on the 16-byte line run as they are: the padding
+    route leaves them and their operands alone."""
+    assert [mbconv.kernel_channels(c) for c in (cin, mid)] == [cin, mid]
+    x, wexp = torch.ones((1, 2, 2, cin)), torch.ones((cin, mid))
+    padded = mbconv.pad_mbconv(x, wexp, *_mbconv_weights(cin, mid, 8, 3))
+    assert padded[0] is x and padded[1] is wexp
 
 
 @pytest.mark.parametrize("cin,mid", [(12, 72), (24, 140), (3, 3)])
 def test_mbconv_channels_kernel_16_refuses(cin, mid):
-    with pytest.raises(ValueError, match="16 bytes"):
-        mbconv.check_channels(cin, mid)
+    """Channel counts off the 16-byte line, which kernels 13-16 refused
+    before: now taken, each rounded up to the next multiple of 8 with zero
+    channels (x's, wexp's rows and columns, mid's vectors)."""
+    ci, mi = (-(-c // 8) * 8 for c in (cin, mid))
+    assert [mbconv.kernel_channels(c) for c in (cin, mid)] == [ci, mi]
+    x, wexp = torch.ones((1, 2, 2, cin)), torch.ones((cin, mid))
+    px, pwexp, g1, *_ = mbconv.pad_mbconv(
+        x, wexp, *_mbconv_weights(cin, mid, 8, 3))
+    assert px.shape == (1, 2, 2, ci) and pwexp.shape == (ci, mi)
+    assert float(px[..., cin:].abs().sum() + pwexp[cin:].abs().sum()
+                 + pwexp[:, mid:].abs().sum() + g1[mid:].abs().sum()) == 0.0
+    assert torch.equal(px[..., :cin], x) and torch.equal(
+        pwexp[:cin, :mid], wexp)
 
 
 @pytest.mark.parametrize("cout", [16, 24, 40, 80, 112, 192, 320])
 def test_mbconv_channels_kernel_15_takes_b0_couts(cout):
     """B0's projection widths are rows of a multiple of 16 bytes."""
-    mbconv.check_channels(mid=144, cout=cout)
+    assert mbconv.kernel_channels(cout) == cout
 
 
 @pytest.mark.parametrize("cout", [12, 20, 3, 100])
 def test_mbconv_channels_kernel_15_refuses(cout):
-    with pytest.raises(ValueError, match=f"cout = {cout}: .*16 bytes"):
-        mbconv.check_channels(mid=144, cout=cout)
+    """A cout off the 16-byte line: wproj's columns padded with zeros to
+    the next multiple of 8 (and y3, m3, v3, dwproj cut back)."""
+    co = -(-cout // 8) * 8
+    assert mbconv.kernel_channels(cout) == co
+    weights = _mbconv_weights(144, 144, cout, 3)
+    wproj = mbconv.pad_mbconv(None, None, *weights)[-1]
+    assert wproj.shape == (144, co) and float(wproj[:, cout:].abs().sum()) \
+        == 0.0 and torch.equal(wproj[:, :cout], weights[-2])
+
+
+def _mbconv_weights(cin, mid, cout, k, r=4):
+    """(g1, b1, wdw, g2, b2, wr, br, we, be, wproj, k) of ones, for
+    ``pad_mbconv`` after x and wexp."""
+    return (torch.ones(mid), torch.ones(mid), torch.ones((k, k, mid)),
+            torch.ones(mid), torch.ones(mid), torch.ones((mid, r)),
+            torch.ones(r), torch.ones((r, mid)), torch.ones(mid),
+            torch.ones((mid, cout)), k)
 
 
 @pytest.mark.parametrize("b,h,w,mid,r,cout,groups", [
@@ -270,18 +302,40 @@ def test_kb_fwd_scratch_layout(b, h, w, mid, cout):
 
 
 def test_mbconv_channel_rule_names_kernels_13_to_16():
-    with pytest.raises(ValueError, match="mid = 140: .*16 bytes, which "
-                                         "kernels 13-16 need"):
-        mbconv.check_channels(24, 140)
+    """The widths kernels 13-16 run at mid 140: 144, every mid operand
+    padded (wdw's, g and b's, be's and we's columns, wr's rows, wproj's
+    rows), the gradients cut back to 140 by ``unpad_mbconv_grads``."""
+    padded = mbconv.pad_mbconv(torch.ones((1, 2, 2, 24)),
+                               torch.ones((24, 140)),
+                               *_mbconv_weights(24, 140, 24, 3))
+    x, wexp, g1, b1, wdw, g2, b2, wr, br, we, be, wproj = padded
+    assert wexp.shape == (24, 144) and wdw.shape == (3, 3, 144)
+    assert all(t.shape == (144,) for t in (g1, b1, g2, b2, be))
+    assert wr.shape == (144, 4) and we.shape == (4, 144)
+    assert wproj.shape == (144, 24) and br.shape == (4,)
+    grads = mbconv.unpad_mbconv_grads(
+        (x, *(torch.ones_like(t) for t in padded[1:])), 24, 140, 24)
+    assert [tuple(g.shape) for g in grads] == [
+        (1, 2, 2, 24), (24, 140), (140,), (140,), (3, 3, 140), (140,),
+        (140,), (140, 4), (4,), (4, 140), (140,), (140, 24)]
+    assert all(g.is_contiguous() for g in grads)
 
 
-def _refuse_launch(monkeypatch):
-    """Route CPU tensors to the kernels' side of the wrappers, with a
-    library that fails the test if anything reaches it."""
-    def no_library():
-        raise AssertionError("the wrapper reached the kernel library")
+def _padded_launch(monkeypatch, kernel, seen):
+    """Route CPU tensors to the kernels' side of the wrappers; the aligned
+    kernel call ``kernel`` (``_ka_fwd``, ``_kb_fwd``) records the channel
+    counts it is handed and runs its plain version on them."""
+    plain = {"_ka_fwd": mbconv.ka_fwd_reference,
+             "_kb_fwd": mbconv.kb_fwd_reference}[kernel]
+
+    def fake(*args):
+        seen.append([a.shape[-1] for a in args
+                     if isinstance(a, torch.Tensor) and a.dim() == 4])
+        assert all(c % 8 == 0 for c in seen[-1])
+        return plain(*args)
+
     monkeypatch.setattr(mbconv, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(mbconv, "_fwd_lib", no_library)
+    monkeypatch.setattr(mbconv, kernel, fake)
 
 
 @pytest.mark.parametrize("cin,mid,what", [(12, 72, "cin = 12"),
@@ -290,18 +344,25 @@ def _refuse_launch(monkeypatch):
 def test_ka_fwd_checks_channels_before_any_launch(monkeypatch, cin, mid,
                                                   what):
     """Kernel 13's wrapper applies the channel rule (with and without an
-    expand) before it allocates or launches anything."""
+    expand) before the launch: the channels it once refused (``what``)
+    reach the kernel padded to multiples of 8, and its outputs come back
+    cut to the true widths, equal to the plain version's."""
     rs = np.random.RandomState(cin)
     x = _bf16(rs, 1, 5, 5, cin)
     expand = mid != cin
-    wexp = torch.zeros((cin, mid)) if expand else None
+    wexp = torch.from_numpy(rs.randn(cin, mid).astype(np.float32)) \
+        if expand else None
     g1 = torch.ones(mid) if expand else None
     b1 = torch.zeros(mid) if expand else None
-    before = mbconv.ka_fwd.launches
-    _refuse_launch(monkeypatch)
-    with pytest.raises(ValueError, match=f"{what}: .*kernels 13-16"):
-        mbconv.ka_fwd(x, wexp, g1, b1, torch.zeros((3, 3, mid)), 3)
-    assert mbconv.ka_fwd.launches == before
+    wdw = torch.from_numpy(rs.randn(3, 3, mid).astype(np.float32))
+    seen = []
+    _padded_launch(monkeypatch, "_ka_fwd", seen)
+    got = mbconv.ka_fwd(x, wexp, g1, b1, wdw, 3)
+    assert seen == [[-(-cin // 8) * 8]], what
+    want = mbconv.ka_fwd_reference(x, wexp, g1, b1, wdw, 3)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("mid,cout,what", [(72, 12, "cout = 12"),
@@ -309,13 +370,20 @@ def test_ka_fwd_checks_channels_before_any_launch(monkeypatch, cin, mid,
 def test_kb_fwd_checks_channels_before_any_launch(monkeypatch, mid, cout,
                                                   what):
     """Kernel 14's wrapper applies the channel rule to mid and cout before
-    it allocates or launches anything."""
+    the launch: y2 reaches the kernel padded to a multiple of 8, y3 and
+    its statistics come back cut to cout, equal to the plain version's."""
     rs = np.random.RandomState(mid)
     y2 = _bf16(rs, 1, 5, 5, mid)
-    z = torch.zeros(mid)
-    before = mbconv.kb_fwd.launches
-    _refuse_launch(monkeypatch)
-    with pytest.raises(ValueError, match=f"{what}: .*kernels 13-16"):
-        mbconv.kb_fwd(y2, z, z, z, z, torch.zeros((mid, 2)), torch.zeros(2),
-                      torch.zeros((2, mid)), z, torch.zeros((mid, cout)))
-    assert mbconv.kb_fwd.launches == before
+
+    def rnd(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+
+    args = (rnd(mid), rnd(mid), rnd(mid), rnd(mid).abs(), rnd(mid, 2),
+            rnd(2), rnd(2, mid), rnd(mid), rnd(mid, cout))
+    seen = []
+    _padded_launch(monkeypatch, "_kb_fwd", seen)
+    got = mbconv.kb_fwd(y2, *args)
+    assert seen == [[-(-mid // 8) * 8]], what
+    for g, w in zip(got, mbconv.kb_fwd_reference(y2, *args)):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)

@@ -22,6 +22,7 @@ from multimodal_plankton_recognition_tpu.ops.pallas.experimental.mbconv import (
     mbconv_core as jax_mbconv_core, mbconv_reference as jax_reference,
 )
 from multimodal_plankton_recognition_torch.ops import mbconv
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 NAMES = ["x", "wexp", "g1", "b1", "wdw", "g2", "b2", "wr", "br", "we", "be",
          "wproj"]
@@ -77,7 +78,8 @@ def test_forward_matches_jax(expand_ratio, k):
     args = _args(expand_ratio, k)
     got = mbconv.mbconv_core(*_torch_args(args), k)
     ja = _jax_args(args)
-    for want in (jax_reference(*ja, k=k), jax_mbconv_core(*ja, k, True)):
+    for want in (jax.jit(lambda *a: jax_reference(*a, k=k))(*ja),
+                 jax.jit(lambda *a: jax_mbconv_core(*a, k, True))(*ja)):
         for name, g, w in zip(OUTS, got, want):
             if expand_ratio == 1 and name in ("m1", "v1"):
                 continue
@@ -95,7 +97,7 @@ def _jax_grads(fn, args, k):
     ja = _jax_args(args)
     nums = tuple(i for i, a in enumerate(ja) if a is not None)
     return dict(zip([NAMES[i] for i in nums],
-                    jax.grad(loss, argnums=nums)(*ja)))
+                    jax.jit(jax.grad(loss, argnums=nums))(*ja)))
 
 
 @pytest.mark.parametrize("expand_ratio,k", CASES)

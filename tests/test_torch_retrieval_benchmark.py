@@ -27,6 +27,7 @@ from multimodal_plankton_recognition_torch.retrieval import (
     benchmark as bench, results as R,
 )
 from multimodal_plankton_recognition_torch.utils import LabelVocab
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 DIM = 16

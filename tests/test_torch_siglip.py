@@ -42,6 +42,7 @@ from multimodal_plankton_recognition_torch.ops.contrastive import (
     siglip_loss_bwd_reference, siglip_loss_fused, siglip_loss_fused_reference,
     siglip_scratch,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # (logit_scale, logit_bias): a moderate pair, the init bias, and the
 # saturated ends where a naive log(1 + e^x) would overflow
@@ -63,7 +64,7 @@ def _emb(b=16, d=32, seed=0):
 def _jax_fused(img, prof, scale, bias, buckets, dtype):
     def f(i, p, s, b):
         return jax_siglip_loss_fused(i, p, s, b, buckets, True)
-    return jax.value_and_grad(f, argnums=(0, 1, 2, 3))(
+    return jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2, 3)))(
         jnp.asarray(img, dtype), jnp.asarray(prof, dtype),
         jnp.float32(scale), jnp.float32(bias))
 

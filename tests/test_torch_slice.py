@@ -32,6 +32,7 @@ from multimodal_plankton_recognition_torch.ops.losses import l2_normalize
 from multimodal_plankton_recognition_torch.retrieval.encode import (
     encode_arrays, encode_csv,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _model_args(img: int, target_size: int) -> dict:
@@ -67,7 +68,8 @@ def _jax_model(dtype, img=32, target_size=16):
     model = JaxMultiModel(dtype=dtype, **_model_args(img, target_size))
     jbatch = {k: jnp.asarray(v)
               for k, v in _batch(img=img, target_size=target_size).items()}
-    variables = model.init(jax.random.key(0), **jbatch)
+    variables = jax.jit(lambda key: model.init(key, **jbatch))(
+        jax.random.key(0))
     return model, variables
 
 
@@ -83,8 +85,9 @@ def test_encode_matches_jax(dtype, monkeypatch):
     batch = _batch(seed=1)
     if dtype == "bfloat16":  # JAX side through the Pallas kernel (interpret)
         monkeypatch.setenv("PLANKTON_FUSED_INTERPRET", "1")
-    jemb = jmodel.apply(variables, method="encode", train=False,
-                        **{k: jnp.asarray(v) for k, v in batch.items()})
+    jemb = jax.jit(lambda v, b: jmodel.apply(v, method="encode",
+                                             train=False, **b))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
 
     model = _port_model(variables, getattr(torch, dtype))
     with torch.inference_mode():

@@ -54,6 +54,7 @@ from multimodal_plankton_recognition_torch.models.multi import MultiModel
 from multimodal_plankton_recognition_torch.train import (
     TrainState, create_train_state, make_multi_steps, make_optimizer,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BUCKETS = 2
 F32_LOSS_TOL, F32_UPDATE_TOL = 1e-5, 1e-3
@@ -107,8 +108,9 @@ def _jax_run(dtype: str, steps: int, every_k: int = 1):
         tx = jax_make_optimizer(JaxOptimConfig(), every_k)
         batches = [{k: jnp.asarray(v) for k, v in _batch(s).items()}
                    for s in (0, 1)]
-        state = jax_create_train_state(model, jax.random.key(0), batches[0],
-                                       tx, init_kwargs={"buckets": BUCKETS})
+        state = jax.jit(lambda key: jax_create_train_state(
+            model, key, batches[0], tx, init_kwargs={"buckets": BUCKETS}))(
+                jax.random.key(0))
         train_step, _ = jax_make_multi_steps(model, tx, buckets=BUCKETS)
         init = from_flax({"params": jax.tree.map(np.asarray, state.params)})
         after = []

@@ -122,9 +122,9 @@ def test_plain_attention_matches_jax_kernel(d, masked, route):
                         has_bias=masked)
 
     jx = jnp.asarray(qkv, jnp.bfloat16)
-    want = np.asarray(jax_fwd(jx), np.float32)
-    want_grad = np.asarray(jax.grad(lambda x: jnp.sum(
-        jax_fwd(x).astype(jnp.float32) * dout))(jx), np.float32)
+    want = np.asarray(jax.jit(jax_fwd)(jx), np.float32)
+    want_grad = np.asarray(jax.jit(jax.grad(lambda x: jnp.sum(
+        jax_fwd(x).astype(jnp.float32) * dout)))(jx), np.float32)
 
     x = torch.from_numpy(qkv).to(torch.bfloat16)
     tbias = torch.from_numpy(bias) if masked else None
@@ -172,7 +172,7 @@ def test_plain_ffn_matches_jax_kernel_grad(e, activation):
         return jnp.sum(_jax_kernel(*args, activation).astype(jnp.float32)
                        ** 2)
 
-    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
         jx, *map(jnp.asarray, (w1, b1, w2, b2)))
     leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()]
     leaves += [torch.from_numpy(a).requires_grad_() for a in (w1, b1, w2, b2)]
@@ -207,10 +207,11 @@ def test_profile_transformer_matches_jax(dim, heads, ff, dtype, monkeypatch):
     plen = rs.randint(20, 400, (b, 1)).astype(np.int32)
     inputs = tuple(map(jnp.asarray, (profile, time, mask, plen)))
     jmod = jax_transformer.ProfileTransformer(**args, dtype=jdt)
-    variables = jmod.init(jax.random.key(0), *inputs)
+    variables = jax.jit(lambda key: jmod.init(key, *inputs))(
+        jax.random.key(0))
     with jax_kernel_route():
-        want = jmod.apply(variables, *inputs)
-    fallback = jmod.apply(variables, *inputs)
+        want = jax.jit(jmod.apply)(variables, *inputs)
+    fallback = jax.jit(jmod.apply)(variables, *inputs)
     model = ProfileTransformer(**args).to(tdt).eval()
     load_flax(model, jax.tree.map(np.asarray, variables))
     with torch.inference_mode():
@@ -252,12 +253,14 @@ def _jax_card_run(dim, heads, ff):
             model = JaxMultiModel(dtype=jnp.bfloat16, **args)
             tx = jax_make_optimizer(JaxOptimConfig())
             batch = {k: jnp.asarray(v) for k, v in _flagship_batch(0).items()}
-            state = jax_create_train_state(model, jax.random.key(0), batch,
-                                           tx, init_kwargs={"buckets": 2})
+            state = jax.jit(lambda key: jax_create_train_state(
+                model, key, batch, tx, init_kwargs={"buckets": 2}))(
+                    jax.random.key(0))
             init = jax.tree.map(np.asarray, state.params)
-            emb = model.apply({"params": state.params}, method="encode",
-                              train=False, **{k: jnp.asarray(v) for k, v in
-                                              _flagship_batch(1).items()})
+            emb = jax.jit(lambda params, b: model.apply(
+                {"params": params}, method="encode", train=False, **b))(
+                    state.params, {k: jnp.asarray(v) for k, v in
+                                   _flagship_batch(1).items()})
             train_step, _ = jax_make_multi_steps(model, tx, buckets=2)
             state, loss = train_step(state, batch, jax.random.key(1))
     finally:
