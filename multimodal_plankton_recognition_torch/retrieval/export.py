@@ -58,6 +58,7 @@ from ..config import ModelCard
 from ..ops.knn import (inverse_distance_weights, require_device,
                        topk_euclidean, weighted_mode_device)
 from ..ops.losses import l2_normalize
+from ..utils.tracing import count, span
 
 PLATFORMS = ("cuda", "cpu")
 METADATA_FILE = "metadata.json"
@@ -327,17 +328,29 @@ class ServingModel:
 
     def run(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The program on a batch of tensors already on the device; the
-        outputs stay there, in the program's dtypes."""
+        outputs stay there, in the program's dtypes. The span
+        ``serve.program`` while a profiler records."""
         self._check_keys(batch)
-        with torch.no_grad():
+        with span("serve.program"), torch.no_grad():
             return self._module(**batch)
 
     def call(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        self._check_keys(batch)
-        out = self.run({k: torch.as_tensor(np.asarray(v)).to(self.device)
-                        for k, v in batch.items()})
-        return {k: (v.float() if v.dtype == torch.bfloat16 else v)
-                .cpu().numpy() for k, v in out.items()}
+        """Host arrays in, host arrays out. While a profiler records: the
+        span ``serve.call`` and in it ``serve.copy_in`` (the counter
+        ``serve.h2d_bytes`` adds every array's bytes), ``serve.program``
+        and ``serve.copy_out``."""
+        with span("serve.call"):
+            self._check_keys(batch)
+            with span("serve.copy_in"):
+                inputs = {}
+                for k, v in batch.items():
+                    a = np.asarray(v)
+                    count("serve.h2d_bytes", a.nbytes)
+                    inputs[k] = torch.as_tensor(a).to(self.device)
+            out = self.run(inputs)
+            with span("serve.copy_out"):
+                return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+                        .cpu().numpy() for k, v in out.items()}
 
 
 def _register_ops() -> None:

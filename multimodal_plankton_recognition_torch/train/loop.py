@@ -75,6 +75,7 @@ from ..ops.losses import cross_entropy_loss
 from ..parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_mean_, gather_uneven,
 )
+from ..utils.tracing import span
 from .optim import Optimizer
 from .state import TrainState
 
@@ -103,39 +104,46 @@ def _train_update(model: nn.Module, tx: Optimizer, state: TrainState,
     several data ranks, synchronised BatchNorm), its backward, the
     gradients upcast to f32 (with a ``mesh``: averaged over the ranks with
     the loss) and, every ``tx.every_k`` micro-steps (their running mean),
-    the masters' update."""
-    state.load_into(model).train()
-    model.zero_grad(set_to_none=True)
-    with dropout_rng(_step_generator(seed, state.step, *_rank_words(mesh))), \
-            synchronised(mesh):
-        loss = loss_fn()
-    loss.backward()
-    named = dict(model.named_parameters())
-    grads = [torch.zeros_like(m) if named[n].grad is None
-             else named[n].grad.float() for n, m in state.params.items()]
-    loss = loss.detach()
-    if mesh is not None and mesh.distributed:
-        total = loss.float().reshape(1)
-        all_reduce_mean_([*grads, total], mesh)
-        loss = total[0].to(loss.dtype)
-    k = tx.every_k
-    if k > 1:
-        n_acc = state.step % k
-        if state.grad_acc is None:
-            state.grad_acc = dict(zip(state.params,
-                                      map(torch.zeros_like, grads)))
-        acc = list(state.grad_acc.values())
-        # Welford running mean, as optax.MultiSteps accumulates
-        torch._foreach_add_(acc, torch._foreach_div(
-            torch._foreach_sub(grads, acc), n_acc + 1))
-        grads = acc if n_acc == k - 1 else None
-    if grads is not None:
-        for master, g in zip(state.params.values(), grads):
-            master.grad = g.to(master.dtype)
-        state.opt.step()
-        if k > 1:
-            state.grad_acc = None
-    state.step += 1
+    the masters' update. While a profiler records, the micro-step is the
+    span ``train.step`` and its phases ``train.load``, ``train.forward``,
+    ``train.backward`` and ``train.update`` (``utils.tracing``)."""
+    with span("train.step"):
+        with span("train.load"):
+            state.load_into(model).train()
+            model.zero_grad(set_to_none=True)
+        with span("train.forward"), dropout_rng(_step_generator(
+                seed, state.step, *_rank_words(mesh))), synchronised(mesh):
+            loss = loss_fn()
+        with span("train.backward"):
+            loss.backward()
+        with span("train.update"):
+            named = dict(model.named_parameters())
+            grads = [torch.zeros_like(m) if named[n].grad is None
+                     else named[n].grad.float()
+                     for n, m in state.params.items()]
+            loss = loss.detach()
+            if mesh is not None and mesh.distributed:
+                total = loss.float().reshape(1)
+                all_reduce_mean_([*grads, total], mesh)
+                loss = total[0].to(loss.dtype)
+            k = tx.every_k
+            if k > 1:
+                n_acc = state.step % k
+                if state.grad_acc is None:
+                    state.grad_acc = dict(zip(state.params,
+                                              map(torch.zeros_like, grads)))
+                acc = list(state.grad_acc.values())
+                # Welford running mean, as optax.MultiSteps accumulates
+                torch._foreach_add_(acc, torch._foreach_div(
+                    torch._foreach_sub(grads, acc), n_acc + 1))
+                grads = acc if n_acc == k - 1 else None
+            if grads is not None:
+                for master, g in zip(state.params.values(), grads):
+                    master.grad = g.to(master.dtype)
+                state.opt.step()
+                if k > 1:
+                    state.grad_acc = None
+            state.step += 1
     return state, loss
 
 
